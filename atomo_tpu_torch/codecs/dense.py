@@ -1,0 +1,31 @@
+"""Identity (dense) codec, the reference's ``--code sgd`` path.
+
+Counterpart of ``atomo_tpu/codecs/dense.py``: the payload is the float32
+gradient itself.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+
+class DensePayload(NamedTuple):
+    values: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseCodec:
+    name: str = "sgd"
+
+    def encode_stack(
+        self, x: torch.Tensor, seeds: Sequence[int],
+        uniforms: Optional[torch.Tensor] = None,
+    ) -> DensePayload:
+        del seeds, uniforms
+        return DensePayload(values=x.to(torch.float32))
+
+    def decode_stack(self, payload: DensePayload, n: int) -> torch.Tensor:
+        return payload.values.reshape(payload.values.shape[0], n)

@@ -1,0 +1,185 @@
+"""QSGD / TernGrad codec: stochastic quantization with uint32 bit-packing.
+
+Counterpart of ``atomo_tpu/codecs/qsgd.py``, with the same planar wire
+format: per leaf, words (n_buckets, words_per_bucket) uint32 and scales
+(n_buckets,) float32 (see :mod:`atomo_tpu_torch.ops.qsgd_kernels`).
+
+Two interchangeable encode/decode paths share that format:
+
+* the fused kernels (``use_kernel``): scale, stochastic rounding, coding and
+  packing in one CUDA kernel, decode in another. ``use_kernel=None`` picks
+  them for CUDA tensors; on CPU tensors ``use_kernel=True`` runs their plain
+  twins, whose arithmetic is the Pallas kernels';
+* torch ops for the quantizer (the counterpart of the JAX codec's jnp path)
+  with the bit-pack stage as the pack/unpack kernels (:func:`pack_bucketed`
+  / :func:`unpack_bucketed`, whose plain versions run for CPU tensors).
+
+On a CUDA tensor every path runs kernels: ``pack_kernel=False`` (the JAX
+codec's jnp pack) is refused there, since the plain versions serve the CPU
+tests only; on a CPU tensor it is the plain pack, as every value is.
+
+Uniforms: given (the bit-parity hook), they are used as they are; otherwise
+the fused kernel draws them from its Philox generator keyed on the leaf
+seed, and the torch quantizer from a ``torch.Generator`` seeded with it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from atomo_tpu_torch.ops import qsgd_kernels as K
+from atomo_tpu_torch.ops.qsgd_kernels import (  # noqa: F401
+    pack_bucketed,
+    padded_bucket,
+    unpack_bucketed,
+)
+from atomo_tpu_torch.utils.rng import generator
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+class QsgdPayload(NamedTuple):
+    words: torch.Tensor  # (…, n_buckets, words_per_bucket) uint32 packed codes
+    scales: torch.Tensor  # (…, n_buckets) float32 per-bucket scale
+
+
+@dataclasses.dataclass(frozen=True)
+class QsgdCodec:
+    """Stochastic b-bit quantization with per-bucket scaling.
+
+    bits: magnitude bits; levels = 2^bits - 1 (``--quantization-level``).
+    bucket_size: values per scale (``--bucket-size``, default 512).
+    scheme: "qsgd" (L2-norm scale) or "terngrad" (max-norm scale after a
+        2.5-sigma clip of the whole leaf).
+    use_kernel: None = the fused kernels on CUDA tensors, the torch quantizer
+        on CPU tensors; True/False force one path.
+    pack_kernel: for the torch-quantizer path; None and True pack with the
+        kernel wrappers (their plain versions for CPU tensors); False is
+        accepted for CPU tensors only (the plain pack).
+    """
+
+    bits: int = 2
+    bucket_size: int = 512
+    scheme: str = "qsgd"
+    use_kernel: Optional[bool] = None
+    pack_kernel: Optional[bool] = None
+    name: str = "qsgd"
+
+    @property
+    def levels(self) -> int:
+        return (1 << self.bits) - 1
+
+    def leaf_payload_bytes(self, grad_shape: tuple[int, ...]) -> int:
+        """Wire bytes of one leaf: per bucket, its words and one scale."""
+        g = K.geometry(int(np.prod(grad_shape, dtype=np.int64)), self.bits,
+                       self.bucket_size)
+        return g.n_buckets * (g.n_words * 4 + 4)
+
+    def _fused(self, x: torch.Tensor) -> bool:
+        return x.is_cuda if self.use_kernel is None else bool(self.use_kernel)
+
+    def _check_pack(self, x: torch.Tensor) -> None:
+        if x.is_cuda and self.pack_kernel is False:
+            raise ValueError(
+                "pack_kernel=False runs the plain pack, which serves CPU "
+                "tensors only; on CUDA the codec packs with the kernel"
+            )
+
+    def _clip(self, x: torch.Tensor) -> torch.Tensor:
+        if self.scheme == "terngrad":
+            # clip at 2.5 sigma of the whole leaf; population std as jnp.std
+            limit = 2.5 * torch.std(x, dim=1, correction=0, keepdim=True)
+            return torch.clamp(x, -limit, limit)
+        return x
+
+    def encode_stack(
+        self,
+        x: torch.Tensor,
+        seeds: Sequence[int],
+        uniforms: Optional[torch.Tensor] = None,
+    ) -> QsgdPayload:
+        """Encode an (L, n) stack of flattened leaves; leaf l draws from
+        ``seeds[l]`` unless ``uniforms`` (L, n_buckets, bucket_size) is given."""
+        x = self._clip(x.to(torch.float32))
+        n_leaves, n = x.shape
+        g = K.geometry(n, self.bits, self.bucket_size)
+        if self._fused(x):
+            words, scales = K.quantize_pack(
+                x, bits=self.bits, bucket_size=self.bucket_size,
+                scheme=self.scheme, seeds=None if uniforms is not None else seeds,
+                u=uniforms,
+            )
+            return QsgdPayload(words=words, scales=scales)
+
+        buckets = K._leaf_rows(x, g)  # (L * n_buckets, bucket_size)
+        if self.scheme == "terngrad":
+            scales = buckets.abs().amax(dim=1)
+        else:
+            scales = torch.linalg.vector_norm(buckets, dim=1)
+        safe = torch.clamp_min(scales, _F32_TINY)
+        y = buckets.abs() / safe[:, None] * self.levels
+        lo = torch.floor(y)
+        frac = y - lo
+        if uniforms is not None:
+            # kept in their own type, so that float64 draws (the JAX
+            # codec's under x64) compare with frac as they do there
+            rnd = uniforms.reshape(buckets.shape)
+        else:
+            rnd = torch.cat([
+                torch.rand((g.n_buckets, self.bucket_size), device=x.device,
+                           generator=generator(s, x.device))
+                for s in seeds
+            ])
+        level = torch.clamp(lo + (rnd < frac).float(), 0, self.levels).to(torch.int32)
+        sign = (buckets < 0).to(torch.int32)
+        codes = torch.zeros((buckets.shape[0], g.bucket_p), dtype=torch.int32,
+                            device=x.device)
+        codes[:, : self.bucket_size] = (sign << self.bits) | level
+        self._check_pack(x)
+        words = pack_bucketed(codes, self.bits)
+        return QsgdPayload(
+            words=words.view(n_leaves, g.n_buckets, g.n_words),
+            scales=scales.view(n_leaves, g.n_buckets),
+        )
+
+    def decode_stack(self, payload: QsgdPayload, n: int) -> torch.Tensor:
+        """(L, n) float32 values of a stacked payload."""
+        g = K.geometry(n, self.bits, self.bucket_size)
+        if self._fused(payload.words):
+            return K.unpack_dequantize(
+                payload.words, payload.scales, bits=self.bits,
+                bucket_size=self.bucket_size, n=n,
+            )
+        n_leaves = payload.scales.shape[0]
+        self._check_pack(payload.words)
+        codes = unpack_bucketed(payload.words.reshape(-1, g.n_words), self.bits)
+        codes = codes[:, : self.bucket_size]
+        level = (codes & self.levels).to(torch.float32)
+        sign = 1.0 - 2.0 * ((codes >> self.bits) & 1).to(torch.float32)
+        vals = sign * level / self.levels * payload.scales.reshape(-1, 1)
+        return vals.reshape(n_leaves, -1)[:, :n]
+
+    def encode(self, seed: int, grad: torch.Tensor,
+               uniforms: Optional[torch.Tensor] = None) -> QsgdPayload:
+        """Encode one leaf (flattened as it lies)."""
+        u = None if uniforms is None else uniforms[None]
+        p = self.encode_stack(grad.reshape(1, -1), [seed], u)
+        return QsgdPayload(words=p.words[0], scales=p.scales[0])
+
+    def decode(self, payload: QsgdPayload, grad_shape: tuple[int, ...]) -> torch.Tensor:
+        n = int(np.prod(grad_shape, dtype=np.int64))
+        stacked = QsgdPayload(words=payload.words[None], scales=payload.scales[None])
+        return self.decode_stack(stacked, n)[0].reshape(grad_shape)
+
+
+def terngrad(bucket_size: int = 512, use_kernel: Optional[bool] = None,
+             pack_kernel: Optional[bool] = None) -> QsgdCodec:
+    """TernGrad = 1-bit-magnitude QSGD with max-norm scale + sigma clip."""
+    return QsgdCodec(
+        bits=1, bucket_size=bucket_size, scheme="terngrad",
+        use_kernel=use_kernel, pack_kernel=pack_kernel, name="terngrad",
+    )

@@ -1,0 +1,15 @@
+"""Data layer of the port: datasets (disk or synthetic) and batching."""
+
+from atomo_tpu_torch.data.datasets import (  # noqa: F401
+    SPECS,
+    ArrayDataset,
+    DatasetSpec,
+    canonical_name,
+    load_dataset,
+    synthetic_dataset,
+)
+from atomo_tpu_torch.data.pipeline import (  # noqa: F401
+    BatchIterator,
+    augment_batch,
+    to_device,
+)

@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels from the repo's sources and load them.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, under ``build/kernels/`` at the repo root
+(git-ignored), and loaded with ctypes. The library name carries a hash of its
+source and flags, so an edited source is rebuilt and a stale library is never
+loaded. The build happens at first use, never at import: the CPU tests import
+every module on a machine with no ``nvcc``.
+
+There is no fallback: a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the port's CUDA kernels are "
+        "built from source at first use and need the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def start_build(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu``; returns (Popen, out, tmp) or None
+    when the library is already built. Several builds may run at once."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, out, tmp
+
+
+def finish_build(handle) -> None:
+    if handle is None:
+        return
+    proc, out, tmp = handle
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+
+
+def build_all(names) -> None:
+    """Compile every named source in parallel (one nvcc each)."""
+    handles = [start_build(n) for n in names]
+    for h in handles:
+        finish_build(h)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        finish_build(start_build(name))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,480 @@
+"""QSGD / TernGrad kernels: CUDA wrappers and their plain PyTorch twins.
+
+Counterpart of ``atomo_tpu/ops/qsgd_kernels.py``. The four Pallas TPU kernels
+there become four hand-written CUDA kernels in ``csrc/qsgd_kernels.cu``
+(built for sm_90a by :mod:`atomo_tpu_torch.ops._build`):
+
+=====================  ===============================================
+wrapper                replaces (atomo_tpu/ops/qsgd_kernels.py)
+=====================  ===============================================
+``quantize_pack``      ``pallas_quantize_pack`` (fused encode)
+``unpack_dequantize``  ``pallas_unpack_dequantize`` (fused decode)
+``pack_bucketed``      ``pallas_pack_bucketed`` (bare bit-pack)
+``unpack_bucketed``    ``pallas_unpack_bucketed`` (bare bit-unpack)
+=====================  ===============================================
+
+Each wrapper runs its kernel on a CUDA tensor (or raises: there is no
+fallback) and its ``*_plain`` twin on a CPU tensor. The twin computes the same
+function with vectorised torch ops in the same planar layout and repeats the
+kernel's roundings, including the order of the per-bucket scale reduction and
+the Philox4x32-10 stream of the in-kernel generator, so kernel and twin agree
+bit for bit on the same inputs. Every wrapper counts its launches in
+``<wrapper>.launches``.
+
+Wire format: words (n_buckets, words_per_bucket) uint32 and scales
+(n_buckets,) float32, the JAX package's planar layout (bucket position
+p = j * n_words + w sits in word w at bit j * (bits + 1)). Several leaves of
+one shape are encoded in one call by passing x as (L, n): the outputs gain a
+leading L axis.
+
+Codes leave :func:`unpack_bucketed` as int32 (the JAX kernel returns uint32):
+fields are below 2^9, so the bits are the same and torch's int32 takes the
+shifts and masks that its uint32 does not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from atomo_tpu_torch.ops import _build
+
+_LIB = "qsgd_kernels"
+_F32_TINY = float(np.finfo(np.float32).tiny)
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U24 = 1.0 / (1 << 24)
+
+Seeds = Union[torch.Tensor, Sequence[int]]
+
+
+class Geometry(NamedTuple):
+    """Bucket layout of one leaf of ``n`` values."""
+
+    bits: int
+    bucket_size: int
+    n: int
+    bpv: int  # bits per value: sign + magnitude
+    vpw: int  # values per uint32 word
+    bucket_p: int  # bucket padded to whole words
+    n_words: int  # words per bucket
+    n_buckets: int
+    levels: int
+
+
+def geometry(n: int, bits: int, bucket_size: int = 512) -> Geometry:
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in 1..8, got {bits}")
+    if bucket_size < 1:
+        raise ValueError(f"bucket_size must be positive, got {bucket_size}")
+    bpv = bits + 1
+    vpw = 32 // bpv
+    bucket_p = -(-bucket_size // vpw) * vpw
+    return Geometry(
+        bits=bits, bucket_size=bucket_size, n=n, bpv=bpv, vpw=vpw,
+        bucket_p=bucket_p, n_words=bucket_p // vpw,
+        n_buckets=-(-n // bucket_size), levels=(1 << bits) - 1,
+    )
+
+
+def padded_bucket(bucket_size: int, bits: int) -> int:
+    """Bucket size rounded up to a whole number of uint32 words."""
+    return geometry(0, bits, bucket_size).bucket_p
+
+
+def words_per_bucket(bucket_size: int, bits: int) -> int:
+    return geometry(0, bits, bucket_size).n_words
+
+
+def block_threads(n_words: int) -> int:
+    """Threads of one quantize_pack block: the power of two >= n_words,
+    clamped to [32, 1024]. The plain twin reduces over the same count."""
+    t = 32
+    while t < n_words and t < 1024:
+        t *= 2
+    return t
+
+
+# ---------------------------------------------------------------- plain twins
+
+
+def _as_leaves(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if x.dim() == 1:
+        return x.unsqueeze(0), True
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n,) or (L, n), got {tuple(x.shape)}")
+    return x, False
+
+
+def _bucket_planar(rows: torch.Tensor, g: Geometry) -> torch.Tensor:
+    """(R, bucket_size) -> (R, vpw, n_words), zero-padded to bucket_p."""
+    out = rows.new_zeros((rows.shape[0], g.bucket_p))
+    out[:, : g.bucket_size] = rows
+    return out.view(-1, g.vpw, g.n_words)
+
+
+def _leaf_rows(x: torch.Tensor, g: Geometry) -> torch.Tensor:
+    """(L, n) -> (L * n_buckets, bucket_size), zero-padded past n."""
+    out = x.new_zeros((x.shape[0], g.n_buckets * g.bucket_size))
+    out[:, : g.n] = x
+    return out.view(-1, g.bucket_size)
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """32x32 -> 64-bit product of uint32 values held in int64, split in
+    16-bit halves so that no intermediate leaves int64."""
+    p1 = a * (b & 0xFFFF)
+    p2 = a * (b >> 16)
+    t = p1 + ((p2 & 0xFFFF) << 16)
+    return (p2 >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(c, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 values, the twin of the
+    kernel's generator: counter ``c`` (4 tensors), key (k0, k1)."""
+    c0, c1, c2, c3 = c
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(seeds: torch.Tensor, g: Geometry) -> torch.Tensor:
+    """The in-kernel generator's uniforms as a planar (L * n_buckets, vpw,
+    n_words) tensor: word w of bucket lb of leaf l draws counter
+    (w, j // 4, lb, 0) under key seeds[l] and takes output j % 4."""
+    dev = seeds.device
+    n_leaves = seeds.shape[0]
+    q = -(-g.vpw // 4)
+    s = seeds.to(torch.int64).repeat_interleave(g.n_buckets).view(-1, 1, 1)
+    k0, k1 = s & _MASK32, (s >> 32) & _MASK32
+    lb = torch.arange(g.n_buckets, device=dev, dtype=torch.int64).repeat(n_leaves)
+    c0 = torch.arange(g.n_words, device=dev, dtype=torch.int64).view(1, 1, -1)
+    c1 = torch.arange(q, device=dev, dtype=torch.int64).view(1, -1, 1)
+    c2 = lb.view(-1, 1, 1)
+    shape = (lb.shape[0], q, g.n_words)
+    c = [t.expand(shape) for t in (c0, c1, c2, torch.zeros_like(c2))]
+    r = torch.stack(philox4x32_10(c, k0, k1), dim=2)  # (R, q, 4, n_words)
+    r = r.reshape(lb.shape[0], 4 * q, g.n_words)[:, : g.vpw]
+    return (r >> 8).to(torch.float32) * _U24
+
+
+def _or_fields(codes: torch.Tensor, bpv: int) -> torch.Tensor:
+    """(R, vpw, n_words) int64 codes -> (R, n_words) uint32 words."""
+    acc = codes[:, 0]
+    for j in range(1, codes.shape[1]):
+        acc = acc | (codes[:, j] << (j * bpv))
+    return acc.to(torch.uint32)
+
+
+def _split_fields(words: torch.Tensor, g: Geometry) -> torch.Tensor:
+    """(R, n_words) uint32 words -> (R, vpw, n_words) int64 codes."""
+    w = words.to(torch.int64)
+    mask = (1 << g.bpv) - 1
+    return torch.stack([(w >> (j * g.bpv)) & mask for j in range(g.vpw)], dim=1)
+
+
+def _bucket_scales(planar: torch.Tensor, g: Geometry, terngrad: bool) -> torch.Tensor:
+    """Per-bucket scale in the kernel's reduction order: thread t sums words
+    t, t + nt, ... field by field, then a halving tree over the nt threads."""
+    nt = block_threads(g.n_words)
+    k = -(-g.n_words // nt)
+    xr = planar.new_zeros((planar.shape[0], g.vpw, k * nt))
+    xr[:, :, : g.n_words] = planar
+    xr = xr.view(planar.shape[0], g.vpw, k, nt)
+    acc = planar.new_zeros((planar.shape[0], nt))
+    for kk in range(k):
+        for j in range(g.vpw):
+            v = xr[:, j, kk]
+            acc = torch.maximum(acc, v.abs()) if terngrad else acc + v * v
+    h = nt // 2
+    while h:
+        a, b = acc[:, :h], acc[:, h : 2 * h]
+        acc = torch.maximum(a, b) if terngrad else a + b
+        h //= 2
+    total = acc[:, 0]
+    return total if terngrad else torch.sqrt(total)
+
+
+def _check_scheme(scheme: str) -> bool:
+    if scheme not in ("qsgd", "terngrad"):
+        raise ValueError(f"scheme must be 'qsgd' or 'terngrad', got {scheme!r}")
+    return scheme == "terngrad"
+
+
+def _seed_tensor(seeds: Seeds, n_leaves: int, device) -> torch.Tensor:
+    s = torch.as_tensor(seeds, dtype=torch.int64, device=device).reshape(-1)
+    if s.shape[0] != n_leaves:
+        raise ValueError(f"need {n_leaves} seeds, got {s.shape[0]}")
+    return s
+
+
+def quantize_pack_plain(
+    x: torch.Tensor,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    scheme: str = "qsgd",
+    seeds: Optional[Seeds] = None,
+    u: Optional[torch.Tensor] = None,
+):
+    """Plain twin of :func:`quantize_pack`."""
+    terngrad = _check_scheme(scheme)
+    x2, squeeze = _as_leaves(x)
+    g = geometry(x2.shape[1], bits, bucket_size)
+    n_leaves = x2.shape[0]
+    planar = _bucket_planar(_leaf_rows(x2.float(), g), g)
+    scale = _bucket_scales(planar, g, terngrad)
+    safe = torch.clamp_min(scale, _F32_TINY)
+    if u is not None:
+        up = _bucket_planar(u.reshape(-1, g.bucket_size).float(), g)
+    elif seeds is not None:
+        up = philox_uniforms(_seed_tensor(seeds, n_leaves, x2.device), g)
+    else:
+        raise ValueError("quantize_pack needs seeds (in-kernel generator) or u")
+    y = planar.abs() / safe[:, None, None] * g.levels
+    lo = torch.floor(y)
+    frac = y - lo
+    level = torch.clamp(lo + (up < frac).float(), 0, g.levels).to(torch.int64)
+    sign = (planar < 0).to(torch.int64)
+    words = _or_fields((sign << bits) | level, g.bpv)
+    words = words.view(n_leaves, g.n_buckets, g.n_words)
+    scales = scale.view(n_leaves, g.n_buckets)
+    return (words[0], scales[0]) if squeeze else (words, scales)
+
+
+def unpack_dequantize_plain(
+    words: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    n: int,
+) -> torch.Tensor:
+    """Plain twin of :func:`unpack_dequantize`."""
+    g = geometry(n, bits, bucket_size)
+    squeeze = scales.dim() == 1
+    codes = _split_fields(words.reshape(-1, g.n_words), g)
+    level = (codes & g.levels).to(torch.float32)
+    sign = 1.0 - 2.0 * ((codes >> bits) & 1).to(torch.float32)
+    step = float(np.float32(1.0 / g.levels)) * scales.reshape(-1)[:, None, None]
+    vals = sign * level * step
+    vals = vals.reshape(-1, g.bucket_p)[:, :bucket_size]
+    out = vals.reshape(-1, g.n_buckets * bucket_size)[:, :n]
+    return out[0] if squeeze else out
+
+
+def _check_pack_shape(bucket_p: int, g: Geometry) -> None:
+    if bucket_p % g.vpw:
+        raise ValueError(
+            f"bucket_p {bucket_p} must be a multiple of vals-per-word {g.vpw} "
+            "(pad with zero codes first)"
+        )
+
+
+def pack_bucketed_plain(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain twin of :func:`pack_bucketed`: (nb, bucket_p) codes ->
+    (nb, bucket_p / vpw) uint32 words."""
+    g = geometry(0, bits)
+    nb, bucket_p = codes.shape
+    _check_pack_shape(bucket_p, g)
+    lanes = codes.to(torch.int64).view(nb, g.vpw, bucket_p // g.vpw)
+    return _or_fields(lanes, g.bpv)
+
+
+def unpack_bucketed_plain(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain twin of :func:`unpack_bucketed`: (nb, wpb) words ->
+    (nb, wpb * vpw) int32 codes."""
+    g = geometry(0, bits)
+    g = g._replace(n_words=words.shape[1])
+    return _split_fields(words, g).reshape(words.shape[0], -1).to(torch.int32)
+
+
+# ------------------------------------------------------------- CUDA wrappers
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_LIB)
+    if not getattr(lib, "_qsgd_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+        lib.qsgd_unpack_dequantize.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+        lib.qsgd_pack_codes.argtypes = [p, p, ll, i, i, p]
+        lib.qsgd_unpack_codes.argtypes = [p, p, ll, i, i, p]
+        for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize,
+                   lib.qsgd_pack_codes, lib.qsgd_unpack_codes):
+            fn.restype = ctypes.c_int
+        lib._qsgd_typed = True
+    return lib
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (run
+    the plain twin); anything else is refused."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors must share one device, got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no QSGD kernel for device {dev}")
+
+
+def _require(t: torch.Tensor, name: str, dtypes, shape) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {dtypes}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_if(rc: int, fn: str) -> None:
+    if rc:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+
+
+def quantize_pack(
+    x: torch.Tensor,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    scheme: str = "qsgd",
+    seeds: Optional[Seeds] = None,
+    u: Optional[torch.Tensor] = None,
+):
+    """Fused QSGD encode of x, (n,) or (L, n) float32 ->
+    (words (…, n_buckets, n_words) uint32, scales (…, n_buckets) float32).
+
+    ``u`` (…, n_buckets, bucket_size) supplies the stochastic-rounding
+    uniforms (bit-parity mode); otherwise ``seeds`` (one per leaf) key the
+    in-kernel Philox generator."""
+    if not _on_card(x, u):
+        return quantize_pack_plain(
+            x, bits=bits, bucket_size=bucket_size, scheme=scheme, seeds=seeds, u=u
+        )
+    terngrad = _check_scheme(scheme)
+    x2, squeeze = _as_leaves(x)
+    n_leaves, n = x2.shape
+    g = geometry(n, bits, bucket_size)
+    _require(x2, "x", (torch.float32,), (n_leaves, n))
+    seed_t = None
+    if u is not None:
+        lead = () if squeeze else (n_leaves,)
+        _require(u, "u", (torch.float32,), lead + (g.n_buckets, bucket_size))
+    elif seeds is not None:
+        seed_t = _seed_tensor(seeds, n_leaves, x2.device)
+    else:
+        raise ValueError("quantize_pack needs seeds (in-kernel generator) or u")
+    rows = n_leaves * g.n_buckets
+    words = torch.empty((rows, g.n_words), dtype=torch.int32, device=x2.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=x2.device)
+    rc = _lib().qsgd_quantize_pack(
+        _ptr(x2), _ptr(u), _ptr(seed_t), _ptr(words), _ptr(scales), n,
+        n_leaves, g.n_buckets, bucket_size, g.n_words, bits, int(terngrad),
+        block_threads(g.n_words), _stream(),
+    )
+    _raise_if(rc, "qsgd_quantize_pack")
+    quantize_pack.launches += 1
+    words = words.view(torch.uint32).view(n_leaves, g.n_buckets, g.n_words)
+    scales = scales.view(n_leaves, g.n_buckets)
+    return (words[0], scales[0]) if squeeze else (words, scales)
+
+
+def unpack_dequantize(
+    words: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    n: int,
+) -> torch.Tensor:
+    """Fused QSGD decode: words (…, n_buckets, n_words), scales
+    (…, n_buckets) -> float32 (…, n)."""
+    if not _on_card(words, scales):
+        return unpack_dequantize_plain(
+            words, scales, bits=bits, bucket_size=bucket_size, n=n
+        )
+    g = geometry(n, bits, bucket_size)
+    squeeze = scales.dim() == 1
+    n_leaves = 1 if squeeze else scales.shape[0]
+    lead = () if squeeze else (n_leaves,)
+    _require(scales, "scales", (torch.float32,), lead + (g.n_buckets,))
+    _require(words, "words", (torch.uint32, torch.int32),
+             lead + (g.n_buckets, g.n_words))
+    out = torch.empty((n_leaves, n), dtype=torch.float32, device=words.device)
+    rc = _lib().qsgd_unpack_dequantize(
+        _ptr(words), _ptr(scales), _ptr(out), n, n_leaves, g.n_buckets,
+        bucket_size, g.n_words, bits, _stream(),
+    )
+    _raise_if(rc, "qsgd_unpack_dequantize")
+    unpack_dequantize.launches += 1
+    return out[0] if squeeze else out
+
+
+def pack_bucketed(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bucketed bit-pack: (nb, bucket_p) int32 codes -> (nb, bucket_p / vpw)
+    uint32 words, planar layout."""
+    if not _on_card(codes):
+        return pack_bucketed_plain(codes, bits)
+    g = geometry(0, bits)
+    nb, bucket_p = codes.shape
+    _check_pack_shape(bucket_p, g)
+    _require(codes, "codes", (torch.int32, torch.uint32), (nb, bucket_p))
+    n_words = bucket_p // g.vpw
+    words = torch.empty((nb, n_words), dtype=torch.int32, device=codes.device)
+    rc = _lib().qsgd_pack_codes(
+        _ptr(codes), _ptr(words), nb, n_words, bits, _stream()
+    )
+    _raise_if(rc, "qsgd_pack_codes")
+    pack_bucketed.launches += 1
+    return words.view(torch.uint32)
+
+
+def unpack_bucketed(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bucketed`: (nb, wpb) words -> (nb, wpb * vpw)
+    int32 codes."""
+    if not _on_card(words):
+        return unpack_bucketed_plain(words, bits)
+    g = geometry(0, bits)
+    nb, n_words = words.shape
+    _require(words, "words", (torch.uint32, torch.int32), (nb, n_words))
+    codes = torch.empty((nb, n_words * g.vpw), dtype=torch.int32, device=words.device)
+    rc = _lib().qsgd_unpack_codes(
+        _ptr(words), _ptr(codes), nb, n_words, bits, _stream()
+    )
+    _raise_if(rc, "qsgd_unpack_codes")
+    unpack_bucketed.launches += 1
+    return codes
+
+
+KERNELS = (quantize_pack, unpack_dequantize, pack_bucketed, unpack_bucketed)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,497 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, ``python -m atomo_tpu_torch train --network
+ResNet18 --dataset Cifar10 --synthetic --batch-size 128 --code qsgd
+--quantization-level 4``, at full width through the CLI's own entry point,
+and holds every hand-written kernel against its plain PyTorch version:
+
+1. build: ``nvcc`` compiles ``atomo_tpu_torch/csrc/*.cu`` for sm_90a, one
+   process per source, all at once (timed as set-up);
+2. check: each of the four QSGD kernels against its plain version at the
+   ResNet-18 leaf shapes (one stacked launch per shape group, as the trainer
+   makes them), for bits 2/4/8 (qsgd) and 1 (terngrad): words and codes bit
+   for bit, scales within rtol 1e-6, decoded values bit for bit; the
+   in-kernel Philox generator bit for bit against its twin; the mean decode
+   over 64 seeds within 4 * scale / levels / sqrt(64) of the input
+   (unbiasedness); a LeNet train step on the card against the same step on
+   the CPU (TF32 off; loss rtol 1e-4, params within 1e-5 plus one
+   quantization step times lr);
+3. train: 5 steps with ``qsgd`` (then a validation pass), 2 with
+   ``terngrad``, 2 with ``--qsgd-path pack`` (torch quantizer, pack/unpack
+   kernels), 5 with ``sgd`` (no codec, for the step-time baseline). Each run
+   sets the launch counts to 0 before it and reads them after; the losses
+   must be finite and fall over the qsgd run, and every kernel of a run's path
+   must have launched in it;
+4. time: each kernel's launches of one train step (every shape group of
+   ResNet-18 at bits 4), by CUDA events, median of 20, beside the plain
+   version's time and the bound (bytes over 3.35 TB/s or operations over
+   67 TFLOP/s, the larger);
+5. profile: three qsgd steps under ``torch.profiler``: wall and device-busy
+   time per step, the device's idle share, each ``step.*`` phase's time, and
+   the kernels that take the most.
+
+Prints a ``kernels`` JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
+CUDA device, or run outside the repository, it exits non-zero and prints no
+result. A copy of the results goes to ``output/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+ROOT = Path(__file__).resolve().parent
+REPLACES = {
+    "quantize_pack": "atomo_tpu/ops/qsgd_kernels.py:215",
+    "unpack_dequantize": "atomo_tpu/ops/qsgd_kernels.py:387",
+    "pack_bucketed": "atomo_tpu/ops/qsgd_kernels.py:323",
+    "unpack_bucketed": "atomo_tpu/ops/qsgd_kernels.py:363",
+}
+TRAIN_ARGS = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
+              "--batch-size", "128", "--quantization-level", "4", "--lr", "0.01",
+              "--momentum", "0.9", "--seed", "1", "--log-interval", "1", "--device", "cuda"]
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------- phases
+
+
+def phase_build():
+    from atomo_tpu_torch.ops import _build
+
+    t0 = time.time()
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    _build.build_all(names)
+    for n in names:
+        _build.load(n)
+    log(f"build: {names} in {time.time() - t0:.1f} s")
+
+
+def resnet_stacks(device, seed: int = 0):
+    """Gradient-like (L, n) stacks of ResNet-18's leaves, one per shape group,
+    each leaf at its own scale."""
+    import torch
+
+    from atomo_tpu_torch.codecs import stack_leaves
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=device) * (0.01 * (1 + i % 7))
+             for i, p in enumerate(leaf_params(model))]
+    return [(idxs, x) for idxs, x in stack_leaves(grads)]
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_check(stacks, errs):
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, terngrad
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    dev = stacks[0][1].device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for codec in (QsgdCodec(bits=2), QsgdCodec(bits=4), QsgdCodec(bits=8), terngrad()):
+        bits, scheme = codec.bits, codec.scheme
+        for idxs, x in stacks:
+            x = codec._clip(x)
+            L, n = x.shape
+            g = K.geometry(n, bits, codec.bucket_size)
+            u = torch.rand((L, g.n_buckets, g.bucket_size), generator=gen, device=dev)
+            seeds = [1000003 * (i + 1) + bits for i in idxs]
+            for kw in (dict(u=u), dict(seeds=seeds)):
+                wk, sk = K.quantize_pack(x, bits=bits, scheme=scheme, **kw)
+                wp, sp = K.quantize_pack_plain(x, bits=bits, scheme=scheme, **kw)
+                if not same_bits(wk, wp):
+                    raise AssertionError(f"quantize_pack words differ: bits {bits} "
+                                         f"{scheme} shape {tuple(x.shape)} {list(kw)}")
+                torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+                errs["quantize_pack"] = max(errs["quantize_pack"],
+                                            float((sk - sp).abs().max()))
+                dk = K.unpack_dequantize(wk, sk, bits=bits, n=n)
+                dp = K.unpack_dequantize_plain(wk, sk, bits=bits, n=n)
+                errs["unpack_dequantize"] = max(errs["unpack_dequantize"],
+                                                float((dk - dp).abs().max()))
+                if not torch.equal(dk, dp):
+                    raise AssertionError(f"unpack_dequantize differs: bits {bits}")
+                rows = wk.reshape(-1, g.n_words)
+                ck = K.unpack_bucketed(rows, bits)
+                cp = K.unpack_bucketed_plain(rows, bits)
+                errs["unpack_bucketed"] = max(errs["unpack_bucketed"],
+                                              float((ck - cp).abs().max()))
+                if not torch.equal(ck, cp):
+                    raise AssertionError(f"unpack_bucketed differs: bits {bits}")
+                pk = K.pack_bucketed(ck, bits)
+                pp = K.pack_bucketed_plain(ck, bits)
+                diff = (pk.view(torch.int32).long() - pp.view(torch.int32).long()).abs()
+                errs["pack_bucketed"] = max(errs["pack_bucketed"], float(diff.max()))
+                if not (same_bits(pk, pp) and same_bits(pk, rows)):
+                    raise AssertionError(f"pack_bucketed differs: bits {bits}")
+        torch.cuda.synchronize()
+        log(f"check: bits {bits} {scheme}: kernels equal their plain versions "
+            f"on {len(stacks)} shape groups")
+
+
+def phase_unbiased(stacks, trials: int = 64):
+    import torch
+
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    for bits in (2, 4, 8):
+        worst = 0.0
+        levels = (1 << bits) - 1
+        for idxs, x in stacks:
+            L, n = x.shape
+            acc = torch.zeros((L, n), dtype=torch.float64, device=x.device)
+            for t in range(trials):
+                w, s = K.quantize_pack(x, bits=bits, seeds=[t * 7919 + i for i in idxs])
+                acc += K.unpack_dequantize(w, s, bits=bits, n=n).double()
+            per = s.double().repeat_interleave(512, dim=1)[:, :n]
+            lim = 4 * per / levels / math.sqrt(trials)
+            ratio = float(((acc / trials - x.double()).abs() / lim.clamp_min(1e-30)).max())
+            worst = max(worst, ratio)
+        if not worst <= 1.0:
+            raise AssertionError(f"bits {bits}: mean decode off by {worst:.3f} of the bound")
+        log(f"unbiased: bits {bits}: worst |mean decode - x| = {worst:.3f} of "
+            f"4*scale/levels/sqrt({trials})")
+
+
+def phase_reference():
+    """A LeNet qsgd step on the card against the same step on the CPU."""
+    import copy
+
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.convert import jax_view
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        spec = SPECS["mnist"]
+        images, labels = next(BatchIterator(synthetic_dataset(spec, True, size=64), 16).epoch())
+        lr = 0.05
+        opt = make_optimizer("sgd", lr=lr, momentum=0.9)
+        codec = QsgdCodec(bits=4)
+        base = get_model("lenet", 10, image_shape=spec.image_shape)
+        cpu = create_state(base, opt, 3, "cpu")
+        gpu = create_state(copy.deepcopy(base).cpu(), opt, 3, "cuda")
+        gen = torch.Generator().manual_seed(5)
+        uniforms = [torch.rand((K.geometry(p.numel(), 4).n_buckets, 512), generator=gen)
+                    for p in leaf_params(base)]
+        res = {}
+        for name, state in (("cpu", cpu), ("cuda", gpu)):
+            step = make_train_step(state.model, opt, codec=codec)
+            u = [t.to(name) for t in uniforms]
+            _, m = step(state, 4, *to_device(images, labels, name), uniforms=u)
+            res[name] = (float(m["loss"]), [jax_view(p).detach().cpu() for p in
+                                            leaf_params(state.model)])
+        max_scale = max(float(codec.encode(0, p.grad).scales.max())
+                        for p in leaf_params(cpu.model))
+        if not math.isclose(res["cpu"][0], res["cuda"][0], rel_tol=1e-4):
+            raise AssertionError(f"loss cpu {res['cpu'][0]} vs cuda {res['cuda'][0]}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(res["cpu"][1], res["cuda"][1]))
+        # one quantization step of the largest bucket scale, times lr
+        limit = 1e-5 + lr * max_scale / 15
+        if not worst <= limit:
+            raise AssertionError(f"params cpu vs cuda {worst} > {limit}")
+        log(f"reference: LeNet qsgd step, cuda vs cpu: loss {res['cuda'][0]:.6f} vs "
+            f"{res['cpu'][0]:.6f}, max |param diff| {worst:.3e}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def run_cli(extra, expect):
+    """One CLI run with the launch counts set to 0 before and read after."""
+    import torch
+
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    lines: list[str] = []
+    K.reset_launch_counts()
+    t0 = time.time()
+    rc = cli.main(TRAIN_ARGS + extra, log_fn=lambda ln: (lines.append(ln), log("  " + ln)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = K.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"cli returned {rc}")
+    worker = [ln for ln in lines if ln.startswith("Worker: ")]
+    losses = [float(ln.split("Loss: ")[1].split(",")[0]) for ln in worker]
+    step_s = [float(ln.split("Time Cost: ")[1].split(",")[0]) for ln in worker]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite or missing losses {losses}")
+    for name in expect:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched in {extra}: {counts}")
+    for ln in lines:
+        if ln.startswith("Validation: "):
+            if not all(math.isfinite(float(v.split(",")[0])) for v in ln.split(": ")[2:]):
+                raise AssertionError(f"bad validation line {ln}")
+    return {"losses": losses, "step_ms": [1e3 * s for s in step_s], "launches": counts,
+            "wall_s": wall, "lines": len(lines)}
+
+
+def phase_train():
+    runs = {
+        "qsgd": run_cli(["--code", "qsgd", "--max-steps", "5", "--eval-freq", "5"],
+                        ["quantize_pack", "unpack_dequantize"]),
+        "terngrad": run_cli(["--code", "terngrad", "--max-steps", "2", "--eval-freq", "0"],
+                            ["quantize_pack", "unpack_dequantize"]),
+        "qsgd_pack": run_cli(["--code", "qsgd", "--qsgd-path", "pack", "--max-steps", "2",
+                              "--eval-freq", "0"], ["pack_bucketed", "unpack_bucketed"]),
+        "sgd": run_cli(["--code", "sgd", "--max-steps", "5", "--eval-freq", "0"], []),
+    }
+    q = runs["qsgd"]["losses"]
+    if not q[-1] < q[0]:
+        raise AssertionError(f"qsgd loss did not fall: {q}")
+    if any(runs["sgd"]["launches"].values()):
+        raise AssertionError(f"dense run launched codec kernels: {runs['sgd']['launches']}")
+    for name, r in runs.items():
+        steady = r["step_ms"][1:] or r["step_ms"]
+        r["median_step_ms_after_first"] = statistics.median(steady)
+        log(f"train {name}: losses {r['losses']} launches {r['launches']} "
+            f"median step ms (after the first) {r['median_step_ms_after_first']:.3f}")
+    return runs
+
+
+def phase_time(stacks):
+    """Each kernel's launches of one ResNet-18 train step at bits 4."""
+    import torch
+
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    bits = 4
+    enc = []
+    for idxs, x in stacks:
+        L, n = x.shape
+        g = K.geometry(n, bits)
+        seeds = [17 + i for i in idxs]
+        w, s = K.quantize_pack(x, bits=bits, seeds=seeds)
+        codes = K.unpack_bucketed(w.reshape(-1, g.n_words), bits)
+        enc.append((x, seeds, g, w, s, codes))
+
+    def each(fn):
+        return lambda: [fn(*e) for e in enc]
+
+    work = {
+        "quantize_pack": (
+            each(lambda x, sd, g, w, s, c: K.quantize_pack(x, bits=bits, seeds=sd)),
+            each(lambda x, sd, g, w, s, c: K.quantize_pack_plain(x, bits=bits, seeds=sd)),
+            # read x and the seeds, write words and scales
+            sum(x.numel() * 4 + len(sd) * 8 + w.numel() * 4 + s.numel() * 4
+                for x, sd, g, w, s, c in enc),
+            # per padded position: 2 for the scale, 7 for the rounding
+            # (abs, div, mul, floor, sub, compare, add), 2 to code; Philox
+            # 10 rounds of ~8 integer operations per 4 positions
+            sum(c.numel() * (11 + 20) for x, sd, g, w, s, c in enc),
+        ),
+        "unpack_dequantize": (
+            each(lambda x, sd, g, w, s, c: K.unpack_dequantize(w, s, bits=bits, n=g.n)),
+            each(lambda x, sd, g, w, s, c: K.unpack_dequantize_plain(w, s, bits=bits, n=g.n)),
+            sum(w.numel() * 4 + s.numel() * 4 + x.numel() * 4 for x, sd, g, w, s, c in enc),
+            sum(x.numel() * 6 for x, sd, g, w, s, c in enc),
+        ),
+        "pack_bucketed": (
+            each(lambda x, sd, g, w, s, c: K.pack_bucketed(c, bits)),
+            each(lambda x, sd, g, w, s, c: K.pack_bucketed_plain(c, bits)),
+            sum(c.numel() * 4 + w.numel() * 4 for x, sd, g, w, s, c in enc),
+            sum(c.numel() * 2 for x, sd, g, w, s, c in enc),
+        ),
+        "unpack_bucketed": (
+            each(lambda x, sd, g, w, s, c: K.unpack_bucketed(w.reshape(-1, g.n_words), bits)),
+            each(lambda x, sd, g, w, s, c: K.unpack_bucketed_plain(
+                w.reshape(-1, g.n_words), bits)),
+            sum(c.numel() * 4 + w.numel() * 4 for x, sd, g, w, s, c in enc),
+            sum(c.numel() * 2 for x, sd, g, w, s, c in enc),
+        ),
+    }
+    out = {}
+    for name, (kern, plain, nbytes, ops) in work.items():
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "ops": ops, "launches_per_step": len(enc)}
+        log(f"time {name}: {ms:.4f} ms per step ({len(enc)} launches), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
+    return out
+
+
+def phase_profile(steps: int = 3):
+    """Where a qsgd step's time goes: ``torch.profiler`` over ``steps``
+    ResNet-18 steps (batch 128, after two warm-up steps), the device's busy
+    time (sum of kernel times) against the host's wall time, each ``step.*``
+    phase's host time and its span on the device's timeline, and the
+    kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    spec = SPECS["cifar10"]
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    state = create_state(get_model("resnet18", 10, image_shape=spec.image_shape), opt, 1,
+                         "cuda")
+    step = make_train_step(state.model, opt, codec=QsgdCodec(bits=4), augment=True)
+    it = BatchIterator(synthetic_dataset(spec, True), 128, seed=1).epoch()
+    batches = [to_device(*next(it), "cuda") for _ in range(steps + 2)]
+    for x, y in batches[:2]:
+        state, m = step(state, 2, x, y)
+    torch.cuda.synchronize()
+
+    def dev_us(e):
+        return e.self_device_time_total
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches[2:]:
+            state, m = step(state, 2, x, y)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the step.* ranges appear twice: as host ranges, and as annotations on
+    # the device's timeline spanning their kernels (not kernels themselves)
+    kernels = [e for e in events if e.device_type == cuda and not e.key.startswith("step.")]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    phases: dict = {}
+    for e in events:
+        if e.key.startswith("step."):
+            ph = phases.setdefault(e.key, {"host_ms": 0.0, "device_span_ms": 0.0})
+            if e.device_type == cuda:
+                ph["device_span_ms"] += dev_us(e) / 1e3 / steps
+            else:
+                ph["host_ms"] += e.cpu_time_total / 1e3 / steps
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    out = {"steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+           "phases": phases,
+           "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / steps,
+                            "count_per_step": e.count / steps} for e in top]}
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"profile: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, idle "
+        f"share {out['device_idle_share']:.3f}")
+    for k, v in sorted(phases.items()):
+        log(f"profile phase {k}: host {v['host_ms']:.3f} ms, device span "
+            f"{v['device_span_ms']:.3f} ms")
+    for t in out["top_kernels"]:
+        log(f"profile kernel {t['ms_per_step']:.3f} ms x{t['count_per_step']:.0f} {t['name']}")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        import atomo_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the atomo_tpu_torch package is missing beside this "
+              f"script ({e})", file=sys.stderr)
+        return 3
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
+        f"torch {torch.__version__}, cuda {torch.version.cuda}")
+    t_start = time.time()
+    phase_build()
+    stacks = resnet_stacks(torch.device("cuda"))
+    log(f"ResNet-18 leaves: {sum(len(i) for i, _ in stacks)} in {len(stacks)} shape groups, "
+        f"{sum(x.numel() for _, x in stacks)} values")
+    errs = {name: 0.0 for name in REPLACES}
+    phase_check(stacks, errs)
+    phase_unbiased(stacks)
+    phase_reference()
+    runs = phase_train()
+    times = phase_time(stacks)
+    prof = phase_profile()
+
+    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in REPLACES}
+    kernels = [{
+        "name": name, "route": "cuda", "source": "atomo_tpu_torch/csrc/qsgd_kernels.cu",
+        "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
+        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+        "library_ms": None,
+    } for name in REPLACES]
+    result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
+              "seconds": time.time() - t_start}
+    out_dir = ROOT / "output"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -53,6 +53,12 @@ def pytest_configure(config):
         "additionally gate on ATOMO_RUN_PERF=1. Correctness-equivalence "
         "superstep tests are NOT marked perf and stay in tier-1.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's hand-written kernels have no "
+        "CPU mode); skips without one. On the GPU machine run "
+        "`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.",
+    )
 
 
 @pytest.fixture

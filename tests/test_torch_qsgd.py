@@ -1,0 +1,173 @@
+"""The port's QSGD kernels' plain twins and codec against the JAX package.
+
+Inputs come from numpy seeds and go through both packages. The Pallas
+kernels run in interpret mode with explicit uniforms, as the JAX package's
+own tests run them on the CPU. Tolerances: words and dequantized values are
+compared bit for bit; scales within rtol 1e-6, since the two packages sum a
+bucket's squares in different orders (float32, 512 terms).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from atomo_tpu.codecs import QsgdCodec as JaxQsgd
+from atomo_tpu.ops import pallas_quantize_pack, pallas_unpack_dequantize
+from atomo_tpu.ops.qsgd_kernels import pallas_pack_bucketed, pallas_unpack_bucketed
+from atomo_tpu_torch.codecs import QsgdCodec, QsgdPayload, terngrad
+from atomo_tpu_torch.ops import qsgd_kernels as K
+
+BITS = [1, 2, 4, 8]
+SCHEMES = ["qsgd", "terngrad"]
+SIZES = [512, 1000, 4113]
+BUCKET = 512
+
+
+def _inputs(bits, n, scheme="qsgd"):
+    rng = np.random.default_rng(1000 * bits + n + (7 if scheme == "terngrad" else 0))
+    x = rng.standard_normal(n).astype(np.float32)
+    u = rng.random((-(-n // BUCKET), BUCKET)).astype(np.float32)
+    return x, u
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_pack_plain_matches_pallas(bits, scheme, n):
+    x, u = _inputs(bits, n, scheme)
+    wj, sj = pallas_quantize_pack(
+        jnp.asarray(x), 0, jnp.asarray(u), bits=bits, bucket_size=BUCKET,
+        scheme=scheme, interpret=True,
+    )
+    wt, st = K.quantize_pack(_t(x), bits=bits, bucket_size=BUCKET, scheme=scheme, u=_t(u))
+    assert wt.dtype == torch.uint32 and st.dtype == torch.float32
+    np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6)
+    # the decode twin repeats the Pallas decode bit for bit
+    dj = pallas_unpack_dequantize(wj, sj, bits=bits, bucket_size=BUCKET, n=n, interpret=True)
+    dt = K.unpack_dequantize(_t(wj), _t(sj), bits=bits, bucket_size=BUCKET, n=n)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("bits", BITS)
+def test_codec_encode_matches_jax_codec(bits, scheme, n):
+    """Both port paths (fused twin, torch quantizer + pack) emit the JAX
+    codec's words given its uniforms, and decode its payload as it does."""
+    x, _ = _inputs(bits, n, scheme)
+    key = jax.random.PRNGKey(n + bits)
+    jc = JaxQsgd(bits=bits, scheme=scheme, use_pallas=False)
+    pj = jc.encode(key, jnp.asarray(x))
+    u = np.asarray(jax.random.uniform(key, (-(-n // BUCKET), BUCKET), jnp.float32))
+    dj = np.asarray(jc.decode(pj, (n,)))
+    for use_kernel in (True, False):
+        pc = QsgdCodec(bits=bits, scheme=scheme, use_kernel=use_kernel)
+        pt = pc.encode(0, _t(x), uniforms=_t(u))
+        np.testing.assert_array_equal(pt.words.numpy(), np.asarray(pj.words))
+        np.testing.assert_allclose(pt.scales.numpy(), np.asarray(pj.scales), rtol=1e-6)
+        if not use_kernel:  # the torch decode repeats the jnp decode
+            back = pc.decode(QsgdPayload(_t(pj.words), _t(pj.scales)), (n,))
+            np.testing.assert_array_equal(back.numpy(), dj)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_unpack_bucketed_match_pallas(bits):
+    bucket_p = K.padded_bucket(BUCKET, bits)
+    rng = np.random.default_rng(bits)
+    codes = rng.integers(0, 1 << (bits + 1), (9, bucket_p)).astype(np.uint32)
+    wj = pallas_pack_bucketed(jnp.asarray(codes), bits=bits, interpret=True)
+    wt = K.pack_bucketed(_t(codes.astype(np.int32)), bits)
+    np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+    cj = pallas_unpack_bucketed(wj, bits=bits, interpret=True)
+    ct = K.unpack_bucketed(wt, bits)
+    np.testing.assert_array_equal(ct.numpy().astype(np.uint32), np.asarray(cj))
+    with pytest.raises(ValueError):
+        K.pack_bucketed(torch.zeros((2, bucket_p + 1), dtype=torch.int32), bits)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_payloads_cross_decode(bits):
+    """A payload of either package decodes identically in the other."""
+    n = 1000
+    x, _ = _inputs(bits, n)
+    jc = JaxQsgd(bits=bits, use_pallas=False)
+    pc = QsgdCodec(bits=bits, use_kernel=True)
+    # port payload, drawn by the in-kernel generator's twin
+    pt = pc.encode(12345, _t(x))
+    from_jax = np.asarray(jc.decode(
+        type(jc.encode(jax.random.PRNGKey(0), jnp.asarray(x)))(
+            jnp.asarray(pt.words.numpy()), jnp.asarray(pt.scales.numpy())),
+        (n,),
+    ))
+    np.testing.assert_array_equal(pc.decode(pt, (n,)).numpy(), from_jax)
+    # JAX payload
+    pj = jc.encode(jax.random.PRNGKey(9), jnp.asarray(x))
+    np.testing.assert_array_equal(
+        QsgdCodec(bits=bits, use_kernel=False).decode(
+            QsgdPayload(_t(pj.words), _t(pj.scales)), (n,)).numpy(),
+        np.asarray(jc.decode(pj, (n,))),
+    )
+
+
+def test_philox_twin_known_answers():
+    """The generator twin is Philox4x32-10 (Random123's test vectors)."""
+    def run(c, k):
+        t = lambda v: torch.tensor([v], dtype=torch.int64)  # noqa: E731
+        return [int(v) for v in K.philox4x32_10([t(a) for a in c], t(k[0]), t(k[1]))]
+
+    assert run((0, 0, 0, 0), (0, 0)) == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    assert run((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+               (0xA4093822, 0x299F31D0)) == [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_unbiasedness_over_seeds(use_kernel):
+    """E_seed[decode(encode(x))] ~= x for both RNG paths (the check of
+    tests/test_pallas_ops.py::test_unbiasedness_over_seeds)."""
+    n, trials = 512, 200
+    x = _t(np.random.default_rng(2).standard_normal(n).astype(np.float32))
+    codec = QsgdCodec(bits=2, use_kernel=use_kernel)
+    acc = torch.zeros(n, dtype=torch.float64)
+    for seed in range(trials):
+        acc += codec.decode(codec.encode(seed, x), (n,)).double()
+    scale = float(torch.linalg.vector_norm(x))
+    np.testing.assert_allclose((acc / trials).numpy(), x.numpy(),
+                               atol=4 * scale / 3 / np.sqrt(trials))
+
+
+def test_stacked_leaves_equal_one_by_one():
+    """Encoding an (L, n) stack equals encoding each leaf alone."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((3, 700)).astype(np.float32))
+    for codec in (QsgdCodec(bits=4, use_kernel=True), terngrad(use_kernel=True),
+                  QsgdCodec(bits=4, use_kernel=False)):
+        stacked = codec.encode_stack(x, [11, 22, 33])
+        for i, s in enumerate([11, 22, 33]):
+            one = codec.encode(s, x[i])
+            np.testing.assert_array_equal(stacked.words[i].numpy(), one.words.numpy())
+            np.testing.assert_array_equal(stacked.scales[i].numpy(), one.scales.numpy())
+        back = codec.decode_stack(stacked, 700)
+        for i in range(3):
+            one = QsgdPayload(stacked.words[i], stacked.scales[i])
+            np.testing.assert_array_equal(back[i].numpy(), codec.decode(one, (700,)).numpy())
+
+
+def test_leaf_payload_bytes_match_jax():
+    for bits in BITS:
+        for shape in [(3, 3, 64, 64), (10,), (512, 10), (4113,)]:
+            assert (QsgdCodec(bits=bits).leaf_payload_bytes(shape)
+                    == JaxQsgd(bits=bits).leaf_payload_bytes(shape))
+
+
+def test_quantize_pack_rejects_bad_arguments():
+    with pytest.raises(ValueError):
+        K.quantize_pack(torch.zeros(10), bits=2)  # neither seeds nor u
+    with pytest.raises(ValueError):
+        K.quantize_pack(torch.zeros(10), bits=9, seeds=[1])
