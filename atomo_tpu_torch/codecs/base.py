@@ -1,7 +1,8 @@
 """Codec interface and whole-tree encode/decode.
 
-Counterpart of ``atomo_tpu/codecs/base.py`` (the whole-tree path: the
-streamed encode and ``decode_mean_tree`` come with the multi-GPU slice).
+Counterpart of ``atomo_tpu/codecs/base.py`` (the whole-tree path and the
+mean decode over a leading replica axis; the streamed encode comes with the
+multi-GPU slice).
 
 A gradient "tree" here is a list of tensors in the canonical leaf order,
 which is the order ``jax.tree_util.tree_flatten`` gives the Flax parameter
@@ -11,15 +12,19 @@ with the JAX package:
 * leaf ``i`` is encoded under key ``fold_in(key, i)``, so its stream depends
   on (key, leaf) alone;
 * each leaf is flattened in the JAX layout (``convert.jax_view``: a conv weight
-  OIHW is read as HWIO, a linear weight (out, in) as (in, out)), so a payload
-  of the port decodes in the JAX package and the reverse, byte-identical
-  given the same uniforms;
+  OIHW is read as HWIO, a linear weight (out, in) as (in, out), an embedding
+  table as it lies; ``layouts`` says per leaf whether the view transposes), so
+  a payload of the port decodes in the JAX package and the reverse, given the
+  same random draws;
 * same-shape leaves are stacked into one codec call (one kernel launch), the
   counterpart of ``encode_leaf_subset``'s vmap over shape groups.
 
-A codec implements ``encode_stack(x, seeds, uniforms)`` over an (L, n) stack
-of flattened leaves and ``decode_stack(payload, n)``; its payload is a
-NamedTuple of tensors with a leading L axis.
+A codec implements ``encode_stack(x, seeds, draws, shape=...)`` over an
+(L, n) stack of flattened leaves of one JAX-layout ``shape`` and
+``decode_stack(payload, n, shape=...)``; its payload is a NamedTuple of
+tensors with a leading L axis. ``draws`` is the codec's parity hook (QSGD:
+its uniforms; SVD: a dict of its random draws), ``None`` in training.
+A codec may add ``decode_mean_stack`` for a fused mean over replicas.
 """
 
 from __future__ import annotations
@@ -39,16 +44,22 @@ class Codec(Protocol):
     name: str
 
     def encode_stack(
-        self, x: torch.Tensor, seeds: Sequence[int],
-        uniforms: Optional[torch.Tensor] = None,
+        self, x: torch.Tensor, seeds: Sequence[int], draws: Any = None, *,
+        shape: Optional[Sequence[int]] = None,
     ) -> Payload: ...
 
-    def decode_stack(self, payload: Payload, n: int) -> torch.Tensor: ...
+    def decode_stack(self, payload: Payload, n: int, *,
+                     shape: Optional[Sequence[int]] = None) -> torch.Tensor: ...
+
+
+def tree_nbytes(tensors: Sequence[torch.Tensor]) -> int:
+    """Byte size of a list of tensors (e.g. a dense gradient)."""
+    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def payload_nbytes(payload: Payload) -> int:
     """Byte size of a payload, the reference's Msg(MB)."""
-    return int(sum(a.numel() * a.element_size() for a in payload))
+    return tree_nbytes(payload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +82,31 @@ def _shape_groups(shapes) -> dict:
     return groups
 
 
-def stack_leaves(grads: Sequence[torch.Tensor]):
+def _views(tensors: Sequence[torch.Tensor], layouts: Optional[Sequence[bool]]):
+    if layouts is None:
+        return [jax_view(t) for t in tensors]
+    return [jax_view(t, tr) for t, tr in zip(tensors, layouts)]
+
+
+def stack_leaves(grads: Sequence[torch.Tensor], layouts: Optional[Sequence[bool]] = None):
     """Yield ``(leaf indices, (L, n) stack)`` per shape group: the leaves of
     one JAX-layout shape and dtype, each flattened in the JAX layout, in
-    first-seen order. One group is one codec call (one kernel launch)."""
-    views = [jax_view(g) for g in grads]
+    first-seen order. One group is one codec call (one kernel launch).
+    ``layouts`` (per leaf, :func:`~atomo_tpu_torch.convert.jax_layouts`)
+    says which leaves the JAX view transposes; by default every 2-D and 4-D
+    one."""
+    views = _views(grads, layouts)
     for idxs in _shape_groups((tuple(v.shape), v.dtype) for v in views).values():
         yield idxs, torch.stack([views[i].reshape(-1) for i in idxs])
+
+
+def _stack_draws(draws: Sequence[Any], idxs: Sequence[int]):
+    """The per-leaf parity draws of a group, stacked: tensors, or dicts of
+    tensors stacked key by key."""
+    first = draws[idxs[0]]
+    if isinstance(first, dict):
+        return {k: torch.stack([draws[i][k] for i in idxs]) for k in first}
+    return torch.stack([draws[i] for i in idxs])
 
 
 def _stack(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -92,32 +121,33 @@ def encode_tree(
     codec: Codec,
     key: int,
     grads: Sequence[torch.Tensor],
-    uniforms: Optional[Sequence[torch.Tensor]] = None,
+    draws: Optional[Sequence[Any]] = None,
+    layouts: Optional[Sequence[bool]] = None,
 ) -> tuple[list, CodecStats]:
     """Encode every leaf of ``grads`` (canonical order, port layout).
 
-    ``uniforms`` (one (n_buckets, bucket_size) tensor per leaf) replaces the
-    codec's own draws: the bit-parity hook through which the tests feed the
-    port the uniforms JAX drew."""
+    ``draws`` (one entry per leaf: a (n_buckets, bucket_size) uniforms tensor
+    for QSGD, a dict of draws for SVD) replaces the codec's own draws: the
+    parity hook through which the tests feed the port what JAX drew."""
     payloads: list = [None] * len(grads)
-    for idxs, x in stack_leaves(grads):
-        u = None if uniforms is None else torch.stack([uniforms[i] for i in idxs])
-        batch = codec.encode_stack(x, [fold_in(key, i) for i in idxs], u)
+    shapes = [tuple(v.shape) for v in _views(grads, layouts)]
+    for idxs, x in stack_leaves(grads, layouts):
+        d = None if draws is None else _stack_draws(draws, idxs)
+        batch = codec.encode_stack(x, [fold_in(key, i) for i in idxs], d,
+                                   shape=shapes[idxs[0]])
         for j, i in enumerate(idxs):
             payloads[i] = type(batch)(*(a[j] for a in batch))
     stats = CodecStats(
-        dense_bytes=sum(g.numel() * g.element_size() for g in grads),
+        dense_bytes=tree_nbytes(grads),
         payload_bytes=sum(payload_nbytes(p) for p in payloads),
     )
     return payloads, stats
 
 
-def decode_tree(
-    codec: Codec, payloads: Sequence[Payload], grads_like: Sequence[torch.Tensor]
-) -> list[torch.Tensor]:
-    """Decode payloads back to gradients shaped like ``grads_like`` (port
-    layout), one codec call per shape group."""
-    shapes = [tuple(jax_view(g).shape) for g in grads_like]
+def _decode_groups(codec: Codec, payloads, grads_like, layouts, decode):
+    """Run ``decode(stacked payload, n, shape) -> (L, n)`` once per shape
+    group and lay each leaf back out like ``grads_like`` (port layout)."""
+    shapes = [tuple(v.shape) for v in _views(grads_like, layouts)]
     out: list = [None] * len(grads_like)
     for (shape, _), idxs in _shape_groups(
         (s, g.dtype) for s, g in zip(shapes, grads_like)
@@ -125,9 +155,42 @@ def decode_tree(
         p0 = payloads[idxs[0]]
         stacked = type(p0)(*(_stack(parts) for parts in
                              zip(*(payloads[i] for i in idxs))))
-        n = grads_like[idxs[0]].numel()
-        vals = codec.decode_stack(stacked, n)
+        vals = decode(stacked, grads_like[idxs[0]].numel(), shape)
         for j, i in enumerate(idxs):
             g = grads_like[i]
-            out[i] = from_jax_view(vals[j].reshape(shape)).to(g.dtype).contiguous()
+            tr = True if layouts is None else layouts[i]
+            out[i] = from_jax_view(vals[j].reshape(shape), tr).to(g.dtype).contiguous()
     return out
+
+
+def decode_tree(
+    codec: Codec, payloads: Sequence[Payload], grads_like: Sequence[torch.Tensor],
+    layouts: Optional[Sequence[bool]] = None,
+) -> list[torch.Tensor]:
+    """Decode payloads back to gradients shaped like ``grads_like`` (port
+    layout), one codec call per shape group."""
+    return _decode_groups(codec, payloads, grads_like, layouts,
+                          lambda p, n, shape: codec.decode_stack(p, n, shape=shape))
+
+
+def decode_mean_tree(
+    codec: Codec, gathered: Sequence[Payload], grads_like: Sequence[torch.Tensor],
+    n_replicas: int, layouts: Optional[Sequence[bool]] = None,
+) -> list[torch.Tensor]:
+    """Decode gathered payloads (each leaf's with a leading replica axis of
+    ``n_replicas``) and average them, one codec call per shape group: the
+    codec's fused ``decode_mean_stack`` where it has one (SVD: one
+    (m, N*k) @ (N*k, n) product), else decode every replica and take the
+    mean over the replica axis."""
+    fused = getattr(codec, "decode_mean_stack", None)
+
+    def mean(stacked, n, shape):
+        if fused is not None:
+            return fused(stacked, n, n_replicas, shape=shape)
+        n_leaves = stacked[0].shape[0]
+        flat = type(stacked)(*(a.reshape(n_leaves * n_replicas, *a.shape[2:])
+                               for a in stacked))
+        vals = codec.decode_stack(flat, n, shape=shape)
+        return vals.reshape(n_leaves, n_replicas, n).mean(dim=1)
+
+    return _decode_groups(codec, gathered, grads_like, layouts, mean)

@@ -23,9 +23,13 @@ class DenseCodec:
     def encode_stack(
         self, x: torch.Tensor, seeds: Sequence[int],
         uniforms: Optional[torch.Tensor] = None,
+        *,
+        shape: Optional[Sequence[int]] = None,
     ) -> DensePayload:
-        del seeds, uniforms
+        del seeds, uniforms, shape
         return DensePayload(values=x.to(torch.float32))
 
-    def decode_stack(self, payload: DensePayload, n: int) -> torch.Tensor:
+    def decode_stack(self, payload: DensePayload, n: int, *,
+                     shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        del shape
         return payload.values.reshape(payload.values.shape[0], n)

@@ -101,9 +101,13 @@ class QsgdCodec:
         x: torch.Tensor,
         seeds: Sequence[int],
         uniforms: Optional[torch.Tensor] = None,
+        *,
+        shape: Optional[Sequence[int]] = None,
     ) -> QsgdPayload:
         """Encode an (L, n) stack of flattened leaves; leaf l draws from
-        ``seeds[l]`` unless ``uniforms`` (L, n_buckets, bucket_size) is given."""
+        ``seeds[l]`` unless ``uniforms`` (L, n_buckets, bucket_size) is given.
+        The leaves' shape does not matter to the codec."""
+        del shape
         x = self._clip(x.to(torch.float32))
         n_leaves, n = x.shape
         g = K.geometry(n, self.bits, self.bucket_size)
@@ -146,8 +150,10 @@ class QsgdCodec:
             scales=scales.view(n_leaves, g.n_buckets),
         )
 
-    def decode_stack(self, payload: QsgdPayload, n: int) -> torch.Tensor:
+    def decode_stack(self, payload: QsgdPayload, n: int, *,
+                     shape: Optional[Sequence[int]] = None) -> torch.Tensor:
         """(L, n) float32 values of a stacked payload."""
+        del shape
         g = K.geometry(n, self.bits, self.bucket_size)
         if self._fused(payload.words):
             return K.unpack_dequantize(

@@ -7,10 +7,14 @@ follows from its module tree:
 * ``nn.Conv2d``: ``kernel`` (HWIO there, OIHW here) and ``bias`` if any;
 * ``nn.Linear``: ``kernel`` ((in, out) there, (out, in) here) and ``bias``;
 * :class:`~atomo_tpu_torch.models.resnet.BatchNorm`: params ``scale`` and
-  ``bias``, batch_stats ``mean`` and ``var``.
+  ``bias``, batch_stats ``mean`` and ``var``;
+* :class:`~atomo_tpu_torch.models.transformer.LayerNorm`: ``scale``;
+* ``nn.Embedding``: ``embedding``, (num, features) on both sides.
 
 :func:`jax_view` / :func:`from_jax_view` are the one place that knows the
-layout difference; the codecs read gradients through them too.
+layout difference; the codecs read gradients through them too. An embedding
+table lies alike in both packages, so its leaf is never transposed:
+:func:`jax_layouts` says, leaf by leaf, which tensors take the view.
 """
 
 from __future__ import annotations
@@ -22,13 +26,17 @@ import torch
 from torch import nn
 
 from atomo_tpu_torch.models.resnet import BatchNorm
+from atomo_tpu_torch.models.transformer import LayerNorm
 
 Tree = dict[str, Any]
 
 
-def jax_view(t: torch.Tensor) -> torch.Tensor:
+def jax_view(t: torch.Tensor, transpose: bool = True) -> torch.Tensor:
     """The JAX package's layout of a port tensor: conv OIHW -> HWIO, linear
-    (out, in) -> (in, out); vectors unchanged."""
+    (out, in) -> (in, out); vectors, and any tensor with ``transpose``
+    False (an embedding table), unchanged."""
+    if not transpose:
+        return t
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)
     if t.dim() == 2:
@@ -36,8 +44,10 @@ def jax_view(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def from_jax_view(t: torch.Tensor) -> torch.Tensor:
+def from_jax_view(t: torch.Tensor, transpose: bool = True) -> torch.Tensor:
     """Inverse of :func:`jax_view`."""
+    if not transpose:
+        return t
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1)
     if t.dim() == 2:
@@ -56,6 +66,14 @@ def _flax_tree(module: nn.Module, collection: str, prefix: str = "") -> Tree:
                 {"scale": "weight", "bias": "bias"} if collection == "params"
                 else {"mean": "running_mean", "var": "running_var"}
             )
+        elif isinstance(child, LayerNorm):
+            if collection != "params":
+                continue
+            leaves = {"scale": "weight"}
+        elif isinstance(child, nn.Embedding):
+            if collection != "params":
+                continue
+            leaves = {"embedding": "weight"}
         elif isinstance(child, (nn.Conv2d, nn.Linear)):
             if collection != "params":
                 continue
@@ -91,6 +109,18 @@ def jax_leaf_order(model: nn.Module) -> list[str]:
     return [name for _, name in _flatten(_flax_tree(model, "params"))]
 
 
+def jax_layouts(model: nn.Module) -> list[bool]:
+    """Per leaf, in :func:`jax_leaf_order`, whether :func:`jax_view`
+    transposes it: False for embedding tables, True otherwise."""
+    return [name not in _untransposed(model) for name in jax_leaf_order(model)]
+
+
+def _untransposed(model: nn.Module) -> set[str]:
+    """state_dict keys of the tensors that lie alike in both packages."""
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, nn.Embedding)}
+
+
 def _get(tree: Tree, path: tuple):
     for k in path:
         tree = tree[k]
@@ -103,10 +133,11 @@ def state_dict_from_jax(
     """The port's state_dict from the JAX package's ``params`` and
     ``batch_stats`` (nested dicts of arrays)."""
     sd: dict[str, torch.Tensor] = {}
+    keep = _untransposed(model)
     for collection, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, name in _flatten(_flax_tree(model, collection)):
             arr = torch.from_numpy(np.array(_get(tree, path), dtype=np.float32))
-            sd[name] = from_jax_view(arr).contiguous()
+            sd[name] = from_jax_view(arr, name not in keep).contiguous()
     return sd
 
 
@@ -116,6 +147,7 @@ def jax_from_state_dict(
     """(params, batch_stats) as nested dicts of numpy arrays, the inverse of
     :func:`state_dict_from_jax`."""
     sd = model.state_dict() if state_dict is None else state_dict
+    keep = _untransposed(model)
     out = []
     for collection in ("params", "batch_stats"):
         tree: Tree = {}
@@ -123,6 +155,7 @@ def jax_from_state_dict(
             node = tree
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = jax_view(sd[name].detach().cpu()).contiguous().numpy()
+            view = jax_view(sd[name].detach().cpu(), name not in keep)
+            node[path[-1]] = view.contiguous().numpy()
         out.append(tree)
     return out[0], out[1]

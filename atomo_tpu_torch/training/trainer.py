@@ -33,6 +33,7 @@ from atomo_tpu_torch.codecs import decode_tree, encode_tree
 from atomo_tpu_torch.convert import jax_leaf_order
 from atomo_tpu_torch.data.pipeline import augment_batch, to_device
 from atomo_tpu_torch.models.resnet import BatchNorm
+from atomo_tpu_torch.models.transformer import LayerNorm
 from atomo_tpu_torch.training.optim import Sgd, SgdState
 from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.metrics import StepMetrics, Timer, accuracy
@@ -56,7 +57,9 @@ def leaf_params(model: nn.Module) -> list[torch.Tensor]:
 def init_params(model: nn.Module, seed: int) -> None:
     """Flax's default initialisers, drawn from one ``torch.Generator``:
     kernels LeCun-normal (truncated at 2 sigma, fan-in of the HWIO/(in, out)
-    kernel), biases zero, BatchNorm scale 1, bias 0, mean 0, var 1."""
+    kernel), biases zero, BatchNorm scale 1, bias 0, mean 0, var 1;
+    embeddings normal with variance 1/features (``nn.Embed``'s
+    ``variance_scaling(1, fan_in, normal, out_axis=0)``), LayerNorm scale 1."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -71,6 +74,10 @@ def init_params(model: nn.Module, seed: int) -> None:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim), generator=gen)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
 
 
 def create_state(model: nn.Module, optimizer: Sgd, seed: int, device) -> TrainState:

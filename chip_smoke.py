@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``python -m atomo_tpu_torch train --network
-ResNet18 --dataset Cifar10 --synthetic --batch-size 128 --code qsgd
---quantization-level 4``, at full width through the CLI's own entry point,
-and holds every hand-written kernel against its plain PyTorch version:
+Drives the port's two paths at full width through the CLI's own entry
+point, ``python -m atomo_tpu_torch train --network ResNet18 --dataset Cifar10
+--synthetic --batch-size 128 --code qsgd --quantization-level 4`` (and
+``--code svd --svd-rank 3``) and ``python -m atomo_tpu_torch lm --layout
+dp-sp --ways 1 --attn-impl ulysses-flash --vocab-size 256 --seq-len 1024
+--width 256 --depth 4 --num-heads 4 --batch-size 16 --code svd``, and holds
+every hand-written kernel against its plain PyTorch version:
 
 1. build: ``nvcc`` compiles ``atomo_tpu_torch/csrc/*.cu`` for sm_90a, one
    process per source, all at once (timed as set-up);
-2. check: each of the four QSGD kernels against its plain version at the
+2. check: the flash-attention kernel against its plain version at the LM
+   recipe's (B 16, H 4, S 1024, D 64), on the head views the model hands it,
+   causal and not (float32 max abs err <= 2e-5), at a ragged S = 1000,
+   with bfloat16 inputs (within 2e-2 of the float32 plain value on the same
+   inputs), and its gradients (within 5e-5); each of the four QSGD kernels
+   against its plain version at the
    ResNet-18 leaf shapes (one stacked launch per shape group, as the trainer
    makes them), for bits 2/4/8 (qsgd) and 1 (terngrad): words and codes bit
    for bit, scales within rtol 1e-6, decoded values bit for bit; the
@@ -18,20 +26,25 @@ and holds every hand-written kernel against its plain PyTorch version:
    over 64 seeds within 4 * scale / levels / sqrt(64) of the input
    (unbiasedness); a LeNet train step on the card against the same step on
    the CPU (TF32 off; loss rtol 1e-4, params within 1e-5 plus one
-   quantization step times lr);
-3. train: 5 steps with ``qsgd`` (then a validation pass), 2 with
+   quantization step times lr); a small LM step (width 128, depth 2) on the
+   card against the same step on the CPU, and the SVD codec's decode of a
+   recipe leaf on the card against the CPU given the same draws;
+3. train: ResNet-18 5 steps with ``qsgd`` (then a validation pass), 2 with
    ``terngrad``, 2 with ``--qsgd-path pack`` (torch quantizer, pack/unpack
-   kernels), 5 with ``sgd`` (no codec, for the step-time baseline). Each run
-   sets the launch counts to 0 before it and reads them after; the losses
-   must be finite and fall over the qsgd run, and every kernel of a run's path
-   must have launched in it;
+   kernels), 3 with ``sgd`` (no codec, for the step-time baseline), 3 with
+   ``svd`` at rank 3 (no kernel: torch linear algebra); the LM 5 steps with
+   ``svd`` (auto rank 24) and 3 with ``sgd``. Each run sets the launch counts
+   to 0 before it and reads them after; the losses must be finite and fall
+   over the qsgd and LM svd runs, every kernel of a run's path must have
+   launched in it, and the flash kernel exactly once per layer per step;
 4. time: each kernel's launches of one train step (every shape group of
-   ResNet-18 at bits 4), by CUDA events, median of 20, beside the plain
-   version's time and the bound (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s, the larger);
-5. profile: three qsgd steps under ``torch.profiler``: wall and device-busy
-   time per step, the device's idle share, each ``step.*`` phase's time, and
-   the kernels that take the most.
+   ResNet-18 at bits 4; the LM's four flash launches), by CUDA events,
+   median of 20, beside the plain version's time, the bound (bytes over
+   3.35 TB/s or operations over 67 TFLOP/s, the larger) and, for flash
+   attention, ``F.scaled_dot_product_attention`` on the same tensors;
+5. profile: three qsgd ResNet-18 steps and three svd LM steps under
+   ``torch.profiler``: wall and device-busy time per step, the device's idle
+   share, each ``step.*`` phase's time, and the kernels that take the most.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
@@ -57,10 +70,20 @@ REPLACES = {
     "unpack_dequantize": "atomo_tpu/ops/qsgd_kernels.py:387",
     "pack_bucketed": "atomo_tpu/ops/qsgd_kernels.py:323",
     "unpack_bucketed": "atomo_tpu/ops/qsgd_kernels.py:363",
+    "flash_attention": "atomo_tpu/ops/attention_kernels.py:164",
 }
+SOURCES = {name: "atomo_tpu_torch/csrc/qsgd_kernels.cu" for name in REPLACES}
+SOURCES["flash_attention"] = "atomo_tpu_torch/csrc/flash_attention.cu"
 TRAIN_ARGS = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
               "--batch-size", "128", "--quantization-level", "4", "--lr", "0.01",
               "--momentum", "0.9", "--seed", "1", "--log-interval", "1", "--device", "cuda"]
+# the canonical LM recipe (scripts/run_lm_tpu.sh) on one card
+LM_DEPTH = 4
+LM_SHAPE = (16, 4, 1024, 64)  # (B, H, S, D) the flash kernel sees
+LM_ARGS = ["lm", "--layout", "dp-sp", "--ways", "1", "--attn-impl", "ulysses-flash",
+           "--vocab-size", "256", "--seq-len", "1024", "--width", "256", "--depth",
+           str(LM_DEPTH), "--num-heads", "4", "--batch-size", "16", "--lr", "0.1",
+           "--momentum", "0.9", "--seed", "0", "--log-interval", "1", "--device", "cuda"]
 
 
 def log(*parts):
@@ -258,32 +281,147 @@ def phase_reference():
         torch.backends.cudnn.allow_tf32 = True
 
 
-def run_cli(extra, expect):
-    """One CLI run with the launch counts set to 0 before and read after."""
+def lm_heads(shape=LM_SHAPE, dtype=None, seed: int = 0):
+    """q, k, v as the LM hands them to the kernel: (B, H, S, D) views of one
+    (B, S, 3*H*D) projection, strided, not copied."""
     import torch
 
-    from atomo_tpu_torch import cli
-    from atomo_tpu_torch.ops import qsgd_kernels as K
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
+    if dtype is not None:
+        qkv = qkv.to(dtype)
+    return [t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+
+
+def phase_flash_check(errs):
+    """The flash kernel against its plain version, at the LM recipe's shape
+    and the blocks the path gives it (512)."""
+    import torch
+
+    from atomo_tpu_torch.ops import attention_kernels as A
+
+    blk = dict(block_q=512, block_k=512)
+    cases = [("recipe", LM_SHAPE, True), ("recipe", LM_SHAPE, False),
+             ("ragged", (4, 4, 1000, 64), True), ("ragged", (4, 4, 1000, 64), False)]
+    for label, shape, causal in cases:
+        q, k, v = lm_heads(shape, seed=1)
+        err = float((A.flash_attention_forward(q, k, v, causal=causal, **blk)
+                     - A.flash_attention_plain(q, k, v, causal=causal, **blk)).abs().max())
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        if not err <= 2e-5:
+            raise AssertionError(f"flash {label} {shape} causal={causal}: max abs err {err}")
+        log(f"check: flash {label} {shape} causal={causal}: max abs err {err:.3e} (<= 2e-5)")
+    q, k, v = lm_heads(dtype=torch.bfloat16, seed=2)
+    got = A.flash_attention_forward(q, k, v, causal=True, **blk)
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, **blk)
+    err = float((got.float() - want).abs().max())
+    if got.dtype != torch.bfloat16 or not err <= 2e-2:
+        raise AssertionError(f"flash bf16: {got.dtype}, max abs err {err}")
+    log(f"check: flash bf16 inputs: max abs err {err:.3e} against float32 (<= 2e-2)")
+    for causal in (True, False):
+        grads = []
+        for fn in (A.flash_attention, A.flash_attention_plain):
+            q, k, v = (t.detach().requires_grad_() for t in lm_heads(seed=3))
+            w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                            device="cuda")
+            (fn(q, k, v, causal=causal, **blk) * w).sum().backward()
+            grads.append([q.grad, k.grad, v.grad])
+        err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        if not err <= 5e-5:
+            raise AssertionError(f"flash gradients causal={causal}: max abs err {err}")
+        log(f"check: flash gradients causal={causal}: max abs err {err:.3e} (<= 5e-5)")
+
+
+def phase_reference_lm():
+    """A small LM step (sgd) on the card against the same step on the CPU,
+    and one recipe leaf's SVD encode/decode on the card against the CPU
+    given the same draws. TF32 off; loss rtol 1e-4, params atol 1e-5, the
+    decoded leaf within 1e-4 of its Frobenius norm: the Gram eigh squares
+    the spectrum, so atoms from the sketch's noise floor, which the sampler
+    does draw, carry the two solvers' float32 differences: an entrywise rtol
+    1e-4 plus 1e-5 of the leaf's largest entry did not hold on the card."""
+    import copy
+
+    import torch
+
+    from atomo_tpu_torch.codecs import SvdCodec
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel.lm import make_lm_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dict(vocab_size=256, max_len=256, width=128, depth=2, num_heads=2)
+        opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+        base = TransformerLM(**cfg)
+        tokens = torch.randint(0, 256, (4, 256), generator=torch.Generator().manual_seed(6))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            state = create_state(copy.deepcopy(base), opt, 5, dev)
+            step = make_lm_train_step(state.model, opt, None, attn_impl="ulysses-flash")
+            _, m = step(state, 1, tokens.to(dev))
+            res[dev] = (float(m["loss"]), [p.detach().cpu() for p in leaf_params(state.model)])
+        worst = max(float((a - b).abs().max()) for a, b in zip(res["cpu"][1], res["cuda"][1]))
+        if not (math.isclose(res["cpu"][0], res["cuda"][0], rel_tol=1e-4) and worst <= 1e-5):
+            raise AssertionError(f"LM step cpu vs cuda: loss {res['cpu'][0]} vs "
+                                 f"{res['cuda'][0]}, params {worst}")
+        log(f"reference: LM step (width 128, depth 2), cuda vs cpu: loss {res['cuda'][0]:.6f} "
+            f"vs {res['cpu'][0]:.6f}, max |param diff| {worst:.3e}")
+
+        codec, shape = SvdCodec(rank=24), (256, 768)  # an LM qkv leaf, randomized
+        _, n = codec._dims(shape)
+        gen = torch.Generator().manual_seed(8)
+        # a gradient-like leaf: a geometric spectrum (0.7^i) over a 1e-3 noise floor
+        u, _ = torch.linalg.qr(torch.randn((shape[0], 256), generator=gen, dtype=torch.float64))
+        v, _ = torch.linalg.qr(torch.randn((shape[1], 256), generator=gen, dtype=torch.float64))
+        x = ((u * 0.7 ** torch.arange(256)) @ v.T).float()
+        x += 1e-3 * torch.randn(shape, generator=gen)
+        sk = codec.rank + codec.oversample
+        draws = {"sketch": torch.randn((n, sk), generator=gen),
+                 "gumbel": -torch.log(-torch.log(torch.rand((codec.rank, sk), generator=gen))),
+                 "probes": (torch.randint(0, 2, (n, codec.residual_probes), generator=gen)
+                            * 2 - 1).float()}
+        dec = {dev: codec.decode(codec.encode(0, x.to(dev), draws=draws), shape).cpu()
+               for dev in ("cpu", "cuda")}
+        err = float((dec["cuda"] - dec["cpu"]).abs().max())
+        rel = float(torch.linalg.norm(dec["cuda"] - dec["cpu"]) / torch.linalg.norm(dec["cpu"]))
+        if not rel <= 1e-4:
+            raise AssertionError(f"svd decode cpu vs cuda: relative Frobenius diff {rel}")
+        log(f"reference: svd rank 24 decode of a {shape} leaf, cuda vs cpu: relative "
+            f"Frobenius diff {rel:.3e} (<= 1e-4), max abs diff {err:.3e}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def run_cli(argv, expect, prefix="Worker: "):
+    """One CLI run with every launch count set to 0 before and read after;
+    ``prefix`` marks the per-step log lines."""
+    import torch
+
+    from atomo_tpu_torch import cli, ops
 
     lines: list[str] = []
-    K.reset_launch_counts()
+    ops.reset_launch_counts()
     t0 = time.time()
-    rc = cli.main(TRAIN_ARGS + extra, log_fn=lambda ln: (lines.append(ln), log("  " + ln)))
+    rc = cli.main(argv, log_fn=lambda ln: (lines.append(ln), log("  " + ln)))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = K.launch_counts()
+    counts = ops.launch_counts()
     if rc != 0:
         raise AssertionError(f"cli returned {rc}")
-    worker = [ln for ln in lines if ln.startswith("Worker: ")]
+    worker = [ln for ln in lines if ln.startswith(prefix)]
     losses = [float(ln.split("Loss: ")[1].split(",")[0]) for ln in worker]
     step_s = [float(ln.split("Time Cost: ")[1].split(",")[0]) for ln in worker]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite or missing losses {losses}")
     for name in expect:
         if counts[name] <= 0:
-            raise AssertionError(f"{name} never launched in {extra}: {counts}")
+            raise AssertionError(f"{name} never launched in {argv}: {counts}")
     for ln in lines:
-        if ln.startswith("Validation: "):
+        if ln.startswith(("Validation: ", "LM Validation: ")):
             if not all(math.isfinite(float(v.split(",")[0])) for v in ln.split(": ")[2:]):
                 raise AssertionError(f"bad validation line {ln}")
     return {"losses": losses, "step_ms": [1e3 * s for s in step_s], "launches": counts,
@@ -291,20 +429,37 @@ def run_cli(extra, expect):
 
 
 def phase_train():
+    qsgd = ["quantize_pack", "unpack_dequantize"]
     runs = {
-        "qsgd": run_cli(["--code", "qsgd", "--max-steps", "5", "--eval-freq", "5"],
-                        ["quantize_pack", "unpack_dequantize"]),
-        "terngrad": run_cli(["--code", "terngrad", "--max-steps", "2", "--eval-freq", "0"],
-                            ["quantize_pack", "unpack_dequantize"]),
-        "qsgd_pack": run_cli(["--code", "qsgd", "--qsgd-path", "pack", "--max-steps", "2",
-                              "--eval-freq", "0"], ["pack_bucketed", "unpack_bucketed"]),
-        "sgd": run_cli(["--code", "sgd", "--max-steps", "5", "--eval-freq", "0"], []),
+        "qsgd": run_cli(TRAIN_ARGS + ["--code", "qsgd", "--max-steps", "5", "--eval-freq", "5"],
+                        qsgd),
+        "terngrad": run_cli(TRAIN_ARGS + ["--code", "terngrad", "--max-steps", "2",
+                                          "--eval-freq", "0"], qsgd),
+        "qsgd_pack": run_cli(TRAIN_ARGS + ["--code", "qsgd", "--qsgd-path", "pack",
+                                           "--max-steps", "2", "--eval-freq", "0"],
+                             ["pack_bucketed", "unpack_bucketed"]),
+        "sgd": run_cli(TRAIN_ARGS + ["--code", "sgd", "--max-steps", "3", "--eval-freq", "0"],
+                       []),
+        "svd3": run_cli(TRAIN_ARGS + ["--code", "svd", "--svd-rank", "3", "--max-steps", "3",
+                                      "--eval-freq", "0"], []),
+        "lm_svd": run_cli(LM_ARGS + ["--code", "svd", "--max-steps", "5"], ["flash_attention"],
+                          prefix="LM: "),
+        "lm_sgd": run_cli(LM_ARGS + ["--code", "sgd", "--max-steps", "3"], ["flash_attention"],
+                          prefix="LM: "),
     }
-    q = runs["qsgd"]["losses"]
-    if not q[-1] < q[0]:
-        raise AssertionError(f"qsgd loss did not fall: {q}")
-    if any(runs["sgd"]["launches"].values()):
-        raise AssertionError(f"dense run launched codec kernels: {runs['sgd']['launches']}")
+    for name in ("qsgd", "lm_svd"):
+        q = runs[name]["losses"]
+        if not q[-1] < q[0]:
+            raise AssertionError(f"{name} loss did not fall: {q}")
+    for name in ("sgd", "svd3"):  # no kernel on these paths
+        if any(runs[name]["launches"].values()):
+            raise AssertionError(f"{name} run launched kernels: {runs[name]['launches']}")
+    for name, steps in (("lm_svd", 5), ("lm_sgd", 3)):
+        counts = runs[name]["launches"]
+        if counts["flash_attention"] != LM_DEPTH * steps or sum(counts.values()) != \
+                counts["flash_attention"]:
+            raise AssertionError(f"{name}: launches {counts}, want flash_attention "
+                                 f"{LM_DEPTH} x {steps} and nothing else")
     for name, r in runs.items():
         steady = r["step_ms"][1:] or r["step_ms"]
         r["median_step_ms_after_first"] = statistics.median(steady)
@@ -376,29 +531,49 @@ def phase_time(stacks):
     return out
 
 
-def phase_profile(steps: int = 3):
-    """Where a qsgd step's time goes: ``torch.profiler`` over ``steps``
-    ResNet-18 steps (batch 128, after two warm-up steps), the device's busy
-    time (sum of kernel times) against the host's wall time, each ``step.*``
-    phase's host time and its span on the device's timeline, and the
-    kernels that take the most."""
+def phase_time_flash():
+    """The flash kernel's launches of one LM train step (one per layer) on
+    the recipe's head views, against its plain version and the one PyTorch
+    call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from atomo_tpu_torch.ops import attention_kernels as A
+
+    q, k, v = lm_heads(seed=5)
+    blk = dict(block_q=512, block_k=512)
+
+    def per_step(fn):
+        return lambda: [fn() for _ in range(LM_DEPTH)]
+
+    b, h, s, d = LM_SHAPE
+    nbytes = LM_DEPTH * 4 * b * h * s * d * 4  # read q, k, v, write o, float32
+    ops = LM_DEPTH * 4 * b * h * d * s * (s + 1) // 2  # q.k and p.v over the causal pairs
+    ms = cuda_ms(per_step(lambda: A.flash_attention_forward(q, k, v, causal=True, **blk)))
+    plain_ms = cuda_ms(per_step(lambda: A.flash_attention_plain(q, k, v, causal=True, **blk)),
+                       reps=5, warmup=1)
+    with torch.no_grad():
+        library_ms = cuda_ms(per_step(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)))
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"time flash_attention: {ms:.4f} ms per step ({LM_DEPTH} launches), plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "ops": ops, "launches_per_step": LM_DEPTH}
+
+
+def profile_steps(label: str, step_once, steps: int = 3):
+    """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
+    ``step_once()`` (after two warm-up calls), the device's busy time (sum of
+    kernel times) against the host's wall time, each ``step.*`` phase's host
+    time and its span on the device's timeline, and the kernels that take
+    the most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from atomo_tpu_torch.codecs import QsgdCodec
-    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
-    from atomo_tpu_torch.models import get_model
-    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
-
-    spec = SPECS["cifar10"]
-    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
-    state = create_state(get_model("resnet18", 10, image_shape=spec.image_shape), opt, 1,
-                         "cuda")
-    step = make_train_step(state.model, opt, codec=QsgdCodec(bits=4), augment=True)
-    it = BatchIterator(synthetic_dataset(spec, True), 128, seed=1).epoch()
-    batches = [to_device(*next(it), "cuda") for _ in range(steps + 2)]
-    for x, y in batches[:2]:
-        state, m = step(state, 2, x, y)
+    for _ in range(2):
+        step_once()
     torch.cuda.synchronize()
 
     def dev_us(e):
@@ -406,9 +581,8 @@ def phase_profile(steps: int = 3):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for x, y in batches[2:]:
-            state, m = step(state, 2, x, y)
-            float(m["loss"])
+        for _ in range(steps):
+            step_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
@@ -432,14 +606,61 @@ def phase_profile(steps: int = 3):
            "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / steps,
                             "count_per_step": e.count / steps} for e in top]}
     if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    log(f"profile: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, idle "
-        f"share {out['device_idle_share']:.3f}")
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    log(f"profile {label}: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
+        f"idle share {out['device_idle_share']:.3f}")
     for k, v in sorted(phases.items()):
-        log(f"profile phase {k}: host {v['host_ms']:.3f} ms, device span "
+        log(f"profile {label} phase {k}: host {v['host_ms']:.3f} ms, device span "
             f"{v['device_span_ms']:.3f} ms")
     for t in out["top_kernels"]:
-        log(f"profile kernel {t['ms_per_step']:.3f} ms x{t['count_per_step']:.0f} {t['name']}")
+        log(f"profile {label} kernel {t['ms_per_step']:.3f} ms x{t['count_per_step']:.0f} "
+            f"{t['name']}")
+    return out
+
+
+def phase_profile():
+    """Three qsgd ResNet-18 steps (batch 128) and three svd LM steps at the
+    recipe, each under the profiler."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, SvdCodec
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.lm import create_lm_state, make_lm_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    spec = SPECS["cifar10"]
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    box = {"state": create_state(get_model("resnet18", 10, image_shape=spec.image_shape),
+                                 opt, 1, "cuda")}
+    step = make_train_step(box["state"].model, opt, codec=QsgdCodec(bits=4), augment=True)
+    it = BatchIterator(synthetic_dataset(spec, True), 128, seed=1).epoch()
+    batches = [to_device(*next(it), "cuda") for _ in range(5)]
+
+    def resnet_step():
+        x, y = batches[box.setdefault("i", 0) % len(batches)]
+        box["i"] += 1
+        box["state"], m = step(box["state"], 2, x, y)
+        float(m["loss"])
+
+    out = {"resnet18_qsgd4": profile_steps("resnet18 qsgd", resnet_step)}
+    del box, step, batches
+
+    lm_opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+    cfg = dict(vocab_size=256, max_len=LM_SHAPE[2], width=256, depth=LM_DEPTH, num_heads=4)
+    lm = {"state": create_lm_state(cfg, lm_opt, 0, "cuda"), "i": 0}
+    lm_step = make_lm_train_step(lm["state"].model, lm_opt, SvdCodec(rank=24),
+                                 attn_impl="ulysses-flash")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = [torch.randint(0, 256, (LM_SHAPE[0], LM_SHAPE[2]), generator=gen, device="cuda")
+              for _ in range(5)]
+
+    def lm_step_once():
+        lm["i"] += 1
+        lm["state"], m = lm_step(lm["state"], lm["i"], tokens[lm["i"] % len(tokens)])
+        float(m["loss"])
+
+    out["lm_svd24"] = profile_steps("lm svd", lm_step_once)
     return out
 
 
@@ -465,20 +686,23 @@ def main() -> int:
     log(f"ResNet-18 leaves: {sum(len(i) for i, _ in stacks)} in {len(stacks)} shape groups, "
         f"{sum(x.numel() for _, x in stacks)} values")
     errs = {name: 0.0 for name in REPLACES}
+    phase_flash_check(errs)
     phase_check(stacks, errs)
     phase_unbiased(stacks)
     phase_reference()
+    phase_reference_lm()
     runs = phase_train()
     times = phase_time(stacks)
+    times["flash_attention"] = phase_time_flash()
     prof = phase_profile()
 
     launches = {name: sum(r["launches"][name] for r in runs.values()) for name in REPLACES}
     kernels = [{
-        "name": name, "route": "cuda", "source": "atomo_tpu_torch/csrc/qsgd_kernels.cu",
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-        "library_ms": None,
+        "library_ms": times[name].get("library_ms"),
     } for name in REPLACES]
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "seconds": time.time() - t_start}

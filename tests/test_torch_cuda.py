@@ -109,3 +109,115 @@ def test_wrappers_check_their_inputs(dev):
         K.quantize_pack(x, bits=4, seeds=[1, 2], u=torch.rand((2, 2, 7), device=dev))
     with pytest.raises(ValueError):
         QsgdCodec(bits=4, use_kernel=False, pack_kernel=False).encode(0, x[0])
+
+
+# ------------------------------------------------------------ flash attention
+#
+# The kernel against its plain twin (flash_attention_plain) on the card. Both
+# accumulate in float32 in other orders: float32 outputs agree within 2e-5;
+# bfloat16 outputs within 2e-2 of the twin's float32 value on the same
+# (bfloat16) inputs; gradients, which both take through the blockwise oracle
+# from the kernel's or the twin's forward, within 5e-5.
+
+from atomo_tpu_torch.ops import attention_kernels as A  # noqa: E402
+
+RECIPE = (16, 4, 1024, 64)  # the LM recipe's (B, H, S, D)
+
+
+def _qkv(dev, shape, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [RECIPE, (2, 3, 1000, 64), (2, 2, 300, 32), (2, 2, 257, 128)],
+                         ids=["recipe", "ragged", "d32", "d128"])
+def test_flash_matches_plain(dev, shape, causal):
+    q, k, v = _qkv(dev, shape)
+    A.reset_launch_counts()
+    got = A.flash_attention_forward(q, k, v, causal=causal, block_q=512, block_k=512)
+    want = A.flash_attention_plain(q, k, v, causal=causal, block_q=512, block_k=512)
+    torch.cuda.synchronize()
+    assert A.launch_counts() == {"flash_attention": 1}
+    assert got.shape == shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_flash_bf16_inputs(dev):
+    q, k, v = _qkv(dev, RECIPE, torch.bfloat16, seed=1)
+    got = A.flash_attention_forward(q, k, v, causal=True)
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def test_flash_reads_strided_head_views(dev):
+    b, h, s, d = 2, 4, 200, 64
+    qkv = torch.randn((b, s, 3 * h * d), device=dev)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    got = A.flash_attention_forward(q, k, v, causal=True)
+    want = A.flash_attention_plain(q, k, v, causal=True)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradients_match_plain(dev, causal):
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, (2, 2, 300, 64), seed=2))
+    A.flash_attention(q, k, v, causal=causal, block_q=128, block_k=128).square().sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    A.flash_attention_plain(q, k, v, causal=causal, block_q=128, block_k=128).square().sum().backward()
+    for a, b in zip(got, (q.grad, k.grad, v.grad)):
+        assert float((a - b).abs().max()) <= 5e-5
+
+
+def test_flash_wrapper_checks_its_inputs(dev):
+    q, k, v = _qkv(dev, (1, 2, 64, 64))
+    with pytest.raises(TypeError):
+        A.flash_attention_forward(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        A.flash_attention_forward(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="share one device"):
+        A.flash_attention_forward(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="shape"):
+        A.flash_attention_forward(q, k[:, :, :32], v)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention_forward(*(t[..., :48].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="unit stride"):
+        A.flash_attention_forward(*(t.transpose(2, 3) for t in (q, k, v)))
+
+
+def test_lm_step_launches_the_kernel_once_per_layer_and_matches_the_cpu(dev):
+    """A small LM train step (sgd) on the card: the flash kernel launches
+    once per layer, and the step equals the CPU's (plain twin) within loss
+    rtol 1e-4 and params atol 1e-5 (TF32 off)."""
+    import copy
+
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel.lm import make_lm_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    cfg = dict(vocab_size=64, max_len=128, width=128, depth=2, num_heads=2)
+    opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+    base = TransformerLM(**cfg)
+    tokens = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for d in ("cpu", dev):
+            state = create_state(copy.deepcopy(base), opt, 1, d)
+            step = make_lm_train_step(state.model, opt, None, attn_impl="ulysses-flash")
+            A.reset_launch_counts()
+            _, m = step(state, 1, tokens.to(d))
+            out[str(d)] = (float(m["loss"]), [p.detach().cpu() for p in leaf_params(state.model)],
+                           A.launch_counts()["flash_attention"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out["cpu"][2] == 0 and out["cuda"][2] == cfg["depth"]
+    assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert float((a - b).abs().max()) <= 1e-5

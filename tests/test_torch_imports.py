@@ -63,6 +63,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--network", "LeNet", "--dataset", "MNIST", "--synthetic",
                   "--max-steps", "1"], log_fn=lambda line: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["lm", "--layout", "dp-sp", "--ways", "1", "--attn-impl", "ulysses-flash",
+                  "--max-steps", "1"], log_fn=lambda line: None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
