@@ -16,15 +16,19 @@ with the JAX package:
   table as it lies; ``layouts`` says per leaf whether the view transposes), so
   a payload of the port decodes in the JAX package and the reverse, given the
   same random draws;
-* same-shape leaves are stacked into one codec call (one kernel launch), the
-  counterpart of ``encode_leaf_subset``'s vmap over shape groups.
+* same-shape leaves are stacked into one codec call, the counterpart of
+  ``encode_leaf_subset``'s vmap over shape groups; a codec with a tree-wide
+  encode takes every leaf in one call instead (QSGD: one kernel launch over
+  the whole tree, with no stack copied).
 
 A codec implements ``encode_stack(x, seeds, draws, shape=...)`` over an
 (L, n) stack of flattened leaves of one JAX-layout ``shape`` and
 ``decode_stack(payload, n, shape=...)``; its payload is a NamedTuple of
 tensors with a leading L axis. ``draws`` is the codec's parity hook (QSGD:
 its uniforms; SVD: a dict of its random draws), ``None`` in training.
-A codec may add ``decode_mean_stack`` for a fused mean over replicas.
+A codec may add ``encode_leaves(views, seeds, draws)``, which encodes the
+JAX-layout views of all leaves at once and returns one payload per leaf, and
+``decode_mean_stack`` for a fused mean over replicas.
 """
 
 from __future__ import annotations
@@ -91,11 +95,14 @@ def _views(tensors: Sequence[torch.Tensor], layouts: Optional[Sequence[bool]]):
 def stack_leaves(grads: Sequence[torch.Tensor], layouts: Optional[Sequence[bool]] = None):
     """Yield ``(leaf indices, (L, n) stack)`` per shape group: the leaves of
     one JAX-layout shape and dtype, each flattened in the JAX layout, in
-    first-seen order. One group is one codec call (one kernel launch).
+    first-seen order. One group is one ``encode_stack`` call.
     ``layouts`` (per leaf, :func:`~atomo_tpu_torch.convert.jax_layouts`)
     says which leaves the JAX view transposes; by default every 2-D and 4-D
     one."""
-    views = _views(grads, layouts)
+    return _stacks(_views(grads, layouts))
+
+
+def _stacks(views: Sequence[torch.Tensor]):
     for idxs in _shape_groups((tuple(v.shape), v.dtype) for v in views).values():
         yield idxs, torch.stack([views[i].reshape(-1) for i in idxs])
 
@@ -117,6 +124,24 @@ def _stack(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(list(parts))
 
 
+def encode_groups(
+    codec: Codec,
+    views: Sequence[torch.Tensor],
+    seeds: Sequence[int],
+    draws: Optional[Sequence[Any]] = None,
+) -> list:
+    """One ``encode_stack`` call per shape group of the JAX-layout ``views``
+    (leaf ``i`` draws from ``seeds[i]``); one payload per leaf."""
+    payloads: list = [None] * len(views)
+    for idxs, x in _stacks(views):
+        d = None if draws is None else _stack_draws(draws, idxs)
+        batch = codec.encode_stack(x, [seeds[i] for i in idxs], d,
+                                   shape=tuple(views[idxs[0]].shape))
+        for j, i in enumerate(idxs):
+            payloads[i] = type(batch)(*(a[j] for a in batch))
+    return payloads
+
+
 def encode_tree(
     codec: Codec,
     key: int,
@@ -124,19 +149,20 @@ def encode_tree(
     draws: Optional[Sequence[Any]] = None,
     layouts: Optional[Sequence[bool]] = None,
 ) -> tuple[list, CodecStats]:
-    """Encode every leaf of ``grads`` (canonical order, port layout).
+    """Encode every leaf of ``grads`` (canonical order, port layout): in one
+    ``encode_leaves`` call where the codec has one, else one ``encode_stack``
+    call per shape group.
 
     ``draws`` (one entry per leaf: a (n_buckets, bucket_size) uniforms tensor
     for QSGD, a dict of draws for SVD) replaces the codec's own draws: the
     parity hook through which the tests feed the port what JAX drew."""
-    payloads: list = [None] * len(grads)
-    shapes = [tuple(v.shape) for v in _views(grads, layouts)]
-    for idxs, x in stack_leaves(grads, layouts):
-        d = None if draws is None else _stack_draws(draws, idxs)
-        batch = codec.encode_stack(x, [fold_in(key, i) for i in idxs], d,
-                                   shape=shapes[idxs[0]])
-        for j, i in enumerate(idxs):
-            payloads[i] = type(batch)(*(a[j] for a in batch))
+    views = _views(grads, layouts)
+    seeds = [fold_in(key, i) for i in range(len(views))]
+    encode_leaves = getattr(codec, "encode_leaves", None)
+    if encode_leaves is not None:
+        payloads = encode_leaves(views, seeds, draws)
+    else:
+        payloads = encode_groups(codec, views, seeds, draws)
     stats = CodecStats(
         dense_bytes=tree_nbytes(grads),
         payload_bytes=sum(payload_nbytes(p) for p in payloads),

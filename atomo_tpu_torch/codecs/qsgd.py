@@ -9,7 +9,10 @@ Two interchangeable encode/decode paths share that format:
 * the fused kernels (``use_kernel``): scale, stochastic rounding, coding and
   packing in one CUDA kernel, decode in another. ``use_kernel=None`` picks
   them for CUDA tensors; on CPU tensors ``use_kernel=True`` runs their plain
-  twins, whose arithmetic is the Pallas kernels';
+  twins, whose arithmetic is the Pallas kernels'. :meth:`QsgdCodec.encode_leaves`
+  encodes a whole gradient tree with one launch of the encode kernel, its
+  seeds in the launch's arguments, so the encode never waits for the card;
+  the decode runs once per shape group;
 * torch ops for the quantizer (the counterpart of the JAX codec's jnp path)
   with the bit-pack stage as the pack/unpack kernels (:func:`pack_bucketed`
   / :func:`unpack_bucketed`, whose plain versions run for CPU tensors).
@@ -31,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from atomo_tpu_torch.codecs.base import encode_groups
 from atomo_tpu_torch.ops import qsgd_kernels as K
 from atomo_tpu_torch.ops.qsgd_kernels import (  # noqa: F401
     pack_bucketed,
@@ -89,11 +93,21 @@ class QsgdCodec:
                 "tensors only; on CUDA the codec packs with the kernel"
             )
 
-    def _clip(self, x: torch.Tensor) -> torch.Tensor:
+    def _clip_leaf(self, x: torch.Tensor) -> torch.Tensor:
+        """TernGrad's clip of one flat leaf at 2.5 sigma of the whole leaf
+        (population std, as jnp.std); other schemes pass x through. Taken
+        leaf by leaf in both encode paths, so that the tree launch and the
+        per-group stacks see the same limit to the bit: a reduction over an
+        (L, n) stack may sum in another order than over one leaf."""
         if self.scheme == "terngrad":
-            # clip at 2.5 sigma of the whole leaf; population std as jnp.std
-            limit = 2.5 * torch.std(x, dim=1, correction=0, keepdim=True)
+            limit = 2.5 * torch.std(x, correction=0)
             return torch.clamp(x, -limit, limit)
+        return x
+
+    def _clip(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`_clip_leaf` of each row of an (L, n) stack."""
+        if self.scheme == "terngrad":
+            return torch.stack([self._clip_leaf(row) for row in x])
         return x
 
     def encode_stack(
@@ -149,6 +163,25 @@ class QsgdCodec:
             words=words.view(n_leaves, g.n_buckets, g.n_words),
             scales=scales.view(n_leaves, g.n_buckets),
         )
+
+    def encode_leaves(
+        self,
+        views: Sequence[torch.Tensor],
+        seeds: Sequence[int],
+        uniforms: Optional[Sequence[torch.Tensor]] = None,
+    ) -> list[QsgdPayload]:
+        """Encode every leaf of a tree (JAX-layout views of any shapes; leaf i
+        draws from ``seeds[i]`` unless ``uniforms[i]`` is given). The fused
+        path is one :func:`quantize_pack_tree` call (one launch on the card);
+        the torch quantizer stays one call per shape group."""
+        if not self._fused(views[0]):
+            return encode_groups(self, views, seeds, uniforms)
+        leaves = [self._clip_leaf(v.reshape(-1).to(torch.float32)) for v in views]
+        out = K.quantize_pack_tree(
+            leaves, bits=self.bits, bucket_size=self.bucket_size, scheme=self.scheme,
+            seeds=None if uniforms is not None else seeds, u=uniforms,
+        )
+        return [QsgdPayload(words=w, scales=s) for w, s in out]
 
     def decode_stack(self, payload: QsgdPayload, n: int, *,
                      shape: Optional[Sequence[int]] = None) -> torch.Tensor:

@@ -14,9 +14,16 @@
 // word w at bit j * (bits + 1) (the planar layout). A code is
 // (sign << bits) | level, level in [0, 2^bits - 1].
 //
-// Several leaves of one shape are stacked into one launch: x is (L, n)
-// row-major, words (L * nb, nw), scales (L * nb). Bucket row g belongs to leaf
-// g / nb; positions past bs and values past n code as 0.
+// One launch encodes a whole gradient tree: the leaves ride in the kernel's
+// arguments as a table (pointer to the leaf's contiguous JAX-layout values,
+// n, its first bucket row, its Philox seed, optionally its uniforms), passed
+// by value (CUDA 12.1+ takes 32 KB of parameters on Hopper), so the launch
+// needs no copy to the device and no host sync. The words (rows, nw) and
+// scales (rows) of all leaves go to one flat buffer each; row g belongs to
+// the leaf l with row0[l] <= g < row0[l + 1], and positions past bs and
+// values past the leaf's n code as 0. The (L, n) stack of equal leaves is the
+// same kernel over L table entries. The decode kernels still take an (L, n)
+// stack of one shape: x (L * nb, nw) words -> (L, n).
 //
 // Bound. Every kernel here is bound by device-memory bytes: the encode reads
 // 4 bytes per value (plus 4 per value when uniforms are given) and writes about
@@ -24,15 +31,17 @@
 // handful of integer ones per value, far below the card's ~20 operations per
 // byte. At ResNet-18 widths (11.2 M values, bits 4) the encode moves ~52 MB:
 // ~16 us at 3.35 TB/s. What the design does about it:
-//   * one pass over the gradient per bucket block: the scale reduction and the
-//     packing read the same 2 KB bucket, the second read hits L1/L2;
+//   * one launch over all 62 leaves of a ResNet-18 step (it took 17 launches,
+//     one per shape group, each behind a blocking copy of its seeds);
+//   * one warp per bucket: lane l owns words l, l + 32, ...; the scale's
+//     reduction keeps the order of the earlier 2^k-thread block (see
+//     quantize_pack_kernel) with registers and shuffles, no __syncthreads;
+//     the second read of the bucket's 2 KB hits L1;
 //   * uniforms come from a counter-based Philox4x32-10 generator in registers
 //     (keyed on leaf seed, bucket, word, quad), so the hot path moves no
 //     random bytes, the analogue of the TPU's on-core PRNG;
-//   * for a fixed field j, neighbouring threads read and write neighbouring
-//     addresses (p = j * nw + w), so every access is coalesced;
-//   * same-shape leaves go in one launch, which is what matters at these sizes,
-//     where launch overhead rivals the 16 us of traffic.
+//   * for a fixed field j, neighbouring lanes read and write neighbouring
+//     addresses (p = j * nw + w), so every access is coalesced.
 // The arithmetic uses the _rn intrinsics so that nvcc contracts nothing into an
 // FMA: the plain PyTorch twins in atomo_tpu_torch/ops/qsgd_kernels.py repeat
 // each rounding, including the order of the scale reduction, and the kernels
@@ -69,59 +78,85 @@ __device__ __forceinline__ int bucket_valid(long long n, int lb, int bs) {
   return left < bs ? (int)left : bs;
 }
 
-// One block per bucket row, blockDim.x a power of two >= 32 (the wrapper
-// picks it from nw). Thread t owns words t, t + blockDim.x, ...
+// The leaves of one quantize_pack launch, passed by value.
+constexpr int kMaxLeaves = 256;  // 9 KB of parameters
+struct LeafTable {
+  const float* x[kMaxLeaves];  // the leaf's n values, contiguous
+  const float* u[kMaxLeaves];  // its uniforms (nb, bs), or null: Philox
+  unsigned long long seed[kMaxLeaves];
+  long long n[kMaxLeaves];
+  int row0[kMaxLeaves + 1];  // first bucket row of each leaf; [n_leaves] = rows
+  int n_leaves;
+};
+
+constexpr int kQpWarps = 8;  // buckets per block
+
+// One warp per bucket row g. The scale's reduction is that of a block of nt
+// "threads" (nt = block_threads(nw), a power of two in [32, 1024]): thread t
+// sums words t, t + nt, ... field by field, then red[t] = red[t] + red[t + h]
+// for h = nt/2 .. 1. Lane l plays threads l + 32 i: the steps h >= 32 add its
+// own partials, the steps h < 32 are shuffles.
 template <int BITS>
-__global__ void quantize_pack_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ u,
-                                     const unsigned long long* __restrict__ seeds,
-                                     uint32_t* __restrict__ words,
-                                     float* __restrict__ scales, long long n,
-                                     int nb, int bs, int nw, int terngrad) {
+__global__ void __launch_bounds__(32 * kQpWarps)
+quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restrict__ words,
+                     float* __restrict__ scales, int bs, int nw, int nt, int terngrad) {
   constexpr int kBpv = BITS + 1;
   constexpr int kVpw = 32 / kBpv;
   constexpr int kLevels = (1 << BITS) - 1;
-  extern __shared__ float red[];
 
-  const int g = blockIdx.x;
-  const int leaf = g / nb;
-  const int lb = g - leaf * nb;
-  const int valid = bucket_valid(n, lb, bs);
-  const float* xb = x + (long long)leaf * n + (long long)lb * bs;
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
+  const int g = blockIdx.x * kQpWarps + (threadIdx.x >> 5);
+  if (g >= table.row0[table.n_leaves]) return;
+  const int lane = threadIdx.x & 31;
+  int leaf = 0, top = table.n_leaves - 1;  // the last leaf with row0 <= g
+  while (leaf < top) {
+    const int mid = (leaf + top + 1) >> 1;
+    if (table.row0[mid] <= g) leaf = mid; else top = mid - 1;
+  }
+  const int lb = g - table.row0[leaf];
+  const int valid = bucket_valid(table.n[leaf], lb, bs);
+  const float* xb = table.x[leaf] + (long long)lb * bs;
 
-  // Scale: per-thread partial over its words (fields in order), then a tree
-  // over threads, red[t] = red[t] + red[t + h] for h = nt/2 .. 1.
-  float acc = 0.f;
-  for (int w = t; w < nw; w += nt) {
+  const int nv = nt >> 5;  // threads a lane plays
+  float part[32];
 #pragma unroll
-    for (int j = 0; j < kVpw; ++j) {
-      const int p = j * nw + w;
-      const float v = p < valid ? xb[p] : 0.f;
-      acc = terngrad ? fmaxf(acc, fabsf(v)) : __fadd_rn(acc, __fmul_rn(v, v));
+  for (int i = 0; i < 32; ++i) {
+    if (i < nv) {
+      float acc = 0.f;
+      for (int w = lane + 32 * i; w < nw; w += nt) {
+#pragma unroll
+        for (int j = 0; j < kVpw; ++j) {
+          const int p = j * nw + w;
+          const float v = p < valid ? xb[p] : 0.f;
+          acc = terngrad ? fmaxf(acc, fabsf(v)) : __fadd_rn(acc, __fmul_rn(v, v));
+        }
+      }
+      part[i] = acc;
     }
   }
-  red[t] = acc;
-  __syncthreads();
-  for (int h = nt >> 1; h > 0; h >>= 1) {
-    if (t < h) {
-      red[t] = terngrad ? fmaxf(red[t], red[t + h]) : __fadd_rn(red[t], red[t + h]);
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {  // tree steps nt/2 .. 32: h = step / 32
+    if (2 * h <= nv) {
+#pragma unroll
+      for (int i = 0; i < h; ++i)
+        part[i] = terngrad ? fmaxf(part[i], part[i + h]) : __fadd_rn(part[i], part[i + h]);
     }
-    __syncthreads();
   }
-  const float scale = terngrad ? red[0] : __fsqrt_rn(red[0]);
+  float tot = part[0];
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    const float other = __shfl_down_sync(0xffffffffu, tot, h);
+    tot = terngrad ? fmaxf(tot, other) : __fadd_rn(tot, other);
+  }
+  tot = __shfl_sync(0xffffffffu, tot, 0);
+  const float scale = terngrad ? tot : __fsqrt_rn(tot);
   const float safe = fmaxf(scale, FLT_MIN);
-  if (t == 0) scales[g] = scale;
+  if (lane == 0) scales[g] = scale;
 
-  uint2 key = make_uint2(0u, 0u);
-  if (seeds != nullptr) {
-    const unsigned long long s = seeds[leaf];
-    key = make_uint2((uint32_t)s, (uint32_t)(s >> 32));
-  }
-  const float* ub = u != nullptr ? u + (long long)g * bs : nullptr;
+  const unsigned long long s = table.seed[leaf];
+  const uint2 key = make_uint2((uint32_t)s, (uint32_t)(s >> 32));
+  const float* ub = table.u[leaf] != nullptr ? table.u[leaf] + (long long)lb * bs : nullptr;
 
-  for (int w = t; w < nw; w += nt) {
+  for (int w = lane; w < nw; w += 32) {
     uint32_t word = 0u;
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
@@ -247,25 +282,46 @@ inline unsigned grid_for(long long items) {
 // wrapper before the call.
 extern "C" {
 
-int qsgd_quantize_pack(const float* x, const float* u,
-                       const unsigned long long* seeds, uint32_t* words,
-                       float* scales, long long n, int n_leaves, int nb, int bs,
-                       int nw, int bits, int terngrad, int threads,
+// Encode n_leaves leaves in ceil(n_leaves / 256) launches (one for any
+// model up to 256 leaves): leaf l's n[l] values at x[l], its uniforms at u[l]
+// (null: Philox keyed on seeds[l]; seeds may be null when every u[l] is
+// given), its buckets at rows row0[l] .. row0[l + 1] - 1 of words (rows, nw)
+// and scales (rows). threads = block_threads(nw), the reduction's width.
+int qsgd_quantize_pack(const float* const* x, const float* const* u,
+                       const unsigned long long* seeds, const long long* n,
+                       const int* row0, int n_leaves, uint32_t* words, float* scales,
+                       int bs, int nw, int bits, int terngrad, int threads,
                        void* stream) {
-  if (n_leaves <= 0 || nb <= 0) return 0;
+  if (n_leaves <= 0) return 0;
   if (threads < 32 || threads > 1024 || (threads & (threads - 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned grid = (unsigned)n_leaves * (unsigned)nb;
-  const size_t smem = (size_t)threads * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-#define QSGD_QP(B)                                                        \
-  quantize_pack_kernel<B><<<grid, threads, smem, s>>>(x, u, seeds, words, \
-                                                      scales, n, nb, bs,  \
-                                                      nw, terngrad)
-  QSGD_DISPATCH_BITS(bits, QSGD_QP)
+  for (int c0 = 0; c0 < n_leaves; c0 += kMaxLeaves) {
+    const int m = n_leaves - c0 < kMaxLeaves ? n_leaves - c0 : kMaxLeaves;
+    LeafTable t;
+    for (int l = 0; l < m; ++l) {
+      t.x[l] = x[c0 + l];
+      t.u[l] = u[c0 + l];
+      t.seed[l] = seeds != nullptr ? seeds[c0 + l] : 0ull;
+      t.n[l] = n[c0 + l];
+      t.row0[l] = row0[c0 + l] - row0[c0];
+    }
+    t.row0[m] = row0[c0 + m] - row0[c0];
+    t.n_leaves = m;
+    const int rows = t.row0[m];
+    if (rows <= 0) continue;
+    const unsigned grid = (unsigned)((rows + kQpWarps - 1) / kQpWarps);
+    uint32_t* w = words + (long long)row0[c0] * nw;
+    float* sc = scales + row0[c0];
+#define QSGD_QP(B) \
+  quantize_pack_kernel<B><<<grid, 32 * kQpWarps, 0, s>>>(t, w, sc, bs, nw, threads, terngrad)
+    QSGD_DISPATCH_BITS(bits, QSGD_QP)
 #undef QSGD_QP
-  return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int qsgd_unpack_dequantize(const uint32_t* words, const float* scales,

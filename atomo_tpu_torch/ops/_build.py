@@ -5,7 +5,9 @@ library with a plain C interface, under ``build/kernels/`` at the repo root
 (git-ignored), and loaded with ctypes. The library name carries a hash of its
 source and flags, so an edited source is rebuilt and a stale library is never
 loaded. The build happens at first use, never at import: the CPU tests import
-every module on a machine with no ``nvcc``.
+every module on a machine with no ``nvcc``. ``ptxas -v`` reports each kernel's
+registers, shared memory and spills; the report is kept beside the library
+(:func:`ptxas_report`).
 
 There is no fallback: a failed build raises with the compiler's output.
 """
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -71,6 +73,7 @@ def finish_build(handle) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a reader never sees a half-written library
 
 
@@ -79,6 +82,11 @@ def build_all(names) -> None:
     handles = [start_build(n) for n in names]
     for h in handles:
         finish_build(h)
+
+
+def ptxas_report(name: str) -> str:
+    """What nvcc and ptxas said when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,10 +17,16 @@ hand-written CUDA kernel in ``csrc/flash_attention.cu`` (built for sm_90a by
   blockwise oracle) and runs :func:`flash_attention_plain` on CPU tensors.
   It counts its launches in ``flash_attention_forward.launches``.
 
-The kernel masks a ragged S itself, so every CUDA call launches it; the JAX
-package's ``S % block`` fallback to ``blockwise_attention`` gives the same
-numbers, so the port has no such branch. The kernel's tiles (64 x 64) are
-its own: ``block_q``/``block_k`` shape the plain twin and the backward only.
+The kernel runs both products on the tensor cores (``wgmma``; float32 as
+three TF32 products, which keeps float32 accuracy; bfloat16 as one bf16
+product) and reads q, k and v through their strides in 16-byte asynchronous
+copies, so every base address and (batch, head, row) stride must be a
+multiple of 16 bytes: the wrapper refuses other views. It masks a ragged S
+itself, so every CUDA call launches it; the JAX package's ``S % block``
+fallback to ``blockwise_attention`` gives the same numbers, so the port has
+no such branch. The kernel's tiles (64 query rows a warpgroup, 64- or 32-key
+tiles) are its own: ``block_q``/``block_k`` shape the plain twin and the
+backward only.
 """
 
 from __future__ import annotations
@@ -130,6 +136,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"{name} must be float32 or bfloat16 like q, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride along D")
+        # the kernel copies 16-byte chunks of rows asynchronously
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(st * size % 16 for n, st in zip(t.shape[:3], t.stride()[:3])
+                                    if n > 1):
+            raise ValueError(f"{name} must start at a 16-byte aligned address with "
+                             f"(batch, head, row) strides of whole 16 bytes, got "
+                             f"address {t.data_ptr():#x}, strides {t.stride()[:3]}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} not supported; the kernel takes {HEAD_DIMS}")
 

@@ -4,14 +4,15 @@ Counterpart of ``atomo_tpu/ops/qsgd_kernels.py``. The four Pallas TPU kernels
 there become four hand-written CUDA kernels in ``csrc/qsgd_kernels.cu``
 (built for sm_90a by :mod:`atomo_tpu_torch.ops._build`):
 
-=====================  ===============================================
-wrapper                replaces (atomo_tpu/ops/qsgd_kernels.py)
-=====================  ===============================================
-``quantize_pack``      ``pallas_quantize_pack`` (fused encode)
-``unpack_dequantize``  ``pallas_unpack_dequantize`` (fused decode)
-``pack_bucketed``      ``pallas_pack_bucketed`` (bare bit-pack)
-``unpack_bucketed``    ``pallas_unpack_bucketed`` (bare bit-unpack)
-=====================  ===============================================
+=======================  =============================================
+wrapper                  replaces (atomo_tpu/ops/qsgd_kernels.py)
+=======================  =============================================
+``quantize_pack``,       ``pallas_quantize_pack`` (fused encode)
+``quantize_pack_tree``
+``unpack_dequantize``    ``pallas_unpack_dequantize`` (fused decode)
+``pack_bucketed``        ``pallas_pack_bucketed`` (bare bit-pack)
+``unpack_bucketed``      ``pallas_unpack_bucketed`` (bare bit-unpack)
+=======================  =============================================
 
 Each wrapper runs its kernel on a CUDA tensor (or raises: there is no
 fallback) and its ``*_plain`` twin on a CPU tensor. The twin computes the same
@@ -23,9 +24,13 @@ bit for bit on the same inputs. Every wrapper counts its launches in
 
 Wire format: words (n_buckets, words_per_bucket) uint32 and scales
 (n_buckets,) float32, the JAX package's planar layout (bucket position
-p = j * n_words + w sits in word w at bit j * (bits + 1)). Several leaves of
-one shape are encoded in one call by passing x as (L, n): the outputs gain a
-leading L axis.
+p = j * n_words + w sits in word w at bit j * (bits + 1)). One
+:func:`quantize_pack_tree` call encodes every leaf of a gradient tree, of any
+shapes, in one launch: the leaf table rides in the kernel's arguments (host
+memory, no copy to the device, no host sync), and each leaf's payload is a
+view into one flat words and one flat scales buffer. :func:`quantize_pack`
+is the same kernel over the L equal leaves of an (L, n) stack; the decode
+kernels take such stacks.
 
 Codes leave :func:`unpack_bucketed` as int32 (the JAX kernel returns uint32):
 fields are below 2^9, so the bits are the same and torch's int32 takes the
@@ -35,6 +40,7 @@ shifts and masks that its uint32 does not.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -66,6 +72,7 @@ class Geometry(NamedTuple):
     levels: int
 
 
+@functools.lru_cache(maxsize=4096)
 def geometry(n: int, bits: int, bucket_size: int = 512) -> Geometry:
     if not 1 <= bits <= 8:
         raise ValueError(f"bits must be in 1..8, got {bits}")
@@ -251,6 +258,35 @@ def quantize_pack_plain(
     return (words[0], scales[0]) if squeeze else (words, scales)
 
 
+def quantize_pack_tree_plain(
+    leaves: Sequence[torch.Tensor],
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    scheme: str = "qsgd",
+    seeds: Optional[Sequence[int]] = None,
+    u: Optional[Sequence[torch.Tensor]] = None,
+) -> list:
+    """Plain twin of :func:`quantize_pack_tree`: each leaf encoded alone."""
+    _check_tree_args(leaves, seeds, u)
+    return [
+        quantize_pack_plain(
+            x, bits=bits, bucket_size=bucket_size, scheme=scheme,
+            seeds=None if u is not None else [seeds[i]],
+            u=None if u is None else u[i],
+        )
+        for i, x in enumerate(leaves)
+    ]
+
+
+def _check_tree_args(leaves, seeds, u) -> None:
+    if u is None and seeds is None:
+        raise ValueError("quantize_pack needs seeds (in-kernel generator) or u")
+    for name, per_leaf in (("seeds", seeds), ("u", u)):
+        if per_leaf is not None and len(per_leaf) != len(leaves):
+            raise ValueError(f"need {len(leaves)} {name}, got {len(per_leaf)}")
+
+
 def unpack_dequantize_plain(
     words: torch.Tensor,
     scales: torch.Tensor,
@@ -313,7 +349,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if not getattr(lib, "_qsgd_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+        lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.qsgd_unpack_dequantize.argtypes = [p, p, p, ll, i, i, i, i, i, p]
         lib.qsgd_pack_codes.argtypes = [p, p, ll, i, i, p]
         lib.qsgd_unpack_codes.argtypes = [p, p, ll, i, i, p]
@@ -352,6 +388,49 @@ def _raise_if(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
 
 
+_MAX_LEAVES = 256  # table entries of one launch (csrc/qsgd_kernels.cu kMaxLeaves)
+
+
+class _TreeLayout(NamedTuple):
+    """Where a tree's leaves go in the flat output, as the kernel takes it."""
+
+    n_buckets: tuple  # per leaf
+    rows: int
+    ns: ctypes.Array  # per leaf, long long
+    row0: ctypes.Array  # first row of each leaf and the total, int
+
+
+@functools.lru_cache(maxsize=64)
+def _tree_layout(ns: tuple, bits: int, bucket_size: int) -> _TreeLayout:
+    n_buckets = tuple(geometry(n, bits, bucket_size).n_buckets for n in ns)
+    row0 = np.concatenate([[0], np.cumsum(n_buckets, dtype=np.int64)])
+    if row0[-1] >= 1 << 31:
+        raise ValueError(f"{row0[-1]} buckets do not fit the kernel's int32 rows")
+    return _TreeLayout(n_buckets, int(row0[-1]), (ctypes.c_longlong * len(ns))(*ns),
+                       (ctypes.c_int * (len(ns) + 1))(*row0.tolist()))
+
+
+def _launch_quantize_pack(xs, us, seeds, layout, *, bits, bucket_size, terngrad, device):
+    """Launch the tree kernel over leaves at the data pointers ``xs`` (and
+    uniforms ``us``, 0 for Philox keyed on ``seeds``) laid out as ``layout``;
+    returns the flat (rows, n_words) words as uint32 and (rows,) scales."""
+    g = geometry(0, bits, bucket_size)
+    n_leaves = len(xs)
+    words = torch.empty((layout.rows, g.n_words), dtype=torch.int32, device=device)
+    scales = torch.empty((layout.rows,), dtype=torch.float32, device=device)
+    vp = ctypes.c_void_p
+    rc = _lib().qsgd_quantize_pack(
+        (vp * n_leaves)(*xs), (vp * n_leaves)(*us),
+        None if seeds is None else (ctypes.c_ulonglong * n_leaves)(
+            *(int(v) & 0xFFFFFFFFFFFFFFFF for v in seeds)),
+        layout.ns, layout.row0, n_leaves, _ptr(words), _ptr(scales), bucket_size,
+        g.n_words, bits, int(terngrad), block_threads(g.n_words), _stream(),
+    )
+    _raise_if(rc, "qsgd_quantize_pack")
+    quantize_pack.launches += -(-n_leaves // _MAX_LEAVES)
+    return words.view(torch.uint32), scales
+
+
 def quantize_pack(
     x: torch.Tensor,
     *,
@@ -366,7 +445,8 @@ def quantize_pack(
 
     ``u`` (…, n_buckets, bucket_size) supplies the stochastic-rounding
     uniforms (bit-parity mode); otherwise ``seeds`` (one per leaf) key the
-    in-kernel Philox generator."""
+    in-kernel Philox generator. The tree kernel over the L rows: one launch
+    for up to 256 of them."""
     if not _on_card(x, u):
         return quantize_pack_plain(
             x, bits=bits, bucket_size=bucket_size, scheme=scheme, seeds=seeds, u=u
@@ -376,27 +456,65 @@ def quantize_pack(
     n_leaves, n = x2.shape
     g = geometry(n, bits, bucket_size)
     _require(x2, "x", (torch.float32,), (n_leaves, n))
-    seed_t = None
     if u is not None:
         lead = () if squeeze else (n_leaves,)
         _require(u, "u", (torch.float32,), lead + (g.n_buckets, bucket_size))
+        us = [u.data_ptr() + 4 * i * g.n_buckets * bucket_size for i in range(n_leaves)]
+        seeds = None
     elif seeds is not None:
-        seed_t = _seed_tensor(seeds, n_leaves, x2.device)
+        seeds = [int(v) for v in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
+        if len(seeds) != n_leaves:
+            raise ValueError(f"need {n_leaves} seeds, got {len(seeds)}")
+        us = [0] * n_leaves
     else:
         raise ValueError("quantize_pack needs seeds (in-kernel generator) or u")
-    rows = n_leaves * g.n_buckets
-    words = torch.empty((rows, g.n_words), dtype=torch.int32, device=x2.device)
-    scales = torch.empty((rows,), dtype=torch.float32, device=x2.device)
-    rc = _lib().qsgd_quantize_pack(
-        _ptr(x2), _ptr(u), _ptr(seed_t), _ptr(words), _ptr(scales), n,
-        n_leaves, g.n_buckets, bucket_size, g.n_words, bits, int(terngrad),
-        block_threads(g.n_words), _stream(),
+    xs = [x2.data_ptr() + 4 * i * n for i in range(n_leaves)]
+    words, scales = _launch_quantize_pack(
+        xs, us, seeds, _tree_layout((n,) * n_leaves, bits, bucket_size), bits=bits,
+        bucket_size=bucket_size, terngrad=terngrad, device=x2.device,
     )
-    _raise_if(rc, "qsgd_quantize_pack")
-    quantize_pack.launches += 1
-    words = words.view(torch.uint32).view(n_leaves, g.n_buckets, g.n_words)
+    words = words.view(n_leaves, g.n_buckets, g.n_words)
     scales = scales.view(n_leaves, g.n_buckets)
     return (words[0], scales[0]) if squeeze else (words, scales)
+
+
+def quantize_pack_tree(
+    leaves: Sequence[torch.Tensor],
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    scheme: str = "qsgd",
+    seeds: Optional[Sequence[int]] = None,
+    u: Optional[Sequence[torch.Tensor]] = None,
+) -> list:
+    """Fused QSGD encode of every leaf of a tree in one launch: ``leaves``
+    are 1-D float32 tensors of any lengths -> one (words (n_buckets,
+    n_words) uint32, scales (n_buckets,) float32) pair per leaf, views into
+    one flat buffer each. ``seeds`` (one int per leaf) key the in-kernel
+    Philox generator unless ``u`` (one (n_buckets, bucket_size) tensor per
+    leaf) gives the uniforms. The seeds ride in the kernel's arguments: the
+    call copies nothing to the device and never waits for it."""
+    if not leaves:
+        return []
+    if not _on_card(*leaves, *(u or ())):
+        return quantize_pack_tree_plain(leaves, bits=bits, bucket_size=bucket_size,
+                                        scheme=scheme, seeds=seeds, u=u)
+    terngrad = _check_scheme(scheme)
+    _check_tree_args(leaves, seeds, u)
+    layout = _tree_layout(tuple(x.numel() for x in leaves), bits, bucket_size)
+    for i, x in enumerate(leaves):
+        if x.dim() != 1 or x.dtype != torch.float32 or not x.is_contiguous():
+            _require(x, f"leaf {i}", (torch.float32,), (x.numel(),))
+        if u is not None and (u[i].shape != (layout.n_buckets[i], bucket_size)
+                              or u[i].dtype != torch.float32 or not u[i].is_contiguous()):
+            _require(u[i], f"u[{i}]", (torch.float32,), (layout.n_buckets[i], bucket_size))
+    words, scales = _launch_quantize_pack(
+        [x.data_ptr() for x in leaves],
+        [0] * len(leaves) if u is None else [t.data_ptr() for t in u],
+        None if u is not None else seeds, layout, bits=bits, bucket_size=bucket_size,
+        terngrad=terngrad, device=leaves[0].device,
+    )
+    return list(zip(words.split(layout.n_buckets), scales.split(layout.n_buckets)))
 
 
 def unpack_dequantize(

@@ -12,15 +12,17 @@ dp-sp --ways 1 --attn-impl ulysses-flash --vocab-size 256 --seq-len 1024
 every hand-written kernel against its plain PyTorch version:
 
 1. build: ``nvcc`` compiles ``atomo_tpu_torch/csrc/*.cu`` for sm_90a, one
-   process per source, all at once (timed as set-up);
+   process per source, all at once (timed as set-up), and prints what
+   ``ptxas -v`` says of each flash-attention kernel (registers, spills)
+   beside its shared memory;
 2. check: the flash-attention kernel against its plain version at the LM
    recipe's (B 16, H 4, S 1024, D 64), on the head views the model hands it,
    causal and not (float32 max abs err <= 2e-5), at a ragged S = 1000,
    with bfloat16 inputs (within 2e-2 of the float32 plain value on the same
-   inputs), and its gradients (within 5e-5); each of the four QSGD kernels
-   against its plain version at the
-   ResNet-18 leaf shapes (one stacked launch per shape group, as the trainer
-   makes them), for bits 2/4/8 (qsgd) and 1 (terngrad): words and codes bit
+   inputs), and its gradients (within 5e-5); the QSGD encode as the trainer
+   launches it, once over all 62 ResNet-18 leaves, and each of the four QSGD
+   kernels against its plain version on the ResNet-18 shape groups' stacks,
+   for bits 2/4/8 (qsgd) and 1 (terngrad): words and codes bit
    for bit, scales within rtol 1e-6, decoded values bit for bit; the
    in-kernel Philox generator bit for bit against its twin; the mean decode
    over 64 seeds within 4 * scale / levels / sqrt(64) of the input
@@ -36,12 +38,17 @@ every hand-written kernel against its plain PyTorch version:
    ``svd`` (auto rank 24) and 3 with ``sgd``. Each run sets the launch counts
    to 0 before it and reads them after; the losses must be finite and fall
    over the qsgd and LM svd runs, every kernel of a run's path must have
-   launched in it, and the flash kernel exactly once per layer per step;
-4. time: each kernel's launches of one train step (every shape group of
-   ResNet-18 at bits 4; the LM's four flash launches), by CUDA events,
-   median of 20, beside the plain version's time, the bound (bytes over
-   3.35 TB/s or operations over 67 TFLOP/s, the larger) and, for flash
-   attention, ``F.scaled_dot_product_attention`` on the same tensors;
+   launched in it, the QSGD encode exactly once per step (one launch over
+   the tree) and the flash kernel exactly once per layer per step;
+4. time: each kernel's launches of one train step (ResNet-18 at bits 4: the
+   encode's one tree launch, the other kernels' launches per shape group;
+   the LM's four flash launches), by CUDA events around the wrapper calls,
+   median of 20, and as the kernels' own device time under
+   ``torch.profiler``, beside the plain version's time, the bound (bytes over
+   3.35 TB/s or operations over the peak of the route: 495 TFLOP/s TF32 x 3
+   for the float32 flash kernel, 989 TFLOP/s bf16, 67 TFLOP/s float32 FMA,
+   the larger of bytes and operations) and, for flash attention,
+   ``F.scaled_dot_product_attention`` on the same tensors;
 5. profile: three qsgd ResNet-18 steps and three svd LM steps under
    ``torch.profiler``: wall and device-busy time per step, the device's idle
    share, each ``step.*`` phase's time, and the kernels that take the most.
@@ -64,6 +71,8 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "quantize_pack": "atomo_tpu/ops/qsgd_kernels.py:215",
@@ -116,9 +125,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Milliseconds a call of ``fn()`` keeps the card busy in kernels whose
+    name holds ``kernel``, from ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    return us / 1e3 / reps
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """The least time of the work: bytes over the memory rate or operations
+    over ``ops_per_s``, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -134,14 +164,46 @@ def phase_build():
     for n in names:
         _build.load(n)
     log(f"build: {names} in {time.time() - t0:.1f} s")
+    from atomo_tpu_torch.ops import attention_kernels as A
+
+    for line in ptxas_flash(_build.ptxas_report("flash_attention"), A._lib()):
+        log(line)
 
 
-def resnet_stacks(device, seed: int = 0):
-    """Gradient-like (L, n) stacks of ResNet-18's leaves, one per shape group,
-    each leaf at its own scale."""
+def ptxas_flash(report: str, lib) -> list[str]:
+    """One line per flash-attention kernel: what ``ptxas -v`` says of it and
+    the dynamic shared memory its launch asks for."""
+    import ctypes
+    import re
+
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_forward_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            cur = None
+        if m:
+            dtype = "float32" if m[1] == "f" else "bfloat16"
+            smem = lib.flash_attention_smem_bytes(int(m[2]), 0 if m[1] == "f" else 1)
+            cur = [f"ptxas flash_forward_kernel {dtype} D {m[2]}, {m[3]} warpgroups, "
+                   f"{m[4]}-key tiles, {smem} bytes dynamic shared memory"]
+            out.append(cur)
+        elif cur is not None and ("spill" in line or "registers" in line):
+            cur.append(line.split(":")[-1].strip())
+    if not out:
+        raise AssertionError("ptxas reported no flash_forward_kernel")
+    return [": ".join([c[0], ", ".join(c[1:])]) for c in out]
+
+
+def resnet_grads(device, seed: int = 0):
+    """Gradient-like tensors of ResNet-18's 62 leaves, each leaf at its own
+    scale: the flat JAX-layout leaves the encode's tree launch takes, and the
+    (L, n) stacks of the shape groups that the decode kernels take."""
     import torch
 
     from atomo_tpu_torch.codecs import stack_leaves
+    from atomo_tpu_torch.convert import jax_view
     from atomo_tpu_torch.models import get_model
     from atomo_tpu_torch.training.trainer import leaf_params
 
@@ -149,7 +211,8 @@ def resnet_stacks(device, seed: int = 0):
     gen = torch.Generator(device=device).manual_seed(seed)
     grads = [torch.randn(p.shape, generator=gen, device=device) * (0.01 * (1 + i % 7))
              for i, p in enumerate(leaf_params(model))]
-    return [(idxs, x) for idxs, x in stack_leaves(grads)]
+    leaves = [jax_view(g).reshape(-1) for g in grads]
+    return leaves, [(idxs, x) for idxs, x in stack_leaves(grads)]
 
 
 def same_bits(a, b) -> bool:
@@ -158,7 +221,7 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-def phase_check(stacks, errs):
+def phase_check(leaves, stacks, errs):
     import torch
 
     from atomo_tpu_torch.codecs import QsgdCodec, terngrad
@@ -168,6 +231,18 @@ def phase_check(stacks, errs):
     gen = torch.Generator(device=dev).manual_seed(7)
     for codec in (QsgdCodec(bits=2), QsgdCodec(bits=4), QsgdCodec(bits=8), terngrad()):
         bits, scheme = codec.bits, codec.scheme
+        tree = [codec._clip_leaf(x) for x in leaves]
+        u = [torch.rand((K.geometry(x.numel(), bits).n_buckets, 512), generator=gen, device=dev)
+             for x in tree]
+        for kw in (dict(u=u), dict(seeds=[1000003 * (i + 1) + bits for i in range(len(tree))])):
+            got = K.quantize_pack_tree(tree, bits=bits, scheme=scheme, **kw)
+            want = K.quantize_pack_tree_plain(tree, bits=bits, scheme=scheme, **kw)
+            for (wk, sk), (wp, sp) in zip(got, want):
+                if not same_bits(wk, wp):
+                    raise AssertionError(f"quantize_pack_tree words differ: bits {bits} "
+                                         f"{scheme} {list(kw)}")
+                torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+                errs["quantize_pack"] = max(errs["quantize_pack"], float((sk - sp).abs().max()))
         for idxs, x in stacks:
             x = codec._clip(x)
             L, n = x.shape
@@ -203,8 +278,8 @@ def phase_check(stacks, errs):
                 if not (same_bits(pk, pp) and same_bits(pk, rows)):
                     raise AssertionError(f"pack_bucketed differs: bits {bits}")
         torch.cuda.synchronize()
-        log(f"check: bits {bits} {scheme}: kernels equal their plain versions "
-            f"on {len(stacks)} shape groups")
+        log(f"check: bits {bits} {scheme}: the encode's tree launch over {len(leaves)} "
+            f"leaves and the kernels on {len(stacks)} shape groups equal their plain versions")
 
 
 def phase_unbiased(stacks, trials: int = 64):
@@ -451,6 +526,11 @@ def phase_train():
         q = runs[name]["losses"]
         if not q[-1] < q[0]:
             raise AssertionError(f"{name} loss did not fall: {q}")
+    for name, steps in (("qsgd", 5), ("terngrad", 2)):  # one encode launch a step
+        counts = runs[name]["launches"]
+        if counts["quantize_pack"] != steps or counts["unpack_dequantize"] != 17 * steps:
+            raise AssertionError(f"{name}: launches {counts}, want quantize_pack {steps} "
+                                 f"(one over the tree a step), unpack_dequantize 17 x {steps}")
     for name in ("sgd", "svd3"):  # no kernel on these paths
         if any(runs[name]["launches"].values()):
             raise AssertionError(f"{name} run launched kernels: {runs[name]['launches']}")
@@ -468,73 +548,92 @@ def phase_train():
     return runs
 
 
-def phase_time(stacks):
-    """Each kernel's launches of one ResNet-18 train step at bits 4."""
-    import torch
-
+def phase_time(leaves, stacks):
+    """Each QSGD kernel's launches of one ResNet-18 train step at bits 4: the
+    encode's one launch over the 62 leaves (the seeds computed once, as
+    ``encode_tree`` hands them over), the other kernels' one launch per shape
+    group. Two times per kernel: the CUDA-event wall around the wrapper
+    calls (host work and launches included) and the kernels' own device time
+    from ``torch.profiler``."""
     from atomo_tpu_torch.ops import qsgd_kernels as K
 
     bits = 4
+    seeds = [17 + i for i in range(len(leaves))]
+    tree = K.quantize_pack_tree(leaves, bits=bits, seeds=seeds)
     enc = []
     for idxs, x in stacks:
         L, n = x.shape
         g = K.geometry(n, bits)
-        seeds = [17 + i for i in idxs]
-        w, s = K.quantize_pack(x, bits=bits, seeds=seeds)
+        w, s = K.quantize_pack(x, bits=bits, seeds=[17 + i for i in idxs])
         codes = K.unpack_bucketed(w.reshape(-1, g.n_words), bits)
-        enc.append((x, seeds, g, w, s, codes))
+        enc.append((x, g, w, s, codes))
 
     def each(fn):
         return lambda: [fn(*e) for e in enc]
 
     work = {
         "quantize_pack": (
-            each(lambda x, sd, g, w, s, c: K.quantize_pack(x, bits=bits, seeds=sd)),
-            each(lambda x, sd, g, w, s, c: K.quantize_pack_plain(x, bits=bits, seeds=sd)),
+            lambda: K.quantize_pack_tree(leaves, bits=bits, seeds=seeds),
+            lambda: K.quantize_pack_tree_plain(leaves, bits=bits, seeds=seeds),
+            "quantize_pack_kernel",
             # read x and the seeds, write words and scales
-            sum(x.numel() * 4 + len(sd) * 8 + w.numel() * 4 + s.numel() * 4
-                for x, sd, g, w, s, c in enc),
+            sum(x.numel() * 4 + 8 + w.numel() * 4 + s.numel() * 4
+                for x, (w, s) in zip(leaves, tree)),
             # per padded position: 2 for the scale, 7 for the rounding
             # (abs, div, mul, floor, sub, compare, add), 2 to code; Philox
             # 10 rounds of ~8 integer operations per 4 positions
-            sum(c.numel() * (11 + 20) for x, sd, g, w, s, c in enc),
+            sum(w.numel() * K.geometry(x.numel(), bits).vpw * (11 + 20)
+                for x, (w, s) in zip(leaves, tree)),
+            1,
         ),
         "unpack_dequantize": (
-            each(lambda x, sd, g, w, s, c: K.unpack_dequantize(w, s, bits=bits, n=g.n)),
-            each(lambda x, sd, g, w, s, c: K.unpack_dequantize_plain(w, s, bits=bits, n=g.n)),
-            sum(w.numel() * 4 + s.numel() * 4 + x.numel() * 4 for x, sd, g, w, s, c in enc),
-            sum(x.numel() * 6 for x, sd, g, w, s, c in enc),
+            each(lambda x, g, w, s, c: K.unpack_dequantize(w, s, bits=bits, n=g.n)),
+            each(lambda x, g, w, s, c: K.unpack_dequantize_plain(w, s, bits=bits, n=g.n)),
+            "unpack_dequantize_kernel",
+            sum(w.numel() * 4 + s.numel() * 4 + x.numel() * 4 for x, g, w, s, c in enc),
+            sum(x.numel() * 6 for x, g, w, s, c in enc),
+            len(enc),
         ),
         "pack_bucketed": (
-            each(lambda x, sd, g, w, s, c: K.pack_bucketed(c, bits)),
-            each(lambda x, sd, g, w, s, c: K.pack_bucketed_plain(c, bits)),
-            sum(c.numel() * 4 + w.numel() * 4 for x, sd, g, w, s, c in enc),
-            sum(c.numel() * 2 for x, sd, g, w, s, c in enc),
+            each(lambda x, g, w, s, c: K.pack_bucketed(c, bits)),
+            each(lambda x, g, w, s, c: K.pack_bucketed_plain(c, bits)),
+            "::pack_codes_kernel",
+            sum(c.numel() * 4 + w.numel() * 4 for x, g, w, s, c in enc),
+            sum(c.numel() * 2 for x, g, w, s, c in enc),
+            len(enc),
         ),
         "unpack_bucketed": (
-            each(lambda x, sd, g, w, s, c: K.unpack_bucketed(w.reshape(-1, g.n_words), bits)),
-            each(lambda x, sd, g, w, s, c: K.unpack_bucketed_plain(
+            each(lambda x, g, w, s, c: K.unpack_bucketed(w.reshape(-1, g.n_words), bits)),
+            each(lambda x, g, w, s, c: K.unpack_bucketed_plain(
                 w.reshape(-1, g.n_words), bits)),
-            sum(c.numel() * 4 + w.numel() * 4 for x, sd, g, w, s, c in enc),
-            sum(c.numel() * 2 for x, sd, g, w, s, c in enc),
+            "unpack_codes_kernel",
+            sum(c.numel() * 4 + w.numel() * 4 for x, g, w, s, c in enc),
+            sum(c.numel() * 2 for x, g, w, s, c in enc),
+            len(enc),
         ),
     }
     out = {}
-    for name, (kern, plain, nbytes, ops) in work.items():
+    for name, (kern, plain, kname, nbytes, ops, launches) in work.items():
         ms = cuda_ms(kern)
+        dev_ms = device_ms(kern, kname)
         plain_ms = cuda_ms(plain, reps=5, warmup=1)
         b_ms, b_by = bound(nbytes, ops)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "bytes": nbytes, "ops": ops, "launches_per_step": len(enc)}
-        log(f"time {name}: {ms:.4f} ms per step ({len(enc)} launches), plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                     "launches_per_step": launches}
+        log(f"time {name}: {ms:.4f} ms per step by events around the wrapper calls, "
+            f"{dev_ms:.4f} ms of device time ({launches} launches), plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
     return out
 
 
 def phase_time_flash():
     """The flash kernel's launches of one LM train step (one per layer) on
     the recipe's head views, against its plain version and the one PyTorch
-    call that computes the same function."""
+    call that computes the same function. The bound of the float32 kernel is
+    that of its route, three TF32 products per product at 495 TFLOP/s; the
+    bf16 one's one product at 989 TFLOP/s; 67 TFLOP/s of float32 FMA was the
+    yardstick of the earlier design."""
     import torch
     import torch.nn.functional as F
 
@@ -549,18 +648,30 @@ def phase_time_flash():
     b, h, s, d = LM_SHAPE
     nbytes = LM_DEPTH * 4 * b * h * s * d * 4  # read q, k, v, write o, float32
     ops = LM_DEPTH * 4 * b * h * d * s * (s + 1) // 2  # q.k and p.v over the causal pairs
-    ms = cuda_ms(per_step(lambda: A.flash_attention_forward(q, k, v, causal=True, **blk)))
+    kern = per_step(lambda: A.flash_attention_forward(q, k, v, causal=True, **blk))
+    ms = cuda_ms(kern)
+    dev_ms = device_ms(kern, "flash_forward_kernel")
     plain_ms = cuda_ms(per_step(lambda: A.flash_attention_plain(q, k, v, causal=True, **blk)),
                        reps=5, warmup=1)
     with torch.no_grad():
         library_ms = cuda_ms(per_step(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)))
-    b_ms, b_by = bound(nbytes, ops)
-    log(f"time flash_attention: {ms:.4f} ms per step ({LM_DEPTH} launches), plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bytes": nbytes, "ops": ops, "launches_per_step": LM_DEPTH}
+    qb, kb, vb = lm_heads(dtype=torch.bfloat16, seed=5)
+    bf16_ms = cuda_ms(per_step(lambda: A.flash_attention_forward(qb, kb, vb, causal=True, **blk)))
+    b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+    bf16_bound, _ = bound(nbytes // 2, ops, BF16_OPS_PER_S)
+    fma_bound, _ = bound(nbytes, ops, F32_OPS_PER_S)
+    log(f"time flash_attention: {ms:.4f} ms per step ({LM_DEPTH} launches), {dev_ms:.4f} ms "
+        f"of device time, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} (3 x {ops} TF32 ops at 495 "
+        f"TFLOP/s; {nbytes} bytes at 3.35 TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+        f"{100 * b_ms / ms:.1f} % of it; float32 FMA bound {fma_bound:.4f} ms (67 TFLOP/s)")
+    log(f"time flash_attention bf16 inputs: {bf16_ms:.4f} ms per step, bound {bf16_bound:.4f} "
+        f"ms ({ops} bf16 ops at 989 TFLOP/s)")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_peak": "3 x TF32 at 495 TFLOP/s",
+            "fma_bound_ms": fma_bound, "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound,
+            "bytes": nbytes, "ops": ops, "launches_per_step": LM_DEPTH}
 
 
 def profile_steps(label: str, step_once, steps: int = 3):
@@ -682,17 +793,17 @@ def main() -> int:
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_start = time.time()
     phase_build()
-    stacks = resnet_stacks(torch.device("cuda"))
-    log(f"ResNet-18 leaves: {sum(len(i) for i, _ in stacks)} in {len(stacks)} shape groups, "
-        f"{sum(x.numel() for _, x in stacks)} values")
+    leaves, stacks = resnet_grads(torch.device("cuda"))
+    log(f"ResNet-18 leaves: {len(leaves)} in {len(stacks)} shape groups, "
+        f"{sum(x.numel() for x in leaves)} values")
     errs = {name: 0.0 for name in REPLACES}
     phase_flash_check(errs)
-    phase_check(stacks, errs)
+    phase_check(leaves, stacks, errs)
     phase_unbiased(stacks)
     phase_reference()
     phase_reference_lm()
     runs = phase_train()
-    times = phase_time(stacks)
+    times = phase_time(leaves, stacks)
     times["flash_attention"] = phase_time_flash()
     prof = phase_profile()
 
@@ -700,7 +811,8 @@ def main() -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
-        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "ms": times[name]["ms"], "device_ms": times[name]["device_ms"],
+        "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": times[name].get("library_ms"),
     } for name in REPLACES]

@@ -8,7 +8,9 @@ that the GPU machine (which has none) runs it without the suite's conftest:
 Words, codes and decoded values are compared bit for bit: kernel and plain
 version do the same float32 operations in the same order (see
 ``atomo_tpu_torch/csrc/qsgd_kernels.cu``). Scales are compared within rtol
-1e-6, the tolerance of the CPU tests.
+1e-6, the tolerance of the CPU tests. The tree encode (one launch over all of
+ResNet-18's 62 leaves) is held against the plain twin and against the
+per-shape-group stacks, and must run without a host sync.
 """
 
 import dataclasses
@@ -67,6 +69,81 @@ def test_one_leaf_and_stack_agree(dev):
     w2, s2 = K.quantize_pack(x, bits=4, seeds=[5, 6])
     w1, s1 = K.quantize_pack(x[1].contiguous(), bits=4, seeds=[6])
     assert _same_bits(w2[1], w1) and torch.equal(s2[1], s1)
+
+
+def _resnet18_grads(dev, seed=0):
+    """Gradient-like tensors of ResNet-18's 62 leaves (port layout), each
+    leaf at its own scale."""
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(p.shape, generator=gen, device=dev) * (0.01 * (1 + i % 7))
+            for i, p in enumerate(leaf_params(model))]
+
+
+@pytest.mark.parametrize("mode", ["seeds", "u"])
+@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 9)] + [(1, "terngrad")])
+def test_tree_kernel_matches_plain_at_resnet18_leaves(dev, bits, scheme, mode):
+    """One launch encodes all 62 leaves; every leaf's words equal the plain
+    twin's bit for bit."""
+    from atomo_tpu_torch.codecs.base import _views
+
+    codec = terngrad() if scheme == "terngrad" else QsgdCodec(bits=bits)
+    leaves = [codec._clip_leaf(v.reshape(-1)) for v in _views(_resnet18_grads(dev), None)]
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    if mode == "u":
+        kw = dict(u=[torch.rand((K.geometry(x.numel(), bits).n_buckets, BUCKET), generator=gen,
+                                device=dev) for x in leaves])
+    else:
+        kw = dict(seeds=[1000003 * (i + 1) + bits for i in range(len(leaves))])
+    K.reset_launch_counts()
+    got = K.quantize_pack_tree(leaves, bits=bits, scheme=scheme, **kw)
+    want = K.quantize_pack_tree_plain(leaves, bits=bits, scheme=scheme, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["quantize_pack"] == 1 and len(got) == 62
+    for (wk, sk), (wp, sp) in zip(got, want):
+        assert wk.dtype == torch.uint32 and _same_bits(wk, wp)
+        torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("make", [lambda: QsgdCodec(bits=4), lambda: terngrad()])
+def test_encode_tree_is_one_launch_and_equals_the_group_path(dev, make):
+    """encode_tree launches quantize_pack once for the whole tree, and its
+    payloads equal the per-shape-group stacks' for the same seeds."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.codecs.base import _views, encode_groups
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    codec, grads = make(), _resnet18_grads(dev, seed=1)
+    K.reset_launch_counts()
+    payloads, stats = encode_tree(codec, 11, grads)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"quantize_pack": 1, "unpack_dequantize": 0,
+                                 "pack_bucketed": 0, "unpack_bucketed": 0}
+    groups = encode_groups(codec, _views(grads, None), [fold_in(11, i) for i in range(62)])
+    assert K.launch_counts()["quantize_pack"] == 1 + 17
+    for a, b in zip(payloads, groups):
+        assert _same_bits(a.words, b.words) and torch.equal(a.scales, b.scales)
+    assert stats.payload_bytes == sum(codec.leaf_payload_bytes(tuple(g.shape)) for g in grads)
+
+
+@pytest.mark.parametrize("make", [lambda: QsgdCodec(bits=4), lambda: terngrad()])
+def test_encode_tree_makes_no_host_sync(dev, make):
+    """The QSGD encode never waits for the card: no blocking copy, no read
+    of a device value (torch raises on any sync it makes in this mode)."""
+    from atomo_tpu_torch.codecs import encode_tree
+
+    codec, grads = make(), _resnet18_grads(dev, seed=2)
+    encode_tree(codec, 5, grads)  # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        payloads, _ = encode_tree(codec, 6, grads)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(p.scales).all()) for p in payloads)
 
 
 def test_unbiased_over_seeds(dev):
@@ -159,6 +236,19 @@ def test_flash_reads_strided_head_views(dev):
     got = A.flash_attention_forward(q, k, v, causal=True)
     want = A.flash_attention_plain(q, k, v, causal=True)
     assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_flash_refuses_misaligned_views(dev):
+    """The kernel copies rows in 16-byte chunks: a view whose base address or
+    row stride is not a multiple of 16 bytes is refused, not served."""
+    b, h, s, d = 1, 2, 64, 64
+    qkv = torch.randn((b, s, 3 * h * d + 1), device=dev)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv[..., 1:].chunk(3, dim=-1))
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention_forward(q, k, v, causal=True)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    assert float((A.flash_attention_forward(q, k, v, causal=True)
+                  - A.flash_attention_plain(q, k, v, causal=True)).abs().max()) <= 2e-5
 
 
 @pytest.mark.parametrize("causal", [True, False])

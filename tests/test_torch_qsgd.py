@@ -171,3 +171,109 @@ def test_quantize_pack_rejects_bad_arguments():
         K.quantize_pack(torch.zeros(10), bits=2)  # neither seeds nor u
     with pytest.raises(ValueError):
         K.quantize_pack(torch.zeros(10), bits=9, seeds=[1])
+
+
+# ------------------------------------------------------------- the tree encode
+#
+# One quantize_pack_tree call over every leaf of a gradient tree (one launch
+# on the card) against the per-shape-group stacks it replaced. The plain
+# twins run here; the card tests hold the kernel against them.
+
+
+def _resnet_like_shapes():
+    """ResNet-18's 62 leaf shapes (port layout, 17 shape groups), channels
+    cut 16x so that the plain twins run quickly."""
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    return [tuple(d // 16 if d >= 64 else d for d in p.shape) for p in leaf_params(model)]
+
+
+def _tree(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [_t(rng.standard_normal(s).astype(np.float32) * (0.01 * (1 + i % 7)))
+            for i, s in enumerate(shapes)]
+
+
+def _uniforms(views, seed, bucket=BUCKET):
+    rng = np.random.default_rng(seed)
+    return [_t(rng.random((-(-v.numel() // bucket), bucket)).astype(np.float32)) for v in views]
+
+
+@pytest.mark.parametrize("mode", ["seeds", "uniforms"])
+@pytest.mark.parametrize("codec", [f"qsgd{b}" for b in BITS] + ["terngrad"])
+def test_tree_encode_equals_per_group_stacks(codec, mode):
+    """encode_leaves (one tree call) gives the per-shape-group encode_stack
+    path's words and scales bit for bit on ResNet-18's leaf shapes."""
+    from atomo_tpu_torch.codecs.base import _views, encode_groups
+
+    c = (terngrad(use_kernel=True) if codec == "terngrad"
+         else QsgdCodec(bits=int(codec[4:]), use_kernel=True))
+    shapes = _resnet_like_shapes()
+    assert len(shapes) == 62 and len(set(shapes)) == 17
+    views = _views(_tree(shapes, 3), None)
+    seeds = [1000003 * (i + 1) + c.bits for i in range(len(views))]
+    draws = _uniforms(views, 4) if mode == "uniforms" else None
+    tree = c.encode_leaves(views, seeds, draws)
+    groups = encode_groups(c, views, seeds, draws)
+    for t, g in zip(tree, groups):
+        assert torch.equal(t.words.view(torch.int32), g.words.view(torch.int32))
+        assert torch.equal(t.scales, g.scales)
+
+
+@pytest.mark.parametrize("bits,scheme", [(2, "qsgd"), (4, "qsgd"), (1, "terngrad")])
+def test_tree_encode_matches_jax_codec_per_leaf(bits, scheme):
+    """Given the JAX codec's uniforms, each leaf of one tree encode carries
+    the words the JAX codec emits for that leaf alone."""
+    sizes = [4113, 700, 4113, 64, 1000]
+    rng = np.random.default_rng(bits)
+    xs = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    jc = JaxQsgd(bits=bits, scheme=scheme, use_pallas=False)
+    keys = [jax.random.PRNGKey(100 + i) for i in range(len(sizes))]
+    want = [jc.encode(k, jnp.asarray(x)) for k, x in zip(keys, xs)]
+    u = [_t(jax.random.uniform(k, (-(-n // BUCKET), BUCKET), jnp.float32))
+         for k, n in zip(keys, sizes)]
+    got = QsgdCodec(bits=bits, scheme=scheme, use_kernel=True).encode_leaves(
+        [_t(x) for x in xs], list(range(len(xs))), u)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.words.numpy(), np.asarray(w.words))
+        np.testing.assert_allclose(g.scales.numpy(), np.asarray(w.scales), rtol=1e-6)
+
+
+def test_encode_tree_makes_one_tree_call(monkeypatch):
+    """encode_tree on a fused QSGD codec makes one quantize_pack_tree call
+    for the whole tree and no per-group call; the torch-quantizer path stays
+    one call per shape group."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.codecs import qsgd as qsgd_mod
+
+    calls = {"tree": 0, "stack": 0, "pack": 0}
+    tree, stack = K.quantize_pack_tree, K.quantize_pack
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(K, "quantize_pack_tree", count("tree", tree))
+    monkeypatch.setattr(K, "quantize_pack", count("stack", stack))
+    grads = _tree(_resnet_like_shapes(), 5)
+    payloads, stats = encode_tree(QsgdCodec(bits=4, use_kernel=True), 9, grads)
+    assert calls == {"tree": 1, "stack": 0, "pack": 0}
+    assert len(payloads) == 62
+    assert stats.payload_bytes == sum(QsgdCodec(bits=4).leaf_payload_bytes(tuple(g.shape))
+                                      for g in grads)
+    monkeypatch.setattr(qsgd_mod, "pack_bucketed", count("pack", qsgd_mod.pack_bucketed))
+    encode_tree(QsgdCodec(bits=4, use_kernel=False), 9, grads)
+    assert calls == {"tree": 1, "stack": 0, "pack": 17}
+
+
+def test_tree_wrapper_checks_its_arguments():
+    x = [torch.zeros(10), torch.zeros(600)]
+    with pytest.raises(ValueError, match="seeds"):
+        K.quantize_pack_tree(x, bits=2, seeds=[1])
+    with pytest.raises(ValueError):
+        K.quantize_pack_tree(x, bits=2)  # neither seeds nor u
+    assert K.quantize_pack_tree([], bits=2, seeds=[]) == []
