@@ -18,8 +18,8 @@ with the JAX package:
   same random draws;
 * same-shape leaves are stacked into one codec call, the counterpart of
   ``encode_leaf_subset``'s vmap over shape groups; a codec with a tree-wide
-  encode takes every leaf in one call instead (QSGD: one kernel launch over
-  the whole tree, with no stack copied).
+  encode (decode) takes every leaf in one call instead (QSGD: one kernel
+  launch over the whole tree each way, with no stack copied).
 
 A codec implements ``encode_stack(x, seeds, draws, shape=...)`` over an
 (L, n) stack of flattened leaves of one JAX-layout ``shape`` and
@@ -27,8 +27,10 @@ A codec implements ``encode_stack(x, seeds, draws, shape=...)`` over an
 tensors with a leading L axis. ``draws`` is the codec's parity hook (QSGD:
 its uniforms; SVD: a dict of its random draws), ``None`` in training.
 A codec may add ``encode_leaves(views, seeds, draws)``, which encodes the
-JAX-layout views of all leaves at once and returns one payload per leaf, and
-``decode_mean_stack`` for a fused mean over replicas.
+JAX-layout views of all leaves at once and returns one payload per leaf, its
+mirror ``decode_leaves(payloads, grads_like, layouts, n_replicas)``, which
+decodes (and averages over replicas) all leaves at once into the port
+layout, and ``decode_mean_stack`` for a fused mean over replicas.
 """
 
 from __future__ import annotations
@@ -194,7 +196,11 @@ def decode_tree(
     layouts: Optional[Sequence[bool]] = None,
 ) -> list[torch.Tensor]:
     """Decode payloads back to gradients shaped like ``grads_like`` (port
-    layout), one codec call per shape group."""
+    layout): in one ``decode_leaves`` call where the codec has one, else one
+    codec call per shape group."""
+    decode_leaves = getattr(codec, "decode_leaves", None)
+    if decode_leaves is not None:
+        return decode_leaves(payloads, grads_like, layouts)
     return _decode_groups(codec, payloads, grads_like, layouts,
                           lambda p, n, shape: codec.decode_stack(p, n, shape=shape))
 
@@ -204,10 +210,14 @@ def decode_mean_tree(
     n_replicas: int, layouts: Optional[Sequence[bool]] = None,
 ) -> list[torch.Tensor]:
     """Decode gathered payloads (each leaf's with a leading replica axis of
-    ``n_replicas``) and average them, one codec call per shape group: the
-    codec's fused ``decode_mean_stack`` where it has one (SVD: one
-    (m, N*k) @ (N*k, n) product), else decode every replica and take the
-    mean over the replica axis."""
+    ``n_replicas``) and average them: in one ``decode_leaves`` call where the
+    codec has one (QSGD: one launch over the tree), else one codec call per
+    shape group, the codec's fused ``decode_mean_stack`` where it has one
+    (SVD: one (m, N*k) @ (N*k, n) product), else decode every replica and
+    take the mean over the replica axis."""
+    decode_leaves = getattr(codec, "decode_leaves", None)
+    if decode_leaves is not None:
+        return decode_leaves(gathered, grads_like, layouts, n_replicas)
     fused = getattr(codec, "decode_mean_stack", None)
 
     def mean(stacked, n, shape):

@@ -12,10 +12,12 @@ Two interchangeable encode/decode paths share that format:
   twins, whose arithmetic is the Pallas kernels'. :meth:`QsgdCodec.encode_leaves`
   encodes a whole gradient tree with one launch of the encode kernel, its
   seeds in the launch's arguments, so the encode never waits for the card;
-  the decode runs once per shape group;
+  :meth:`QsgdCodec.decode_leaves` decodes it with one launch of the decode
+  kernel, straight into the port's layout;
 * torch ops for the quantizer (the counterpart of the JAX codec's jnp path)
   with the bit-pack stage as the pack/unpack kernels (:func:`pack_bucketed`
-  / :func:`unpack_bucketed`, whose plain versions run for CPU tensors).
+  once per shape group, :func:`unpack_bucketed_tree` once per tree; their
+  plain versions run for CPU tensors).
 
 On a CUDA tensor every path runs kernels: ``pack_kernel=False`` (the JAX
 codec's jnp pack) is refused there, since the plain versions serve the CPU
@@ -40,6 +42,7 @@ from atomo_tpu_torch.ops.qsgd_kernels import (  # noqa: F401
     pack_bucketed,
     padded_bucket,
     unpack_bucketed,
+    unpack_bucketed_tree,
 )
 from atomo_tpu_torch.utils.rng import generator
 
@@ -183,6 +186,42 @@ class QsgdCodec:
         )
         return [QsgdPayload(words=w, scales=s) for w, s in out]
 
+    def decode_leaves(
+        self,
+        payloads: Sequence[QsgdPayload],
+        grads_like: Sequence[torch.Tensor],
+        layouts: Optional[Sequence[bool]] = None,
+        n_replicas: int = 1,
+    ) -> list[torch.Tensor]:
+        """Decode every leaf of a tree straight into the port layout of
+        ``grads_like`` (float32; ``layouts`` as for :func:`encode_tree`); with
+        ``n_replicas`` above one each payload has that leading replica axis
+        and the leaf is the mean of the replicas' decodes, summed in order.
+        The fused path is one :func:`unpack_dequantize_tree` call (one launch
+        on the card); the pack path one :func:`unpack_bucketed_tree` call and
+        one dequantization over the rows of every leaf."""
+        if not payloads:
+            return []
+        if self._fused(payloads[0].words):
+            # a QsgdPayload is the (words, scales) pair the wrapper takes
+            return K.unpack_dequantize_tree(
+                payloads, grads_like, layouts, bits=self.bits,
+                bucket_size=self.bucket_size, n_replicas=n_replicas,
+            )
+        self._check_pack(payloads[0].words)
+        geoms = [K.geometry(g.numel(), self.bits, self.bucket_size) for g in grads_like]
+        K.check_decode_args(payloads, grads_like, n_replicas, geoms)
+        codes = unpack_bucketed_tree([p.words for p in payloads], bits=self.bits)
+        vals = self._dequantize(codes, torch.cat([p.scales.reshape(-1) for p in payloads]))
+        layouts = K.tree_layouts(grads_like, layouts)
+        out, row = [], 0
+        for g, like, tr in zip(geoms, grads_like, layouts):
+            rows = n_replicas * g.n_buckets
+            leaf = vals[row: row + rows].reshape(n_replicas, -1)[:, : g.n]
+            out.append(K.to_port_layout(K.replica_mean(leaf), like.shape, tr))
+            row += rows
+        return out
+
     def decode_stack(self, payload: QsgdPayload, n: int, *,
                      shape: Optional[Sequence[int]] = None) -> torch.Tensor:
         """(L, n) float32 values of a stacked payload."""
@@ -196,11 +235,17 @@ class QsgdCodec:
         n_leaves = payload.scales.shape[0]
         self._check_pack(payload.words)
         codes = unpack_bucketed(payload.words.reshape(-1, g.n_words), self.bits)
+        vals = self._dequantize(codes, payload.scales.reshape(-1))
+        return vals.reshape(n_leaves, -1)[:, :n]
+
+    def _dequantize(self, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+        """(rows, bucket_p) codes and (rows,) scales -> (rows, bucket_size)
+        float32 values, in the JAX jnp path's association:
+        ``sign * level / levels * scale``."""
         codes = codes[:, : self.bucket_size]
         level = (codes & self.levels).to(torch.float32)
         sign = 1.0 - 2.0 * ((codes >> self.bits) & 1).to(torch.float32)
-        vals = sign * level / self.levels * payload.scales.reshape(-1, 1)
-        return vals.reshape(n_leaves, -1)[:, :n]
+        return sign * level / self.levels * scales[:, None]
 
     def encode(self, seed: int, grad: torch.Tensor,
                uniforms: Optional[torch.Tensor] = None) -> QsgdPayload:

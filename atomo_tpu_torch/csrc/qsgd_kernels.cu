@@ -1,11 +1,11 @@
 // QSGD / TernGrad encode and decode kernels for Hopper (sm_90a).
 //
 // Replaces the four Pallas TPU kernels of atomo_tpu/ops/qsgd_kernels.py:
-//   qsgd_quantize_pack     <- pallas_quantize_pack (_quantize_pack_kernel,
-//                             _quantize_pack_kernel_ext, _finish_quantize)
-//   qsgd_unpack_dequantize <- pallas_unpack_dequantize (_unpack_dequantize_kernel)
-//   qsgd_pack_codes        <- pallas_pack_bucketed (_pack_codes_kernel)
-//   qsgd_unpack_codes      <- pallas_unpack_bucketed (_unpack_codes_kernel)
+//   qsgd_quantize_pack          <- pallas_quantize_pack (_quantize_pack_kernel,
+//                                  _quantize_pack_kernel_ext, _finish_quantize)
+//   qsgd_unpack_dequantize_tree <- pallas_unpack_dequantize (_unpack_dequantize_kernel)
+//   qsgd_pack_codes             <- pallas_pack_bucketed (_pack_codes_kernel)
+//   qsgd_unpack_codes_tree      <- pallas_unpack_bucketed (_unpack_codes_kernel)
 //
 // Wire format (shared with the JAX package, byte for byte): a leaf of n
 // float32 values is cut into nb = ceil(n / bs) buckets; each bucket is padded
@@ -22,15 +22,19 @@
 // scales (rows) of all leaves go to one flat buffer each; row g belongs to
 // the leaf l with row0[l] <= g < row0[l + 1], and positions past bs and
 // values past the leaf's n code as 0. The (L, n) stack of equal leaves is the
-// same kernel over L table entries. The decode kernels still take an (L, n)
-// stack of one shape: x (L * nb, nw) words -> (L, n).
+// same kernel over L table entries. The decode side mirrors it: one launch
+// of unpack_dequantize_tree_kernel decodes every leaf of a tree (optionally
+// the mean over a leading replica axis) straight into the port's layout
+// (conv OIHW, linear (out, in)), and one launch of unpack_codes_tree_kernel
+// unpacks every leaf's words into one codes buffer.
 //
 // Bound. Every kernel here is bound by device-memory bytes: the encode reads
 // 4 bytes per value (plus 4 per value when uniforms are given) and writes about
 // (bits + 1) / 8 bytes per value; it does some ten float operations and a
 // handful of integer ones per value, far below the card's ~20 operations per
 // byte. At ResNet-18 widths (11.2 M values, bits 4) the encode moves ~52 MB:
-// ~16 us at 3.35 TB/s. What the design does about it:
+// ~16 us at 3.35 TB/s; the decode reads ~7.5 MB and writes 44.7 MB, the
+// same ~16 us. What the design does about it:
 //   * one launch over all 62 leaves of a ResNet-18 step (it took 17 launches,
 //     one per shape group, each behind a blocking copy of its seeds);
 //   * one warp per bucket: lane l owns words l, l + 32, ...; the scale's
@@ -41,7 +45,11 @@
 //     (keyed on leaf seed, bucket, word, quad), so the hot path moves no
 //     random bytes, the analogue of the TPU's on-core PRNG;
 //   * for a fixed field j, neighbouring lanes read and write neighbouring
-//     addresses (p = j * nw + w), so every access is coalesced.
+//     addresses (p = j * nw + w), so every access is coalesced;
+//   * the decode turns the JAX layout into the port's through a tile in
+//     shared memory (see unpack_dequantize_tree_kernel): coalesced word
+//     reads on one side, stores along the port's rows on the other, so the
+//     layout change costs no pass of its own over device memory.
 // The arithmetic uses the _rn intrinsics so that nvcc contracts nothing into an
 // FMA: the plain PyTorch twins in atomo_tpu_torch/ops/qsgd_kernels.py repeat
 // each rounding, including the order of the scale reduction, and the kernels
@@ -78,6 +86,16 @@ __device__ __forceinline__ int bucket_valid(long long n, int lb, int bs) {
   return left < bs ? (int)left : bs;
 }
 
+// The last leaf whose first row (or block) is <= item, by bisection.
+__device__ __forceinline__ int last_leaf_at(const int* first, int n_leaves, int item) {
+  int leaf = 0, top = n_leaves - 1;  // the last leaf whose first item is <= item
+  while (leaf < top) {
+    const int mid = (leaf + top + 1) >> 1;
+    if (first[mid] <= item) leaf = mid; else top = mid - 1;
+  }
+  return leaf;
+}
+
 // The leaves of one quantize_pack launch, passed by value.
 constexpr int kMaxLeaves = 256;  // 9 KB of parameters
 struct LeafTable {
@@ -107,11 +125,7 @@ quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restri
   const int g = blockIdx.x * kQpWarps + (threadIdx.x >> 5);
   if (g >= table.row0[table.n_leaves]) return;
   const int lane = threadIdx.x & 31;
-  int leaf = 0, top = table.n_leaves - 1;  // the last leaf with row0 <= g
-  while (leaf < top) {
-    const int mid = (leaf + top + 1) >> 1;
-    if (table.row0[mid] <= g) leaf = mid; else top = mid - 1;
-  }
+  const int leaf = last_leaf_at(table.row0, table.n_leaves, g);
   const int lb = g - table.row0[leaf];
   const int valid = bucket_valid(table.n[leaf], lb, bs);
   const float* xb = table.x[leaf] + (long long)lb * bs;
@@ -185,37 +199,213 @@ quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restri
   }
 }
 
-// One thread per word.
+// The leaves of one unpack_dequantize_tree launch, passed by value. A leaf's
+// payload is n_replicas consecutive (nb, nw) words and (nb,) scales; its
+// output lies in the port's layout at out[l]. dims[l] = (A, B, C) says the
+// JAX layout (A, B, C) becomes the port's (C, B, A): a conv HWIO kernel is
+// (H*W, I, O) -> OIHW, a linear (in, out) kernel is (1, in, out) ->
+// (out, in); A = 0 marks a leaf that lies alike in both (vectors, embedding
+// tables). tile0[l] is the first block of leaf l.
+struct DecodeTable {
+  const uint32_t* words[kMaxLeaves];
+  const float* scales[kMaxLeaves];
+  float* out[kMaxLeaves];
+  int n[kMaxLeaves];
+  int dims[kMaxLeaves][3];
+  int tile0[kMaxLeaves + 1];
+  int n_leaves;
+};
+
+constexpr int kDecWarps = 8;   // 256 threads; a flat tile is 8 buckets, a warp each
+constexpr int kDecTileC = 32;  // a transposed tile: 32 output rows (one per lane) ...
+constexpr int kDecTileK = 64;  // ... of 64 values along the port's contiguous axis
+
+// (sign * level) * (scale / levels): the association XLA gives the JAX
+// reference, which hoists the constant product out of the field loop.
 template <int BITS>
-__global__ void unpack_dequantize_kernel(const uint32_t* __restrict__ words,
-                                         const float* __restrict__ scales,
-                                         float* __restrict__ out, long long n,
-                                         int nb, int bs, int nw,
-                                         long long total_words) {
+__device__ __forceinline__ float dequantize(uint32_t field, float step) {
+  constexpr uint32_t kLevels = (1u << BITS) - 1u;
+  const float level = (float)(field & kLevels);
+  const float sign = 1.f - 2.f * (float)((field >> BITS) & 1u);
+  return __fmul_rn(__fmul_rn(sign, level), step);
+}
+
+// One launch decodes a whole tree. A block finds its leaf by a search over
+// tile0 and its tile within the leaf:
+//   * flat leaves: 8 buckets, a warp each; lane l decodes words l, l + 32, ...
+//     and writes each field j at p = j * nw + w, so a warp's writes of one
+//     field are coalesced (the mapping of the stacked kernel before it);
+//   * transposed leaves: a tile of 32 output rows c (port layout, one per
+//     lane) by 64 values k along the row. The JAX position of (c, k = b*A+a)
+//     is (a*B + b)*C + c, so a warp reads one k for 32 consecutive c: 32
+//     consecutive positions, coalesced words. The values go to shared memory
+//     at column k ^ lane (conflict-free both ways), and the block writes each
+//     row's 64 values along the row, as 16-byte stores where the row length
+//     and the leaf's address allow, else as coalesced 4-byte stores.
+// kPow2: bs = 2^bs_shift <= 65536, so a position splits into bucket and
+// offset by a shift and a mask, and nw_magic = floor(2^32 / nw) + 1 divides
+// an offset by nw exactly (offset * nw < 2^32); else both are divisions.
+template <int BITS, bool kPow2>
+__global__ void __launch_bounds__(32 * kDecWarps, 4)
+unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs, int bs_shift,
+                              int nw, unsigned nw_magic, int n_replicas) {
   constexpr int kBpv = BITS + 1;
   constexpr int kVpw = 32 / kBpv;
-  constexpr int kLevels = (1 << BITS) - 1;
   constexpr uint32_t kMask = (1u << kBpv) - 1u;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total_words) return;
-  const int g = (int)(i / nw);
-  const int w = (int)(i - (long long)g * nw);
-  const int leaf = g / nb;
-  const int lb = g - leaf * nb;
-  const int valid = bucket_valid(n, lb, bs);
-  float* ob = out + (long long)leaf * n + (long long)lb * bs;
-  const uint32_t word = words[i];
-  // (sign * level) * (scale / levels): the association XLA gives the JAX
-  // reference, which hoists the constant product out of the field loop
-  const float step = __fmul_rn(1.0f / (float)kLevels, scales[g]);
+  constexpr float kInvLevels = 1.0f / (float)((1 << BITS) - 1);
+  __shared__ __align__(16) float tile[kDecTileC * kDecTileK];
+
+  const int leaf = last_leaf_at(table.tile0, table.n_leaves, blockIdx.x);
+  const int t = blockIdx.x - table.tile0[leaf];
+  const int n = table.n[leaf];
+  // a select on bs_shift, not on kPow2: the same value, and the decode ran
+  // faster so on an H100
+  const int nb = bs_shift >= 0 ? (n + bs - 1) >> bs_shift : (n + bs - 1) / bs;
+  const uint32_t* __restrict__ words = table.words[leaf];
+  const float* __restrict__ scales = table.scales[leaf];
+  float* __restrict__ out = table.out[leaf];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int A = table.dims[leaf][0];
+
+  if (A == 0) {
+    const int lb = t * kDecWarps + warp;
+    if (lb >= nb) return;
+    const int valid = bucket_valid(n, lb, bs);
+    const long long stride = (long long)nb * nw;
+    float* ob = out + (long long)lb * bs;
+    for (int w = lane; w < nw; w += 32) {
+      const long long at = (long long)lb * nw + w;
+      float acc[kVpw];
+      uint32_t word = words[at];
+      float step = __fmul_rn(kInvLevels, scales[lb]);
 #pragma unroll
-  for (int j = 0; j < kVpw; ++j) {
-    const int p = j * nw + w;
-    if (p < valid) {
-      const uint32_t code = (word >> (j * kBpv)) & kMask;
-      const float level = (float)(code & (uint32_t)kLevels);
-      const float sign = 1.f - 2.f * (float)((code >> BITS) & 1u);
-      ob[p] = __fmul_rn(__fmul_rn(sign, level), step);
+      for (int j = 0; j < kVpw; ++j) acc[j] = dequantize<BITS>((word >> (j * kBpv)) & kMask, step);
+      for (int r = 1; r < n_replicas; ++r) {
+        word = words[r * stride + at];
+        step = __fmul_rn(kInvLevels, scales[(long long)r * nb + lb]);
+#pragma unroll
+        for (int j = 0; j < kVpw; ++j) {
+          acc[j] = __fadd_rn(acc[j], dequantize<BITS>((word >> (j * kBpv)) & kMask, step));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kVpw; ++j) {
+        const int p = j * nw + w;
+        if (p < valid) ob[p] = n_replicas == 1 ? acc[j] : __fdiv_rn(acc[j], (float)n_replicas);
+      }
+    }
+    return;
+  }
+
+  const int B = table.dims[leaf][1], C = table.dims[leaf][2];
+  const int K = A * B;
+  const int tiles_k = (K + kDecTileK - 1) / kDecTileK;
+  const int c0 = (t / tiles_k) * kDecTileC, k0 = (t - (t / tiles_k) * tiles_k) * kDecTileK;
+  const bool lane_in = c0 + lane < C;
+  // a warp takes 8 consecutive k of the tile and issues their 8 loads
+  // before it uses any, so that they are in flight together
+  constexpr int kPer = kDecTileK / kDecWarps;
+  const int kw = k0 + warp * kPer;
+  // word index, bucket and field shift of the value (c0 + lane, k = b*A + a)
+  auto position = [&](int a, int b, int& at, int& lb, int& shift) {
+    const int p = (a * B + b) * C + c0 + lane;  // < n < 2^31
+    if constexpr (kPow2) {  // bs a power of two up to 65536: a shift, a mask, a product
+      lb = p >> bs_shift;
+      const int o = p & (bs - 1);
+      const int j = (int)__umulhi((unsigned)o, nw_magic);
+      at = lb * nw + o - j * nw;  // < nb * nw <= n
+      shift = j * kBpv;
+    } else {
+      lb = p / bs;
+      const int o = p - lb * bs;
+      const int j = o / nw;
+      at = lb * nw + o - j * nw;
+      shift = j * kBpv;
+    }
+  };
+  uint32_t wv[kPer];
+  float sc[kPer];
+  int sh[kPer];
+  unsigned ok = 0u;
+  {
+    int b = kw / A, a = kw - b * A;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      wv[i] = 0u;
+      sc[i] = 0.f;
+      sh[i] = 0;
+      if (kw + i < K && lane_in) {
+        int at, lb;
+        position(a, b, at, lb, sh[i]);
+        wv[i] = words[at];
+        sc[i] = scales[lb];
+        ok |= 1u << i;
+      }
+      if (++a == A) {
+        a = 0;
+        ++b;
+      }
+    }
+  }
+  float acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    acc[i] = (ok >> i) & 1u ? dequantize<BITS>(wv[i] >> sh[i], __fmul_rn(kInvLevels, sc[i]))
+                            : 0.f;
+  }
+  if (n_replicas > 1) {  // the mean over replicas, summed in order
+    const long long stride = (long long)nb * nw;
+    int b = kw / A, a = kw - b * A;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if ((ok >> i) & 1u) {
+        int at, lb, shift;
+        position(a, b, at, lb, shift);
+        for (int r = 1; r < n_replicas; ++r) {
+          const float step = __fmul_rn(kInvLevels, scales[(long long)r * nb + lb]);
+          acc[i] = __fadd_rn(acc[i], dequantize<BITS>(words[r * stride + at] >> shift, step));
+        }
+      }
+      if (++a == A) {
+        a = 0;
+        ++b;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int kk = warp * kPer + i;
+    tile[lane * kDecTileK + (kk ^ lane)] =
+        n_replicas == 1 ? acc[i] : __fdiv_rn(acc[i], (float)n_replicas);
+  }
+  __syncthreads();
+
+  if ((K & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    constexpr int kQuads = kDecTileK / 4;
+#pragma unroll
+    for (int i = threadIdx.x; i < kDecTileC * kQuads; i += 32 * kDecWarps) {
+      const int row = i / kQuads, q = i - row * kQuads;
+      const int c = c0 + row, k = k0 + 4 * q;
+      if (c < C && k < K) {
+        // logical column 4q + e lies at (4q + e) ^ row = ((4q) ^ (row & ~3)) + (e ^ (row & 3))
+        float4 v = *reinterpret_cast<const float4*>(&tile[row * kDecTileK + ((4 * q) ^ (row & ~3))]);
+        if (row & 1) {
+          const float x = v.x, z = v.z;
+          v.x = v.y; v.y = x; v.z = v.w; v.w = z;
+        }
+        if (row & 2) {
+          const float x = v.x, y = v.y;
+          v.x = v.z; v.y = v.w; v.z = x; v.w = y;
+        }
+        *reinterpret_cast<float4*>(out + (long long)c * K + k) = v;
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kDecTileC * kDecTileK; i += 32 * kDecWarps) {
+      const int row = i / kDecTileK, kk = i - row * kDecTileK;
+      const int c = c0 + row, k = k0 + kk;
+      if (c < C && k < K) out[(long long)c * K + k] = tile[row * kDecTileK + (kk ^ row)];
     }
   }
 }
@@ -238,22 +428,38 @@ __global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
   words[i] = word;
 }
 
-// words (rows, nw) -> codes (rows, nw * vpw) int32; one thread per word.
+// The leaves of one unpack_codes_tree launch: leaf l's words (rows, nw) at
+// words[l] go to rows row0[l] .. row0[l + 1] - 1 of the codes.
+struct CodesTable {
+  const uint32_t* words[kMaxLeaves];
+  int row0[kMaxLeaves + 1];
+  int n_leaves;
+};
+
+constexpr int kThreadsUc = 256;
+
+// words -> codes (rows, nw * vpw) int32 for a whole tree. Thread i takes
+// word q = i mod nw of row g = i / nw and writes its field j at j * nw + q,
+// so a warp's loads and its writes of one field are contiguous. A block
+// finds the leaf of its first row by bisection; a thread steps on from
+// there to its own row's.
 template <int BITS>
-__global__ void unpack_codes_kernel(const uint32_t* __restrict__ words,
-                                    int32_t* __restrict__ codes, int nw,
-                                    long long total_words) {
+__global__ void __launch_bounds__(kThreadsUc)
+unpack_codes_tree_kernel(const __grid_constant__ CodesTable table, int32_t* __restrict__ codes,
+                         int nw, int items) {
   constexpr int kBpv = BITS + 1;
   constexpr int kVpw = 32 / kBpv;
   constexpr uint32_t kMask = (1u << kBpv) - 1u;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total_words) return;
-  const long long g = i / nw;
-  const int w = (int)(i - g * nw);
-  int32_t* cb = codes + g * nw * kVpw;
-  const uint32_t word = words[i];
+  const int first = blockIdx.x * kThreadsUc;
+  const int i = first + threadIdx.x;
+  if (i >= items) return;
+  const int g = i / nw, q = i - g * nw;
+  int leaf = last_leaf_at(table.row0, table.n_leaves, first / nw);
+  while (g >= table.row0[leaf + 1]) ++leaf;
+  const uint32_t w = table.words[leaf][(long long)(g - table.row0[leaf]) * nw + q];
+  int32_t* row = codes + (long long)g * nw * kVpw + q;
 #pragma unroll
-  for (int j = 0; j < kVpw; ++j) cb[j * nw + w] = (int32_t)((word >> (j * kBpv)) & kMask);
+  for (int j = 0; j < kVpw; ++j) row[j * nw] = (int32_t)((w >> (j * kBpv)) & kMask);
 }
 
 constexpr int kThreads = 256;
@@ -324,18 +530,63 @@ int qsgd_quantize_pack(const float* const* x, const float* const* u,
   return 0;
 }
 
-int qsgd_unpack_dequantize(const uint32_t* words, const float* scales,
-                           float* out, long long n, int n_leaves, int nb,
-                           int bs, int nw, int bits, void* stream) {
-  const long long total = (long long)n_leaves * nb * nw;
-  if (total <= 0) return 0;
+// Decode n_leaves leaves in ceil(n_leaves / 256) launches (one for any model
+// up to 256 leaves): leaf l's n_replicas payloads words[l] (n_replicas, nb,
+// nw) and scales[l] (n_replicas, nb), nb = ceil(n[l] / bs), are decoded,
+// averaged over the replicas (summed in order, then divided) and written to
+// out + out_off[l] in the layout dims[3 l .. 3 l + 2] (see DecodeTable).
+int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const* scales,
+                                float* out, const long long* out_off, const int* n,
+                                const int* dims, int n_leaves, int bs, int nw, int bits,
+                                int n_replicas, void* stream) {
+  if (n_leaves <= 0) return 0;
+  if (bs <= 0 || nw <= 0 || n_replicas <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define QSGD_UD(B)                                                          \
-  unpack_dequantize_kernel<B><<<grid_for(total), kThreads, 0, s>>>(          \
-      words, scales, out, n, nb, bs, nw, total)
-  QSGD_DISPATCH_BITS(bits, QSGD_UD)
+  int bs_shift = -1;
+  for (int e = 0; e <= 16; ++e) {
+    if (bs == (1 << e)) bs_shift = e;
+  }
+  const bool pow2 = bs_shift >= 0 && nw >= 2;
+  const unsigned magic = pow2 ? (unsigned)((1ull << 32) / (unsigned)nw + 1ull) : 0u;
+  for (int c0 = 0; c0 < n_leaves; c0 += kMaxLeaves) {
+    const int m = n_leaves - c0 < kMaxLeaves ? n_leaves - c0 : kMaxLeaves;
+    DecodeTable t;
+    long long tiles = 0;
+    for (int l = 0; l < m; ++l) {
+      const int i = c0 + l;
+      t.words[l] = words[i];
+      t.scales[l] = scales[i];
+      t.out[l] = out + out_off[i];
+      t.n[l] = n[i];
+      for (int d = 0; d < 3; ++d) t.dims[l][d] = dims[3 * i + d];
+      t.tile0[l] = (int)tiles;
+      const int nb = (n[i] + bs - 1) / bs;
+      if (dims[3 * i] == 0) {
+        tiles += (nb + kDecWarps - 1) / kDecWarps;
+      } else {
+        const long long k = (long long)dims[3 * i] * dims[3 * i + 1];
+        tiles += (long long)((dims[3 * i + 2] + kDecTileC - 1) / kDecTileC) *
+                 ((k + kDecTileK - 1) / kDecTileK);
+      }
+    }
+    if (tiles >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    t.tile0[m] = (int)tiles;
+    t.n_leaves = m;
+    if (tiles == 0) continue;
+#define QSGD_UD(B)                                                                    \
+  if (pow2) {                                                                           \
+    unpack_dequantize_tree_kernel<B, true><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>(  \
+        t, bs, bs_shift, nw, magic, n_replicas);                                        \
+  } else {                                                                              \
+    unpack_dequantize_tree_kernel<B, false><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>( \
+        t, bs, bs_shift, nw, magic, n_replicas);                                        \
+  }
+    QSGD_DISPATCH_BITS(bits, QSGD_UD)
 #undef QSGD_UD
-  return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int qsgd_pack_codes(const int32_t* codes, uint32_t* words, long long rows,
@@ -350,16 +601,38 @@ int qsgd_pack_codes(const int32_t* codes, uint32_t* words, long long rows,
   return (int)cudaGetLastError();
 }
 
-int qsgd_unpack_codes(const uint32_t* words, int32_t* codes, long long rows,
-                      int nw, int bits, void* stream) {
-  const long long total = rows * nw;
-  if (total <= 0) return 0;
+// Unpack n_leaves leaves' words in ceil(n_leaves / 256) launches: leaf l's
+// rows row0[l] .. row0[l + 1] - 1 of codes (rows, nw * vpw) int32 come from
+// words[l].
+int qsgd_unpack_codes_tree(const uint32_t* const* words, const int* row0, int n_leaves,
+                           int32_t* codes, int nw, int bits, void* stream) {
+  if (n_leaves <= 0) return 0;
+  if (bits < 1 || bits > 8 || nw <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-#define QSGD_UC(B) \
-  unpack_codes_kernel<B><<<grid_for(total), kThreads, 0, s>>>(words, codes, nw, total)
-  QSGD_DISPATCH_BITS(bits, QSGD_UC)
+  for (int c0 = 0; c0 < n_leaves; c0 += kMaxLeaves) {
+    const int m = n_leaves - c0 < kMaxLeaves ? n_leaves - c0 : kMaxLeaves;
+    CodesTable t;
+    for (int l = 0; l < m; ++l) {
+      t.words[l] = words[c0 + l];
+      t.row0[l] = row0[c0 + l] - row0[c0];
+    }
+    t.row0[m] = row0[c0 + m] - row0[c0];
+    t.n_leaves = m;
+    const long long items = (long long)t.row0[m] * nw;
+    if (items <= 0) continue;
+    if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((items + kThreadsUc - 1) / kThreadsUc);
+    const int it = (int)items;
+    int32_t* c = codes + (long long)row0[c0] * nw * (32 / (bits + 1));
+#define QSGD_UC(B) unpack_codes_tree_kernel<B><<<grid, kThreadsUc, 0, s>>>(t, c, nw, it)
+    QSGD_DISPATCH_BITS(bits, QSGD_UC)
 #undef QSGD_UC
-  return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -4,15 +4,17 @@ Counterpart of ``atomo_tpu/ops/qsgd_kernels.py``. The four Pallas TPU kernels
 there become four hand-written CUDA kernels in ``csrc/qsgd_kernels.cu``
 (built for sm_90a by :mod:`atomo_tpu_torch.ops._build`):
 
-=======================  =============================================
-wrapper                  replaces (atomo_tpu/ops/qsgd_kernels.py)
-=======================  =============================================
-``quantize_pack``,       ``pallas_quantize_pack`` (fused encode)
+=========================  =============================================
+wrapper                    replaces (atomo_tpu/ops/qsgd_kernels.py)
+=========================  =============================================
+``quantize_pack``,         ``pallas_quantize_pack`` (fused encode)
 ``quantize_pack_tree``
-``unpack_dequantize``    ``pallas_unpack_dequantize`` (fused decode)
-``pack_bucketed``        ``pallas_pack_bucketed`` (bare bit-pack)
-``unpack_bucketed``      ``pallas_unpack_bucketed`` (bare bit-unpack)
-=======================  =============================================
+``unpack_dequantize``,     ``pallas_unpack_dequantize`` (fused decode)
+``unpack_dequantize_tree``
+``pack_bucketed``          ``pallas_pack_bucketed`` (bare bit-pack)
+``unpack_bucketed``,       ``pallas_unpack_bucketed`` (bare bit-unpack)
+``unpack_bucketed_tree``
+=========================  =============================================
 
 Each wrapper runs its kernel on a CUDA tensor (or raises: there is no
 fallback) and its ``*_plain`` twin on a CPU tensor. The twin computes the same
@@ -28,9 +30,13 @@ p = j * n_words + w sits in word w at bit j * (bits + 1)). One
 :func:`quantize_pack_tree` call encodes every leaf of a gradient tree, of any
 shapes, in one launch: the leaf table rides in the kernel's arguments (host
 memory, no copy to the device, no host sync), and each leaf's payload is a
-view into one flat words and one flat scales buffer. :func:`quantize_pack`
-is the same kernel over the L equal leaves of an (L, n) stack; the decode
-kernels take such stacks.
+view into one flat words and one flat scales buffer. The decode mirrors
+it: one :func:`unpack_dequantize_tree` call decodes every leaf (or the mean
+over a leading replica axis) in one launch, straight into the port's layout
+(conv OIHW, linear (out, in)), and one :func:`unpack_bucketed_tree` call
+unpacks every leaf's words. :func:`quantize_pack`, :func:`unpack_dequantize`
+and :func:`unpack_bucketed` are the same kernels over the L equal leaves of
+an (L, n) stack (one leaf for the last).
 
 Codes leave :func:`unpack_bucketed` as int32 (the JAX kernel returns uint32):
 fields are below 2^9, so the bits are the same and torch's int32 takes the
@@ -308,6 +314,103 @@ def unpack_dequantize_plain(
     return out[0] if squeeze else out
 
 
+def leaf_dims(shape: Sequence[int], transpose: bool = True) -> Optional[tuple]:
+    """How the tree decode lays out a leaf of port ``shape``: (A, B, C) where
+    the JAX layout (A, B, C) becomes the port's (C, B, A), or None where the
+    two lie alike. A conv OIHW weight is (H*W, I, O) in the JAX layout (HWIO),
+    a linear (out, in) weight (1, in, out); vectors, and any leaf with
+    ``transpose`` False (an embedding table), are None
+    (:func:`atomo_tpu_torch.convert.jax_view` in index form)."""
+    if transpose and len(shape) == 4:
+        o, i, h, w = shape
+        return (h * w, i, o)
+    if transpose and len(shape) == 2:
+        o, i = shape
+        return (1, i, o)
+    return None
+
+
+def to_port_layout(flat: torch.Tensor, shape: Sequence[int], transpose: bool = True):
+    """A leaf's (n,) values in the JAX layout -> contiguous port ``shape``."""
+    dims = leaf_dims(shape, transpose)
+    if dims is None:
+        return flat.reshape(shape).contiguous()
+    return flat.view(dims).permute(2, 1, 0).contiguous().view(shape)
+
+
+def replica_mean(vals: torch.Tensor) -> torch.Tensor:
+    """(N, n) -> (n,): the replicas summed in order 0..N-1 in float32, then
+    divided by N, the order of the tree kernel (one replica is itself)."""
+    acc = vals[0]
+    for r in range(1, vals.shape[0]):
+        acc = acc + vals[r]
+    if vals.shape[0] == 1:
+        return acc
+    # a tensor divisor: on CUDA, torch multiplies by the reciprocal of a
+    # Python scalar divisor, which is not the division for every N
+    return acc / torch.full_like(acc, vals.shape[0])
+
+
+def tree_layouts(outs_like: Sequence[torch.Tensor], layouts) -> tuple:
+    """One flag per leaf for :func:`leaf_dims`: ``layouts`` as bools, or
+    True for every leaf when it is None."""
+    if layouts is None:
+        return (True,) * len(outs_like)
+    if len(layouts) != len(outs_like):
+        raise ValueError(f"need {len(outs_like)} layouts, got {len(layouts)}")
+    return tuple(bool(v) for v in layouts)
+
+
+def check_decode_args(payloads, outs_like, n_replicas: int, geoms) -> None:
+    """The checks both decode paths make: one payload per float32 leaf, each
+    of the size its geometry and ``n_replicas`` give."""
+    if len(payloads) != len(outs_like):
+        raise ValueError(f"need one payload per leaf: {len(payloads)} payloads, "
+                         f"{len(outs_like)} leaves")
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be positive, got {n_replicas}")
+    for i, ((w, s), like, g) in enumerate(zip(payloads, outs_like, geoms)):
+        if like.dtype != torch.float32:
+            raise TypeError(f"leaf {i} is {like.dtype}: the tree decode writes float32 leaves")
+        if (w.numel() != n_replicas * g.n_buckets * g.n_words
+                or s.numel() != n_replicas * g.n_buckets):
+            raise ValueError(
+                f"payload {i}: words {tuple(w.shape)} and scales {tuple(s.shape)} do not "
+                f"hold {n_replicas} x {g.n_buckets} buckets of {g.n_words} words")
+
+
+def unpack_dequantize_tree_plain(
+    payloads: Sequence,
+    outs_like: Sequence[torch.Tensor],
+    layouts: Optional[Sequence[bool]] = None,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    n_replicas: int = 1,
+) -> list:
+    """Plain twin of :func:`unpack_dequantize_tree`: each leaf decoded alone
+    by :func:`unpack_dequantize_plain`, the replicas averaged by
+    :func:`replica_mean`, then laid out as the port holds it."""
+    geoms = [geometry(like.numel(), bits, bucket_size) for like in outs_like]
+    check_decode_args(payloads, outs_like, n_replicas, geoms)
+    out = []
+    for (words, scales), like, tr, g in zip(payloads, outs_like,
+                                            tree_layouts(outs_like, layouts), geoms):
+        vals = unpack_dequantize_plain(
+            words.reshape(n_replicas, g.n_buckets, g.n_words),
+            scales.reshape(n_replicas, g.n_buckets),
+            bits=bits, bucket_size=bucket_size, n=g.n,
+        )
+        out.append(to_port_layout(replica_mean(vals), like.shape, tr))
+    return out
+
+
+def unpack_bucketed_tree_plain(words_per_leaf: Sequence[torch.Tensor], *, bits: int):
+    """Plain twin of :func:`unpack_bucketed_tree`."""
+    return torch.cat([unpack_bucketed_plain(w.reshape(-1, w.shape[-1]), bits)
+                      for w in words_per_leaf])
+
+
 def _check_pack_shape(bucket_p: int, g: Geometry) -> None:
     if bucket_p % g.vpw:
         raise ValueError(
@@ -350,11 +453,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_qsgd_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-        lib.qsgd_unpack_dequantize.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+        lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.qsgd_pack_codes.argtypes = [p, p, ll, i, i, p]
-        lib.qsgd_unpack_codes.argtypes = [p, p, ll, i, i, p]
-        for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize,
-                   lib.qsgd_pack_codes, lib.qsgd_unpack_codes):
+        lib.qsgd_unpack_codes_tree.argtypes = [p, p, i, p, i, i, p]
+        for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize_tree,
+                   lib.qsgd_pack_codes, lib.qsgd_unpack_codes_tree):
             fn.restype = ctypes.c_int
         lib._qsgd_typed = True
     return lib
@@ -517,6 +620,115 @@ def quantize_pack_tree(
     return list(zip(words.split(layout.n_buckets), scales.split(layout.n_buckets)))
 
 
+class _DecodeLayout(NamedTuple):
+    """The static half of a tree decode's leaf table, cached by the tree's
+    shapes, layouts and geometry; each call patches in the pointers."""
+
+    geoms: tuple  # per leaf Geometry
+    views: tuple  # per leaf (shape, contiguous strides, first value in the buffer)
+    n_words: tuple  # per leaf, words of one replica's payload
+    total: int
+    ns: ctypes.Array  # per leaf, int
+    dims: ctypes.Array  # per leaf (A, B, C), A = 0 for a flat leaf; int
+    offsets: ctypes.Array  # per leaf, its first value in the buffer; long long
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_layout(shapes: tuple, layouts: tuple, bits: int, bucket_size: int,
+                   pad: bool) -> _DecodeLayout:
+    geoms = tuple(geometry(int(np.prod(s, dtype=np.int64)), bits, bucket_size) for s in shapes)
+    if any(g.n >= 1 << 31 for g in geoms):
+        raise ValueError("a leaf of 2^31 values or more does not fit the kernel's int32 positions")
+    # each leaf starts on 16 bytes, so that a transposed leaf's rows may
+    # take 16-byte stores
+    sizes = tuple(-(-g.n // 4) * 4 if pad else g.n for g in geoms)
+    offsets = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).tolist()
+    dims = [leaf_dims(s, tr) or (0, 0, 0) for s, tr in zip(shapes, layouts)]
+    n = len(shapes)
+    strides = [tuple(np.cumprod((1,) + tuple(s[:0:-1]), dtype=np.int64)[::-1].tolist())
+               if len(s) else () for s in shapes]
+    return _DecodeLayout(
+        geoms, tuple(zip(shapes, strides, offsets)),
+        tuple(g.n_buckets * g.n_words for g in geoms), offsets[-1],
+        (ctypes.c_int * n)(*(g.n for g in geoms)),
+        (ctypes.c_int * (3 * n))(*(d for t in dims for d in t)),
+        (ctypes.c_longlong * n)(*offsets[:-1]),
+    )
+
+
+def _launch_unpack_dequantize(words, scales, out, layout, *, bits, bucket_size, n_replicas):
+    """Launch the tree decode over leaves whose words and scales lie at the
+    data pointers ``words`` and ``scales``, into ``out`` laid out as
+    ``layout``."""
+    n_leaves = len(words)
+    vp = ctypes.c_void_p
+    rc = _lib().qsgd_unpack_dequantize_tree(
+        (vp * n_leaves)(*words), (vp * n_leaves)(*scales), _ptr(out), layout.offsets,
+        layout.ns, layout.dims, n_leaves, bucket_size, layout.geoms[0].n_words, bits,
+        n_replicas, _stream(),
+    )
+    _raise_if(rc, "qsgd_unpack_dequantize_tree")
+    unpack_dequantize.launches += -(-n_leaves // _MAX_LEAVES)
+
+
+def unpack_dequantize_tree(
+    payloads: Sequence,
+    outs_like: Sequence[torch.Tensor],
+    layouts: Optional[Sequence[bool]] = None,
+    *,
+    bits: int,
+    bucket_size: int = 512,
+    n_replicas: int = 1,
+) -> list:
+    """Fused QSGD decode of a whole tree in one launch: ``payloads`` holds
+    one (words, scales) pair per leaf, words (n_buckets, n_words) uint32 and
+    scales (n_buckets,) float32, each with a leading axis of ``n_replicas``
+    when that is above one (any leading axis of that size is taken). Leaf i
+    comes back shaped like ``outs_like[i]`` (float32, port layout: conv
+    OIHW, linear (out, in); ``layouts[i]`` False keeps the JAX layout, as for
+    an embedding table), contiguous, a view into one buffer; over replicas
+    it is their mean, summed in order and divided by ``n_replicas``. The
+    leaf table rides in the kernel's arguments: no copy to the device and
+    no host sync."""
+    if not payloads:
+        return []
+    w0 = payloads[0][0]
+    if not _on_card(w0):
+        _on_card(*(t for p in payloads for t in p))  # refuses a mix of devices
+        return unpack_dequantize_tree_plain(payloads, outs_like, layouts, bits=bits,
+                                            bucket_size=bucket_size, n_replicas=n_replicas)
+    layout = _decode_layout(tuple(g.shape for g in outs_like),
+                            tree_layouts(outs_like, layouts), bits, bucket_size, True)
+    if len(payloads) != len(outs_like) or n_replicas < 1:
+        check_decode_args(payloads, outs_like, n_replicas, layout.geoms)
+    # the host work of every step: one pass of cheap checks, the pointers
+    dev, f32, u32, i32 = w0.get_device(), torch.float32, torch.uint32, torch.int32
+    word_ptrs, scale_ptrs = [], []
+    for (w, s), like, nw, g in zip(payloads, outs_like, layout.n_words, layout.geoms):
+        if (like.dtype is not f32 or s.dtype is not f32
+                or (w.dtype is not u32 and w.dtype is not i32)
+                or w.get_device() != dev or s.get_device() != dev
+                or w.numel() != n_replicas * nw or s.numel() != n_replicas * g.n_buckets
+                or not w.is_contiguous() or not s.is_contiguous()):
+            _refuse_decode(payloads, outs_like, n_replicas, layout.geoms)
+        word_ptrs.append(w.data_ptr())
+        scale_ptrs.append(s.data_ptr())
+    out = torch.empty((layout.total,), dtype=f32, device=w0.device)
+    _launch_unpack_dequantize(word_ptrs, scale_ptrs, out, layout, bits=bits,
+                              bucket_size=bucket_size, n_replicas=n_replicas)
+    return [out.as_strided(shape, stride, offset) for shape, stride, offset in layout.views]
+
+
+def _refuse_decode(payloads, outs_like, n_replicas, geoms):
+    """Raise what is wrong with a tree decode's arguments."""
+    _on_card(*(t for p in payloads for t in p))
+    check_decode_args(payloads, outs_like, n_replicas, geoms)
+    for i, (w, s) in enumerate(payloads):
+        _require(w, f"words[{i}]", (torch.uint32, torch.int32), w.shape)
+        _require(s, f"scales[{i}]", (torch.float32,), s.shape)
+    raise ValueError("unpack_dequantize_tree: payloads the kernel cannot take")
+
+
 def unpack_dequantize(
     words: torch.Tensor,
     scales: torch.Tensor,
@@ -526,7 +738,8 @@ def unpack_dequantize(
     n: int,
 ) -> torch.Tensor:
     """Fused QSGD decode: words (…, n_buckets, n_words), scales
-    (…, n_buckets) -> float32 (…, n)."""
+    (…, n_buckets) -> float32 (…, n). The tree kernel over the L rows as
+    flat leaves: one launch for up to 256 of them."""
     if not _on_card(words, scales):
         return unpack_dequantize_plain(
             words, scales, bits=bits, bucket_size=bucket_size, n=n
@@ -539,12 +752,15 @@ def unpack_dequantize(
     _require(words, "words", (torch.uint32, torch.int32),
              lead + (g.n_buckets, g.n_words))
     out = torch.empty((n_leaves, n), dtype=torch.float32, device=words.device)
-    rc = _lib().qsgd_unpack_dequantize(
-        _ptr(words), _ptr(scales), _ptr(out), n, n_leaves, g.n_buckets,
-        bucket_size, g.n_words, bits, _stream(),
-    )
-    _raise_if(rc, "qsgd_unpack_dequantize")
-    unpack_dequantize.launches += 1
+    if n_leaves:
+        layout = _decode_layout(((n,),) * n_leaves, (False,) * n_leaves, bits, bucket_size,
+                                False)
+        wb, sb = words.data_ptr(), scales.data_ptr()
+        _launch_unpack_dequantize(
+            [wb + 4 * i * g.n_buckets * g.n_words for i in range(n_leaves)],
+            [sb + 4 * i * g.n_buckets for i in range(n_leaves)], out, layout, bits=bits,
+            bucket_size=bucket_size, n_replicas=1,
+        )
     return out[0] if squeeze else out
 
 
@@ -567,21 +783,54 @@ def pack_bucketed(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return words.view(torch.uint32)
 
 
+@functools.lru_cache(maxsize=64)
+def _row0(rows: tuple) -> ctypes.Array:
+    row0 = np.concatenate([[0], np.cumsum(rows, dtype=np.int64)])
+    if row0[-1] >= 1 << 31:
+        raise ValueError(f"{row0[-1]} rows do not fit the kernel's int32 rows")
+    return (ctypes.c_int * len(row0))(*row0.tolist())
+
+
+def unpack_bucketed_tree(words_per_leaf: Sequence[torch.Tensor], *, bits: int) -> torch.Tensor:
+    """Bit-unpack the words of a whole tree in one launch: each leaf's words
+    (…, n_words) uint32, all of one n_words, any leading axes (a replica
+    axis included) folded into rows -> one (rows, n_words * vpw) int32
+    tensor, the leaves' rows one after another."""
+    g = geometry(0, bits)
+    if not words_per_leaf:
+        raise ValueError("unpack_bucketed_tree needs at least one leaf")
+    if not _on_card(*words_per_leaf):
+        return unpack_bucketed_tree_plain(words_per_leaf, bits=bits)
+    n_words = words_per_leaf[0].shape[-1]
+    rows = []
+    for i, w in enumerate(words_per_leaf):
+        if (w.dim() < 1 or w.shape[-1] != n_words or w.dtype not in (torch.uint32, torch.int32)
+                or not w.is_contiguous()):
+            _require(w, f"words[{i}]", (torch.uint32, torch.int32), (w.numel() // n_words,
+                                                                    n_words))
+        rows.append(w.numel() // n_words)
+    row0 = _row0(tuple(rows))
+    ptrs = [w.data_ptr() for w in words_per_leaf]
+    codes = torch.empty((row0[len(rows)], n_words * g.vpw), dtype=torch.int32,
+                        device=words_per_leaf[0].device)
+    n_leaves = len(ptrs)
+    rc = _lib().qsgd_unpack_codes_tree(
+        (ctypes.c_void_p * n_leaves)(*ptrs), row0, n_leaves, _ptr(codes), n_words, bits,
+        _stream(),
+    )
+    _raise_if(rc, "qsgd_unpack_codes_tree")
+    unpack_bucketed.launches += -(-n_leaves // _MAX_LEAVES)
+    return codes
+
+
 def unpack_bucketed(words: torch.Tensor, bits: int) -> torch.Tensor:
     """Inverse of :func:`pack_bucketed`: (nb, wpb) words -> (nb, wpb * vpw)
-    int32 codes."""
+    int32 codes; the tree kernel over one leaf."""
     if not _on_card(words):
         return unpack_bucketed_plain(words, bits)
-    g = geometry(0, bits)
     nb, n_words = words.shape
     _require(words, "words", (torch.uint32, torch.int32), (nb, n_words))
-    codes = torch.empty((nb, n_words * g.vpw), dtype=torch.int32, device=words.device)
-    rc = _lib().qsgd_unpack_codes(
-        _ptr(words), _ptr(codes), nb, n_words, bits, _stream()
-    )
-    _raise_if(rc, "qsgd_unpack_codes")
-    unpack_bucketed.launches += 1
-    return codes
+    return unpack_bucketed_tree([words], bits=bits)
 
 
 KERNELS = (quantize_pack, unpack_dequantize, pack_bucketed, unpack_bucketed)

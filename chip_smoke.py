@@ -24,7 +24,11 @@ every hand-written kernel against its plain PyTorch version:
    kernels against its plain version on the ResNet-18 shape groups' stacks,
    for bits 2/4/8 (qsgd) and 1 (terngrad): words and codes bit
    for bit, scales within rtol 1e-6, decoded values bit for bit; the
-   in-kernel Philox generator bit for bit against its twin; the mean decode
+   in-kernel Philox generator bit for bit against its twin; the tree decode
+   (one launch over the 62 leaves, straight into the port layout, for one
+   replica and the mean of four) and the tree unpack against their plain
+   versions bit for bit at bits 1-8 and terngrad, and over the LM recipe's
+   28 leaves (embedding tables untransposed) at bits 2/4/8; the mean decode
    over 64 seeds within 4 * scale / levels / sqrt(64) of the input
    (unbiasedness); a LeNet train step on the card against the same step on
    the CPU (TF32 off; loss rtol 1e-4, params within 1e-5 plus one
@@ -38,12 +42,16 @@ every hand-written kernel against its plain PyTorch version:
    ``svd`` (auto rank 24) and 3 with ``sgd``. Each run sets the launch counts
    to 0 before it and reads them after; the losses must be finite and fall
    over the qsgd and LM svd runs, every kernel of a run's path must have
-   launched in it, the QSGD encode exactly once per step (one launch over
-   the tree) and the flash kernel exactly once per layer per step;
+   launched in it, the QSGD encode and decode exactly once per step each
+   (one launch over the tree each way), the pack path's unpack once and its
+   pack 17 times per step (one per shape group), and the flash kernel
+   exactly once per layer per step;
 4. time: each kernel's launches of one train step (ResNet-18 at bits 4: the
-   encode's one tree launch, the other kernels' launches per shape group;
-   the LM's four flash launches), by CUDA events around the wrapper calls,
-   median of 20, and as the kernels' own device time under
+   encode's and the decode's one tree launch (the whole ``decode_tree``
+   call), the pack path's one unpack launch and 17 pack launches, beside the
+   per-shape-group way of PR 3 for the decode and the unpack; the LM's four
+   flash launches), by CUDA events around the calls, median of 20, and as
+   the kernels' own device time under
    ``torch.profiler``, beside the plain version's time, the bound (bytes over
    3.35 TB/s or operations over the peak of the route: 495 TFLOP/s TF32 x 3
    for the float32 flash kernel, 989 TFLOP/s bf16, 67 TFLOP/s float32 FMA,
@@ -198,8 +206,8 @@ def ptxas_flash(report: str, lib) -> list[str]:
 
 def resnet_grads(device, seed: int = 0):
     """Gradient-like tensors of ResNet-18's 62 leaves, each leaf at its own
-    scale: the flat JAX-layout leaves the encode's tree launch takes, and the
-    (L, n) stacks of the shape groups that the decode kernels take."""
+    scale: the port-layout leaves, the flat JAX-layout leaves the encode's
+    tree launch takes, and the (L, n) stacks of the shape groups."""
     import torch
 
     from atomo_tpu_torch.codecs import stack_leaves
@@ -212,7 +220,23 @@ def resnet_grads(device, seed: int = 0):
     grads = [torch.randn(p.shape, generator=gen, device=device) * (0.01 * (1 + i % 7))
              for i, p in enumerate(leaf_params(model))]
     leaves = [jax_view(g).reshape(-1) for g in grads]
-    return leaves, [(idxs, x) for idxs, x in stack_leaves(grads)]
+    return grads, leaves, [(idxs, x) for idxs, x in stack_leaves(grads)]
+
+
+def lm_grads(device, seed: int = 0):
+    """Gradient-like tensors of the LM recipe's 28 leaves (port layout) and
+    their layouts (embedding tables untransposed)."""
+    import torch
+
+    from atomo_tpu_torch.convert import jax_layouts
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = TransformerLM(vocab_size=256, max_len=LM_SHAPE[2], width=256, depth=LM_DEPTH,
+                          num_heads=4)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return ([torch.randn(p.shape, generator=gen, device=device) * 0.01
+             for p in leaf_params(model)], jax_layouts(model))
 
 
 def same_bits(a, b) -> bool:
@@ -280,6 +304,59 @@ def phase_check(leaves, stacks, errs):
         torch.cuda.synchronize()
         log(f"check: bits {bits} {scheme}: the encode's tree launch over {len(leaves)} "
             f"leaves and the kernels on {len(stacks)} shape groups equal their plain versions")
+
+
+def replica_payloads(codec, grads, n_replicas: int, layouts=None):
+    """Per leaf, the (words, scales) of ``n_replicas`` encodes of ``grads``
+    (keys 100, 101, ...), on a leading replica axis above one replica."""
+    import torch
+
+    from atomo_tpu_torch.codecs import encode_tree
+
+    reps = [encode_tree(codec, 100 + r, grads, layouts=layouts)[0] for r in range(n_replicas)]
+    if n_replicas == 1:
+        return [(p.words, p.scales) for p in reps[0]]
+    return [(torch.stack([p.words.view(torch.int32) for p in ps]).view(torch.uint32),
+             torch.stack([p.scales for p in ps])) for ps in zip(*reps)]
+
+
+def phase_check_decode(grads, errs):
+    """The tree decode (one launch, straight into the port layout) and the
+    tree unpack (one launch) against their plain twins, bit for bit: over
+    ResNet-18's 62 leaves at bits 1-8 and terngrad, for one replica and the
+    mean of four, and over the LM recipe's 28 leaves."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, terngrad
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    lm, lm_layouts = lm_grads(grads[0].device, seed=11)
+    cases = [(QsgdCodec(bits=b), grads, None, f"ResNet-18 bits {b}") for b in range(1, 9)]
+    cases += [(terngrad(), grads, None, "ResNet-18 terngrad")]
+    cases += [(QsgdCodec(bits=b), lm, lm_layouts, f"LM bits {b}") for b in (2, 4, 8)]
+    for codec, tree, layouts, label in cases:
+        bits = codec.bits
+        for n_rep in (1, 4):
+            payloads = replica_payloads(codec, tree, n_rep, layouts)
+            got = K.unpack_dequantize_tree(payloads, tree, layouts, bits=bits, n_replicas=n_rep)
+            want = K.unpack_dequantize_tree_plain(payloads, tree, layouts, bits=bits,
+                                                  n_replicas=n_rep)
+            words = [w for w, _ in payloads]
+            codes = K.unpack_bucketed_tree(words, bits=bits)
+            codes_plain = K.unpack_bucketed_tree_plain(words, bits=bits)
+            errs["unpack_dequantize"] = max([errs["unpack_dequantize"]] + [
+                float((a - b).abs().max()) for a, b in zip(got, want) if a.numel()])
+            errs["unpack_bucketed"] = max(errs["unpack_bucketed"],
+                                          float((codes - codes_plain).abs().max()))
+            for i, (a, b, g) in enumerate(zip(got, want, tree)):
+                if not (a.shape == g.shape and a.is_contiguous() and torch.equal(a, b)):
+                    raise AssertionError(f"unpack_dequantize_tree differs: {label}, "
+                                         f"{n_rep} replicas, leaf {i} {tuple(g.shape)}")
+            if not torch.equal(codes, codes_plain):
+                raise AssertionError(f"unpack_bucketed_tree differs: {label}, {n_rep} replicas")
+        torch.cuda.synchronize()
+        log(f"check: {label}: the tree decode over {len(tree)} leaves (1 and 4 replicas) and "
+            f"the tree unpack equal their plain versions")
 
 
 def phase_unbiased(stacks, trials: int = 64):
@@ -526,11 +603,15 @@ def phase_train():
         q = runs[name]["losses"]
         if not q[-1] < q[0]:
             raise AssertionError(f"{name} loss did not fall: {q}")
-    for name, steps in (("qsgd", 5), ("terngrad", 2)):  # one encode launch a step
+    for name, steps in (("qsgd", 5), ("terngrad", 2)):  # one launch a step each way
         counts = runs[name]["launches"]
-        if counts["quantize_pack"] != steps or counts["unpack_dequantize"] != 17 * steps:
-            raise AssertionError(f"{name}: launches {counts}, want quantize_pack {steps} "
-                                 f"(one over the tree a step), unpack_dequantize 17 x {steps}")
+        if counts["quantize_pack"] != steps or counts["unpack_dequantize"] != steps:
+            raise AssertionError(f"{name}: launches {counts}, want quantize_pack and "
+                                 f"unpack_dequantize {steps} (one over the tree a step)")
+    counts = runs["qsgd_pack"]["launches"]
+    if counts["unpack_bucketed"] != 2 or counts["pack_bucketed"] != 17 * 2:
+        raise AssertionError(f"qsgd_pack: launches {counts}, want unpack_bucketed 2 (one over "
+                             f"the tree a step), pack_bucketed 17 x 2 (one per shape group)")
     for name in ("sgd", "svd3"):  # no kernel on these paths
         if any(runs[name]["launches"].values()):
             raise AssertionError(f"{name} run launched kernels: {runs[name]['launches']}")
@@ -548,13 +629,21 @@ def phase_train():
     return runs
 
 
-def phase_time(leaves, stacks):
+def phase_time(grads, leaves, stacks):
     """Each QSGD kernel's launches of one ResNet-18 train step at bits 4: the
     encode's one launch over the 62 leaves (the seeds computed once, as
-    ``encode_tree`` hands them over), the other kernels' one launch per shape
-    group. Two times per kernel: the CUDA-event wall around the wrapper
-    calls (host work and launches included) and the kernels' own device time
-    from ``torch.profiler``."""
+    ``encode_tree`` hands them over), the decode's one launch (the whole
+    ``decode_tree`` call, straight into the port layout), the pack path's one
+    unpack launch over the tree and its 17 pack launches, one per shape
+    group. Two times per kernel: the CUDA-event wall around the calls (host
+    work and launches included) and the kernels' own device time from
+    ``torch.profiler``. Beside the decode and the unpack, the way PR 3 did
+    the same work in the same call: per shape group a stack of the payloads,
+    a launch and (decode) each leaf's copy into the port layout."""
+    import dataclasses
+
+    from atomo_tpu_torch.codecs import QsgdCodec, decode_tree, encode_tree
+    from atomo_tpu_torch.codecs.base import _decode_groups
     from atomo_tpu_torch.ops import qsgd_kernels as K
 
     bits = 4
@@ -567,10 +656,24 @@ def phase_time(leaves, stacks):
         w, s = K.quantize_pack(x, bits=bits, seeds=[17 + i for i in idxs])
         codes = K.unpack_bucketed(w.reshape(-1, g.n_words), bits)
         enc.append((x, g, w, s, codes))
+    fused = QsgdCodec(bits=bits)
+    pack = dataclasses.replace(fused, use_kernel=False)
+    payloads, _ = encode_tree(fused, 17, grads)
+    pack_payloads, _ = encode_tree(pack, 17, grads)
+    pairs = [(p.words, p.scales) for p in payloads]
+    words = [p.words for p in payloads]
 
     def each(fn):
         return lambda: [fn(*e) for e in enc]
 
+    def per_group(codec, ps):
+        return lambda: _decode_groups(codec, ps, grads, None,
+                                      lambda p, n, shape: codec.decode_stack(p, n, shape=shape))
+
+    n_words = sum(w.numel() for w in words)
+    n_scales = sum(p.scales.numel() for p in payloads)
+    n_values = sum(g.numel() for g in grads)
+    n_codes = n_words * K.geometry(0, bits).vpw
     work = {
         "quantize_pack": (
             lambda: K.quantize_pack_tree(leaves, bits=bits, seeds=seeds),
@@ -584,15 +687,19 @@ def phase_time(leaves, stacks):
             # 10 rounds of ~8 integer operations per 4 positions
             sum(w.numel() * K.geometry(x.numel(), bits).vpw * (11 + 20)
                 for x, (w, s) in zip(leaves, tree)),
-            1,
+            1, {},
         ),
         "unpack_dequantize": (
-            each(lambda x, g, w, s, c: K.unpack_dequantize(w, s, bits=bits, n=g.n)),
-            each(lambda x, g, w, s, c: K.unpack_dequantize_plain(w, s, bits=bits, n=g.n)),
-            "unpack_dequantize_kernel",
-            sum(w.numel() * 4 + s.numel() * 4 + x.numel() * 4 for x, g, w, s, c in enc),
-            sum(x.numel() * 6 for x, g, w, s, c in enc),
-            len(enc),
+            lambda: decode_tree(fused, payloads, grads),
+            lambda: K.unpack_dequantize_tree_plain(pairs, grads, bits=bits),
+            "unpack_dequantize_tree_kernel",
+            # read words and scales, write the values
+            4 * (n_words + n_scales + n_values),
+            # per value: shift, mask, two conversions, the sign, two products
+            n_values * 6,
+            1,
+            {"wrapper": lambda: K.unpack_dequantize_tree(pairs, grads, bits=bits),
+             "pr3_path": per_group(fused, payloads)},
         ),
         "pack_bucketed": (
             each(lambda x, g, w, s, c: K.pack_bucketed(c, bits)),
@@ -600,20 +707,23 @@ def phase_time(leaves, stacks):
             "::pack_codes_kernel",
             sum(c.numel() * 4 + w.numel() * 4 for x, g, w, s, c in enc),
             sum(c.numel() * 2 for x, g, w, s, c in enc),
-            len(enc),
+            len(enc), {},
         ),
         "unpack_bucketed": (
-            each(lambda x, g, w, s, c: K.unpack_bucketed(w.reshape(-1, g.n_words), bits)),
-            each(lambda x, g, w, s, c: K.unpack_bucketed_plain(
+            lambda: K.unpack_bucketed_tree(words, bits=bits),
+            lambda: K.unpack_bucketed_tree_plain(words, bits=bits),
+            "unpack_codes_tree_kernel",
+            4 * (n_words + n_codes),
+            n_codes * 2,
+            1,
+            {"pr3_path": each(lambda x, g, w, s, c: K.unpack_bucketed(
                 w.reshape(-1, g.n_words), bits)),
-            "unpack_codes_kernel",
-            sum(c.numel() * 4 + w.numel() * 4 for x, g, w, s, c in enc),
-            sum(c.numel() * 2 for x, g, w, s, c in enc),
-            len(enc),
+             "pack_decode": lambda: decode_tree(pack, pack_payloads, grads),
+             "pack_decode_pr3_path": per_group(pack, pack_payloads)},
         ),
     }
     out = {}
-    for name, (kern, plain, kname, nbytes, ops, launches) in work.items():
+    for name, (kern, plain, kname, nbytes, ops, launches, beside) in work.items():
         ms = cuda_ms(kern)
         dev_ms = device_ms(kern, kname)
         plain_ms = cuda_ms(plain, reps=5, warmup=1)
@@ -621,9 +731,17 @@ def phase_time(leaves, stacks):
         out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": nbytes, "ops": ops,
                      "launches_per_step": launches}
-        log(f"time {name}: {ms:.4f} ms per step by events around the wrapper calls, "
+        log(f"time {name}: {ms:.4f} ms per step by events around the calls, "
             f"{dev_ms:.4f} ms of device time ({launches} launches), plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops)")
+            f"bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} ops), "
+            f"{100 * b_ms / dev_ms:.1f} % of it by device time, {100 * b_ms / ms:.1f} % by events")
+        for label, fn in beside.items():
+            t = {"ms": cuda_ms(fn), "device_all_ms": device_ms(fn, "")}
+            out[name][label] = t
+            log(f"time {name} {label}: {t['ms']:.4f} ms by events, {t['device_all_ms']:.4f} ms "
+                f"of device time in all its kernels and copies")
+        if beside:
+            out[name]["device_all_ms"] = device_ms(kern, "")
     return out
 
 
@@ -793,17 +911,18 @@ def main() -> int:
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_start = time.time()
     phase_build()
-    leaves, stacks = resnet_grads(torch.device("cuda"))
+    grads, leaves, stacks = resnet_grads(torch.device("cuda"))
     log(f"ResNet-18 leaves: {len(leaves)} in {len(stacks)} shape groups, "
         f"{sum(x.numel() for x in leaves)} values")
     errs = {name: 0.0 for name in REPLACES}
     phase_flash_check(errs)
     phase_check(leaves, stacks, errs)
+    phase_check_decode(grads, errs)
     phase_unbiased(stacks)
     phase_reference()
     phase_reference_lm()
     runs = phase_train()
-    times = phase_time(leaves, stacks)
+    times = phase_time(grads, leaves, stacks)
     times["flash_attention"] = phase_time_flash()
     prof = phase_profile()
 

@@ -10,7 +10,9 @@ version do the same float32 operations in the same order (see
 ``atomo_tpu_torch/csrc/qsgd_kernels.cu``). Scales are compared within rtol
 1e-6, the tolerance of the CPU tests. The tree encode (one launch over all of
 ResNet-18's 62 leaves) is held against the plain twin and against the
-per-shape-group stacks, and must run without a host sync.
+per-shape-group stacks, and must run without a host sync; so are the tree
+decode (one launch, straight into the port layout, over one replica or the
+mean of four) and the tree unpack.
 """
 
 import dataclasses
@@ -18,7 +20,7 @@ import dataclasses
 import pytest
 import torch
 
-from atomo_tpu_torch.codecs import QsgdCodec, terngrad
+from atomo_tpu_torch.codecs import QsgdCodec, QsgdPayload, terngrad
 from atomo_tpu_torch.ops import qsgd_kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -144,6 +146,159 @@ def test_encode_tree_makes_no_host_sync(dev, make):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert all(bool(torch.isfinite(p.scales).all()) for p in payloads)
+
+
+def _payload_tree(codec, grads, n_replicas, layouts=None):
+    """Per leaf, the (words, scales) of ``n_replicas`` encodes, on a leading
+    replica axis when there is more than one."""
+    from atomo_tpu_torch.codecs import encode_tree
+
+    reps = [encode_tree(codec, 100 + r, grads, layouts=layouts)[0] for r in range(n_replicas)]
+    if n_replicas == 1:
+        return [(p.words, p.scales) for p in reps[0]]
+    return [(torch.stack([p.words.view(torch.int32) for p in ps]).view(torch.uint32),
+             torch.stack([p.scales for p in ps])) for ps in zip(*reps)]
+
+
+def _lm_grads(dev):
+    """Gradient-like tensors of the LM recipe's 28 leaves and their layouts
+    (embedding tables untransposed)."""
+    from atomo_tpu_torch.convert import jax_layouts
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = TransformerLM(vocab_size=256, max_len=1024, width=256, depth=4, num_heads=4)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 0.01 for p in leaf_params(model)]
+    return grads, jax_layouts(model)
+
+
+@pytest.mark.parametrize("n_replicas", [1, 4])
+@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 9)] + [(1, "terngrad")])
+def test_tree_decode_kernels_match_plain_at_resnet18_leaves(dev, bits, scheme, n_replicas):
+    """One launch decodes all 62 leaves (or their mean over 4 replicas)
+    into the port layout, and one launch unpacks their words; both equal
+    their plain twins bit for bit."""
+    codec = terngrad() if scheme == "terngrad" else QsgdCodec(bits=bits)
+    grads = _resnet18_grads(dev, seed=bits)
+    payloads = _payload_tree(codec, grads, n_replicas)
+    K.reset_launch_counts()
+    got = K.unpack_dequantize_tree(payloads, grads, bits=bits, n_replicas=n_replicas)
+    codes = K.unpack_bucketed_tree([w for w, _ in payloads], bits=bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"quantize_pack": 0, "unpack_dequantize": 1,
+                                 "pack_bucketed": 0, "unpack_bucketed": 1}
+    want = K.unpack_dequantize_tree_plain(payloads, grads, bits=bits, n_replicas=n_replicas)
+    for a, b, g in zip(got, want, grads):
+        assert a.shape == g.shape and a.is_contiguous() and torch.equal(a, b)
+    assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in payloads], bits=bits))
+
+
+@pytest.mark.parametrize("n_replicas", [1, 4])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_tree_decode_kernel_matches_plain_at_lm_leaves(dev, bits, n_replicas):
+    """The LM recipe's 28 leaves, embedding tables kept in their layout."""
+    codec = QsgdCodec(bits=bits)
+    grads, layouts = _lm_grads(dev)
+    payloads = _payload_tree(codec, grads, n_replicas, layouts)
+    got = K.unpack_dequantize_tree(payloads, grads, layouts, bits=bits, n_replicas=n_replicas)
+    want = K.unpack_dequantize_tree_plain(payloads, grads, layouts, bits=bits,
+                                          n_replicas=n_replicas)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bucket_size", [16, 100, 1000, 2048])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_tree_decode_kernels_match_plain_at_other_bucket_sizes(dev, bits, bucket_size):
+    """Bucket sizes below a warp's 32 positions and above 512, powers of two
+    (the kernel's shift-and-mask path) and not (its division path), over
+    ResNet-18's leaves and 2 replicas."""
+    codec = QsgdCodec(bits=bits, bucket_size=bucket_size)
+    grads = _resnet18_grads(dev, seed=bucket_size)[-12:]
+    payloads = _payload_tree(codec, grads, 2)
+    kw = dict(bits=bits, bucket_size=bucket_size, n_replicas=2)
+    for a, b in zip(K.unpack_dequantize_tree(payloads, grads, **kw),
+                    K.unpack_dequantize_tree_plain(payloads, grads, **kw)):
+        assert torch.equal(a, b)
+    words = [w for w, _ in payloads]
+    assert torch.equal(K.unpack_bucketed_tree(words, bits=bits),
+                       K.unpack_bucketed_tree_plain(words, bits=bits))
+
+
+@pytest.mark.parametrize("path", ["fused", "pack"])
+@pytest.mark.parametrize("make", [lambda: QsgdCodec(bits=4), lambda: terngrad()])
+def test_decode_tree_is_one_launch_and_equals_the_group_path(dev, make, path):
+    """decode_tree launches one decode (fused) or one unpack (pack) for the
+    whole tree, and equals the per-shape-group decode of the same payloads."""
+    from atomo_tpu_torch.codecs import decode_tree, encode_tree
+    from atomo_tpu_torch.codecs.base import _decode_groups
+
+    codec = dataclasses.replace(make(), use_kernel=path == "fused")
+    grads = _resnet18_grads(dev, seed=3)
+    payloads, _ = encode_tree(codec, 4, grads)
+    K.reset_launch_counts()
+    got = decode_tree(codec, payloads, grads)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["unpack_dequantize"], counts["unpack_bucketed"]) == \
+        ((1, 0) if path == "fused" else (0, 1))
+    want = _decode_groups(codec, payloads, grads, None,
+                          lambda p, n, shape: codec.decode_stack(p, n, shape=shape))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("path", ["fused", "pack"])
+def test_decode_makes_no_host_sync(dev, path):
+    """decode_tree and decode_mean_tree never wait for the card."""
+    from atomo_tpu_torch.codecs import decode_mean_tree, decode_tree
+
+    codec = QsgdCodec(bits=4, use_kernel=path == "fused")
+    grads = _resnet18_grads(dev, seed=5)
+    payloads = [QsgdPayload(w, s) for w, s in _payload_tree(codec, grads, 1)]
+    gathered = [QsgdPayload(w, s) for w, s in _payload_tree(codec, grads, 4)]
+    decode_tree(codec, payloads, grads)  # loads the library, fills the caches
+    decode_mean_tree(codec, gathered, grads, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = decode_tree(codec, payloads, grads)
+        mean = decode_mean_tree(codec, gathered, grads, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(t).all()) for t in one + mean)
+
+
+def test_tree_decode_splits_more_than_256_leaves(dev):
+    codec = QsgdCodec(bits=3)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    grads = [torch.randn(((4, 3, 3, 3), (5, 7), (9,))[i % 3], generator=gen, device=dev)
+             for i in range(300)]
+    payloads = _payload_tree(codec, grads, 1)
+    K.reset_launch_counts()
+    got = K.unpack_dequantize_tree(payloads, grads, bits=3)
+    codes = K.unpack_bucketed_tree([w for w, _ in payloads], bits=3)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["unpack_dequantize"] == 2
+    assert K.launch_counts()["unpack_bucketed"] == 2
+    for a, b in zip(got, K.unpack_dequantize_tree_plain(payloads, grads, bits=3)):
+        assert torch.equal(a, b)
+    assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in payloads], bits=3))
+
+
+def test_tree_decode_refuses_what_it_cannot_write(dev):
+    grads = _resnet18_grads(dev, seed=7)[:3]
+    payloads = _payload_tree(QsgdCodec(bits=4), grads, 1)
+    with pytest.raises(TypeError, match="float32"):
+        K.unpack_dequantize_tree(payloads, [grads[0].bfloat16()] + grads[1:], bits=4)
+    with pytest.raises(TypeError):
+        K.unpack_dequantize_tree([(w.view(torch.int32).float(), s) for w, s in payloads],
+                                 grads, bits=4)
+    with pytest.raises(ValueError, match="share one device"):
+        K.unpack_dequantize_tree([(payloads[0][0].cpu(), payloads[0][1])], grads[:1], bits=4)
+    with pytest.raises(ValueError):
+        K.unpack_bucketed_tree([payloads[0][0], payloads[1][0][:, :-1].contiguous()], bits=4)
 
 
 def test_unbiased_over_seeds(dev):
