@@ -15,9 +15,11 @@ Two interchangeable encode/decode paths share that format:
   :meth:`QsgdCodec.decode_leaves` decodes it with one launch of the decode
   kernel, straight into the port's layout;
 * torch ops for the quantizer (the counterpart of the JAX codec's jnp path)
-  with the bit-pack stage as the pack/unpack kernels (:func:`pack_bucketed`
-  once per shape group, :func:`unpack_bucketed_tree` once per tree; their
-  plain versions run for CPU tensors).
+  with the bit-pack stage as the pack/unpack kernels (their plain versions
+  run for CPU tensors). :meth:`QsgdCodec.encode_leaves` runs the quantizer
+  once over the bucket rows of every leaf and packs them with one
+  :func:`pack_bucketed_tree` call; the decode unpacks them with one
+  :func:`unpack_bucketed_tree` call.
 
 On a CUDA tensor every path runs kernels: ``pack_kernel=False`` (the JAX
 codec's jnp pack) is refused there, since the plain versions serve the CPU
@@ -36,10 +38,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from atomo_tpu_torch.codecs.base import encode_groups
 from atomo_tpu_torch.ops import qsgd_kernels as K
 from atomo_tpu_torch.ops.qsgd_kernels import (  # noqa: F401
     pack_bucketed,
+    pack_bucketed_tree,
     padded_bucket,
     unpack_bucketed,
     unpack_bucketed_tree,
@@ -137,14 +139,6 @@ class QsgdCodec:
             return QsgdPayload(words=words, scales=scales)
 
         buckets = K._leaf_rows(x, g)  # (L * n_buckets, bucket_size)
-        if self.scheme == "terngrad":
-            scales = buckets.abs().amax(dim=1)
-        else:
-            scales = torch.linalg.vector_norm(buckets, dim=1)
-        safe = torch.clamp_min(scales, _F32_TINY)
-        y = buckets.abs() / safe[:, None] * self.levels
-        lo = torch.floor(y)
-        frac = y - lo
         if uniforms is not None:
             # kept in their own type, so that float64 draws (the JAX
             # codec's under x64) compare with frac as they do there
@@ -155,17 +149,51 @@ class QsgdCodec:
                            generator=generator(s, x.device))
                 for s in seeds
             ])
-        level = torch.clamp(lo + (rnd < frac).float(), 0, self.levels).to(torch.int32)
-        sign = (buckets < 0).to(torch.int32)
-        codes = torch.zeros((buckets.shape[0], g.bucket_p), dtype=torch.int32,
-                            device=x.device)
-        codes[:, : self.bucket_size] = (sign << self.bits) | level
+        codes, scales = self._quantize(buckets, rnd)
         self._check_pack(x)
         words = pack_bucketed(codes, self.bits)
         return QsgdPayload(
             words=words.view(n_leaves, g.n_buckets, g.n_words),
             scales=scales.view(n_leaves, g.n_buckets),
         )
+
+    def _quantize(self, buckets: torch.Tensor, rnd: torch.Tensor):
+        """The torch quantizer: (rows, bucket_size) float32 buckets and their
+        uniforms -> per-row scales and (rows, bucket_p) int32 codes, zero
+        past bucket_size."""
+        if self.scheme == "terngrad":
+            scales = buckets.abs().amax(dim=1)
+        else:
+            scales = torch.linalg.vector_norm(buckets, dim=1)
+        safe = torch.clamp_min(scales, _F32_TINY)
+        y = buckets.abs() / safe[:, None] * self.levels
+        lo = torch.floor(y)
+        frac = y - lo
+        level = torch.clamp(lo + (rnd < frac).float(), 0, self.levels).to(torch.int32)
+        sign = (buckets < 0).to(torch.int32)
+        codes = torch.zeros((buckets.shape[0], padded_bucket(self.bucket_size, self.bits)),
+                            dtype=torch.int32, device=buckets.device)
+        codes[:, : self.bucket_size] = (sign << self.bits) | level
+        return codes, scales
+
+    def _encode_rows(self, leaves, seeds, uniforms) -> list[QsgdPayload]:
+        """The torch-quantizer path over a tree of clipped 1-D leaves: their
+        bucket rows in one buffer, each leaf's uniforms drawn into its slice
+        of one buffer (or given), one quantizer pass over all rows and one
+        :func:`pack_bucketed_tree` call; each payload is a view."""
+        self._check_pack(leaves[0])
+        dev, bs = leaves[0].device, self.bucket_size
+        n_buckets = [K.geometry(x.numel(), self.bits, bs).n_buckets for x in leaves]
+        buckets = K.tree_rows(leaves, bs)
+        if uniforms is not None:
+            rnd = torch.cat([u.reshape(-1, bs) for u in uniforms])
+        else:
+            rnd = torch.empty(buckets.shape, device=dev)
+            for part, s in zip(rnd.split(n_buckets), seeds):
+                part.uniform_(generator=generator(s, dev))  # torch.rand's draws
+        codes, scales = self._quantize(buckets, rnd)
+        words = pack_bucketed_tree(codes, n_buckets, bits=self.bits)
+        return [QsgdPayload(words=w, scales=s) for w, s in zip(words, scales.split(n_buckets))]
 
     def encode_leaves(
         self,
@@ -176,10 +204,12 @@ class QsgdCodec:
         """Encode every leaf of a tree (JAX-layout views of any shapes; leaf i
         draws from ``seeds[i]`` unless ``uniforms[i]`` is given). The fused
         path is one :func:`quantize_pack_tree` call (one launch on the card);
-        the torch quantizer stays one call per shape group."""
-        if not self._fused(views[0]):
-            return encode_groups(self, views, seeds, uniforms)
+        the pack path one pass of the torch quantizer over the rows of every
+        leaf and one :func:`pack_bucketed_tree` call (one launch). Each gives
+        the per-shape-group stacks' payloads (``encode_groups``)."""
         leaves = [self._clip_leaf(v.reshape(-1).to(torch.float32)) for v in views]
+        if not self._fused(leaves[0]):
+            return self._encode_rows(leaves, seeds, uniforms)
         out = K.quantize_pack_tree(
             leaves, bits=self.bits, bucket_size=self.bucket_size, scheme=self.scheme,
             seeds=None if uniforms is not None else seeds, u=uniforms,

@@ -11,7 +11,8 @@ wrapper                    replaces (atomo_tpu/ops/qsgd_kernels.py)
 ``quantize_pack_tree``
 ``unpack_dequantize``,     ``pallas_unpack_dequantize`` (fused decode)
 ``unpack_dequantize_tree``
-``pack_bucketed``          ``pallas_pack_bucketed`` (bare bit-pack)
+``pack_bucketed``,         ``pallas_pack_bucketed`` (bare bit-pack)
+``pack_bucketed_tree``
 ``unpack_bucketed``,       ``pallas_unpack_bucketed`` (bare bit-unpack)
 ``unpack_bucketed_tree``
 =========================  =============================================
@@ -34,9 +35,11 @@ view into one flat words and one flat scales buffer. The decode mirrors
 it: one :func:`unpack_dequantize_tree` call decodes every leaf (or the mean
 over a leading replica axis) in one launch, straight into the port's layout
 (conv OIHW, linear (out, in)), and one :func:`unpack_bucketed_tree` call
-unpacks every leaf's words. :func:`quantize_pack`, :func:`unpack_dequantize`
-and :func:`unpack_bucketed` are the same kernels over the L equal leaves of
-an (L, n) stack (one leaf for the last).
+unpacks every leaf's words; one :func:`pack_bucketed_tree` call packs the
+codes of every leaf, its rows one after another in one buffer, in one launch.
+:func:`quantize_pack`, :func:`unpack_dequantize`, :func:`pack_bucketed` and
+:func:`unpack_bucketed` are the same kernels over the L equal leaves of an
+(L, n) stack (one leaf for the last two).
 
 Codes leave :func:`unpack_bucketed` as int32 (the JAX kernel returns uint32):
 fields are below 2^9, so the bits are the same and torch's int32 takes the
@@ -135,6 +138,19 @@ def _leaf_rows(x: torch.Tensor, g: Geometry) -> torch.Tensor:
     out = x.new_zeros((x.shape[0], g.n_buckets * g.bucket_size))
     out[:, : g.n] = x
     return out.view(-1, g.bucket_size)
+
+
+def tree_rows(leaves: Sequence[torch.Tensor], bucket_size: int) -> torch.Tensor:
+    """1-D leaves -> their (rows, bucket_size) buckets, the leaves' rows one
+    after another, each leaf zero-padded to whole buckets (one concatenation)."""
+    pad = leaves[0].new_zeros(bucket_size)
+    parts = []
+    for x in leaves:
+        parts.append(x)
+        tail = -x.numel() % bucket_size
+        if tail:
+            parts.append(pad[:tail])
+    return torch.cat(parts).view(-1, bucket_size)
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -429,6 +445,20 @@ def pack_bucketed_plain(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return _or_fields(lanes, g.bpv)
 
 
+def _check_tree_rows(codes: torch.Tensor, rows: Sequence[int]) -> list:
+    rows = [int(r) for r in rows]
+    if codes.dim() != 2 or any(r < 0 for r in rows) or sum(rows) != codes.shape[0]:
+        raise ValueError(f"rows {rows} do not split codes {tuple(codes.shape)} into leaves")
+    return rows
+
+
+def pack_bucketed_tree_plain(codes: torch.Tensor, rows: Sequence[int], *, bits: int) -> list:
+    """Plain twin of :func:`pack_bucketed_tree`: the tree's rows packed in
+    one call, then split into leaves."""
+    rows = _check_tree_rows(codes, rows)
+    return list(pack_bucketed_plain(codes, bits).split(rows))
+
+
 def unpack_bucketed_plain(words: torch.Tensor, bits: int) -> torch.Tensor:
     """Plain twin of :func:`unpack_bucketed`: (nb, wpb) words ->
     (nb, wpb * vpw) int32 codes."""
@@ -451,13 +481,13 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if not getattr(lib, "_qsgd_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.qsgd_pack_codes.argtypes = [p, p, ll, i, i, p]
+        lib.qsgd_pack_codes_tree.argtypes = [p, p, i, i, i, p]
         lib.qsgd_unpack_codes_tree.argtypes = [p, p, i, p, i, i, p]
         for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize_tree,
-                   lib.qsgd_pack_codes, lib.qsgd_unpack_codes_tree):
+                   lib.qsgd_pack_codes_tree, lib.qsgd_unpack_codes_tree):
             fn.restype = ctypes.c_int
         lib._qsgd_typed = True
     return lib
@@ -764,23 +794,41 @@ def unpack_dequantize(
     return out[0] if squeeze else out
 
 
+def pack_words(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """One launch of the pack kernel over checked (rows, bucket_p) codes on
+    the card -> (rows, bucket_p / vpw) uint32 words."""
+    g = geometry(0, bits)
+    rows, bucket_p = codes.shape
+    words = torch.empty((rows, bucket_p // g.vpw), dtype=torch.int32, device=codes.device)
+    if rows:
+        rc = _lib().qsgd_pack_codes_tree(_ptr(codes), _ptr(words), rows, bucket_p // g.vpw,
+                                         bits, _stream())
+        _raise_if(rc, "qsgd_pack_codes_tree")
+        pack_bucketed.launches += 1
+    return words.view(torch.uint32)
+
+
+def pack_bucketed_tree(codes: torch.Tensor, rows: Sequence[int], *, bits: int) -> list:
+    """Bit-pack the codes of a whole tree in one launch: codes (total_rows,
+    bucket_p) int32, the leaves' rows one after another (the layout
+    :func:`unpack_bucketed_tree` returns), ``rows[i]`` of them for leaf i ->
+    one (rows[i], bucket_p / vpw) uint32 words tensor per leaf, views into
+    one buffer. The kernel sees one buffer, so it takes any number of leaves
+    in one launch and needs no leaf table."""
+    rows = _check_tree_rows(codes, rows)
+    _check_pack_shape(codes.shape[1], geometry(0, bits))
+    _require(codes, "codes", (torch.int32, torch.uint32), codes.shape)
+    if not _on_card(codes):
+        return pack_bucketed_tree_plain(codes, rows, bits=bits)
+    if codes.shape[0] >= 1 << 31:
+        raise ValueError(f"{codes.shape[0]} rows do not fit the kernel's int32 rows")
+    return list(pack_words(codes, bits).split(rows))
+
+
 def pack_bucketed(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """Bucketed bit-pack: (nb, bucket_p) int32 codes -> (nb, bucket_p / vpw)
-    uint32 words, planar layout."""
-    if not _on_card(codes):
-        return pack_bucketed_plain(codes, bits)
-    g = geometry(0, bits)
-    nb, bucket_p = codes.shape
-    _check_pack_shape(bucket_p, g)
-    _require(codes, "codes", (torch.int32, torch.uint32), (nb, bucket_p))
-    n_words = bucket_p // g.vpw
-    words = torch.empty((nb, n_words), dtype=torch.int32, device=codes.device)
-    rc = _lib().qsgd_pack_codes(
-        _ptr(codes), _ptr(words), nb, n_words, bits, _stream()
-    )
-    _raise_if(rc, "qsgd_pack_codes")
-    pack_bucketed.launches += 1
-    return words.view(torch.uint32)
+    uint32 words, planar layout; the tree kernel over one leaf."""
+    return pack_bucketed_tree(codes, codes.shape[:1], bits=bits)[0]
 
 
 @functools.lru_cache(maxsize=64)

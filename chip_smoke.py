@@ -26,38 +26,44 @@ every hand-written kernel against its plain PyTorch version:
    for bit, scales within rtol 1e-6, decoded values bit for bit; the
    in-kernel Philox generator bit for bit against its twin; the tree decode
    (one launch over the 62 leaves, straight into the port layout, for one
-   replica and the mean of four) and the tree unpack against their plain
-   versions bit for bit at bits 1-8 and terngrad, and over the LM recipe's
-   28 leaves (embedding tables untransposed) at bits 2/4/8; the mean decode
-   over 64 seeds within 4 * scale / levels / sqrt(64) of the input
+   replica and the mean of four), the tree unpack and the tree pack (one
+   launch over the codes of every leaf) against
+   their plain versions bit for bit at bits 1-8 and terngrad, and over the
+   LM recipe's 28 leaves (embedding tables untransposed) at bits 2/4/8; the
+   pack path's encode as one pass over the tree against its 17 per-group
+   stacks (scales within 1 ulp, words bit for bit where scales agree); the
+   mean decode over 64 seeds within 4 * scale / levels / sqrt(64) of the input
    (unbiasedness); a LeNet train step on the card against the same step on
    the CPU (TF32 off; loss rtol 1e-4, params within 1e-5 plus one
    quantization step times lr); a small LM step (width 128, depth 2) on the
    card against the same step on the CPU, and the SVD codec's decode of a
    recipe leaf on the card against the CPU given the same draws;
 3. train: ResNet-18 5 steps with ``qsgd`` (then a validation pass), 2 with
-   ``terngrad``, 2 with ``--qsgd-path pack`` (torch quantizer, pack/unpack
-   kernels), 3 with ``sgd`` (no codec, for the step-time baseline), 3 with
-   ``svd`` at rank 3 (no kernel: torch linear algebra); the LM 5 steps with
-   ``svd`` (auto rank 24) and 3 with ``sgd``. Each run sets the launch counts
-   to 0 before it and reads them after; the losses must be finite and fall
-   over the qsgd and LM svd runs, every kernel of a run's path must have
-   launched in it, the QSGD encode and decode exactly once per step each
-   (one launch over the tree each way), the pack path's unpack once and its
-   pack 17 times per step (one per shape group), and the flash kernel
-   exactly once per layer per step;
+   ``terngrad``, 5 with ``--code qsgd --qsgd-path pack`` and 2 with ``--code
+   terngrad --qsgd-path pack`` (torch quantizer, pack/unpack kernels), 3
+   with ``sgd`` (no codec, for the step-time baseline), 3 with ``svd`` at
+   rank 3 (no kernel: torch linear algebra); the LM 5 steps with ``svd``
+   (auto rank 24) and 3 with ``sgd``. Each run sets the launch counts to 0
+   before it and reads them after; the losses must be finite and fall over
+   the qsgd, qsgd pack and LM svd runs, every kernel of a run's path must
+   have launched in it, the QSGD encode and decode exactly once per step
+   each (one launch over the tree each way), the pack path's pack and
+   unpack once per step each, its Msg(MB) the fused path's, and the flash
+   kernel exactly once per layer per step;
 4. time: each kernel's launches of one train step (ResNet-18 at bits 4: the
    encode's and the decode's one tree launch (the whole ``decode_tree``
-   call), the pack path's one unpack launch and 17 pack launches, beside the
-   per-shape-group way of PR 3 for the decode and the unpack; the LM's four
-   flash launches), by CUDA events around the calls, median of 20, and as
+   call), the pack path's one unpack and one pack launch, beside the
+   per-shape-group ways they replaced, the pack kernel's bare launch and the
+   pack path's whole encode; the LM's four flash launches), by CUDA events
+   around the calls, median of 20, and as
    the kernels' own device time under
    ``torch.profiler``, beside the plain version's time, the bound (bytes over
    3.35 TB/s or operations over the peak of the route: 495 TFLOP/s TF32 x 3
    for the float32 flash kernel, 989 TFLOP/s bf16, 67 TFLOP/s float32 FMA,
    the larger of bytes and operations) and, for flash attention,
    ``F.scaled_dot_product_attention`` on the same tensors;
-5. profile: three qsgd ResNet-18 steps and three svd LM steps under
+5. profile: three qsgd ResNet-18 steps (fused, then the pack path) and
+   three svd LM steps under
    ``torch.profiler``: wall and device-busy time per step, the device's idle
    share, each ``step.*`` phase's time, and the kernels that take the most.
 
@@ -320,11 +326,30 @@ def replica_payloads(codec, grads, n_replicas: int, layouts=None):
              torch.stack([p.scales for p in ps])) for ps in zip(*reps)]
 
 
+def check_tree_pack(codes, words, bits, errs, label):
+    """The tree pack (one launch over the codes of every leaf) against its
+    plain twin and the words the codes came from, bit for bit."""
+    import torch
+
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    rows = [w.numel() // w.shape[-1] for w in words]
+    got = K.pack_bucketed_tree(codes, rows, bits=bits)
+    want = K.pack_bucketed_tree_plain(codes, rows, bits=bits)
+    flat = torch.cat([w.reshape(-1, w.shape[-1]).view(torch.int32) for w in want])
+    errs["pack_bucketed"] = max(errs["pack_bucketed"], float(
+        (torch.cat([w.view(torch.int32) for w in got]).long() - flat.long()).abs().max()))
+    if not all(same_bits(a, b) and same_bits(b, w.reshape(b.shape))
+               for a, b, w in zip(got, want, words)):
+        raise AssertionError(f"pack_bucketed_tree differs: {label}")
+
+
 def phase_check_decode(grads, errs):
-    """The tree decode (one launch, straight into the port layout) and the
-    tree unpack (one launch) against their plain twins, bit for bit: over
-    ResNet-18's 62 leaves at bits 1-8 and terngrad, for one replica and the
-    mean of four, and over the LM recipe's 28 leaves."""
+    """The tree decode (one launch, straight into the port layout), the
+    tree unpack (one launch) and the tree pack (one launch) against their
+    plain twins, bit for bit: over ResNet-18's 62
+    leaves at bits 1-8 and terngrad, for one replica and the mean of four,
+    and over the LM recipe's 28 leaves."""
     import torch
 
     from atomo_tpu_torch.codecs import QsgdCodec, terngrad
@@ -344,6 +369,7 @@ def phase_check_decode(grads, errs):
             words = [w for w, _ in payloads]
             codes = K.unpack_bucketed_tree(words, bits=bits)
             codes_plain = K.unpack_bucketed_tree_plain(words, bits=bits)
+            check_tree_pack(codes, words, bits, errs, f"{label}, {n_rep} replicas")
             errs["unpack_dequantize"] = max([errs["unpack_dequantize"]] + [
                 float((a - b).abs().max()) for a, b in zip(got, want) if a.numel()])
             errs["unpack_bucketed"] = max(errs["unpack_bucketed"],
@@ -355,8 +381,47 @@ def phase_check_decode(grads, errs):
             if not torch.equal(codes, codes_plain):
                 raise AssertionError(f"unpack_bucketed_tree differs: {label}, {n_rep} replicas")
         torch.cuda.synchronize()
-        log(f"check: {label}: the tree decode over {len(tree)} leaves (1 and 4 replicas) and "
-            f"the tree unpack equal their plain versions")
+        log(f"check: {label}: the tree decode over {len(tree)} leaves (1 and 4 replicas), "
+            f"the tree unpack and the tree pack equal their plain versions")
+
+
+def phase_check_pack_encode(grads):
+    """The pack path's encode as one pass over the tree against the
+    per-shape-group stacks it replaced, on the card (same seeds): the
+    quantizer's reductions may round a bucket's scale differently over
+    21,847 rows than over a group's, so scales must agree within 1 ulp and
+    words bit for bit wherever the scales are equal; the rows and fields
+    that differ are counted."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, encode_tree, terngrad
+    from atomo_tpu_torch.codecs.base import _views, encode_groups
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    for codec in (QsgdCodec(bits=4, use_kernel=False), terngrad(use_kernel=False)):
+        tree, _ = encode_tree(codec, 3, grads)
+        groups = encode_groups(codec, _views(grads, None),
+                               [fold_in(3, i) for i in range(len(grads))])
+        rows = diff_rows = diff_fields = 0
+        worst = 0.0
+        for a, b in zip(tree, groups):
+            big = torch.maximum(a.scales.abs(), b.scales.abs())
+            ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+            worst = max(worst, float(((a.scales - b.scales).abs() / ulp).max()))
+            same = a.scales == b.scales
+            wa, wb = a.words.view(torch.int32), b.words.view(torch.int32)
+            if not torch.equal(wa[same], wb[same]):
+                raise AssertionError(f"{codec.name} pack encode: words differ at equal scales")
+            g = K.geometry(0, codec.bits)._replace(n_words=wa.shape[1])
+            diff_fields += int((K._split_fields(wa, g) != K._split_fields(wb, g)).sum())
+            rows += same.numel()
+            diff_rows += int((~same).sum())
+        if not worst <= 1.0:
+            raise AssertionError(f"{codec.name} pack encode: scales {worst} ulp apart")
+        log(f"check: {codec.name} {codec.bits} bits pack path, one pass over the tree vs 17 "
+            f"per-group stacks: scales differ in {diff_rows} of {rows} rows (at most "
+            f"{worst:.0f} ulp), {diff_fields} fields differ, words equal where scales are")
 
 
 def phase_unbiased(stacks, trials: int = 64):
@@ -567,6 +632,7 @@ def run_cli(argv, expect, prefix="Worker: "):
     worker = [ln for ln in lines if ln.startswith(prefix)]
     losses = [float(ln.split("Loss: ")[1].split(",")[0]) for ln in worker]
     step_s = [float(ln.split("Time Cost: ")[1].split(",")[0]) for ln in worker]
+    msg_mb = sorted({float(ln.split("Msg(MB): ")[1].split(",")[0]) for ln in worker})
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite or missing losses {losses}")
     for name in expect:
@@ -577,7 +643,7 @@ def run_cli(argv, expect, prefix="Worker: "):
             if not all(math.isfinite(float(v.split(",")[0])) for v in ln.split(": ")[2:]):
                 raise AssertionError(f"bad validation line {ln}")
     return {"losses": losses, "step_ms": [1e3 * s for s in step_s], "launches": counts,
-            "wall_s": wall, "lines": len(lines)}
+            "msg_mb": msg_mb, "wall_s": wall, "lines": len(lines)}
 
 
 def phase_train():
@@ -588,8 +654,11 @@ def phase_train():
         "terngrad": run_cli(TRAIN_ARGS + ["--code", "terngrad", "--max-steps", "2",
                                           "--eval-freq", "0"], qsgd),
         "qsgd_pack": run_cli(TRAIN_ARGS + ["--code", "qsgd", "--qsgd-path", "pack",
-                                           "--max-steps", "2", "--eval-freq", "0"],
+                                           "--max-steps", "5", "--eval-freq", "0"],
                              ["pack_bucketed", "unpack_bucketed"]),
+        "terngrad_pack": run_cli(TRAIN_ARGS + ["--code", "terngrad", "--qsgd-path", "pack",
+                                               "--max-steps", "2", "--eval-freq", "0"],
+                                 ["pack_bucketed", "unpack_bucketed"]),
         "sgd": run_cli(TRAIN_ARGS + ["--code", "sgd", "--max-steps", "3", "--eval-freq", "0"],
                        []),
         "svd3": run_cli(TRAIN_ARGS + ["--code", "svd", "--svd-rank", "3", "--max-steps", "3",
@@ -599,7 +668,7 @@ def phase_train():
         "lm_sgd": run_cli(LM_ARGS + ["--code", "sgd", "--max-steps", "3"], ["flash_attention"],
                           prefix="LM: "),
     }
-    for name in ("qsgd", "lm_svd"):
+    for name in ("qsgd", "qsgd_pack", "lm_svd"):
         q = runs[name]["losses"]
         if not q[-1] < q[0]:
             raise AssertionError(f"{name} loss did not fall: {q}")
@@ -608,10 +677,15 @@ def phase_train():
         if counts["quantize_pack"] != steps or counts["unpack_dequantize"] != steps:
             raise AssertionError(f"{name}: launches {counts}, want quantize_pack and "
                                  f"unpack_dequantize {steps} (one over the tree a step)")
-    counts = runs["qsgd_pack"]["launches"]
-    if counts["unpack_bucketed"] != 2 or counts["pack_bucketed"] != 17 * 2:
-        raise AssertionError(f"qsgd_pack: launches {counts}, want unpack_bucketed 2 (one over "
-                             f"the tree a step), pack_bucketed 17 x 2 (one per shape group)")
+    for name, steps in (("qsgd_pack", 5), ("terngrad_pack", 2)):  # one launch a step each way
+        counts = runs[name]["launches"]
+        if counts["unpack_bucketed"] != steps or counts["pack_bucketed"] != steps:
+            raise AssertionError(f"{name}: launches {counts}, want unpack_bucketed and "
+                                 f"pack_bucketed {steps} (one over the tree a step)")
+    for fused, pack in (("qsgd", "qsgd_pack"), ("terngrad", "terngrad_pack")):
+        if runs[fused]["msg_mb"] != runs[pack]["msg_mb"] or len(runs[pack]["msg_mb"]) != 1:
+            raise AssertionError(f"Msg(MB) {fused} {runs[fused]['msg_mb']} vs {pack} "
+                                 f"{runs[pack]['msg_mb']}")
     for name in ("sgd", "svd3"):  # no kernel on these paths
         if any(runs[name]["launches"].values()):
             raise AssertionError(f"{name} run launched kernels: {runs[name]['launches']}")
@@ -634,16 +708,19 @@ def phase_time(grads, leaves, stacks):
     encode's one launch over the 62 leaves (the seeds computed once, as
     ``encode_tree`` hands them over), the decode's one launch (the whole
     ``decode_tree`` call, straight into the port layout), the pack path's one
-    unpack launch over the tree and its 17 pack launches, one per shape
-    group. Two times per kernel: the CUDA-event wall around the calls (host
-    work and launches included) and the kernels' own device time from
-    ``torch.profiler``. Beside the decode and the unpack, the way PR 3 did
-    the same work in the same call: per shape group a stack of the payloads,
-    a launch and (decode) each leaf's copy into the port layout."""
+    unpack launch and one pack launch over the tree. Two times per kernel:
+    the CUDA-event wall around the calls (host work and launches included)
+    and the kernels' own device time from ``torch.profiler``. Beside the
+    decode and the unpack, the per-shape-group way they replaced, in the
+    same call: per shape group a stack of the payloads, a launch and
+    (decode) each leaf's copy into the port layout. Beside the pack, the
+    per-group way it replaced (17 launches, one per shape group's stack),
+    the kernel's bare launch (no checks, no views), and the pack path's
+    whole encode as one pass over the tree and as 17 per-group stacks."""
     import dataclasses
 
     from atomo_tpu_torch.codecs import QsgdCodec, decode_tree, encode_tree
-    from atomo_tpu_torch.codecs.base import _decode_groups
+    from atomo_tpu_torch.codecs.base import _decode_groups, _views, encode_groups
     from atomo_tpu_torch.ops import qsgd_kernels as K
 
     bits = 4
@@ -662,6 +739,9 @@ def phase_time(grads, leaves, stacks):
     pack_payloads, _ = encode_tree(pack, 17, grads)
     pairs = [(p.words, p.scales) for p in payloads]
     words = [p.words for p in payloads]
+    codes = K.unpack_bucketed_tree(words, bits=bits)  # the tree's codes, as the pack path has them
+    rows = [w.shape[0] for w in words]
+    views = _views(grads, None)
 
     def each(fn):
         return lambda: [fn(*e) for e in enc]
@@ -702,12 +782,18 @@ def phase_time(grads, leaves, stacks):
              "pr3_path": per_group(fused, payloads)},
         ),
         "pack_bucketed": (
-            each(lambda x, g, w, s, c: K.pack_bucketed(c, bits)),
-            each(lambda x, g, w, s, c: K.pack_bucketed_plain(c, bits)),
-            "::pack_codes_kernel",
-            sum(c.numel() * 4 + w.numel() * 4 for x, g, w, s, c in enc),
-            sum(c.numel() * 2 for x, g, w, s, c in enc),
-            len(enc), {},
+            lambda: K.pack_bucketed_tree(codes, rows, bits=bits),
+            lambda: K.pack_bucketed_tree_plain(codes, rows, bits=bits),
+            "pack_codes_tree_kernel",
+            # read the codes, write the words
+            4 * (codes.numel() + n_words),
+            # per code: a shift and an or
+            codes.numel() * 2,
+            1,
+            {"pr4_path": each(lambda x, g, w, s, c: K.pack_bucketed(c, bits)),
+             "bare_launch": lambda: K.pack_words(codes, bits),
+             "pack_encode": lambda: encode_tree(pack, 17, grads),
+             "pack_encode_pr4_path": lambda: encode_groups(pack, views, seeds)},
         ),
         "unpack_bucketed": (
             lambda: K.unpack_bucketed_tree(words, bits=bits),
@@ -848,8 +934,9 @@ def profile_steps(label: str, step_once, steps: int = 3):
 
 
 def phase_profile():
-    """Three qsgd ResNet-18 steps (batch 128) and three svd LM steps at the
-    recipe, each under the profiler."""
+    """Three qsgd ResNet-18 steps (batch 128) on the fused path and three on
+    the pack path, and three svd LM steps at the recipe, each under the
+    profiler."""
     import torch
 
     from atomo_tpu_torch.codecs import QsgdCodec, SvdCodec
@@ -860,20 +947,26 @@ def phase_profile():
 
     spec = SPECS["cifar10"]
     opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
-    box = {"state": create_state(get_model("resnet18", 10, image_shape=spec.image_shape),
-                                 opt, 1, "cuda")}
-    step = make_train_step(box["state"].model, opt, codec=QsgdCodec(bits=4), augment=True)
     it = BatchIterator(synthetic_dataset(spec, True), 128, seed=1).epoch()
     batches = [to_device(*next(it), "cuda") for _ in range(5)]
 
-    def resnet_step():
-        x, y = batches[box.setdefault("i", 0) % len(batches)]
-        box["i"] += 1
-        box["state"], m = step(box["state"], 2, x, y)
-        float(m["loss"])
+    def resnet(label, codec):
+        box = {"state": create_state(get_model("resnet18", 10, image_shape=spec.image_shape),
+                                     opt, 1, "cuda"), "i": 0}
+        step = make_train_step(box["state"].model, opt, codec=codec, augment=True)
 
-    out = {"resnet18_qsgd4": profile_steps("resnet18 qsgd", resnet_step)}
-    del box, step, batches
+        def resnet_step():
+            x, y = batches[box["i"] % len(batches)]
+            box["i"] += 1
+            box["state"], m = step(box["state"], 2, x, y)
+            float(m["loss"])
+
+        return profile_steps(label, resnet_step)
+
+    out = {"resnet18_qsgd4": resnet("resnet18 qsgd", QsgdCodec(bits=4)),
+           "resnet18_qsgd4_pack": resnet("resnet18 qsgd-pack",
+                                         QsgdCodec(bits=4, use_kernel=False))}
+    del batches
 
     lm_opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
     cfg = dict(vocab_size=256, max_len=LM_SHAPE[2], width=256, depth=LM_DEPTH, num_heads=4)
@@ -918,6 +1011,7 @@ def main() -> int:
     phase_flash_check(errs)
     phase_check(leaves, stacks, errs)
     phase_check_decode(grads, errs)
+    phase_check_pack_encode(grads)
     phase_unbiased(stacks)
     phase_reference()
     phase_reference_lm()

@@ -12,7 +12,8 @@ version do the same float32 operations in the same order (see
 ResNet-18's 62 leaves) is held against the plain twin and against the
 per-shape-group stacks, and must run without a host sync; so are the tree
 decode (one launch, straight into the port layout, over one replica or the
-mean of four) and the tree unpack.
+mean of four), the tree unpack, the tree pack (one launch over every leaf's
+rows) and the pack path's encode.
 """
 
 import dataclasses
@@ -287,6 +288,119 @@ def test_tree_decode_splits_more_than_256_leaves(dev):
     assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in payloads], bits=3))
 
 
+def _tree_codes(dev, grads, bits, bucket_size=BUCKET, layouts=None):
+    """The codes of a tree's leaves in one (rows, bucket_p) buffer, as the
+    pack path's quantizer leaves them (from a fused encode, unpacked), and
+    each leaf's rows."""
+    codec = QsgdCodec(bits=bits, bucket_size=bucket_size)
+    payloads = _payload_tree(codec, grads, 1, layouts)
+    return (K.unpack_bucketed_tree([w for w, _ in payloads], bits=bits),
+            [s.shape[0] for _, s in payloads])
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_tree_pack_kernel_matches_plain_at_resnet18_and_lm_leaves(dev, bits):
+    """One launch packs the rows of all 62 ResNet-18 leaves (and of the LM
+    recipe's 28), bit for bit the plain twin; a buffer that starts off 16
+    bytes is packed too."""
+    lm, layouts = _lm_grads(dev)
+    for grads, lay in ((_resnet18_grads(dev, seed=bits), None), (lm, layouts)):
+        codes, rows = _tree_codes(dev, grads, bits, layouts=lay)
+        K.reset_launch_counts()
+        words = K.pack_words(codes, bits)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["pack_bucketed"] == 1
+        want = K.pack_bucketed_plain(codes, bits)
+        assert _same_bits(words, want)
+        got = K.pack_bucketed_tree(codes, rows, bits=bits)
+        assert [w.shape[0] for w in got] == rows
+        assert _same_bits(torch.cat([w.view(torch.int32) for w in got]), want)
+        odd = codes[1:]  # off 16 bytes unless bucket_p is a multiple of 4
+        assert _same_bits(K.pack_words(odd, bits), want[1:])
+
+
+@pytest.mark.parametrize("bucket_size", [16, 100, 512, 1000, 2048])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_tree_pack_kernel_matches_plain_at_other_bucket_sizes(dev, bits, bucket_size):
+    """Rows from 18 to 2048 codes: tiles of many short rows and of few long
+    ones, over ResNet-18's leaves."""
+    codes, rows = _tree_codes(dev, _resnet18_grads(dev, seed=bucket_size)[-20:], bits,
+                              bucket_size)
+    for a, b in zip(K.pack_bucketed_tree(codes, rows, bits=bits),
+                    K.pack_bucketed_tree_plain(codes, rows, bits=bits)):
+        assert _same_bits(a, b)
+
+
+def _ulps(a, b):
+    """|a - b| in units of the last place of the larger, float32."""
+    big = torch.maximum(a.abs(), b.abs())
+    return (a - b).abs() / (torch.nextafter(big, torch.full_like(big, float("inf"))) - big)
+
+
+@pytest.mark.parametrize("mode", ["seeds", "uniforms"])
+@pytest.mark.parametrize("make", [lambda: QsgdCodec(bits=4, use_kernel=False),
+                                  lambda: terngrad(use_kernel=False)])
+def test_pack_path_encode_tree_is_one_pack_launch(dev, make, mode):
+    """encode_tree on the pack path launches the pack kernel once for the
+    whole tree (the decode's unpack once), and equals the per-shape-group
+    path: scales within 1 ulp (the card's vector_norm may sum 21,847 rows in
+    another order than 17 smaller stacks), words bit for bit in every row
+    whose scale is the same."""
+    from atomo_tpu_torch.codecs import decode_tree, encode_tree
+    from atomo_tpu_torch.codecs.base import _views, encode_groups
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    codec, grads = make(), _resnet18_grads(dev, seed=8)
+    views = _views(grads, None)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    draws = None if mode == "seeds" else [
+        torch.rand((K.geometry(v.numel(), codec.bits).n_buckets, BUCKET), generator=gen,
+                   device=dev) for v in views]
+    K.reset_launch_counts()
+    payloads, _ = encode_tree(codec, 11, grads, draws)
+    decode_tree(codec, payloads, grads)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"quantize_pack": 0, "unpack_dequantize": 0,
+                                 "pack_bucketed": 1, "unpack_bucketed": 1}
+    groups = encode_groups(codec, views, [fold_in(11, i) for i in range(62)], draws)
+    assert K.launch_counts()["pack_bucketed"] == 1 + 17
+    for a, b in zip(payloads, groups):
+        assert float(_ulps(a.scales, b.scales).max()) <= 1.0
+        same = a.scales == b.scales
+        assert _same_bits(a.words.view(torch.int32)[same], b.words.view(torch.int32)[same])
+
+
+def test_pack_path_encode_makes_no_host_sync(dev):
+    """The pack path's encode never waits for the card."""
+    from atomo_tpu_torch.codecs import encode_tree
+
+    for codec in (QsgdCodec(bits=4, use_kernel=False), terngrad(use_kernel=False)):
+        grads = _resnet18_grads(dev, seed=2)
+        encode_tree(codec, 5, grads)  # loads the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            payloads, _ = encode_tree(codec, 6, grads)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert all(bool(torch.isfinite(p.scales).all()) for p in payloads)
+
+
+def test_tree_pack_takes_any_number_of_leaves_in_one_launch(dev):
+    """300 leaves (more than the other tree kernels' 256-entry table): the
+    pack kernel sees one buffer, so it is still one launch."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    grads = [torch.randn(((4, 3, 3, 3), (5, 7), (9,))[i % 3], generator=gen, device=dev)
+             for i in range(300)]
+    codes, rows = _tree_codes(dev, grads, 3)
+    K.reset_launch_counts()
+    got = K.pack_bucketed_tree(codes, rows, bits=3)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["pack_bucketed"] == 1 and len(got) == 300
+    for a, b in zip(got, K.pack_bucketed_tree_plain(codes, rows, bits=3)):
+        assert _same_bits(a, b)
+
+
 def test_tree_decode_refuses_what_it_cannot_write(dev):
     grads = _resnet18_grads(dev, seed=7)[:3]
     payloads = _payload_tree(QsgdCodec(bits=4), grads, 1)
@@ -299,6 +413,14 @@ def test_tree_decode_refuses_what_it_cannot_write(dev):
         K.unpack_dequantize_tree([(payloads[0][0].cpu(), payloads[0][1])], grads[:1], bits=4)
     with pytest.raises(ValueError):
         K.unpack_bucketed_tree([payloads[0][0], payloads[1][0][:, :-1].contiguous()], bits=4)
+    codes = K.unpack_bucketed_tree([w for w, _ in payloads], bits=4)  # rows of 3 leaves
+    assert codes.shape[0] > 1  # so that a column slice is not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        K.pack_bucketed_tree(codes[:, :-6], [codes.shape[0]], bits=4)
+    with pytest.raises(TypeError):
+        K.pack_bucketed_tree(codes.float(), [codes.shape[0]], bits=4)
+    with pytest.raises(ValueError):
+        K.pack_bucketed_tree(codes, [codes.shape[0] + 1], bits=4)
 
 
 def test_unbiased_over_seeds(dev):

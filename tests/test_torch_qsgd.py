@@ -243,12 +243,12 @@ def test_tree_encode_matches_jax_codec_per_leaf(bits, scheme):
 
 def test_encode_tree_makes_one_tree_call(monkeypatch):
     """encode_tree on a fused QSGD codec makes one quantize_pack_tree call
-    for the whole tree and no per-group call; the torch-quantizer path stays
-    one call per shape group."""
+    for the whole tree and no per-group call; the torch-quantizer path makes
+    one pack_bucketed_tree call and no per-group pack."""
     from atomo_tpu_torch.codecs import encode_tree
     from atomo_tpu_torch.codecs import qsgd as qsgd_mod
 
-    calls = {"tree": 0, "stack": 0, "pack": 0}
+    calls = {"tree": 0, "stack": 0, "pack": 0, "pack_tree": 0}
     tree, stack = K.quantize_pack_tree, K.quantize_pack
 
     def count(name, fn):
@@ -261,13 +261,15 @@ def test_encode_tree_makes_one_tree_call(monkeypatch):
     monkeypatch.setattr(K, "quantize_pack", count("stack", stack))
     grads = _tree(_resnet_like_shapes(), 5)
     payloads, stats = encode_tree(QsgdCodec(bits=4, use_kernel=True), 9, grads)
-    assert calls == {"tree": 1, "stack": 0, "pack": 0}
+    assert calls == {"tree": 1, "stack": 0, "pack": 0, "pack_tree": 0}
     assert len(payloads) == 62
     assert stats.payload_bytes == sum(QsgdCodec(bits=4).leaf_payload_bytes(tuple(g.shape))
                                       for g in grads)
     monkeypatch.setattr(qsgd_mod, "pack_bucketed", count("pack", qsgd_mod.pack_bucketed))
+    monkeypatch.setattr(qsgd_mod, "pack_bucketed_tree",
+                        count("pack_tree", qsgd_mod.pack_bucketed_tree))
     encode_tree(QsgdCodec(bits=4, use_kernel=False), 9, grads)
-    assert calls == {"tree": 1, "stack": 0, "pack": 17}
+    assert calls == {"tree": 1, "stack": 0, "pack": 0, "pack_tree": 1}
 
 
 def test_tree_wrapper_checks_its_arguments():
