@@ -1,10 +1,14 @@
 """Command line of the port: ``python -m atomo_tpu_torch train|lm ...``.
 
-Counterpart of the ``train`` and ``lm`` verbs of ``atomo_tpu/cli.py`` on one
-device, with the flags ported so far. The defaults are the JAX package's.
-``lm`` runs the layouts ``dp`` and ``dp-sp`` at one replica and one sequence
-shard; the other layouts, more devices, ``--bf16``, checkpoints and resume,
-``--stream-encode`` and ``--overlap`` come with later slices.
+Counterpart of the ``train`` and ``lm`` verbs of ``atomo_tpu/cli.py``, with
+the flags ported so far. The defaults are the JAX package's. ``train`` runs
+on one device, or data-parallel over N processes, one per device, as
+``torchrun --nproc-per-node N -m atomo_tpu_torch train --n-devices N ...``
+starts them (``--aggregate gather|ring|psum``, ``--num-aggregate``,
+``--ring-bucket-size``). ``lm`` runs the layouts ``dp`` and ``dp-sp`` at one
+replica and one sequence shard; the other layouts, more devices for the LM,
+``--bf16``, checkpoints and resume, ``--stream-encode`` and ``--overlap``
+come with later slices.
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from atomo_tpu_torch.codecs import get_codec
 from atomo_tpu_torch.data import SPECS, BatchIterator, canonical_name, load_dataset, synthetic_dataset
 from atomo_tpu_torch.models import get_model
 from atomo_tpu_torch.models.transformer import lm_loss
+from atomo_tpu_torch.parallel import launch
 from atomo_tpu_torch.parallel.lm import create_lm_state, make_lm_train_step
-from atomo_tpu_torch.training import make_optimizer, train_loop
+from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, train_loop
 from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.rng import fold_in
 
@@ -50,10 +55,10 @@ def _svd_flags(p: argparse.ArgumentParser, rank_help: str) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="atomo_tpu_torch",
-        description="PyTorch/CUDA port of atomo_tpu (compressed SGD, one device)",
+        description="PyTorch/CUDA port of atomo_tpu (compressed data-parallel SGD)",
     )
     sub = parser.add_subparsers(dest="command")
-    p = sub.add_parser("train", help="train a model on one device")
+    p = sub.add_parser("train", help="train a model on one device or data-parallel")
     p.add_argument("--network", type=str, default="LeNet")
     p.add_argument("--dataset", type=str, default="MNIST")
     p.add_argument("--synthetic", action="store_true", default=False,
@@ -74,6 +79,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-freq", type=int, default=50)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
+    p.add_argument("--n-devices", type=int, default=1, metavar="N",
+                   help="processes in the dp group, one per device (start them with "
+                        "torchrun --nproc-per-node N); 1 = the single-device loop")
+    p.add_argument("--aggregate", type=str, default="auto",
+                   choices=["auto", "gather", "ring", "psum"],
+                   help="gradient exchange: gather = payload all_gather (compressed "
+                        "wire), ring = its streamed form (payloads rotate, each hop's "
+                        "decode overlaps the next transfer), psum = dense all-reduce; "
+                        "auto = gather")
+    p.add_argument("--num-aggregate", type=int, default=None, metavar="N",
+                   help="aggregate only K replicas per step (rotating subset; gather "
+                        "and ring); unset = all")
+    p.add_argument("--ring-bucket-size", type=int, default=65536, metavar="N",
+                   help="ring aggregation: 4-byte elements per message of a hop; "
+                        "<= 0 sends the packed payloads as one message (any value "
+                        "gives the same result)")
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
     p.set_defaults(fn=cmd_train)
@@ -152,13 +173,29 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     if codec.name == "sgd":
         codec = None  # dense: no encode/decode in the step, as the JAX trainer
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
-    return train_loop(
-        model, optimizer, train_iter, test_iter,
-        codec=codec, augment=name.startswith("cifar"),
-        max_steps=min(args.max_steps, EPOCHS * steps_per_epoch),
-        eval_freq=args.eval_freq, seed=args.seed, log_fn=log_fn,
-        log_every=args.log_interval, device=args.device,
-    )
+    common = dict(codec=codec, augment=name.startswith("cifar"),
+                  max_steps=min(args.max_steps, EPOCHS * steps_per_epoch),
+                  eval_freq=args.eval_freq, seed=args.seed, log_fn=log_fn,
+                  log_every=args.log_interval, device=args.device)
+    if args.n_devices <= 1:
+        return train_loop(model, optimizer, train_iter, test_iter, **common)
+    was_up = torch.distributed.is_initialized()
+    ctx = launch.initialize(args.device)
+    try:
+        if ctx.world_size != args.n_devices:
+            raise SystemExit(
+                f"--n-devices {args.n_devices} needs {args.n_devices} processes, one per "
+                f"device; this group has {ctx.world_size}: run torchrun --nproc-per-node "
+                f"{args.n_devices} -m atomo_tpu_torch train --n-devices {args.n_devices} ...")
+        return distributed_train_loop(
+            model, optimizer, train_iter, test_iter,
+            # auto resolves to gather until the comm-cost model is ported
+            aggregate="gather" if args.aggregate == "auto" else args.aggregate,
+            num_aggregate=args.num_aggregate or 0, ring_bucket_size=args.ring_bucket_size,
+            **{**common, "device": ctx.device})
+    finally:
+        if not was_up:
+            launch.shutdown()
 
 
 def _lm_rank(args: argparse.Namespace, log_fn) -> int:

@@ -41,6 +41,7 @@ from typing import Any, Optional, Protocol, Sequence
 import torch
 
 from atomo_tpu_torch.convert import from_jax_view, jax_view
+from atomo_tpu_torch.ops.qsgd_kernels import replica_mean
 from atomo_tpu_torch.utils.rng import fold_in
 
 Payload = Any  # a NamedTuple of tensors
@@ -207,26 +208,28 @@ def decode_tree(
 
 def decode_mean_tree(
     codec: Codec, gathered: Sequence[Payload], grads_like: Sequence[torch.Tensor],
-    n_replicas: int, layouts: Optional[Sequence[bool]] = None,
+    n_replicas: int, layouts: Optional[Sequence[bool]] = None, fused: bool = True,
 ) -> list[torch.Tensor]:
     """Decode gathered payloads (each leaf's with a leading replica axis of
-    ``n_replicas``) and average them: in one ``decode_leaves`` call where the
-    codec has one (QSGD: one launch over the tree), else one codec call per
-    shape group, the codec's fused ``decode_mean_stack`` where it has one
-    (SVD: one (m, N*k) @ (N*k, n) product), else decode every replica and
-    take the mean over the replica axis."""
+    ``n_replicas``, the fields of a gathered buffer included) and average
+    them: in one ``decode_leaves`` call where the codec has one (QSGD: one
+    launch over the tree), else one codec call per shape group, the codec's
+    fused ``decode_mean_stack`` where it has one and ``fused`` holds (SVD:
+    one (m, N*k) @ (N*k, n) product), else decode every replica and sum the
+    decodes in replica order, then divide: the ring's order, as the JAX
+    package's ``fused=False``."""
     decode_leaves = getattr(codec, "decode_leaves", None)
     if decode_leaves is not None:
         return decode_leaves(gathered, grads_like, layouts, n_replicas)
-    fused = getattr(codec, "decode_mean_stack", None)
+    fused_mean = getattr(codec, "decode_mean_stack", None) if fused else None
 
     def mean(stacked, n, shape):
-        if fused is not None:
-            return fused(stacked, n, n_replicas, shape=shape)
+        if fused_mean is not None:
+            return fused_mean(stacked, n, n_replicas, shape=shape)
         n_leaves = stacked[0].shape[0]
         flat = type(stacked)(*(a.reshape(n_leaves * n_replicas, *a.shape[2:])
                                for a in stacked))
         vals = codec.decode_stack(flat, n, shape=shape)
-        return vals.reshape(n_leaves, n_replicas, n).mean(dim=1)
+        return replica_mean(vals.reshape(n_leaves, n_replicas, n).transpose(0, 1))
 
     return _decode_groups(codec, gathered, grads_like, layouts, mean)

@@ -227,9 +227,11 @@ class QsgdCodec:
         ``grads_like`` (float32; ``layouts`` as for :func:`encode_tree`); with
         ``n_replicas`` above one each payload has that leading replica axis
         and the leaf is the mean of the replicas' decodes, summed in order.
-        The fused path is one :func:`unpack_dequantize_tree` call (one launch
-        on the card); the pack path one :func:`unpack_bucketed_tree` call and
-        one dequantization over the rows of every leaf."""
+        The replicas may lie one after another or, as the fields of a
+        gathered (N, bytes) buffer do, at a stride: both kernels read them in
+        place. The fused path is one :func:`unpack_dequantize_tree` call (one
+        launch on the card); the pack path one :func:`unpack_bucketed_tree`
+        call and one dequantization over the rows of every leaf."""
         if not payloads:
             return []
         if self._fused(payloads[0].words):

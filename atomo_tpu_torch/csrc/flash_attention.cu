@@ -584,6 +584,9 @@ template <typename T, int D, int NWG, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
            const long long* st, int causal, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = Smem<T, D, NWG, BK>::kBytes;
+  // set once a process, on the device current at the first launch: the port
+  // runs one device per process (atomo_tpu_torch/parallel/launch.py asserts
+  // it when it binds the device), so that is the device of every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_forward_kernel<T, D, NWG, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);

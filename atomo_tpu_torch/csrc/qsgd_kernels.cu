@@ -204,8 +204,12 @@ quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restri
 }
 
 // The leaves of one unpack_dequantize_tree launch, passed by value. A leaf's
-// payload is n_replicas consecutive (nb, nw) words and (nb,) scales; its
-// output lies in the port's layout at out[l]. dims[l] = (A, B, C) says the
+// payload is n_replicas (nb, nw) word blocks and (nb,) scale rows, replica r's
+// at words[l] + r * wstride[l] and scales[l] + r * sstride[l]: nb * nw and nb
+// when the replicas lie one after another, the packed buffer's length (in
+// 4-byte elements) when they are the rows of a gathered (N, bytes) buffer,
+// which the kernel so reads in place; its output lies in the port's layout
+// at out[l]. dims[l] = (A, B, C) says the
 // JAX layout (A, B, C) becomes the port's (C, B, A): a conv HWIO kernel is
 // (H*W, I, O) -> OIHW, a linear (in, out) kernel is (1, in, out) ->
 // (out, in); A = 0 marks a leaf that lies alike in both (vectors, embedding
@@ -213,6 +217,8 @@ quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restri
 struct DecodeTable {
   const uint32_t* words[kMaxLeaves];
   const float* scales[kMaxLeaves];
+  long long wstride[kMaxLeaves];  // words between replicas
+  long long sstride[kMaxLeaves];  // scales between replicas
   float* out[kMaxLeaves];
   int n[kMaxLeaves];
   int dims[kMaxLeaves][3];
@@ -275,7 +281,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
     const int lb = t * kDecWarps + warp;
     if (lb >= nb) return;
     const int valid = bucket_valid(n, lb, bs);
-    const long long stride = (long long)nb * nw;
+    const long long wstride = table.wstride[leaf], sstride = table.sstride[leaf];
     float* ob = out + (long long)lb * bs;
     for (int w = lane; w < nw; w += 32) {
       const long long at = (long long)lb * nw + w;
@@ -285,8 +291,8 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
 #pragma unroll
       for (int j = 0; j < kVpw; ++j) acc[j] = dequantize<BITS>((word >> (j * kBpv)) & kMask, step);
       for (int r = 1; r < n_replicas; ++r) {
-        word = words[r * stride + at];
-        step = __fmul_rn(kInvLevels, scales[(long long)r * nb + lb]);
+        word = words[r * wstride + at];
+        step = __fmul_rn(kInvLevels, scales[r * sstride + lb]);
 #pragma unroll
         for (int j = 0; j < kVpw; ++j) {
           acc[j] = __fadd_rn(acc[j], dequantize<BITS>((word >> (j * kBpv)) & kMask, step));
@@ -358,7 +364,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
                             : 0.f;
   }
   if (n_replicas > 1) {  // the mean over replicas, summed in order
-    const long long stride = (long long)nb * nw;
+    const long long wstride = table.wstride[leaf], sstride = table.sstride[leaf];
     int b = kw / A, a = kw - b * A;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -366,8 +372,8 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
         int at, lb, shift;
         position(a, b, at, lb, shift);
         for (int r = 1; r < n_replicas; ++r) {
-          const float step = __fmul_rn(kInvLevels, scales[(long long)r * nb + lb]);
-          acc[i] = __fadd_rn(acc[i], dequantize<BITS>(words[r * stride + at] >> shift, step));
+          const float step = __fmul_rn(kInvLevels, scales[r * sstride + lb]);
+          acc[i] = __fadd_rn(acc[i], dequantize<BITS>(words[r * wstride + at] >> shift, step));
         }
       }
       if (++a == A) {
@@ -466,7 +472,9 @@ pack_codes_tree_kernel(const int32_t* __restrict__ codes, uint32_t* __restrict__
 
 // Blocks of pack_codes_tree_kernel<BITS> that fill the card, queried on the
 // first launch of a process and kept (the kernel takes no dynamic shared
-// memory, so the answer does not change); 0 if the query failed.
+// memory, so the answer does not change); 0 if the query failed. The cache
+// is the process's, not the device's: the port runs one device per process,
+// which atomo_tpu_torch/parallel/launch.py asserts when it binds the device.
 template <int BITS>
 int pack_grid() {
   static const int fill = [] {
@@ -496,10 +504,15 @@ int launch_pack_codes(const int32_t* codes, uint32_t* words, int rows, int nw, i
   return (int)cudaGetLastError();
 }
 
-// The leaves of one unpack_codes_tree launch: leaf l's words (rows, nw) at
-// words[l] go to rows row0[l] .. row0[l + 1] - 1 of the codes.
+// The leaves of one unpack_codes_tree launch: leaf l's words go to rows
+// row0[l] .. row0[l + 1] - 1 of the codes, replica after replica: its rows
+// are replicas of nb[l] rows (nw words each), replica r's at words[l] +
+// r * stride[l] (nb[l] * nw when the replicas lie one after another, the
+// packed buffer's length when they are rows of a gathered buffer).
 struct CodesTable {
   const uint32_t* words[kMaxLeaves];
+  long long stride[kMaxLeaves];
+  int nb[kMaxLeaves];
   int row0[kMaxLeaves + 1];
   int n_leaves;
 };
@@ -510,7 +523,8 @@ constexpr int kThreadsUc = 256;
 // word q = i mod nw of row g = i / nw and writes its field j at j * nw + q,
 // so a warp's loads and its writes of one field are contiguous. A block
 // finds the leaf of its first row by bisection; a thread steps on from
-// there to its own row's.
+// there to its own row's, and splits the leaf's row into replica and row
+// (no division for a leaf of one replica).
 template <int BITS>
 __global__ void __launch_bounds__(kThreadsUc)
 unpack_codes_tree_kernel(const __grid_constant__ CodesTable table, int32_t* __restrict__ codes,
@@ -524,7 +538,15 @@ unpack_codes_tree_kernel(const __grid_constant__ CodesTable table, int32_t* __re
   const int g = i / nw, q = i - g * nw;
   int leaf = last_leaf_at(table.row0, table.n_leaves, first / nw);
   while (g >= table.row0[leaf + 1]) ++leaf;
-  const uint32_t w = table.words[leaf][(long long)(g - table.row0[leaf]) * nw + q];
+  int lb = g - table.row0[leaf];
+  const int nb = table.nb[leaf];
+  long long at = 0;
+  if (lb >= nb) {
+    const int r = lb / nb;
+    lb -= r * nb;
+    at = r * table.stride[leaf];
+  }
+  const uint32_t w = table.words[leaf][at + (long long)lb * nw + q];
   int32_t* row = codes + (long long)g * nw * kVpw + q;
 #pragma unroll
   for (int j = 0; j < kVpw; ++j) row[j * nw] = (int32_t)((w >> (j * kBpv)) & kMask);
@@ -593,11 +615,13 @@ int qsgd_quantize_pack(const float* const* x, const float* const* u,
 }
 
 // Decode n_leaves leaves in ceil(n_leaves / 256) launches (one for any model
-// up to 256 leaves): leaf l's n_replicas payloads words[l] (n_replicas, nb,
-// nw) and scales[l] (n_replicas, nb), nb = ceil(n[l] / bs), are decoded,
-// averaged over the replicas (summed in order, then divided) and written to
-// out + out_off[l] in the layout dims[3 l .. 3 l + 2] (see DecodeTable).
+// up to 256 leaves): leaf l's n_replicas payloads, replica r's (nb, nw) words
+// at words[l] + r * wstride[l] and (nb,) scales at scales[l] + r *
+// sstride[l], nb = ceil(n[l] / bs), are decoded, averaged over the replicas
+// (summed in order, then divided) and written to out + out_off[l] in the
+// layout dims[3 l .. 3 l + 2] (see DecodeTable).
 int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const* scales,
+                                const long long* wstride, const long long* sstride,
                                 float* out, const long long* out_off, const int* n,
                                 const int* dims, int n_leaves, int bs, int nw, int bits,
                                 int n_replicas, void* stream) {
@@ -618,6 +642,8 @@ int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const
       const int i = c0 + l;
       t.words[l] = words[i];
       t.scales[l] = scales[i];
+      t.wstride[l] = wstride[i];
+      t.sstride[l] = sstride[i];
       t.out[l] = out + out_off[i];
       t.n[l] = n[i];
       for (int d = 0; d < 3; ++d) t.dims[l][d] = dims[3 * i + d];
@@ -672,9 +698,10 @@ int qsgd_pack_codes_tree(const int32_t* codes, uint32_t* words, int rows, int nw
 
 // Unpack n_leaves leaves' words in ceil(n_leaves / 256) launches: leaf l's
 // rows row0[l] .. row0[l + 1] - 1 of codes (rows, nw * vpw) int32 come from
-// words[l].
-int qsgd_unpack_codes_tree(const uint32_t* const* words, const int* row0, int n_leaves,
-                           int32_t* codes, int nw, int bits, void* stream) {
+// its replicas of nb[l] rows, replica r's at words[l] + stride[l] * r.
+int qsgd_unpack_codes_tree(const uint32_t* const* words, const long long* stride,
+                           const int* nb, const int* row0, int n_leaves, int32_t* codes,
+                           int nw, int bits, void* stream) {
   if (n_leaves <= 0) return 0;
   if (bits < 1 || bits > 8 || nw <= 0) {
     return (int)cudaErrorInvalidValue;
@@ -685,6 +712,8 @@ int qsgd_unpack_codes_tree(const uint32_t* const* words, const int* row0, int n_
     CodesTable t;
     for (int l = 0; l < m; ++l) {
       t.words[l] = words[c0 + l];
+      t.stride[l] = stride[c0 + l];
+      t.nb[l] = nb[c0 + l] > 0 ? nb[c0 + l] : 1;
       t.row0[l] = row0[c0 + l] - row0[c0];
     }
     t.row0[m] = row0[c0 + m] - row0[c0];

@@ -35,7 +35,11 @@ view into one flat words and one flat scales buffer. The decode mirrors
 it: one :func:`unpack_dequantize_tree` call decodes every leaf (or the mean
 over a leading replica axis) in one launch, straight into the port's layout
 (conv OIHW, linear (out, in)), and one :func:`unpack_bucketed_tree` call
-unpacks every leaf's words; one :func:`pack_bucketed_tree` call packs the
+unpacks every leaf's words. Both decode kernels read a leaf's replicas at a
+replica stride of their leaf table, so the rows of a gathered (N, bytes)
+buffer (:func:`atomo_tpu_torch.parallel.common.unpack_tree_buckets`) are
+decoded where they lie, with no copy into a replica-contiguous layout; one
+:func:`pack_bucketed_tree` call packs the
 codes of every leaf, its rows one after another in one buffer, in one launch.
 :func:`quantize_pack`, :func:`unpack_dequantize`, :func:`pack_bucketed` and
 :func:`unpack_bucketed` are the same kernels over the L equal leaves of an
@@ -377,6 +381,31 @@ def tree_layouts(outs_like: Sequence[torch.Tensor], layouts) -> tuple:
     return tuple(bool(v) for v in layouts)
 
 
+def _rest_contiguous(t: torch.Tensor) -> bool:
+    """Whether ``t`` without its leading axis lies contiguous."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def replica_stride(t: torch.Tensor, inner: int, n_replicas: int) -> int:
+    """Elements between the replicas of a payload field of ``n_replicas``
+    replicas of ``inner`` elements: ``inner`` for a contiguous field (the
+    replicas one after another), the leading axis' stride for a view with a
+    leading replica axis over a contiguous rest (a field of a gathered
+    buffer); -1 for another size or layout, which the kernels do not take."""
+    if t.numel() != n_replicas * inner:
+        return -1
+    if t.is_contiguous():
+        return inner
+    if t.dim() >= 2 and t.shape[0] == n_replicas and _rest_contiguous(t):
+        return t.stride(0)
+    return -1
+
+
 def check_decode_args(payloads, outs_like, n_replicas: int, geoms) -> None:
     """The checks both decode paths make: one payload per float32 leaf, each
     of the size its geometry and ``n_replicas`` give."""
@@ -406,7 +435,8 @@ def unpack_dequantize_tree_plain(
 ) -> list:
     """Plain twin of :func:`unpack_dequantize_tree`: each leaf decoded alone
     by :func:`unpack_dequantize_plain`, the replicas averaged by
-    :func:`replica_mean`, then laid out as the port holds it."""
+    :func:`replica_mean`, then laid out as the port holds it. Takes the
+    payloads the kernel takes, views of a gathered buffer included."""
     geoms = [geometry(like.numel(), bits, bucket_size) for like in outs_like]
     check_decode_args(payloads, outs_like, n_replicas, geoms)
     out = []
@@ -422,7 +452,8 @@ def unpack_dequantize_tree_plain(
 
 
 def unpack_bucketed_tree_plain(words_per_leaf: Sequence[torch.Tensor], *, bits: int):
-    """Plain twin of :func:`unpack_bucketed_tree`."""
+    """Plain twin of :func:`unpack_bucketed_tree`, views of a gathered
+    buffer included (each replica's rows in order)."""
     return torch.cat([unpack_bucketed_plain(w.reshape(-1, w.shape[-1]), bits)
                       for w in words_per_leaf])
 
@@ -483,9 +514,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_qsgd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-        lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.qsgd_pack_codes_tree.argtypes = [p, p, i, i, i, p]
-        lib.qsgd_unpack_codes_tree.argtypes = [p, p, i, p, i, i, p]
+        lib.qsgd_unpack_codes_tree.argtypes = [p, p, p, p, i, p, i, i, p]
         for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize_tree,
                    lib.qsgd_pack_codes_tree, lib.qsgd_unpack_codes_tree):
             fn.restype = ctypes.c_int
@@ -686,14 +717,17 @@ def _decode_layout(shapes: tuple, layouts: tuple, bits: int, bucket_size: int,
     )
 
 
-def _launch_unpack_dequantize(words, scales, out, layout, *, bits, bucket_size, n_replicas):
+def _launch_unpack_dequantize(words, scales, wstrides, sstrides, out, layout, *, bits,
+                              bucket_size, n_replicas):
     """Launch the tree decode over leaves whose words and scales lie at the
-    data pointers ``words`` and ``scales``, into ``out`` laid out as
+    data pointers ``words`` and ``scales``, replica r's ``r * wstrides[l]``
+    words and ``r * sstrides[l]`` scales on, into ``out`` laid out as
     ``layout``."""
     n_leaves = len(words)
-    vp = ctypes.c_void_p
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
     rc = _lib().qsgd_unpack_dequantize_tree(
-        (vp * n_leaves)(*words), (vp * n_leaves)(*scales), _ptr(out), layout.offsets,
+        (vp * n_leaves)(*words), (vp * n_leaves)(*scales), (ll * n_leaves)(*wstrides),
+        (ll * n_leaves)(*sstrides), _ptr(out), layout.offsets,
         layout.ns, layout.dims, n_leaves, bucket_size, layout.geoms[0].n_words, bits,
         n_replicas, _stream(),
     )
@@ -713,7 +747,9 @@ def unpack_dequantize_tree(
     """Fused QSGD decode of a whole tree in one launch: ``payloads`` holds
     one (words, scales) pair per leaf, words (n_buckets, n_words) uint32 and
     scales (n_buckets,) float32, each with a leading axis of ``n_replicas``
-    when that is above one (any leading axis of that size is taken). Leaf i
+    when that is above one (any leading axis of that size is taken): the
+    replicas one after another, or at any stride, as the rows of a gathered
+    buffer lie (:func:`replica_stride`), read in place. Leaf i
     comes back shaped like ``outs_like[i]`` (float32, port layout: conv
     OIHW, linear (out, in); ``layouts[i]`` False keeps the JAX layout, as for
     an embedding table), contiguous, a view into one buffer; over replicas
@@ -733,19 +769,20 @@ def unpack_dequantize_tree(
         check_decode_args(payloads, outs_like, n_replicas, layout.geoms)
     # the host work of every step: one pass of cheap checks, the pointers
     dev, f32, u32, i32 = w0.get_device(), torch.float32, torch.uint32, torch.int32
-    word_ptrs, scale_ptrs = [], []
+    word_ptrs, scale_ptrs, wstrides, sstrides = [], [], [], []
     for (w, s), like, nw, g in zip(payloads, outs_like, layout.n_words, layout.geoms):
+        ws, ss = replica_stride(w, nw, n_replicas), replica_stride(s, g.n_buckets, n_replicas)
         if (like.dtype is not f32 or s.dtype is not f32
                 or (w.dtype is not u32 and w.dtype is not i32)
-                or w.get_device() != dev or s.get_device() != dev
-                or w.numel() != n_replicas * nw or s.numel() != n_replicas * g.n_buckets
-                or not w.is_contiguous() or not s.is_contiguous()):
+                or w.get_device() != dev or s.get_device() != dev or ws < 0 or ss < 0):
             _refuse_decode(payloads, outs_like, n_replicas, layout.geoms)
         word_ptrs.append(w.data_ptr())
         scale_ptrs.append(s.data_ptr())
+        wstrides.append(ws)
+        sstrides.append(ss)
     out = torch.empty((layout.total,), dtype=f32, device=w0.device)
-    _launch_unpack_dequantize(word_ptrs, scale_ptrs, out, layout, bits=bits,
-                              bucket_size=bucket_size, n_replicas=n_replicas)
+    _launch_unpack_dequantize(word_ptrs, scale_ptrs, wstrides, sstrides, out, layout,
+                              bits=bits, bucket_size=bucket_size, n_replicas=n_replicas)
     return [out.as_strided(shape, stride, offset) for shape, stride, offset in layout.views]
 
 
@@ -753,9 +790,15 @@ def _refuse_decode(payloads, outs_like, n_replicas, geoms):
     """Raise what is wrong with a tree decode's arguments."""
     _on_card(*(t for p in payloads for t in p))
     check_decode_args(payloads, outs_like, n_replicas, geoms)
-    for i, (w, s) in enumerate(payloads):
-        _require(w, f"words[{i}]", (torch.uint32, torch.int32), w.shape)
-        _require(s, f"scales[{i}]", (torch.float32,), s.shape)
+    for i, ((w, s), g) in enumerate(zip(payloads, geoms)):
+        if w.dtype not in (torch.uint32, torch.int32) or s.dtype != torch.float32:
+            raise TypeError(f"payload {i}: words must be uint32 or int32 and scales "
+                            f"float32, got {w.dtype} and {s.dtype}")
+        if (replica_stride(w, g.n_buckets * g.n_words, n_replicas) < 0
+                or replica_stride(s, g.n_buckets, n_replicas) < 0):
+            raise ValueError(f"payload {i}: each replica's words and scales must lie "
+                             "contiguous (the field contiguous, or a leading replica axis "
+                             "over a contiguous rest)")
     raise ValueError("unpack_dequantize_tree: payloads the kernel cannot take")
 
 
@@ -788,8 +831,9 @@ def unpack_dequantize(
         wb, sb = words.data_ptr(), scales.data_ptr()
         _launch_unpack_dequantize(
             [wb + 4 * i * g.n_buckets * g.n_words for i in range(n_leaves)],
-            [sb + 4 * i * g.n_buckets for i in range(n_leaves)], out, layout, bits=bits,
-            bucket_size=bucket_size, n_replicas=1,
+            [sb + 4 * i * g.n_buckets for i in range(n_leaves)],
+            [g.n_buckets * g.n_words] * n_leaves, [g.n_buckets] * n_leaves, out, layout,
+            bits=bits, bucket_size=bucket_size, n_replicas=1,
         )
     return out[0] if squeeze else out
 
@@ -843,27 +887,39 @@ def unpack_bucketed_tree(words_per_leaf: Sequence[torch.Tensor], *, bits: int) -
     """Bit-unpack the words of a whole tree in one launch: each leaf's words
     (…, n_words) uint32, all of one n_words, any leading axes (a replica
     axis included) folded into rows -> one (rows, n_words * vpw) int32
-    tensor, the leaves' rows one after another."""
+    tensor, the leaves' rows one after another. A leaf's words may be
+    contiguous, or an (N, n_buckets, n_words) view whose replicas lie at any
+    stride (the rows of a gathered buffer), read in place."""
     g = geometry(0, bits)
     if not words_per_leaf:
         raise ValueError("unpack_bucketed_tree needs at least one leaf")
     if not _on_card(*words_per_leaf):
         return unpack_bucketed_tree_plain(words_per_leaf, bits=bits)
     n_words = words_per_leaf[0].shape[-1]
-    rows = []
+    rows, nbs, strides = [], [], []
     for i, w in enumerate(words_per_leaf):
-        if (w.dim() < 1 or w.shape[-1] != n_words or w.dtype not in (torch.uint32, torch.int32)
-                or not w.is_contiguous()):
+        if w.dim() < 1 or w.shape[-1] != n_words or w.dtype not in (torch.uint32, torch.int32):
             _require(w, f"words[{i}]", (torch.uint32, torch.int32), (w.numel() // n_words,
                                                                     n_words))
+        if w.is_contiguous():
+            nb, stride = w.numel() // n_words, w.numel()
+        else:  # replicas of (nb, n_words) at a stride
+            nb = w[0].numel() // n_words if w.dim() == 3 else 0
+            stride = replica_stride(w, nb * n_words, w.shape[0]) if nb else -1
+            if stride < 0:
+                raise ValueError(f"words[{i}] {tuple(w.shape)} with strides {w.stride()}: "
+                                 "each replica's (n_buckets, n_words) must lie contiguous")
         rows.append(w.numel() // n_words)
+        nbs.append(nb)
+        strides.append(stride)
     row0 = _row0(tuple(rows))
     ptrs = [w.data_ptr() for w in words_per_leaf]
     codes = torch.empty((row0[len(rows)], n_words * g.vpw), dtype=torch.int32,
                         device=words_per_leaf[0].device)
     n_leaves = len(ptrs)
     rc = _lib().qsgd_unpack_codes_tree(
-        (ctypes.c_void_p * n_leaves)(*ptrs), row0, n_leaves, _ptr(codes), n_words, bits,
+        (ctypes.c_void_p * n_leaves)(*ptrs), (ctypes.c_longlong * n_leaves)(*strides),
+        (ctypes.c_int * n_leaves)(*nbs), row0, n_leaves, _ptr(codes), n_words, bits,
         _stream(),
     )
     _raise_if(rc, "qsgd_unpack_codes_tree")

@@ -1,1 +1,3 @@
-"""Attention strategies and the LM trainer of the port (one device)."""
+"""Parallel layer of the port: the data-parallel exchange over
+``torch.distributed`` (``launch``, ``common``, ``replicated``), the attention
+strategies and the LM trainer (one device)."""

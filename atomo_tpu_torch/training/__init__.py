@@ -1,4 +1,4 @@
-"""Training runtime of the port: single-device trainer and momentum SGD."""
+"""Training runtime of the port: the trainers and momentum SGD."""
 
 from atomo_tpu_torch.training.optim import (  # noqa: F401
     Sgd,
@@ -9,6 +9,7 @@ from atomo_tpu_torch.training.optim import (  # noqa: F401
 from atomo_tpu_torch.training.trainer import (  # noqa: F401
     TrainState,
     create_state,
+    distributed_train_loop,
     evaluate,
     make_train_step,
     train_loop,

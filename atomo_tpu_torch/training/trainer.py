@@ -1,11 +1,14 @@
-"""Single-device trainer with the codec in the loop.
+"""Trainers: one device with the codec in the loop, and the data-parallel loop.
 
 Counterpart of ``atomo_tpu/training/trainer.py`` ("compression on, comm
 off"): each step runs forward and backward, encodes the gradient list with
 the codec, decodes it again, and applies the momentum-SGD update, so a
 single card does exactly the work of one worker of the compressed
-data-parallel path. Guard, chaos, superstep, doctor, recorder and tuner are
-not ported yet.
+data-parallel path. :func:`distributed_train_loop` is the counterpart of
+``atomo_tpu/parallel/replicated.py:2749 distributed_train_loop``, its flat
+blocking core: one process per device, the step of
+:mod:`atomo_tpu_torch.parallel.replicated`. Guard, chaos, superstep,
+doctor, recorder and tuner are not ported yet.
 
 The phases of a step are ``torch.profiler.record_function`` ranges
 (``step.forward_backward``, ``step.encode``, ``step.decode``,
@@ -196,4 +199,86 @@ def train_loop(
                     step, ev["loss"], ev["prec1"], ev["prec5"]
                 )
             )
+    return state
+
+
+def distributed_train_loop(
+    model: nn.Module,
+    optimizer: Sgd,
+    train_iter,
+    test_iter=None,
+    *,
+    codec=None,
+    aggregate: str = "gather",
+    augment: bool = False,
+    num_aggregate: int = 0,
+    ring_bucket_size: int = 65536,
+    max_steps: int = 100,
+    eval_freq: int = 0,
+    seed: int = 0,
+    log_fn=print,
+    log_every: int = 1,
+    device=None,
+) -> TrainState:
+    """The data-parallel train-and-validate loop of this rank, in the
+    process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
+    brought up. Every rank draws the same global batch from ``train_iter``
+    (the same seeded shuffle) and trains on its rows of it; rank 0 prints
+    the reference's ``Worker:`` lines every ``log_every`` steps and
+    ``Validation:`` lines every ``eval_freq`` steps (the test set evaluated
+    over the ranks, each batch trimmed to a multiple of them). Runs on CUDA
+    unless ``device='cpu'``."""
+    # imported here: the step's module builds on this one's TrainState
+    from atomo_tpu_torch.parallel.replicated import (
+        make_distributed_eval_step,
+        make_distributed_train_step,
+        replicate_state,
+        shard_batch,
+    )
+
+    dev = resolve_device(device)
+    state = replicate_state(create_state(model, optimizer, seed, dev))
+    step_fn = make_distributed_train_step(
+        model, optimizer, codec, aggregate=aggregate, augment=augment,
+        num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size)
+    eval_fn = make_distributed_eval_step(model)
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    key = seed + 1
+    timer = Timer()
+    stream = train_iter.forever()
+    n_train = len(train_iter.dataset)
+    while state.step < max_steps:
+        images, labels = shard_batch(*next(stream), rank, world)
+        state, metrics = step_fn(state, key, *to_device(images, labels, dev))
+        step = state.step
+        if log_every and step % log_every == 0:
+            loss = float(metrics["loss"])  # every rank waits for its step here
+            if rank == 0:
+                log_fn(StepMetrics(
+                    rank=0,
+                    step=step,
+                    epoch=step * train_iter.batch_size // max(n_train, 1),
+                    samples_seen=(step * train_iter.batch_size) % max(n_train, 1),
+                    dataset_size=n_train,
+                    loss=loss,
+                    time_cost=timer.lap(),
+                    msg_bytes=int(metrics["msg_bytes"]),
+                    prec1=float(metrics["prec1"]),
+                    prec5=float(metrics["prec5"]),
+                ).worker_line())
+        if eval_freq and test_iter is not None and step % eval_freq == 0:
+            totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
+            n = 0
+            for ti, tl in test_iter.epoch():
+                trim = (ti.shape[0] // world) * world
+                if trim == 0:
+                    continue
+                m = eval_fn(*to_device(*shard_batch(ti[:trim], tl[:trim], rank, world), dev))
+                for k in totals:
+                    totals[k] += float(m[k]) * trim
+                n += trim
+            if rank == 0:
+                log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
+                       .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
+                                                                        "prec5"))))
     return state

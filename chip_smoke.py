@@ -62,10 +62,32 @@ every hand-written kernel against its plain PyTorch version:
    for the float32 flash kernel, 989 TFLOP/s bf16, 67 TFLOP/s float32 FMA,
    the larger of bytes and operations) and, for flash attention,
    ``F.scaled_dot_product_attention`` on the same tensors;
-5. profile: three qsgd ResNet-18 steps (fused, then the pack path) and
-   three svd LM steps under
-   ``torch.profiler``: wall and device-busy time per step, the device's idle
-   share, each ``step.*`` phase's time, and the kernels that take the most.
+5. profile: three qsgd ResNet-18 steps (fused, then the pack path), three
+   svd rank 3 steps (the canonical recipe's codec) and three svd LM steps
+   under ``torch.profiler``: wall and device-busy time per step, the
+   device's idle share, each ``step.*`` phase's time, and the kernels that
+   take the most;
+6. check: gathered decode: the tree decode and the tree unpack over the
+   rows of an (N, bytes) gathered buffer of the ResNet-18 tree at 4 bits,
+   N = 2, 4, 8, read in place, against their plain versions on the same
+   views and the replica-contiguous launch, bit for bit, each layout's
+   device time beside the other's;
+7. dist nccl-1: the data-parallel step (``parallel/replicated.py``) at NCCL
+   world size 1, ResNet-18 batch 128, 3 steps each of qsgd 4 bits gather,
+   svd rank 3 gather and qsgd ring, with the single-device step of the same
+   codec timed the same way: the counts set to 0 before each run and read
+   after (quantize_pack and unpack_dequantize once a step for qsgd), steps
+   2-3 of the qsgd runs under ``set_sync_debug_mode("error")``, Msg(MB) the
+   single device's; then three qsgd and three svd gather steps under the
+   profiler, as in 5, with ``step.exchange`` and ``step.decode_mean``;
+8. dist gloo-2: two processes on the one card over gloo (this script with
+   ``--gloo-child``; NCCL refuses two ranks on one device), global batch
+   128, qsgd gather and psum and svd gather, 3 steps each: the replicas
+   bit-identical after every step, rank 0's decode-mean over its gathered
+   buffer equal to the plain twin's, Msg(MB) the single card's (psum: the
+   dense bytes); first a probe of gloo's send and receive of a CUDA tensor
+   (``--gloo-p2p-probe``), which the ring would need; its outcome is
+   printed, and the ring is left out of this phase.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
@@ -139,23 +161,26 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 10) -> float:
+def device_ms(fn, kernel: str, reps: int = 10, tries: int = 2) -> float:
     """Milliseconds a call of ``fn()`` keeps the card busy in kernels whose
-    name holds ``kernel``, from ``torch.profiler`` over ``reps`` calls."""
+    name holds ``kernel``, from ``torch.profiler`` over ``reps`` calls. A
+    session that records no device activity at all is taken again, once
+    (one such session in a run of dozens has been seen)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time of {kernel}")
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError(f"the profiler saw no device time of {kernel!r} in {tries} sessions")
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -383,6 +408,70 @@ def phase_check_decode(grads, errs):
         torch.cuda.synchronize()
         log(f"check: {label}: the tree decode over {len(tree)} leaves (1 and 4 replicas), "
             f"the tree unpack and the tree pack equal their plain versions")
+
+
+def gathered_payloads(codec, grads, n_replicas: int):
+    """``n_replicas`` encodes of ``grads`` (keys 100, 101, ...) packed rank
+    by rank and stacked as ``all_gather_into_tensor`` leaves them: per leaf
+    (words, scales) views of the (N, bytes) buffer, and the same payloads
+    laid out replica after replica."""
+    import torch
+
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    reps = [encode_tree(codec, 100 + r, grads)[0] for r in range(n_replicas)]
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = unpack_tree_buckets(torch.stack([b for b, _ in packed]), packed[0][1])
+    return [(v.words, v.scales) for v in views], replica_payloads(codec, grads, n_replicas)
+
+
+def phase_check_gathered(grads, errs):
+    """Rows 2 and 4 over the rows of an (N, bytes) gathered buffer of the
+    ResNet-18 tree at 4 bits, N = 2, 4, 8, read in place: the tree decode
+    and the tree unpack each equal their plain twins on the same views and
+    the replica-contiguous launch, bit for bit; each layout's device time."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    bits, out = 4, {}
+    for n in (2, 4, 8):
+        views, contiguous = gathered_payloads(QsgdCodec(bits=bits), grads, n)
+        got = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n)
+        twin = K.unpack_dequantize_tree_plain(views, grads, bits=bits, n_replicas=n)
+        cont = K.unpack_dequantize_tree(contiguous, grads, bits=bits, n_replicas=n)
+        errs["unpack_dequantize"] = max([errs["unpack_dequantize"]] + [
+            float((a - b).abs().max()) for a, b in zip(got, twin) if a.numel()])
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, twin, cont)):
+            raise AssertionError(f"gathered decode differs at N = {n}")
+        vw, cw = [w for w, _ in views], [w for w, _ in contiguous]
+        codes = K.unpack_bucketed_tree(vw, bits=bits)
+        codes_twin = K.unpack_bucketed_tree_plain(vw, bits=bits)
+        errs["unpack_bucketed"] = max(errs["unpack_bucketed"],
+                                      float((codes - codes_twin).abs().max()))
+        if not (torch.equal(codes, codes_twin)
+                and torch.equal(codes, K.unpack_bucketed_tree(cw, bits=bits))):
+            raise AssertionError(f"gathered unpack differs at N = {n}")
+        t = {
+            "decode_gathered_ms": device_ms(lambda: K.unpack_dequantize_tree(
+                views, grads, bits=bits, n_replicas=n), "unpack_dequantize_tree_kernel"),
+            "decode_contiguous_ms": device_ms(lambda: K.unpack_dequantize_tree(
+                contiguous, grads, bits=bits, n_replicas=n), "unpack_dequantize_tree_kernel"),
+            "unpack_gathered_ms": device_ms(lambda: K.unpack_bucketed_tree(vw, bits=bits),
+                                            "unpack_codes_tree_kernel"),
+            "unpack_contiguous_ms": device_ms(lambda: K.unpack_bucketed_tree(cw, bits=bits),
+                                              "unpack_codes_tree_kernel"),
+        }
+        out[n] = t
+        log(f"check: gathered decode N = {n}: the tree decode and the tree unpack over the "
+            f"(N, bytes) buffer's rows equal their plain versions and the replica-contiguous "
+            f"launch bit for bit; device ms: decode {t['decode_gathered_ms']:.4f} gathered, "
+            f"{t['decode_contiguous_ms']:.4f} contiguous; unpack {t['unpack_gathered_ms']:.4f} "
+            f"gathered, {t['unpack_contiguous_ms']:.4f} contiguous")
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_check_pack_encode(grads):
@@ -934,9 +1023,9 @@ def profile_steps(label: str, step_once, steps: int = 3):
 
 
 def phase_profile():
-    """Three qsgd ResNet-18 steps (batch 128) on the fused path and three on
-    the pack path, and three svd LM steps at the recipe, each under the
-    profiler."""
+    """Three qsgd ResNet-18 steps (batch 128) on the fused path, three on
+    the pack path and three svd rank 3 steps (the canonical recipe's codec),
+    and three svd LM steps at the recipe, each under the profiler."""
     import torch
 
     from atomo_tpu_torch.codecs import QsgdCodec, SvdCodec
@@ -965,7 +1054,8 @@ def phase_profile():
 
     out = {"resnet18_qsgd4": resnet("resnet18 qsgd", QsgdCodec(bits=4)),
            "resnet18_qsgd4_pack": resnet("resnet18 qsgd-pack",
-                                         QsgdCodec(bits=4, use_kernel=False))}
+                                         QsgdCodec(bits=4, use_kernel=False)),
+           "resnet18_svd3": resnet("resnet18 svd3", SvdCodec(rank=3))}
     del batches
 
     lm_opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
@@ -986,7 +1076,288 @@ def phase_profile():
     return out
 
 
+DIST_STEPS = 3
+
+
+def resnet_batches(device, n: int, rank: int = 0, world: int = 1):
+    """``n`` global ResNet-18 batches (CIFAR-10 shapes, 128) of the seeded
+    synthetic set, this rank's rows of each, on ``device``."""
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.parallel.replicated import shard_batch
+
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True), 128, seed=1).epoch()
+    return [to_device(*shard_batch(*next(it), rank, world), device) for _ in range(n)]
+
+
+def state_hash(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_steps(step, state, batches, sync_check: bool):
+    """The steps over ``batches`` with every launch count set to 0 before
+    and read after: losses, host ms per step (the step and the read of its
+    loss), Msg bytes; from the second step on, with ``sync_check``, each
+    step runs under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from atomo_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    losses, ms, hashes = [], [], []
+    m = None
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        if sync_check and i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, 2, x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hashes.append(state_hash(state.model))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return state, {"losses": losses, "step_ms": ms, "median_step_ms": statistics.median(ms[1:]),
+                   "msg_bytes": int(m["msg_bytes"]), "launches": ops.launch_counts(),
+                   "hashes": hashes}
+
+
+DIST_RUNS = [("qsgd_gather", "qsgd", "gather"), ("svd3_gather", "svd3", "gather"),
+             ("qsgd_ring", "qsgd", "ring")]
+
+
+def make_codec(name):
+    from atomo_tpu_torch.codecs import QsgdCodec, SvdCodec
+
+    return QsgdCodec(bits=4) if name == "qsgd" else SvdCodec(rank=3)
+
+
+def phase_dist_nccl1(work: Path):
+    """The data-parallel step at NCCL world size 1 (its collectives real
+    NCCL calls of one rank), ResNet-18 at batch 128, 3 steps each: qsgd 4
+    bits gather, svd rank 3 gather (the canonical recipe), qsgd ring; the
+    single-device step of the same codecs timed the same way beside them;
+    then each under the profiler with its phases."""
+    import torch
+
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import (
+        make_distributed_train_step,
+        replicate_state,
+    )
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/nccl1", world_size=1,
+                      rank=0)
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    batches = resnet_batches(dev, DIST_STEPS)
+    out, prof = {}, {}
+    try:
+        def fresh(dist_step, codec, aggregate=None):
+            model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+            state = create_state(model, opt, 1, dev)
+            if not dist_step:
+                return state, make_train_step(model, opt, codec=codec, augment=True)
+            return replicate_state(state), make_distributed_train_step(
+                model, opt, codec, aggregate=aggregate, augment=True)
+
+        for label, code, aggregate in DIST_RUNS:
+            state, step = fresh(True, make_codec(code), aggregate)
+            state, out[label] = run_steps(step, state, batches, sync_check=code == "qsgd")
+            if label != "qsgd_ring":
+                single, sstep = fresh(False, make_codec(code))
+                _, out[f"single_{code}"] = run_steps(sstep, single, batches, False)
+        for label, code, aggregate in DIST_RUNS:
+            r = out[label]
+            single = out[f"single_{code}"]
+            if code == "qsgd" and (r["launches"]["quantize_pack"] != DIST_STEPS
+                                   or r["launches"]["unpack_dequantize"] != DIST_STEPS):
+                raise AssertionError(f"dist nccl-1 {label}: launches {r['launches']}, want "
+                                     f"quantize_pack and unpack_dequantize {DIST_STEPS}")
+            if code == "svd3" and any(r["launches"].values()):
+                raise AssertionError(f"dist nccl-1 {label} launched kernels: {r['launches']}")
+            if r["msg_bytes"] != single["msg_bytes"]:
+                raise AssertionError(f"dist nccl-1 {label}: Msg {r['msg_bytes']} bytes, the "
+                                     f"single-device step's {single['msg_bytes']}")
+            log(f"dist nccl-1 {label}: losses {r['losses']} launches {r['launches']} "
+                f"Msg(MB) {r['msg_bytes'] / 2 ** 20:.4f} median step ms (steps 2-3) "
+                f"{r['median_step_ms']:.3f}, single-device step {single['median_step_ms']:.3f}"
+                + (", steps 2-3 under set_sync_debug_mode('error')" if code == "qsgd" else ""))
+        for label, code, aggregate in DIST_RUNS[:2]:
+            box = dict(zip(("state", "step"), fresh(True, make_codec(code), aggregate)), i=0)
+
+            def once():
+                x, y = batches[box["i"] % len(batches)]
+                box["i"] += 1
+                box["state"], m = box["step"](box["state"], 2, x, y)
+                float(m["loss"])
+
+            prof[label] = profile_steps(f"dist nccl-1 {code}", once)
+    finally:
+        launch.shutdown()
+    return out, prof
+
+
+def gloo_child(rank: int, world: int, store: str, out_path: str) -> int:
+    """One rank of ``phase_dist_gloo2`` (this script run with
+    ``--gloo-child``): ResNet-18 at global batch 128, qsgd 4 bits gather
+    and psum and svd rank 3 gather, 3 steps each, over gloo on cuda:0.
+    Writes each run's losses, state hashes, Msg bytes and launches, and on
+    rank 0 the check of the last qsgd gather's decode-mean against the
+    plain twin on the same gathered buffer, to ``out_path`` (JSON)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.codecs import decode_mean_tree
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.common import unpack_tree_buckets
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="gloo", init_method=f"file://{store}", world_size=world,
+                      rank=rank)
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    batches = resnet_batches(dev, DIST_STEPS, rank, world)
+    gathered = []
+    gather = R.gather_payloads
+
+    def recording_gather(*args, **kw):  # the last gathered buffer, for the check
+        gathered[:] = [gather(*args, **kw)]
+        return gathered[0]
+
+    R.gather_payloads = recording_gather
+    out = {}
+    try:
+        for label, code, aggregate in [("qsgd_gather", "qsgd", "gather"),
+                                       ("qsgd_psum", "qsgd", "psum"),
+                                       ("svd3_gather", "svd3", "gather")]:
+            model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+            state = R.replicate_state(create_state(model, opt, 1, dev))
+            step = R.make_distributed_train_step(model, opt, make_codec(code),
+                                                 aggregate=aggregate, augment=True)
+            state, out[label] = run_steps(step, state, batches, sync_check=False)
+            out[label]["dense_bytes"] = sum(p.numel() * 4 for p in leaf_params(model))
+            if label == "qsgd_gather" and rank == 0:
+                buf, spec = gathered[0]
+                like = [p.detach() for p in leaf_params(model)]
+                got = decode_mean_tree(make_codec(code), unpack_tree_buckets(buf, spec), like,
+                                       world)
+                cpu_views = unpack_tree_buckets(buf.cpu(), spec)
+                want = K.unpack_dequantize_tree_plain(
+                    [(v.words, v.scales) for v in cpu_views], [t.cpu() for t in like], bits=4,
+                    n_replicas=world)
+                out["decode_check"] = {
+                    "equal": all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                    "max_abs_err": max(float((a.cpu() - b).abs().max()) for a, b in
+                                       zip(got, want))}
+    finally:
+        R.gather_payloads = gather
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def gloo_p2p_probe(rank: int, store: str) -> int:
+    """One rank of the probe ``phase_dist_gloo2`` makes first (this script
+    with ``--gloo-p2p-probe``): one ``batch_isend_irecv`` of a CUDA tensor
+    between two gloo ranks on cuda:0, which the ring would need."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+    try:
+        x = torch.full((1024,), float(rank), device="cuda")
+        y = torch.empty_like(x)
+        for r in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                         dist.P2POp(dist.irecv, y, 1 - rank)]):
+            r.wait()
+        return 0 if float(y[0]) == float(1 - rank) else 1
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(args_of, work: Path, name: str, timeout: float):
+    """Start two copies of this script with ``args_of(rank)``; wait for
+    both (killing them at ``timeout``); returns (exit codes, logs)."""
+    procs = []
+    for r in range(2):
+        with open(work / f"{name}{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), *args_of(r)],
+                stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    return ([p.returncode for p in procs],
+            [(work / f"{name}{r}.log").read_text(errors="replace") for r in range(2)])
+
+
+def phase_dist_gloo2(work: Path, single_msg: dict):
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one device): every step leaves the replicas bit-identical, the decode-
+    mean equals the plain twin's on rank 0's gathered buffer, and Msg(MB)
+    equals the single card's (gather) or the dense bytes (psum). First a
+    probe of gloo's send and receive of a CUDA tensor, which the ring needs;
+    where it fails the ring is left out, as it is in this phase."""
+    rcs, logs = spawn_ranks(lambda r: ["--gloo-p2p-probe", str(r), str(work / "p2p_store")],
+                            work, "p2p", timeout=60)
+    p2p = {"exit_codes": rcs, "log_tail": logs[0][-400:]}
+    log(f"dist gloo-2 probe: gloo send/recv of a CUDA tensor between two ranks on one card: "
+        f"exit codes {rcs}" + ("" if rcs == [0, 0] else
+                               f" (it fails: {logs[0].strip().splitlines()[-1:]})"))
+    paths = [work / f"gloo{r}.json" for r in range(2)]
+    rcs, logs = spawn_ranks(lambda r: ["--gloo-child", str(r), "2", str(work / "gloo_store"),
+                                       str(paths[r])], work, "gloo", timeout=600)
+    if any(rcs):
+        raise AssertionError("dist gloo-2: a rank failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    ranks = [json.loads(path.read_text()) for path in paths]
+    for label in ("qsgd_gather", "qsgd_psum", "svd3_gather"):
+        r0, r1 = ranks[0][label], ranks[1][label]
+        if r0["hashes"] != r1["hashes"]:
+            raise AssertionError(f"dist gloo-2 {label}: the replicas differ")
+        want = r0["dense_bytes"] if label.endswith("psum") else single_msg[label.split("_")[0]]
+        if r0["msg_bytes"] != want or r1["msg_bytes"] != want:
+            raise AssertionError(f"dist gloo-2 {label}: Msg {r0['msg_bytes']} bytes, want {want}")
+        log(f"dist gloo-2 {label}: losses {r0['losses']} replicas bit-identical after each of "
+            f"{len(r0['hashes'])} steps, Msg(MB) {r0['msg_bytes'] / 2 ** 20:.4f}, launches "
+            f"rank 0 {r0['launches']}, median step ms (steps 2-3) {r0['median_step_ms']:.3f}")
+    check = ranks[0]["decode_check"]
+    if not check["equal"]:
+        raise AssertionError(f"dist gloo-2: the decode-mean differs from its plain twin {check}")
+    log("dist gloo-2: the tree decode's mean over rank 0's gathered buffer equals its plain "
+        "twin bit for bit; the ring left out (it needs gloo's send and receive of CUDA "
+        "tensors, probed above)")
+    return {"ranks": ranks, "p2p_probe": p2p}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--gloo-child"]:
+        return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--gloo-p2p-probe"]:
+        return gloo_p2p_probe(int(sys.argv[2]), sys.argv[3])
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1019,8 +1390,17 @@ def main() -> int:
     times = phase_time(grads, leaves, stacks)
     times["flash_attention"] = phase_time_flash()
     prof = phase_profile()
+    gathered = phase_check_gathered(grads, errs)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        dist_runs, dist_prof = phase_dist_nccl1(Path(work))
+        single_msg = {"qsgd": dist_runs["single_qsgd"]["msg_bytes"],
+                      "svd3": dist_runs["single_svd3"]["msg_bytes"]}
+        gloo = phase_dist_gloo2(Path(work), single_msg)
+    prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
 
-    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in REPLACES}
+    launches = {name: sum(r["launches"][name] for r in runs.values())
+                + sum(dist_runs[label]["launches"][name] for label, _, _ in DIST_RUNS)
+                for name in REPLACES}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1030,6 +1410,7 @@ def main() -> int:
         "library_ms": times[name].get("library_ms"),
     } for name in REPLACES]
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
+              "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

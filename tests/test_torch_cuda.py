@@ -13,7 +13,11 @@ ResNet-18's 62 leaves) is held against the plain twin and against the
 per-shape-group stacks, and must run without a host sync; so are the tree
 decode (one launch, straight into the port layout, over one replica or the
 mean of four), the tree unpack, the tree pack (one launch over every leaf's
-rows) and the pack path's encode.
+rows) and the pack path's encode. The tree decode and the tree unpack read
+the rows of an (N, bytes) gathered buffer in place (N = 1, 2, 4, 8), equal
+to their twins and to the replica-contiguous launch. At one rank of an NCCL
+group the data-parallel QSGD step equals the single-device step bit for
+bit, with one encode and one decode launch and no host sync.
 """
 
 import dataclasses
@@ -588,3 +592,137 @@ def test_lm_step_launches_the_kernel_once_per_layer_and_matches_the_cpu(dev):
     assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-4 * abs(out["cpu"][0])
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------ the exchange's gathered rows
+
+
+def _gathered_tree(codec, grads, n):
+    """n replicas' encodes (keys 100, 101, ...) packed rank by rank and
+    stacked as ``all_gather_into_tensor`` leaves them: (gathered views,
+    replica-contiguous payloads)."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    reps = [encode_tree(codec, 100 + r, grads)[0] for r in range(n)]
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = unpack_tree_buckets(torch.stack([b for b, _ in packed]), packed[0][1])
+    return [(v.words, v.scales) for v in views], _payload_tree(codec, grads, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("bits,scheme", [(2, "qsgd"), (4, "qsgd"), (8, "qsgd"), (1, "terngrad")])
+def test_tree_kernels_read_gathered_rows_in_place(dev, bits, scheme, n):
+    """The tree decode and the tree unpack over the rows of an (n, bytes)
+    gathered buffer of ResNet-18's 62 leaves: one launch each, equal to their
+    twins on the same views and to the replica-contiguous launch, bit for
+    bit."""
+    codec = terngrad() if scheme == "terngrad" else QsgdCodec(bits=bits)
+    grads = _resnet18_grads(dev, seed=bits + n)
+    views, contiguous = _gathered_tree(codec, grads, n)
+    K.reset_launch_counts()
+    got = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n)
+    codes = K.unpack_bucketed_tree([w for w, _ in views], bits=bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["unpack_dequantize"] == 1
+    assert K.launch_counts()["unpack_bucketed"] == 1
+    want = K.unpack_dequantize_tree(contiguous, grads, bits=bits, n_replicas=n)
+    twin = K.unpack_dequantize_tree_plain(views, grads, bits=bits, n_replicas=n)
+    for a, b, c in zip(got, want, twin):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(codes, K.unpack_bucketed_tree([w for w, _ in contiguous], bits=bits))
+    assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in views], bits=bits))
+
+
+@pytest.mark.parametrize("path", ["fused", "pack"])
+def test_gathered_decode_mean_makes_no_host_sync(dev, path):
+    from atomo_tpu_torch.codecs import decode_mean_tree
+
+    codec = QsgdCodec(bits=4, use_kernel=path == "fused")
+    grads = _resnet18_grads(dev, seed=11)
+    views, _ = _gathered_tree(codec, grads, 4)
+    views = [QsgdPayload(w, s) for w, s in views]
+    decode_mean_tree(codec, views, grads, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mean = decode_mean_tree(codec, views, grads, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(t).all()) for t in mean)
+
+
+def test_tree_kernels_refuse_replicas_they_cannot_read(dev):
+    # leaves of several buckets, so that the rows below are not contiguous
+    grads = [g for g in _resnet18_grads(dev, seed=3) if g.numel() > 4 * BUCKET][:3]
+    views, _ = _gathered_tree(QsgdCodec(bits=4), grads, 2)
+    w0, s0 = views[0]
+    # each replica's (n_buckets, n_words) laid out column by column
+    bad = [(w0.transpose(1, 2).contiguous().transpose(1, 2), s0)] + views[1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        K.unpack_dequantize_tree(bad, grads, bits=4, n_replicas=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.unpack_bucketed_tree([w for w, _ in bad], bits=4)
+
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """A one-rank NCCL group on the card (its collectives are real NCCL
+    calls of one rank)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from atomo_tpu_torch.parallel import launch
+
+    ctx = launch.initialize("cuda:0", init_method=f"file://{tmp_path_factory.mktemp('nccl')}/s",
+                            world_size=1, rank=0)
+    yield ctx
+    launch.shutdown()
+
+
+@pytest.mark.parametrize("aggregate", ["gather", "ring", "psum"])
+def test_nccl_world_one_step_equals_the_single_device_step(dev, nccl_group, aggregate):
+    """At one rank the data-parallel QSGD step is the single-device step:
+    the same uniforms give the same parameters bit for bit after two steps
+    (cuDNN held to its deterministic algorithms: its default weight-gradient
+    algorithms may sum in another order on every call), and the second
+    makes one encode and one decode launch and no host sync."""
+    from atomo_tpu_torch.codecs.qsgd import QsgdCodec as Codec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    states, steps = [], []
+    for dist_step in (False, True):
+        model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+        state = create_state(model, opt, 1, dev)
+        make = make_distributed_train_step if dist_step else make_train_step
+        kw = {"aggregate": aggregate} if dist_step else {}
+        states.append(state)
+        steps.append(make(model, opt, Codec(bits=4), **kw))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((32, 3, 32, 32), generator=gen, device=dev)
+    y = torch.randint(0, 10, (32,), generator=gen, device=dev)
+    u = [torch.rand((-(-p.numel() // BUCKET), BUCKET), generator=gen, device=dev)
+         for p in leaf_params(states[0].model)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):  # the second step of each runs warm
+            states[0], m0 = steps[0](states[0], 5, x, y, uniforms=u)
+        states[1], m1 = steps[1](states[1], 5, x, y, draws=u)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            states[1], m1 = steps[1](states[1], 5, x, y, draws=u)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    counts = K.launch_counts()
+    assert counts["quantize_pack"] == 1 and counts["unpack_dequantize"] == 1, counts
+    assert m0["msg_bytes"] == m1["msg_bytes"] or aggregate == "psum"
+    for a, b in zip(states[0].model.state_dict().values(), states[1].model.state_dict().values()):
+        assert torch.equal(a, b)
