@@ -1,14 +1,18 @@
-"""Command line of the port: ``python -m atomo_tpu_torch train|lm ...``.
+"""Command line of the port: ``python -m atomo_tpu_torch train|evaluate|lm ...``.
 
-Counterpart of the ``train`` and ``lm`` verbs of ``atomo_tpu/cli.py``, with
-the flags ported so far. The defaults are the JAX package's. ``train`` runs
-on one device, or data-parallel over N processes, one per device, as
-``torchrun --nproc-per-node N -m atomo_tpu_torch train --n-devices N ...``
-starts them (``--aggregate gather|ring|psum``, ``--num-aggregate``,
-``--ring-bucket-size``). ``lm`` runs the layouts ``dp`` and ``dp-sp`` at one
-replica and one sequence shard; the other layouts, more devices for the LM,
-``--bf16``, checkpoints and resume, ``--stream-encode`` and ``--overlap``
-come with later slices.
+Counterpart of the ``train``, ``evaluate`` and ``lm`` verbs of
+``atomo_tpu/cli.py``, with the flags ported so far. The defaults are the JAX
+package's. ``train`` runs on one device, or data-parallel over N processes,
+one per device, as ``torchrun --nproc-per-node N -m atomo_tpu_torch train
+--n-devices N ...`` starts them (``--aggregate gather|ring|psum``,
+``--num-aggregate``, ``--ring-bucket-size``), with the reference's optimizer
+and schedule flags, CRC checkpoints into ``--train-dir`` (``--save-freq``,
+``--resume``, ``--keep-ckpts``, ``--compress``) and ``--bf16``.
+``evaluate`` polls a checkpoint directory and prints the test metrics of
+each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` at one replica
+and one sequence shard; the other layouts, more devices for the LM, the
+LM's ``--bf16``, checkpoints, resume and ``--optimizer``,
+``--stream-encode`` and ``--overlap`` come with later slices.
 """
 
 from __future__ import annotations
@@ -30,11 +34,10 @@ from atomo_tpu_torch.models.transformer import lm_loss
 from atomo_tpu_torch.parallel import launch
 from atomo_tpu_torch.parallel.lm import create_lm_state, make_lm_train_step
 from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, train_loop
+from atomo_tpu_torch.training.evaluator import CheckpointEvaluator
 from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.rng import fold_in
 
-TEST_BATCH_SIZE = 1000
-EPOCHS = 100
 DENSE_CODES = ("sgd", "dense", "none")
 LM_LAYOUTS = ("dp", "dp-sp", "dp-tp", "dp-ep", "dp-pp", "dp-tp-sp")
 
@@ -52,6 +55,20 @@ def _svd_flags(p: argparse.ArgumentParser, rank_help: str) -> None:
                    help="bfloat16 = stochastically rounded factors on the wire")
 
 
+def _model_flags(p: argparse.ArgumentParser) -> None:
+    """The flags ``train`` and ``evaluate`` share: model, data, device."""
+    p.add_argument("--network", type=str, default="LeNet")
+    p.add_argument("--dataset", type=str, default="MNIST")
+    p.add_argument("--synthetic", action="store_true", default=False,
+                   help="force the synthetic dataset (offline runs)")
+    p.add_argument("--data-root", type=str, default="./data")
+    p.add_argument("--test-batch-size", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
+    p.add_argument("--train-dir", type=str, default="output/models/",
+                   help="checkpoint directory (model_step_N files); '' = none")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="atomo_tpu_torch",
@@ -59,15 +76,36 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command")
     p = sub.add_parser("train", help="train a model on one device or data-parallel")
-    p.add_argument("--network", type=str, default="LeNet")
-    p.add_argument("--dataset", type=str, default="MNIST")
-    p.add_argument("--synthetic", action="store_true", default=False,
-                   help="force the synthetic dataset (offline runs)")
-    p.add_argument("--data-root", type=str, default="./data")
+    _model_flags(p)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--max-steps", type=int, default=10000)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--no-augment", action="store_true", default=False)
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--momentum", type=float, default=0.5)
+    p.add_argument("--lr-shrinkage", type=float, default=0.95)
+    p.add_argument("--shrinkage-freq", type=int, default=50,
+                   help="steps between lr shrinks (lr * lr-shrinkage each time)")
+    p.add_argument("--optimizer", type=str, default="sgd", choices=["sgd", "adam"])
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--nesterov", action="store_true", default=False)
+    p.add_argument("--adam-beta1", type=float, default=0.9)
+    p.add_argument("--adam-beta2", type=float, default=0.999)
+    p.add_argument("--adam-eps", type=float, default=1e-8)
+    p.add_argument("--amsgrad", action="store_true", default=False,
+                   help="AMSGrad: the running max of the bias-corrected second moment")
+    p.add_argument("--save-freq", type=int, default=0,
+                   help="checkpoint every N steps (0 = at --eval-freq)")
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="continue from the newest valid checkpoint in --train-dir")
+    p.add_argument("--keep-ckpts", type=int, default=0, metavar="K",
+                   help="retain only the newest K model_step_N checkpoints (0 = all)")
+    p.add_argument("--compress", action="store_true", default=False,
+                   help="lossless-compress checkpoints (the port's host codec)")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="mixed precision: forward and backward in bfloat16; master "
+                        "params, optimizer state, gradients, loss and BatchNorm "
+                        "statistics stay float32, so the wire is unchanged")
     p.add_argument("--code", type=str, default="sgd",
                    help="codec: sgd | svd | svd_budget | qsgd | terngrad")
     p.add_argument("--quantization-level", type=int, default=4)
@@ -77,8 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "pack = torch quantizer with the pack/unpack kernels")
     p.add_argument("--log-interval", type=int, default=10)
     p.add_argument("--eval-freq", type=int, default=50)
-    p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
     p.add_argument("--n-devices", type=int, default=1, metavar="N",
                    help="processes in the dp group, one per device (start them with "
                         "torchrun --nproc-per-node N); 1 = the single-device loop")
@@ -98,6 +134,15 @@ def build_parser() -> argparse.ArgumentParser:
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
     p.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("evaluate", help="poll a checkpoint directory and evaluate")
+    _model_flags(e)
+    e.add_argument("--model-dir", type=str, default="",
+                   help="checkpoint directory (default: --train-dir)")
+    e.add_argument("--poll-interval", type=float, default=10.0)
+    e.add_argument("--max-polls", type=int, default=0, help="0 = forever")
+    e.add_argument("--stop-when-idle", action="store_true", default=False)
+    e.set_defaults(fn=cmd_evaluate)
 
     q = sub.add_parser("lm", help="train the transformer LM on one device")
     q.add_argument("--layout", type=str, default="dp", choices=LM_LAYOUTS,
@@ -140,19 +185,31 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _dataset(args: argparse.Namespace, train: bool):
+    name = canonical_name(args.dataset)
+    if args.synthetic:
+        return synthetic_dataset(SPECS[name], train)
+    return load_dataset(name, args.data_root, train=train)
+
+
+def _model_and_test_iter(args: argparse.Namespace):
+    spec = SPECS[canonical_name(args.dataset)]
+    test_iter = BatchIterator(_dataset(args, False), args.test_batch_size, shuffle=False,
+                              drop_last=False, seed=args.seed)
+    return get_model(args.network, spec.num_classes, image_shape=spec.image_shape), test_iter
+
+
 def cmd_train(args: argparse.Namespace, log_fn=print):
     name = canonical_name(args.dataset)
-    spec = SPECS[name]
-    if args.synthetic:
-        train_ds, test_ds = synthetic_dataset(spec, True), synthetic_dataset(spec, False)
-    else:
-        train_ds = load_dataset(name, args.data_root, train=True)
-        test_ds = load_dataset(name, args.data_root, train=False)
+    train_ds = _dataset(args, True)
     train_iter = BatchIterator(train_ds, args.batch_size, seed=args.seed)
-    test_iter = BatchIterator(test_ds, TEST_BATCH_SIZE, shuffle=False,
-                              drop_last=False, seed=args.seed)
-    model = get_model(args.network, spec.num_classes, image_shape=spec.image_shape)
-    optimizer = make_optimizer("sgd", lr=args.lr, momentum=args.momentum)
+    model, test_iter = _model_and_test_iter(args)
+    optimizer = make_optimizer(
+        args.optimizer, lr=args.lr, lr_shrinkage=args.lr_shrinkage,
+        shrinkage_freq=args.shrinkage_freq, momentum=args.momentum, nesterov=args.nesterov,
+        weight_decay=args.weight_decay, beta1=args.adam_beta1, beta2=args.adam_beta2,
+        eps=args.adam_eps, amsgrad=args.amsgrad,
+    )
     fused = args.qsgd_path == "fused"
     svd_rank = args.svd_rank
     if svd_rank == 0 and args.sample != "bernoulli":
@@ -173,10 +230,13 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     if codec.name == "sgd":
         codec = None  # dense: no encode/decode in the step, as the JAX trainer
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
-    common = dict(codec=codec, augment=name.startswith("cifar"),
-                  max_steps=min(args.max_steps, EPOCHS * steps_per_epoch),
+    common = dict(codec=codec, augment=name.startswith("cifar") and not args.no_augment,
+                  max_steps=min(args.max_steps, args.epochs * steps_per_epoch),
                   eval_freq=args.eval_freq, seed=args.seed, log_fn=log_fn,
-                  log_every=args.log_interval, device=args.device)
+                  log_every=args.log_interval, device=args.device,
+                  train_dir=args.train_dir, save_freq=args.save_freq or args.eval_freq,
+                  resume=args.resume, keep_ckpts=args.keep_ckpts, compress_ckpt=args.compress,
+                  compute_dtype=torch.bfloat16 if args.bf16 else None)
     if args.n_devices <= 1:
         return train_loop(model, optimizer, train_iter, test_iter, **common)
     was_up = torch.distributed.is_initialized()
@@ -196,6 +256,17 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     finally:
         if not was_up:
             launch.shutdown()
+
+
+def cmd_evaluate(args: argparse.Namespace, log_fn=print) -> int:
+    """Evaluate each new checkpoint of ``--model-dir`` (``--train-dir``) with
+    the reference's ``Evaluator:`` line, every ``--poll-interval`` seconds."""
+    model, test_iter = _model_and_test_iter(args)
+    ev = CheckpointEvaluator(model, test_iter, args.model_dir or args.train_dir,
+                             poll_interval=args.poll_interval, log_fn=log_fn,
+                             device=args.device)
+    ev.run(max_polls=args.max_polls or None, stop_when_idle=args.stop_when_idle)
+    return 0
 
 
 def _lm_rank(args: argparse.Namespace, log_fn) -> int:

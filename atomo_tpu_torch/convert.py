@@ -11,15 +11,18 @@ follows from its module tree:
 * :class:`~atomo_tpu_torch.models.transformer.LayerNorm`: ``scale``;
 * ``nn.Embedding``: ``embedding``, (num, features) on both sides.
 
-:func:`jax_view` / :func:`from_jax_view` are the one place that knows the
-layout difference; the codecs read gradients through them too. An embedding
-table lies alike in both packages, so its leaf is never transposed:
-:func:`jax_layouts` says, leaf by leaf, which tensors take the view.
+:func:`opt_state_from_jax` / :func:`jax_opt_state` carry the optimizer
+state (optax's momentum trace, Adam's count and moments) both ways, in the
+same leaf order and layout. :func:`jax_view` / :func:`from_jax_view` are the
+one place that knows the layout difference; the codecs read gradients
+through them too. An embedding table lies alike in both packages, so its
+leaf is never transposed: :func:`jax_layouts` says, leaf by leaf, which
+tensors take the view.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
 import torch
@@ -27,6 +30,9 @@ from torch import nn
 
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
+
+if TYPE_CHECKING:
+    from atomo_tpu_torch.training.optim import OptState
 
 Tree = dict[str, Any]
 
@@ -127,18 +133,39 @@ def _get(tree: Tree, path: tuple):
     return tree
 
 
+def _from_tree(model: nn.Module, collection: str, tree: Tree) -> dict[str, torch.Tensor]:
+    """A Flax collection's arrays as port-layout tensors by state_dict key."""
+    keep = _untransposed(model)
+    out = {}
+    for path, name in _flatten(_flax_tree(model, collection)):
+        arr = torch.from_numpy(np.array(_get(tree, path), dtype=np.float32))
+        out[name] = from_jax_view(arr, name not in keep).contiguous()
+    return out
+
+
+def _to_tree(model: nn.Module, collection: str, tensors: dict[str, torch.Tensor]) -> Tree:
+    """Port tensors by state_dict key as a Flax collection of numpy arrays."""
+    keep = _untransposed(model)
+    tree: Tree = {}
+    for path, name in _flatten(_flax_tree(model, collection)):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        view = jax_view(tensors[name].detach().cpu(), name not in keep)
+        # a copy: a vector's numpy view would share the live parameter's
+        # memory, which an in-place update (and JAX, aliasing host buffers
+        # on the CPU) would then see change under it
+        node[path[-1]] = view.contiguous().numpy().copy()
+    return tree
+
+
 def state_dict_from_jax(
     model: nn.Module, params: Tree, batch_stats: Optional[Tree] = None
 ) -> dict[str, torch.Tensor]:
     """The port's state_dict from the JAX package's ``params`` and
     ``batch_stats`` (nested dicts of arrays)."""
-    sd: dict[str, torch.Tensor] = {}
-    keep = _untransposed(model)
-    for collection, tree in (("params", params), ("batch_stats", batch_stats)):
-        for path, name in _flatten(_flax_tree(model, collection)):
-            arr = torch.from_numpy(np.array(_get(tree, path), dtype=np.float32))
-            sd[name] = from_jax_view(arr, name not in keep).contiguous()
-    return sd
+    return {**_from_tree(model, "params", params),
+            **_from_tree(model, "batch_stats", batch_stats)}
 
 
 def jax_from_state_dict(
@@ -147,15 +174,81 @@ def jax_from_state_dict(
     """(params, batch_stats) as nested dicts of numpy arrays, the inverse of
     :func:`state_dict_from_jax`."""
     sd = model.state_dict() if state_dict is None else state_dict
-    keep = _untransposed(model)
-    out = []
-    for collection in ("params", "batch_stats"):
-        tree: Tree = {}
-        for path, name in _flatten(_flax_tree(model, collection)):
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            view = jax_view(sd[name].detach().cpu(), name not in keep)
-            node[path[-1]] = view.contiguous().numpy()
-        out.append(tree)
-    return out[0], out[1]
+    return _to_tree(model, "params", sd), _to_tree(model, "batch_stats", sd)
+
+
+# ---- optimizer state -----------------------------------------------------
+# An optax state is a nest of tuples and NamedTuples: TraceState(trace) for
+# momentum, ScaleByAdamState(count, mu, nu) or ScaleByAmsgradState(count,
+# mu, nu, nu_max) for adam, ScaleByScheduleState(count) for the schedule,
+# EmptyState() for weight decay and the identity. Each per-leaf field is a
+# tree shaped like the params. The port keeps the same fields as lists in
+# the canonical leaf order (SgdState, AdamState).
+
+_PER_LEAF = ("trace", "mu", "nu", "nu_max")
+
+
+def _named_states(tree):
+    """The NamedTuples of an optax state, depth first."""
+    if hasattr(tree, "_fields"):
+        yield tree
+    if isinstance(tree, tuple):
+        for t in tree:
+            yield from _named_states(t)
+
+
+def opt_state_from_jax(model: nn.Module, opt_state) -> OptState:
+    """The port's optimizer state (:class:`SgdState` or :class:`AdamState`,
+    leaves in the canonical order and the port layout) from the JAX
+    package's optax state of ``make_optimizer``."""
+    # imported here: the training package imports the codecs, which import
+    # this module
+    from atomo_tpu_torch.training.optim import AdamState, SgdState
+
+    fields = {f: getattr(s, f) for s in _named_states(opt_state) for f in s._fields}
+    if "count" not in fields:
+        raise ValueError("not an optax state of atomo_tpu's make_optimizer: no count")
+    count = int(np.asarray(fields["count"]))
+    order = jax_leaf_order(model)
+
+    def leaves(key):
+        if key not in fields:
+            return None
+        by_name = _from_tree(model, "params", fields[key])
+        return [by_name[n] for n in order]
+
+    if "mu" in fields:
+        return AdamState(count=count, mu=leaves("mu"), nu=leaves("nu"),
+                         nu_max=leaves("nu_max"))
+    return SgdState(count=count, trace=leaves("trace"))
+
+
+def jax_opt_state(model: nn.Module, state: OptState, template):
+    """The JAX package's optax state of the port's ``state``: ``template``
+    (the JAX optimizer's ``init(params)``, which fixes the structure) with
+    every count and per-leaf tree replaced by numpy arrays. Raises when the
+    template holds a field the port's state has not."""
+    order = jax_leaf_order(model)
+    values = {"count": np.asarray(state.count, np.int32)}
+    for key in _PER_LEAF:
+        tensors = getattr(state, key, None)
+        if tensors is not None:
+            values[key] = _to_tree(model, "params", dict(zip(order, tensors)))
+
+    def fill(node):
+        if hasattr(node, "_fields"):
+            out = {}
+            for f in node._fields:
+                if f in values:
+                    out[f] = values[f]
+                elif isinstance(getattr(node, f), tuple):
+                    out[f] = fill(getattr(node, f))
+                else:
+                    raise ValueError(f"the port's {type(state).__name__} has no {f!r} for "
+                                     f"the optax {type(node).__name__}")
+            return node._replace(**out)
+        if isinstance(node, tuple):
+            return tuple(fill(t) for t in node)
+        return node
+
+    return fill(template)

@@ -71,10 +71,17 @@ class BatchIterator:
         for sel in self._epoch_sels():
             yield self.images[sel], self.labels[sel]
 
-    def forever(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Endless epoch stream."""
+    def forever(self, skip: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Endless epoch stream. ``skip`` discards that many leading batches
+        without materialising them (index stream only) while consuming the
+        same shuffle draws: a resumed run's batches line up with those of
+        the run it continues, at one index shuffle per skipped epoch."""
         while True:
-            yield from self.epoch()
+            for sel in self._epoch_sels():
+                if skip > 0:
+                    skip -= 1
+                    continue
+                yield self.images[sel], self.labels[sel]
 
 
 def to_device(images: np.ndarray, labels: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:

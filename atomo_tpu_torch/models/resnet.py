@@ -46,10 +46,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1, -1] + [1] * (x.dim() - 2)
+        # statistics and normalization in float32 whatever the input's type,
+        # as Flax's force_float32_reductions: in bfloat16 mean(x^2) -
+        # mean(x)^2 cancels badly. The result takes the input's type.
+        xf = x.float()
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = x.mean(dim=dims)
-            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -57,7 +61,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:

@@ -77,13 +77,6 @@ def finish_build(handle) -> None:
     os.replace(tmp, out)  # atomic: a reader never sees a half-written library
 
 
-def build_all(names) -> None:
-    """Compile every named source in parallel (one nvcc each)."""
-    handles = [start_build(n) for n in names]
-    for h in handles:
-        finish_build(h)
-
-
 def ptxas_report(name: str) -> str:
     """What nvcc and ptxas said when ``csrc/<name>.cu`` was built."""
     return library_path(name).with_suffix(".log").read_text()

@@ -67,8 +67,8 @@ from atomo_tpu_torch.parallel.common import (
     ring_perm,
     unpack_tree_buckets,
 )
-from atomo_tpu_torch.training.optim import Sgd
-from atomo_tpu_torch.training.trainer import TrainState, leaf_params
+from atomo_tpu_torch.training.optim import Optimizer
+from atomo_tpu_torch.training.trainer import TrainState, forward, leaf_params
 from atomo_tpu_torch.utils.metrics import accuracy
 from atomo_tpu_torch.utils.rng import fold_in, generator, split3
 
@@ -216,13 +216,14 @@ def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
 
 def make_distributed_train_step(
     model: nn.Module,
-    optimizer: Sgd,
+    optimizer: Optimizer,
     codec=None,
     *,
     aggregate: str = "gather",
     augment: bool = False,
     num_aggregate: int = 0,
     ring_bucket_size: int = 65536,
+    compute_dtype=None,
 ):
     """Build the step ``(state, key, images, labels, draws=None) -> (state,
     metrics)`` of this rank, over ``model`` (which ``state.model`` must be)
@@ -234,7 +235,10 @@ def make_distributed_train_step(
     the codec's own draws: the hook through which a parity test hands each
     rank the JAX package's draws for its replica. ``metrics`` holds the dp
     means of ``loss``, ``prec1`` and ``prec5`` as 0-d tensors (no host sync)
-    and ``msg_bytes`` and ``dense_bytes`` as ints."""
+    and ``msg_bytes`` and ``dense_bytes`` as ints. ``compute_dtype`` runs
+    forward and backward in mixed precision
+    (:func:`~atomo_tpu_torch.training.trainer.forward`); the exchange sees
+    float32 gradients either way."""
     rank, world = _group()
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
     n_contrib = k_agg or world
@@ -280,7 +284,7 @@ def make_distributed_train_step(
         for p in params:
             p.grad = None
         with record_function("step.forward_backward"):
-            logits = model(images)
+            logits = forward(model, images, compute_dtype)
             loss = F.cross_entropy(logits, labels)
             loss.backward()
         grads = [p.grad for p in params]

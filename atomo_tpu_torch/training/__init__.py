@@ -1,6 +1,10 @@
-"""Training runtime of the port: the trainers and momentum SGD."""
+"""Training runtime of the port: the trainers, SGD and Adam, checkpoints and
+the checkpoint-polling evaluator."""
 
 from atomo_tpu_torch.training.optim import (  # noqa: F401
+    Adam,
+    AdamState,
+    Optimizer,
     Sgd,
     SgdState,
     make_optimizer,

@@ -1,14 +1,25 @@
-"""Momentum SGD and the reference LR schedule, as small functions on tensors.
+"""SGD, Adam and the reference LR schedule, as small functions on tensors.
 
-Counterpart of ``atomo_tpu/training/optim.py`` (the optax chain
-``add_decayed_weights -> sgd(momentum, nesterov)``), written out rather than
-built from ``torch.optim.SGD``: the update consumes externally supplied
-(decoded) gradients, and the schedule is read at the pre-increment step count
-exactly as optax reads it. Per leaf, with g the decoded gradient:
+Counterpart of ``atomo_tpu/training/optim.py`` (the optax chains
+``add_decayed_weights -> sgd(momentum, nesterov)`` and
+``add_decayed_weights -> adam | amsgrad``), written out rather than built
+from ``torch.optim``: the update consumes externally supplied (decoded)
+gradients, the schedule is read at the pre-increment step count exactly as
+optax reads it, and ``torch.optim.Adam(amsgrad=True)`` keeps the running
+maximum of the raw second moment where optax keeps that of the
+bias-corrected one. Per leaf, with g the decoded gradient:
 
     g     = g + wd * p                  (weight decay, when set)
+  sgd:
     trace = g + m * trace               (momentum, when set; trace starts at 0)
     u     = g + m * trace if nesterov else trace
+  adam (optax scale_by_adam / scale_by_amsgrad, eps_root 0):
+    mu    = (1 - b1) * g + b1 * mu
+    nu    = (1 - b2) * g * g + b2 * nu
+    nu_hat = nu / (1 - b2 ** (count + 1)), mu_hat likewise with b1
+    v     = max(nu_max, nu_hat) -> nu_max if amsgrad else nu_hat
+    u     = mu_hat / (sqrt(v) + eps)
+  both:
     p     = p + (-lr(count)) * u        then count += 1
 
 The learning rate is the float32 value optax computes, and the product
@@ -19,7 +30,7 @@ may fuse into one FMA and round differently.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -75,6 +86,66 @@ class Sgd:
         return SgdState(count=state.count + 1, trace=state.trace)
 
 
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay ** count`` in float32, as optax computes it."""
+    return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    nu_max: Optional[list[torch.Tensor]]  # amsgrad only
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    schedule: Callable[[int], float]
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    amsgrad: bool = False
+    weight_decay: float = 0.0
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        def zeros():
+            return [torch.zeros_like(p) for p in params]
+
+        return AdamState(count=0, mu=zeros(), nu=zeros(),
+                         nu_max=zeros() if self.amsgrad else None)
+
+    @torch.no_grad()
+    def update(
+        self,
+        grads: Sequence[torch.Tensor],
+        state: AdamState,
+        params: Sequence[torch.Tensor],
+    ) -> AdamState:
+        """Apply one step to ``params`` in place; returns the new state (the
+        moment buffers are updated in place too)."""
+        neg_lr = -self.schedule(state.count)
+        b1, b2 = self.beta1, self.beta2
+        bc1 = _bias_correction(b1, state.count + 1)
+        bc2 = _bias_correction(b2, state.count + 1)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            mu, nu = state.mu[i], state.nu[i]
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
+            v = nu / bc2
+            if state.nu_max is not None:
+                v = torch.maximum(state.nu_max[i], v, out=state.nu_max[i])
+            p.add_(mu / bc1 / (torch.sqrt(v) + self.eps) * neg_lr)
+        return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu,
+                         nu_max=state.nu_max)
+
+
+Optimizer = Union[Sgd, Adam]
+OptState = Union[SgdState, AdamState]
+
+
 def make_optimizer(
     name: str = "sgd",
     *,
@@ -84,12 +155,20 @@ def make_optimizer(
     momentum: float = 0.0,
     nesterov: bool = False,
     weight_decay: float = 0.0,
-) -> Sgd:
-    """The optimizer of ``atomo_tpu.training.make_optimizer`` (sgd only for
-    now; adam comes with a later slice)."""
-    if name.lower() != "sgd":
-        raise ValueError(f"optimizer {name!r} is not ported yet; expected sgd")
-    return Sgd(
-        schedule=stepwise_shrink(lr, lr_shrinkage, shrinkage_freq),
-        momentum=momentum, nesterov=nesterov, weight_decay=weight_decay,
-    )
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eps: float = 1e-8,
+    amsgrad: bool = False,
+) -> Optimizer:
+    """The optimizer of ``atomo_tpu.training.make_optimizer``: ``sgd``
+    (momentum, nesterov) or ``adam`` (``amsgrad``), each after weight decay
+    when it is set, on the stepwise-shrink schedule."""
+    schedule = stepwise_shrink(lr, lr_shrinkage, shrinkage_freq)
+    name = name.lower()
+    if name == "sgd":
+        return Sgd(schedule=schedule, momentum=momentum, nesterov=nesterov,
+                   weight_decay=weight_decay)
+    if name == "adam":
+        return Adam(schedule=schedule, beta1=beta1, beta2=beta2, eps=eps, amsgrad=amsgrad,
+                    weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {name!r}; expected sgd|adam")

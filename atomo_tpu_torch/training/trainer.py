@@ -7,8 +7,18 @@ single card does exactly the work of one worker of the compressed
 data-parallel path. :func:`distributed_train_loop` is the counterpart of
 ``atomo_tpu/parallel/replicated.py:2749 distributed_train_loop``, its flat
 blocking core: one process per device, the step of
-:mod:`atomo_tpu_torch.parallel.replicated`. Guard, chaos, superstep,
-doctor, recorder and tuner are not ported yet.
+:mod:`atomo_tpu_torch.parallel.replicated`. Both loops save CRC checkpoints
+every ``save_freq`` steps into ``train_dir`` and resume from the newest valid
+one (:mod:`atomo_tpu_torch.training.checkpoint`), replaying the data stream
+past the batches already taken, so a resumed run continues the interrupted
+one bit for bit. Guard, chaos, superstep, doctor, recorder and tuner are not
+ported yet.
+
+Mixed precision (``compute_dtype=torch.bfloat16``, the CLI's ``--bf16``) is
+the JAX package's (``cast_compute_inputs`` / ``cast_compute_outputs``):
+forward and backward run on bfloat16 copies of the parameters and the
+images; master parameters, optimizer state, gradients, loss and BatchNorm
+statistics stay float32, so the codecs and the wire see float32 gradients.
 
 The phases of a step are ``torch.profiler.record_function`` ranges
 (``step.forward_backward``, ``step.encode``, ``step.decode``,
@@ -30,6 +40,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 
 from atomo_tpu_torch.codecs import decode_tree, encode_tree
@@ -37,7 +48,8 @@ from atomo_tpu_torch.convert import jax_leaf_order
 from atomo_tpu_torch.data.pipeline import augment_batch, to_device
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
-from atomo_tpu_torch.training.optim import Sgd, SgdState
+from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from atomo_tpu_torch.training.optim import Optimizer, OptState
 from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.metrics import StepMetrics, Timer, accuracy
 from atomo_tpu_torch.utils.rng import fold_in, generator, split3
@@ -47,7 +59,7 @@ from atomo_tpu_torch.utils.rng import fold_in, generator, split3
 class TrainState:
     step: int
     model: nn.Module
-    opt_state: SgdState
+    opt_state: OptState
 
 
 def leaf_params(model: nn.Module) -> list[torch.Tensor]:
@@ -83,15 +95,29 @@ def init_params(model: nn.Module, seed: int) -> None:
             m.weight.fill_(1.0)
 
 
-def create_state(model: nn.Module, optimizer: Sgd, seed: int, device) -> TrainState:
+def create_state(model: nn.Module, optimizer: Optimizer, seed: int, device) -> TrainState:
     init_params(model, seed)
     model.to(device)
     return TrainState(step=0, model=model, opt_state=optimizer.init(leaf_params(model)))
 
 
-def make_train_step(model: nn.Module, optimizer: Sgd, codec=None, augment: bool = False):
+def forward(model: nn.Module, images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """The model's float32 logits. With ``compute_dtype`` the forward (and
+    so the backward) runs on copies of the parameters and the images cast to
+    it: the gradient reaches the float32 master parameters through the
+    casts, and the BatchNorm statistics stay float32 (the JAX package casts
+    every floating parameter so, not the per-op policy of autocast)."""
+    if compute_dtype is None:
+        return model(images)
+    cast = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
+    return functional_call(model, cast, (images.to(compute_dtype),)).float()
+
+
+def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,
+                    compute_dtype=None):
     """Build the step ``(state, key, images, labels, uniforms=None) ->
-    (state, metrics)`` over ``model`` (which ``state.model`` must be).
+    (state, metrics)`` over ``model`` (which ``state.model`` must be), in
+    float32 or, with ``compute_dtype``, mixed precision (:func:`forward`).
 
     ``images`` is an (N, C, H, W) float32 batch and ``labels`` int64, both on
     the model's device. ``uniforms`` (one (n_buckets, bucket_size) tensor per
@@ -110,7 +136,7 @@ def make_train_step(model: nn.Module, optimizer: Sgd, codec=None, augment: bool 
         for p in params:
             p.grad = None
         with record_function("step.forward_backward"):
-            logits = model(images)
+            logits = forward(model, images, compute_dtype)
             loss = F.cross_entropy(logits, labels)
             loss.backward()
         grads = [p.grad for p in params]
@@ -149,9 +175,25 @@ def evaluate(model: nn.Module, test_iter, device) -> dict[str, float]:
     return {k: v / max(n, 1) for k, v in totals.items()}
 
 
+def _resume(state: TrainState, train_dir: Optional[str], resume: bool, log_fn) -> TrainState:
+    """``state`` restored from the newest valid checkpoint in ``train_dir``
+    when ``resume`` is set and the directory holds one, with the JAX
+    package's log lines; otherwise ``state``."""
+    if not (resume and train_dir and latest_step(train_dir) is not None):
+        return state
+    try:
+        state = load_checkpoint(train_dir, state)
+    except FileNotFoundError as exc:
+        # files exist but none passed the checks: a fresh start beats dying
+        log_fn(f"Resume requested but {exc}; starting fresh")
+        return state
+    log_fn(f"Resumed from {train_dir} at step {state.step}")
+    return state
+
+
 def train_loop(
     model: nn.Module,
-    optimizer: Sgd,
+    optimizer: Optimizer,
     train_iter,
     test_iter=None,
     *,
@@ -160,20 +202,35 @@ def train_loop(
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
+    train_dir: Optional[str] = None,
+    save_freq: int = 0,
+    resume: bool = False,
+    keep_ckpts: int = 0,
+    compress_ckpt: bool = True,
+    compute_dtype=None,
     log_fn=print,
     log_every: int = 1,
     device=None,
 ) -> TrainState:
     """The reference train-and-validate loop: ``Worker:`` lines every
-    ``log_every`` steps, ``Validation:`` lines every ``eval_freq`` steps.
-    Runs on CUDA unless ``device='cpu'``."""
+    ``log_every`` steps, ``Validation:`` lines every ``eval_freq`` steps, a
+    checkpoint into ``train_dir`` every ``save_freq`` steps (keeping the
+    newest ``keep_ckpts`` when > 0, lossless-compressed with
+    ``compress_ckpt``) and of the final state when the last save came
+    before ``max_steps``. ``resume`` continues from the newest valid
+    checkpoint there: the data stream skips the batches already taken, so
+    the run goes on as the interrupted one would have. Runs on CUDA unless
+    ``device='cpu'``."""
     dev = resolve_device(device)
-    state = create_state(model, optimizer, seed, dev)
-    step_fn = make_train_step(model, optimizer, codec=codec, augment=augment)
+    state = _resume(create_state(model, optimizer, seed, dev), train_dir, resume, log_fn)
+    start_step = state.step
+    step_fn = make_train_step(model, optimizer, codec=codec, augment=augment,
+                              compute_dtype=compute_dtype)
     key = seed + 1
     timer = Timer()
-    stream = train_iter.forever()
+    stream = train_iter.forever(skip=start_step)
     n_train = len(train_iter.dataset)
+    last_saved = start_step
     while state.step < max_steps:
         images, labels = to_device(*next(stream), dev)
         state, metrics = step_fn(state, key, images, labels)
@@ -199,12 +256,19 @@ def train_loop(
                     step, ev["loss"], ev["prec1"], ev["prec5"]
                 )
             )
+        if save_freq and train_dir and step % save_freq == 0:
+            save_checkpoint(train_dir, state, step, compress=compress_ckpt, keep=keep_ckpts)
+            last_saved = step
+    # the final state, so that a restart never replays the tail (strictly
+    # below: a resume past max_steps runs no step and writes nothing)
+    if save_freq and train_dir and last_saved < max_steps:
+        save_checkpoint(train_dir, state, max_steps, compress=compress_ckpt, keep=keep_ckpts)
     return state
 
 
 def distributed_train_loop(
     model: nn.Module,
-    optimizer: Sgd,
+    optimizer: Optimizer,
     train_iter,
     test_iter=None,
     *,
@@ -216,6 +280,12 @@ def distributed_train_loop(
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
+    train_dir: Optional[str] = None,
+    save_freq: int = 0,
+    resume: bool = False,
+    keep_ckpts: int = 0,
+    compress_ckpt: bool = True,
+    compute_dtype=None,
     log_fn=print,
     log_every: int = 1,
     device=None,
@@ -226,8 +296,10 @@ def distributed_train_loop(
     (the same seeded shuffle) and trains on its rows of it; rank 0 prints
     the reference's ``Worker:`` lines every ``log_every`` steps and
     ``Validation:`` lines every ``eval_freq`` steps (the test set evaluated
-    over the ranks, each batch trimmed to a multiple of them). Runs on CUDA
-    unless ``device='cpu'``."""
+    over the ranks, each batch trimmed to a multiple of them). Checkpoints
+    as :func:`train_loop`'s: rank 0 writes each file and every rank waits at
+    a barrier until it is in place; on resume every rank loads the same
+    file. Runs on CUDA unless ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.replicated import (
         make_distributed_eval_step,
@@ -237,16 +309,26 @@ def distributed_train_loop(
     )
 
     dev = resolve_device(device)
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     state = replicate_state(create_state(model, optimizer, seed, dev))
+    state = _resume(state, train_dir, resume, log_fn if rank == 0 else (lambda _: None))
+    start_step = state.step
     step_fn = make_distributed_train_step(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
-        num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size)
+        num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
+        compute_dtype=compute_dtype)
     eval_fn = make_distributed_eval_step(model)
-    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     key = seed + 1
     timer = Timer()
-    stream = train_iter.forever()
+    stream = train_iter.forever(skip=start_step)
     n_train = len(train_iter.dataset)
+    last_saved = start_step
+
+    def save(step: int) -> None:
+        if rank == 0:
+            save_checkpoint(train_dir, state, step, compress=compress_ckpt, keep=keep_ckpts)
+        torch.distributed.barrier()  # no rank goes on before the file is in place
+
     while state.step < max_steps:
         images, labels = shard_batch(*next(stream), rank, world)
         state, metrics = step_fn(state, key, *to_device(images, labels, dev))
@@ -281,4 +363,9 @@ def distributed_train_loop(
                 log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
                        .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
                                                                         "prec5"))))
+        if save_freq and train_dir and step % save_freq == 0:
+            save(step)
+            last_saved = step
+    if save_freq and train_dir and last_saved < max_steps:
+        save(max_steps)
     return state

@@ -12,7 +12,9 @@ dp-sp --ways 1 --attn-impl ulysses-flash --vocab-size 256 --seq-len 1024
 every hand-written kernel against its plain PyTorch version:
 
 1. build: ``nvcc`` compiles ``atomo_tpu_torch/csrc/*.cu`` for sm_90a, one
-   process per source, all at once (timed as set-up), and prints what
+   process per source, all at once, while ``g++`` builds the checkpoints'
+   host codec (``atomo_tpu_torch/native/lossless.cc``; timed as set-up),
+   and prints what
    ``ptxas -v`` says of each flash-attention kernel (registers, spills)
    beside its shared memory;
 2. check: the flash-attention kernel against its plain version at the LM
@@ -87,7 +89,22 @@ every hand-written kernel against its plain PyTorch version:
    buffer equal to the plain twin's, Msg(MB) the single card's (psum: the
    dense bytes); first a probe of gloo's send and receive of a CUDA tensor
    (``--gloo-p2p-probe``), which the ring would need; its outcome is
-   printed, and the ring is left out of this phase.
+   printed, and the ring is left out of this phase;
+9. ckpt: the rest of the ``train`` verb, in a child process (this script
+   with ``--ckpt-child``) under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)`` with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before its
+   first cuBLAS handle: the canonical recipe (``--lr 0.01 --lr-shrinkage 0.95
+   --shrinkage-freq 50 --momentum 0 --code svd --svd-rank 3``) for 10 steps
+   with ``--eval-freq 5 --save-freq 5``, and cut at 5 and ``--resume``d to
+   10 (it must print ``Resumed from ... at step 5`` and end bit for bit
+   where the first run ended); ``evaluate`` on the first run's directory
+   (its ``Evaluator:`` lines equal the trainer's ``Validation:`` lines);
+   ``--code qsgd --compress --keep-ckpts 2 --bf16`` for 6 steps saving every
+   2 (``quantize_pack`` and ``unpack_dequantize`` once a step, two files
+   left with the compressed magic, the newest loading back bit for bit);
+   the save and load times of the recipe's state, raw and compressed, and
+   the ops that warned; then, in this process, 5 steps each of svd rank 3
+   and qsgd with and without ``--bf16`` for their median step time.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
@@ -121,7 +138,8 @@ SOURCES = {name: "atomo_tpu_torch/csrc/qsgd_kernels.cu" for name in REPLACES}
 SOURCES["flash_attention"] = "atomo_tpu_torch/csrc/flash_attention.cu"
 TRAIN_ARGS = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
               "--batch-size", "128", "--quantization-level", "4", "--lr", "0.01",
-              "--momentum", "0.9", "--seed", "1", "--log-interval", "1", "--device", "cuda"]
+              "--momentum", "0.9", "--seed", "1", "--log-interval", "1", "--device", "cuda",
+              "--train-dir", ""]
 # the canonical LM recipe (scripts/run_lm_tpu.sh) on one card
 LM_DEPTH = 4
 LM_SHAPE = (16, 4, 1024, 64)  # (B, H, S, D) the flash kernel sees
@@ -197,12 +215,17 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[floa
 def phase_build():
     from atomo_tpu_torch.ops import _build
 
+    from atomo_tpu_torch.native import lossless
+
     t0 = time.time()
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    _build.build_all(names)
+    handles = [_build.start_build(n) for n in names]
+    lossless.decompress(lossless.compress(b""))  # the host codec's g++ runs beside nvcc
+    for h in handles:
+        _build.finish_build(h)
     for n in names:
         _build.load(n)
-    log(f"build: {names} in {time.time() - t0:.1f} s")
+    log(f"build: {names} and the host codec in {time.time() - t0:.1f} s")
     from atomo_tpu_torch.ops import attention_kernels as A
 
     for line in ptxas_flash(_build.ptxas_report("flash_attention"), A._lib()):
@@ -1351,11 +1374,199 @@ def phase_dist_gloo2(work: Path, single_msg: dict):
     return {"ranks": ranks, "p2p_probe": p2p}
 
 
+# the canonical recipe (src/run_pytorch.sh): ResNet-18 on CIFAR-10 shapes,
+# batch 128, lr 0.01 shrunk by 0.95 every 50 steps, momentum 0, svd rank 3
+RECIPE_ARGS = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
+               "--batch-size", "128", "--lr", "0.01", "--lr-shrinkage", "0.95",
+               "--shrinkage-freq", "50", "--momentum", "0", "--seed", "1",
+               "--log-interval", "1", "--device", "cuda"]
+SVD3 = ["--code", "svd", "--svd-rank", "3"]
+QSGD4 = ["--code", "qsgd", "--quantization-level", "4"]
+
+
+def train_state(argv, lines):
+    """One ``train`` run through the CLI's parser and verb, returning the
+    final train state (``cli.main`` returns only an exit code); the launch
+    counts are set to 0 before it."""
+    from atomo_tpu_torch import cli, ops
+
+    args = cli.build_parser().parse_args(argv)
+    ops.reset_launch_counts()
+    state = args.fn(args, log_fn=lambda ln: (lines.append(ln), log("  " + ln)))
+    return state, ops.launch_counts()
+
+
+def same_state(a, b) -> bool:
+    """Parameters, buffers and optimizer tensors equal bit for bit."""
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if a.step != b.step or a.opt_state.count != b.opt_state.count or list(sa) != list(sb):
+        return False
+    pairs = list(zip(sa.values(), sb.values()))
+    for f in ("trace", "mu", "nu", "nu_max"):
+        x, y = getattr(a.opt_state, f, None), getattr(b.opt_state, f, None)
+        if (x is None) != (y is None):
+            return False
+        pairs += list(zip(x or [], y or []))
+    return all(torch.equal(u.reshape(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8))
+               for u, v in pairs)
+
+
+def ckpt_child(work: str, out_path: str) -> int:
+    """The checkpoint phase's deterministic runs (this script with
+    ``--ckpt-child``, a process of its own so that cuBLAS's workspace
+    setting precedes its first handle): the canonical recipe straight for 10
+    steps, and cut at 5 and resumed to 10, equal bit for bit; ``evaluate``
+    on the first run's directory against its ``Validation:`` lines; qsgd
+    with ``--compress --keep-ckpts 2 --bf16``; the save and load times.
+    Writes its findings to ``out_path`` (JSON)."""
+    import os
+    import warnings
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import checkpoint as ck
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    # warn_only: an op without a deterministic algorithm warns (and is named
+    # in the result) instead of raising; the bit-for-bit check still holds
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    a, b, c = (str(Path(work) / d) for d in ("a", "b", "c"))
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lines_a: list[str] = []
+        state_a, _ = train_state(RECIPE_ARGS + SVD3 + ["--max-steps", "10", "--eval-freq", "5",
+                                                      "--save-freq", "5", "--train-dir", a],
+                                 lines_a)
+        train_state(RECIPE_ARGS + SVD3 + ["--max-steps", "5", "--eval-freq", "5",
+                                          "--save-freq", "5", "--train-dir", b], [])
+        lines_b: list[str] = []
+        state_b, _ = train_state(RECIPE_ARGS + SVD3 + ["--max-steps", "10", "--eval-freq", "5",
+                                                      "--save-freq", "5", "--train-dir", b,
+                                                      "--resume"], lines_b)
+        if lines_b[0] != f"Resumed from {b} at step 5":
+            raise AssertionError(f"ckpt: the resumed run began {lines_b[:1]}")
+        if not same_state(state_a, state_b):
+            raise AssertionError("ckpt: the resumed recipe run differs from the straight one")
+        log("ckpt: svd rank 3 recipe cut at step 5 and resumed equals the straight 10 steps "
+            "bit for bit (parameters, BatchNorm statistics, optimizer state)")
+
+        evals: list[str] = []
+        cli.main(["evaluate", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
+                  "--model-dir", a, "--max-polls", "1", "--stop-when-idle", "--device", "cuda"],
+                 log_fn=lambda ln: (evals.append(ln), log("  " + ln)))
+        want = [ln.replace("Validation: ", "Evaluator: ") for ln in lines_a
+                if ln.startswith("Validation: ")]
+        if evals != want or not any(ln.startswith("Evaluator: Step: 10,") for ln in evals):
+            raise AssertionError(f"ckpt: evaluator lines {evals}, the trainer's {want}")
+        log("ckpt: the Evaluator: lines at steps 5 and 10 equal the trainer's Validation: "
+            "lines field for field")
+
+        lines_c: list[str] = []
+        state_c, counts = train_state(
+            RECIPE_ARGS + QSGD4 + ["--momentum", "0.9", "--compress", "--keep-ckpts", "2",
+                                   "--bf16", "--max-steps", "6", "--save-freq", "2",
+                                   "--eval-freq", "0", "--train-dir", c], lines_c)
+        losses = [float(ln.split("Loss: ")[1].split(",")[0]) for ln in lines_c
+                  if ln.startswith("Worker: ")]
+        magics = {s: open(ck.checkpoint_path(c, s), "rb").read(4) for s in ck.list_steps(c)}
+        if counts["quantize_pack"] != 6 or counts["unpack_dequantize"] != 6:
+            raise AssertionError(f"ckpt qsgd bf16: launches {counts}, want 6 and 6")
+        if sorted(magics) != [4, 6] or set(magics.values()) != {ck.MAGIC_LZ}:
+            raise AssertionError(f"ckpt qsgd bf16: files {magics}, want steps 4 and 6 "
+                                 f"compressed")
+        if len(losses) != 6 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"ckpt qsgd bf16: losses {losses}")
+
+        def fresh(momentum):
+            model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+            return create_state(model, make_optimizer("sgd", momentum=momentum), 2, "cuda")
+
+        if not same_state(ck.load_checkpoint(c, fresh(0.9)), state_c):
+            raise AssertionError("ckpt qsgd bf16: the newest file does not give back the state")
+        log(f"ckpt qsgd --compress --keep-ckpts 2 --bf16: launches {counts}, files "
+            f"{sorted(magics)} with magic {ck.MAGIC_LZ!r}, losses {losses}; loading the "
+            "newest gives back the state bit for bit")
+
+        times = {}
+        for compress in (False, True):
+            d = str(Path(work) / f"t{int(compress)}")
+            save, load = [], []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = ck.save_checkpoint(d, state_a, 10 + i, compress=compress)
+                save.append((time.perf_counter() - t0) * 1e3)
+                target = fresh(0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ck.load_checkpoint(d, target, 10 + i)
+                torch.cuda.synchronize()
+                load.append((time.perf_counter() - t0) * 1e3)
+            times["compressed" if compress else "raw"] = {
+                "save_ms": statistics.median(save), "load_ms": statistics.median(load),
+                "bytes": Path(path).stat().st_size}
+        nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                         for w in caught if "deterministic" in str(w.message)})
+    out = {"times": times, "nondeterministic_ops": nondet, "launches": counts,
+           "qsgd_losses": losses, "recipe_step_ms": [
+               1e3 * float(ln.split("Time Cost: ")[1].split(",")[0]) for ln in lines_a
+               if ln.startswith("Worker: ")]}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def phase_ckpt(work: Path, card: str):
+    """The rest of the ``train`` verb on the card: the deterministic runs of
+    :func:`ckpt_child` in a process of its own, then the median step of svd
+    rank 3 and qsgd with and without ``--bf16`` (5 steps each, in this
+    process, as the other phases run: not in deterministic mode)."""
+    out_path = work / "ckpt.json"
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ckpt-child",
+                           str(work), str(out_path)], capture_output=True, text=True,
+                          timeout=600, cwd=str(ROOT))
+    for ln in proc.stdout.splitlines():
+        log(ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"ckpt: the deterministic runs failed (exit {proc.returncode}):\n"
+                             + proc.stderr[-4000:])
+    res = json.loads(out_path.read_text())
+    log(f"ckpt: ops without a deterministic algorithm on the path (they warned): "
+        f"{res['nondeterministic_ops'] or 'none'}")
+    steps = {}
+    for label, codec, expect in (("svd3", SVD3, []),
+                                 ("qsgd", QSGD4, ["quantize_pack", "unpack_dequantize"])):
+        for bf16 in (False, True):
+            r = run_cli(RECIPE_ARGS + codec + ["--max-steps", "5", "--eval-freq", "0",
+                                               "--train-dir", ""]
+                        + (["--bf16"] if bf16 else []), expect)
+            key = f"{label}{'_bf16' if bf16 else ''}"
+            r["median_step_ms_after_first"] = statistics.median(r["step_ms"][1:])
+            steps[key] = r
+    res["steps"] = steps
+    t = res["times"]
+    log(f"ckpt times ({card}): ResNet-18 state save raw {t['raw']['save_ms']:.3f} ms, load raw "
+        f"{t['raw']['load_ms']:.3f} ms, save compressed {t['compressed']['save_ms']:.3f} ms, "
+        f"load compressed {t['compressed']['load_ms']:.3f} ms, compressed "
+        f"{t['compressed']['bytes']} / raw {t['raw']['bytes']} bytes = "
+        f"{t['compressed']['bytes'] / t['raw']['bytes']:.4f}; median step ms after the first "
+        + ", ".join(f"{k} {v['median_step_ms_after_first']:.3f}" for k, v in steps.items()))
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--gloo-p2p-probe"]:
         return gloo_p2p_probe(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--ckpt-child"]:
+        return ckpt_child(sys.argv[2], sys.argv[3])
     import tempfile
 
     import torch
@@ -1374,7 +1585,13 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_start = time.time()
+    seconds: dict[str, float] = {}
+
+    def lap(name):  # wall seconds of each group of phases, for the time budget
+        seconds[name] = time.time() - t_start - sum(seconds.values())
+
     phase_build()
+    lap("build")
     grads, leaves, stacks = resnet_grads(torch.device("cuda"))
     log(f"ResNet-18 leaves: {len(leaves)} in {len(stacks)} shape groups, "
         f"{sum(x.numel() for x in leaves)} values")
@@ -1386,20 +1603,32 @@ def main() -> int:
     phase_unbiased(stacks)
     phase_reference()
     phase_reference_lm()
+    lap("check")
     runs = phase_train()
+    lap("train")
     times = phase_time(grads, leaves, stacks)
     times["flash_attention"] = phase_time_flash()
+    lap("time")
     prof = phase_profile()
+    lap("profile")
     gathered = phase_check_gathered(grads, errs)
+    lap("gathered")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         dist_runs, dist_prof = phase_dist_nccl1(Path(work))
+        lap("dist nccl-1")
         single_msg = {"qsgd": dist_runs["single_qsgd"]["msg_bytes"],
                       "svd3": dist_runs["single_svd3"]["msg_bytes"]}
         gloo = phase_dist_gloo2(Path(work), single_msg)
+        lap("dist gloo-2")
+        ckpt = phase_ckpt(Path(work), card)
+        lap("ckpt")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
 
     launches = {name: sum(r["launches"][name] for r in runs.values())
                 + sum(dist_runs[label]["launches"][name] for label, _, _ in DIST_RUNS)
+                + ckpt["launches"][name]
+                + sum(r["launches"][name] for r in ckpt["steps"].values())
                 for name in REPLACES}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1410,8 +1639,8 @@ def main() -> int:
         "library_ms": times[name].get("library_ms"),
     } for name in REPLACES]
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
-              "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo,
-              "seconds": time.time() - t_start}
+              "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "ckpt": ckpt,
+              "phase_seconds": seconds, "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -17,7 +17,9 @@ rows) and the pack path's encode. The tree decode and the tree unpack read
 the rows of an (N, bytes) gathered buffer in place (N = 1, 2, 4, 8), equal
 to their twins and to the replica-contiguous launch. At one rank of an NCCL
 group the data-parallel QSGD step equals the single-device step bit for
-bit, with one encode and one decode launch and no host sync.
+bit, with one encode and one decode launch and no host sync. A resumed
+ResNet-18 run equals the straight one bit for bit on the card, and a
+compressed checkpoint comes back onto the card bit for bit.
 """
 
 import dataclasses
@@ -726,3 +728,85 @@ def test_nccl_world_one_step_equals_the_single_device_step(dev, nccl_group, aggr
     assert m0["msg_bytes"] == m1["msg_bytes"] or aggregate == "psum"
     for a, b in zip(states[0].model.state_dict().values(), states[1].model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+# a process of its own: cuBLAS reads its workspace setting when its first
+# handle is made, which in this process happened long before
+RESUME_ON_THE_CARD = """
+import sys, torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+from atomo_tpu_torch import ops
+from atomo_tpu_torch.codecs import get_codec
+from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+from atomo_tpu_torch.models import get_model
+from atomo_tpu_torch.training import make_optimizer, train_loop
+
+work, code = sys.argv[1], sys.argv[2]
+ds = synthetic_dataset(SPECS["cifar10"], True, size=256, seed=3)
+
+def run(d, steps, resume=False):
+    codec = get_codec(code, quantization_level=4, svd_rank=3)
+    return train_loop(get_model("resnet18", 10, image_shape=(32, 32, 3)),
+                      make_optimizer("sgd", lr=0.01, momentum=0.9),
+                      BatchIterator(ds, 32, seed=3), codec=codec, augment=True,
+                      max_steps=steps, seed=3, train_dir=d, save_freq=2, resume=resume,
+                      compress_ckpt=True, log_fn=lambda _: None, device="cuda")
+
+ops.reset_launch_counts()
+a = run(work + "/a", 4)
+assert code != "qsgd" or ops.launch_counts()["quantize_pack"] == 4, ops.launch_counts()
+run(work + "/b", 2)
+b = run(work + "/b", 4, resume=True)
+for x, y in zip(list(a.model.state_dict().values()) + a.opt_state.trace,
+                list(b.model.state_dict().values()) + b.opt_state.trace):
+    assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+print("bit-identical")
+"""
+
+
+@pytest.mark.parametrize("code", ["qsgd", "svd"])
+def test_resume_is_bit_identical_on_the_card(dev, tmp_path, code):
+    """ResNet-18 (batch 32, augmentation on) 4 steps straight, and 2 then
+    resumed to 4, under torch's deterministic algorithms: every parameter,
+    buffer and momentum tensor equal bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-c", RESUME_ON_THE_CARD, str(tmp_path), code], capture_output=True,
+        text=True, timeout=600, cwd=str(Path(__file__).resolve().parents[1]),
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert proc.returncode == 0 and proc.stdout.strip() == "bit-identical", proc.stderr[-3000:]
+
+
+def test_compressed_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A ResNet-18 state with AMSGrad moments, saved compressed from the
+    card and loaded back onto it: every tensor on the card and equal bit for
+    bit."""
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import checkpoint as ck
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    opt = make_optimizer("adam", amsgrad=True)
+
+    def fresh(seed):
+        return create_state(get_model("resnet18", 10, image_shape=(32, 32, 3)), opt, seed, dev)
+
+    state = fresh(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t in state.opt_state.mu + state.opt_state.nu + state.opt_state.nu_max:
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev))
+    state.opt_state.count, state.step = 9, 9
+    path = ck.save_checkpoint(str(tmp_path), state, compress=True)
+    with open(path, "rb") as f:
+        assert f.read(4) == ck.MAGIC_LZ
+    back = ck.load_checkpoint(str(tmp_path), fresh(1))
+    assert back.step == 9 and back.opt_state.count == 9
+    ours = list(state.model.state_dict().values()) + state.opt_state.mu + state.opt_state.nu \
+        + state.opt_state.nu_max
+    theirs = list(back.model.state_dict().values()) + back.opt_state.mu + back.opt_state.nu \
+        + back.opt_state.nu_max
+    for a, b in zip(ours, theirs):
+        assert b.device.type == "cuda" and torch.equal(a, b)

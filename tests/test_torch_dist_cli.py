@@ -38,7 +38,8 @@ def _msg_mb(lines):
 def test_cli_two_ranks_msg_matches_jax_cli(group, capsys, tmp_path, code, aggregate):
     flags = FLAGS + ["--code", code, "--aggregate", aggregate] + (
         ["--svd-rank", "3"] if code == "svd" else [])
-    answers = group.run("cli", argv=flags + ["--eval-freq", "2", "--device", "cpu"])
+    answers = group.run("cli", argv=flags + ["--eval-freq", "2", "--device", "cpu",
+                                             "--train-dir", str(tmp_path / "port")])
     assert [a["rc"] for a in answers] == [0, 0]
     lines = answers[0]["lines"]
     worker = [ln for ln in lines if ln.startswith("Worker: 0, Step: ")]

@@ -12,7 +12,10 @@ Jobs (``JOBS``):
 
 * ``train``: the port's data-parallel steps from given weights, batches and
   per-rank codec draws; every rank returns each step's metrics and a hash of
-  its parameters and buffers, rank 0 its final state;
+  its parameters and buffers, rank 0 its final state. With ``resume_at`` the
+  run is cut after that many steps: rank 0 saves a checkpoint into
+  ``train_dir``, and every rank loads it into a fresh model and optimizer
+  state and goes on;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
 * ``cli``: ``atomo_tpu_torch train`` with the given arguments, its log
@@ -150,17 +153,25 @@ def state_hash(model) -> str:
 
 
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
-              num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None):
+              num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
+              resume_at=0, train_dir=None):
+    import torch.distributed as dist
+
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.data import to_device
     from atomo_tpu_torch.models import get_model
     from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
     from atomo_tpu_torch.training.trainer import leaf_params
 
-    model = get_model(network, num_classes, image_shape=image_shape)
-    model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    def fresh():
+        model = get_model(network, num_classes, image_shape=image_shape)
+        return model, TrainState(0, model, opt.init(leaf_params(model)))
+
     opt = make_optimizer("sgd", lr=lr, momentum=momentum)
-    state = R.replicate_state(TrainState(0, model, opt.init(leaf_params(model))))
+    model, state = fresh()
+    model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    state = R.replicate_state(state)
     scales = []
     encode = R.encode_tree
 
@@ -172,12 +183,23 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
         return payloads, stats
 
     R.encode_tree = recording_encode
-    try:
-        step = R.make_distributed_train_step(
+
+    def make_step(model):
+        return R.make_distributed_train_step(
             model, opt, _codec(codec), aggregate=aggregate, num_aggregate=num_aggregate,
             ring_bucket_size=ring_bucket_size)
+
+    try:
+        step = make_step(model)
         steps = []
         for s, (x, y) in enumerate(batches):
+            if resume_at and s == resume_at:
+                if rank == 0:
+                    save_checkpoint(train_dir, state, compress=True)
+                dist.barrier()
+                model, state = fresh()
+                state = load_checkpoint(train_dir, state)
+                step = make_step(model)
             xs, ys = R.shard_batch(x, y, rank, world)
             state, m = step(state, key, *to_device(xs, ys, "cpu"),
                             draws=_draws(draws[s]) if draws is not None else None)
