@@ -9,10 +9,12 @@ one per device, as ``torchrun --nproc-per-node N -m atomo_tpu_torch train
 and schedule flags, CRC checkpoints into ``--train-dir`` (``--save-freq``,
 ``--resume``, ``--keep-ckpts``, ``--compress``) and ``--bf16``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
-each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` at one replica
-and one sequence shard; the other layouts, more devices for the LM, the
-LM's ``--bf16``, checkpoints, resume and ``--optimizer``,
-``--stream-encode`` and ``--overlap`` come with later slices.
+each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` on one device or
+over N processes (``--n-devices N --ways S``: dp = N/S replicas of S
+sequence shards, ``--attn-impl ring|ulysses|ulysses-flash``, ``--aggregate
+gather|psum|ring``), with ``--optimizer``, ``--bf16`` and checkpoints
+(``--train-dir``, ``--save-freq``, ``--resume``, ``--compress``); the other
+layouts, ``--stream-encode`` and ``--overlap`` come with later slices.
 """
 
 from __future__ import annotations
@@ -26,16 +28,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from atomo_tpu_torch.codecs import get_codec
 from atomo_tpu_torch.data import SPECS, BatchIterator, canonical_name, load_dataset, synthetic_dataset
 from atomo_tpu_torch.models import get_model
 from atomo_tpu_torch.models.transformer import lm_loss
 from atomo_tpu_torch.parallel import launch
-from atomo_tpu_torch.parallel.lm import create_lm_state, make_lm_train_step
+from atomo_tpu_torch.parallel.lm import (
+    LATER,
+    DpExchange,
+    create_lm_state,
+    make_lm_train_step,
+    shard_tokens,
+)
+from atomo_tpu_torch.parallel.replicated import replicate_state
 from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, train_loop
+from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from atomo_tpu_torch.training.evaluator import CheckpointEvaluator
-from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.rng import fold_in
 
 DENSE_CODES = ("sgd", "dense", "none")
@@ -144,11 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--stop-when-idle", action="store_true", default=False)
     e.set_defaults(fn=cmd_evaluate)
 
-    q = sub.add_parser("lm", help="train the transformer LM on one device")
+    q = sub.add_parser("lm", help="train the transformer LM on one device or a dp x sp mesh")
     q.add_argument("--layout", type=str, default="dp", choices=LM_LAYOUTS,
-                   help="dp | dp-sp on one device; the others come with later slices")
+                   help="dp | dp-sp; the others come with later slices")
     q.add_argument("--ways", type=int, default=2, metavar="N",
-                   help="model-axis size (the sp shards of dp-sp; 1 on one device)")
+                   help="model-axis size (the sp shards of dp-sp)")
     q.add_argument("--attn-impl", type=str, default="ring",
                    choices=["ring", "ulysses", "ulysses-flash"],
                    help="dp-sp attention; ulysses-flash runs the flash-attention kernel")
@@ -163,6 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--batch-size", type=int, default=8)
     q.add_argument("--max-steps", type=int, default=50)
     q.add_argument("--log-interval", type=int, default=10)
+    q.add_argument("--n-devices", type=int, default=0,
+                   help="processes, one per device (start them with torchrun "
+                        "--nproc-per-node N); 0 = all in the process group")
     q.add_argument("--seed", type=int, default=0)
     q.add_argument("--lr", type=float, default=0.1)
     q.add_argument("--momentum", type=float, default=0.9)
@@ -170,16 +183,36 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--weight-decay", type=float, default=0.0)
     q.add_argument("--lr-shrinkage", type=float, default=1.0)
     q.add_argument("--shrinkage-freq", type=int, default=50)
+    q.add_argument("--optimizer", type=str, default="sgd", choices=["sgd", "adam"])
     q.add_argument("--code", type=str, default="svd")
+    q.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 forward/backward, float32 master state")
     q.add_argument("--eval-freq", type=int, default=0,
-                   help="validation PPL every N steps on held-out data; 0 = off")
+                   help="validation PPL every N steps on held-out data, by the "
+                        "single-device forward; 0 = off")
+    q.add_argument("--train-dir", type=str, default="",
+                   help="checkpoint dir (model_step_N naming); empty = no checkpoints")
+    q.add_argument("--save-freq", type=int, default=0,
+                   help="checkpoint every N steps (0 = only at the end)")
+    q.add_argument("--resume", action="store_true", default=False,
+                   help="resume from the latest checkpoint in --train-dir")
+    q.add_argument("--compress", action="store_true", default=False,
+                   help="lossless-compress checkpoints (the port's host codec)")
     _svd_flags(q, "0 (default) = width-scaled auto rank max(2, ceil(width * 6 / 64))")
     q.add_argument("--quantization-level", type=int, default=2)
     q.add_argument("--bucket-size", type=int, default=512)
     q.add_argument("--aggregate", type=str, default="auto",
-                   choices=["auto", "gather", "psum"],
-                   help="dp exchange: factor gather or dense mean; auto = gather "
-                        "on one device")
+                   choices=["auto", "gather", "psum", "ring"],
+                   help="dp exchange: factor all_gather, dense all-reduce or the "
+                        "streamed ring; auto = gather until the comm-cost model is "
+                        "ported")
+    q.add_argument("--ring-bucket-size", type=int, default=0, metavar="B",
+                   help="--aggregate ring: 4-byte elements per message (0 = one "
+                        "message a hop)")
+    q.add_argument("--stream-encode", action="store_true", default=False,
+                   help="not ported yet")
+    q.add_argument("--overlap", type=str, default="off", choices=["off", "delayed"],
+                   help="not ported yet")
     q.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
     q.set_defaults(fn=cmd_lm)
     return parser
@@ -288,7 +321,7 @@ def _lm_rank(args: argparse.Namespace, log_fn) -> int:
     return args.svd_rank
 
 
-def _lm_data(args: argparse.Namespace):
+def lm_data(args: argparse.Namespace):
     """(next_batch, eval_tokens): the JAX package's token streams as int
     numpy arrays. Synthetic: arithmetic progressions mod the vocabulary with
     random starts and strides 1-3 from ``--seed``, eval from seed + 10000.
@@ -334,60 +367,135 @@ def _lm_data(args: argparse.Namespace):
 
 
 def cmd_lm(args: argparse.Namespace, log_fn=print):
-    """LM training on one device: ``--layout dp`` or ``dp-sp`` at one
-    replica and one sequence shard, with the ``LM:`` log line of the JAX
-    package, letter for letter."""
+    """LM training, ``--layout dp`` or ``dp-sp``: on one device, or on a
+    (dp, sp) mesh of N processes, one per device, as ``torchrun
+    --nproc-per-node N -m atomo_tpu_torch lm --n-devices N --layout dp-sp
+    --ways S ...`` starts them (dp = N/S, sp = S). Rank 0 prints the JAX
+    package's ``LM:`` lines letter for letter and writes the checkpoints;
+    every rank loads them on ``--resume``. As in the JAX package, a resumed
+    run draws its batches from a fresh ``--seed`` stream (it does not replay
+    the batches taken before the checkpoint) and folds step i's key from i.
+    Returns this rank's final train state."""
     if args.layout not in ("dp", "dp-sp"):
-        raise SystemExit(f"--layout {args.layout} comes with a later slice of the port; "
-                         "this one runs dp and dp-sp on one device")
-    if args.layout == "dp-sp" and args.ways != 1:
-        raise SystemExit(f"--ways {args.ways}: sequence parallelism comes with the "
-                         "multi-GPU slice; use --ways 1 on one device")
+        raise SystemExit(f"--layout {args.layout} {LATER}; this one runs dp and dp-sp")
+    if args.stream_encode:
+        raise SystemExit(f"--stream-encode {LATER}")
+    if args.overlap != "off":
+        raise SystemExit(f"--overlap {args.overlap} {LATER}")
+    if args.layout == "dp" and args.ways != 2:  # 2 is the default
+        warnings.warn(f"--ways {args.ways} only applies to layouts with a model axis; "
+                      "--layout dp is pure data parallelism, ignoring it")
     if args.layout == "dp" and args.attn_impl != "ring":
         warnings.warn(f"--attn-impl only applies to layout dp-sp/dp-tp-sp; "
                       f"ignored for --layout {args.layout}")
-    dev = resolve_device(args.device)
-    codec = None
-    if args.code.lower() not in DENSE_CODES:
-        svd_rank = _lm_rank(args, log_fn) if args.code.lower().startswith("svd") else args.svd_rank
-        codec = get_codec(
-            args.code, svd_rank=svd_rank, quantization_level=args.quantization_level,
-            bucket_size=args.bucket_size, sample=args.sample, algorithm=args.svd_algo,
-            wire_dtype=args.svd_wire,
-        )
-    optimizer = make_optimizer(
-        "sgd", lr=args.lr, lr_shrinkage=args.lr_shrinkage,
+    ways = args.ways if args.layout == "dp-sp" else 1
+    was_up = dist.is_initialized()
+    ctx = launch.initialize(args.device)
+    try:
+        n_dev = args.n_devices or ctx.world_size
+        if n_dev != ctx.world_size:
+            raise SystemExit(
+                f"--n-devices {n_dev} needs {n_dev} processes, one per device; this group "
+                f"has {ctx.world_size}: run torchrun --nproc-per-node {n_dev} -m "
+                f"atomo_tpu_torch lm --n-devices {n_dev} ...")
+        if ways < 1 or n_dev % ways:
+            raise SystemExit(f"--ways {ways} does not divide {n_dev} devices")
+        if args.batch_size % (n_dev // ways):
+            raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                             f"dp={n_dev // ways}")
+        if args.seq_len % ways:
+            raise SystemExit(f"--seq-len must be divisible by sp ways={ways}")
+        mesh = launch.dp_sp_mesh(ways)
+        return _lm_loop(args, mesh, ctx.device, log_fn if ctx.rank == 0 else (lambda _: None))
+    finally:
+        if not was_up:
+            launch.shutdown()
+
+
+def lm_codec(args: argparse.Namespace, log_fn=print):
+    """The ``lm`` verb's codec (None for a dense code)."""
+    if args.code.lower() in DENSE_CODES:
+        return None
+    svd_rank = _lm_rank(args, log_fn) if args.code.lower().startswith("svd") else args.svd_rank
+    return get_codec(
+        args.code, svd_rank=svd_rank, quantization_level=args.quantization_level,
+        bucket_size=args.bucket_size, sample=args.sample, algorithm=args.svd_algo,
+        wire_dtype=args.svd_wire,
+    )
+
+
+def lm_config(args: argparse.Namespace) -> dict:
+    """The ``lm`` verb's :class:`TransformerLM` arguments."""
+    return dict(vocab_size=args.vocab_size, max_len=args.seq_len, width=args.width,
+                depth=args.depth, num_heads=args.num_heads)
+
+
+def lm_optimizer(args: argparse.Namespace):
+    """The ``lm`` verb's optimizer."""
+    return make_optimizer(
+        args.optimizer, lr=args.lr, lr_shrinkage=args.lr_shrinkage,
         shrinkage_freq=args.shrinkage_freq, momentum=args.momentum,
         nesterov=args.nesterov, weight_decay=args.weight_decay,
     )
-    next_batch, eval_tokens = _lm_data(args)
-    aggregate = "gather" if args.aggregate == "auto" else args.aggregate
-    cfg = dict(vocab_size=args.vocab_size, max_len=args.seq_len, width=args.width,
-               depth=args.depth, num_heads=args.num_heads)
-    state = create_lm_state(cfg, optimizer, args.seed, dev)
-    attn_impl = args.attn_impl if args.layout == "dp-sp" else "ring"
-    step = make_lm_train_step(state.model, optimizer, codec, attn_impl=attn_impl,
-                              aggregate=aggregate)
-    for i in range(1, args.max_steps + 1):
+
+
+def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
+    """The steps of :func:`cmd_lm` on this rank's place in ``mesh``;
+    ``log_fn`` prints (rank 0) or drops (the others)."""
+    codec = lm_codec(args, log_fn)
+    optimizer = lm_optimizer(args)
+    next_batch, eval_tokens = lm_data(args)
+    aggregate = args.aggregate
+    if aggregate == "ring" and codec is None:
+        raise SystemExit("--aggregate ring streams CODEC payloads around the dp axis; a "
+                         "dense code has no payloads to rotate: use psum (or pick a "
+                         "compressing --code)")
+    if aggregate == "auto":
+        aggregate = "gather"
+        log_fn("--aggregate auto -> gather (the comm-cost model that chooses among "
+               "gather, psum and ring is not ported yet)")
+    exchange = DpExchange(aggregate, args.ring_bucket_size) if aggregate == "ring" else None
+    state = create_lm_state(lm_config(args), optimizer, args.seed, dev)
+    if dist.is_initialized():
+        state = replicate_state(state)
+    start = 0
+    if args.train_dir and args.resume and latest_step(args.train_dir) is not None:
+        state = load_checkpoint(args.train_dir, state)
+        start = state.step
+        log_fn(f"Resumed from {args.train_dir} at step {start}")
+    step = make_lm_train_step(state.model, optimizer, codec,
+                              attn_impl=args.attn_impl if args.layout == "dp-sp" else "ring",
+                              aggregate=aggregate, exchange=exchange, mesh=mesh,
+                              compute_dtype=torch.bfloat16 if args.bf16 else None)
+    for i in range(start + 1, args.max_steps + 1):
         t0 = time.time()
-        tokens = torch.from_numpy(next_batch()).to(dev, torch.int64)
-        state, metrics = step(state, fold_in(args.seed, i), tokens)
+        # every rank draws the global batch alike and takes its block
+        tokens = np.ascontiguousarray(shard_tokens(next_batch(), mesh))
+        state, metrics = step(state, fold_in(args.seed, i),
+                              torch.from_numpy(tokens).to(dev, torch.int64))
         loss = float(metrics["loss"])  # device sync: honest step timing
         if i % args.log_interval == 0 or i == args.max_steps:
             log_fn(
-                f"LM: Step: {i}, Layout: {args.layout}(dp1xsp1), "
+                f"LM: Step: {i}, Layout: {args.layout}({mesh.describe()}), "
                 f"Loss: {loss:.4f}, PPL: {math.exp(min(loss, 30.0)):.2f}, "
                 f"Time Cost: {time.time() - t0:.4f}, "
                 f"Msg(MB): {metrics['msg_bytes'] / 1e6:.4f}, "
                 f"Dense(MB): {metrics['dense_bytes'] / 1e6:.4f}"
             )
-        if args.eval_freq and i % args.eval_freq == 0:
+        if args.eval_freq and i % args.eval_freq == 0 and (mesh.rank_dp, mesh.rank_sp) == (0, 0):
+            # the single-device forward on the replicated parameters
             state.model.eval()
             with torch.no_grad():
                 toks = torch.from_numpy(eval_tokens[: args.batch_size]).to(dev, torch.int64)
                 vl = float(lm_loss(state.model(toks), toks))
             log_fn(f"LM Validation: Step: {i}, Loss: {vl:.4f}, "
                    f"PPL: {math.exp(min(vl, 30.0)):.2f}")
+        if args.train_dir and ((args.save_freq and i % args.save_freq == 0)
+                               or i == args.max_steps):
+            if (mesh.rank_dp, mesh.rank_sp) == (0, 0):
+                save_checkpoint(args.train_dir, state, compress=args.compress)
+            if dist.is_initialized():
+                dist.barrier()  # no rank goes on before the file is in place
     return state
 
 

@@ -15,7 +15,8 @@ hand-written CUDA kernel in ``csrc/flash_attention.cu`` (built for sm_90a by
 * :func:`flash_attention_forward` launches the kernel on CUDA tensors (or
   raises: there is no fallback to the plain twin, to SDPA or to the
   blockwise oracle) and runs :func:`flash_attention_plain` on CPU tensors.
-  It counts its launches in ``flash_attention_forward.launches``.
+  It counts its launches in ``flash_attention_forward.launches``, and
+  those on bfloat16 inputs in ``flash_attention_forward.bf16_launches``.
 
 The kernel runs both products on the tensor cores (``wgmma``; float32 as
 three TF32 products, which keeps float32 accuracy; bfloat16 as one bf16
@@ -175,10 +176,13 @@ def flash_attention_forward(
     if rc:
         raise RuntimeError(f"flash_attention_forward launch failed: CUDA error {rc}")
     flash_attention_forward.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_forward.bf16_launches += 1
     return out
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.bf16_launches = 0  # of those launches, on bfloat16 inputs
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -223,5 +227,12 @@ def launch_counts() -> dict[str, int]:
     return {"flash_attention": flash_attention_forward.launches}
 
 
+def bf16_launch_count() -> int:
+    """The launches counted by :func:`launch_counts` that took bfloat16
+    inputs (the LM's ``--bf16``)."""
+    return flash_attention_forward.bf16_launches
+
+
 def reset_launch_counts() -> None:
     flash_attention_forward.launches = 0
+    flash_attention_forward.bf16_launches = 0

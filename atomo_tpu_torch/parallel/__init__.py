@@ -1,3 +1,4 @@
 """Parallel layer of the port: the data-parallel exchange over
 ``torch.distributed`` (``launch``, ``common``, ``replicated``), the attention
-strategies and the LM trainer (one device)."""
+strategies over a sequence axis (``ring``) and the LM trainer on a dp x sp
+mesh of processes (``lm``)."""

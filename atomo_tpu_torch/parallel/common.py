@@ -1,8 +1,14 @@
-"""Payload packing and the ring rotation shared by the exchange.
+"""Payload packing, the ring rotation, and the collectives of the sp axis.
 
 Counterpart of ``atomo_tpu/parallel/common.py:34,99`` (``pack_tree_buckets``
-/ ``unpack_tree_buckets``) and of ``atomo_tpu/mesh/collectives.py:19``
-(``ring_perm``).
+/ ``unpack_tree_buckets``) and of ``atomo_tpu/mesh/collectives.py:19,28``
+(``ring_perm``, ``ppermute_ring``), with the tiled ``all_to_all`` that
+``atomo_tpu/parallel/ring.py`` calls. :func:`ring_hop` and
+:func:`all_to_all` are differentiable, as ``jax.lax.ppermute`` and
+``all_to_all`` are: a hop's backward sends the cotangent along the inverse
+rotation, an all-to-all's is the all-to-all of the cotangent. Over a group
+of one process each is the identity, as the JAX collective is over an axis
+of size one.
 
 The JAX package packs a payload tree into one buffer per dtype. The port
 packs it into ONE contiguous byte buffer per rank: every field of every
@@ -20,9 +26,10 @@ are a relayout with no arithmetic, so the round trip is exact.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 _ALIGN = 16  # bytes: the buffer's length is a multiple of it
 
@@ -127,3 +134,71 @@ def hop_pieces(nbytes: int, ring_bucket_size: int) -> list[tuple[int, int]]:
     cap = 4 * ring_bucket_size if ring_bucket_size > 0 else nbytes
     cap = max(cap, 1)
     return [(s, min(s + cap, nbytes)) for s in range(0, nbytes, cap)] or [(0, 0)]
+
+
+def _send_recv(x: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
+    """Send ``x`` to group rank ``to`` and receive its like from ``frm``,
+    in one ``batch_isend_irecv``."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, to), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, frm), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n: int):
+        ctx.group, ctx.n = group, n
+        i = dist.get_rank(group)
+        return _send_recv(x, group, (i - 1) % n, (i + 1) % n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, n = dist.get_rank(ctx.group), ctx.n
+        return _send_recv(grad, ctx.group, (i + 1) % n, (i - 1) % n), None, None
+
+
+def ring_hop(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """One hop of ``x`` along :func:`ring_perm` over the ``n`` ranks of
+    ``group`` (group rank i sends to i - 1 and receives from i + 1): the
+    port's ``ppermute_ring``. Differentiable; the identity at ``n = 1``."""
+    if n == 1:
+        return x
+    if group is None:
+        raise ValueError(f"a ring of {n} ranks needs their process group")
+    return _RingHop.apply(x, group, n)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group: Optional[object], n: int) -> torch.Tensor:
+    """Chunk ``j`` of ``x``'s leading axis (of ``n``) goes to group rank
+    ``j``; row ``i`` of the result came from group rank ``i``.
+    Differentiable (its own inverse); the identity at ``n = 1``."""
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {n} ranks needs a leading axis of {n}, "
+                         f"got {tuple(x.shape)}")
+    if n == 1:
+        return x
+    if group is None:
+        raise ValueError(f"an all-to-all over {n} ranks needs their process group")
+    return _AllToAll.apply(x, group)

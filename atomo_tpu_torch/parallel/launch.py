@@ -17,6 +17,13 @@ up a ``torch.distributed`` process group among them:
 * the reference's retry with exponential backoff on connection failures
   (``attempts``, ``backoff``) and its per-attempt ``init_timeout``.
 
+For the LM's dp x sp layouts, :func:`dp_sp_mesh` builds the process
+groups of a (dp, sp) mesh over the world: rank ``r`` is mesh position
+``(r // sp, r % sp)``, the row-major device order of the JAX package's
+``MeshSpec.from_layout`` / ``make_mesh``, with one sp group per dp row (the
+sequence shards of one replica) and one dp group per sp column (the replicas
+that exchange gradients).
+
 One device per process. Each rank binds its device (``cuda:LOCAL_RANK``
 unless the caller names one) with ``torch.cuda.set_device`` before any
 kernel launches, and the binding is checked: a process that binds a second,
@@ -142,6 +149,58 @@ def initialize(
         kw["device_id"] = dev  # binds NCCL's communicator to this rank's card
     _with_retries(lambda: dist.init_process_group(**kw), attempts, backoff)
     return DistContext(dist.get_rank(), dist.get_world_size(), dev, backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class DpSpMesh:
+    """This process's place in a (dp, sp) mesh of processes: its replica
+    (``rank_dp`` of ``n_dp``) and sequence shard (``rank_sp`` of ``n_sp``),
+    and the process groups of its dp column and sp row. A group is None
+    only where no process group is up (one device, ``n_dp = n_sp = 1``);
+    a group that spans the world is the world's group."""
+
+    n_dp: int = 1
+    n_sp: int = 1
+    rank_dp: int = 0
+    rank_sp: int = 0
+    dp_group: Optional[object] = None
+    sp_group: Optional[object] = None
+
+    def describe(self) -> str:
+        """The JAX package's ``MeshSpec.describe()``: ``dp2xsp2``."""
+        return f"dp{self.n_dp}xsp{self.n_sp}"
+
+
+def mesh_position(rank: int, n_sp: int) -> tuple[int, int]:
+    """Rank ``rank``'s (dp, sp) position: row-major, as ``make_mesh`` lays
+    the devices of a (dp, sp) mesh out."""
+    return rank // n_sp, rank % n_sp
+
+
+def dp_sp_mesh(n_sp: int = 1) -> DpSpMesh:
+    """The (world / n_sp, n_sp) mesh over the process group that is up, or
+    the one-device mesh when none is. Every rank creates every subgroup, in
+    the same order (``torch.distributed.new_group`` is collective over the
+    world): the sp groups of dp rows 0, 1, ..., then the dp groups of sp
+    columns 0, 1, .... At ``n_sp = 1`` the dp group is the world's."""
+    if not dist.is_initialized():
+        if n_sp != 1:
+            raise ValueError(f"an sp axis of {n_sp} needs a process group of one "
+                             "process per device; none is up")
+        return DpSpMesh()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_sp < 1 or world % n_sp:
+        raise ValueError(f"sp ways {n_sp} does not divide {world} devices")
+    n_dp = world // n_sp
+
+    def group(ranks: list[int]):
+        # the world's own group for a group of every rank (one communicator)
+        return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+
+    d, s = mesh_position(rank, n_sp)
+    sp_groups = [group([r * n_sp + c for c in range(n_sp)]) for r in range(n_dp)]
+    dp_groups = [group([r * n_sp + c for r in range(n_dp)]) for c in range(n_sp)]
+    return DpSpMesh(n_dp, n_sp, d, s, dp_groups[s], sp_groups[d])
 
 
 def shutdown() -> None:

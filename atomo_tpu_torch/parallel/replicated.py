@@ -107,8 +107,8 @@ def _mean(total: torch.Tensor, n: int) -> torch.Tensor:
     return total / torch.full_like(total, n) if n > 1 else total
 
 
-def _all_reduce_mean(flat: torch.Tensor, world: int) -> torch.Tensor:
-    dist.all_reduce(flat)
+def _all_reduce_mean(flat: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    dist.all_reduce(flat, group=group)
     return _mean(flat, world)
 
 
@@ -141,27 +141,30 @@ def _rotating_rows(x: torch.Tensor, start: int, k: int) -> torch.Tensor:
     return torch.cat([x[start:], x[: end - n]])
 
 
-def gather_payloads(payloads: Sequence, world: int):
-    """One ``all_gather_into_tensor`` of the packed payload tree: every
+def gather_payloads(payloads: Sequence, world: int, group=None):
+    """One ``all_gather_into_tensor`` of the packed payload tree over the
+    ``world`` ranks of ``group`` (the default group when None): every
     rank's payloads as views of one (N, bytes) buffer (the fields with a
     leading replica axis at a stride of one rank's bytes)."""
     buf, spec = pack_tree_buckets(payloads)
     gathered = torch.empty((world * spec.nbytes,), dtype=torch.uint8, device=buf.device)
-    dist.all_gather_into_tensor(gathered, buf)
+    dist.all_gather_into_tensor(gathered, buf, group=group)
     return gathered.view(world, spec.nbytes), spec
 
 
 def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *, rank: int,
                      world: int, sel_start: Optional[int] = None, n_contrib: int,
                      ring_bucket_size: int = 65536,
-                     layouts: Optional[Sequence[bool]] = None) -> list[torch.Tensor]:
+                     layouts: Optional[Sequence[bool]] = None, group=None) -> list[torch.Tensor]:
     """The ring's decode-mean (``_ring_stream_mean``): rotate the packed
     payloads N - 1 hops to ``rank - 1``, decode each arrival into this
     rank's segment of the flat JAX-layout gradient at its source's
     canonical row, sum the rows (the ``n_contrib`` selected from
     ``sel_start`` on, or all) in order, divide, and republish the segments
     with one ``all_gather_into_tensor``. Returns the mean, port layout
-    (``layouts`` as for :func:`~atomo_tpu_torch.codecs.encode_tree`)."""
+    (``layouts`` as for :func:`~atomo_tpu_torch.codecs.encode_tree`).
+    ``rank`` and ``world`` are this rank's place in ``group`` (the default
+    group when None); a world of one makes no collective call."""
     numels = [g.numel() for g in grads]
     d_flat = sum(numels)
     chunk = -(-d_flat // world)
@@ -171,6 +174,8 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
     nxt = torch.empty_like(buf)
     stage = torch.zeros((world, chunk), dtype=torch.float32, device=buf.device)
     send_to, recv_from = ring_perm(world)[rank][1], (rank + 1) % world
+    if world > 1 and group is not None:  # P2P peers are global ranks
+        send_to, recv_from = (dist.get_global_rank(group, r) for r in (send_to, recv_from))
     # decoded in the JAX layout (no leaf transposed), so that the flat
     # order is the reference's ravel_pytree order
     flat_layouts = [False] * len(grads)
@@ -179,8 +184,8 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
         if t < world - 1:  # the hop starts before this arrival's decode
             ops = []
             for a, b in hop_pieces(spec.nbytes, ring_bucket_size):
-                ops.append(dist.P2POp(dist.isend, buf[a:b], send_to))
-                ops.append(dist.P2POp(dist.irecv, nxt[a:b], recv_from))
+                ops.append(dist.P2POp(dist.isend, buf[a:b], send_to, group))
+                ops.append(dist.P2POp(dist.irecv, nxt[a:b], recv_from, group))
             reqs = dist.batch_isend_irecv(ops)
         src = (rank + t) % world
         decoded = decode_tree(codec, unpack_tree_buckets(buf, spec), grads, flat_layouts)
@@ -191,8 +196,11 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
         buf, nxt = nxt, buf
     rows = stage if sel_start is None else _rotating_rows(stage, sel_start, n_contrib)
     seg = replica_mean(rows)
-    full = torch.empty((world * chunk,), dtype=torch.float32, device=seg.device)
-    dist.all_gather_into_tensor(full, seg.contiguous())
+    if world == 1:  # this rank's segment is the whole mean
+        full = seg.reshape(-1)
+    else:
+        full = torch.empty((world * chunk,), dtype=torch.float32, device=seg.device)
+        dist.all_gather_into_tensor(full, seg.contiguous(), group=group)
     layouts = [True] * len(grads) if layouts is None else layouts
     return [to_port_layout(v, g.shape, tr) for v, g, tr in
             zip(full[:d_flat].split(numels), grads, layouts)]

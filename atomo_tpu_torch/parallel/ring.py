@@ -1,18 +1,27 @@
 """Exact attention: the online-softmax oracles and the sequence-parallel
-strategies at a sequence axis of size one.
+strategies.
 
 Counterpart of ``atomo_tpu/parallel/ring.py``. ``full_attention`` and
 ``blockwise_attention`` are the single-device oracles, written as there,
 -inf guards and ``finfo.tiny`` floor included. ``ring_attention`` and
-``ulysses_attention`` keep their signatures (``axis_name``, ``axis_size``),
-but run on one device only: at an axis of size one the ring is a single
-online-softmax pass over the whole sequence with the causal bias, and the
-Ulysses all-to-all is the identity around its local attention (the blockwise
-oracle, or the flash kernel for ``ulysses-flash``). A larger axis raises:
-the NCCL collectives come with the multi-GPU slice.
+``ulysses_attention`` keep their signatures (``axis_name``, ``axis_size``)
+and take the sp axis's process group as ``group``; this rank's place on the
+axis is its rank in the group. Each takes this rank's (B, H, S/n, D) block
+of a sequence sharded shard-major over the axis (rank r holds positions
+[r*S/n, (r+1)*S/n)) and returns its output block:
 
-All functions take (B, H, S, D) in float32 or bfloat16, compute in float32
-and return the input type.
+* ring: K/V rotate over the axis (``parallel.common.ring_hop``), each block
+  folded into an online softmax with the causal bias of its global
+  positions; the JAX loop's last hop only returns each block to where it
+  started, so the port makes n - 1;
+* Ulysses: one all-to-all of the stacked q/k/v swaps the sequence sharding
+  for a head sharding, the local attention (the blockwise oracle, or the
+  flash kernel for ``ulysses-flash``) runs on whole sequences of H/n heads,
+  and one all-to-all swaps back.
+
+At an axis of size one both are their single-device forms, with no
+collective. All functions take float32 or bfloat16, compute in float32 and
+return the input type.
 """
 
 from __future__ import annotations
@@ -21,6 +30,9 @@ from functools import partial
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from atomo_tpu_torch.parallel.common import all_to_all, ring_hop
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
 NEG_INF = float("-inf")
@@ -30,12 +42,16 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale
 
 
-def _single_device(axis_name: str, axis_size: int) -> None:
-    if axis_size != 1:
-        raise ValueError(
-            f"{axis_name!r} axis of size {axis_size}: sequence parallelism "
-            "comes with the multi-GPU slice"
-        )
+def _axis_index(axis_name: str, axis_size: int, group) -> int:
+    """This rank's index on the axis: its rank in the axis's group."""
+    if axis_size == 1:
+        return 0
+    if group is None:
+        raise ValueError(f"{axis_name!r} axis of size {axis_size} needs its process group")
+    if dist.get_world_size(group) != axis_size:
+        raise ValueError(f"{axis_name!r} axis of size {axis_size}, but its group has "
+                         f"{dist.get_world_size(group)} ranks")
+    return dist.get_rank(group)
 
 
 def _online_softmax_block(q, k_blk, v_blk, bias, m_prev, l_prev, o_prev, scale):
@@ -112,46 +128,73 @@ def blockwise_attention(
 
 def ring_attention(
     q, k, v, *, axis_name: str, axis_size: int, causal: bool = False,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, group=None,
 ):
-    """Ring attention over a sequence axis of size one: one online-softmax
-    pass over the whole local sequence with the causal bias."""
-    _single_device(axis_name, axis_size)
-    s = q.shape[2]
+    """Exact attention over a sequence sharded on the axis: this rank's
+    queries against every shard's K/V, which rotate n - 1 hops around the
+    ring; after t hops this rank holds shard ``(my + t) % n``'s block, whose
+    global key positions give the causal bias."""
+    n = axis_size
+    my = _axis_index(axis_name, n, group)
+    s_local = q.shape[2]
     scale = _scale(q, scale)
-    pos = torch.arange(s, device=q.device)
-    if causal:
-        bias = torch.where(pos[:, None] >= pos[None, :], 0.0, NEG_INF)
-    else:
-        bias = torch.zeros((s, s), device=q.device)
-    m, l, o = _online_softmax_block(q, k.float(), v.float(), bias, *_init_state(q), scale)
+    q_pos = my * s_local + torch.arange(s_local, device=q.device)
+    kv = torch.stack([k.float(), v.float()]) if n > 1 else (k.float(), v.float())
+    m, l, o = _init_state(q)
+    for t in range(n):
+        k_pos = ((my + t) % n) * s_local + torch.arange(s_local, device=q.device)
+        if causal:
+            bias = torch.where(q_pos[:, None] >= k_pos[None, :], 0.0, NEG_INF)
+        else:
+            bias = torch.zeros((s_local, s_local), device=q.device)
+        m, l, o = _online_softmax_block(q, kv[0], kv[1], bias, m, l, o, scale)
+        if t < n - 1:
+            kv = ring_hop(kv, group, n)
     return _finish(o, l, q.dtype)
 
 
 def ulysses_attention(
     q, k, v, *, axis_name: str, axis_size: int, causal: bool = False,
     scale: Optional[float] = None, block_size: int = 512,
-    local_impl: str = "blockwise",
+    local_impl: str = "blockwise", group=None,
 ):
-    """Ulysses attention over a sequence axis of size one: the all-to-all
-    pair is the identity, leaving the local attention on whole sequences,
-    "blockwise" (the oracle) or "flash" (the CUDA kernel,
-    :func:`atomo_tpu_torch.ops.attention_kernels.flash_attention`)."""
+    """All-to-all sequence parallelism: one all-to-all of the stacked
+    (3, B, H, S/n, D) q/k/v gives this rank heads [r*H/n, (r+1)*H/n) of
+    the whole sequence, the local attention runs on them, "blockwise" (the
+    oracle) or "flash" (the CUDA kernel,
+    :func:`atomo_tpu_torch.ops.attention_kernels.flash_attention`), and one
+    all-to-all gives back this rank's (B, H, S/n, D) block. Needs H
+    divisible by n."""
     if local_impl not in ("blockwise", "flash"):
         raise ValueError(f"unknown local_impl {local_impl!r}; expected blockwise|flash")
-    h = q.shape[1]
-    if h % axis_size != 0:
+    b, h, s_local, d = q.shape
+    n = axis_size
+    if h % n != 0:
         raise ValueError(
             f"ulysses needs heads ({h}) divisible by the {axis_name!r} "
-            f"axis ({axis_size}); use ring_attention otherwise"
+            f"axis ({n}); use ring_attention otherwise"
         )
-    _single_device(axis_name, axis_size)
+    _axis_index(axis_name, n, group)
+    hl = h // n
+    if n > 1:
+        # heads split into n chunks, chunk j to rank j; rows come back in
+        # source order, i.e. the sequence's shard order
+        qkv = torch.stack([q, k, v]).reshape(3, b, n, hl, s_local, d).permute(2, 0, 1, 3, 4, 5)
+        qkv = all_to_all(qkv, group, n).permute(1, 2, 3, 0, 4, 5).reshape(3, b, hl, n * s_local, d)
+        q, k, v = qkv[0], qkv[1], qkv[2]
     if local_impl == "flash":
         from atomo_tpu_torch.ops.attention_kernels import flash_attention
 
-        return flash_attention(q, k, v, causal=causal, scale=scale,
-                               block_q=block_size, block_k=block_size)
-    return blockwise_attention(q, k, v, causal=causal, scale=scale, block_size=block_size)
+        out = flash_attention(q, k, v, causal=causal, scale=scale,
+                              block_q=block_size, block_k=block_size)
+    else:
+        out = blockwise_attention(q, k, v, causal=causal, scale=scale, block_size=block_size)
+    if n == 1:
+        return out
+    # (B, H/n, S, D): the sequence split into n chunks, chunk j to rank j;
+    # rows come back in source order, i.e. the heads' order
+    out = all_to_all(out.reshape(b, hl, n, s_local, d).permute(2, 0, 1, 3, 4), group, n)
+    return out.permute(1, 0, 2, 3, 4).reshape(b, h, s_local, d)
 
 
 ATTENTION_IMPLS = {

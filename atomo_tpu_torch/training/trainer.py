@@ -101,16 +101,20 @@ def create_state(model: nn.Module, optimizer: Optimizer, seed: int, device) -> T
     return TrainState(step=0, model=model, opt_state=optimizer.init(leaf_params(model)))
 
 
-def forward(model: nn.Module, images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """The model's float32 logits. With ``compute_dtype`` the forward (and
-    so the backward) runs on copies of the parameters and the images cast to
-    it: the gradient reaches the float32 master parameters through the
-    casts, and the BatchNorm statistics stay float32 (the JAX package casts
-    every floating parameter so, not the per-op policy of autocast)."""
+def forward(model: nn.Module, images: torch.Tensor, compute_dtype=None, **kwargs) -> torch.Tensor:
+    """The model's float32 logits (``kwargs`` go to the model). With
+    ``compute_dtype`` the forward (and so the backward) runs on copies of the
+    parameters and of floating inputs (the images; token ids stay integers)
+    cast to it: the gradient reaches the float32 master parameters through
+    the casts, and the BatchNorm statistics stay float32 (the JAX package
+    casts every floating parameter so, ``cast_params``, not the per-op
+    policy of autocast)."""
     if compute_dtype is None:
-        return model(images)
+        return model(images, **kwargs)
     cast = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
-    return functional_call(model, cast, (images.to(compute_dtype),)).float()
+    if images.is_floating_point():
+        images = images.to(compute_dtype)
+    return functional_call(model, cast, (images,), kwargs).float()
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,

@@ -63,11 +63,12 @@ every hand-written kernel against its plain PyTorch version:
    3.35 TB/s or operations over the peak of the route: 495 TFLOP/s TF32 x 3
    for the float32 flash kernel, 989 TFLOP/s bf16, 67 TFLOP/s float32 FMA,
    the larger of bytes and operations) and, for flash attention,
-   ``F.scaled_dot_product_attention`` on the same tensors;
+   ``F.scaled_dot_product_attention`` on the same tensors, for the float32
+   and the bfloat16 form;
 5. profile: three qsgd ResNet-18 steps (fused, then the pack path), three
-   svd rank 3 steps (the canonical recipe's codec) and three svd LM steps
-   under ``torch.profiler``: wall and device-busy time per step, the
-   device's idle share, each ``step.*`` phase's time, and the kernels that
+   svd rank 3 steps (the canonical recipe's codec) and three svd LM steps,
+   float32 and ``--bf16``, under ``torch.profiler``: wall and device-busy
+   time per step, the device's idle share, each ``step.*`` phase's time, and the kernels that
    take the most;
 6. check: gathered decode: the tree decode and the tree unpack over the
    rows of an (N, bytes) gathered buffer of the ResNet-18 tree at 4 bits,
@@ -89,8 +90,13 @@ every hand-written kernel against its plain PyTorch version:
    buffer equal to the plain twin's, Msg(MB) the single card's (psum: the
    dense bytes); first a probe of gloo's send and receive of a CUDA tensor
    (``--gloo-p2p-probe``), which the ring would need; its outcome is
-   printed, and the ring is left out of this phase;
-9. ckpt: the rest of the ``train`` verb, in a child process (this script
+   printed, and the ring is left out of this phase (and so is an sp axis
+   over gloo on the card: its hops are the same send and receive);
+9. lm bf16: the LM recipe with ``--bf16`` for 5 steps: the flash kernel's
+   bfloat16 form launched 20 times and nothing else, finite losses, a
+   float32 state, the first loss within 1e-2 relative of the float32 run's
+   (phase 3), the median step beside the float32 one;
+10. ckpt: the rest of the ``train`` verb, in a child process (this script
    with ``--ckpt-child``) under ``torch.use_deterministic_algorithms(True,
    warn_only=True)`` with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before its
    first cuBLAS handle: the canonical recipe (``--lr 0.01 --lr-shrinkage 0.95
@@ -103,10 +109,19 @@ every hand-written kernel against its plain PyTorch version:
    2 (``quantize_pack`` and ``unpack_dequantize`` once a step, two files
    left with the compressed magic, the newest loading back bit for bit);
    the save and load times of the recipe's state, raw and compressed, and
-   the ops that warned; then, in this process, 5 steps each of svd rank 3
+   the ops that warned; the LM recipe saved at step 3 (the file loads back
+   bit for bit) and resumed to 5, equal bit for bit to the continuation the
+   JAX verb runs after a resume (a fresh ``--seed`` stream, step keys folded
+   with 4 and 5); ``lm nccl-1``: the LM recipe for 3 steps with an NCCL
+   group of world 1 up, so that ``lm`` builds its (dp 1, sp 1) mesh over it
+   and gathers the payloads with a real NCCL call, against the same run
+   with no group: the states equal bit for bit, the ``LM:`` lines alike but
+   for their times, the flash kernel 12 launches in each; then, in this
+   process, 5 steps each of svd rank 3
    and qsgd with and without ``--bf16`` for their median step time.
 
-Prints a ``kernels`` JSON line, the card's name and power limit, and last
+Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
+name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
 CUDA device, or run outside the repository, it exits non-zero and prints no
 result. A copy of the results goes to ``output/chip_smoke.json``.
@@ -116,6 +131,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -647,6 +663,7 @@ def phase_flash_check(errs):
     err = float((got.float() - want).abs().max())
     if got.dtype != torch.bfloat16 or not err <= 2e-2:
         raise AssertionError(f"flash bf16: {got.dtype}, max abs err {err}")
+    errs["flash_attention_bf16"] = err
     log(f"check: flash bf16 inputs: max abs err {err:.3e} against float32 (<= 2e-2)")
     for causal in (True, False):
         grads = []
@@ -973,21 +990,36 @@ def phase_time_flash():
         library_ms = cuda_ms(per_step(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)))
     qb, kb, vb = lm_heads(dtype=torch.bfloat16, seed=5)
-    bf16_ms = cuda_ms(per_step(lambda: A.flash_attention_forward(qb, kb, vb, causal=True, **blk)))
+    kern_bf16 = per_step(lambda: A.flash_attention_forward(qb, kb, vb, causal=True, **blk))
+    bf16_ms = cuda_ms(kern_bf16)
+    bf16_dev_ms = device_ms(kern_bf16, "flash_forward_kernel")
+    bf16_plain_ms = cuda_ms(per_step(lambda: A.flash_attention_plain(qb, kb, vb, causal=True,
+                                                                     **blk)), reps=5, warmup=1)
+    with torch.no_grad():
+        bf16_library_ms = cuda_ms(per_step(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True)))
     b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-    bf16_bound, _ = bound(nbytes // 2, ops, BF16_OPS_PER_S)
+    # bf16 in and out: half the bytes; one bf16 product per product
+    bf16_bound, bf16_by = bound(nbytes // 2, ops, BF16_OPS_PER_S)
     fma_bound, _ = bound(nbytes, ops, F32_OPS_PER_S)
     log(f"time flash_attention: {ms:.4f} ms per step ({LM_DEPTH} launches), {dev_ms:.4f} ms "
         f"of device time, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
         f"{library_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} (3 x {ops} TF32 ops at 495 "
         f"TFLOP/s; {nbytes} bytes at 3.35 TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
         f"{100 * b_ms / ms:.1f} % of it; float32 FMA bound {fma_bound:.4f} ms (67 TFLOP/s)")
-    log(f"time flash_attention bf16 inputs: {bf16_ms:.4f} ms per step, bound {bf16_bound:.4f} "
-        f"ms ({ops} bf16 ops at 989 TFLOP/s)")
+    log(f"time flash_attention bf16 inputs: {bf16_ms:.4f} ms per step, {bf16_dev_ms:.4f} ms "
+        f"of device time, plain {bf16_plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{bf16_library_ms:.4f} ms on the same bf16 tensors; bound {bf16_bound:.4f} ms by "
+        f"{bf16_by} ({ops} bf16 ops at 989 TFLOP/s; {nbytes // 2} bytes at 3.35 TB/s: "
+        f"{nbytes / 2 / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bf16_bound / bf16_dev_ms:.1f} % "
+        f"of it by device time")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_peak": "3 x TF32 at 495 TFLOP/s",
-            "fma_bound_ms": fma_bound, "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound,
-            "bytes": nbytes, "ops": ops, "launches_per_step": LM_DEPTH}
+            "fma_bound_ms": fma_bound, "bytes": nbytes, "ops": ops,
+            "launches_per_step": LM_DEPTH,
+            "bf16": {"ms": bf16_ms, "device_ms": bf16_dev_ms, "plain_ms": bf16_plain_ms,
+                     "library_ms": bf16_library_ms, "bound_ms": bf16_bound, "bound_by": bf16_by,
+                     "bytes": nbytes // 2, "ops": ops}}
 
 
 def profile_steps(label: str, step_once, steps: int = 3):
@@ -1096,6 +1128,10 @@ def phase_profile():
         float(m["loss"])
 
     out["lm_svd24"] = profile_steps("lm svd", lm_step_once)
+    lm["state"] = create_lm_state(cfg, lm_opt, 0, "cuda")
+    lm_step = make_lm_train_step(lm["state"].model, lm_opt, SvdCodec(rank=24),
+                                 attn_impl="ulysses-flash", compute_dtype=torch.bfloat16)
+    out["lm_svd24_bf16"] = profile_steps("lm svd bf16", lm_step_once)
     return out
 
 
@@ -1374,6 +1410,144 @@ def phase_dist_gloo2(work: Path, single_msg: dict):
     return {"ranks": ranks, "p2p_probe": p2p}
 
 
+# the LM recipe through the CLI: svd at the auto rank 24
+LM_SVD = LM_ARGS + ["--code", "svd", "--train-dir", ""]
+LM_NCCL_STEPS, LM_BF16_STEPS = 3, 5
+
+
+def flash_launches_only(counts: dict, want: int, label: str) -> None:
+    if counts["flash_attention"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"{label}: launches {counts}, want flash_attention {want} "
+                             "and nothing else")
+
+
+def lm_nccl1(work: str):
+    """The LM recipe (ulysses-flash, svd rank 24) through the process-group
+    path at NCCL world 1, 3 steps, in :func:`ckpt_child`'s deterministic
+    process: ``lm`` run with a group up builds the (1, 1) mesh over it,
+    replicates the state, and gathers the payloads over the dp group with a
+    real NCCL call. Its state must equal the single-device run's (no group)
+    bit for bit, its ``LM:`` lines the same but for their times, the flash
+    kernel launched once per layer per step in each."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+
+    argv = LM_SVD + ["--max-steps", str(LM_NCCL_STEPS)]
+    single_lines: list[str] = []
+    single, single_counts = train_state(argv, single_lines)
+    launch.initialize(torch.device("cuda", 0), backend="nccl",
+                      init_method=f"file://{work}/lm_nccl1", world_size=1, rank=0)
+    try:
+        lines: list[str] = []
+        grouped, counts = train_state(argv, lines)
+    finally:
+        launch.shutdown()
+    for label, c in (("single", single_counts), ("nccl-1", counts)):
+        flash_launches_only(c, LM_DEPTH * LM_NCCL_STEPS, f"lm nccl-1 {label}")
+    if not same_state(single, grouped):
+        worst = max(float((a - b).abs().max()) for a, b in
+                    zip(single.model.state_dict().values(), grouped.model.state_dict().values()))
+        raise AssertionError("lm nccl-1: the process-group run differs from the single-device "
+                             f"run: max |param diff| {worst:.3e}")
+
+    def cols(ls):  # the LM: lines but for their times
+        return [re.sub(r"Time Cost: [0-9.]+, ", "", ln) for ln in ls if ln.startswith("LM: ")]
+
+    if cols(single_lines) != cols(lines):
+        raise AssertionError(f"lm nccl-1: LM lines differ {single_lines} {lines}")
+    steps = {k: statistics.median([1e3 * float(ln.split("Time Cost: ")[1].split(",")[0])
+                                   for ln in ls if ln.startswith("LM: ")][1:])
+             for k, ls in (("single", single_lines), ("nccl1", lines))}
+    log(f"lm nccl-1: the recipe (ulysses-flash, svd rank 24) through the process-group path "
+        f"at NCCL world 1 equals the single-device run bit for bit after {LM_NCCL_STEPS} "
+        f"steps (parameters, momentum); losses and Msg(MB) alike; launches {counts} in each; "
+        f"median step ms (steps 2-3) {steps['nccl1']:.3f}, single-device {steps['single']:.3f}")
+    return {"launches": counts["flash_attention"] + single_counts["flash_attention"],
+            "median_step_ms": steps}
+
+
+def phase_lm_bf16(runs: dict):
+    """``lm --bf16`` at the recipe, 5 steps: the bf16 form of the flash
+    kernel launched once per layer per step and nothing else, the losses
+    finite, parameters and optimizer state float32, and the first step's
+    loss (the same init and batch as the float32 run of ``phase_train``)
+    within 1e-2 relative of the float32 one: bfloat16's 8-bit mantissa,
+    rounded at each op of the forward, over a loss near ln 256."""
+    import torch
+
+    from atomo_tpu_torch.ops import attention_kernels as A
+
+    lines: list[str] = []
+    state, counts = train_state(LM_SVD + ["--max-steps", str(LM_BF16_STEPS), "--bf16"], lines)
+    bf16 = A.bf16_launch_count()
+    want = LM_DEPTH * LM_BF16_STEPS
+    flash_launches_only(counts, want, "lm bf16")
+    if bf16 != want:
+        raise AssertionError(f"lm bf16: {bf16} of the {want} flash launches took bfloat16")
+    lm = [ln for ln in lines if ln.startswith("LM: ")]
+    losses = [float(ln.split("Loss: ")[1].split(",")[0]) for ln in lm]
+    if len(losses) != LM_BF16_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lm bf16: losses {losses}")
+    dtypes = {t.dtype for t in state.model.state_dict().values()}
+    dtypes |= {t.dtype for t in state.opt_state.trace or []}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"lm bf16: state dtypes {dtypes}")
+    f32 = runs["lm_svd"]["losses"][0]
+    if not math.isclose(losses[0], f32, rel_tol=1e-2):
+        raise AssertionError(f"lm bf16: first loss {losses[0]} vs float32 {f32}")
+    ms = statistics.median([1e3 * float(ln.split("Time Cost: ")[1].split(",")[0])
+                            for ln in lm][1:])
+    log(f"lm bf16: launches {counts}, all {bf16} on bfloat16 inputs; losses {losses}; state "
+        f"float32; first loss {losses[0]:.4f} vs float32 {f32:.4f} (rel 1e-2); median step ms "
+        f"(steps 2-5) {ms:.3f}, float32 {runs['lm_svd']['median_step_ms_after_first']:.3f}")
+    return {"launches": counts["flash_attention"], "bf16_launches": bf16, "losses": losses,
+            "median_step_ms": ms,
+            "median_step_ms_float32": runs["lm_svd"]["median_step_ms_after_first"]}
+
+
+def lm_ckpt(work: str) -> dict:
+    """The LM part of :func:`ckpt_child`: the recipe saved at step 3, the
+    file loaded into a fresh state (equal to the saved one bit for bit),
+    and ``--resume`` to 5, equal bit for bit to the continuation that the
+    JAX verb runs after a resume: steps 4 and 5 from the loaded state, on
+    the first two batches of a fresh ``--seed`` stream, keys folded with 4
+    and 5. Returns the CLI runs' flash launches."""
+    import torch
+
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.parallel.lm import create_lm_state, make_lm_train_step
+    from atomo_tpu_torch.training import checkpoint as ck
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    d = str(Path(work) / "lm")
+    argv = LM_ARGS + ["--code", "svd", "--train-dir", d, "--save-freq", "3"]
+    saved, c1 = train_state(argv + ["--max-steps", "3"], [])
+    args = cli.build_parser().parse_args(argv + ["--max-steps", "5"])
+    opt = cli.lm_optimizer(args)
+    loaded = ck.load_checkpoint(d, create_lm_state(cli.lm_config(args), opt, 1, "cuda"))
+    if not same_state(saved, loaded):
+        raise AssertionError("lm ckpt: the loaded state differs from the saved one")
+    lines: list[str] = []
+    resumed, c2 = train_state(argv + ["--max-steps", "5", "--resume"], lines)
+    if f"Resumed from {d} at step 3" not in lines:
+        raise AssertionError(f"lm ckpt: the resumed run began {lines[:3]}")
+    step = make_lm_train_step(loaded.model, opt, cli.lm_codec(args, lambda _: None),
+                              attn_impl="ulysses-flash")
+    next_batch, _ = cli.lm_data(args)
+    state = loaded
+    for i in (4, 5):
+        state, _ = step(state, fold_in(args.seed, i),
+                        torch.from_numpy(next_batch()).to("cuda", torch.int64))
+    if not same_state(resumed, state):
+        raise AssertionError("lm ckpt: the resumed run differs from the continuation on a "
+                             "fresh stream")
+    log("lm ckpt: the recipe saved at step 3 loads back bit for bit; resumed to 5 it equals "
+        "the JAX verb's continuation (a fresh --seed stream, keys folded with 4 and 5) bit "
+        f"for bit; launches {c1} then {c2}")
+    return {"launches": c1["flash_attention"] + c2["flash_attention"]}
+
+
 # the canonical recipe (src/run_pytorch.sh): ResNet-18 on CIFAR-10 shapes,
 # batch 128, lr 0.01 shrunk by 0.95 every 50 steps, momentum 0, svd rank 3
 RECIPE_ARGS = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
@@ -1512,9 +1686,11 @@ def ckpt_child(work: str, out_path: str) -> int:
             times["compressed" if compress else "raw"] = {
                 "save_ms": statistics.median(save), "load_ms": statistics.median(load),
                 "bytes": Path(path).stat().st_size}
+        lm = lm_ckpt(work)
+        lm["nccl1"] = lm_nccl1(work)
         nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
                          for w in caught if "deterministic" in str(w.message)})
-    out = {"times": times, "nondeterministic_ops": nondet, "launches": counts,
+    out = {"times": times, "nondeterministic_ops": nondet, "launches": counts, "lm": lm,
            "qsgd_losses": losses, "recipe_step_ms": [
                1e3 * float(ln.split("Time Cost: ")[1].split(",")[0]) for ln in lines_a
                if ln.startswith("Worker: ")]}
@@ -1595,7 +1771,7 @@ def main() -> int:
     grads, leaves, stacks = resnet_grads(torch.device("cuda"))
     log(f"ResNet-18 leaves: {len(leaves)} in {len(stacks)} shape groups, "
         f"{sum(x.numel() for x in leaves)} values")
-    errs = {name: 0.0 for name in REPLACES}
+    errs = {name: 0.0 for name in REPLACES}  # and flash_attention_bf16, its bf16 form
     phase_flash_check(errs)
     phase_check(leaves, stacks, errs)
     phase_check_decode(grads, errs)
@@ -1620,8 +1796,11 @@ def main() -> int:
                       "svd3": dist_runs["single_svd3"]["msg_bytes"]}
         gloo = phase_dist_gloo2(Path(work), single_msg)
         lap("dist gloo-2")
+        lm_bf16 = phase_lm_bf16(runs)
+        lap("lm bf16")
         ckpt = phase_ckpt(Path(work), card)
         lap("ckpt")
+    lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
 
@@ -1630,6 +1809,8 @@ def main() -> int:
                 + ckpt["launches"][name]
                 + sum(r["launches"][name] for r in ckpt["steps"].values())
                 for name in REPLACES}
+    launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
+                                    + ckpt["lm"]["launches"])
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1638,9 +1819,15 @@ def main() -> int:
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": times[name].get("library_ms"),
     } for name in REPLACES]
+    # row 5's bfloat16 form, launched by lm --bf16 on the main path
+    fb = times["flash_attention"]["bf16"]
+    kernels[-1]["bf16"] = {
+        "launches": lm_runs["bf16"]["bf16_launches"], "max_abs_err": errs["flash_attention_bf16"],
+        "ms": fb["ms"], "device_ms": fb["device_ms"], "plain_ms": fb["plain_ms"],
+        "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]}
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
-              "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "ckpt": ckpt,
-              "phase_seconds": seconds, "seconds": time.time() - t_start}
+              "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
+              "ckpt": ckpt, "phase_seconds": seconds, "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -112,9 +112,11 @@ def test_sequence_parallel_impls_at_one_shard_match_jax(impl):
 
 
 def test_sequence_axis_above_one_waits_for_the_multi_gpu_slice():
+    """An sp axis above one runs over its process group
+    (``tests/test_torch_lm_dist_attention.py``); without one it raises."""
     q = torch.zeros((1, 2, 8, 4))
     for impl in pring.ATTENTION_IMPLS.values():
-        with pytest.raises(ValueError, match="multi-GPU slice"):
+        with pytest.raises(ValueError, match="needs its process group"):
             impl(q, q, q, axis_name="sp", axis_size=2)
     with pytest.raises(ValueError, match="blockwise\\|flash"):
         pring.ulysses_attention(q, q, q, axis_name="sp", axis_size=1, local_impl="nope")

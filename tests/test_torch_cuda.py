@@ -17,7 +17,9 @@ rows) and the pack path's encode. The tree decode and the tree unpack read
 the rows of an (N, bytes) gathered buffer in place (N = 1, 2, 4, 8), equal
 to their twins and to the replica-contiguous launch. At one rank of an NCCL
 group the data-parallel QSGD step equals the single-device step bit for
-bit, with one encode and one decode launch and no host sync. A resumed
+bit, with one encode and one decode launch and no host sync, and so does
+the LM step over that group's (dp 1, sp 1) mesh; the LM's bfloat16 step
+launches the flash kernel's bfloat16 form and keeps its state float32. A resumed
 ResNet-18 run equals the straight one bit for bit on the card, and a
 compressed checkpoint comes back onto the card bit for bit.
 """
@@ -594,6 +596,68 @@ def test_lm_step_launches_the_kernel_once_per_layer_and_matches_the_cpu(dev):
     assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-4 * abs(out["cpu"][0])
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_lm_bf16_step_launches_the_bf16_kernel_and_keeps_float32(dev):
+    """A small LM step with ``compute_dtype=torch.bfloat16`` on the card:
+    the flash kernel's bfloat16 form launches once per layer, the
+    parameters and the momentum stay float32, and the loss is within 1e-2
+    relative of the same step in float32 (bfloat16's 8-bit mantissa)."""
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel.lm import make_lm_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    cfg = dict(vocab_size=64, max_len=128, width=128, depth=2, num_heads=2)
+    opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+    tokens = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(0)).to(dev)
+    losses = {}
+    for dtype in (None, torch.bfloat16):
+        state = create_state(TransformerLM(**cfg), opt, 1, dev)
+        step = make_lm_train_step(state.model, opt, None, attn_impl="ulysses-flash",
+                                  compute_dtype=dtype)
+        A.reset_launch_counts()
+        state, m = step(state, 1, tokens)
+        losses[dtype] = float(m["loss"])
+        assert A.launch_counts()["flash_attention"] == cfg["depth"]
+        assert A.bf16_launch_count() == (cfg["depth"] if dtype else 0)
+        assert {p.dtype for p in state.model.parameters()} == {torch.float32}
+        assert {t.dtype for t in state.opt_state.trace} == {torch.float32}
+    assert abs(losses[torch.bfloat16] - losses[None]) <= 1e-2 * losses[None]
+
+
+@pytest.mark.parametrize("aggregate", ["gather", "ring", "psum"])
+def test_lm_nccl_world_one_step_equals_the_single_device_step(dev, nccl_group, aggregate):
+    """The LM step over a one-rank NCCL group's (dp 1, sp 1) mesh (its dp
+    exchange real NCCL calls) equals the step with no group bit for bit
+    after two svd steps with the same draws, with the same message bytes
+    and one flash launch per layer."""
+    import copy
+
+    from atomo_tpu_torch.codecs import SvdCodec
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.lm import DpExchange, make_lm_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    cfg = dict(vocab_size=64, max_len=128, width=128, depth=2, num_heads=2)
+    opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+    base = TransformerLM(**cfg)
+    tokens = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(0)).to(dev)
+    exchange = DpExchange("ring") if aggregate == "ring" else None
+    out = []
+    for mesh in (None, launch.dp_sp_mesh(1)):
+        state = create_state(copy.deepcopy(base), opt, 1, dev)
+        step = make_lm_train_step(state.model, opt, SvdCodec(rank=12),
+                                  attn_impl="ulysses-flash", aggregate=aggregate,
+                                  exchange=exchange, mesh=mesh)
+        A.reset_launch_counts()
+        for i in (1, 2):
+            state, m = step(state, i, tokens)
+        assert A.launch_counts()["flash_attention"] == 2 * cfg["depth"]
+        out.append((state, m["msg_bytes"]))
+    assert out[0][1] == out[1][1]
+    for a, b in zip(out[0][0].model.state_dict().values(), out[1][0].model.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------ the exchange's gathered rows

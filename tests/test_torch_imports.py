@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``atomo_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, Flax, optax or the JAX package, and its entry
-points never drop to the CPU by themselves."""
+"""The port stands alone: no module of ``atomo_tpu_torch``, not
+``chip_smoke.py`` and not the multi-rank tests' worker (``tests/torch_dist.py``)
+imports JAX, Flax, optax or the JAX package, and its entry points never drop
+to the CPU by themselves."""
 
 import ast
 import json
@@ -14,7 +15,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "atomo_tpu")
-SOURCES = sorted((ROOT / "atomo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, its smoke script, and the multi-rank tests' worker (the test
+# process computes the JAX side and hands the workers numpy arrays)
+SOURCES = sorted((ROOT / "atomo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                              ROOT / "tests" / "torch_dist.py"]
 
 
 def _imported(path: Path) -> set[str]:

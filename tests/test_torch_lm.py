@@ -217,7 +217,7 @@ def test_cli_lm_dense_and_data_file(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--layout", "dp-tp"], "later slice"),
-    (["--layout", "dp-sp", "--ways", "2"], "multi-GPU slice"),
+    (["--layout", "dp-sp", "--ways", "2"], "does not divide 1 devices"),
 ])
 def test_cli_lm_refuses_what_waits(argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -18,8 +18,21 @@ Jobs (``JOBS``):
   state and goes on;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
-* ``cli``: ``atomo_tpu_torch train`` with the given arguments, its log
-  lines.
+* ``cli``: ``atomo_tpu_torch train`` (or ``lm``) with the given
+  arguments, its log lines;
+* ``lm``: the port's LM steps on a (world / n_sp, n_sp) mesh
+  (``launch.dp_sp_mesh``) from given weights, global token batches and
+  per-rank codec draws; every rank returns each step's metrics and a hash
+  of its parameters, rank 0 its final parameters. ``grads_only`` returns
+  instead the gradient the optimizer receives at the first step;
+  ``resume_at`` cuts the run as ``train``'s does;
+* ``attention``: an sp attention function alone on this rank's shard of
+  given (B, H, S, D) q, k, v, forward and backward against a given
+  cotangent;
+* ``mesh``: this rank's place in a dp x sp mesh and its groups' ranks;
+* ``targets``, ``collectives``: the shard-boundary targets, one ring hop
+  and one all-to-all over an sp axis of the whole world;
+* ``modules``: the top-level modules loaded in the worker.
 """
 
 from __future__ import annotations
@@ -252,7 +265,163 @@ def job_cli(rank, world, *, argv):
     return {"rc": rc, "lines": lines, "exit": None}
 
 
-JOBS = {"train": job_train, "aggregate": job_aggregate, "cli": job_cli}
+class _Recorder:
+    """An optimizer that keeps the gradient it is handed and changes
+    nothing: what the LM step's dp tail delivers."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, params):
+        from atomo_tpu_torch.training import make_optimizer
+
+        return make_optimizer("sgd").init(params)
+
+    def update(self, grads, state, params):
+        self.grads = [g.detach().clone() for g in grads]
+        return state
+
+
+def job_lm(rank, world, *, n_sp, cfg, state_dict, codec, attn_impl, aggregate, optimizer,
+           batches, keys, draws=None, bf16=False, resume_at=0, train_dir=None,
+           grads_only=False):
+    import torch
+
+    import atomo_tpu_torch.parallel.lm as L
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    mesh = launch.dp_sp_mesh(n_sp)
+    opt = _Recorder() if grads_only else make_optimizer(optimizer[0], **optimizer[1])
+    scales = []
+
+    def fresh():
+        model = TransformerLM(**cfg)
+        model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+        state = TrainState(0, model, opt.init(leaf_params(model)))
+        step = L.make_lm_train_step(
+            model, opt, _codec(codec), attn_impl=attn_impl, aggregate=aggregate, mesh=mesh,
+            exchange=L.DpExchange("ring") if aggregate == "ring" else None,
+            compute_dtype=torch.bfloat16 if bf16 else None)
+        return model, state, step
+
+    encode = L.encode_tree
+
+    def recording_encode(*args, **kw):  # the largest quantization step taken
+        payloads, stats = encode(*args, **kw)
+        scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
+        return payloads, stats
+
+    L.encode_tree = recording_encode
+    try:
+        return _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_at,
+                         train_dir, scales)
+    finally:
+        L.encode_tree = encode
+
+
+def _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_at, train_dir,
+              scales):
+    import torch
+    import torch.distributed as dist
+
+    from atomo_tpu_torch.parallel.lm import shard_tokens
+    from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+
+    model, state, step = fresh()
+    steps = []
+    for s, (tokens, key) in enumerate(zip(batches, keys)):
+        if resume_at and s == resume_at:
+            if rank == 0:
+                save_checkpoint(train_dir, state, compress=True)
+            dist.barrier()
+            model, state, step = fresh()
+            state = load_checkpoint(train_dir, state)
+        block = torch.from_numpy(shard_tokens(tokens, mesh).copy()).long()
+        state, m = step(state, key, block, draws=_draws(draws[s]) if draws else None)
+        if grads_only:
+            return {"grads": [g.numpy().copy() for g in opt.grads], "loss": float(m["loss"])}
+        steps.append({"loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
+                      "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model)})
+    final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+             if rank == 0 else None)
+    return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0),
+            "mesh": (mesh.rank_dp, mesh.rank_sp), "step": state.step}
+
+
+def job_attention(rank, world, *, impl, q, k, v, cotangent, causal=True):
+    """``ATTENTION_IMPLS[impl]`` over an sp axis of the whole world on this
+    rank's sequence shard: its output block and its q, k, v gradients."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.ring import ATTENTION_IMPLS
+
+    mesh = launch.dp_sp_mesh(world)
+    s = q.shape[2] // world
+    part = [torch.from_numpy(a[:, :, rank * s:(rank + 1) * s].copy()).requires_grad_()
+            for a in (q, k, v)]
+    out = ATTENTION_IMPLS[impl](*part, axis_name="sp", axis_size=world, causal=causal,
+                                group=mesh.sp_group)
+    (out * torch.from_numpy(cotangent[:, :, rank * s:(rank + 1) * s].copy())).sum().backward()
+    return {"out": out.detach().numpy(), "grads": [t.grad.numpy() for t in part]}
+
+
+def job_mesh(rank, world, *, n_sp):
+    import torch.distributed as dist
+
+    from atomo_tpu_torch.parallel import launch
+
+    mesh = launch.dp_sp_mesh(n_sp)
+    return {"position": (mesh.rank_dp, mesh.rank_sp), "describe": mesh.describe(),
+            "dp": dist.get_process_group_ranks(mesh.dp_group),
+            "sp": dist.get_process_group_ranks(mesh.sp_group)}
+
+
+def job_targets(rank, world, *, tokens):
+    """``sp_boundary_targets_and_mask`` on this rank's sequence shard, over
+    an sp axis of the whole world."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.lm import sp_boundary_targets_and_mask
+
+    mesh = launch.dp_sp_mesh(world)
+    s = tokens.shape[1] // world
+    t, v = sp_boundary_targets_and_mask(
+        torch.from_numpy(tokens[:, rank * s:(rank + 1) * s].copy()).long(), world,
+        mesh.sp_group)
+    return {"targets": t.numpy(), "valid": v.numpy()}
+
+
+def job_collectives(rank, world):
+    """One ring hop and one all-to-all over the whole world, each with a
+    backward from a cotangent that names its rank."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.common import all_to_all, ring_hop
+
+    group = launch.dp_sp_mesh(world).sp_group
+    x = torch.tensor([float(rank)], requires_grad=True)
+    y = ring_hop(x, group, world)
+    y.backward(torch.tensor([10.0 * rank]))
+    a = torch.tensor([10.0 * rank + i for i in range(world)], requires_grad=True)
+    b = all_to_all(a, group, world)
+    b.backward(torch.tensor([100.0 * rank + i for i in range(world)]))
+    return {"hop": float(y), "hop_grad": float(x.grad), "a2a": b.tolist(),
+            "a2a_grad": a.grad.tolist()}
+
+
+def job_modules(rank, world):
+    return sorted({m.split(".")[0] for m in sys.modules})
+
+
+JOBS = {"train": job_train, "aggregate": job_aggregate, "cli": job_cli, "lm": job_lm,
+        "attention": job_attention, "mesh": job_mesh, "targets": job_targets,
+        "collectives": job_collectives, "modules": job_modules}
 
 
 def main(argv) -> int:
