@@ -2,12 +2,17 @@
 
 Counterpart of the ``train``, ``evaluate`` and ``lm`` verbs of
 ``atomo_tpu/cli.py``, with the flags ported so far. The defaults are the JAX
-package's. ``train`` runs on one device, or data-parallel over N processes,
-one per device, as ``torchrun --nproc-per-node N -m atomo_tpu_torch train
---n-devices N ...`` starts them (``--aggregate gather|ring|psum``,
-``--num-aggregate``, ``--ring-bucket-size``), with the reference's optimizer
-and schedule flags, CRC checkpoints into ``--train-dir`` (``--save-freq``,
-``--resume``, ``--keep-ckpts``, ``--compress``) and ``--bf16``.
+package's. ``train`` trains any model of the registry (``--network``, case
+blind: LeNet, FC, the ResNets, the VGGs, DenseNet, DenseNet100, AlexNet) on
+one device, or data-parallel over N processes, one per device, as ``torchrun
+--nproc-per-node N -m atomo_tpu_torch train --n-devices N ...`` starts them
+(``--aggregate gather|ring|psum``, ``--num-aggregate``,
+``--ring-bucket-size``, ``--grad-accum``), with the reference's optimizer and
+schedule flags, the SVD knobs (``--svd-mode`` an alias over ``--svd-algo``),
+CRC checkpoints into ``--train-dir`` (``--save-freq``, ``--resume``,
+``--keep-ckpts``, ``--compress``) and ``--bf16``. A process group that is up
+(or a ``torchrun`` launch) takes even ``--n-devices 1`` through the
+data-parallel step, which is how one card runs ``--grad-accum``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
 each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` on one device or
 over N processes (``--n-devices N --ways S``: dp = N/S replicas of S
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 import warnings
@@ -63,6 +69,19 @@ def _svd_flags(p: argparse.ArgumentParser, rank_help: str) -> None:
     p.add_argument("--svd-wire", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 = stochastically rounded factors on the wire")
+
+
+def _svd_algo(args: argparse.Namespace) -> str:
+    """``--svd-algo``, or ``--svd-mode`` where that is pinned; both pinned
+    to different algorithms is refused."""
+    mode = args.svd_mode
+    if mode == "auto":
+        return args.svd_algo
+    if args.svd_algo not in ("auto", mode):
+        raise SystemExit(
+            f"--svd-mode {mode} and --svd-algo {args.svd_algo} disagree "
+            "(they select the same decomposition knob); pin one")
+    return mode
 
 
 def _model_flags(p: argparse.ArgumentParser) -> None:
@@ -141,8 +160,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ring aggregation: 4-byte elements per message of a hop; "
                         "<= 0 sends the packed payloads as one message (any value "
                         "gives the same result)")
+    p.add_argument("--grad-accum", type=int, default=1, metavar="K",
+                   help="accumulate gradients over K microbatches per device before "
+                        "the one encode and exchange: activation memory shrinks to one "
+                        "microbatch at a fixed --batch-size (the data-parallel step "
+                        "only: --n-devices above 1, or a process group that is up)")
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
+    p.add_argument("--svd-mode", type=str, default="auto",
+                   choices=["auto", "exact", "randomized"],
+                   help="alias over --svd-algo (the two must agree when both are "
+                        "pinned): randomized = the Halko sketch at every size, exact = "
+                        "the exact SVD, auto = --svd-algo's choice")
     p.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate", help="poll a checkpoint directory and evaluate")
@@ -256,7 +285,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         svd_rank = 3
     codec = get_codec(
         args.code, svd_rank=svd_rank, quantization_level=args.quantization_level,
-        bucket_size=args.bucket_size, sample=args.sample, algorithm=args.svd_algo,
+        bucket_size=args.bucket_size, sample=args.sample, algorithm=_svd_algo(args),
         wire_dtype=args.svd_wire,
         use_kernel=None if fused else False, pack_kernel=None if fused else True,
     )
@@ -270,7 +299,12 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                   train_dir=args.train_dir, save_freq=args.save_freq or args.eval_freq,
                   resume=args.resume, keep_ckpts=args.keep_ckpts, compress_ckpt=args.compress,
                   compute_dtype=torch.bfloat16 if args.bf16 else None)
-    if args.n_devices <= 1:
+    # one process runs the single-device loop unless a process group is up
+    # or torchrun started it (one device over NCCL: train --n-devices 1)
+    if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        if args.grad_accum > 1:
+            warnings.warn("--grad-accum is only wired into the multi-device step; "
+                          "single-device training ignores it")
         return train_loop(model, optimizer, train_iter, test_iter, **common)
     was_up = torch.distributed.is_initialized()
     ctx = launch.initialize(args.device)
@@ -285,7 +319,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
             # auto resolves to gather until the comm-cost model is ported
             aggregate="gather" if args.aggregate == "auto" else args.aggregate,
             num_aggregate=args.num_aggregate or 0, ring_bucket_size=args.ring_bucket_size,
-            **{**common, "device": ctx.device})
+            grad_accum=args.grad_accum, **{**common, "device": ctx.device})
     finally:
         if not was_up:
             launch.shutdown()

@@ -9,9 +9,17 @@ holding a replica, and the collectives of the program become calls of
 ``torch.distributed``. Every step, on every rank:
 
 * keys: ``step_key = fold_in(key, step)``, then ``k_aug, k_drop, k_codec =
-  split3(fold_in(step_key, rank))`` (``:1502-1503``); ``draws=`` hands the
-  codec the draws a parity test wants (the JAX package's for this replica);
-* forward and backward on this rank's rows of the global batch;
+  split3(fold_in(step_key, rank))`` (``:1502-1503``); ``k_drop`` drives the
+  model's ``Dropout`` layers; ``draws=`` hands the codec the draws a parity
+  test wants (the JAX package's for this replica), ``dropout_masks=`` the
+  dropout keep-masks;
+* forward and backward on this rank's rows of the global batch, or, with
+  ``grad_accum`` K (``:1515-1569``), on K microbatches of them in order:
+  the BatchNorm statistics carried from one to the next, microbatch i's
+  dropout under ``fold_in(k_drop, i)``, the gradients summed from zero and
+  divided by K, loss and prec@1/5 the microbatch means; under mixed
+  precision the parameters are cast once for the K microbatches and each
+  microbatch's gradient is added to the float32 sum;
 * the exchange, by ``aggregate``:
 
   - ``gather`` (``:1743-1798``): the payload tree packed into one byte
@@ -48,6 +56,7 @@ sync: every size is static.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -55,11 +64,13 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 
 from atomo_tpu_torch.codecs import decode_mean_tree, decode_tree, encode_tree, tree_nbytes
-from atomo_tpu_torch.convert import jax_layouts
+from atomo_tpu_torch.convert import jax_layouts, jax_leaf_order
 from atomo_tpu_torch.data.pipeline import augment_batch
+from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
 from atomo_tpu_torch.parallel.common import (
     hop_pieces,
@@ -232,25 +243,32 @@ def make_distributed_train_step(
     num_aggregate: int = 0,
     ring_bucket_size: int = 65536,
     compute_dtype=None,
+    grad_accum: int = 1,
 ):
-    """Build the step ``(state, key, images, labels, draws=None) -> (state,
-    metrics)`` of this rank, over ``model`` (which ``state.model`` must be)
-    in the initialized process group.
+    """Build the step ``(state, key, images, labels, draws=None,
+    dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
+    (which ``state.model`` must be) in the initialized process group.
 
     ``images`` (NCHW float32) and ``labels`` are this rank's shard
     (:func:`shard_batch`) on the model's device. ``draws`` (one entry per
-    leaf, as :func:`~atomo_tpu_torch.codecs.encode_tree` takes them) replaces
-    the codec's own draws: the hook through which a parity test hands each
-    rank the JAX package's draws for its replica. ``metrics`` holds the dp
-    means of ``loss``, ``prec1`` and ``prec5`` as 0-d tensors (no host sync)
-    and ``msg_bytes`` and ``dense_bytes`` as ints. ``compute_dtype`` runs
-    forward and backward in mixed precision
-    (:func:`~atomo_tpu_torch.training.trainer.forward`); the exchange sees
-    float32 gradients either way."""
+    leaf, as :func:`~atomo_tpu_torch.codecs.encode_tree` takes them) and
+    ``dropout_masks`` (one keep-mask per ``Dropout`` call, in call order
+    over the microbatches) replace the step's own draws: the hooks through
+    which a parity test hands each rank the JAX package's draws for its
+    replica. ``metrics`` holds the dp means of ``loss``, ``prec1`` and
+    ``prec5`` as 0-d tensors (no host sync) and ``msg_bytes`` and
+    ``dense_bytes`` as ints. ``compute_dtype`` runs forward and backward in
+    mixed precision (:func:`~atomo_tpu_torch.training.trainer.forward`);
+    the exchange sees float32 gradients either way. ``grad_accum`` K > 1
+    splits this rank's batch into K microbatches (it raises a
+    ``ValueError`` when K does not divide the batch)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
     n_contrib = k_agg or world
     params = leaf_params(model)
+    names = jax_leaf_order(model)
     layouts = jax_layouts(model)
     stats = list(model.buffers())  # the BatchNorm statistics, Flax's batch_stats
 
@@ -283,19 +301,61 @@ def make_distributed_train_step(
             mean = _views_like(_all_reduce_mean(_flat(decoded), world), grads)
         return mean, dense_bytes  # the all-reduce moves dense gradients
 
-    def step(state: TrainState, key: int, images, labels, draws: Optional[Sequence[Any]] = None):
+    def accumulate(images, labels, k_drop: int, dropout_masks):
+        """(mean gradient over the microbatches, mean loss, prec@1, prec@5)."""
+        b = images.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"per-chip batch {b} not divisible by grad_accum={grad_accum}")
+        mb = b // grad_accum
+        if compute_dtype is None:
+            run, targets = model, params
+        else:  # the parameters cast once for the K microbatches
+            cast = {n: p.detach().to(compute_dtype).requires_grad_()
+                    for n, p in zip(names, params)}
+            targets = [cast[n] for n in names]
+
+            def run(x):
+                return functional_call(model, cast, (x.to(compute_dtype),)).float()
+
+        g_sum = [torch.zeros_like(p) for p in params]
+        sums = torch.zeros(3, dtype=torch.float32, device=images.device)
+        # given masks run through the microbatches in call order; else
+        # microbatch i draws under fold_in(k_drop, i)
+        given = dropout_masks is not None
+        with dropout_stream(masks=dropout_masks) if given else contextlib.nullcontext():
+            for i in range(grad_accum):
+                x, y = images[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
+                with contextlib.nullcontext() if given else dropout_stream(fold_in(k_drop, i)):
+                    logits = run(x)
+                    loss = F.cross_entropy(logits, y)
+                    grads = torch.autograd.grad(loss, targets)
+                for a, g in zip(g_sum, grads):
+                    a.add_(g.float())
+                prec1, prec5 = accuracy(logits.detach(), y)
+                sums += torch.stack([loss.detach(), prec1, prec5])
+        m = _mean(sums, grad_accum)
+        return [_mean(g, grad_accum) for g in g_sum], m[0], m[1], m[2]
+
+    def step(state: TrainState, key: int, images, labels, draws: Optional[Sequence[Any]] = None,
+             dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         step_key = fold_in(key, state.step)
-        k_aug, _k_drop, k_codec = split3(fold_in(step_key, rank))
+        k_aug, k_drop, k_codec = split3(fold_in(step_key, rank))
         if augment:
             images = augment_batch(images, generator(k_aug, images.device))
         model.train()
         for p in params:
             p.grad = None
         with record_function("step.forward_backward"):
-            logits = forward(model, images, compute_dtype)
-            loss = F.cross_entropy(logits, labels)
-            loss.backward()
-        grads = [p.grad for p in params]
+            if grad_accum > 1:
+                grads, loss, prec1, prec5 = accumulate(images, labels, k_drop, dropout_masks)
+            else:
+                with dropout_stream(k_drop, dropout_masks):
+                    logits = forward(model, images, compute_dtype)
+                    loss = F.cross_entropy(logits, labels)
+                    loss.backward()
+                grads = [p.grad for p in params]
+                loss = loss.detach()
+                prec1, prec5 = accuracy(logits.detach(), labels)
         dense_bytes = tree_nbytes(grads)
         mean, msg_bytes = exchange(state, k_codec, grads, draws, dense_bytes)
         with record_function("step.update"):
@@ -305,8 +365,7 @@ def make_distributed_train_step(
                 flat = _all_reduce_mean(_flat(stats), world)
                 for s, v in zip(stats, _views_like(flat, stats)):
                     s.copy_(v)
-            prec1, prec5 = accuracy(logits.detach(), labels)
-            m = _all_reduce_mean(torch.stack([loss.detach(), prec1, prec5]), world)
+            m = _all_reduce_mean(torch.stack([loss, prec1, prec5]), world)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes}
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state), metrics

@@ -28,7 +28,8 @@ PyTorch idiom: the model is an ``nn.Module`` updated in place (its
 parameters and BatchNorm statistics); :class:`TrainState` carries it with the
 step counter and the optimizer state. Random streams follow the JAX step:
 the step key is ``fold_in(key, step)`` split three ways (augmentation,
-dropout, codec), with integer keys (:mod:`atomo_tpu_torch.utils.rng`).
+dropout, codec), with integer keys (:mod:`atomo_tpu_torch.utils.rng`); the
+dropout key seeds the generator of the step's ``Dropout`` layers.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from torch.profiler import record_function
 from atomo_tpu_torch.codecs import decode_tree, encode_tree
 from atomo_tpu_torch.convert import jax_leaf_order
 from atomo_tpu_torch.data.pipeline import augment_batch, to_device
+from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
 from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -72,15 +74,19 @@ def leaf_params(model: nn.Module) -> list[torch.Tensor]:
 def init_params(model: nn.Module, seed: int) -> None:
     """Flax's default initialisers, drawn from one ``torch.Generator``:
     kernels LeCun-normal (truncated at 2 sigma, fan-in of the HWIO/(in, out)
-    kernel), biases zero, BatchNorm scale 1, bias 0, mean 0, var 1;
-    embeddings normal with variance 1/features (``nn.Embed``'s
+    kernel), or ``variance_scaling(scale, mode, truncated normal)`` where
+    the layer carries a ``variance_scaling = (scale, mode)`` attribute (the
+    VGG convs' He fan-out); biases zero, BatchNorm scale 1, bias 0, mean
+    0, var 1; embeddings normal with variance 1/features (``nn.Embed``'s
     ``variance_scaling(1, fan_in, normal, out_axis=0)``), LayerNorm scale 1."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+            scale, mode = getattr(m, "variance_scaling", (1.0, "fan_in"))
+            # fan-in: a kernel's values per output; fan-out: per input
+            fan = m.weight[0].numel() if mode == "fan_in" else m.weight[:, 0].numel()
             # 0.8796... = std of a unit normal truncated at +-2
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            std = math.sqrt(scale / fan) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
             if m.bias is not None:
                 m.bias.zero_()
@@ -119,27 +125,32 @@ def forward(model: nn.Module, images: torch.Tensor, compute_dtype=None, **kwargs
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,
                     compute_dtype=None):
-    """Build the step ``(state, key, images, labels, uniforms=None) ->
-    (state, metrics)`` over ``model`` (which ``state.model`` must be), in
-    float32 or, with ``compute_dtype``, mixed precision (:func:`forward`).
+    """Build the step ``(state, key, images, labels, uniforms=None,
+    dropout_masks=None) -> (state, metrics)`` over ``model`` (which
+    ``state.model`` must be), in float32 or, with ``compute_dtype``, mixed
+    precision (:func:`forward`).
 
     ``images`` is an (N, C, H, W) float32 batch and ``labels`` int64, both on
-    the model's device. ``uniforms`` (one (n_buckets, bucket_size) tensor per
-    leaf, canonical order) feeds the codec given stochastic-rounding
-    uniforms: the test hook through which a parity run hands the port the
-    uniforms the JAX step drew. ``metrics`` holds 0-d tensors (no host sync)
-    and ``msg_bytes`` as an int."""
+    the model's device. The step's dropout key drives every ``Dropout`` of
+    the model (:func:`~atomo_tpu_torch.models.dropout.dropout_stream`).
+    ``uniforms`` (the codec's draws: for QSGD one (n_buckets, bucket_size)
+    tensor per leaf, canonical order) and ``dropout_masks`` (one keep-mask
+    per ``Dropout`` call, in call order) replace the step's own draws: the
+    test hooks through which a parity run hands the port what the JAX step
+    drew. ``metrics`` holds 0-d tensors (no host sync) and ``msg_bytes`` as
+    an int."""
     params = leaf_params(model)
 
     def step(state: TrainState, key: int, images, labels,
-             uniforms: Optional[Sequence[torch.Tensor]] = None):
-        k_aug, _k_drop, k_codec = split3(fold_in(key, state.step))
+             uniforms: Optional[Sequence[torch.Tensor]] = None,
+             dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+        k_aug, k_drop, k_codec = split3(fold_in(key, state.step))
         if augment:
             images = augment_batch(images, generator(k_aug, images.device))
         model.train()
         for p in params:
             p.grad = None
-        with record_function("step.forward_backward"):
+        with record_function("step.forward_backward"), dropout_stream(k_drop, dropout_masks):
             logits = forward(model, images, compute_dtype)
             loss = F.cross_entropy(logits, labels)
             loss.backward()
@@ -281,6 +292,7 @@ def distributed_train_loop(
     augment: bool = False,
     num_aggregate: int = 0,
     ring_bucket_size: int = 65536,
+    grad_accum: int = 1,
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
@@ -303,7 +315,9 @@ def distributed_train_loop(
     over the ranks, each batch trimmed to a multiple of them). Checkpoints
     as :func:`train_loop`'s: rank 0 writes each file and every rank waits at
     a barrier until it is in place; on resume every rank loads the same
-    file. Runs on CUDA unless ``device='cpu'``."""
+    file. ``grad_accum`` K splits each rank's rows into K microbatches
+    (:func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`).
+    Runs on CUDA unless ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.replicated import (
         make_distributed_eval_step,
@@ -320,7 +334,7 @@ def distributed_train_loop(
     step_fn = make_distributed_train_step(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
         num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, grad_accum=grad_accum)
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
     timer = Timer()

@@ -118,7 +118,27 @@ every hand-written kernel against its plain PyTorch version:
    with no group: the states equal bit for bit, the ``LM:`` lines alike but
    for their times, the flash kernel 12 launches in each; then, in this
    process, 5 steps each of svd rank 3
-   and qsgd with and without ``--bf16`` for their median step time.
+   and qsgd with and without ``--bf16`` for their median step time;
+11. zoo: the reference CLI's model zoo at full width. VGG-11 (BatchNorm,
+   ``--network VGG11``) at batch 128 through the CLI, 5 steps each of svd
+   rank 3, qsgd and sgd (qsgd: one launch a step each way over its 38
+   leaves; the others none), then at NCCL world 1 ``--n-devices 1
+   --aggregate gather`` svd rank 3 (Msg(MB) the single device's), and the
+   single-device and world-1 steps on the same batches, codec draws and
+   dropout masks (through their hooks), equal bit for bit after 2 steps;
+   DenseNet-BC-190 (k 40, 569 leaves) at batch 128 through ``--n-devices 1
+   --grad-accum K`` (K the smallest that fits, 1 on the H100 80GB) with qsgd
+   for 3 steps and at K 2 for 2 (3 launches a step each way: the tree
+   kernels of rows 1, 2 and 4 take 256 leaves a launch, row 3's persistent
+   launch any number) and svd rank 3 for 2 steps, its
+   encode's time per step over its 98 shape groups; rows 1-4 on DenseNet's
+   real gradient tree and rows 1-2 on AlexNet's 37.7 M-value ``Dense_0``
+   leaf against their plain twins (words, codes and decoded values bit for
+   bit, scales within 1 ulp), with the launches of each call and the device
+   time of rows 1-2 beside their bound; AlexNet at (32, 3, 224, 224)
+   through ``make_train_step`` with qsgd for 2 steps; three VGG-11 svd rank
+   3 steps under the profiler. Each run prints its median step and its
+   peak of ``torch.cuda.max_memory_allocated``.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -751,6 +771,7 @@ def run_cli(argv, expect, prefix="Worker: "):
 
     lines: list[str] = []
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     rc = cli.main(argv, log_fn=lambda ln: (lines.append(ln), log("  " + ln)))
     torch.cuda.synchronize()
@@ -772,7 +793,8 @@ def run_cli(argv, expect, prefix="Worker: "):
             if not all(math.isfinite(float(v.split(",")[0])) for v in ln.split(": ")[2:]):
                 raise AssertionError(f"bad validation line {ln}")
     return {"losses": losses, "step_ms": [1e3 * s for s in step_s], "launches": counts,
-            "msg_mb": msg_mb, "wall_s": wall, "lines": len(lines)}
+            "msg_mb": msg_mb, "wall_s": wall, "lines": len(lines),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def phase_train():
@@ -1736,6 +1758,370 @@ def phase_ckpt(work: Path, card: str):
     return res
 
 
+# ------------------------------------------------------------- the zoo phase
+
+# the smallest --grad-accum at which DenseNet-BC-190 trains at batch 128 on an
+# H100 80GB: this phase's runs peak at 62.8 GiB with K 1 and 31.7 with K 2
+ZOO_DENSENET_GRAD_ACCUM = 1
+ZOO_ALEXNET_BATCH = (32, 3, 224, 224)  # NCHW
+DENSENET_LEAVES = 569
+
+
+def zoo_args(network: str, *extra) -> list[str]:
+    """The full-width train flags (``TRAIN_ARGS``) for a zoo network."""
+    args = list(TRAIN_ARGS)
+    args[args.index("ResNet18")] = network
+    return args + list(extra)
+
+
+def svd_leaf_draws(codec, key: int, grads) -> list[dict]:
+    """Per leaf, the draws ``codec`` (SVD) makes encoding it under
+    ``fold_in(key, i)``, recorded from one encode of each leaf: the argument
+    of the steps' draws hook."""
+    import torch
+
+    from atomo_tpu_torch.codecs import svd as S
+    from atomo_tpu_torch.convert import jax_view
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    seen: dict = {}
+    call = S._Draws.__call__
+
+    def record(self, name, keys, make):
+        t = call(self, name, keys, make)
+        seen[name] = t[0]
+        return t
+
+    S._Draws.__call__ = record
+    out = []
+    try:
+        for i, g in enumerate(grads):
+            seen = {}
+            v = jax_view(torch.randn_like(g))
+            codec.encode_stack(v.reshape(1, -1), [fold_in(key, i)], shape=tuple(v.shape))
+            out.append(dict(seen))
+    finally:
+        S._Draws.__call__ = call
+    return out
+
+
+def zoo_vgg11_nccl1_same_draws(dev, steps: int = 2) -> dict:
+    """VGG-11 at batch 128, svd rank 3 gather: the single-device step and the
+    data-parallel step at NCCL world 1, from the same init, on the same
+    batches (augmentation off), each step handed the same codec draws and
+    dropout keep-masks through their hooks, end equal bit for bit. (Left to
+    their own draws they differ by design: the data-parallel step folds the
+    replica index into its step key, as the JAX package's does.)"""
+    import torch
+
+    from atomo_tpu_torch.codecs import SvdCodec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import (
+        make_distributed_train_step,
+        replicate_state,
+    )
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    a = create_state(get_model("vgg11", 10, image_shape=(32, 32, 3)), opt, 1, dev)
+    b = replicate_state(create_state(get_model("vgg11", 10, image_shape=(32, 32, 3)), opt, 1,
+                                     dev))
+    step_a = make_train_step(a.model, opt, codec=SvdCodec(rank=3))
+    step_b = make_distributed_train_step(b.model, opt, SvdCodec(rank=3), aggregate="gather")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for s, (x, y) in enumerate(resnet_batches(dev, steps)):
+        masks = [torch.rand((x.shape[0], 512), generator=gen, device=dev) < 0.5
+                 for _ in range(2)]
+        draws = svd_leaf_draws(SvdCodec(rank=3), 100 + s, leaf_params(a.model))
+        a, ma = step_a(a, 2, x, y, uniforms=draws, dropout_masks=masks)
+        b, mb = step_b(b, 2, x, y, draws=draws, dropout_masks=masks)
+        if int(ma["msg_bytes"]) != int(mb["msg_bytes"]):
+            raise AssertionError(f"zoo vgg11 nccl-1: Msg {ma['msg_bytes']} vs {mb['msg_bytes']}")
+    if not same_state(a, b):
+        raise AssertionError("zoo vgg11: the NCCL world-1 step differs from the single-device "
+                             "step on the same batches, draws and dropout masks")
+    return {"steps": steps, "loss": float(ma["loss"]), "equal": True}
+
+
+def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2)) -> dict:
+    """Rows 1-4 on a model's real gradient tree at 4 bits against their plain
+    twins: the encode's tree launch (Philox seeds and given uniforms: words
+    bit for bit, scales within 1 ulp), the tree decode (1 and 2 replicas),
+    the tree unpack and the tree pack, bit for bit; the launches each call
+    made (rows 1, 2 and 4: 256 leaves a launch; row 3: one); the device
+    time of rows 1 and 2 beside their bound."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.convert import jax_view
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    codec, bits = QsgdCodec(bits=4), 4
+    dev = grads[0].device
+    tree = [codec._clip_leaf(jax_view(g).reshape(-1).contiguous()) for g in grads]
+    seeds = [1000003 * (i + 1) for i in range(len(tree))]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    launches = {}
+    for kw in (dict(seeds=seeds), dict(u=[torch.rand((K.geometry(x.numel(), bits).n_buckets,
+                                                         512), generator=gen, device=dev)
+                                          for x in tree])):
+        ops.reset_launch_counts()
+        got = K.quantize_pack_tree(tree, bits=bits, **kw)
+        launches["quantize_pack"] = ops.launch_counts()["quantize_pack"]
+        want = K.quantize_pack_tree_plain(tree, bits=bits, **kw)
+        for i, ((wk, sk), (wp, sp)) in enumerate(zip(got, want)):
+            big = torch.maximum(sk.abs(), sp.abs())
+            ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+            if not (same_bits(wk, wp) and bool(((sk - sp).abs() <= ulp).all())):
+                raise AssertionError(f"{label}: quantize_pack_tree differs from its plain twin "
+                                     f"at leaf {i} ({list(kw)})")
+            errs["quantize_pack"] = max(errs["quantize_pack"], float((sk - sp).abs().max()))
+        del want
+    payloads = got
+    for n_rep in replicas:
+        pay = payloads if n_rep == 1 else [
+            (torch.stack([w.view(torch.int32)] * n_rep).view(torch.uint32),
+             torch.stack([s * (1 + r) for r in range(n_rep)])) for w, s in payloads]
+        ops.reset_launch_counts()
+        dk = K.unpack_dequantize_tree(pay, grads, bits=bits, n_replicas=n_rep)
+        launches["unpack_dequantize"] = ops.launch_counts()["unpack_dequantize"]
+        dp = K.unpack_dequantize_tree_plain(pay, grads, bits=bits, n_replicas=n_rep)
+        errs["unpack_dequantize"] = max([errs["unpack_dequantize"]] + [
+            float((a - b).abs().max()) for a, b in zip(dk, dp) if a.numel()])
+        if not all(torch.equal(a, b) for a, b in zip(dk, dp)):
+            raise AssertionError(f"{label}: unpack_dequantize_tree differs, {n_rep} replicas")
+        del dk, dp
+    words = [w for w, _ in payloads]
+    ops.reset_launch_counts()
+    codes = K.unpack_bucketed_tree(words, bits=bits)
+    launches["unpack_bucketed"] = ops.launch_counts()["unpack_bucketed"]
+    if not torch.equal(codes, K.unpack_bucketed_tree_plain(words, bits=bits)):
+        raise AssertionError(f"{label}: unpack_bucketed_tree differs")
+    ops.reset_launch_counts()
+    check_tree_pack(codes, words, bits, errs, label)
+    launches["pack_bucketed"] = ops.launch_counts()["pack_bucketed"]
+    del codes
+    torch.cuda.synchronize()
+    n_values = sum(x.numel() for x in tree)
+    n_words = sum(w.numel() for w in words)
+    n_scales = sum(s.numel() for _, s in payloads)
+    n_pos = n_words * K.geometry(0, bits).vpw
+    work = {
+        "quantize_pack": (lambda: K.quantize_pack_tree(tree, bits=bits, seeds=seeds),
+                          "quantize_pack_kernel",
+                          4 * (n_values + n_words + n_scales) + 8 * len(tree), n_pos * 31),
+        "unpack_dequantize": (lambda: K.unpack_dequantize_tree(payloads, grads, bits=bits),
+                              "unpack_dequantize_tree_kernel",
+                              4 * (n_words + n_scales + n_values), n_values * 6),
+    }
+    out = {"leaves": len(tree), "values": n_values, "launches": launches}
+    for name, (fn, kname, nbytes, n_ops) in work.items():
+        b_ms, b_by = bound(nbytes, n_ops)
+        # a read below the bound is a profiler session that missed
+        # kernels (it has happened): taken again, twice at most
+        reads = [device_ms(fn, kname, reps=5)]
+        while reads[-1] < b_ms and len(reads) < 3:
+            reads.append(device_ms(fn, kname, reps=5))
+        out[name] = {"device_ms": reads[-1], "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "ops": n_ops, "reads": reads}
+    log(f"zoo check {label}: {len(tree)} leaves, {n_values} values: the encode's tree launch "
+        f"(Philox and given uniforms), the tree decode ({' and '.join(map(str, replicas))} "
+        f"replicas), the tree unpack and pack equal their plain twins; launches per call "
+        f"{launches}; device "
+        f"ms quantize_pack {out['quantize_pack']['device_ms']:.4f} (bound "
+        f"{out['quantize_pack']['bound_ms']:.4f} by {out['quantize_pack']['bound_by']}), "
+        f"unpack_dequantize {out['unpack_dequantize']['device_ms']:.4f} (bound "
+        f"{out['unpack_dequantize']['bound_ms']:.4f} by {out['unpack_dequantize']['bound_by']})")
+    return out
+
+
+def zoo_encode_timer():
+    """A wrapper of the data-parallel step's ``encode_tree`` that records the
+    wall milliseconds of each call between two device synchronizations, and
+    the function that removes it: the encode phase's time."""
+    import torch
+
+    import atomo_tpu_torch.parallel.replicated as R
+
+    encode, ms = R.encode_tree, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    R.encode_tree = timed
+
+    def restore():
+        R.encode_tree = encode
+
+    return ms, restore
+
+
+def zoo_run(argv, expect, steps: int, per_step: dict) -> dict:
+    """One zoo CLI run (:func:`run_cli`) with the launches of ``per_step``
+    (kernel: launches a step) required exactly and every other kernel none."""
+    r = run_cli(argv, expect)
+    for name, n in r["launches"].items():
+        want = per_step.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"zoo {' '.join(argv)}: {name} launched {n} times, want {want}")
+    r["median_step_ms_after_first"] = statistics.median(r["step_ms"][1:] or r["step_ms"])
+    return r
+
+
+def phase_zoo(work: Path, errs: dict) -> dict:
+    """The reference CLI's model zoo at full width on the card: VGG-11 (BN)
+    trained through the CLI at batch 128 with svd rank 3, qsgd and sgd (5
+    steps each) and, at NCCL world 1, ``--n-devices 1 --aggregate gather``
+    svd rank 3, with the single-device and the world-1 steps held bit for
+    bit on the same draws; a VGG-11 svd rank 3 step profile; DenseNet-BC-190
+    (k 40) at batch 128 through ``--n-devices 1 --grad-accum K`` with qsgd
+    (3 steps: 3 launches a step each way over its 569 leaves; and 2 steps at
+    K 2) and svd rank 3 (2 steps: its encode's time over 98 shape groups),
+    and rows 1-4 on its real gradient tree against the plain twins; AlexNet at 224x224 through
+    ``make_train_step`` with qsgd (2 steps) and rows 1-2 on its 37.7 M-value
+    leaf."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    out: dict = {"runs": {}, "checks": {}}
+    runs = out["runs"]
+    qsgd_once = {"quantize_pack": 1, "unpack_dequantize": 1}
+    qsgd = ["quantize_pack", "unpack_dequantize"]
+    for code, extra, expect, per in (("svd3", ["--code", "svd", "--svd-rank", "3"], [], {}),
+                                     ("qsgd", ["--code", "qsgd"], qsgd, qsgd_once),
+                                     ("sgd", ["--code", "sgd"], [], {})):
+        runs[f"vgg11_{code}"] = zoo_run(zoo_args("VGG11", *extra, "--max-steps", "5",
+                                                 "--eval-freq", "0"), expect, 5, per)
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/zoo_nccl1", world_size=1,
+                      rank=0)
+    try:
+        runs["vgg11_svd3_nccl1"] = zoo_run(zoo_args(
+            "VGG11", "--code", "svd", "--svd-rank", "3", "--n-devices", "1", "--aggregate",
+            "gather", "--max-steps", "5", "--eval-freq", "0"), [], 5, {})
+        if runs["vgg11_svd3_nccl1"]["msg_mb"] != runs["vgg11_svd3"]["msg_mb"]:
+            raise AssertionError(f"zoo vgg11 nccl-1 Msg(MB) {runs['vgg11_svd3_nccl1']['msg_mb']} "
+                                 f"vs single-device {runs['vgg11_svd3']['msg_mb']}")
+        same = out["checks"]["vgg11_nccl1_same_draws"] = zoo_vgg11_nccl1_same_draws(dev)
+        log(f"zoo vgg11 nccl-1: the single-device and the NCCL world-1 steps (svd rank 3 "
+            f"gather, batch 128) on the same batches, draws and dropout masks equal bit for "
+            f"bit after {same['steps']} steps")
+        k = str(ZOO_DENSENET_GRAD_ACCUM)
+        chunks = -(-DENSENET_LEAVES // 256)  # the tree kernels' leaf table holds 256
+        runs["densenet_qsgd"] = zoo_run(zoo_args(
+            "DenseNet", "--code", "qsgd", "--n-devices", "1", "--grad-accum", k,
+            "--max-steps", "3", "--eval-freq", "0"), qsgd, 3,
+            {"quantize_pack": chunks, "unpack_dequantize": chunks})
+        # the accumulation on the card at full size: two microbatches of 64
+        runs["densenet_qsgd_accum2"] = zoo_run(zoo_args(
+            "DenseNet", "--code", "qsgd", "--n-devices", "1", "--grad-accum", "2",
+            "--max-steps", "2", "--eval-freq", "0"), qsgd, 2,
+            {"quantize_pack": chunks, "unpack_dequantize": chunks})
+        enc_ms, restore = zoo_encode_timer()
+        try:
+            runs["densenet_svd3"] = zoo_run(zoo_args(
+                "DenseNet", "--code", "svd", "--svd-rank", "3", "--n-devices", "1",
+                "--grad-accum", k, "--max-steps", "2", "--eval-freq", "0"), [], 2, {})
+        finally:
+            restore()
+        runs["densenet_svd3"]["encode_ms"] = enc_ms
+    finally:
+        launch.shutdown()
+    out["densenet_grad_accum"] = ZOO_DENSENET_GRAD_ACCUM
+    # DenseNet's real gradient tree (batch 16: the values, not the batch, matter)
+    torch.cuda.empty_cache()
+    model = get_model("densenet", 10, image_shape=(32, 32, 3))
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    create_state(model, opt, 1, dev)
+    x, y = resnet_batches(dev, 1)[0]
+    model.train()
+    torch.nn.functional.cross_entropy(model(x[:16]), y[:16]).backward()
+    grads = [p.grad for p in leaf_params(model)]
+    tree = out["checks"]["densenet_tree"] = zoo_tree_check(grads, "densenet", errs)
+    # rows 1, 2 and 4 in chunks of 256 leaves; row 3 in one persistent launch
+    want = {"quantize_pack": chunks, "unpack_dequantize": chunks, "unpack_bucketed": chunks,
+            "pack_bucketed": 1}
+    if tree["launches"] != want:
+        raise AssertionError(f"zoo densenet tree launches {tree['launches']}, want {want}")
+    del model, grads
+    torch.cuda.empty_cache()
+    # AlexNet at 224x224 through make_train_step
+    n, c, h, w = ZOO_ALEXNET_BATCH
+    model = get_model("alexnet", 10, image_shape=(h, w, c))
+    state = create_state(model, opt, 1, dev)
+    step = make_train_step(model, opt, codec=QsgdCodec(bits=4))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = torch.randn(ZOO_ALEXNET_BATCH, generator=gen, device=dev)
+    ys = torch.randint(0, 10, (ZOO_ALEXNET_BATCH[0],), generator=gen, device=dev)
+    from atomo_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = step(state, 2, xs, ys)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    if launches != {**{n: 0 for n in launches}, "quantize_pack": 2, "unpack_dequantize": 2}:
+        raise AssertionError(f"zoo alexnet: launches {launches}, want one each way a step")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"zoo alexnet: losses {losses}")
+    runs["alexnet_qsgd"] = {"losses": losses, "step_ms": ms, "launches": launches,
+                            "msg_mb": [int(m["msg_bytes"]) / 2 ** 20],
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "median_step_ms_after_first": ms[-1]}
+    big = max(leaf_params(model), key=lambda p: p.numel())
+    out["checks"]["alexnet_leaf"] = zoo_tree_check([big.grad], "alexnet_dense0", errs,
+                                                   replicas=(1,))
+    del model, state, step, xs
+    torch.cuda.empty_cache()
+    runs["vgg11_svd3_profile"] = profile_vgg11_svd3(dev)
+    for name, r in runs.items():
+        if "losses" in r:
+            log(f"zoo {name}: losses {r['losses']} launches {r['launches']} Msg(MB) "
+                f"{r['msg_mb']} median step ms (after the first) "
+                f"{r['median_step_ms_after_first']:.3f} peak GiB {r.get('peak_gib', 0):.2f}")
+    log(f"zoo densenet: --grad-accum {ZOO_DENSENET_GRAD_ACCUM}, qsgd launches "
+        f"{runs['densenet_qsgd']['launches']} ({chunks} a step each way over 569 leaves), "
+        f"svd3 encode ms per step {runs['densenet_svd3']['encode_ms']}")
+    return out
+
+
+def profile_vgg11_svd3(dev) -> dict:
+    """Three VGG-11 svd rank 3 steps (batch 128) under the profiler."""
+    from atomo_tpu_torch.codecs import SvdCodec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    batches = resnet_batches(dev, 3)
+    box = {"state": create_state(get_model("vgg11", 10, image_shape=(32, 32, 3)), opt, 1, dev),
+           "i": 0}
+    step = make_train_step(box["state"].model, opt, codec=SvdCodec(rank=3), augment=True)
+
+    def once():
+        x, y = batches[box["i"] % len(batches)]
+        box["i"] += 1
+        box["state"], m = step(box["state"], 2, x, y)
+        float(m["loss"])
+
+    return profile_steps("zoo vgg11 svd3", once)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -1800,6 +2186,8 @@ def main() -> int:
         lap("lm bf16")
         ckpt = phase_ckpt(Path(work), card)
         lap("ckpt")
+        zoo = phase_zoo(Path(work), errs)
+        lap("zoo")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -1808,6 +2196,7 @@ def main() -> int:
                 + sum(dist_runs[label]["launches"][name] for label, _, _ in DIST_RUNS)
                 + ckpt["launches"][name]
                 + sum(r["launches"][name] for r in ckpt["steps"].values())
+                + sum(r["launches"][name] for r in zoo["runs"].values() if "launches" in r)
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -1827,7 +2216,8 @@ def main() -> int:
         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]}
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
-              "ckpt": ckpt, "phase_seconds": seconds, "seconds": time.time() - t_start}
+              "ckpt": ckpt, "zoo": zoo, "phase_seconds": seconds,
+              "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -10,8 +10,10 @@ module-scoped fixture), so the start-up is paid once a file.
 
 Jobs (``JOBS``):
 
-* ``train``: the port's data-parallel steps from given weights, batches and
-  per-rank codec draws; every rank returns each step's metrics and a hash of
+* ``train``: the port's data-parallel steps (``grad_accum`` microbatches a
+  step) of a model by registry name or ``(class name, kwargs)``
+  (:func:`build_model`) from given weights, batches, per-rank codec draws
+  and dropout keep-masks; every rank returns each step's metrics and a hash of
   its parameters and buffers, rank 0 its final state. With ``resume_at`` the
   run is cut after that many steps: rank 0 saves a checkpoint into
   ``train_dir``, and every rank loads it into a fresh model and optimizer
@@ -158,6 +160,22 @@ def _codec(spec):
     return get_codec(name, **kw)
 
 
+def build_model(network, num_classes: int, image_shape):
+    """The port's model: a registry name, or ``(class name, kwargs)`` of
+    ``atomo_tpu_torch.models`` (a reduced VGG or DenseNet)."""
+    import atomo_tpu_torch.models as pm
+
+    if isinstance(network, str):
+        return pm.get_model(network, num_classes, image_shape=image_shape)
+    name, kw = network
+    return getattr(pm, name)(num_classes=num_classes, image_shape=image_shape, **kw)
+
+
+def _masks(steps):
+    """Per step the numpy keep-masks as tensors, or None."""
+    return None if steps is None else [[_t(m) for m in ms] for ms in steps]
+
+
 def state_hash(model) -> str:
     h = hashlib.sha256()
     for t in list(model.parameters()) + list(model.buffers()):
@@ -167,18 +185,19 @@ def state_hash(model) -> str:
 
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
-              resume_at=0, train_dir=None):
+              dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None):
     import torch.distributed as dist
 
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.data import to_device
-    from atomo_tpu_torch.models import get_model
     from atomo_tpu_torch.training import TrainState, make_optimizer
     from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
     from atomo_tpu_torch.training.trainer import leaf_params
 
+    masks = _masks(dropout_masks)
+
     def fresh():
-        model = get_model(network, num_classes, image_shape=image_shape)
+        model = build_model(network, num_classes, image_shape)
         return model, TrainState(0, model, opt.init(leaf_params(model)))
 
     opt = make_optimizer("sgd", lr=lr, momentum=momentum)
@@ -200,7 +219,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     def make_step(model):
         return R.make_distributed_train_step(
             model, opt, _codec(codec), aggregate=aggregate, num_aggregate=num_aggregate,
-            ring_bucket_size=ring_bucket_size)
+            ring_bucket_size=ring_bucket_size, grad_accum=grad_accum)
 
     try:
         step = make_step(model)
@@ -215,7 +234,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 step = make_step(model)
             xs, ys = R.shard_batch(x, y, rank, world)
             state, m = step(state, key, *to_device(xs, ys, "cpu"),
-                            draws=_draws(draws[s]) if draws is not None else None)
+                            draws=_draws(draws[s]) if draws is not None else None,
+                            dropout_masks=masks[s] if masks is not None else None)
             steps.append({"loss": float(m["loss"]), "prec1": float(m["prec1"]),
                           "prec5": float(m["prec5"]), "msg_bytes": int(m["msg_bytes"]),
                           "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model)})

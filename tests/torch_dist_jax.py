@@ -4,8 +4,12 @@ Runs the reference's ``make_distributed_train_step`` on the conftest's forced
 CPU mesh (a sub-mesh of N devices) and computes, for each step and each
 replica r, the draws its codec makes: the codec key is
 ``split(fold_in(fold_in(key, step), r), 3)[2]`` (``replicated.py:1502-1503``)
-and leaf i draws from ``fold_in(k_codec, i)``. The port's ranks get those
-draws through the step's ``draws=`` hook, as numpy arrays (:mod:`torch_dist`).
+and leaf i draws from ``fold_in(k_codec, i)``; its dropout layers draw
+under ``k_drop``, the split's second key (``fold_in(k_drop, i)`` for
+microbatch i under ``grad_accum``), the keep-masks that
+:func:`flax_dropout_masks` captures. The port's ranks get those draws
+through the step's ``draws=`` and ``dropout_masks=`` hooks, as numpy arrays
+(:mod:`torch_dist`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from atomo_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
 from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
 from atomo_tpu_torch.models import get_model
 from test_torch_svd import jax_draws
+from torch_dist import build_model
 
 LR, MOMENTUM = 0.001, 0.9
 BITS = 4
@@ -62,8 +67,59 @@ def svd_draws(k_codec, params, rank: int = 3):
             for i, leaf in enumerate(jax.tree_util.tree_leaves(params))]
 
 
+def flax_dropout_masks(model, variables, x, key, return_output: bool = False):
+    """The keep-masks the Flax model's ``nn.Dropout`` layers draw in a
+    train-mode apply on ``x`` under dropout key ``key``, in call order.
+
+    An interceptor around ``nn.Dropout.__call__`` draws each layer's key
+    with ``make_rng`` (once, as the layer itself would), takes the mask
+    ``bernoulli(rng, 1 - rate)`` that the layer draws from it, and hands the
+    layer that key; the apply's output is unchanged. A mask depends on the
+    key and the shape alone, so the masks of a step's apply are those of
+    this one on an input of the same shape. Run it under the x64 setting of
+    the step it stands for: the draw's uniform takes the default float."""
+    import flax.linen as nn
+
+    masks = []
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if (isinstance(mod, nn.Dropout) and context.method_name == "__call__"
+                and not mod.deterministic and 0.0 < mod.rate < 1.0):
+            rng = mod.make_rng(mod.rng_collection)
+            masks.append(np.asarray(jax.random.bernoulli(rng, 1.0 - mod.rate,
+                                                         args[0].shape)))
+            return next_fun(*args, **kwargs, rng=rng)
+        return next_fun(*args, **kwargs)
+
+    has_bn = "batch_stats" in variables
+    with nn.intercept_methods(intercept):
+        out = model.apply(variables, jnp.asarray(x), train=True, rngs={"dropout": key},
+                          mutable=["batch_stats"] if has_bn else [])
+    if has_bn or isinstance(out, tuple):
+        out = out[0]
+    return (masks, out) if return_output else masks
+
+
 def codec_key(key, step: int, replica: int):
     return jax.random.split(jax.random.fold_in(jax.random.fold_in(key, step), replica), 3)[2]
+
+
+def drop_key(key, step: int, replica: int):
+    """Replica ``replica``'s dropout key of step ``step`` (``replicated.py:1502-1503``)."""
+    return jax.random.split(jax.random.fold_in(jax.random.fold_in(key, step), replica), 3)[1]
+
+
+def jax_build(network):
+    """The JAX package's model: a registry name, or ``(class name, kwargs)``
+    of ``atomo_tpu.models`` (a reduced VGG or DenseNet)."""
+    import atomo_tpu.models as jm
+
+    if isinstance(network, str):
+        return jax_model(network, 10)
+    name, kw = network
+    return getattr(jm, name)(num_classes=10, **kw)
+
 
 
 @contextlib.contextmanager
@@ -83,15 +139,15 @@ class Reference:
     since XLA's float32 BatchNorm variance on the CPU loses to cancellation
     what the comparison would measure."""
 
-    def __init__(self, network: str, dataset: str, batch: int, steps: int, x64: bool = False):
+    def __init__(self, network, dataset: str, batch: int, steps: int, x64: bool = False):
         self.network, self.dataset, self.x64 = network, dataset, x64
         self.batches = batches(dataset, batch, steps)
         self.image_shape = JAX_SPECS[dataset].image_shape
-        self.jmodel = jax_model(network, 10)
+        self.jmodel = jax_build(network)
         self.jopt = jax_optimizer("sgd", lr=LR, momentum=MOMENTUM)
         self.jstate = create_state(self.jmodel, self.jopt, jax.random.PRNGKey(0),
                                    jnp.asarray(self.batches[0][0]))
-        self.port_model = get_model(network, 10, image_shape=self.image_shape)
+        self.port_model = build_model(network, 10, self.image_shape)
         sd = state_dict_from_jax(self.port_model, jax.device_get(self.jstate.params),
                                  jax.device_get(self.jstate.batch_stats))
         self.state_dict = {k: v.numpy() for k, v in sd.items()}
@@ -102,47 +158,80 @@ class Reference:
                     jax.device_get(self.jstate))
         self.key = jax.random.PRNGKey(7)
         self._runs: dict = {}
+        self._has_dropout = None
 
     def run(self, code: str, aggregate: str, n: int, num_aggregate: int = 0):
         """The reference's steps: per step the params and batch_stats
         (numpy trees) and metrics, and the per-rank draws for the port
         (run once for each set of arguments)."""
-        args = (code, aggregate, n, num_aggregate)
+        out, per_rank = self.run_ranks(code, aggregate, n, num_aggregate)
+        return out, [r["draws"] for r in per_rank]
+
+    def run_ranks(self, code: str, aggregate: str, n: int, num_aggregate: int = 0,
+                  grad_accum: int = 1):
+        """As :meth:`run`, with each rank's arguments of the ``train`` job:
+        its codec draws and the dropout keep-masks its replica drew (None
+        for a model without dropout)."""
+        args = (code, aggregate, n, num_aggregate, grad_accum)
         if args not in self._runs:
             with jax_x64(self.x64):
                 self._runs[args] = self._run(*args)
         return self._runs[args]
 
-    def _run(self, code, aggregate, n, num_aggregate):
+    def _masks(self, x, k_drop, grad_accum: int):
+        """One replica's dropout keep-masks of a step, over its microbatches
+        in order (microbatch i under ``fold_in(k_drop, i)``); none, without
+        a draw, for a model that has no dropout."""
+        if self._has_dropout is False:
+            return []
+        variables = {"params": self.jstate.params}
+        if jax.tree_util.tree_leaves(self.jstate.batch_stats):
+            variables["batch_stats"] = self.jstate.batch_stats
+        if grad_accum <= 1:
+            masks = flax_dropout_masks(self.jmodel, variables, x, k_drop)
+        else:
+            mb = x.shape[0] // grad_accum
+            masks = [m for i in range(grad_accum) for m in flax_dropout_masks(
+                self.jmodel, variables, x[i * mb:(i + 1) * mb],
+                jax.random.fold_in(k_drop, i))]
+        self._has_dropout = bool(masks)
+        return masks
+
+    def _run(self, code, aggregate, n, num_aggregate, grad_accum):
         _, make = CODECS[code]
         mesh = make_mesh(n_devices=n)
         step = make_distributed_train_step(self.jmodel, self.jopt, mesh, make(),
-                                           aggregate=aggregate, num_aggregate=num_aggregate)
+                                           aggregate=aggregate, num_aggregate=num_aggregate,
+                                           grad_accum=grad_accum)
         # from host copies: the step donates its state's buffers
         state = replicate_state(mesh, jax.device_get(self.jstate))
-        out, draws = [], []
+        draw = {"qsgd": qsgd_draws, "terngrad": qsgd_draws, "svd": svd_draws}.get(code)
+        out = []
+        draws = [[] for _ in range(n)]
+        masks = [[] for _ in range(n)]
         for s, (x, y) in enumerate(self.batches):
-            if code in ("qsgd", "terngrad"):
-                draws.append([qsgd_draws(codec_key(self.key, s, r), state.params)
-                              for r in range(n)])
-            elif code == "svd":
-                draws.append([svd_draws(codec_key(self.key, s, r), state.params)
-                              for r in range(n)])
+            per = x.shape[0] // n
+            for r in range(n):
+                if draw is not None:
+                    draws[r].append(draw(codec_key(self.key, s, r), state.params))
+                masks[r].append(self._masks(x[r * per:(r + 1) * per],
+                                            drop_key(self.key, s, r), grad_accum))
             x = jnp.asarray(x, jnp.float64 if self.x64 else jnp.float32)
             state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)))[:2]
             out.append({"params": jax.device_get(state.params),
                         "batch_stats": jax.device_get(state.batch_stats),
                         "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"])})
-        per_rank = [None] * n if not draws else [[d[r] for d in draws] for r in range(n)]
-        return out, per_rank
+        return out, [{"draws": draws[r] if draw is not None else None,
+                      "dropout_masks": masks[r] if any(masks[r]) else None}
+                     for r in range(n)]
 
     def job(self, code: str, aggregate: str, num_aggregate: int = 0,
-            ring_bucket_size: int = 65536) -> dict:
+            ring_bucket_size: int = 65536, grad_accum: int = 1) -> dict:
         """The shared arguments of the ``train`` job for the port's ranks."""
         return dict(network=self.network, num_classes=10, image_shape=self.image_shape,
                     state_dict=self.state_dict, codec=CODECS[code][0], aggregate=aggregate,
                     num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size, lr=LR,
-                    momentum=MOMENTUM, batches=self.batches, key=11)
+                    momentum=MOMENTUM, batches=self.batches, key=11, grad_accum=grad_accum)
 
     def port_trees(self, state_dict):
         """A port state_dict (numpy) as the JAX package's (params,
