@@ -10,7 +10,11 @@ one device, or data-parallel over N processes, one per device, as ``torchrun
 ``--ring-bucket-size``, ``--grad-accum``), with the reference's optimizer and
 schedule flags, the SVD knobs (``--svd-mode`` an alias over ``--svd-algo``),
 CRC checkpoints into ``--train-dir`` (``--save-freq``, ``--resume``,
-``--keep-ckpts``, ``--compress``) and ``--bf16``. A process group that is up
+``--keep-ckpts``, ``--compress``) and ``--bf16``. ``--dataset zipf
+--network embedding`` is the sparse workload (``--emb-rows``, ``--emb-dim``,
+``--zipf-slots``, ``--zipf-alpha``), and ``--sparse-rows auto|on`` its
+per-layer sparse-row exchange over the data-parallel step: the table leaf
+moves as lossless rows, the others keep the codec. A process group that is up
 (or a ``torchrun`` launch) takes even ``--n-devices 1`` through the
 data-parallel step, which is how one card runs ``--grad-accum``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
@@ -36,9 +40,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from atomo_tpu_torch.codecs import get_codec
-from atomo_tpu_torch.data import SPECS, BatchIterator, canonical_name, load_dataset, synthetic_dataset
-from atomo_tpu_torch.models import get_model
+from atomo_tpu_torch.codecs import DenseCodec, get_codec
+from atomo_tpu_torch.data import (
+    SPECS,
+    BatchIterator,
+    canonical_name,
+    load_dataset,
+    synthetic_dataset,
+    zipf_dataset,
+)
+from atomo_tpu_torch.models import embedding_tower, get_model
 from atomo_tpu_torch.models.transformer import lm_loss
 from atomo_tpu_torch.parallel import launch
 from atomo_tpu_torch.parallel.lm import (
@@ -96,6 +107,18 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
     p.add_argument("--train-dir", type=str, default="output/models/",
                    help="checkpoint directory (model_step_N files); '' = none")
+    p.add_argument("--emb-rows", type=int, default=4096, metavar="R",
+                   help="--network embedding: lookup-table rows (must match the "
+                        "--dataset zipf id range; <= 2^24 so float32 batches carry "
+                        "ids exactly)")
+    p.add_argument("--emb-dim", type=int, default=16, metavar="D",
+                   help="--network embedding: embedding dimension")
+    p.add_argument("--zipf-slots", type=int, default=8, metavar="S",
+                   help="--dataset zipf: lookups per sample (bounds the lossless row "
+                        "budget: batch/chip x slots)")
+    p.add_argument("--zipf-alpha", type=float, default=1.1, metavar="A",
+                   help="--dataset zipf: power-law exponent of the row access "
+                        "distribution (p_i ~ 1/i^A)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,6 +188,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "the one encode and exchange: activation memory shrinks to one "
                         "microbatch at a fixed --batch-size (the data-parallel step "
                         "only: --n-devices above 1, or a process group that is up)")
+    p.add_argument("--sparse-rows", type=str, default="off", choices=["off", "auto", "on"],
+                   help="per-layer sparse-row hybrid exchange: lookup-table leaves whose "
+                        "lossless (row, value) payload beats the dense path's bytes move "
+                        "as rows (the SparCML crossover, stated per layer); the other "
+                        "leaves keep the gather/ring exchange. auto = plan from a probe "
+                        "gradient and use it when a leaf is sparse-assignable; on = "
+                        "require it. Needs --n-devices above 1 and gather or ring")
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
     p.add_argument("--svd-mode", type=str, default="auto",
@@ -249,19 +279,89 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _dataset(args: argparse.Namespace, train: bool):
     name = canonical_name(args.dataset)
+    if name == "zipf":  # sized by the table flags, so ids and model agree
+        return zipf_dataset(train, rows=args.emb_rows, slots=args.zipf_slots,
+                            alpha=args.zipf_alpha, seed=args.seed)
     if args.synthetic:
         return synthetic_dataset(SPECS[name], train)
     return load_dataset(name, args.data_root, train=train)
 
 
 def _model_and_test_iter(args: argparse.Namespace):
-    spec = SPECS[canonical_name(args.dataset)]
-    test_iter = BatchIterator(_dataset(args, False), args.test_batch_size, shuffle=False,
+    """The model (``--network embedding`` sized by ``--emb-rows`` and
+    ``--emb-dim``) and the test batches: ``_build_common``'s."""
+    test_ds = _dataset(args, False)
+    spec = test_ds.spec
+    test_iter = BatchIterator(test_ds, args.test_batch_size, shuffle=False,
                               drop_last=False, seed=args.seed)
-    return get_model(args.network, spec.num_classes, image_shape=spec.image_shape), test_iter
+    if args.network.lower() == "embedding":
+        model = embedding_tower(spec.num_classes, spec.image_shape, rows=args.emb_rows,
+                                dim=args.emb_dim)
+    else:
+        model = get_model(args.network, spec.num_classes, image_shape=spec.image_shape)
+    return model, test_iter
+
+
+def _sparse_preflight(args: argparse.Namespace) -> None:
+    """The JAX verb's argv refusals of ``--sparse-rows`` for the flags the
+    port has."""
+    if args.sparse_rows == "off":
+        return
+    if args.n_devices == 1 and args.sparse_rows == "on":
+        raise SystemExit(
+            "--sparse-rows needs a multi-device mesh: single-device "
+            "training has no exchange to save wire on")
+    if args.aggregate == "psum":
+        raise SystemExit(
+            "--sparse-rows does not compose with --aggregate psum: "
+            "the row payloads would ride a full dense all-reduce "
+            "wire, so the sparse exchange degenerates (the SparCML "
+            "crossover can never pay); use --aggregate gather or ring")
+    if args.num_aggregate is not None:
+        raise SystemExit(
+            "--sparse-rows does not compose with --num-aggregate: "
+            "the rotating replica subset is not wired into the row "
+            "exchange")
+
+
+def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, log_fn):
+    """``--sparse-rows auto|on``'s plan over ``n_dev`` ranks, printed as the
+    JAX verb prints it, or None (all-dense). The probe gradient is taken
+    over a direct slice of the training arrays, so the batch stream does
+    not advance."""
+    from atomo_tpu_torch.sparse import plan_for_model
+
+    if train_iter.images.ndim != 2:
+        msg = ("--sparse-rows: this workload's batches are not row-id "
+               "shaped, so no leaf has a provable per-step row bound "
+               "(row-id workloads: --dataset zipf --network embedding)")
+        if args.sparse_rows == "on":
+            raise SystemExit(msg + "; drop --sparse-rows")
+        log_fn(msg + " — running all-dense")
+        return None
+    probe_n = min(max(args.batch_size, 8), len(train_iter.images))
+    plan = plan_for_model(codec if codec is not None else DenseCodec(), model,
+                          train_iter.images[:probe_n], train_iter.labels[:probe_n],
+                          max(args.batch_size // n_dev, 1), int(train_iter.images.shape[1]))
+    if plan.any_sparse:
+        log_fn(plan.describe())
+    if plan.any_sparse or args.sparse_rows == "on":
+        for a in plan.assignments:
+            log_fn(f"  [{a.index}] {a.name}: {a.reason}")
+    if plan.any_sparse:
+        return plan
+    if args.sparse_rows == "on":
+        raise SystemExit(
+            "--sparse-rows on: the hybrid planner assigned no "
+            "leaf sparse for this model/codec/batch (per-leaf "
+            "reasons above); drop --sparse-rows or shrink the "
+            "dense path's payload")
+    log_fn("--sparse-rows auto: the planner assigned no leaf sparse — running all-dense")
+    return None
 
 
 def cmd_train(args: argparse.Namespace, log_fn=print):
+    _sparse_preflight(args)
     name = canonical_name(args.dataset)
     train_ds = _dataset(args, True)
     train_iter = BatchIterator(train_ds, args.batch_size, seed=args.seed)
@@ -301,6 +401,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                   compute_dtype=torch.bfloat16 if args.bf16 else None)
     # one process runs the single-device loop unless a process group is up
     # or torchrun started it (one device over NCCL: train --n-devices 1)
+    if args.sparse_rows != "off" and args.n_devices <= 1:
+        log_fn("--sparse-rows auto: single device, no exchange — running dense")
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
         if args.grad_accum > 1:
             warnings.warn("--grad-accum is only wired into the multi-device step; "
@@ -314,12 +416,20 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 f"--n-devices {args.n_devices} needs {args.n_devices} processes, one per "
                 f"device; this group has {ctx.world_size}: run torchrun --nproc-per-node "
                 f"{args.n_devices} -m atomo_tpu_torch train --n-devices {args.n_devices} ...")
+        plan = None
+        if args.sparse_rows != "off" and args.n_devices > 1:
+            plan = sparse_plan(args, model, codec, train_iter, args.n_devices,
+                               log_fn if ctx.rank == 0 else (lambda _: None))
+            if plan is not None and codec is None:
+                # --code sgd: the dense-assigned leaves ride the payload
+                # exchange as uncompressed DenseCodec payloads
+                common["codec"] = DenseCodec()
         return distributed_train_loop(
             model, optimizer, train_iter, test_iter,
             # auto resolves to gather until the comm-cost model is ported
             aggregate="gather" if args.aggregate == "auto" else args.aggregate,
             num_aggregate=args.num_aggregate or 0, ring_bucket_size=args.ring_bucket_size,
-            grad_accum=args.grad_accum, **{**common, "device": ctx.device})
+            grad_accum=args.grad_accum, hybrid=plan, **{**common, "device": ctx.device})
     finally:
         if not was_up:
             launch.shutdown()

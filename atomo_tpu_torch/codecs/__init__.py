@@ -7,6 +7,7 @@ from atomo_tpu_torch.codecs.base import (  # noqa: F401
     CodecStats,
     decode_mean_tree,
     decode_tree,
+    encode_leaf_subset,
     encode_tree,
     payload_nbytes,
     stack_leaves,

@@ -1,8 +1,9 @@
 """Codec interface and whole-tree encode/decode.
 
-Counterpart of ``atomo_tpu/codecs/base.py`` (the whole-tree path and the
-mean decode over a leading replica axis; the streamed encode comes with the
-multi-GPU slice).
+Counterpart of ``atomo_tpu/codecs/base.py`` (the whole-tree path, the
+subset encode ``encode_leaf_subset`` that the sparse-row hybrid exchange
+runs over its dense-assigned leaves, and the mean decode over a leading
+replica axis; the streamed encode comes with a later slice).
 
 A gradient "tree" here is a list of tensors in the canonical leaf order,
 which is the order ``jax.tree_util.tree_flatten`` gives the Flax parameter
@@ -159,18 +160,42 @@ def encode_tree(
     ``draws`` (one entry per leaf: a (n_buckets, bucket_size) uniforms tensor
     for QSGD, a dict of draws for SVD) replaces the codec's own draws: the
     parity hook through which the tests feed the port what JAX drew."""
-    views = _views(grads, layouts)
-    seeds = [fold_in(key, i) for i in range(len(views))]
-    encode_leaves = getattr(codec, "encode_leaves", None)
-    if encode_leaves is not None:
-        payloads = encode_leaves(views, seeds, draws)
-    else:
-        payloads = encode_groups(codec, views, seeds, draws)
+    payloads = encode_leaf_subset(codec, key, grads, range(len(grads)), draws, layouts)
     stats = CodecStats(
         dense_bytes=tree_nbytes(grads),
         payload_bytes=sum(payload_nbytes(p) for p in payloads),
     )
     return payloads, stats
+
+
+def encode_leaf_subset(
+    codec: Codec,
+    key: int,
+    grads: Sequence[torch.Tensor],
+    idxs: Sequence[int],
+    draws: Optional[Sequence[Any]] = None,
+    layouts: Optional[Sequence[bool]] = None,
+) -> list:
+    """Encode the leaves of ``grads`` named by GLOBAL indices ``idxs``; one
+    payload per index, in ``idxs`` order. Leaf ``i`` draws from
+    ``fold_in(key, i)`` (and ``draws[i]`` where given: ``draws`` has one
+    entry per leaf of the whole tree), its index in the FULL tree, so any
+    subset's payloads equal those of :func:`encode_tree` for its leaves, bit
+    for bit. The subset goes through the whole-tree path: one
+    ``encode_leaves`` call (QSGD: one launch, the subset's seeds in its
+    arguments), else one ``encode_stack`` call per shape group of the
+    subset."""
+    idxs = list(idxs)
+    if not idxs:
+        return []
+    lay = None if layouts is None else [layouts[i] for i in idxs]
+    views = _views([grads[i] for i in idxs], lay)
+    seeds = [fold_in(key, i) for i in idxs]
+    sub_draws = None if draws is None else [draws[i] for i in idxs]
+    encode_leaves = getattr(codec, "encode_leaves", None)
+    if encode_leaves is not None:
+        return encode_leaves(views, seeds, sub_draws)
+    return encode_groups(codec, views, seeds, sub_draws)
 
 
 def _decode_groups(codec: Codec, payloads, grads_like, layouts, decode):

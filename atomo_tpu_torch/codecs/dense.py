@@ -7,6 +7,7 @@ gradient itself.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -19,6 +20,10 @@ class DensePayload(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class DenseCodec:
     name: str = "sgd"
+
+    def leaf_payload_bytes(self, grad_shape: tuple[int, ...]) -> int:
+        """Wire bytes of one leaf: its float32 values."""
+        return 4 * math.prod(int(d) for d in grad_shape)
 
     def encode_stack(
         self, x: torch.Tensor, seeds: Sequence[int],

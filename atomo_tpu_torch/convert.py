@@ -9,7 +9,9 @@ follows from its module tree:
 * :class:`~atomo_tpu_torch.models.resnet.BatchNorm`: params ``scale`` and
   ``bias``, batch_stats ``mean`` and ``var``;
 * :class:`~atomo_tpu_torch.models.transformer.LayerNorm`: ``scale``;
-* ``nn.Embedding``: ``embedding``, (num, features) on both sides.
+* ``nn.Embedding``: ``embedding``, (num, features) on both sides;
+* a parameter held on a module itself (``self.param`` in Flax, as the
+  embedding tower's ``table``): its attribute name, laid out alike.
 
 :func:`opt_state_from_jax` / :func:`jax_opt_state` carry the optimizer
 state (optax's momentum trace, Adam's count and moments) both ways, in the
@@ -65,6 +67,9 @@ def _flax_tree(module: nn.Module, collection: str, prefix: str = "") -> Tree:
     """Nested dict of the Flax collection ("params" or "batch_stats"), with
     the port's state_dict key at each leaf."""
     tree: Tree = {}
+    if collection == "params":
+        for name, _ in module.named_parameters(recurse=False):
+            tree[name] = prefix + name
     for name, child in module.named_children():
         key = f"{prefix}{name}."
         if isinstance(child, BatchNorm):
@@ -115,6 +120,15 @@ def jax_leaf_order(model: nn.Module) -> list[str]:
     return [name for _, name in _flatten(_flax_tree(model, "params"))]
 
 
+def jax_leaf_paths(model: nn.Module) -> list[str]:
+    """The leaves' paths in :func:`jax_leaf_order`, spelled as
+    ``jax.tree_util.keystr`` spells them for the Flax params dict
+    (``"['Dense_0']['kernel']"``, ``"['table']"``): the names the JAX
+    package's per-leaf plans print."""
+    return ["".join(f"[{k!r}]" for k in path)
+            for path, _ in _flatten(_flax_tree(model, "params"))]
+
+
 def jax_layouts(model: nn.Module) -> list[bool]:
     """Per leaf, in :func:`jax_leaf_order`, whether :func:`jax_view`
     transposes it: False for embedding tables, True otherwise."""
@@ -122,9 +136,13 @@ def jax_layouts(model: nn.Module) -> list[bool]:
 
 
 def _untransposed(model: nn.Module) -> set[str]:
-    """state_dict keys of the tensors that lie alike in both packages."""
-    return {f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, nn.Embedding)}
+    """state_dict keys of the tensors that lie alike in both packages:
+    embedding tables, and parameters held on a module itself."""
+    layers = (nn.Conv2d, nn.Linear, BatchNorm, LayerNorm, nn.Embedding)
+    return ({f"{name}.weight" for name, m in model.named_modules()
+             if isinstance(m, nn.Embedding)}
+            | {f"{name}.{p}" if name else p for name, m in model.named_modules()
+               if not isinstance(m, layers) for p, _ in m.named_parameters(recurse=False)})
 
 
 def _get(tree: Tree, path: tuple):

@@ -13,3 +13,4 @@ from atomo_tpu_torch.data.pipeline import (  # noqa: F401
     augment_batch,
     to_device,
 )
+from atomo_tpu_torch.data.zipf import zipf_dataset, zipf_probs, zipf_spec  # noqa: F401

@@ -5,7 +5,9 @@ module imports no JAX, but the port imports nothing of it). It is the same
 numpy code, so :func:`synthetic_dataset` gives bit-identical data for the
 same seed, and the on-disk parsers read the same files. Images stay NHWC
 float32 in [0, 1] here, as in the JAX package; the trainer moves a batch to
-NCHW on the device. The sparse "zipf" workload is not ported yet.
+NCHW on the device. "zipf" is the sparse workload's power-law row ids
+(:mod:`atomo_tpu_torch.data.zipf`), synthetic by design: its arrays are
+(n, slots) float32 ids, which the trainer hands to the model as they are.
 
 Normalization constants are the reference's:
   MNIST  mean 0.1307 std 0.3081
@@ -28,7 +30,7 @@ import numpy as np
 @dataclasses.dataclass
 class DatasetSpec:
     name: str
-    image_shape: tuple[int, int, int]  # H, W, C
+    image_shape: tuple[int, ...]  # H, W, C; (slots,) for zipf
     num_classes: int
     train_size: int
     test_size: int
@@ -51,10 +53,14 @@ SPECS = {
     "svhn": DatasetSpec(
         "svhn", (32, 32, 3), 10, 73257, 26032, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
     ),
+    # data/zipf.py's defaults (a module-load import of zipf here would be
+    # circular)
+    "zipf": DatasetSpec("zipf", (8,), 10, 4096, 1024, (0.0,), (1.0,)),
 }
 
 # reference CLI spellings (distributed_nn.py --dataset choices)
-_ALIASES = {"mnist": "mnist", "cifar10": "cifar10", "cifar100": "cifar100", "svhn": "svhn"}
+_ALIASES = {"mnist": "mnist", "cifar10": "cifar10", "cifar100": "cifar100", "svhn": "svhn",
+            "zipf": "zipf"}
 
 
 def canonical_name(name: str) -> str:
@@ -169,8 +175,14 @@ def synthetic_dataset(spec: DatasetSpec, train: bool, size: Optional[int] = None
 
     Images are class-dependent Gaussian blobs so that models can actually
     fit them (loss decreases, accuracy rises above chance) — making the
-    end-to-end trainer testable offline.
+    end-to-end trainer testable offline. The zipf spec gives its power-law
+    row ids instead (:func:`~atomo_tpu_torch.data.zipf.zipf_dataset`).
     """
+    if spec.name == "zipf":
+        from atomo_tpu_torch.data.zipf import zipf_dataset  # zipf imports this module
+
+        return zipf_dataset(train, slots=int(spec.image_shape[0]),
+                            num_classes=spec.num_classes, size=size, seed=seed)
     n = size or (spec.train_size if train else spec.test_size)
     n = min(n, 10000 if train else 2000) if size is None else n
     rng = np.random.RandomState(seed + (0 if train else 1))
@@ -192,6 +204,8 @@ def load_dataset(
 ) -> ArrayDataset:
     key = canonical_name(name)
     spec = SPECS[key]
+    if key == "zipf":  # no on-disk format: synthetic by design
+        return synthetic_dataset(spec, train, size=synthetic_size)
     loaded = None
     if os.path.isdir(root):
         if key == "mnist":

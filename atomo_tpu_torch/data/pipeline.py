@@ -5,7 +5,8 @@ same numpy shuffle (``RandomState(seed)``), so the port and the JAX package
 see the same batches in the same order; batches stay NHWC numpy arrays.
 :func:`augment_batch` runs on the device on an NCHW tensor and draws crop
 offsets and flips from an explicit ``torch.Generator`` (it cannot reproduce
-``jax.random``'s draws; parity runs turn augmentation off).
+``jax.random``'s draws; parity runs turn augmentation off). Batches of
+row ids (zipf, (B, slots)) pass through unpermuted.
 """
 
 from __future__ import annotations
@@ -85,8 +86,10 @@ class BatchIterator:
 
 
 def to_device(images: np.ndarray, labels: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """An NHWC numpy batch as (NCHW float32, int64 labels) on ``device``."""
-    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
-    x = x.to(device).permute(0, 3, 1, 2).contiguous()
+    """An NHWC numpy batch as (NCHW float32, int64 labels) on ``device``; a
+    batch of another rank (the (B, slots) row ids of zipf) goes as it is."""
+    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).to(device)
+    if x.dim() == 4:
+        x = x.permute(0, 3, 1, 2).contiguous()
     y = torch.from_numpy(np.asarray(labels, dtype=np.int64)).to(device)
     return x, y

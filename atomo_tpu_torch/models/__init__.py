@@ -1,15 +1,17 @@
 """Model zoo of the port, name-dispatched like ``atomo_tpu.models``.
 
-Every name of the JAX registry but the embedding family (``embedding``,
-``embedding_wide``), which comes with a later slice: the reference CLI's
-LeNet, FC, ResNet18/34, DenseNet (BC-190, k = 40), VGG11 (vgg11_bn) and
-AlexNet, and the JAX package's superset (ResNet50/101/152/110,
-DenseNet100, VGG13/16/19 with BatchNorm and the ``*_plain`` VGGs). The
-transformer LM is built by the ``lm`` verb, not by name.
+Every name of the JAX registry: the reference CLI's LeNet, FC, ResNet18/34,
+DenseNet (BC-190, k = 40), VGG11 (vgg11_bn) and AlexNet, the JAX package's
+superset (ResNet50/101/152/110, DenseNet100, VGG13/16/19 with BatchNorm and
+the ``*_plain`` VGGs) and the embedding family (``embedding``, 4096 x 16;
+``embedding_wide``, 65536 x 32; the CLI sizes ``embedding`` by
+``--emb-rows``/``--emb-dim``). The transformer LM is built by the ``lm``
+verb, not by name.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 from torch import nn
@@ -21,6 +23,7 @@ from atomo_tpu_torch.models.densenet import (  # noqa: F401
     densenet_reference,
 )
 from atomo_tpu_torch.models.dropout import Dropout, dropout_stream  # noqa: F401
+from atomo_tpu_torch.models.embedding import EmbeddingTower, embedding_tower  # noqa: F401
 from atomo_tpu_torch.models.lenet import FCNN, LeNet  # noqa: F401
 from atomo_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock,
@@ -66,6 +69,8 @@ _REGISTRY: dict[str, Callable[..., nn.Module]] = {
     "vgg13_plain": vgg13,
     "vgg16_plain": vgg16,
     "vgg19_plain": vgg19,
+    "embedding": embedding_tower,
+    "embedding_wide": functools.partial(embedding_tower, rows=65536, dim=32),
 }
 
 

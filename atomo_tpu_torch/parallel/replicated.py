@@ -43,6 +43,18 @@ holding a replica, and the collectives of the program become calls of
 
 * ``num_aggregate`` k (``:1205``): the mean over the rotating subset
   ``(step + arange(k)) % N`` (gather and ring only, as the reference);
+* ``hybrid`` (a :class:`~atomo_tpu_torch.sparse.HybridPlan`; ``_hybrid_mean``
+  :691-800): the per-layer sparse-row exchange. The dense-assigned leaves
+  are encoded by ``encode_leaf_subset`` under their global leaf keys and
+  ride the codec's gather or ring; each sparse-assigned leaf (an embedding
+  table) moves as lossless (row, value) pairs, gathered, decoded replica by
+  replica and averaged in replica order. Under gather the dense payloads
+  and the rows share one packed buffer and one ``all_gather_into_tensor``;
+  under ring the dense sub-list rotates (its segmentation follows the
+  sub-list, as the JAX package's does) and the rows are gathered.
+  ``msg_bytes`` is ``plan.payload_bytes()``; ``metrics["row_overflow"]``
+  sums the rows the budget dropped over the ranks (read off the gathered
+  payloads: no extra collective);
 * momentum SGD on the mean, then the dp mean of the BatchNorm statistics
   (``:1879``) and of loss and prec@1/5 (``:1881-1883``), one
   ``all_reduce`` over a packed buffer each.
@@ -50,7 +62,8 @@ holding a replica, and the collectives of the program become calls of
 Phases are ``record_function`` ranges named as the reference's
 ``named_phase`` scopes: ``step.forward_backward``, ``step.encode``,
 ``step.exchange``, ``step.decode_mean`` (psum: ``step.decode``), the ring's
-``step.ring_exchange_decode``, ``step.update``. No collective needs a host
+``step.ring_exchange_decode``, the hybrid's ``step.hybrid_exchange`` around
+its encode, exchange and decode, ``step.update``. No collective needs a host
 sync: every size is static.
 """
 
@@ -67,8 +80,15 @@ from torch import nn
 from torch.func import functional_call
 from torch.profiler import record_function
 
-from atomo_tpu_torch.codecs import decode_mean_tree, decode_tree, encode_tree, tree_nbytes
-from atomo_tpu_torch.convert import jax_layouts, jax_leaf_order
+from atomo_tpu_torch.codecs import (
+    decode_mean_tree,
+    decode_tree,
+    encode_leaf_subset,
+    encode_tree,
+    payload_nbytes,
+    tree_nbytes,
+)
+from atomo_tpu_torch.convert import from_jax_view, jax_layouts, jax_leaf_order, jax_view
 from atomo_tpu_torch.data.pipeline import augment_batch
 from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
@@ -217,6 +237,79 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
             zip(full[:d_flat].split(numels), grads, layouts)]
 
 
+def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, rank: int,
+                world: int, aggregate: str, ring_bucket_size: int = 65536,
+                layouts: Optional[Sequence[bool]] = None, draws: Optional[Sequence[Any]] = None,
+                group=None):
+    """The hybrid exchange of one step (``_hybrid_mean``): the mean gradient
+    in the port layout, the wire bytes, and the nonzero rows the row budgets
+    dropped, summed over the ranks (a 0-d float32 tensor). ``plan`` covers
+    the leaves of ``grads`` (canonical order; ``layouts`` as for
+    ``encode_tree``); ``draws`` (one entry per leaf of the whole tree) feed
+    the dense-assigned encode."""
+    layouts = [True] * len(grads) if layouts is None else list(layouts)
+    d_idxs, s_idxs = list(plan.dense_idxs), list(plan.sparse_idxs)
+    d_grads = [grads[i] for i in d_idxs]
+    d_layouts = [layouts[i] for i in d_idxs]
+    with record_function("step.encode"):
+        d_payloads = encode_leaf_subset(codec, k_codec, grads, d_idxs, draws, layouts)
+        # the rows of each table as the JAX package holds it (a table lies
+        # alike in both packages, so the view is the tensor itself)
+        s_payloads = [plan.row_codec(i).encode(k_codec, jax_view(grads[i], layouts[i]))
+                      for i in s_idxs]
+    msg_bytes = sum(payload_nbytes(p) for p in d_payloads + s_payloads)
+    out: list = [None] * len(grads)
+    mean_d: list = []
+    with record_function("step.exchange"):
+        if aggregate == "gather":  # one buffer: the dense payloads, then the rows
+            gathered, spec = gather_payloads(d_payloads + s_payloads, world, group)
+            parts = unpack_tree_buckets(gathered, spec)
+        elif s_idxs:
+            gathered, spec = gather_payloads(s_payloads, world, group)
+            parts = [None] * len(d_idxs) + unpack_tree_buckets(gathered, spec)
+        else:
+            parts = [None] * len(d_idxs)
+    with record_function("step.decode_mean"):
+        if d_idxs and aggregate == "gather":
+            mean_d = decode_mean_tree(codec, parts[:len(d_idxs)], d_grads, world, d_layouts)
+        elif d_idxs:
+            mean_d = ring_stream_mean(codec, d_payloads, d_grads, rank=rank, world=world,
+                                      n_contrib=world, ring_bucket_size=ring_bucket_size,
+                                      layouts=d_layouts, group=group)
+        overflow = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for i, p in zip(s_idxs, parts[len(d_idxs):]):
+            view = jax_view(grads[i], layouts[i])
+            mean = plan.row_codec(i).decode_mean(p, view.shape, world, grads[i].dtype)
+            out[i] = from_jax_view(mean, layouts[i]).contiguous()
+            overflow = overflow + p.overflow.sum().to(torch.float32)
+    for i, m in zip(d_idxs, mean_d):
+        out[i] = m
+    return out, msg_bytes, overflow
+
+
+def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int,
+                  world: int) -> None:
+    """The step factory's refusals of ``hybrid=`` (``:1328-1370``) for the
+    arguments the port's step has, and of a plan over another tree."""
+    if plan.n_leaves != n_leaves:
+        raise ValueError(
+            f"hybrid plan covers {plan.n_leaves} leaves but the gradient "
+            f"tree has {n_leaves} — plan and tree must come from the "
+            "same structure")
+    if codec is None or aggregate not in ("gather", "ring"):
+        raise ValueError(
+            "hybrid= (sparse-row per-layer exchange) needs a codec "
+            "with aggregate='gather' or 'ring': a dense psum wire "
+            "degenerates the row exchange (the rows would ride a "
+            "full dense all-reduce), and dense-only training has no "
+            "per-leaf payload path to hybridize")
+    if 0 < num_aggregate < world:
+        raise ValueError(
+            "hybrid= does not compose with num_aggregate: the "
+            "rotating replica subset is not wired into the row "
+            "exchange")
+
+
 def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
     """(aggregate in effect, k of num_aggregate or 0), as the reference
     resolves them (``:1205-1212``)."""
@@ -244,6 +337,7 @@ def make_distributed_train_step(
     ring_bucket_size: int = 65536,
     compute_dtype=None,
     grad_accum: int = 1,
+    hybrid=None,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
     dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
@@ -261,13 +355,19 @@ def make_distributed_train_step(
     mixed precision (:func:`~atomo_tpu_torch.training.trainer.forward`);
     the exchange sees float32 gradients either way. ``grad_accum`` K > 1
     splits this rank's batch into K microbatches (it raises a
-    ``ValueError`` when K does not divide the batch)."""
+    ``ValueError`` when K does not divide the batch). ``hybrid`` (a
+    :class:`~atomo_tpu_torch.sparse.HybridPlan` over this model's leaves)
+    runs the per-layer sparse-row exchange (:func:`hybrid_mean`; gather or
+    ring with a codec, no ``num_aggregate``) and adds ``row_overflow`` to
+    ``metrics``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
+    params = leaf_params(model)
+    if hybrid is not None:
+        _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world)
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
     n_contrib = k_agg or world
-    params = leaf_params(model)
     names = jax_leaf_order(model)
     layouts = jax_layouts(model)
     stats = list(model.buffers())  # the BatchNorm statistics, Flax's batch_stats
@@ -357,7 +457,15 @@ def make_distributed_train_step(
                 loss = loss.detach()
                 prec1, prec5 = accuracy(logits.detach(), labels)
         dense_bytes = tree_nbytes(grads)
-        mean, msg_bytes = exchange(state, k_codec, grads, draws, dense_bytes)
+        overflow = None
+        if hybrid is not None:
+            with record_function("step.hybrid_exchange"):
+                mean, msg_bytes, overflow = hybrid_mean(
+                    codec, hybrid, grads, k_codec, rank=rank, world=world,
+                    aggregate=aggregate, ring_bucket_size=ring_bucket_size, layouts=layouts,
+                    draws=draws)
+        else:
+            mean, msg_bytes = exchange(state, k_codec, grads, draws, dense_bytes)
         with record_function("step.update"):
             opt_state = optimizer.update(mean, state.opt_state, params)
         with torch.no_grad():
@@ -368,6 +476,8 @@ def make_distributed_train_step(
             m = _all_reduce_mean(torch.stack([loss, prec1, prec5]), world)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes}
+        if overflow is not None:
+            metrics["row_overflow"] = overflow
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state), metrics
 
     return step

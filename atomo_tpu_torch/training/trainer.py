@@ -48,6 +48,7 @@ from atomo_tpu_torch.codecs import decode_tree, encode_tree
 from atomo_tpu_torch.convert import jax_leaf_order
 from atomo_tpu_torch.data.pipeline import augment_batch, to_device
 from atomo_tpu_torch.models.dropout import dropout_stream
+from atomo_tpu_torch.models.embedding import TABLE_INIT_STD, EmbeddingTower
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
 from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -78,7 +79,8 @@ def init_params(model: nn.Module, seed: int) -> None:
     the layer carries a ``variance_scaling = (scale, mode)`` attribute (the
     VGG convs' He fan-out); biases zero, BatchNorm scale 1, bias 0, mean
     0, var 1; embeddings normal with variance 1/features (``nn.Embed``'s
-    ``variance_scaling(1, fan_in, normal, out_axis=0)``), LayerNorm scale 1."""
+    ``variance_scaling(1, fan_in, normal, out_axis=0)``), LayerNorm scale 1;
+    the embedding tower's table ``normal(0.02)``, its Flax initializer."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -99,6 +101,8 @@ def init_params(model: nn.Module, seed: int) -> None:
             nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim), generator=gen)
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
+        elif isinstance(m, EmbeddingTower):
+            nn.init.normal_(m.table, 0.0, TABLE_INIT_STD, generator=gen)
 
 
 def create_state(model: nn.Module, optimizer: Optimizer, seed: int, device) -> TrainState:
@@ -293,6 +297,7 @@ def distributed_train_loop(
     num_aggregate: int = 0,
     ring_bucket_size: int = 65536,
     grad_accum: int = 1,
+    hybrid=None,
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
@@ -316,8 +321,10 @@ def distributed_train_loop(
     as :func:`train_loop`'s: rank 0 writes each file and every rank waits at
     a barrier until it is in place; on resume every rank loads the same
     file. ``grad_accum`` K splits each rank's rows into K microbatches
-    (:func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`).
-    Runs on CUDA unless ``device='cpu'``."""
+    (:func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`),
+    and ``hybrid`` (a :class:`~atomo_tpu_torch.sparse.HybridPlan`) runs the
+    per-layer sparse-row exchange there. Runs on CUDA unless
+    ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.replicated import (
         make_distributed_eval_step,
@@ -334,7 +341,7 @@ def distributed_train_loop(
     step_fn = make_distributed_train_step(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
         num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
-        compute_dtype=compute_dtype, grad_accum=grad_accum)
+        compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid)
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
     timer = Timer()

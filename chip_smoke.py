@@ -139,6 +139,27 @@ every hand-written kernel against its plain PyTorch version:
    through ``make_train_step`` with qsgd for 2 steps; three VGG-11 svd rank
    3 steps under the profiler. Each run prints its median step and its
    peak of ``torch.cuda.max_memory_allocated``.
+12. sparse: the embedding tower over zipf row ids with the sparse-row
+   hybrid exchange. (a) The README recipe (``--dataset zipf --network
+   embedding --code qsgd``, 4096 x 16, batch 128, lr 0.1, momentum 0.9)
+   through the CLI for 30 steps: the mean loss of the last 5 below that of
+   the first 5, one encode and one decode launch a step. (b) At NCCL world
+   1 on the CLI's largest table (2^24 x 16, 268,435,456 values; batch 128,
+   slots 8): the plan from the first batch's gradient on the card; the row
+   encode of that gradient equal to the CPU's, the decode lossless, both
+   timed; rows 1-4 on the table leaf against their twins
+   (:func:`zoo_tree_check`); then ``make_distributed_train_step
+   (hybrid=plan)`` with qsgd against the all-dense qsgd step (the table
+   through rows 1-2) and the hybrid on the ``--qsgd-path pack`` path (rows
+   3-4), 3 steps each (step ms, Msg(MB), peak GiB; the hybrids'
+   ``msg_bytes`` the plan's, ``row_overflow`` 0, one encode and one decode
+   launch a step each; the qsgd hybrid and all-dense steps profiled as in
+   5), and the ``DenseCodec`` hybrid against
+   ``hybrid=None``, equal bit for bit. (c) ``train --n-devices 2 --aggregate
+   gather --sparse-rows on`` over two gloo ranks on the card (this script
+   with ``--sparse-gloo-child``), 3 steps: the plan printed, the replicas
+   bit-identical, one launch a step each way on each rank. The ring stays
+   on the CPU (gloo aborts on a CUDA tensor's send and receive).
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -1844,13 +1865,16 @@ def zoo_vgg11_nccl1_same_draws(dev, steps: int = 2) -> dict:
     return {"steps": steps, "loss": float(ma["loss"]), "equal": True}
 
 
-def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2)) -> dict:
+def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2), layouts=None) -> dict:
     """Rows 1-4 on a model's real gradient tree at 4 bits against their plain
     twins: the encode's tree launch (Philox seeds and given uniforms: words
     bit for bit, scales within 1 ulp), the tree decode (1 and 2 replicas),
     the tree unpack and the tree pack, bit for bit; the launches each call
     made (rows 1, 2 and 4: 256 leaves a launch; row 3: one); the device
-    time of rows 1 and 2 beside their bound."""
+    time of rows 1 and 2 beside their bound. ``layouts`` (per leaf, as the
+    model's ``convert.jax_layouts``; by default every leaf transposed) says
+    which leaves the JAX view transposes: the encode reads and the decode
+    writes each leaf as the main path does."""
     import torch
 
     from atomo_tpu_torch import ops
@@ -1860,7 +1884,9 @@ def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2)) -> dict:
 
     codec, bits = QsgdCodec(bits=4), 4
     dev = grads[0].device
-    tree = [codec._clip_leaf(jax_view(g).reshape(-1).contiguous()) for g in grads]
+    layouts = [True] * len(grads) if layouts is None else list(layouts)
+    tree = [codec._clip_leaf(jax_view(g, tr).reshape(-1).contiguous())
+            for g, tr in zip(grads, layouts)]
     seeds = [1000003 * (i + 1) for i in range(len(tree))]
     gen = torch.Generator(device=dev).manual_seed(11)
     launches = {}
@@ -1885,9 +1911,9 @@ def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2)) -> dict:
             (torch.stack([w.view(torch.int32)] * n_rep).view(torch.uint32),
              torch.stack([s * (1 + r) for r in range(n_rep)])) for w, s in payloads]
         ops.reset_launch_counts()
-        dk = K.unpack_dequantize_tree(pay, grads, bits=bits, n_replicas=n_rep)
+        dk = K.unpack_dequantize_tree(pay, grads, layouts, bits=bits, n_replicas=n_rep)
         launches["unpack_dequantize"] = ops.launch_counts()["unpack_dequantize"]
-        dp = K.unpack_dequantize_tree_plain(pay, grads, bits=bits, n_replicas=n_rep)
+        dp = K.unpack_dequantize_tree_plain(pay, grads, layouts, bits=bits, n_replicas=n_rep)
         errs["unpack_dequantize"] = max([errs["unpack_dequantize"]] + [
             float((a - b).abs().max()) for a, b in zip(dk, dp) if a.numel()])
         if not all(torch.equal(a, b) for a, b in zip(dk, dp)):
@@ -1912,7 +1938,8 @@ def zoo_tree_check(grads, label: str, errs: dict, *, replicas=(1, 2)) -> dict:
         "quantize_pack": (lambda: K.quantize_pack_tree(tree, bits=bits, seeds=seeds),
                           "quantize_pack_kernel",
                           4 * (n_values + n_words + n_scales) + 8 * len(tree), n_pos * 31),
-        "unpack_dequantize": (lambda: K.unpack_dequantize_tree(payloads, grads, bits=bits),
+        "unpack_dequantize": (lambda: K.unpack_dequantize_tree(payloads, grads, layouts,
+                                                               bits=bits),
                               "unpack_dequantize_tree_kernel",
                               4 * (n_words + n_scales + n_values), n_values * 6),
     }
@@ -2122,6 +2149,275 @@ def profile_vgg11_svd3(dev) -> dict:
     return profile_steps("zoo vgg11 svd3", once)
 
 
+# ----------------------------------------------------------- the sparse phase
+
+SPARSE_ROWS = 1 << 24  # the CLI's largest table (--emb-rows): 268,435,456 values at dim 16
+SPARSE_DIM, SPARSE_SLOTS, SPARSE_BATCH, SPARSE_STEPS = 16, 8, 128, 3
+# the README recipe (--dataset zipf --network embedding, 4096 x 16) through the CLI
+SPARSE_ARGS = ["train", "--dataset", "zipf", "--network", "embedding", "--code", "qsgd",
+               "--batch-size", "128", "--lr", "0.1", "--momentum", "0.9", "--seed", "1",
+               "--log-interval", "1", "--eval-freq", "0", "--train-dir", "", "--device", "cuda"]
+SPARSE_GLOO_ARGS = SPARSE_ARGS + ["--n-devices", "2", "--aggregate", "gather", "--sparse-rows",
+                                  "on", "--max-steps", str(SPARSE_STEPS)]
+
+
+def sparse_recipe() -> dict:
+    """(a) The README recipe on one card through the CLI, 30 steps: the mean
+    loss of the last 5 below that of the first 5, one encode and one decode
+    launch a step."""
+    steps = 30
+    r = run_cli(SPARSE_ARGS + ["--max-steps", str(steps)],
+                ["quantize_pack", "unpack_dequantize"])
+    q = r["losses"]
+    if not statistics.mean(q[-5:]) < statistics.mean(q[:5]):
+        raise AssertionError(f"sparse recipe: the loss did not fall: {q}")
+    if r["launches"]["quantize_pack"] != steps or r["launches"]["unpack_dequantize"] != steps:
+        raise AssertionError(f"sparse recipe: launches {r['launches']}, want {steps} each way")
+    r["median_step_ms_after_first"] = statistics.median(r["step_ms"][1:])
+    log(f"sparse recipe (4096 x 16, batch 128, 30 steps): first 5 mean loss "
+        f"{statistics.mean(q[:5]):.4f}, last 5 {statistics.mean(q[-5:]):.4f}, launches "
+        f"{r['launches']}, Msg(MB) {r['msg_mb']}, median step ms "
+        f"{r['median_step_ms_after_first']:.3f}")
+    return r
+
+
+def sparse_table_checks(rc, g, errs) -> dict:
+    """The row codec on the big table's real gradient: the card's encode
+    equal to the plain encode of the same gradient on the CPU, the decode
+    lossless, their times beside the bound (the gradient read once and the
+    payload written once; the decode: the payload read, the table written);
+    then rows 1-2 (and 3-4) on the 268 M-value leaf against their twins
+    (:func:`zoo_tree_check`)."""
+    import torch
+
+    p = rc.encode(0, g)
+    want = rc.encode(0, g.cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(p, want)):
+        raise AssertionError("sparse: the row encode on the card differs from the CPU's")
+    if not torch.equal(rc.decode(p, g.shape), g):
+        raise AssertionError("sparse: the row decode on the card is not lossless")
+    payload = sum(t.numel() * t.element_size() for t in p)
+    table = g.numel() * 4
+    out = {"touched_rows": int((g != 0).any(dim=1).sum()), "budget": rc.max_rows,
+           "payload_bytes": payload}
+    for name, fn, nbytes in (("encode", lambda: rc.encode(0, g), table + payload),
+                             ("decode", lambda: rc.decode(p, g.shape), table + payload)):
+        b_ms, b_by = bound(nbytes, 0)
+        out[name] = {"ms": cuda_ms(fn, reps=10, warmup=2), "bound_ms": b_ms, "bound_by": b_by}
+    del want
+    # the table lies alike in both packages: no transposed view
+    out["tree"] = zoo_tree_check([g], "sparse table", errs, replicas=(1,), layouts=[False])
+    if out["tree"]["launches"] != {k: 1 for k in out["tree"]["launches"]}:
+        raise AssertionError(f"sparse table: tree launches {out['tree']['launches']}")
+    log(f"sparse table: {g.shape[0]} x {g.shape[1]} gradient, {out['touched_rows']} rows "
+        f"touched of a budget of {rc.max_rows}: the row encode on the card equals the CPU's, "
+        f"the decode is lossless; row encode {out['encode']['ms']:.4f} ms, decode "
+        f"{out['decode']['ms']:.4f} ms by events (bound {out['encode']['bound_ms']:.4f} ms by "
+        f"bytes each)")
+    return out
+
+
+def sparse_big_table(work: Path, errs: dict) -> dict:
+    """(b) ``make_distributed_train_step(hybrid=plan)`` at NCCL world 1 on
+    the CLI's largest table (2^24 x 16), batch 128, slots 8, fused and on
+    the pack path, against the all-dense qsgd step (the table through rows
+    1-2), 3 steps each; then the
+    lossless ``DenseCodec`` hybrid against ``hybrid=None``, equal bit for
+    bit. The plan comes from the first batch's gradient on the card."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.codecs import DenseCodec, QsgdCodec
+    from atomo_tpu_torch.convert import jax_layouts
+    from atomo_tpu_torch.data import to_device, zipf_dataset
+    from atomo_tpu_torch.models import EmbeddingTower
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step
+    from atomo_tpu_torch.sparse import infer_row_bounds, leaf_specs, measured_densities, plan_hybrid
+    from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.trainer import init_params, leaf_params
+
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    ds = zipf_dataset(True, rows=SPARSE_ROWS, slots=SPARSE_SLOTS,
+                      size=SPARSE_BATCH * SPARSE_STEPS, seed=1)
+    b = SPARSE_BATCH
+    batches = [to_device(ds.images[i * b:(i + 1) * b], ds.labels[i * b:(i + 1) * b], dev)
+               for i in range(SPARSE_STEPS)]
+    model = EmbeddingTower(rows=SPARSE_ROWS, dim=SPARSE_DIM, slots=SPARSE_SLOTS)
+    init_params(model, 1)
+    init_sd = {k: v.to(dev) for k, v in model.state_dict().items()}
+    del model
+    setup_s = time.time() - t0
+    opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+
+    def fresh():
+        with torch.device(dev):
+            m = EmbeddingTower(rows=SPARSE_ROWS, dim=SPARSE_DIM, slots=SPARSE_SLOTS)
+        m.load_state_dict(init_sd)
+        return m, TrainState(0, m, opt.init(leaf_params(m)))
+
+    model, _ = fresh()
+    x, y = batches[0]
+    loss = torch.nn.functional.cross_entropy(model(x), y)
+    grads = [g.detach() for g in torch.autograd.grad(loss, leaf_params(model))]
+    specs = leaf_specs(model)
+    dens = measured_densities(grads, jax_layouts(model))
+    bounds = infer_row_bounds(specs, SPARSE_BATCH, SPARSE_SLOTS)
+    plans = {"qsgd": plan_hybrid(QsgdCodec(bits=4), specs, dens, bounds),
+             "dense": plan_hybrid(DenseCodec(), specs, dens, bounds)}
+    plan = plans["qsgd"]
+    log(plan.describe())
+    for a in plan.assignments:
+        log(f"  [{a.index}] {a.name}: {a.reason}")
+    if plan.sparse_idxs != (4,) or plans["dense"].sparse_idxs != (4,):
+        raise AssertionError(f"sparse: the table is not sparse-assigned: {plan.describe()}")
+    out = {"plan": plan.describe(), "setup_s": setup_s,
+           "checks": sparse_table_checks(plan.row_codec(4), grads[4], errs)}
+    del model, loss, grads
+    torch.cuda.empty_cache()
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/sparse_nccl1",
+                      world_size=1, rank=0)
+    runs, final = {}, {}
+    try:
+        for label, codec, hybrid in (("qsgd_hybrid", QsgdCodec(bits=4), plans["qsgd"]),
+                                     ("qsgd_pack_hybrid", QsgdCodec(bits=4, use_kernel=False),
+                                      plans["qsgd"]),
+                                     ("qsgd_dense", QsgdCodec(bits=4), None),
+                                     ("dense_hybrid", DenseCodec(), plans["dense"]),
+                                     ("dense_off", DenseCodec(), None)):
+            model, state = fresh()
+            step = make_distributed_train_step(model, opt, codec, aggregate="gather",
+                                               hybrid=hybrid)
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, m = [], [], None
+            for xb, yb in batches:
+                t1 = time.perf_counter()
+                state, m = step(state, 2, xb, yb)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            r = runs[label] = {
+                "losses": losses, "step_ms": ms, "median_step_ms": statistics.median(ms[1:]),
+                "msg_bytes": int(m["msg_bytes"]), "launches": ops.launch_counts(),
+                "row_overflow": float(m["row_overflow"]) if "row_overflow" in m else None,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"sparse {label}: losses {losses}")
+            if label in ("qsgd_hybrid", "qsgd_dense"):  # where the step's time goes
+                box = {"state": state, "i": 0}
+
+                def once():
+                    xb, yb = batches[box["i"] % len(batches)]
+                    box["i"] += 1
+                    box["state"], mb = step(box["state"], 2, xb, yb)
+                    float(mb["loss"])
+
+                r["profile"] = profile_steps(f"sparse nccl-1 {label}", once)
+                state = box["state"]
+                del box, once  # the next run's peak memory must not hold this state
+            if label.startswith("dense"):
+                final[label] = [p.detach().clone() for p in leaf_params(model)]
+            del model, state, step
+            torch.cuda.empty_cache()
+            log(f"sparse nccl-1 {label}: losses {losses} launches {r['launches']} Msg(MB) "
+                f"{r['msg_bytes'] / 2 ** 20:.4f} row_overflow {r['row_overflow']} median step "
+                f"ms (steps 2-3) {r['median_step_ms']:.3f} peak GiB {r['peak_gib']:.2f}")
+    finally:
+        launch.shutdown()
+    for label, hybrid in (("qsgd_hybrid", plans["qsgd"]), ("qsgd_pack_hybrid", plans["qsgd"]),
+                          ("dense_hybrid", plans["dense"])):
+        r = runs[label]
+        if r["msg_bytes"] != hybrid.payload_bytes() or r["row_overflow"] != 0.0:
+            raise AssertionError(f"sparse {label}: Msg {r['msg_bytes']} bytes (plan "
+                                 f"{hybrid.payload_bytes()}), row_overflow {r['row_overflow']}")
+    fused = {"quantize_pack": SPARSE_STEPS, "unpack_dequantize": SPARSE_STEPS}
+    pack = {"pack_bucketed": SPARSE_STEPS, "unpack_bucketed": SPARSE_STEPS}
+    for label, once in (("qsgd_hybrid", fused), ("qsgd_pack_hybrid", pack),
+                        ("qsgd_dense", fused)):
+        if runs[label]["launches"] != {**{k: 0 for k in runs[label]["launches"]}, **once}:
+            raise AssertionError(f"sparse {label}: launches {runs[label]['launches']}, want "
+                                 f"one encode and one decode a step")
+    if not all(torch.equal(a, b) for a, b in zip(final["dense_hybrid"], final["dense_off"])):
+        raise AssertionError("sparse: the DenseCodec hybrid's parameters differ from "
+                             "hybrid=None's")
+    log("sparse nccl-1: the DenseCodec hybrid and hybrid=None end equal bit for bit after "
+        f"{SPARSE_STEPS} steps; the qsgd hybrid's wire {plans['qsgd'].payload_bytes()} bytes, "
+        f"the all-dense qsgd step's {runs['qsgd_dense']['msg_bytes']}")
+    out["runs"] = runs
+    return out
+
+
+def sparse_gloo_child(rank: int, store: str, out_path: str) -> int:
+    """One rank of the sparse phase's (c) (this script with
+    ``--sparse-gloo-child``): the README recipe through ``train --n-devices 2
+    --aggregate gather --sparse-rows on`` over gloo on cuda:0; writes its
+    log lines, launches and a hash of its final state (JSON)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.parallel import launch
+
+    launch.initialize(torch.device("cuda", 0), backend="gloo", init_method=f"file://{store}",
+                      world_size=2, rank=rank)
+    lines: list[str] = []
+    try:
+        ops.reset_launch_counts()
+        state = cli.cmd_train(cli.build_parser().parse_args(SPARSE_GLOO_ARGS),
+                              log_fn=lines.append)
+        out = {"lines": lines, "launches": ops.launch_counts(), "hash": state_hash(state.model)}
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def sparse_gloo2(work: Path) -> dict:
+    """(c) Two ranks over gloo on the one card through the CLI: the plan
+    printed, one encode and one decode launch a step on each rank, the
+    replicas bit-identical at the end, Msg(MB) the plan's."""
+    paths = [work / f"sparse_gloo{r}.json" for r in range(2)]
+    rcs, logs = spawn_ranks(lambda r: ["--sparse-gloo-child", str(r),
+                                       str(work / "sparse_gloo_store"), str(paths[r])],
+                            work, "sparse_gloo", timeout=300)
+    if any(rcs):
+        raise AssertionError("sparse gloo-2: a rank failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    ranks = [json.loads(p.read_text()) for p in paths]
+    lines = ranks[0]["lines"]
+    plan = [ln for ln in lines if ln.startswith(("hybrid plan:", "  ["))]
+    worker = [ln for ln in lines if ln.startswith("Worker: ")]
+    msg = sorted({float(ln.split("Msg(MB): ")[1].split(",")[0]) for ln in worker})
+    once = {"quantize_pack": SPARSE_STEPS, "unpack_dequantize": SPARSE_STEPS}
+    if not plan or not plan[0].startswith("hybrid plan: 1/5 leaves sparse-row"):
+        raise AssertionError(f"sparse gloo-2: no plan printed: {lines[:8]}")
+    if ranks[0]["hash"] != ranks[1]["hash"]:
+        raise AssertionError("sparse gloo-2: the replicas differ")
+    for r in ranks:
+        if r["launches"] != {**{k: 0 for k in r["launches"]}, **once}:
+            raise AssertionError(f"sparse gloo-2: launches {r['launches']}")
+    if len(worker) != SPARSE_STEPS or len(msg) != 1 or ranks[1]["lines"]:
+        raise AssertionError(f"sparse gloo-2: Worker lines {worker}")
+    for ln in plan + worker:
+        log("  " + ln)
+    log(f"sparse gloo-2: train --n-devices 2 --aggregate gather --sparse-rows on, "
+        f"{SPARSE_STEPS} steps: replicas bit-identical, launches per rank {ranks[0]['launches']},"
+        f" Msg(MB) {msg[0]}")
+    return {"plan": plan, "worker": worker, "launches": ranks[0]["launches"], "msg_mb": msg}
+
+
+def phase_sparse(work: Path, errs: dict) -> dict:
+    """The embedding tower over zipf data with the sparse-row hybrid
+    exchange: (a) the README recipe on one card, (b) the hybrid step at NCCL
+    world 1 on the 2^24 x 16 table against the all-dense step, (c) the CLI
+    over two gloo ranks on the card."""
+    out = {"recipe": sparse_recipe()}
+    out["big_table"] = sparse_big_table(work, errs)
+    out["gloo2"] = sparse_gloo2(work)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -2129,6 +2425,8 @@ def main() -> int:
         return gloo_p2p_probe(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--ckpt-child"]:
         return ckpt_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--sparse-gloo-child"]:
+        return sparse_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import tempfile
 
     import torch
@@ -2188,6 +2486,8 @@ def main() -> int:
         lap("ckpt")
         zoo = phase_zoo(Path(work), errs)
         lap("zoo")
+        sparse = phase_sparse(Path(work), errs)
+        lap("sparse")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -2197,6 +2497,8 @@ def main() -> int:
                 + ckpt["launches"][name]
                 + sum(r["launches"][name] for r in ckpt["steps"].values())
                 + sum(r["launches"][name] for r in zoo["runs"].values() if "launches" in r)
+                + sparse["recipe"]["launches"][name]
+                + sum(r["launches"][name] for r in sparse["big_table"]["runs"].values())
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -2216,7 +2518,7 @@ def main() -> int:
         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]}
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
-              "ckpt": ckpt, "zoo": zoo, "phase_seconds": seconds,
+              "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

@@ -21,7 +21,10 @@ bit, with one encode and one decode launch and no host sync, and so does
 the LM step over that group's (dp 1, sp 1) mesh; the LM's bfloat16 step
 launches the flash kernel's bfloat16 form and keeps its state float32. A resumed
 ResNet-18 run equals the straight one bit for bit on the card, and a
-compressed checkpoint comes back onto the card bit for bit.
+compressed checkpoint comes back onto the card bit for bit. The sparse-row
+codec's encode on the card equals the CPU's, without a host sync, and the
+embedding tower's hybrid step at one NCCL rank sends the plan's bytes, its
+``DenseCodec`` form equal to ``hybrid=None`` bit for bit.
 """
 
 import dataclasses
@@ -874,3 +877,89 @@ def test_compressed_checkpoint_round_trip_on_the_card(dev, tmp_path):
         + back.opt_state.nu_max
     for a, b in zip(ours, theirs):
         assert b.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("budget", [5, 300, 5000])
+def test_row_codec_on_the_card_equals_the_cpu(dev, budget):
+    """The row encode of a sparse gradient on the card equals the CPU's
+    (rows, values, overflow), the decode is lossless within the budget, and
+    the decode-mean over a strided gathered stack equals ``replica_mean`` of
+    the replicas' decodes bit for bit."""
+    from atomo_tpu_torch.ops.qsgd_kernels import replica_mean
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+    from atomo_tpu_torch.sparse import RowCodec
+
+    gen = torch.Generator(device=dev).manual_seed(budget)
+    codec = RowCodec(max_rows=budget)
+    grads, bufs = [], []
+    for _ in range(3):
+        g = torch.zeros((65536, 16), device=dev)
+        rows = torch.randint(0, 65536, (400,), generator=gen, device=dev)
+        g[rows] = torch.randn((400, 16), generator=gen, device=dev)
+        p = codec.encode(0, g)
+        want = codec.encode(0, g.cpu())
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(p, want))
+        touched = int((g != 0).any(dim=1).sum())
+        assert int(p.overflow) == max(0, touched - budget)
+        if budget >= touched:
+            assert torch.equal(codec.decode(p, g.shape), g)
+        grads.append(codec.decode(p, g.shape))
+        buf, spec = pack_tree_buckets([p])
+        bufs.append(buf)
+    (gathered,) = unpack_tree_buckets(torch.stack(bufs), spec)
+    got = codec.decode_mean(gathered, (65536, 16), 3)
+    assert torch.equal(got, replica_mean(torch.stack(grads)))
+
+
+def test_row_encode_and_decode_make_no_host_sync(dev):
+    from atomo_tpu_torch.sparse import RowCodec, RowPayload
+
+    g = torch.zeros((4096, 16), device=dev)
+    g[:50] = 1.0
+    codec = RowCodec(max_rows=128)
+    codec.decode(codec.encode(0, g), g.shape)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p = codec.encode(0, g)
+        codec.decode_mean(RowPayload(*(t[None].expand(2, *t.shape) for t in p)), g.shape, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_hybrid_nccl_world_one_step(dev, nccl_group):
+    """The embedding tower at one NCCL rank: the qsgd hybrid step sends the
+    plan's bytes with no row dropped, launches one encode and one decode
+    (the tower's leaves), and the ``DenseCodec`` hybrid's parameters equal
+    ``hybrid=None``'s bit for bit after two steps."""
+    from atomo_tpu_torch.codecs import DenseCodec
+    from atomo_tpu_torch.data import to_device, zipf_dataset
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step
+    from atomo_tpu_torch.sparse import plan_for_model
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    ds = zipf_dataset(True, size=128, seed=0)
+    batches = [to_device(ds.images[i * 64:(i + 1) * 64], ds.labels[i * 64:(i + 1) * 64], dev)
+               for i in range(2)]
+    opt = make_optimizer("sgd", lr=0.1, momentum=0.9)
+    params = {}
+    for label, codec, hybrid in (("qsgd", QsgdCodec(bits=4), True),
+                                 ("dense_on", DenseCodec(), True),
+                                 ("dense_off", DenseCodec(), False)):
+        model = get_model("embedding", 10, image_shape=(8,))
+        plan = plan_for_model(codec, model, ds.images[:64], ds.labels[:64], 64, 8)
+        state = create_state(model, opt, 1, dev)
+        step = make_distributed_train_step(model, opt, codec, aggregate="gather",
+                                           hybrid=plan if hybrid else None)
+        K.reset_launch_counts()
+        for x, y in batches:
+            state, m = step(state, 3, x, y)
+        if hybrid:
+            assert int(m["msg_bytes"]) == plan.payload_bytes() and float(m["row_overflow"]) == 0
+        if label == "qsgd":
+            counts = K.launch_counts()
+            assert counts["quantize_pack"] == 2 and counts["unpack_dequantize"] == 2, counts
+        params[label] = [p.detach().clone() for p in leaf_params(model)]
+    assert all(torch.equal(a, b) for a, b in zip(params["dense_on"], params["dense_off"]))

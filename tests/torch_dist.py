@@ -17,7 +17,10 @@ Jobs (``JOBS``):
   its parameters and buffers, rank 0 its final state. With ``resume_at`` the
   run is cut after that many steps: rank 0 saves a checkpoint into
   ``train_dir``, and every rank loads it into a fresh model and optimizer
-  state and goes on;
+  state and goes on; ``hybrid`` (a pickled ``HybridPlan``) runs the
+  sparse-row exchange, and each step's ``row_overflow`` comes back;
+* ``build``: the data-parallel step's factory on a registry model with
+  given arguments; the message of the ``ValueError`` it raises, or None;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
 * ``cli``: ``atomo_tpu_torch train`` (or ``lm``) with the given
@@ -185,7 +188,7 @@ def state_hash(model) -> str:
 
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
-              dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None):
+              dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None):
     import torch.distributed as dist
 
     import atomo_tpu_torch.parallel.replicated as R
@@ -214,12 +217,20 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 scales.append(float(p.scales.max()))
         return payloads, stats
 
+    encode_subset = R.encode_leaf_subset
+
+    def recording_subset(*args, **kw):  # the hybrid's encode of its dense leaves
+        payloads = encode_subset(*args, **kw)
+        scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
+        return payloads
+
     R.encode_tree = recording_encode
+    R.encode_leaf_subset = recording_subset
 
     def make_step(model):
         return R.make_distributed_train_step(
             model, opt, _codec(codec), aggregate=aggregate, num_aggregate=num_aggregate,
-            ring_bucket_size=ring_bucket_size, grad_accum=grad_accum)
+            ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid)
 
     try:
         step = make_step(model)
@@ -238,12 +249,27 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                             dropout_masks=masks[s] if masks is not None else None)
             steps.append({"loss": float(m["loss"]), "prec1": float(m["prec1"]),
                           "prec5": float(m["prec5"]), "msg_bytes": int(m["msg_bytes"]),
-                          "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model)})
+                          "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model),
+                          "row_overflow": float(m["row_overflow"]) if "row_overflow" in m
+                          else None})
     finally:
         R.encode_tree = encode
+        R.encode_leaf_subset = encode_subset
     final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
              if rank == 0 else None)
     return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0)}
+
+
+def job_build(rank, world, *, network, image_shape, codec, kwargs):
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.training import make_optimizer
+
+    model = build_model(network, 10, image_shape)
+    try:
+        R.make_distributed_train_step(model, make_optimizer("sgd"), _codec(codec), **kwargs)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def job_aggregate(rank, world, *, codec, grads, draws, fused_gather, ring_bucket_size,
@@ -439,7 +465,7 @@ def job_modules(rank, world):
     return sorted({m.split(".")[0] for m in sys.modules})
 
 
-JOBS = {"train": job_train, "aggregate": job_aggregate, "cli": job_cli, "lm": job_lm,
+JOBS = {"train": job_train, "build": job_build, "aggregate": job_aggregate, "cli": job_cli, "lm": job_lm,
         "attention": job_attention, "mesh": job_mesh, "targets": job_targets,
         "collectives": job_collectives, "modules": job_modules}
 
