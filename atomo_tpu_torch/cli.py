@@ -10,13 +10,21 @@ one device, or data-parallel over N processes, one per device, as ``torchrun
 ``--ring-bucket-size``, ``--grad-accum``), with the reference's optimizer and
 schedule flags, the SVD knobs (``--svd-mode`` an alias over ``--svd-algo``),
 CRC checkpoints into ``--train-dir`` (``--save-freq``, ``--resume``,
-``--keep-ckpts``, ``--compress``) and ``--bf16``. ``--dataset zipf
+``--keep-ckpts``, ``--compress``) and ``--bf16``. ``--budget-alloc variance``
+measures per-layer gradient spectra on a probe batch and spreads the wire
+budget (``--budget-bytes``) over the layers to minimise the estimator's
+variance (SVD ranks under ``--sample fixed_k``, QSGD bit widths 1-16), with
+``budget_alloc.json`` reused on ``--resume``; ``--error-feedback`` carries
+each replica's compression residual into its next encode. The reference's
+parity flags ``--comm-type``, ``--enable-gpu`` and ``--no-cuda`` are taken
+and ignored, with the JAX verb's warnings. ``--dataset zipf
 --network embedding`` is the sparse workload (``--emb-rows``, ``--emb-dim``,
 ``--zipf-slots``, ``--zipf-alpha``), and ``--sparse-rows auto|on`` its
 per-layer sparse-row exchange over the data-parallel step: the table leaf
-moves as lossless rows, the others keep the codec. A process group that is up
-(or a ``torchrun`` launch) takes even ``--n-devices 1`` through the
-data-parallel step, which is how one card runs ``--grad-accum``.
+moves as lossless rows, the others keep the codec. ``--n-devices 0`` (the
+default) is the whole process group. A process group that is up (or a
+``torchrun`` launch) takes even one process through the data-parallel step,
+which is how one card runs ``--grad-accum`` and ``--error-feedback``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
 each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` on one device or
 over N processes (``--n-devices N --ways S``: dp = N/S replicas of S
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from atomo_tpu_torch.budget import budgeted_codec
 from atomo_tpu_torch.codecs import DenseCodec, get_codec
 from atomo_tpu_torch.data import (
     SPECS,
@@ -167,9 +176,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "pack = torch quantizer with the pack/unpack kernels")
     p.add_argument("--log-interval", type=int, default=10)
     p.add_argument("--eval-freq", type=int, default=50)
-    p.add_argument("--n-devices", type=int, default=1, metavar="N",
+    p.add_argument("--n-devices", type=int, default=0, metavar="N",
                    help="processes in the dp group, one per device (start them with "
-                        "torchrun --nproc-per-node N); 1 = the single-device loop")
+                        "torchrun --nproc-per-node N); 0 = the whole process group, or "
+                        "the single-device loop when there is none")
     p.add_argument("--aggregate", type=str, default="auto",
                    choices=["auto", "gather", "ring", "psum"],
                    help="gradient exchange: gather = payload all_gather (compressed "
@@ -195,6 +205,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "leaves keep the gather/ring exchange. auto = plan from a probe "
                         "gradient and use it when a leaf is sparse-assignable; on = "
                         "require it. Needs --n-devices above 1 and gather or ring")
+    p.add_argument("--budget-alloc", type=str, default="uniform",
+                   choices=["uniform", "variance"],
+                   help="per-layer byte allocation: uniform = the fixed --svd-rank "
+                        "(or --quantization-level) on every layer; variance = ATOMO's "
+                        "water-filling allocation from per-layer gradient spectra of a "
+                        "probe batch, minimising the estimator's variance under the "
+                        "wire budget, recorded in train_dir/budget_alloc.json (reused "
+                        "on --resume). Needs --code svd --sample fixed_k or --code qsgd")
+    p.add_argument("--budget-bytes", type=float, default=0.0, metavar="B",
+                   help="wire-byte budget per replica for --budget-alloc variance "
+                        "(0 = the uniform allocation's total: equal wire bytes)")
+    p.add_argument("--error-feedback", action="store_true", default=False,
+                   help="carry each replica's compression residual e' = (g + e) - "
+                        "decode(encode(g + e)) into its next encode (checkpointed with "
+                        "the state). Biased: pairs with --code svd --sample topk; "
+                        "refused with --sparse-rows and --num-aggregate")
+    p.add_argument("--comm-type", type=str, default="Bcast", metavar="N",
+                   help="accepted for parity with the reference and ignored")
+    p.add_argument("--enable-gpu", action="store_true", default=False,
+                   help="accepted for parity with the reference and ignored")
+    p.add_argument("--no-cuda", action="store_true", default=False,
+                   help="accepted for parity with the reference and ignored (--device "
+                        "picks the device)")
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
     p.add_argument("--svd-mode", type=str, default="auto",
@@ -324,6 +357,163 @@ def _sparse_preflight(args: argparse.Namespace) -> None:
             "exchange")
 
 
+def _budget_preflight(args: argparse.Namespace) -> None:
+    """The JAX verb's argv refusals of ``--budget-alloc``, ``--budget-bytes``
+    and ``--error-feedback`` (``:1197-1350``) for the flags the port has,
+    and its warning for error feedback on an unbiased estimator."""
+    code = args.code.lower()
+    if args.budget_bytes and args.budget_alloc != "variance":
+        raise SystemExit(
+            "--budget-bytes sizes the variance allocation's global wire "
+            "budget and needs --budget-alloc variance (uniform spends "
+            "the fixed --svd-rank budget per layer by definition)")
+    if args.budget_alloc == "variance":
+        if code in DENSE_CODES:
+            raise SystemExit(
+                "--budget-alloc variance allocates a compressing codec's "
+                "per-layer budget; dense training has no budget to "
+                "allocate")
+        if code not in ("svd", "qsgd"):
+            raise SystemExit(
+                f"--budget-alloc variance needs --code svd (the fixed_k "
+                "rank law A/k) or --code qsgd (the bit law "
+                f"B/(2^b-1)^2); per-layer allocation for {args.code!r} "
+                "is the same machinery with a different pricing/"
+                "variance pair and is not stated yet — rejected "
+                "honestly (terngrad's max-norm scale + sigma clip "
+                "included)")
+        if code == "svd" and args.sample != "fixed_k":
+            raise SystemExit(
+                f"--budget-alloc variance with --code svd needs "
+                f"--sample fixed_k (the stated variance law is the "
+                f"with-replacement sampler's A/k; --sample "
+                f"{args.sample} has a different law)")
+        if args.sparse_rows != "off":
+            raise SystemExit(
+                "--budget-alloc variance with --sparse-rows is a JOINT "
+                "decision: the hybrid planner must re-price its dense "
+                "sub-list under the allocated per-leaf codec, and the "
+                "two single deciders each assume the other's knob is at "
+                "its default. --auto controller prices and probes "
+                "exactly that cross term (the +sp+ab candidates) — use "
+                "it; the static pairing stays rejected")
+    if not args.error_feedback:
+        return
+    if code in DENSE_CODES:
+        raise SystemExit(
+            "--error-feedback accumulates the codec's compression "
+            "residual; dense training (--code sgd) has none")
+    if args.n_devices == 1:
+        raise SystemExit(
+            "--error-feedback needs a multi-device mesh: the "
+            "residual compensates the exchanged estimator's error, "
+            "and single-device training has no exchange")
+    if args.sparse_rows != "off":
+        raise SystemExit(
+            "--error-feedback does not compose with --sparse-rows "
+            "(the mixed per-leaf residual carry is untested)")
+    if args.num_aggregate is not None:
+        raise SystemExit(
+            "--error-feedback does not compose with --num-aggregate: "
+            "an unconsumed encode's residual would be mis-attributed")
+    if not (code == "svd" and args.sample == "topk"):
+        warnings.warn(
+            "--error-feedback pairs with a CONTRACTION compressor "
+            "(--code svd --sample topk): the unbiased random "
+            "estimators make the residual a random walk (measured "
+            "divergent on the LeNet recipe); proceeding, but "
+            "svd+topk is the supported pairing")
+
+
+def _warn_dead_flags(args: argparse.Namespace) -> None:
+    """The JAX verb's warnings for flags it takes and ignores
+    (``atomo_tpu/cli.py:578-595``)."""
+    if args.comm_type != "Bcast":
+        warnings.warn(
+            "--comm-type is accepted for parity but ignored (it is a fake "
+            "parameter in the reference too, README.md:111)")
+    if args.num_aggregate is not None and (
+            args.aggregate not in ("gather", "ring", "auto") or args.code.lower() in DENSE_CODES):
+        warnings.warn(
+            "--num-aggregate only applies to compressed gather/ring "
+            "aggregation (a dense psum cannot subset replicas); ignoring it "
+            "— note the reference ignores it always "
+            "(sync_replicas_master_nn.py:113,124)")
+    if args.enable_gpu or args.no_cuda:
+        warnings.warn("--enable-gpu/--no-cuda are ignored: device selection is JAX's")
+
+
+def _num_aggregate(args: argparse.Namespace, aggregate: str, codec, n_dev: int) -> int:
+    """k of ``--num-aggregate`` as the JAX verb resolves it (``:3034-3045``):
+    0 (every replica) unless gather or ring carries a codec and 0 < k < N."""
+    if args.num_aggregate is None or aggregate not in ("gather", "ring") or codec is None:
+        return 0
+    k_agg = args.num_aggregate
+    if not 0 < k_agg < n_dev:
+        warnings.warn(
+            f"--num-aggregate {k_agg} is outside (0, {n_dev}) for this "
+            f"{n_dev}-device mesh; aggregating all replicas")
+        return 0
+    return k_agg
+
+
+def budget_allocation(args: argparse.Namespace, model, codec, train_iter, log_fn,
+                      write: bool = True):
+    """``--budget-alloc variance``: (spectra, allocation) as the JAX verb
+    makes and prints them (``:2565-2645``). The probe gradient is taken over
+    a direct slice of the training arrays, so the batch stream does not
+    advance; ``--resume`` reuses a recorded ``budget_alloc.json`` that fits,
+    else solves again. ``write`` (rank 0) writes the artifact."""
+    from atomo_tpu_torch.budget import (
+        Allocation,
+        alloc_path,
+        alloc_reusable,
+        latest_epoch,
+        measure_spectra,
+        new_alloc_doc,
+        read_alloc,
+        solve_allocation,
+        write_alloc,
+    )
+    from atomo_tpu_torch.convert import jax_layouts, jax_leaf_paths
+    from atomo_tpu_torch.sparse import hybrid
+
+    probe_n = min(max(args.batch_size, 8), len(train_iter.images))
+    grads = hybrid.probe_gradient(model, train_iter.images[:probe_n],
+                                  train_iter.labels[:probe_n])
+    spectra = measure_spectra(codec, grads, jax_leaf_paths(model), jax_layouts(model))
+    budget_b = int(args.budget_bytes) if args.budget_bytes > 0 else None
+    alloc = None
+    if args.resume and args.train_dir:
+        # a resume replays the recorded allocation, never a fresh solve
+        prior = read_alloc(args.train_dir)
+        ok_reuse, why = alloc_reusable(prior, codec_name=codec.name, n_leaves=len(spectra))
+        if ok_reuse:
+            ep = latest_epoch(prior)
+            alloc = Allocation(
+                mode=str(ep.get("mode", "variance")),
+                ks=tuple(int(k) for k in ep["ks"]),
+                payload_bytes=int(ep["payload_bytes"]),
+                budget_bytes=int(ep.get("budget_bytes", prior["budget_bytes"])),
+                predicted_variance=float(ep.get("predicted_variance", 0.0)),
+                epoch=int(ep["epoch"]),
+            )
+            log_fn(f"Budget: {why} (budget_alloc.json)")
+        elif prior is not None:
+            log_fn(f"Budget: NOT reusing budget_alloc.json: {why}")
+    if alloc is None:
+        alloc = solve_allocation(codec, spectra, budget_bytes=budget_b, mode="variance")
+        if args.train_dir:
+            if write:
+                write_alloc(args.train_dir, new_alloc_doc(codec, spectra, alloc))
+            log_fn(f"Budget: allocation artifact -> {alloc_path(args.train_dir)}")
+    log_fn(alloc.describe())
+    for l in spectra:
+        log_fn(f"  [{l.index}] {l.name}: k={alloc.ks[l.index]}"
+               + ("" if l.adaptive else " (dense at any rank — fixed)"))
+    return spectra, alloc
+
+
 def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, log_fn):
     """``--sparse-rows auto|on``'s plan over ``n_dev`` ranks, printed as the
     JAX verb prints it, or None (all-dense). The probe gradient is taken
@@ -362,6 +552,8 @@ def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, 
 
 def cmd_train(args: argparse.Namespace, log_fn=print):
     _sparse_preflight(args)
+    _budget_preflight(args)
+    _warn_dead_flags(args)
     name = canonical_name(args.dataset)
     train_ds = _dataset(args, True)
     train_iter = BatchIterator(train_ds, args.batch_size, seed=args.seed)
@@ -392,7 +584,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     if codec.name == "sgd":
         codec = None  # dense: no encode/decode in the step, as the JAX trainer
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
-    common = dict(codec=codec, augment=name.startswith("cifar") and not args.no_augment,
+    common = dict(augment=name.startswith("cifar") and not args.no_augment,
                   max_steps=min(args.max_steps, args.epochs * steps_per_epoch),
                   eval_freq=args.eval_freq, seed=args.seed, log_fn=log_fn,
                   log_every=args.log_interval, device=args.device,
@@ -400,36 +592,53 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                   resume=args.resume, keep_ckpts=args.keep_ckpts, compress_ckpt=args.compress,
                   compute_dtype=torch.bfloat16 if args.bf16 else None)
     # one process runs the single-device loop unless a process group is up
-    # or torchrun started it (one device over NCCL: train --n-devices 1)
-    if args.sparse_rows != "off" and args.n_devices <= 1:
-        log_fn("--sparse-rows auto: single device, no exchange — running dense")
+    # or torchrun started it (one device over NCCL: a torchrun of one process)
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        if args.sparse_rows != "off":
+            log_fn("--sparse-rows auto: single device, no exchange — running dense")
+        if args.num_aggregate is not None:
+            warnings.warn("--num-aggregate needs a multi-device mesh; single-device "
+                          "training has no replicas to subset — ignoring it")
         if args.grad_accum > 1:
             warnings.warn("--grad-accum is only wired into the multi-device step; "
                           "single-device training ignores it")
-        return train_loop(model, optimizer, train_iter, test_iter, **common)
+        if args.error_feedback:
+            warnings.warn("--error-feedback needs a multi-device mesh; single-device "
+                          "training has no exchanged estimator to compensate — "
+                          "ignoring it")
+        if args.budget_alloc == "variance":
+            codec = budgeted_codec(codec, budget_allocation(
+                args, model, codec, train_iter, log_fn)[1].ks)
+        return train_loop(model, optimizer, train_iter, test_iter, codec=codec, **common)
     was_up = torch.distributed.is_initialized()
     ctx = launch.initialize(args.device)
     try:
-        if ctx.world_size != args.n_devices:
+        n_dev = args.n_devices or ctx.world_size
+        if ctx.world_size != n_dev:
             raise SystemExit(
-                f"--n-devices {args.n_devices} needs {args.n_devices} processes, one per "
+                f"--n-devices {n_dev} needs {n_dev} processes, one per "
                 f"device; this group has {ctx.world_size}: run torchrun --nproc-per-node "
-                f"{args.n_devices} -m atomo_tpu_torch train --n-devices {args.n_devices} ...")
+                f"{n_dev} -m atomo_tpu_torch train --n-devices {n_dev} ...")
+        rank_log = log_fn if ctx.rank == 0 else (lambda _: None)
         plan = None
-        if args.sparse_rows != "off" and args.n_devices > 1:
-            plan = sparse_plan(args, model, codec, train_iter, args.n_devices,
-                               log_fn if ctx.rank == 0 else (lambda _: None))
+        if args.sparse_rows != "off" and n_dev <= 1:
+            rank_log("--sparse-rows auto: single device, no exchange — running dense")
+        elif args.sparse_rows != "off":
+            plan = sparse_plan(args, model, codec, train_iter, n_dev, rank_log)
             if plan is not None and codec is None:
                 # --code sgd: the dense-assigned leaves ride the payload
                 # exchange as uncompressed DenseCodec payloads
-                common["codec"] = DenseCodec()
+                codec = DenseCodec()
+        if args.budget_alloc == "variance":
+            codec = budgeted_codec(codec, budget_allocation(
+                args, model, codec, train_iter, rank_log, write=ctx.rank == 0)[1].ks)
+        # auto resolves to gather until the comm-cost model is ported
+        aggregate = "gather" if args.aggregate == "auto" else args.aggregate
         return distributed_train_loop(
-            model, optimizer, train_iter, test_iter,
-            # auto resolves to gather until the comm-cost model is ported
-            aggregate="gather" if args.aggregate == "auto" else args.aggregate,
-            num_aggregate=args.num_aggregate or 0, ring_bucket_size=args.ring_bucket_size,
-            grad_accum=args.grad_accum, hybrid=plan, **{**common, "device": ctx.device})
+            model, optimizer, train_iter, test_iter, codec=codec, aggregate=aggregate,
+            num_aggregate=_num_aggregate(args, aggregate, codec, n_dev),
+            ring_bucket_size=args.ring_bucket_size, grad_accum=args.grad_accum, hybrid=plan,
+            error_feedback=args.error_feedback, **{**common, "device": ctx.device})
     finally:
         if not was_up:
             launch.shutdown()

@@ -5,10 +5,12 @@ from typing import Optional
 from atomo_tpu_torch.codecs.base import (  # noqa: F401
     Codec,
     CodecStats,
+    codec_subset,
     decode_mean_tree,
     decode_tree,
     encode_leaf_subset,
     encode_tree,
+    leaf_codec,
     payload_nbytes,
     stack_leaves,
     tree_nbytes,

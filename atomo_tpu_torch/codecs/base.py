@@ -32,6 +32,16 @@ JAX-layout views of all leaves at once and returns one payload per leaf, its
 mirror ``decode_leaves(payloads, grads_like, layouts, n_replicas)``, which
 decodes (and averages over replicas) all leaves at once into the port
 layout, and ``decode_mean_stack`` for a fused mean over replicas.
+
+Per-leaf codecs (``leaf_codec``, ``codec_subset``): a wrapper with a
+``codec_for(i)`` method (:class:`atomo_tpu_torch.budget.PerLeafCodec`, an
+allocation's per-layer SVD ranks or QSGD widths) resolves the codec of GLOBAL
+leaf ``i``. The tree walkers group the leaves by their resolved codec, in
+first-seen leaf order, and run each group as the plain codec runs a tree
+(QSGD: one launch per distinct width; SVD: its shape groups split where ranks
+differ); every leaf keeps its global seed ``fold_in(key, i)``. At uniform
+knobs there is one group, the whole tree, so the payloads equal the plain
+codec's bit for bit.
 """
 
 from __future__ import annotations
@@ -60,6 +70,37 @@ class Codec(Protocol):
                      shape: Optional[Sequence[int]] = None) -> torch.Tensor: ...
 
 
+def leaf_codec(codec, i: int):
+    """The codec of leaf ``i`` (global canonical index): a plain codec is
+    itself for every leaf; a per-leaf wrapper (one with ``codec_for``)
+    resolves it."""
+    fn = getattr(codec, "codec_for", None)
+    return codec if fn is None else fn(i)
+
+
+def codec_subset(codec, idxs: Sequence[int]):
+    """The codec of a sub-list of leaves named by global indices ``idxs``:
+    a per-leaf wrapper re-indexed so that local position ``j`` resolves to
+    leaf ``idxs[j]``; a plain codec as it is. Wherever a walker takes a
+    partial leaf list with local indices (the hybrid's dense sub-list)."""
+    fn = getattr(codec, "subset", None)
+    if fn is None or getattr(codec, "codec_for", None) is None:
+        return codec
+    return fn(tuple(int(i) for i in idxs))
+
+
+def _codec_groups(codec, idxs: Sequence[int]) -> dict:
+    """Positions of ``idxs`` (global leaf indices) grouped by their
+    resolved codec, in first-seen order; None for a plain codec (one group,
+    the whole list, taken by the caller as it is)."""
+    if getattr(codec, "codec_for", None) is None:
+        return None
+    groups: dict = {}
+    for j, i in enumerate(idxs):
+        groups.setdefault(leaf_codec(codec, i), []).append(j)
+    return groups
+
+
 def tree_nbytes(tensors: Sequence[torch.Tensor]) -> int:
     """Byte size of a list of tensors (e.g. a dense gradient)."""
     return int(sum(t.numel() * t.element_size() for t in tensors))
@@ -83,7 +124,11 @@ class CodecStats:
 
 
 def _shape_groups(shapes) -> dict:
-    """Leaf indices grouped by (JAX-layout shape, dtype), in first-seen order."""
+    """Leaf indices grouped by (JAX-layout shape, dtype), in first-seen
+    order. The walkers call it with one resolved codec (a per-leaf codec is
+    split by :func:`_codec_groups` first), so the key (resolved codec, shape,
+    dtype) of the JAX package's grouping holds: leaves of one shape at
+    different knobs never share a stack."""
     groups: dict = {}
     for i, key in enumerate(shapes):
         groups.setdefault(key, []).append(i)
@@ -184,10 +229,19 @@ def encode_leaf_subset(
     for bit. The subset goes through the whole-tree path: one
     ``encode_leaves`` call (QSGD: one launch, the subset's seeds in its
     arguments), else one ``encode_stack`` call per shape group of the
-    subset."""
+    subset. A per-leaf codec runs that once per group of leaves that share
+    a resolved codec, each leaf under its global seed."""
     idxs = list(idxs)
     if not idxs:
         return []
+    groups = _codec_groups(codec, idxs)
+    if groups is not None:
+        out: list = [None] * len(idxs)
+        for c, pos in groups.items():
+            for j, p in zip(pos, encode_leaf_subset(c, key, grads, [idxs[j] for j in pos],
+                                                    draws, layouts)):
+                out[j] = p
+        return out
     lay = None if layouts is None else [layouts[i] for i in idxs]
     views = _views([grads[i] for i in idxs], lay)
     seeds = [fold_in(key, i) for i in idxs]
@@ -217,13 +271,32 @@ def _decode_groups(codec: Codec, payloads, grads_like, layouts, decode):
     return out
 
 
+def _per_codec(codec, payloads, grads_like, layouts, decode) -> Optional[list]:
+    """A per-leaf codec's decode: ``decode(plain codec, payloads, grads_like,
+    layouts)`` once per group of leaves that share a resolved codec, the
+    results put back in leaf order; None for a plain codec."""
+    groups = _codec_groups(codec, range(len(grads_like)))
+    if groups is None:
+        return None
+    out: list = [None] * len(grads_like)
+    for c, pos in groups.items():
+        lay = None if layouts is None else [layouts[j] for j in pos]
+        for j, v in zip(pos, decode(c, [payloads[j] for j in pos],
+                                    [grads_like[j] for j in pos], lay)):
+            out[j] = v
+    return out
+
+
 def decode_tree(
     codec: Codec, payloads: Sequence[Payload], grads_like: Sequence[torch.Tensor],
     layouts: Optional[Sequence[bool]] = None,
 ) -> list[torch.Tensor]:
     """Decode payloads back to gradients shaped like ``grads_like`` (port
     layout): in one ``decode_leaves`` call where the codec has one, else one
-    codec call per shape group."""
+    codec call per shape group; a per-leaf codec, once per resolved codec."""
+    out = _per_codec(codec, payloads, grads_like, layouts, decode_tree)
+    if out is not None:
+        return out
     decode_leaves = getattr(codec, "decode_leaves", None)
     if decode_leaves is not None:
         return decode_leaves(payloads, grads_like, layouts)
@@ -242,7 +315,12 @@ def decode_mean_tree(
     fused ``decode_mean_stack`` where it has one and ``fused`` holds (SVD:
     one (m, N*k) @ (N*k, n) product), else decode every replica and sum the
     decodes in replica order, then divide: the ring's order, as the JAX
-    package's ``fused=False``."""
+    package's ``fused=False``. A per-leaf codec runs this once per resolved
+    codec, each leaf's fields read where they lie."""
+    out = _per_codec(codec, gathered, grads_like, layouts,
+                     lambda c, p, g, lay: decode_mean_tree(c, p, g, n_replicas, lay, fused))
+    if out is not None:
+        return out
     decode_leaves = getattr(codec, "decode_leaves", None)
     if decode_leaves is not None:
         return decode_leaves(gathered, grads_like, layouts, n_replicas)

@@ -12,7 +12,10 @@
 // to bucket_p = ceil(bs / vpw) * vpw values, vpw = 32 / (bits + 1), and packed
 // into nw = bucket_p / vpw uint32 words. Bucket position p = j * nw + w lies in
 // word w at bit j * (bits + 1) (the planar layout). A code is
-// (sign << bits) | level, level in [0, 2^bits - 1].
+// (sign << bits) | level, level in [0, 2^bits - 1]. bits runs from 1 to 16,
+// the budget allocator's widest: vpw is 16 .. 3 up to 8 bits, 3 at 9, 2 at
+// 10-15 and 1 at 16, and a code stays below 2^17. One launch takes one width;
+// a tree of mixed widths is one launch per width.
 //
 // One launch encodes a whole gradient tree: the leaves ride in the kernel's
 // arguments as a table (pointer to the leaf's contiguous JAX-layout values,
@@ -552,6 +555,8 @@ unpack_codes_tree_kernel(const __grid_constant__ CodesTable table, int32_t* __re
   for (int j = 0; j < kVpw; ++j) row[j * nw] = (int32_t)((w >> (j * kBpv)) & kMask);
 }
 
+// Every width from 1 to 16 bits, each its own instantiation; a wider one is
+// refused (a field of 18 bits or more would leave a word's 32 at 16).
 #define QSGD_DISPATCH_BITS(bits, CALL) \
   switch (bits) {                      \
     case 1: CALL(1); break;            \
@@ -562,6 +567,14 @@ unpack_codes_tree_kernel(const __grid_constant__ CodesTable table, int32_t* __re
     case 6: CALL(6); break;            \
     case 7: CALL(7); break;            \
     case 8: CALL(8); break;            \
+    case 9: CALL(9); break;            \
+    case 10: CALL(10); break;          \
+    case 11: CALL(11); break;          \
+    case 12: CALL(12); break;          \
+    case 13: CALL(13); break;          \
+    case 14: CALL(14); break;          \
+    case 15: CALL(15); break;          \
+    case 16: CALL(16); break;          \
     default: return (int)cudaErrorInvalidValue; \
   }
 
@@ -682,7 +695,7 @@ int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const
 int qsgd_pack_codes_tree(const int32_t* codes, uint32_t* words, int rows, int nw, int bits,
                          void* stream) {
   if (rows <= 0) return 0;
-  if (bits < 1 || bits > 8 || nw <= 0) return (int)cudaErrorInvalidValue;
+  if (bits < 1 || bits > 16 || nw <= 0) return (int)cudaErrorInvalidValue;
   const long long bucket_p = (long long)nw * (32 / (bits + 1));
   const long long tile_rows = bucket_p >= kPackTileInts ? 1 : kPackTileInts / bucket_p;
   if (tile_rows * bucket_p >= (1ll << 30)) return (int)cudaErrorInvalidValue;
@@ -703,7 +716,7 @@ int qsgd_unpack_codes_tree(const uint32_t* const* words, const long long* stride
                            const int* nb, const int* row0, int n_leaves, int32_t* codes,
                            int nw, int bits, void* stream) {
   if (n_leaves <= 0) return 0;
-  if (bits < 1 || bits > 8 || nw <= 0) {
+  if (bits < 1 || bits > 16 || nw <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -45,9 +45,16 @@ codes of every leaf, its rows one after another in one buffer, in one launch.
 :func:`unpack_bucketed` are the same kernels over the L equal leaves of an
 (L, n) stack (one leaf for the last two).
 
-Codes leave :func:`unpack_bucketed` as int32 (the JAX kernel returns uint32):
-fields are below 2^9, so the bits are the same and torch's int32 takes the
-shifts and masks that its uint32 does not.
+Widths run from 1 to :data:`MAX_BITS` = 16 magnitude bits, the budget
+allocator's ceiling (a sign bit beside them, so a field is ``bits + 1``
+bits). Up to 8 bits a word holds ``vpw = 32 // (bits + 1)`` = 16 .. 3
+fields; above, 3 at 9 bits, 2 at 10-15 and 1 at 16, so a bucket of 512
+values pads to 513 positions at 9 bits and to 512 at 10 and above. A field
+stays below 2^17, so codes leave :func:`unpack_bucketed` as int32 (the JAX
+kernel returns uint32) with the same bits, and torch's int32 takes the
+shifts and masks that its uint32 does not. Each launch takes one width: a
+tree whose leaves differ in width (a per-leaf budget allocation) is one
+launch per distinct width (:mod:`atomo_tpu_torch.codecs.base`).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U24 = 1.0 / (1 << 24)
+MAX_BITS = 16  # widest field the kernels take (csrc/qsgd_kernels.cu QSGD_DISPATCH_BITS)
 
 Seeds = Union[torch.Tensor, Sequence[int]]
 
@@ -87,8 +95,8 @@ class Geometry(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def geometry(n: int, bits: int, bucket_size: int = 512) -> Geometry:
-    if not 1 <= bits <= 8:
-        raise ValueError(f"bits must be in 1..8, got {bits}")
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"bits must be in 1..{MAX_BITS}, got {bits}")
     if bucket_size < 1:
         raise ValueError(f"bucket_size must be positive, got {bucket_size}")
     bpv = bits + 1

@@ -55,13 +55,25 @@ holding a replica, and the collectives of the program become calls of
   ``msg_bytes`` is ``plan.payload_bytes()``; ``metrics["row_overflow"]``
   sums the rows the budget dropped over the ranks (read off the gathered
   payloads: no extra collective);
+* ``error_feedback`` (``:1590-1620``, ``:1716-1726``, ``:1972-1990``): each
+  rank carries a residual e shaped like the gradient (``TrainState.residual``,
+  float32, port layout, on its device; None is the zero it starts from). The
+  encode takes g + e, the rank decodes its own payloads (before any
+  exchange, so no collective is waited on) and the next residual is
+  (g + e) - decode(encode(g + e)); ``metrics["ef_res_norm"]`` is the mean
+  over ranks of the residual's L2 norm. It needs a codec and does not
+  compose with ``hybrid`` or ``num_aggregate`` (``:1277-1330``);
+* per-leaf codecs (:class:`~atomo_tpu_torch.budget.PerLeafCodec`) ride every
+  exchange: the tree walkers resolve each leaf's codec, and ``msg_bytes`` is
+  the sum of the per-leaf payloads, the allocation's predicted bytes;
 * momentum SGD on the mean, then the dp mean of the BatchNorm statistics
   (``:1879``) and of loss and prec@1/5 (``:1881-1883``), one
   ``all_reduce`` over a packed buffer each.
 
 Phases are ``record_function`` ranges named as the reference's
 ``named_phase`` scopes: ``step.forward_backward``, ``step.encode``,
-``step.exchange``, ``step.decode_mean`` (psum: ``step.decode``), the ring's
+``step.exchange``, ``step.decode_mean`` (psum: ``step.decode``), the error
+feedback's ``step.ef_decode``, the ring's
 ``step.ring_exchange_decode``, the hybrid's ``step.hybrid_exchange`` around
 its encode, exchange and decode, ``step.update``. No collective needs a host
 sync: every size is static.
@@ -81,6 +93,7 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from atomo_tpu_torch.codecs import (
+    codec_subset,
     decode_mean_tree,
     decode_tree,
     encode_leaf_subset,
@@ -249,6 +262,7 @@ def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, ran
     the dense-assigned encode."""
     layouts = [True] * len(grads) if layouts is None else list(layouts)
     d_idxs, s_idxs = list(plan.dense_idxs), list(plan.sparse_idxs)
+    d_codec = codec_subset(codec, d_idxs)  # the sub-list decodes with local indices
     d_grads = [grads[i] for i in d_idxs]
     d_layouts = [layouts[i] for i in d_idxs]
     with record_function("step.encode"):
@@ -271,9 +285,9 @@ def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, ran
             parts = [None] * len(d_idxs)
     with record_function("step.decode_mean"):
         if d_idxs and aggregate == "gather":
-            mean_d = decode_mean_tree(codec, parts[:len(d_idxs)], d_grads, world, d_layouts)
+            mean_d = decode_mean_tree(d_codec, parts[:len(d_idxs)], d_grads, world, d_layouts)
         elif d_idxs:
-            mean_d = ring_stream_mean(codec, d_payloads, d_grads, rank=rank, world=world,
+            mean_d = ring_stream_mean(d_codec, d_payloads, d_grads, rank=rank, world=world,
                                       n_contrib=world, ring_bucket_size=ring_bucket_size,
                                       layouts=d_layouts, group=group)
         overflow = torch.zeros((), dtype=torch.float32, device=grads[0].device)
@@ -310,6 +324,26 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
             "exchange")
 
 
+def _check_error_feedback(codec, hybrid, k_agg: int) -> None:
+    """The step factory's refusals of ``error_feedback`` (``:1277-1330``)
+    for the arguments the port's step has."""
+    if codec is None:
+        raise ValueError(
+            "error_feedback accumulates the codec's compression "
+            "residual; dense training has no residual to accumulate")
+    if hybrid is not None:
+        raise ValueError(
+            "error_feedback does not compose with hybrid= (the "
+            "sparse rows are lossless — a zero residual — but the "
+            "mixed per-leaf carry is untested); run one or the other")
+    if k_agg:
+        raise ValueError(
+            "error_feedback does not compose with num_aggregate: a "
+            "rotating subset consumes only some replicas' payloads, "
+            "so the residual of an unconsumed encode would be "
+            "mis-attributed")
+
+
 def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
     """(aggregate in effect, k of num_aggregate or 0), as the reference
     resolves them (``:1205-1212``)."""
@@ -338,6 +372,7 @@ def make_distributed_train_step(
     compute_dtype=None,
     grad_accum: int = 1,
     hybrid=None,
+    error_feedback: bool = False,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
     dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
@@ -359,7 +394,9 @@ def make_distributed_train_step(
     :class:`~atomo_tpu_torch.sparse.HybridPlan` over this model's leaves)
     runs the per-layer sparse-row exchange (:func:`hybrid_mean`; gather or
     ring with a codec, no ``num_aggregate``) and adds ``row_overflow`` to
-    ``metrics``."""
+    ``metrics``. ``error_feedback`` feeds each rank's residual
+    (``state.residual``) into its encode, carries the new one in the
+    returned state and adds ``ef_res_norm`` to ``metrics``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
@@ -367,18 +404,26 @@ def make_distributed_train_step(
     if hybrid is not None:
         _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world)
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
+    if error_feedback:
+        _check_error_feedback(codec, hybrid, k_agg)
     n_contrib = k_agg or world
     names = jax_leaf_order(model)
     layouts = jax_layouts(model)
     stats = list(model.buffers())  # the BatchNorm statistics, Flax's batch_stats
 
     def exchange(state: TrainState, k_codec: int, grads, draws, dense_bytes: int):
-        """(mean gradient in the port layout, message bytes)."""
+        """(mean gradient in the port layout, message bytes, this rank's own
+        decode of its payloads under ``error_feedback``, else None)."""
         if codec is None:
             with record_function("step.exchange"):
-                return _views_like(_all_reduce_mean(_flat(grads), world), grads), dense_bytes
+                return (_views_like(_all_reduce_mean(_flat(grads), world), grads), dense_bytes,
+                        None)
         with record_function("step.encode"):
             payloads, cstats = encode_tree(codec, k_codec, grads, draws, layouts)
+        own = None
+        if error_feedback and aggregate != "psum":
+            with record_function("step.ef_decode"):
+                own = decode_tree(codec, payloads, grads, layouts)
         sel_start = state.step % world if k_agg else None
         if aggregate == "gather":
             with record_function("step.exchange"):
@@ -388,18 +433,19 @@ def make_distributed_train_step(
                     gathered = _rotating_rows(gathered, sel_start, k_agg)
                 mean = decode_mean_tree(codec, unpack_tree_buckets(gathered, spec), grads,
                                         n_contrib, layouts)
-            return mean, cstats.payload_bytes
+            return mean, cstats.payload_bytes, own
         if aggregate == "ring":
             with record_function("step.ring_exchange_decode"):
                 mean = ring_stream_mean(codec, payloads, grads, rank=rank, world=world,
                                         sel_start=sel_start, n_contrib=n_contrib,
                                         ring_bucket_size=ring_bucket_size, layouts=layouts)
-            return mean, cstats.payload_bytes
+            return mean, cstats.payload_bytes, own
         with record_function("step.decode"):
             decoded = decode_tree(codec, payloads, grads, layouts)
         with record_function("step.exchange"):
             mean = _views_like(_all_reduce_mean(_flat(decoded), world), grads)
-        return mean, dense_bytes  # the all-reduce moves dense gradients
+        # the all-reduce moves dense gradients; its local decode is the own one
+        return mean, dense_bytes, decoded if error_feedback else None
 
     def accumulate(images, labels, k_drop: int, dropout_masks):
         """(mean gradient over the microbatches, mean loss, prec@1, prec@5)."""
@@ -456,8 +502,11 @@ def make_distributed_train_step(
                 grads = [p.grad for p in params]
                 loss = loss.detach()
                 prec1, prec5 = accuracy(logits.detach(), labels)
+        if error_feedback and state.residual is not None:
+            # the encode's input is g + e (a fresh carry is zero: g as it is)
+            grads = [g + e for g, e in zip(grads, state.residual)]
         dense_bytes = tree_nbytes(grads)
-        overflow = None
+        overflow = residual = None
         if hybrid is not None:
             with record_function("step.hybrid_exchange"):
                 mean, msg_bytes, overflow = hybrid_mean(
@@ -465,7 +514,13 @@ def make_distributed_train_step(
                     aggregate=aggregate, ring_bucket_size=ring_bucket_size, layouts=layouts,
                     draws=draws)
         else:
-            mean, msg_bytes = exchange(state, k_codec, grads, draws, dense_bytes)
+            mean, msg_bytes, own = exchange(state, k_codec, grads, draws, dense_bytes)
+        local = [loss, prec1, prec5]
+        if error_feedback:
+            with torch.no_grad():
+                # the part of the fed gradient that the wire did not carry
+                residual = [g.float() - d.float() for g, d in zip(grads, own)]
+                local.append(torch.sqrt(sum(torch.sum(r * r) for r in residual)))
         with record_function("step.update"):
             opt_state = optimizer.update(mean, state.opt_state, params)
         with torch.no_grad():
@@ -473,12 +528,15 @@ def make_distributed_train_step(
                 flat = _all_reduce_mean(_flat(stats), world)
                 for s, v in zip(stats, _views_like(flat, stats)):
                     s.copy_(v)
-            m = _all_reduce_mean(torch.stack([loss, prec1, prec5]), world)
+            m = _all_reduce_mean(torch.stack(local), world)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes}
         if overflow is not None:
             metrics["row_overflow"] = overflow
-        return TrainState(step=state.step + 1, model=model, opt_state=opt_state), metrics
+        if error_feedback:
+            metrics["ef_res_norm"] = m[3]
+        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+                          residual=residual), metrics
 
     return step
 

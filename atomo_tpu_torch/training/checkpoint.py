@@ -8,7 +8,9 @@ directory work unchanged.
 
 A file is ``magic(4) | crc32(payload) LE(4) | payload``. The payload is
 ``torch.save`` of ``{"step", "model" (the state_dict: parameters and
-BatchNorm statistics), "opt_state" (the optimizer state's fields)}``, every
+BatchNorm statistics), "opt_state" (the optimizer state's fields)}``, with
+``"ef_residual"`` beside them when the state carries ``--error-feedback``'s
+residual (every rank's, one (N, d) tensor), every
 tensor on the CPU, read back with ``torch.load(weights_only=True)`` and
 copied into the caller's model and optimizer state on their device; with
 ``compress`` it goes through the port's lossless codec
@@ -82,6 +84,8 @@ def _payload(state, step: int) -> bytes:
                                else _cpu(getattr(opt, f.name)))
                       for f in dataclasses.fields(opt)},
     }
+    if getattr(state, "residual", None) is not None:
+        obj["ef_residual"] = state.residual.detach().cpu()
     buf = io.BytesIO()
     torch.save(obj, buf)
     return buf.getvalue()
@@ -270,7 +274,8 @@ def _load_opt_state(template, saved: dict):
 def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     """Restore a full train state into ``state`` (built by ``create_state``
     with the same model and optimizer: its model and optimizer tensors are
-    overwritten in place) and return it with the checkpoint's step.
+    overwritten in place) and return it with the checkpoint's step and its
+    error-feedback carry (the saved (N, d) tensor on the CPU, or None).
 
     ``step=None`` loads the newest file that passes the checks, skipping
     corrupt ones with a warning, and raises ``FileNotFoundError`` when the
@@ -279,7 +284,8 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     d = _read(train_dir, step)
     _load_model(state.model, d["model"])
     opt_state = _load_opt_state(state.opt_state, d["opt_state"])
-    return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state)
+    return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state,
+                               residual=d.get("ef_residual"))
 
 
 def load_params(train_dir: str, model: nn.Module, step: Optional[int] = None) -> int:

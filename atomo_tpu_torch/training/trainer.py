@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -63,6 +64,11 @@ class TrainState:
     step: int
     model: nn.Module
     opt_state: OptState
+    # --error-feedback's carry: this rank's residual per leaf (port layout,
+    # float32, on its device), None for the zero it starts from. A loaded
+    # checkpoint leaves there every rank's residual as one (N, d) CPU tensor
+    # (training.checkpoint), which distributed_train_loop takes apart.
+    residual: Optional[list] = None
 
 
 def leaf_params(model: nn.Module) -> list[torch.Tensor]:
@@ -210,6 +216,38 @@ def _resume(state: TrainState, train_dir: Optional[str], resume: bool, log_fn) -
     return state
 
 
+def gather_residual(state: TrainState, world: int) -> torch.Tensor:
+    """Every rank's residual as one (world, d) float32 tensor (canonical
+    leaf order, port layout, flattened), by one all-gather."""
+    flat = torch.cat([r.reshape(-1) for r in state.residual])
+    out = torch.empty((world * flat.numel(),), dtype=flat.dtype, device=flat.device)
+    torch.distributed.all_gather_into_tensor(out, flat)
+    return out.view(world, -1)
+
+
+def own_residual(state: TrainState, model: nn.Module, rank: int, world: int,
+                  dev) -> TrainState:
+    """``state`` with this rank's residual: its row of a loaded (world, d)
+    carry on ``dev``; None (a zero start) for a fresh run, and, with the
+    JAX package's warning, for a checkpoint without a carry of this shape."""
+    if state.step == 0:  # a fresh start: its residual is the zero one
+        return state
+    params = leaf_params(model)
+    d = sum(p.numel() for p in params)
+    saved = state.residual
+    if saved is None or tuple(saved.shape) != (world, d):
+        why = ("no ef_residual in the checkpoint" if saved is None else
+               f"its carry is {tuple(saved.shape)}, this run needs ({world}, {d})")
+        warnings.warn(
+            "--error-feedback resume: checkpoint has no residual "
+            f"carry ({why}); restoring the train state only — "
+            "the first resumed step starts from a zero residual")
+        return dataclasses.replace(state, residual=None)
+    row = saved[rank].to(dev)
+    return dataclasses.replace(state, residual=[
+        v.view(p.shape) for v, p in zip(row.split([p.numel() for p in params]), params)])
+
+
 def train_loop(
     model: nn.Module,
     optimizer: Optimizer,
@@ -298,6 +336,7 @@ def distributed_train_loop(
     ring_bucket_size: int = 65536,
     grad_accum: int = 1,
     hybrid=None,
+    error_feedback: bool = False,
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
@@ -323,7 +362,12 @@ def distributed_train_loop(
     file. ``grad_accum`` K splits each rank's rows into K microbatches
     (:func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`),
     and ``hybrid`` (a :class:`~atomo_tpu_torch.sparse.HybridPlan`) runs the
-    per-layer sparse-row exchange there. Runs on CUDA unless
+    per-layer sparse-row exchange there. ``error_feedback`` carries each
+    rank's compression residual from step to step, starting from zero; the
+    checkpoints hold every rank's residual (gathered to rank 0), and a
+    resume gives each rank its own back, so the resumed run equals the
+    straight one bit for bit; a checkpoint without one (or of another world
+    size) warns and starts from a zero residual. Runs on CUDA unless
     ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.replicated import (
@@ -338,10 +382,13 @@ def distributed_train_loop(
     state = replicate_state(create_state(model, optimizer, seed, dev))
     state = _resume(state, train_dir, resume, log_fn if rank == 0 else (lambda _: None))
     start_step = state.step
+    if error_feedback:
+        state = own_residual(state, model, rank, world, dev)
     step_fn = make_distributed_train_step(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
         num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
-        compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid)
+        compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid,
+        error_feedback=error_feedback)
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
     timer = Timer()
@@ -350,8 +397,11 @@ def distributed_train_loop(
     last_saved = start_step
 
     def save(step: int) -> None:
+        saved = state
+        if error_feedback:  # every rank's residual, in rank order, to rank 0
+            saved = dataclasses.replace(state, residual=gather_residual(state, world))
         if rank == 0:
-            save_checkpoint(train_dir, state, step, compress=compress_ckpt, keep=keep_ckpts)
+            save_checkpoint(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
         torch.distributed.barrier()  # no rank goes on before the file is in place
 
     while state.step < max_steps:

@@ -160,6 +160,29 @@ every hand-written kernel against its plain PyTorch version:
    with ``--sparse-gloo-child``), 3 steps: the plan printed, the replicas
    bit-identical, one launch a step each way on each rank. The ring stays
    on the CPU (gloo aborts on a CUDA tensor's send and receive).
+13. budget: per-layer allocation and error feedback. (a) The CLI's
+   ``--budget-alloc variance`` allocations for ResNet-18 at batch 128 (svd
+   rank 3 under ``fixed_k``, qsgd 4 bits; ``--budget-bytes 0``), then rows
+   1-4 on ResNet-18's real gradient at the qsgd allocation's widths and at
+   a forced allocation of every width 1-16 (62 leaves, widths 1 + i % 16),
+   as the main path runs them, against their plain versions (bit for bit;
+   scales within 1 ulp, the pack path's torch quantizer within rtol 1e-6),
+   with the launches of each call (one per distinct width) and each row's
+   device time over the tree beside its bound by bytes. (b) At NCCL world
+   1, ``make_distributed_train_step`` 30 steps each of uniform and variance
+   for svd3 and qsgd4 from one start on the same batches: Msg bytes (the
+   variance total at or under the uniform one, equal to
+   ``allocation_payload_bytes``), the median step, the mean loss of steps
+   26-30, the SVD groups or QSGD launches a step; DenseNet-BC-190's SVD
+   groups uniform and variance. (c) ``--error-feedback`` with svd3
+   ``--sample topk`` and qsgd4 at NCCL world 1 in a deterministic child
+   (this script with ``--budget-child``): ``ef_res_norm`` for steps 1-10,
+   step 1 equal to the plain step and a run cut after step 5 and resumed
+   equal to the straight run, bit for bit. (d) ``train --code qsgd
+   --budget-alloc variance --error-feedback`` through ``torchrun
+   --nproc-per-node 1`` without ``--n-devices`` (this script with
+   ``--budget-cli-child``): its ``Budget:`` and ``Worker:`` lines and
+   launches (one encode and two decode launches per width a step).
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -236,11 +259,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 10, tries: int = 2) -> float:
+def device_ms(fn, kernel: str, reps: int = 10, tries: int = 4) -> float:
     """Milliseconds a call of ``fn()`` keeps the card busy in kernels whose
     name holds ``kernel``, from ``torch.profiler`` over ``reps`` calls. A
-    session that records no device activity at all is taken again, once
-    (one such session in a run of dozens has been seen)."""
+    session that records no device activity at all is taken again, up to
+    ``tries`` sessions in all (one such session in a run of dozens has been
+    seen, and two in a row once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2418,6 +2442,435 @@ def phase_sparse(work: Path, errs: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------- the budget phase
+
+BUDGET_STEPS = 30
+EF_STEPS, EF_CUT = 10, 5
+BUDGET_CLI_STEPS = 5
+# (label, CLI codec flags): the allocations of the JAX package's bench config
+# 16 comparison, svd rank 3 under --sample fixed_k and qsgd at 4 bits
+BUDGET_CODES = [("svd3", ["--code", "svd", "--svd-rank", "3"]),
+                ("qsgd4", ["--code", "qsgd", "--quantization-level", "4"])]
+ROW_KERNELS = {"quantize_pack": "quantize_pack_kernel",
+               "unpack_dequantize": "unpack_dequantize_tree_kernel",
+               "pack_bucketed": "pack_codes_tree_kernel",
+               "unpack_bucketed": "unpack_codes_tree_kernel"}
+
+
+def budget_allocation(flags, budget_bytes: float = 0.0):
+    """The CLI's ``--budget-alloc variance`` allocation for ResNet-18 at
+    batch 128 (its probe gradient over the first 128 training images, its
+    printed block): (plain codec, wrapped codec, spectra, allocation)."""
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.budget import budgeted_codec
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+    from atomo_tpu_torch.models import get_model
+
+    args = cli.build_parser().parse_args(TRAIN_ARGS + flags + [
+        "--budget-alloc", "variance", "--budget-bytes", str(budget_bytes)])
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True), 128, seed=1)
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    codec = get_codec(args.code, svd_rank=args.svd_rank or 3,
+                      quantization_level=args.quantization_level, sample=args.sample)
+    spectra, alloc = cli.budget_allocation(args, model, codec, it, lambda ln: log("  " + ln))
+    return codec, budgeted_codec(codec, alloc.ks), spectra, alloc
+
+
+def real_resnet_grads(dev):
+    """ResNet-18's gradient on the card from one backward pass over the first
+    training batch (the model at seed 1)."""
+    import torch.nn.functional as F
+
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    create_state(model, make_optimizer("sgd"), 1, dev)
+    x, y = resnet_batches(dev, 1)[0]
+    model.train()
+    F.cross_entropy(model(x), y).backward()
+    return [p.grad.detach().clone() for p in leaf_params(model)]
+
+
+def mixed_tree_check(grads, ks, label: str, errs: dict) -> dict:
+    """Rows 1-4 on the ResNet-18 gradient tree at per-leaf widths ``ks``,
+    against their plain versions on the CPU, each run as the main path runs
+    it: the fused path's encode (row 1) and the pack path's (row 3) with
+    given uniforms (scales within 1 ulp, the pack path's torch quantizer
+    within rtol 1e-6; words bit for bit where the scales are the same
+    float), then the gathered decode of 2 replicas read in place (row 2's
+    values, row 4's codes, and row 3 packing those codes again), bit for bit
+    against the plain versions on the card's payloads. Returns the launches
+    each call made (one per distinct width) and the device time of each row
+    over the tree, beside its bound by bytes."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.budget import budgeted_codec
+    from atomo_tpu_torch.codecs import QsgdCodec, QsgdPayload, decode_mean_tree, encode_tree
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    dev = grads[0].device
+    cpu = [g.cpu() for g in grads]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    u = [[torch.rand((K.geometry(g.numel(), 1).n_buckets, 512), generator=gen, device=dev)
+          for g in grads] for _ in range(2)]
+    out = {"widths": sorted(set(ks)), "launches": {}, "time": {}}
+    for path, enc_row, dec_row in (("fused", "quantize_pack", "unpack_dequantize"),
+                                   ("pack", "pack_bucketed", "unpack_bucketed")):
+        codec = budgeted_codec(QsgdCodec(bits=4, use_kernel=path == "fused"), ks)
+        reps = []
+        for r in range(2):
+            ops.reset_launch_counts()
+            got = encode_tree(codec, 7 + r, grads, draws=u[r])[0]
+            out["launches"][f"{path}_encode"] = ops.launch_counts()
+            want = encode_tree(codec, 7 + r, cpu, draws=[t.cpu() for t in u[r]])[0]
+            for i, (a, b) in enumerate(zip(got, want)):
+                sa = a.scales.cpu()
+                big = torch.maximum(sa.abs(), b.scales.abs())
+                # the fused kernel's scale within 1 ulp of its twin's; the
+                # pack path's is torch's vector_norm, whose sum runs in
+                # other orders on the card and on the CPU: rtol 1e-6
+                tol = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+                       if path == "fused" else 1e-6 * big)
+                same = sa == b.scales
+                if not (bool(((sa - b.scales).abs() <= tol).all()) and same_bits(
+                        a.words.cpu().view(torch.int32)[same], b.words.view(torch.int32)[same])):
+                    raise AssertionError(f"budget check {label} {path}: leaf {i} at "
+                                         f"{ks[i]} bits differs from the plain encode")
+                if path == "fused":  # the pack path's scales are torch's, not row 3's
+                    errs[enc_row] = max(errs[enc_row], float((sa - b.scales).abs().max()))
+            reps.append(got)
+        packed = [pack_tree_buckets(p) for p in reps]
+        views = unpack_tree_buckets(torch.stack([b for b, _ in packed]), packed[0][1])
+        ops.reset_launch_counts()
+        mean = decode_mean_tree(codec, views, grads, 2)
+        torch.cuda.synchronize()
+        out["launches"][f"{path}_decode"] = ops.launch_counts()
+        if path == "fused":  # row 2's values
+            plain = decode_mean_tree(codec, [QsgdPayload(v.words.cpu(), v.scales.cpu())
+                                             for v in views], cpu, 2)
+            pairs = [(a.cpu(), b) for a, b in zip(mean, plain)]
+        else:  # row 4's codes, one launch per width as the pack path's decode makes
+            pairs = []  # them, and row 3 packing them again
+            for k in sorted(set(ks)):
+                group = [v.words for v, w in zip(views, ks) if w == k]
+                codes = K.unpack_bucketed_tree(group, bits=k)
+                pairs.append((codes.cpu(),
+                              K.unpack_bucketed_tree_plain([w.cpu() for w in group], bits=k)))
+                check_tree_pack(codes, group, k, errs, f"budget check {label} at {k} bits")
+        for i, (a, b) in enumerate(pairs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"budget check {label} {path}: the gathered decode "
+                                     f"differs from the plain one (item {i})")
+            errs[dec_row] = max(errs[dec_row], float((a.double() - b.double()).abs().max()))
+        n_values = sum(g.numel() for g in grads)
+        n_words = sum(p.words.numel() for p in reps[0])
+        n_scales = sum(p.scales.numel() for p in reps[0])
+        n_pos = sum(p.words.numel() * K.geometry(0, k).vpw for p, k in zip(reps[0], ks))
+        one = unpack_tree_buckets(packed[0][0], packed[0][1])
+        if path == "fused":
+            work = {
+                enc_row: (lambda: encode_tree(codec, 7, grads),
+                          4 * (n_values + n_words + n_scales)),
+                dec_row: (lambda: decode_mean_tree(codec, one, grads, 1),
+                          4 * (n_words + n_scales + n_values)),
+            }
+        else:
+            codes = [K.unpack_bucketed(p.words.reshape(-1, p.words.shape[-1]), k)
+                     for p, k in zip(reps[0], ks)]
+            work = {
+                enc_row: (lambda: [K.pack_bucketed(c, k) for c, k in zip(codes, ks)],
+                          4 * (n_pos + n_words)),
+                dec_row: (lambda: [K.unpack_bucketed(p.words.reshape(-1, p.words.shape[-1]), k)
+                                   for p, k in zip(reps[0], ks)], 4 * (n_words + n_pos)),
+            }
+        for row, (fn, nbytes) in work.items():
+            b_ms, b_by = bound(nbytes, 0)
+            out["time"][row] = {"device_ms": device_ms(fn, ROW_KERNELS[row], reps=5),
+                                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    log(f"budget check {label}: widths {out['widths']} over {len(grads)} leaves: rows 1-4 "
+        "equal their plain versions (the encodes with given uniforms, the gathered decode of "
+        "2 replicas read in place); launches per call " + ", ".join(
+            f"{k} {({n: v for n, v in c.items() if v})}" for k, c in out["launches"].items())
+        + "; device ms over the tree " + ", ".join(
+            f"{row} {t['device_ms']:.4f} (bound {t['bound_ms']:.4f} by {t['bound_by']})"
+            for row, t in out["time"].items()))
+    return out
+
+
+def budget_groups(codec, grads) -> int:
+    """Codec calls a tree encode makes: QSGD one per distinct width, SVD one
+    per (JAX-layout shape, rank) group."""
+    from atomo_tpu_torch.codecs import leaf_codec
+    from atomo_tpu_torch.convert import jax_view
+
+    if hasattr(leaf_codec(codec, 0), "bits"):
+        return len({leaf_codec(codec, i) for i in range(len(grads))})
+    return len({(tuple(jax_view(g).shape), leaf_codec(codec, i)) for i, g in enumerate(grads)})
+
+
+def budget_densenet_groups() -> dict:
+    """DenseNet-BC-190's SVD groups under the svd rank 3 variance allocation
+    (probe: the first 8 training images, on the CPU): the encode's shape
+    groups, and its SVD groups (one ``eigh`` host sync each) uniform and
+    variance."""
+    from atomo_tpu_torch.budget import budgeted_codec, measure_spectra, solve_allocation
+    from atomo_tpu_torch.codecs import SvdCodec, leaf_codec
+    from atomo_tpu_torch.convert import jax_layouts, jax_leaf_paths, jax_view
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.sparse import probe_gradient
+
+    model = get_model("densenet", 10, image_shape=(32, 32, 3))
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True), 128, seed=1)
+    grads = probe_gradient(model, it.images[:8], it.labels[:8])
+    codec = SvdCodec(rank=3)
+    alloc = solve_allocation(codec, measure_spectra(codec, grads, jax_leaf_paths(model),
+                                                    jax_layouts(model)))
+    wrapped = budgeted_codec(codec, alloc.ks)
+    shapes = [tuple(jax_view(g).shape) for g in grads]
+
+    def svd_groups(c):
+        return len({(s, leaf_codec(c, i)) for i, s in enumerate(shapes)
+                    if not leaf_codec(c, i)._dense_fallback(s)})
+
+    out = {"leaves": len(grads), "shape_groups": len(set(shapes)),
+           "svd_groups_uniform": svd_groups(codec), "svd_groups_variance": svd_groups(wrapped)}
+    log(f"budget densenet svd3: {out['leaves']} leaves in {out['shape_groups']} shape groups; "
+        f"SVD groups (an eigh host sync each) uniform {out['svd_groups_uniform']}, variance "
+        f"{out['svd_groups_variance']}")
+    return out
+
+
+def budget_pairs(work: Path, allocs: dict) -> dict:
+    """(b) ResNet-18 at batch 128 through ``make_distributed_train_step`` at
+    NCCL world 1, ``variance`` against ``uniform`` at equal wire bytes
+    (``--budget-bytes 0``), svd rank 3 and qsgd 4 bits, 30 steps each from
+    one start on the same batches: Msg bytes (the variance total at or under
+    the uniform one and equal to ``allocation_payload_bytes``), the median
+    step (steps 2 on), the mean loss of the last 5, the SVD groups or QSGD
+    launches a step."""
+    import torch
+
+    from atomo_tpu_torch.budget import allocation_payload_bytes
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step, replicate_state
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/budget_nccl1",
+                      world_size=1, rank=0)
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    batches = resnet_batches(dev, BUDGET_STEPS)
+    grads = real_resnet_grads(dev)
+    out = {}
+    try:
+        for label, _ in BUDGET_CODES:
+            codec, wrapped, spectra, alloc = allocs[label]
+            pair = {}
+            for mode, c in (("uniform", codec), ("variance", wrapped)):
+                model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+                state = replicate_state(create_state(model, opt, 1, dev))
+                step = make_distributed_train_step(model, opt, c, aggregate="gather",
+                                                   augment=True)
+                _, r = run_steps(step, state, batches, sync_check=False)
+                r["per_step_launches"] = {k: v / BUDGET_STEPS for k, v in r["launches"].items()}
+                r["codec_calls_per_encode"] = budget_groups(c, grads)
+                r["last5_mean_loss"] = statistics.fmean(r["losses"][-5:])
+                del r["hashes"]
+                pair[mode] = r
+            want = allocation_payload_bytes(codec, spectra, alloc.ks)
+            uni, var = pair["uniform"], pair["variance"]
+            if var["msg_bytes"] != want or var["msg_bytes"] > uni["msg_bytes"]:
+                raise AssertionError(f"budget {label}: variance Msg {var['msg_bytes']} bytes, "
+                                     f"predicted {want}, uniform {uni['msg_bytes']}")
+            if label == "qsgd4" and (var["launches"]["quantize_pack"]
+                                     != BUDGET_STEPS * var["codec_calls_per_encode"]):
+                raise AssertionError(f"budget {label}: launches {var['launches']}")
+            for mode in ("uniform", "variance"):
+                r = pair[mode]
+                log(f"budget nccl-1 {label} {mode}: Msg(MB) {r['msg_bytes'] / 2 ** 20:.4f} "
+                    f"({r['msg_bytes']} bytes), median step ms (steps 2-{BUDGET_STEPS}) "
+                    f"{r['median_step_ms']:.3f}, mean loss of steps {BUDGET_STEPS - 4}-"
+                    f"{BUDGET_STEPS} {r['last5_mean_loss']:.4f}, "
+                    + (f"SVD groups {r['codec_calls_per_encode']}" if label == "svd3" else
+                       f"QSGD launches per step {r['per_step_launches']}"))
+            pair["predicted_bytes"] = want
+            out[label] = pair
+    finally:
+        launch.shutdown()
+    return out
+
+
+def budget_child(work: str, out_path: str) -> int:
+    """(c) ``--error-feedback`` at NCCL world 1 in a deterministic process
+    (this script with ``--budget-child``; cuBLAS's workspace set before its
+    first handle): svd rank 3 ``--sample topk`` and qsgd 4 bits, ResNet-18 at
+    batch 128. The first EF step equals the plain step bit for bit (the
+    residual starts at zero); ``ef_res_norm`` for steps 1-10; a run cut after
+    step 5 (every rank's residual gathered into the checkpoint) and resumed
+    equals the straight run bit for bit, residual included."""
+    import dataclasses
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.codecs import QsgdCodec, SvdCodec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step, replicate_state
+    from atomo_tpu_torch.training import checkpoint as ck
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training import trainer as T
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/ef_nccl1", world_size=1,
+                      rank=0)
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    batches = resnet_batches(dev, EF_STEPS)
+    codecs = {"svd3_topk": SvdCodec(rank=3, sample="topk"), "qsgd4": QsgdCodec(bits=4)}
+    out = {}
+    try:
+        for label in codecs:
+            def fresh(ef: bool):
+                model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+                state = replicate_state(create_state(model, opt, 1, dev))
+                return model, state, make_distributed_train_step(
+                    model, opt, codecs[label], aggregate="gather", augment=True,
+                    error_feedback=ef)
+
+            def run(model, state, step, idx):
+                norms, hashes = [], []
+                for i in idx:
+                    state, m = step(state, 2, *batches[i])
+                    norms.append(float(m.get("ef_res_norm", float("nan"))))
+                    hashes.append(state_hash(model))
+                return state, norms, hashes
+
+            model, state, step = fresh(False)
+            _, _, plain = run(model, state, step, [0])
+            ops.reset_launch_counts()
+            model, state, step = fresh(True)
+            state_s, norms, hashes = run(model, state, step, range(EF_STEPS))
+            counts = ops.launch_counts()
+            model_c, state_c, step_c = fresh(True)
+            state_c, _, cut = run(model_c, state_c, step_c, range(EF_CUT))
+            d = str(Path(work) / f"ef_{label}")
+            ck.save_checkpoint(d, dataclasses.replace(
+                state_c, residual=T.gather_residual(state_c, 1)), compress=False)
+            model_r, state_r, step_r = fresh(True)
+            state_r = T.own_residual(ck.load_checkpoint(d, state_r), model_r, 0, 1, dev)
+            state_r, _, resumed = run(model_r, state_r, step_r, range(EF_CUT, EF_STEPS))
+            if hashes[0] != plain[0]:
+                raise AssertionError(f"ef {label}: step 1 differs from the plain step")
+            if cut + resumed != hashes:
+                raise AssertionError(f"ef {label}: the resumed run differs from the straight")
+            if not all(torch.equal(a, b) for a, b in zip(state_s.residual, state_r.residual)):
+                raise AssertionError(f"ef {label}: the resumed residual differs")
+            if not all(math.isfinite(v) and v > 0 for v in norms):
+                raise AssertionError(f"ef {label}: ef_res_norm {norms}")
+            out[label] = {"ef_res_norm": norms, "launches": counts}
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def budget_cli_child(out_path: str) -> int:
+    """(d) ``train --code qsgd --budget-alloc variance --error-feedback``
+    through the CLI in a ``torchrun --nproc-per-node 1`` process (this
+    script with ``--budget-cli-child``), without ``--n-devices``: the whole
+    process group, one NCCL rank. Writes its lines and launch counts."""
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import cli, ops
+
+    lines: list[str] = []
+    ops.reset_launch_counts()
+    rc = cli.main(TRAIN_ARGS + ["--code", "qsgd", "--quantization-level", "4",
+                                "--budget-alloc", "variance", "--error-feedback",
+                                "--max-steps", str(BUDGET_CLI_STEPS), "--eval-freq", "0"],
+                  log_fn=lines.append)
+    Path(out_path).write_text(json.dumps({"rc": rc, "lines": lines,
+                                          "launches": ops.launch_counts()}))
+    return rc
+
+
+def phase_budget(work: Path, errs: dict, card: str) -> dict:
+    """The per-layer budget allocation and error feedback: (a) rows 1-4 on
+    ResNet-18's real gradient at the qsgd variance allocation's widths and at
+    a forced allocation of every width 1-16; (b) variance against uniform at
+    equal wire bytes; (c) error feedback in a deterministic child; (d) the
+    CLI end to end under torchrun."""
+    import os
+    import socket
+
+    import torch
+
+    allocs = {label: budget_allocation(flags) for label, flags in BUDGET_CODES}
+    grads = real_resnet_grads(torch.device("cuda"))
+    out = {"check": {
+        "allocated": mixed_tree_check(grads, list(allocs["qsgd4"][3].ks), "allocated", errs),
+        "every_width": mixed_tree_check(grads, [1 + i % 16 for i in range(len(grads))],
+                                        "every width", errs)}}
+    del grads
+    out["pairs"] = budget_pairs(work, allocs)
+    out["densenet"] = budget_densenet_groups()
+    out["ks"] = {label: list(a[3].ks) for label, a in allocs.items()}
+    ef_path = work / "ef.json"
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--budget-child",
+                           str(work), str(ef_path)], capture_output=True, text=True,
+                          timeout=600, cwd=str(ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"ef: the deterministic runs failed (exit {proc.returncode}):\n"
+                             + proc.stdout[-2000:] + proc.stderr[-4000:])
+    out["ef"] = json.loads(ef_path.read_text())
+    for label, r in out["ef"].items():
+        log(f"ef nccl-1 {label}: ef_res_norm steps 1-{EF_STEPS} "
+            + " ".join(f"{v:.6g}" for v in r["ef_res_norm"])
+            + f"; step 1 equals the plain step bit for bit; cut after step {EF_CUT} and resumed"
+            f" equals the straight run bit for bit (residual included); launches {r['launches']}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cli_path = work / "budget_cli.json"
+    env = dict(os.environ, OMP_NUM_THREADS=str(os.cpu_count() or 1))  # the CPU probe's threads
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                           "1", "--master-addr", "127.0.0.1", "--master-port", str(port),
+                           str(Path(__file__).resolve()), "--budget-cli-child", str(cli_path)],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
+    if proc.returncode != 0 or not cli_path.exists():
+        raise AssertionError(f"budget cli: torchrun failed (exit {proc.returncode}):\n"
+                             + proc.stdout[-2000:] + proc.stderr[-4000:])
+    res = json.loads(cli_path.read_text())
+    lines = res["lines"]
+    block = [ln for ln in lines if ln.startswith(("budget allocation", "  [", "Budget:"))]
+    worker = [ln for ln in lines if ln.startswith("Worker: ")]
+    widths = len(set(allocs["qsgd4"][3].ks))
+    want = {"quantize_pack": widths * BUDGET_CLI_STEPS,
+            "unpack_dequantize": 2 * widths * BUDGET_CLI_STEPS}
+    if (len(worker) != BUDGET_CLI_STEPS or not block
+            or any(res["launches"][k] != v for k, v in want.items())):
+        raise AssertionError(f"budget cli: lines {lines[:12]}, launches {res['launches']}")
+    for ln in block + worker:
+        log("  " + ln)
+    log(f"budget cli (torchrun --nproc-per-node 1, no --n-devices): --code qsgd --budget-alloc "
+        f"variance --error-feedback, {BUDGET_CLI_STEPS} steps, launches {res['launches']} "
+        f"({widths} widths: one encode launch per width a step, two decode launches per "
+        "width a step: the error feedback's own decode and the gathered mean)")
+    out["cli"] = {"lines": block + worker, "launches": res["launches"]}
+    out["card"] = card
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -2427,6 +2880,10 @@ def main() -> int:
         return ckpt_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--sparse-gloo-child"]:
         return sparse_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--budget-child"]:
+        return budget_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--budget-cli-child"]:
+        return budget_cli_child(sys.argv[2])
     import tempfile
 
     import torch
@@ -2488,6 +2945,8 @@ def main() -> int:
         lap("zoo")
         sparse = phase_sparse(Path(work), errs)
         lap("sparse")
+        budget = phase_budget(Path(work), errs, card)
+        lap("budget")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -2499,6 +2958,10 @@ def main() -> int:
                 + sum(r["launches"][name] for r in zoo["runs"].values() if "launches" in r)
                 + sparse["recipe"]["launches"][name]
                 + sum(r["launches"][name] for r in sparse["big_table"]["runs"].values())
+                + sum(r["launches"][name] for pair in budget["pairs"].values()
+                      for r in pair.values() if isinstance(r, dict))
+                + sum(r["launches"][name] for r in budget["ef"].values())
+                + budget["cli"]["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -2518,7 +2981,8 @@ def main() -> int:
         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]}
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
-              "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "phase_seconds": seconds,
+              "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
+              "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

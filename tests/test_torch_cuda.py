@@ -51,7 +51,7 @@ def _same_bits(a, b):
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("bits", range(1, 17))
 @pytest.mark.parametrize("scheme", ["qsgd", "terngrad"])
 @pytest.mark.parametrize("n", [512, 1000, 4113, 300_001])
 def test_kernels_match_plain(dev, bits, scheme, n):
@@ -98,7 +98,7 @@ def _resnet18_grads(dev, seed=0):
 
 
 @pytest.mark.parametrize("mode", ["seeds", "u"])
-@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 9)] + [(1, "terngrad")])
+@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 17)] + [(1, "terngrad")])
 def test_tree_kernel_matches_plain_at_resnet18_leaves(dev, bits, scheme, mode):
     """One launch encodes all 62 leaves; every leaf's words equal the plain
     twin's bit for bit."""
@@ -186,7 +186,7 @@ def _lm_grads(dev):
 
 
 @pytest.mark.parametrize("n_replicas", [1, 4])
-@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 9)] + [(1, "terngrad")])
+@pytest.mark.parametrize("bits,scheme", [(b, "qsgd") for b in range(1, 17)] + [(1, "terngrad")])
 def test_tree_decode_kernels_match_plain_at_resnet18_leaves(dev, bits, scheme, n_replicas):
     """One launch decodes all 62 leaves (or their mean over 4 replicas)
     into the port layout, and one launch unpacks their words; both equal
@@ -309,7 +309,7 @@ def _tree_codes(dev, grads, bits, bucket_size=BUCKET, layouts=None):
             [s.shape[0] for _, s in payloads])
 
 
-@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("bits", range(1, 17))
 def test_tree_pack_kernel_matches_plain_at_resnet18_and_lm_leaves(dev, bits):
     """One launch packs the rows of all 62 ResNet-18 leaves (and of the LM
     recipe's 28), bit for bit the plain twin; a buffer that starts off 16
@@ -331,7 +331,7 @@ def test_tree_pack_kernel_matches_plain_at_resnet18_and_lm_leaves(dev, bits):
 
 
 @pytest.mark.parametrize("bucket_size", [16, 100, 512, 1000, 2048])
-@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("bits", range(1, 17))
 def test_tree_pack_kernel_matches_plain_at_other_bucket_sizes(dev, bits, bucket_size):
     """Rows from 18 to 2048 codes: tiles of many short rows and of few long
     ones, over ResNet-18's leaves."""
@@ -701,6 +701,70 @@ def test_tree_kernels_read_gathered_rows_in_place(dev, bits, scheme, n):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(codes, K.unpack_bucketed_tree([w for w, _ in contiguous], bits=bits))
     assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in views], bits=bits))
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("path", ["fused", "pack"])
+def test_mixed_width_tree_matches_plain(dev, path, n):
+    """A per-leaf codec giving ResNet-18's 62 leaves every width 1..16: the
+    encode is one launch per width, the gathered decode of n replicas one
+    launch per width, each leaf read at its own offset and width. Against the
+    plain versions on the CPU: scales within 1 ulp (the pack path's torch
+    quantizer within rtol 1e-6: its vector_norm sums a bucket in other
+    orders on the card and the CPU), words bit for bit in every bucket whose
+    scale is the same, and the decoded mean of the card's payloads (fused
+    path) or its codes and their packing again (pack path) bit for bit."""
+    from atomo_tpu_torch.budget import budgeted_codec
+    from atomo_tpu_torch.codecs import decode_mean_tree, encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    codec = budgeted_codec(QsgdCodec(bits=4, use_kernel=path == "fused"),
+                           [1 + i % 16 for i in range(62)])
+    grads = _resnet18_grads(dev, seed=21)
+    cpu = [g.cpu() for g in grads]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    reps = []
+    for r in range(n):
+        u = [torch.rand((K.geometry(g.numel(), 1).n_buckets, BUCKET), generator=gen,
+                        device=dev) for g in grads]
+        K.reset_launch_counts()
+        got = encode_tree(codec, 100 + r, grads, draws=u)[0]
+        counts = K.launch_counts()
+        assert counts["quantize_pack" if path == "fused" else "pack_bucketed"] == 16
+        want = encode_tree(codec, 100 + r, cpu, draws=[t.cpu() for t in u])[0]
+        for a, b in zip(got, want):
+            sa = a.scales.cpu()
+            if path == "fused":
+                assert float(_ulps(sa, b.scales).max()) <= 1.0
+            else:  # torch's vector_norm sums in other orders on the card and the CPU
+                torch.testing.assert_close(sa, b.scales, rtol=1e-6, atol=0.0)
+            same = sa == b.scales
+            assert _same_bits(a.words.cpu().view(torch.int32)[same],
+                              b.words.view(torch.int32)[same])
+        reps.append(got)
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = unpack_tree_buckets(torch.stack([b for b, _ in packed]), packed[0][1])
+    K.reset_launch_counts()
+    mean = decode_mean_tree(codec, views, grads, n)
+    torch.cuda.synchronize()
+    key = "unpack_dequantize" if path == "fused" else "unpack_bucketed"
+    assert K.launch_counts()[key] == 16
+    assert all(a.shape == g.shape for a, g in zip(mean, grads))
+    if path == "fused":  # the decoded values
+        plain = decode_mean_tree(codec, [QsgdPayload(v.words.cpu(), v.scales.cpu())
+                                         for v in views], cpu, n)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(mean, plain))
+    else:  # the unpack kernel's codes (the dequantize is torch's on either device)
+        for k in range(1, 17):
+            group = [v.words for v, w in zip(views, codec.ks) if w == k]
+            codes = K.unpack_bucketed_tree(group, bits=k)
+            assert torch.equal(codes.cpu(),
+                               K.unpack_bucketed_tree_plain([w.cpu() for w in group], bits=k))
+            rows = [w.numel() // w.shape[-1] for w in group]
+            packed = torch.cat([w.view(torch.int32) for w in
+                                K.pack_bucketed_tree(codes, rows, bits=k)])
+            assert _same_bits(packed.cpu(), torch.cat([w.reshape(-1, w.shape[-1]).cpu().view(
+                torch.int32) for w in group]))
 
 
 @pytest.mark.parametrize("path", ["fused", "pack"])

@@ -169,8 +169,10 @@ def test_leaf_payload_bytes_match_jax():
 def test_quantize_pack_rejects_bad_arguments():
     with pytest.raises(ValueError):
         K.quantize_pack(torch.zeros(10), bits=2)  # neither seeds nor u
+    with pytest.raises(ValueError):  # the kernels take widths 1..16
+        K.quantize_pack(torch.zeros(10), bits=17, seeds=[1])
     with pytest.raises(ValueError):
-        K.quantize_pack(torch.zeros(10), bits=9, seeds=[1])
+        K.quantize_pack(torch.zeros(10), bits=0, seeds=[1])
 
 
 # ------------------------------------------------------------- the tree encode

@@ -24,7 +24,7 @@ Jobs (``JOBS``):
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
 * ``cli``: ``atomo_tpu_torch train`` (or ``lm``) with the given
-  arguments, its log lines;
+  arguments, its log lines and the messages of the warnings it raised;
 * ``lm``: the port's LM steps on a (world / n_sp, n_sp) mesh
   (``launch.dp_sp_mesh``) from given weights, global token batches and
   per-rank codec draws; every rank returns each step's metrics and a hash
@@ -188,8 +188,14 @@ def state_hash(model) -> str:
 
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
-              dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None):
+              dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
+              budget_ks=None, error_feedback=False):
+    import dataclasses
+
     import torch.distributed as dist
+
+    from atomo_tpu_torch.budget import budgeted_codec
+    from atomo_tpu_torch.training import trainer as T
 
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.data import to_device
@@ -228,20 +234,30 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     R.encode_leaf_subset = recording_subset
 
     def make_step(model):
+        c = _codec(codec)
+        if budget_ks is not None:
+            c = budgeted_codec(c, budget_ks)
         return R.make_distributed_train_step(
-            model, opt, _codec(codec), aggregate=aggregate, num_aggregate=num_aggregate,
-            ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid)
+            model, opt, c, aggregate=aggregate, num_aggregate=num_aggregate,
+            ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid,
+            error_feedback=error_feedback)
 
     try:
         step = make_step(model)
         steps = []
         for s, (x, y) in enumerate(batches):
             if resume_at and s == resume_at:
+                saved = state
+                if error_feedback:
+                    saved = dataclasses.replace(
+                        state, residual=T.gather_residual(state, world))
                 if rank == 0:
-                    save_checkpoint(train_dir, state, compress=True)
+                    save_checkpoint(train_dir, saved, compress=True)
                 dist.barrier()
                 model, state = fresh()
                 state = load_checkpoint(train_dir, state)
+                if error_feedback:
+                    state = T.own_residual(state, model, rank, world, "cpu")
                 step = make_step(model)
             xs, ys = R.shard_batch(x, y, rank, world)
             state, m = step(state, key, *to_device(xs, ys, "cpu"),
@@ -251,6 +267,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                           "prec5": float(m["prec5"]), "msg_bytes": int(m["msg_bytes"]),
                           "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model),
                           "row_overflow": float(m["row_overflow"]) if "row_overflow" in m
+                          else None,
+                          "ef_res_norm": float(m["ef_res_norm"]) if "ef_res_norm" in m
                           else None})
     finally:
         R.encode_tree = encode
@@ -301,14 +319,20 @@ def job_aggregate(rank, world, *, codec, grads, draws, fused_gather, ring_bucket
 
 
 def job_cli(rank, world, *, argv):
+    import warnings
+
     from atomo_tpu_torch import cli
 
     lines = []
-    try:
-        rc = cli.main(list(argv), log_fn=lines.append)
-    except SystemExit as e:  # the CLI's refusals: their message, not the worker's exit
-        return {"rc": 1, "lines": lines, "exit": str(e.code)}
-    return {"rc": rc, "lines": lines, "exit": None}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            rc = cli.main(list(argv), log_fn=lines.append)
+        except SystemExit as e:  # the CLI's refusals: their message, not the worker's exit
+            return {"rc": 1, "lines": lines, "exit": str(e.code),
+                    "warnings": [str(w.message) for w in caught]}
+    return {"rc": rc, "lines": lines, "exit": None,
+            "warnings": [str(w.message) for w in caught]}
 
 
 class _Recorder:
