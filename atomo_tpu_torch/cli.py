@@ -221,6 +221,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "decode(encode(g + e)) into its next encode (checkpointed with "
                         "the state). Biased: pairs with --code svd --sample topk; "
                         "refused with --sparse-rows and --num-aggregate")
+    p.add_argument("--superstep", type=int, default=0, metavar="K",
+                   help="run K optimizer steps per call on device-resident (K, batch, "
+                        "...) data blocks, with one metric fetch per block: on the card "
+                        "a step that makes no host sync is one CUDA graph replayed K "
+                        "times, any other an eager K-step block (the run prints which). "
+                        "Log/eval/checkpoint cadence snaps to block boundaries; "
+                        "trajectories are bit-identical across K (resume works at any "
+                        "step, boundary or not). 0 (default) = auto: 1 here (the JAX "
+                        "verb's 8 is for TPU backends); 1 = the per-step loop exactly "
+                        "as before")
     p.add_argument("--comm-type", type=str, default="Bcast", metavar="N",
                    help="accepted for parity with the reference and ignored")
     p.add_argument("--enable-gpu", action="store_true", default=False,
@@ -550,7 +560,19 @@ def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, 
     return None
 
 
+def _superstep(args: argparse.Namespace) -> int:
+    """``--superstep`` as the JAX verb takes it (``atomo_tpu/cli.py:930-934``,
+    ``:2401-2407``): a negative K refused, 0 resolved to 1 (the JAX verb's
+    off-TPU default)."""
+    if args.superstep < 0:
+        raise SystemExit(
+            f"--superstep {args.superstep}: must be >= 1 (or 0 for the "
+            "per-backend auto default)")
+    return args.superstep or 1
+
+
 def cmd_train(args: argparse.Namespace, log_fn=print):
+    superstep = _superstep(args)
     _sparse_preflight(args)
     _budget_preflight(args)
     _warn_dead_flags(args)
@@ -590,7 +612,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                   log_every=args.log_interval, device=args.device,
                   train_dir=args.train_dir, save_freq=args.save_freq or args.eval_freq,
                   resume=args.resume, keep_ckpts=args.keep_ckpts, compress_ckpt=args.compress,
-                  compute_dtype=torch.bfloat16 if args.bf16 else None)
+                  compute_dtype=torch.bfloat16 if args.bf16 else None, superstep=superstep)
     # one process runs the single-device loop unless a process group is up
     # or torchrun started it (one device over NCCL: a torchrun of one process)
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):

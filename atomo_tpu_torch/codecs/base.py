@@ -53,7 +53,7 @@ import torch
 
 from atomo_tpu_torch.convert import from_jax_view, jax_view
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean
-from atomo_tpu_torch.utils.rng import fold_in
+from atomo_tpu_torch.utils.rng import FoldedSeeds, fold_in
 
 Payload = Any  # a NamedTuple of tensors
 
@@ -184,7 +184,8 @@ def encode_groups(
     payloads: list = [None] * len(views)
     for idxs, x in _stacks(views):
         d = None if draws is None else _stack_draws(draws, idxs)
-        batch = codec.encode_stack(x, [seeds[i] for i in idxs], d,
+        sub = seeds.subset(idxs) if isinstance(seeds, FoldedSeeds) else [seeds[i] for i in idxs]
+        batch = codec.encode_stack(x, sub, d,
                                    shape=tuple(views[idxs[0]].shape))
         for j, i in enumerate(idxs):
             payloads[i] = type(batch)(*(a[j] for a in batch))
@@ -230,7 +231,9 @@ def encode_leaf_subset(
     ``encode_leaves`` call (QSGD: one launch, the subset's seeds in its
     arguments), else one ``encode_stack`` call per shape group of the
     subset. A per-leaf codec runs that once per group of leaves that share
-    a resolved codec, each leaf under its global seed."""
+    a resolved codec, each leaf under its global seed. ``key`` is an int, or
+    a 0-d int64 tensor whose value is read on the device
+    (:class:`~atomo_tpu_torch.utils.rng.FoldedSeeds`)."""
     idxs = list(idxs)
     if not idxs:
         return []
@@ -244,7 +247,9 @@ def encode_leaf_subset(
         return out
     lay = None if layouts is None else [layouts[i] for i in idxs]
     views = _views([grads[i] for i in idxs], lay)
-    seeds = [fold_in(key, i) for i in idxs]
+    # a 0-d int64 tensor key is the device form a CUDA graph replays: the
+    # QSGD kernel folds each leaf's index into it on the card
+    seeds = FoldedSeeds(key, idxs) if torch.is_tensor(key) else [fold_in(key, i) for i in idxs]
     sub_draws = None if draws is None else [draws[i] for i in idxs]
     encode_leaves = getattr(codec, "encode_leaves", None)
     if encode_leaves is not None:

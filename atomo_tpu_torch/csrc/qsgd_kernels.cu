@@ -21,7 +21,11 @@
 // arguments as a table (pointer to the leaf's contiguous JAX-layout values,
 // n, its first bucket row, its Philox seed, optionally its uniforms), passed
 // by value (CUDA 12.1+ takes 32 KB of parameters on Hopper), so the launch
-// needs no copy to the device and no host sync. The words (rows, nw) and
+// needs no copy to the device and no host sync. Its device form takes the
+// step's codec key from device memory (one 64-bit word) and folds each
+// leaf's index into it in the kernel: a CUDA graph replays a launch with the
+// arguments it captured, so a key that changes every step must live in
+// device memory (atomo_tpu_torch/training/graph.py). The words (rows, nw) and
 // scales (rows) of all leaves go to one flat buffer each; row g belongs to
 // the leaf l with row0[l] <= g < row0[l + 1], and positions past bs and
 // values past the leaf's n code as 0. The (L, n) stack of equal leaves is the
@@ -103,7 +107,23 @@ __device__ __forceinline__ int last_leaf_at(const int* first, int n_leaves, int 
   return leaf;
 }
 
-// The leaves of one quantize_pack launch, passed by value.
+// The SplitMix64 finaliser and fold_in of atomo_tpu_torch/utils/rng.py.
+__device__ __forceinline__ unsigned long long mix64(unsigned long long z) {
+  z += 0x9E3779B97F4A7C15ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ unsigned long long fold_in(unsigned long long key,
+                                                      unsigned long long data) {
+  return mix64(mix64(key) ^ data) & 0x7FFFFFFFFFFFFFFFull;
+}
+
+// The leaves of one quantize_pack launch, passed by value. With key null,
+// seed[l] is leaf l's Philox key; with key set (the device form a CUDA graph
+// replays), leaf l's key is fold_in(*key, seed[l]): the step's codec key is
+// read from device memory and seed[l] holds the leaf's index in the tree.
 constexpr int kMaxLeaves = 256;  // 9 KB of parameters
 struct LeafTable {
   const float* x[kMaxLeaves];  // the leaf's n values, contiguous
@@ -112,6 +132,7 @@ struct LeafTable {
   long long n[kMaxLeaves];
   int row0[kMaxLeaves + 1];  // first bucket row of each leaf; [n_leaves] = rows
   int n_leaves;
+  const unsigned long long* key;  // device memory, or null
 };
 
 constexpr int kQpWarps = 8;  // buckets per block
@@ -173,7 +194,8 @@ quantize_pack_kernel(const __grid_constant__ LeafTable table, uint32_t* __restri
   const float safe = fmaxf(scale, FLT_MIN);
   if (lane == 0) scales[g] = scale;
 
-  const unsigned long long s = table.seed[leaf];
+  const unsigned long long s =
+      table.key != nullptr ? fold_in(*table.key, table.seed[leaf]) : table.seed[leaf];
   const uint2 key = make_uint2((uint32_t)s, (uint32_t)(s >> 32));
   const float* ub = table.u[leaf] != nullptr ? table.u[leaf] + (long long)lb * bs : nullptr;
 
@@ -589,9 +611,12 @@ extern "C" {
 // model up to 256 leaves): leaf l's n[l] values at x[l], its uniforms at u[l]
 // (null: Philox keyed on seeds[l]; seeds may be null when every u[l] is
 // given), its buckets at rows row0[l] .. row0[l + 1] - 1 of words (rows, nw)
-// and scales (rows). threads = block_threads(nw), the reduction's width.
+// and scales (rows). threads = block_threads(nw), the reduction's width. A
+// non-null key (one 64-bit word in device memory) makes seeds[l] the index
+// folded into it: leaf l draws from fold_in(*key, seeds[l]).
 int qsgd_quantize_pack(const float* const* x, const float* const* u,
-                       const unsigned long long* seeds, const long long* n,
+                       const unsigned long long* seeds, const unsigned long long* key,
+                       const long long* n,
                        const int* row0, int n_leaves, uint32_t* words, float* scales,
                        int bs, int nw, int bits, int terngrad, int threads,
                        void* stream) {
@@ -612,6 +637,7 @@ int qsgd_quantize_pack(const float* const* x, const float* const* u,
     }
     t.row0[m] = row0[c0 + m] - row0[c0];
     t.n_leaves = m;
+    t.key = key;
     const int rows = t.row0[m];
     if (rows <= 0) continue;
     const unsigned grid = (unsigned)((rows + kQpWarps - 1) / kQpWarps);

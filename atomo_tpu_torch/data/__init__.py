@@ -10,7 +10,10 @@ from atomo_tpu_torch.data.datasets import (  # noqa: F401
 )
 from atomo_tpu_torch.data.pipeline import (  # noqa: F401
     BatchIterator,
+    BlockStream,
+    SuperstepFeed,
     augment_batch,
+    block_to_device,
     to_device,
 )
 from atomo_tpu_torch.data.zipf import zipf_dataset, zipf_probs, zipf_spec  # noqa: F401

@@ -5,8 +5,17 @@ same numpy shuffle (``RandomState(seed)``), so the port and the JAX package
 see the same batches in the same order; batches stay NHWC numpy arrays.
 :func:`augment_batch` runs on the device on an NCHW tensor and draws crop
 offsets and flips from an explicit ``torch.Generator`` (it cannot reproduce
-``jax.random``'s draws; parity runs turn augmentation off). Batches of
+``jax.random``'s draws; parity runs turn augmentation off); the draw
+(:func:`augment_draws`) and the apply (:func:`augment_apply`) are separate
+functions, so that a CUDA graph can apply draws made outside it. Batches of
 row ids (zipf, (B, slots)) pass through unpermuted.
+
+Superstep blocks (``--superstep K``): :class:`BlockStream` stacks K
+consecutive batches of the stream into one (K, batch, ...) block, and
+:class:`SuperstepFeed` stages the next block on the device behind the
+running one (:func:`block_to_device`: pinned host memory, a
+``non_blocking`` copy on a side stream, an event the compute stream waits
+on before it reads the block).
 """
 
 from __future__ import annotations
@@ -23,11 +32,24 @@ from atomo_tpu_torch.data.datasets import ArrayDataset
 def augment_batch(images: torch.Tensor, gen: torch.Generator, pad: int = 4) -> torch.Tensor:
     """Pad-reflect -> per-image random crop -> random horizontal flip, on an
     (N, C, H, W) batch."""
+    offsets, flips = augment_draws(images.shape[0], gen, images.device, pad)
+    return augment_apply(images, offsets, flips, pad)
+
+
+def augment_draws(n: int, gen: torch.Generator, device, pad: int = 4):
+    """The crop offsets ((n, 2) int64, each in [0, 2 pad]) and flips ((n,)
+    bool) of :func:`augment_batch`, drawn from ``gen`` in its order."""
+    offsets = torch.randint(0, 2 * pad + 1, (n, 2), generator=gen, device=device)
+    flips = torch.rand((n,), generator=gen, device=device) < 0.5
+    return offsets, flips
+
+
+def augment_apply(images: torch.Tensor, offsets: torch.Tensor, flips: torch.Tensor,
+                  pad: int = 4) -> torch.Tensor:
+    """:func:`augment_batch` with its draws given."""
     n, c, h, w = images.shape
     dev = images.device
     padded = F.pad(images, (pad, pad, pad, pad), mode="reflect")
-    offsets = torch.randint(0, 2 * pad + 1, (n, 2), generator=gen, device=dev)
-    flips = torch.rand((n,), generator=gen, device=dev) < 0.5
     rows = offsets[:, :1] + torch.arange(h, device=dev)
     cols = offsets[:, 1:] + torch.arange(w, device=dev)
     cols = torch.where(flips[:, None], cols.flip(1), cols)
@@ -93,3 +115,94 @@ def to_device(images: np.ndarray, labels: np.ndarray, device) -> tuple[torch.Ten
         x = x.permute(0, 3, 1, 2).contiguous()
     y = torch.from_numpy(np.asarray(labels, dtype=np.int64)).to(device)
     return x, y
+
+
+class BlockStream:
+    """Stack consecutive batches of an endless stream into ``(K, batch,
+    ...)`` superstep blocks (``atomo_tpu/data/pipeline.py:143``).
+
+    Step t of a K-block is the batch a per-step loop would have fed at step
+    t, so superstep runs replay (and resume) bit for bit against K = 1 runs.
+    ``take(k)`` takes a different ``k`` each call: the loops shrink the last
+    block to ``max_steps``."""
+
+    def __init__(self, stream: Iterator[tuple[np.ndarray, np.ndarray]]):
+        self._stream = stream
+
+    def take(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        pairs = [next(self._stream) for _ in range(k)]
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+class _Staged:
+    """A block on the device and the event its copy recorded (None: it was
+    made on the compute stream)."""
+
+    def __init__(self, k: int, images, labels, ready=None):
+        self.k, self.images, self.labels, self.ready = k, images, labels, ready
+
+
+def block_to_device(images: np.ndarray, labels: np.ndarray, device) -> _Staged:
+    """Stage a numpy (K, B, ...) block on ``device`` as (K, B, C, H, W)
+    float32 images (row ids as they are) and (K, B) int64 labels, step k's
+    images with the strides :func:`to_device` gives its batch (a size-1
+    channel axis keeps the permute's stride), so that the convolutions pick
+    the same algorithms. On CUDA the arrays go to pinned host memory and the
+    copy (and the permute) runs ``non_blocking`` on a side stream, behind
+    whatever the compute stream is running; the block carries the event the
+    compute stream must wait on (:meth:`SuperstepFeed.take`)."""
+    dev = torch.device(device)
+    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
+    y = torch.from_numpy(np.asarray(labels, dtype=np.int64))
+
+    def put(x, y):
+        x = x.to(dev, non_blocking=True)
+        if x.dim() == 5:
+            x = x.permute(0, 1, 4, 2, 3).contiguous()
+        return x, y.to(dev, non_blocking=True)
+
+    if dev.type != "cuda":
+        return _Staged(images.shape[0], *put(x, y))
+    side = _side_stream(dev)  # its allocations come from its own pool
+    with torch.cuda.stream(side):
+        x, y = put(x.pin_memory(), y.pin_memory())
+        ready = torch.cuda.Event()
+        ready.record(side)
+    compute = torch.cuda.current_stream(dev)
+    x.record_stream(compute)  # made on the side stream, read on the compute one
+    y.record_stream(compute)
+    return _Staged(images.shape[0], x, y, ready)
+
+
+_SIDE: dict = {}
+
+
+def _side_stream(dev: torch.device):
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream(dev)
+    return _SIDE[dev]
+
+
+class SuperstepFeed:
+    """One-block device lookahead over a :class:`BlockStream`
+    (``atomo_tpu/data/pipeline.py:165``). ``start(k)`` stacks the next k
+    batches and hands them to ``put_fn`` (:func:`block_to_device`, or a
+    rank's shard of it) at once; called right after a block is launched,
+    the next block's copy runs behind it. ``take()`` returns the staged
+    block as ``(k, images, labels)``, after making the current stream wait
+    for its copy."""
+
+    def __init__(self, blocks: BlockStream, put_fn):
+        self._blocks = blocks
+        self._put = put_fn
+        self._staged = None
+
+    def start(self, k: int) -> None:
+        if k > 0:
+            self._staged = self._put(*self._blocks.take(k))
+
+    def take(self):
+        staged, self._staged = self._staged, None
+        if staged.ready is not None:
+            torch.cuda.current_stream(staged.images.device).wait_event(staged.ready)
+        return staged.k, staged.images, staged.labels

@@ -14,7 +14,10 @@ passes through. Its keep-mask comes from the stream that
   hook through which a parity test hands the port the masks Flax drew.
 
 With no stream open, a training-mode ``Dropout`` draws from torch's global
-generator, as ``torch.nn.Dropout`` does.
+generator, as ``torch.nn.Dropout`` does. :func:`record_dropout_calls` lists
+the calls of the passes run inside it (which stream, shape, keep
+probability), so that a CUDA graph's masks can be drawn outside it in the
+order the eager step draws them.
 """
 
 from __future__ import annotations
@@ -34,10 +37,17 @@ class _Stream:
         self.masks = None if masks is None else list(masks)
         self.gen: Optional[torch.Generator] = None
         self.calls = 0
+        self.index = None  # its place among the streams a recording saw
+        if _RECORDING:
+            rec = _RECORDING[-1]
+            self.index = rec["streams"]
+            rec["streams"] += 1
 
     def keep(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
         i = self.calls
         self.calls += 1
+        if _RECORDING:
+            _RECORDING[-1]["calls"].append((self.index, tuple(x.shape), keep_prob))
         if self.masks is not None:
             if i >= len(self.masks):
                 raise ValueError(f"dropout call {i + 1} but only {len(self.masks)} masks given")
@@ -52,6 +62,20 @@ class _Stream:
 
 
 _ACTIVE: list[_Stream] = []
+_RECORDING: list[dict] = []
+
+
+@contextlib.contextmanager
+def record_dropout_calls():
+    """Yield a list that fills with ``(stream index, shape, keep_prob)`` for
+    every stream-driven ``Dropout`` call inside, the streams numbered in the
+    order they open."""
+    rec = {"streams": 0, "calls": []}
+    _RECORDING.append(rec)
+    try:
+        yield rec["calls"]
+    finally:
+        _RECORDING.pop()
 
 
 @contextlib.contextmanager

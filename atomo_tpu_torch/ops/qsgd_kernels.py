@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from atomo_tpu_torch.ops import _build
+from atomo_tpu_torch.utils.rng import FoldedSeeds
 
 _LIB = "qsgd_kernels"
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -76,7 +77,7 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U24 = 1.0 / (1 << 24)
 MAX_BITS = 16  # widest field the kernels take (csrc/qsgd_kernels.cu QSGD_DISPATCH_BITS)
 
-Seeds = Union[torch.Tensor, Sequence[int]]
+Seeds = Union[torch.Tensor, Sequence[int], FoldedSeeds]
 
 
 class Geometry(NamedTuple):
@@ -252,6 +253,8 @@ def _check_scheme(scheme: str) -> bool:
 
 
 def _seed_tensor(seeds: Seeds, n_leaves: int, device) -> torch.Tensor:
+    if isinstance(seeds, FoldedSeeds):  # the device form's seeds, read on the host
+        seeds = list(seeds)
     s = torch.as_tensor(seeds, dtype=torch.int64, device=device).reshape(-1)
     if s.shape[0] != n_leaves:
         raise ValueError(f"need {n_leaves} seeds, got {s.shape[0]}")
@@ -521,7 +524,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if not getattr(lib, "_qsgd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
+        lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.qsgd_pack_codes_tree.argtypes = [p, p, i, i, i, p]
         lib.qsgd_unpack_codes_tree.argtypes = [p, p, p, p, i, p, i, i, p]
@@ -582,9 +585,27 @@ def _tree_layout(ns: tuple, bits: int, bucket_size: int) -> _TreeLayout:
                        (ctypes.c_int * (len(ns) + 1))(*row0.tolist()))
 
 
-def _launch_quantize_pack(xs, us, seeds, layout, *, bits, bucket_size, terngrad, device):
+def _key_args(seeds, n_leaves: int, device):
+    """(seeds or fold indices as ints, device key or None) of a launch:
+    :class:`FoldedSeeds` give their indices and key (the device form)."""
+    if isinstance(seeds, FoldedSeeds):
+        key = seeds.key
+        if key.device != device:
+            raise ValueError(f"the seeds' key lies on {key.device}, the leaves on {device}")
+        seeds, key = list(seeds.idxs), key
+    else:
+        key = None
+        seeds = [int(v) for v in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
+    if len(seeds) != n_leaves:
+        raise ValueError(f"need {n_leaves} seeds, got {len(seeds)}")
+    return seeds, key
+
+
+def _launch_quantize_pack(xs, us, seeds, layout, *, bits, bucket_size, terngrad, device,
+                          key=None):
     """Launch the tree kernel over leaves at the data pointers ``xs`` (and
-    uniforms ``us``, 0 for Philox keyed on ``seeds``) laid out as ``layout``;
+    uniforms ``us``, 0 for Philox keyed on ``seeds``, or with a 0-d int64
+    device ``key`` on ``fold_in(key, seeds[l])``) laid out as ``layout``;
     returns the flat (rows, n_words) words as uint32 and (rows,) scales."""
     g = geometry(0, bits, bucket_size)
     n_leaves = len(xs)
@@ -594,7 +615,7 @@ def _launch_quantize_pack(xs, us, seeds, layout, *, bits, bucket_size, terngrad,
     rc = _lib().qsgd_quantize_pack(
         (vp * n_leaves)(*xs), (vp * n_leaves)(*us),
         None if seeds is None else (ctypes.c_ulonglong * n_leaves)(
-            *(int(v) & 0xFFFFFFFFFFFFFFFF for v in seeds)),
+            *(int(v) & 0xFFFFFFFFFFFFFFFF for v in seeds)), _ptr(key),
         layout.ns, layout.row0, n_leaves, _ptr(words), _ptr(scales), bucket_size,
         g.n_words, bits, int(terngrad), block_threads(g.n_words), _stream(),
     )
@@ -617,8 +638,10 @@ def quantize_pack(
 
     ``u`` (…, n_buckets, bucket_size) supplies the stochastic-rounding
     uniforms (bit-parity mode); otherwise ``seeds`` (one per leaf) key the
-    in-kernel Philox generator. The tree kernel over the L rows: one launch
-    for up to 256 of them."""
+    in-kernel Philox generator, by value or, as
+    :class:`~atomo_tpu_torch.utils.rng.FoldedSeeds`, read from device memory
+    (the same draws). The tree kernel over the L rows: one launch for up to
+    256 of them."""
     if not _on_card(x, u):
         return quantize_pack_plain(
             x, bits=bits, bucket_size=bucket_size, scheme=scheme, seeds=seeds, u=u
@@ -633,17 +656,16 @@ def quantize_pack(
         _require(u, "u", (torch.float32,), lead + (g.n_buckets, bucket_size))
         us = [u.data_ptr() + 4 * i * g.n_buckets * bucket_size for i in range(n_leaves)]
         seeds = None
+        key = None
     elif seeds is not None:
-        seeds = [int(v) for v in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
-        if len(seeds) != n_leaves:
-            raise ValueError(f"need {n_leaves} seeds, got {len(seeds)}")
+        seeds, key = _key_args(seeds, n_leaves, x2.device)
         us = [0] * n_leaves
     else:
         raise ValueError("quantize_pack needs seeds (in-kernel generator) or u")
     xs = [x2.data_ptr() + 4 * i * n for i in range(n_leaves)]
     words, scales = _launch_quantize_pack(
         xs, us, seeds, _tree_layout((n,) * n_leaves, bits, bucket_size), bits=bits,
-        bucket_size=bucket_size, terngrad=terngrad, device=x2.device,
+        bucket_size=bucket_size, terngrad=terngrad, device=x2.device, key=key,
     )
     words = words.view(n_leaves, g.n_buckets, g.n_words)
     scales = scales.view(n_leaves, g.n_buckets)
@@ -656,7 +678,7 @@ def quantize_pack_tree(
     bits: int,
     bucket_size: int = 512,
     scheme: str = "qsgd",
-    seeds: Optional[Sequence[int]] = None,
+    seeds: Optional[Seeds] = None,
     u: Optional[Sequence[torch.Tensor]] = None,
 ) -> list:
     """Fused QSGD encode of every leaf of a tree in one launch: ``leaves``
@@ -665,7 +687,10 @@ def quantize_pack_tree(
     one flat buffer each. ``seeds`` (one int per leaf) key the in-kernel
     Philox generator unless ``u`` (one (n_buckets, bucket_size) tensor per
     leaf) gives the uniforms. The seeds ride in the kernel's arguments: the
-    call copies nothing to the device and never waits for it."""
+    call copies nothing to the device and never waits for it. Given as
+    :class:`~atomo_tpu_torch.utils.rng.FoldedSeeds`, the kernel reads their
+    key from device memory and folds each leaf's index in (the device form
+    that a CUDA graph replays; the same draws)."""
     if not leaves:
         return []
     if not _on_card(*leaves, *(u or ())):
@@ -673,6 +698,9 @@ def quantize_pack_tree(
                                         scheme=scheme, seeds=seeds, u=u)
     terngrad = _check_scheme(scheme)
     _check_tree_args(leaves, seeds, u)
+    key = None
+    if u is None:
+        seeds, key = _key_args(seeds, len(leaves), leaves[0].device)
     layout = _tree_layout(tuple(x.numel() for x in leaves), bits, bucket_size)
     for i, x in enumerate(leaves):
         if x.dim() != 1 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -684,7 +712,7 @@ def quantize_pack_tree(
         [x.data_ptr() for x in leaves],
         [0] * len(leaves) if u is None else [t.data_ptr() for t in u],
         None if u is not None else seeds, layout, bits=bits, bucket_size=bucket_size,
-        terngrad=terngrad, device=leaves[0].device,
+        terngrad=terngrad, device=leaves[0].device, key=key,
     )
     return list(zip(words.split(layout.n_buckets), scales.split(layout.n_buckets)))
 

@@ -102,7 +102,6 @@ from atomo_tpu_torch.codecs import (
     tree_nbytes,
 )
 from atomo_tpu_torch.convert import from_jax_view, jax_layouts, jax_leaf_order, jax_view
-from atomo_tpu_torch.data.pipeline import augment_batch
 from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
 from atomo_tpu_torch.parallel.common import (
@@ -112,9 +111,10 @@ from atomo_tpu_torch.parallel.common import (
     unpack_tree_buckets,
 )
 from atomo_tpu_torch.training.optim import Optimizer
-from atomo_tpu_torch.training.trainer import TrainState, forward, leaf_params
+from atomo_tpu_torch.training import graph as G
+from atomo_tpu_torch.training.trainer import TrainState, augment_with, forward, leaf_params
 from atomo_tpu_torch.utils.metrics import accuracy
-from atomo_tpu_torch.utils.rng import fold_in, generator, split3
+from atomo_tpu_torch.utils.rng import fold_in, split3
 
 AGGREGATES = ("gather", "ring", "psum")
 
@@ -139,6 +139,21 @@ def shard_batch(images: np.ndarray, labels: np.ndarray, rank: int, world_size: i
             "(or trim the batch)")
     per = bs // world_size
     return images[rank * per:(rank + 1) * per], labels[rank * per:(rank + 1) * per]
+
+
+def shard_superbatch(images: np.ndarray, labels: np.ndarray, rank: int, world_size: int):
+    """:func:`shard_batch` for a superstep block (``:4636``): ``images`` and
+    ``labels`` carry a leading (K, batch, ...) step axis, and this rank takes
+    its rows of every step of the block."""
+    bs = images.shape[1]
+    if bs % world_size:
+        raise ValueError(
+            f"batch size {bs} is not divisible by the {world_size}-device 'dp' "
+            "mesh axis; choose --batch-size as a multiple of the device count "
+            "(or trim the batch)")
+    per = bs // world_size
+    return (images[:, rank * per:(rank + 1) * per],
+            labels[:, rank * per:(rank + 1) * per])
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -373,6 +388,7 @@ def make_distributed_train_step(
     grad_accum: int = 1,
     hybrid=None,
     error_feedback: bool = False,
+    superstep: int = 1,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
     dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
@@ -396,7 +412,17 @@ def make_distributed_train_step(
     ring with a codec, no ``num_aggregate``) and adds ``row_overflow`` to
     ``metrics``. ``error_feedback`` feeds each rank's residual
     (``state.residual``) into its encode, carries the new one in the
-    returned state and adds ``ef_res_norm`` to ``metrics``."""
+    returned state and adds ``ef_res_norm`` to ``metrics``.
+
+    ``superstep`` K > 1 returns the block step over this rank's shard of
+    each step of a (K, batch, ...) block (:func:`shard_superbatch`), as
+    :func:`~atomo_tpu_torch.training.trainer.make_train_step` returns it:
+    the K sequential steps, (K,) metrics, the hooks lists of per-step
+    values; a step that :func:`~atomo_tpu_torch.training.graph.graph_rule`
+    qualifies (NCCL, a codec with a device form, no ``num_aggregate``, no
+    ring above one rank) is one CUDA graph replayed K times."""
+    if superstep < 1:
+        raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
@@ -482,12 +508,14 @@ def make_distributed_train_step(
         m = _mean(sums, grad_accum)
         return [_mean(g, grad_accum) for g in g_sum], m[0], m[1], m[2]
 
-    def step(state: TrainState, key: int, images, labels, draws: Optional[Sequence[Any]] = None,
+    def core(state: TrainState, images, labels, *, aug, k_drop, k_codec, opt_scalars=None,
+             draws: Optional[Sequence[Any]] = None,
              dropout_masks: Optional[Sequence[torch.Tensor]] = None):
-        step_key = fold_in(key, state.step)
-        k_aug, k_drop, k_codec = split3(fold_in(step_key, rank))
+        """The step on given keys (ints, or the device form: ``aug`` drawn,
+        ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
+        device values)."""
         if augment:
-            images = augment_batch(images, generator(k_aug, images.device))
+            images = augment_with(images, aug)
         model.train()
         for p in params:
             p.grad = None
@@ -520,9 +548,15 @@ def make_distributed_train_step(
             with torch.no_grad():
                 # the part of the fed gradient that the wire did not carry
                 residual = [g.float() - d.float() for g, d in zip(grads, own)]
+                if state.residual is not None:
+                    # in place, as the momentum buffers: a CUDA graph reads
+                    # the same buffers at every replay
+                    for r, new in zip(state.residual, residual):
+                        r.copy_(new)
+                    residual = state.residual
                 local.append(torch.sqrt(sum(torch.sum(r * r) for r in residual)))
         with record_function("step.update"):
-            opt_state = optimizer.update(mean, state.opt_state, params)
+            opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
         with torch.no_grad():
             if stats:
                 flat = _all_reduce_mean(_flat(stats), world)
@@ -538,7 +572,28 @@ def make_distributed_train_step(
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
                           residual=residual), metrics
 
-    return step
+    def keys(key: int, step_index: int) -> tuple[int, int, int]:
+        """(k_aug, k_drop, k_codec) of this rank at step ``step_index``."""
+        return split3(fold_in(fold_in(key, step_index), rank))
+
+    def step(state: TrainState, key: int, images, labels, draws: Optional[Sequence[Any]] = None,
+             dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+        k_aug, k_drop, k_codec = keys(key, state.step)
+        return core(state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec,
+                    draws=draws, dropout_masks=dropout_masks)
+
+    step.core = core
+    step.keys = keys
+    # the Dropout streams: one a step, or microbatch i's under fold_in(k_drop, i)
+    step.drop_keys = (lambda k_drop, n: [k_drop] if grad_accum == 1
+                      else [fold_in(k_drop, i) for i in range(n)])
+    if superstep == 1:
+        return step
+    device = params[0].device
+    rule = G.graph_rule(device=device, codec=codec, backend=dist.get_backend(), world=world,
+                        aggregate=aggregate, k_agg=k_agg)
+    return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
+                             device=device, rule=rule)
 
 
 def make_distributed_eval_step(model: nn.Module):

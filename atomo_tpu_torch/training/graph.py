@@ -1,0 +1,339 @@
+"""Superstep blocks: K steps a call, as one captured CUDA graph replayed K
+times or as an eager K-step loop.
+
+The JAX package fuses K optimizer steps into one ``jax.jit(lax.scan(
+step_core))`` dispatch (``atomo_tpu/training/trainer.py:284-296``,
+``atomo_tpu/parallel/replicated.py:2539-2551``). The port's form of that on
+CUDA is a graph of ONE step, captured once per run and replayed once per step
+of a block: the host issues one launch a step instead of the step's hundreds,
+and the tail block needs no second capture. Both block forms keep the JAX
+contract: K steps per call on a (K, batch, ...) block already on the device,
+per-step keys from ``fold_in(key, state.step)`` (so the block is the
+sequential steps and nothing else, bit for bit for any partition), and
+metrics as (K,) device tensors (``msg_bytes`` a per-step constant), which the
+loops fetch once a block.
+
+**The rule** (:func:`graph_rule`). A step qualifies for the graph when it
+makes no host sync and every per-step host value has a device form; it runs
+the eager block otherwise. The per-step host values and their device forms:
+
+* the codec key: a 0-d int64 device tensor (one word of a static buffer
+  written before each replay); the QSGD encode kernel folds each leaf's index
+  into it on the card (:class:`~atomo_tpu_torch.utils.rng.FoldedSeeds`);
+* the learning rate and Adam's bias corrections: float32 device scalars
+  beside the key (:meth:`~atomo_tpu_torch.training.optim.Sgd.step_scalars`);
+* augmentation: the crop offsets and flips are drawn from the step's
+  generator before the replay into static buffers, and the graph applies
+  them (:func:`~atomo_tpu_torch.data.pipeline.augment_apply`);
+* dropout: the keep-masks likewise (the step's ``dropout_masks=`` hook),
+  drawn in the order the warm-up step recorded;
+* error feedback's residual: written in place into the buffers the next
+  replay reads, as the momentum buffers are;
+* the launch counters: a replay adds the launches the capture counted.
+
+By that rule the single-device step, the data-parallel step over NCCL, the
+fused QSGD/TernGrad kernels, ``sgd`` (dense), per-leaf QSGD widths, the
+hybrid exchange (its row codec sorts on the device) and error feedback
+qualify. These run the eager block, each for the reason the mode line names:
+a tensor not on a CUDA device; ``svd`` (``eigh`` reads its convergence flag
+on the host once per shape group, and its draws come from generators seeded
+on the host); the pack path's torch quantizer (its uniforms come from one
+host-seeded generator per leaf); a gloo group (its collectives run on the
+host); ``num_aggregate`` (the rotating subset's first replica is a host
+value of each step); the ring at N > 1 (its point-to-point hops wait on
+work objects the capture does not take). The decision is made by this rule
+before the run; a step that qualified and then fails to warm up, capture or
+replay raises, it never runs eagerly instead.
+
+**The mechanism** (:class:`GraphBlock`). Static input buffers hold one step's
+images, labels, scalars (key and optimizer values), augmentation draws and
+dropout masks. The first step of the run is the warm-up: it runs the device
+form of the step eagerly on a side stream under
+``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises). The next
+step is captured with ``torch.cuda.CUDAGraph`` on the same stream and every
+step from then on is a replay: before each, device-side copies move step k's
+rows of the block (and of the block's precomputed scalars) into the static
+buffers, and after it one copy moves the step's metrics into the block's
+(K, n) metric tensor. Parameters, BatchNorm statistics, optimizer state and
+the residual are updated in place, so nothing the graph reads is rebound;
+gradients and payloads live in the graph's private pool at fixed addresses.
+Under ``torch.profiler`` a replayed step shows as one graph launch: the
+``record_function`` phase ranges do not exist inside a replay.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from atomo_tpu_torch.codecs import DenseCodec, QsgdCodec, SvdCodec
+from atomo_tpu_torch.data.pipeline import augment_draws
+from atomo_tpu_torch.models.dropout import record_dropout_calls
+from atomo_tpu_torch.utils.rng import generator
+
+def _codec_reason(codec) -> Optional[str]:
+    """Why ``codec``'s encode has no device form, or None when it has one."""
+    if codec is None:
+        return None
+    leaves = getattr(codec, "codecs", None)
+    if getattr(codec, "codec_for", None) is not None and leaves is not None:
+        for c in dict.fromkeys(leaves):  # the distinct resolved codecs
+            why = _codec_reason(c)
+            if why is not None:
+                return why
+        return None
+    if isinstance(codec, QsgdCodec):
+        if codec.use_kernel is False:
+            return ("the pack path's torch quantizer draws its uniforms from a "
+                    "generator seeded on the host per leaf")
+        return None
+    if isinstance(codec, SvdCodec):
+        return ("svd: eigh reads its convergence flag on the host once per shape "
+                "group, and its draws come from generators seeded on the host")
+    if isinstance(codec, DenseCodec):
+        return None
+    return f"the {codec.name} codec has no device form"
+
+
+def graph_rule(*, device, codec, backend: Optional[str] = None, world: int = 1,
+               aggregate: str = "gather", k_agg: int = 0) -> tuple[bool, str]:
+    """(qualifies, why): whether a step may run as a replayed CUDA graph by
+    the rule of this module's docstring. ``backend`` is the process group's
+    (None for the single-device step); ``aggregate`` and ``k_agg`` the
+    data-parallel step's exchange and ``num_aggregate`` in effect."""
+    if torch.device(device).type != "cuda":
+        return False, "not on a CUDA device"
+    why = _codec_reason(codec)
+    if why is not None:
+        return False, why
+    if backend is not None and backend != "nccl":
+        return False, f"a {backend} group: its collectives run on the host"
+    if k_agg:
+        return False, ("num_aggregate: the rotating subset's first replica is a host "
+                       "value of each step")
+    if aggregate == "ring" and world > 1:
+        return False, ("the ring at N > 1: its point-to-point hops wait on work "
+                       "objects that a capture does not take")
+    return True, "sync-free, every per-step value in device memory"
+
+
+def eager_block(step: Callable, superstep: int):
+    """The eager K-step block over ``step`` (a step of
+    :func:`~atomo_tpu_torch.training.trainer.make_train_step` or
+    :func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`):
+    ``(state, key, images (K, B, ...), labels (K, B), **hooks) -> (state,
+    metrics)``, each hook (``uniforms=``, ``draws=``, ``dropout_masks=``) a
+    list of the per-step values; tensor metrics stacked to (K,), ints
+    (``msg_bytes``, ``dense_bytes``) the last step's (a per-step constant)."""
+
+    def block(state, key, images, labels, **hooks):
+        per_step = []
+        for k in range(images.shape[0]):
+            state, m = step(state, key, images[k], labels[k],
+                            **{n: v[k] for n, v in hooks.items() if v is not None})
+            per_step.append(m)
+        return state, {name: torch.stack([m[name] for m in per_step]) if torch.is_tensor(v)
+                       else v for name, v in per_step[-1].items()}
+
+    block.superstep = superstep
+    return block
+
+
+@dataclasses.dataclass
+class _Static:
+    """The graph's inputs and outputs at fixed addresses."""
+
+    images: torch.Tensor
+    labels: torch.Tensor
+    scalars: torch.Tensor  # int32: the codec key's two words, then float32 bits
+    key: torch.Tensor  # 0-d int64 view of scalars[:2]
+    opt: torch.Tensor  # float32 view of scalars[2:]
+    aug: Optional[tuple]  # (offsets, flips)
+    masks: Optional[list]  # dropout keep-masks, call order
+    metrics: Optional[torch.Tensor] = None  # (n,) float32
+
+
+def _counters() -> list:
+    """Every kernel wrapper's launch counter (a function attribute)."""
+    from atomo_tpu_torch.ops import attention_kernels, qsgd_kernels
+
+    return list(qsgd_kernels.KERNELS) + [attention_kernels.flash_attention_forward]
+
+
+class GraphBlock:
+    """The block step that replays one captured step (see the module
+    docstring). ``step`` is a step function with the attributes the step
+    factories set: ``core`` (the step on given keys, draws and scalars),
+    ``keys(key, step) -> (k_aug, k_drop, k_codec)`` and ``drop_keys(k_drop,
+    n_streams)``; ``augment`` says whether it augments, ``optimizer`` gives
+    the scalars."""
+
+    def __init__(self, step: Callable, superstep: int, *, optimizer, augment: bool, device):
+        self.step = step
+        self.superstep = superstep
+        self.optimizer = optimizer
+        self.augment = augment
+        self.device = torch.device(device)
+        self.static: Optional[_Static] = None
+        self.names: Optional[list] = None  # the tensor metrics, packed in this order
+        self.consts: dict = {}  # the int metrics (per-step constants)
+        self.drop_calls: list = []  # (stream index, shape, keep_prob) of each Dropout call
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self.launch_delta: list = []  # launches of one replay, per counter
+        self.stream: Optional[torch.cuda.Stream] = None
+
+    # ---------------------------------------------------------- per block
+
+    def _scalars(self, key: int, step0: int, count0: int, kb: int) -> torch.Tensor:
+        """The block's per-step scalars, one row a step, on the device by one
+        copy: the codec key's two int32 words, then the optimizer's float32
+        values' bits."""
+        keys = np.array([self.step.keys(key, step0 + k)[2] for k in range(kb)], dtype=np.int64)
+        opt = np.array([self.optimizer.step_scalars(count0 + k) for k in range(kb)],
+                       dtype=np.float32)
+        rows = np.concatenate([keys.view(np.int32).reshape(kb, 2), opt.view(np.int32)], axis=1)
+        return torch.from_numpy(rows).pin_memory().to(self.device, non_blocking=True)
+
+    def _alloc(self, images: torch.Tensor, labels: torch.Tensor, width: int) -> _Static:
+        scalars = torch.zeros((width,), dtype=torch.int32, device=self.device)
+        n = images.shape[0]
+        aug = None
+        if self.augment:
+            aug = (torch.zeros((n, 2), dtype=torch.int64, device=self.device),
+                   torch.zeros((n,), dtype=torch.bool, device=self.device))
+        return _Static(images=torch.empty_like(images), labels=torch.empty_like(labels),
+                       scalars=scalars, key=scalars[:2].view(torch.int64)[0],
+                       opt=scalars[2:].view(torch.float32), aug=aug, masks=None)
+
+    def _draw(self, k_aug: int, k_drop: int) -> None:
+        """This step's augmentation draws and dropout masks into the static
+        buffers, from the generators the eager step would draw them from."""
+        st = self.static
+        if st.aug is not None:
+            off, flip = augment_draws(st.images.shape[0], generator(k_aug, self.device),
+                                      self.device)
+            st.aug[0].copy_(off)
+            st.aug[1].copy_(flip)
+        if st.masks:
+            keys = self.step.drop_keys(k_drop, 1 + max(c[0] for c in self.drop_calls))
+            gens: dict = {}
+            for mask, (j, shape, keep_prob) in zip(st.masks, self.drop_calls):
+                if j not in gens:
+                    gens[j] = generator(keys[j], self.device)
+                mask.copy_(torch.rand(shape, generator=gens[j], device=self.device) < keep_prob)
+
+    def _pack(self, metrics: dict) -> torch.Tensor:
+        return torch.stack([metrics[n].to(torch.float32) for n in self.names])
+
+    def _core(self, state, k_drop, masks):
+        st = self.static
+        return self.step.core(state, st.images, st.labels, aug=st.aug, k_drop=k_drop,
+                              k_codec=st.key, opt_scalars=st.opt, dropout_masks=masks)
+
+    def _warmup(self, state, k_drop: int):
+        """One eager step of the device form on the side stream, no host
+        sync allowed; records the Dropout calls and the metric layout."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        prior = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(self.stream), record_dropout_calls() as calls:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m = self._core(state, k_drop, None)
+            finally:
+                torch.cuda.set_sync_debug_mode(prior)
+            if self.names is None:
+                self.names = sorted(n for n, v in m.items() if torch.is_tensor(v))
+                self.consts = {n: v for n, v in m.items() if not torch.is_tensor(v)}
+                self.drop_calls = calls
+            row = self._pack(m)
+        cur.wait_stream(self.stream)
+        row.record_stream(cur)
+        return state, row
+
+    def _capture(self, state) -> None:
+        """Capture one step on the static buffers; the launch counters come
+        back to their values before it (a capture runs nothing)."""
+        st = self.static
+        if self.drop_calls:
+            st.masks = [torch.zeros(shape, dtype=torch.bool, device=self.device)
+                        for _, shape, _ in self.drop_calls]
+        before = [fn.launches for fn in _counters()]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            _, m = self._core(state, None, st.masks)
+            st.metrics = self._pack(m)
+        after = [fn.launches for fn in _counters()]
+        self.launch_delta = [a - b for a, b in zip(after, before)]
+        for fn, b in zip(_counters(), before):
+            fn.launches = b
+
+    def _replay(self, state):
+        self.graph.replay()
+        self.replays += 1
+        for fn, d in zip(_counters(), self.launch_delta):
+            fn.launches += d
+        # the graph updated everything in place; the host's counters move on
+        opt = dataclasses.replace(state.opt_state, count=state.opt_state.count + 1)
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt)
+
+    def __call__(self, state, key, images, labels, **hooks: Any):
+        if any(v is not None for v in hooks.values()):
+            raise ValueError("the graph block takes no draws or masks: its steps draw "
+                             "their own (run the eager block for a parity hook)")
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        kb = images.shape[0]
+        step0, count0 = state.step, state.opt_state.count
+        scalars = self._scalars(key, step0, count0, kb)
+        rows = []
+        for k in range(kb):
+            k_aug, k_drop, _ = self.step.keys(key, step0 + k)
+            if self.static is None:
+                self.static = self._alloc(images[k], labels[k], scalars.shape[1])
+            st = self.static
+            st.images.copy_(images[k])
+            st.labels.copy_(labels[k])
+            st.scalars.copy_(scalars[k])
+            if self.names is None:  # the run's first step is the warm-up
+                self._draw(k_aug, k_drop)  # augmentation only: masks come later
+                state, row = self._warmup(state, k_drop)
+                rows.append(row)
+                continue
+            if self.graph is None:
+                self._capture(state)
+            self._draw(k_aug, k_drop)
+            state = self._replay(state)
+            rows.append(st.metrics.clone())
+        packed = torch.stack(rows)
+        metrics = {n: packed[:, j] for j, n in enumerate(self.names)}
+        metrics.update(self.consts)
+        return state, metrics
+
+
+def make_block_step(step: Callable, superstep: int, *, optimizer, augment: bool, device,
+                    rule: tuple[bool, str]):
+    """The K-step block over ``step``: a :class:`GraphBlock` when ``rule``
+    (from :func:`graph_rule`) qualifies the step, else :func:`eager_block`.
+    The block carries ``mode`` ('graph' or 'eager') and ``why`` (the rule's
+    reason), which :func:`mode_line` prints."""
+    ok, why = rule
+    if ok:
+        block = GraphBlock(step, superstep, optimizer=optimizer, augment=augment,
+                           device=device)
+    else:
+        block = eager_block(step, superstep)
+    block.mode = "graph" if ok else "eager"
+    block.why = why
+    return block
+
+
+def mode_line(block) -> str:
+    """The line the loops print naming the block's mode."""
+    if block.mode == "graph":
+        return f"Superstep: K={block.superstep}, graph"
+    return f"Superstep: K={block.superstep}, eager block ({block.why})"

@@ -25,6 +25,17 @@ bias-corrected one. Per leaf, with g the decoded gradient:
 The learning rate is the float32 value optax computes, and the product
 ``(-lr) * u`` is formed before the add, as optax does: ``p.add_(u, alpha=-lr)``
 may fuse into one FMA and round differently.
+
+The step's host values (``-lr(count)``, Adam's bias corrections) have a
+device form for a CUDA graph, which replays one captured update with the
+arguments it captured: :meth:`Sgd.step_scalars` / :meth:`Adam.step_scalars`
+give them as float32 values for a device tensor written before each replay,
+and ``update(..., scalars=)`` reads them from it. The products are the
+same: ``g * neg_lr`` with a 0-d float32 tensor rounds as with the float32
+Python scalar, and Adam's divisions by a bias correction become products
+with its float32 reciprocal, which is what CUDA computes for a division by a
+Python scalar (so the device form equals the host form on the card, not on
+the CPU, where a scalar divisor divides).
 """
 
 from __future__ import annotations
@@ -65,16 +76,22 @@ class Sgd:
         trace = [torch.zeros_like(p) for p in params] if self.momentum else None
         return SgdState(count=0, trace=trace)
 
+    def step_scalars(self, count: int) -> list[float]:
+        """The device form's values at optimizer step ``count``: [-lr]."""
+        return [-self.schedule(count)]
+
     @torch.no_grad()
     def update(
         self,
         grads: Sequence[torch.Tensor],
         state: SgdState,
         params: Sequence[torch.Tensor],
+        scalars: Optional[torch.Tensor] = None,
     ) -> SgdState:
         """Apply one step to ``params`` in place; returns the new state (the
-        momentum buffers are updated in place too)."""
-        neg_lr = -self.schedule(state.count)
+        momentum buffers are updated in place too). ``scalars`` (float32,
+        :meth:`step_scalars`'s values on the device) replaces the host's."""
+        neg_lr = -self.schedule(state.count) if scalars is None else scalars[0]
         for i, (p, g) in enumerate(zip(params, grads)):
             if self.weight_decay:
                 g = g + self.weight_decay * p
@@ -115,29 +132,47 @@ class Adam:
         return AdamState(count=0, mu=zeros(), nu=zeros(),
                          nu_max=zeros() if self.amsgrad else None)
 
+    def step_scalars(self, count: int) -> list[float]:
+        """The device form's values at optimizer step ``count``: [-lr,
+        1 / bc1, 1 / bc2], the reciprocals in float32."""
+        inv = [float(np.float32(1.0) / np.float32(_bias_correction(b, count + 1)))
+               for b in (self.beta1, self.beta2)]
+        return [-self.schedule(count)] + inv
+
     @torch.no_grad()
     def update(
         self,
         grads: Sequence[torch.Tensor],
         state: AdamState,
         params: Sequence[torch.Tensor],
+        scalars: Optional[torch.Tensor] = None,
     ) -> AdamState:
         """Apply one step to ``params`` in place; returns the new state (the
-        moment buffers are updated in place too)."""
-        neg_lr = -self.schedule(state.count)
+        moment buffers are updated in place too). ``scalars`` (float32,
+        :meth:`step_scalars`'s values on the device) replaces the host's."""
         b1, b2 = self.beta1, self.beta2
-        bc1 = _bias_correction(b1, state.count + 1)
-        bc2 = _bias_correction(b2, state.count + 1)
+        if scalars is None:
+            neg_lr = -self.schedule(state.count)
+            bc1 = _bias_correction(b1, state.count + 1)
+            bc2 = _bias_correction(b2, state.count + 1)
+
+            def corrected(t, bc):
+                return t / bc
+        else:
+            neg_lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
+
+            def corrected(t, inv_bc):
+                return t * inv_bc
         for i, (p, g) in enumerate(zip(params, grads)):
             if self.weight_decay:
                 g = g + self.weight_decay * p
             mu, nu = state.mu[i], state.nu[i]
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            v = nu / bc2
+            v = corrected(nu, bc2)
             if state.nu_max is not None:
                 v = torch.maximum(state.nu_max[i], v, out=state.nu_max[i])
-            p.add_(mu / bc1 / (torch.sqrt(v) + self.eps) * neg_lr)
+            p.add_(corrected(mu, bc1) / (torch.sqrt(v) + self.eps) * neg_lr)
         return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu,
                          nu_max=state.nu_max)
 

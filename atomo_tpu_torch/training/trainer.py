@@ -11,8 +11,11 @@ blocking core: one process per device, the step of
 every ``save_freq`` steps into ``train_dir`` and resume from the newest valid
 one (:mod:`atomo_tpu_torch.training.checkpoint`), replaying the data stream
 past the batches already taken, so a resumed run continues the interrupted
-one bit for bit. Guard, chaos, superstep, doctor, recorder and tuner are not
-ported yet.
+one bit for bit. ``superstep`` K > 1 runs blocks of K steps with one metric
+fetch a block (``_superstep_steps``, ``atomo_tpu/training/trainer.py:709``):
+on the card a step that qualifies is one CUDA graph replayed K times, any
+other step an eager K-step block (:mod:`atomo_tpu_torch.training.graph`).
+Guard, chaos, doctor, recorder and tuner are not ported yet.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the CLI's ``--bf16``) is
 the JAX package's (``cast_compute_inputs`` / ``cast_compute_outputs``):
@@ -39,6 +42,7 @@ import math
 import warnings
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,11 +51,19 @@ from torch.profiler import record_function
 
 from atomo_tpu_torch.codecs import decode_tree, encode_tree
 from atomo_tpu_torch.convert import jax_leaf_order
-from atomo_tpu_torch.data.pipeline import augment_batch, to_device
+from atomo_tpu_torch.data.pipeline import (
+    BlockStream,
+    SuperstepFeed,
+    augment_apply,
+    augment_batch,
+    block_to_device,
+    to_device,
+)
 from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.models.embedding import TABLE_INIT_STD, EmbeddingTower
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
+from atomo_tpu_torch.training import graph as G
 from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from atomo_tpu_torch.training.optim import Optimizer, OptState
 from atomo_tpu_torch.utils.device import resolve_device
@@ -133,8 +145,17 @@ def forward(model: nn.Module, images: torch.Tensor, compute_dtype=None, **kwargs
     return functional_call(model, cast, (images,), kwargs).float()
 
 
+def augment_with(images: torch.Tensor, aug) -> torch.Tensor:
+    """The step's augmentation: ``aug`` an int key (the draws from its
+    generator, :func:`augment_batch`) or the device form's drawn
+    ``(offsets, flips)``."""
+    if isinstance(aug, tuple):
+        return augment_apply(images, *aug)
+    return augment_batch(images, generator(aug, images.device))
+
+
 def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,
-                    compute_dtype=None):
+                    compute_dtype=None, superstep: int = 1):
     """Build the step ``(state, key, images, labels, uniforms=None,
     dropout_masks=None) -> (state, metrics)`` over ``model`` (which
     ``state.model`` must be), in float32 or, with ``compute_dtype``, mixed
@@ -148,15 +169,28 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     per ``Dropout`` call, in call order) replace the step's own draws: the
     test hooks through which a parity run hands the port what the JAX step
     drew. ``metrics`` holds 0-d tensors (no host sync) and ``msg_bytes`` as
-    an int."""
+    an int.
+
+    ``superstep`` K > 1 returns the block step ``(state, key, images (K, B,
+    ...), labels (K, B), uniforms=None, dropout_masks=None) -> (state,
+    metrics)``: the K sequential steps (keys from ``fold_in(key,
+    state.step)`` as always), each metric a (K,) tensor, ``msg_bytes`` the
+    per-step constant, the hooks lists of per-step values. On the card a
+    step that :func:`~atomo_tpu_torch.training.graph.graph_rule` qualifies
+    is one captured CUDA graph replayed K times, any other an eager K-step
+    loop; the block carries ``mode`` and ``why``."""
+    if superstep < 1:
+        raise ValueError(f"superstep must be >= 1, got {superstep}")
     params = leaf_params(model)
 
-    def step(state: TrainState, key: int, images, labels,
+    def core(state: TrainState, images, labels, *, aug, k_drop, k_codec, opt_scalars=None,
              uniforms: Optional[Sequence[torch.Tensor]] = None,
              dropout_masks: Optional[Sequence[torch.Tensor]] = None):
-        k_aug, k_drop, k_codec = split3(fold_in(key, state.step))
+        """The step on given keys (ints, or the device form: ``aug`` drawn,
+        ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
+        device values)."""
         if augment:
-            images = augment_batch(images, generator(k_aug, images.device))
+            images = augment_with(images, aug)
         model.train()
         for p in params:
             p.grad = None
@@ -173,13 +207,31 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
                 grads = decode_tree(codec, payloads, grads)
             msg_bytes = stats.payload_bytes
         with record_function("step.update"):
-            opt_state = optimizer.update(grads, state.opt_state, params)
+            opt_state = optimizer.update(grads, state.opt_state, params, scalars=opt_scalars)
         prec1, prec5 = accuracy(logits.detach(), labels)
         metrics = {"loss": loss.detach(), "prec1": prec1, "prec5": prec5,
                    "msg_bytes": msg_bytes}
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state), metrics
 
-    return step
+    def keys(key: int, step_index: int) -> tuple[int, int, int]:
+        """(k_aug, k_drop, k_codec) of step ``step_index``."""
+        return split3(fold_in(key, step_index))
+
+    def step(state: TrainState, key: int, images, labels,
+             uniforms: Optional[Sequence[torch.Tensor]] = None,
+             dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+        k_aug, k_drop, k_codec = keys(key, state.step)
+        return core(state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec,
+                    uniforms=uniforms, dropout_masks=dropout_masks)
+
+    step.core = core
+    step.keys = keys
+    step.drop_keys = lambda k_drop, n: [k_drop]  # one stream drives every Dropout
+    if superstep == 1:
+        return step
+    device = params[0].device
+    return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
+                             device=device, rule=G.graph_rule(device=device, codec=codec))
 
 
 @torch.no_grad()
@@ -248,6 +300,81 @@ def own_residual(state: TrainState, model: nn.Module, rank: int, world: int,
         v.view(p.shape) for v, p in zip(row.split([p.numel() for p in params]), params)])
 
 
+def _crossed(cadence: int, lo: int, hi: int) -> bool:
+    """True iff a multiple of ``cadence`` lies in (lo, hi]: the boundary test
+    that snaps every per-step cadence (log, eval, save) to superstep block
+    boundaries (``atomo_tpu/training/trainer.py:666``); the event fires at
+    ``hi``, the block's last step."""
+    return bool(cadence) and hi // cadence > lo // cadence
+
+
+def _block_log_record(s, m, train_iter, n_train, lap, last_logged) -> StepMetrics:
+    """The ``Worker:`` record of a block boundary (``:688``): loss and
+    precision averaged over the block's steps (``msg_bytes`` is a per-step
+    constant), ``time_cost`` the per-step average of the span since the last
+    log. ``m`` holds the block's fetched numpy series."""
+    return StepMetrics(
+        rank=0,
+        step=s,
+        epoch=s * train_iter.batch_size // max(n_train, 1),
+        samples_seen=(s * train_iter.batch_size) % max(n_train, 1),
+        dataset_size=n_train,
+        loss=float(np.mean(m["loss"])),
+        time_cost=lap / max(s - last_logged, 1),
+        msg_bytes=int(np.asarray(m["msg_bytes"]).reshape(-1)[-1]),
+        prec1=float(np.mean(m["prec1"])),
+        prec5=float(np.mean(m["prec5"])),
+    )
+
+
+def _fetch_block(metrics: dict) -> dict:
+    """A block's metrics on the host by one copy: the (K,) tensors stacked
+    and moved together (the block's one host sync), ints as they are."""
+    names = [n for n, v in metrics.items() if torch.is_tensor(v)]
+    out = {n: v for n, v in metrics.items() if not torch.is_tensor(v)}
+    if names:
+        host = torch.stack([metrics[n].to(torch.float32) for n in names]).cpu().numpy()
+        out.update(zip(names, host))
+    return out
+
+
+def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_train: int,
+                     start_step: int, max_steps: int, superstep: int, log_every: int,
+                     log_fn, eval_freq: int, evaluate_fn, save_freq: int, train_dir,
+                     save_fn, timer: Timer):
+    """The block loop of both train loops (``_superstep_steps`` :709 and
+    ``_distributed_superstep_steps``, ``atomo_tpu/parallel/replicated.py:4391``):
+    one ``block_fn`` call per K steps on a block :class:`SuperstepFeed`
+    staged behind the previous one (``put_fn`` puts a numpy block on the
+    device), the last block shrunk to ``max_steps``, one metric fetch a
+    block; the ``Worker:`` line, ``evaluate_fn(step)`` and
+    ``save_fn(state, step)`` fire at the boundary of a block that crossed
+    their cadence, and the final state is saved when the last save came
+    before ``max_steps``."""
+    log_fn(G.mode_line(block_fn))
+    feed = SuperstepFeed(BlockStream(stream), put_fn)
+    s = last_saved = last_logged = start_step
+    feed.start(min(superstep, max_steps - s))
+    while s < max_steps:
+        kb, images, labels = feed.take()
+        b0, s = s, s + kb
+        state, mblk = block_fn(state, key, images, labels)
+        feed.start(min(superstep, max_steps - s))  # the next copy runs behind this block
+        m = _fetch_block(mblk)
+        if _crossed(log_every, b0, s):
+            log_fn(_block_log_record(s, m, train_iter, n_train, timer.lap(),
+                                     last_logged).worker_line())
+            last_logged = s
+        if eval_freq and evaluate_fn is not None and _crossed(eval_freq, b0, s):
+            evaluate_fn(s)
+        if save_freq and train_dir and _crossed(save_freq, b0, s):
+            save_fn(state, s)
+            last_saved = s
+    if save_freq and train_dir and last_saved < max_steps:
+        save_fn(state, max_steps)
+    return state
+
+
 def train_loop(
     model: nn.Module,
     optimizer: Optimizer,
@@ -268,6 +395,7 @@ def train_loop(
     log_fn=print,
     log_every: int = 1,
     device=None,
+    superstep: int = 1,
 ) -> TrainState:
     """The reference train-and-validate loop: ``Worker:`` lines every
     ``log_every`` steps, ``Validation:`` lines every ``eval_freq`` steps, a
@@ -276,18 +404,35 @@ def train_loop(
     ``compress_ckpt``) and of the final state when the last save came
     before ``max_steps``. ``resume`` continues from the newest valid
     checkpoint there: the data stream skips the batches already taken, so
-    the run goes on as the interrupted one would have. Runs on CUDA unless
-    ``device='cpu'``."""
+    the run goes on as the interrupted one would have. ``superstep`` K > 1
+    runs blocks of K steps (:func:`make_train_step`'s block step), one
+    metric fetch a block, every cadence snapped to the block
+    boundaries; trajectories are those of K = 1 bit for bit, and resume
+    works at any step. Runs on CUDA unless ``device='cpu'``."""
     dev = resolve_device(device)
     state = _resume(create_state(model, optimizer, seed, dev), train_dir, resume, log_fn)
     start_step = state.step
     step_fn = make_train_step(model, optimizer, codec=codec, augment=augment,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, superstep=superstep)
     key = seed + 1
     timer = Timer()
     stream = train_iter.forever(skip=start_step)
     n_train = len(train_iter.dataset)
     last_saved = start_step
+    if superstep > 1:
+        def evaluate_fn(step: int) -> None:
+            ev = evaluate(model, test_iter, dev)
+            log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}".format(
+                step, ev["loss"], ev["prec1"], ev["prec5"]))
+
+        return _superstep_steps(
+            state, step_fn, key, stream, lambda x, y: block_to_device(x, y, dev),
+            train_iter=train_iter, n_train=n_train, start_step=start_step,
+            max_steps=max_steps, superstep=superstep, log_every=log_every, log_fn=log_fn,
+            eval_freq=eval_freq, evaluate_fn=evaluate_fn if test_iter is not None else None,
+            save_freq=save_freq, train_dir=train_dir, timer=timer,
+            save_fn=lambda st, step: save_checkpoint(train_dir, st, step, compress=compress_ckpt,
+                                                     keep=keep_ckpts))
     while state.step < max_steps:
         images, labels = to_device(*next(stream), dev)
         state, metrics = step_fn(state, key, images, labels)
@@ -349,6 +494,7 @@ def distributed_train_loop(
     log_fn=print,
     log_every: int = 1,
     device=None,
+    superstep: int = 1,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -367,14 +513,18 @@ def distributed_train_loop(
     checkpoints hold every rank's residual (gathered to rank 0), and a
     resume gives each rank its own back, so the resumed run equals the
     straight one bit for bit; a checkpoint without one (or of another world
-    size) warns and starts from a zero residual. Runs on CUDA unless
-    ``device='cpu'``."""
+    size) warns and starts from a zero residual. ``superstep`` K > 1 runs
+    blocks of K steps, each rank on its rows of every step of the block, as
+    :func:`train_loop` does; the residual rides from
+    step to step inside a block and is gathered into the checkpoints at
+    block boundaries. Runs on CUDA unless ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.replicated import (
         make_distributed_eval_step,
         make_distributed_train_step,
         replicate_state,
         shard_batch,
+        shard_superbatch,
     )
 
     dev = resolve_device(device)
@@ -388,7 +538,7 @@ def distributed_train_loop(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
         num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
         compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid,
-        error_feedback=error_feedback)
+        error_feedback=error_feedback, superstep=superstep)
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
     timer = Timer()
@@ -396,14 +546,39 @@ def distributed_train_loop(
     n_train = len(train_iter.dataset)
     last_saved = start_step
 
-    def save(step: int) -> None:
-        saved = state
+    def save(st: TrainState, step: int) -> None:
+        saved = st
         if error_feedback:  # every rank's residual, in rank order, to rank 0
-            saved = dataclasses.replace(state, residual=gather_residual(state, world))
+            saved = dataclasses.replace(st, residual=gather_residual(st, world))
         if rank == 0:
             save_checkpoint(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
         torch.distributed.barrier()  # no rank goes on before the file is in place
 
+    def validate(step: int) -> None:
+        totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
+        n = 0
+        for ti, tl in test_iter.epoch():
+            trim = (ti.shape[0] // world) * world
+            if trim == 0:
+                continue
+            m = eval_fn(*to_device(*shard_batch(ti[:trim], tl[:trim], rank, world), dev))
+            for k in totals:
+                totals[k] += float(m[k]) * trim
+            n += trim
+        if rank == 0:
+            log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
+                   .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
+                                                                    "prec5"))))
+
+    if superstep > 1:
+        return _superstep_steps(
+            state, step_fn, key, stream,
+            lambda x, y: block_to_device(*shard_superbatch(x, y, rank, world), dev),
+            train_iter=train_iter, n_train=n_train, start_step=start_step,
+            max_steps=max_steps, superstep=superstep, log_every=log_every,
+            log_fn=log_fn if rank == 0 else (lambda _: None), eval_freq=eval_freq,
+            evaluate_fn=validate if test_iter is not None else None, save_freq=save_freq,
+            train_dir=train_dir, save_fn=save, timer=timer)
     while state.step < max_steps:
         images, labels = shard_batch(*next(stream), rank, world)
         state, metrics = step_fn(state, key, *to_device(images, labels, dev))
@@ -424,23 +599,10 @@ def distributed_train_loop(
                     prec5=float(metrics["prec5"]),
                 ).worker_line())
         if eval_freq and test_iter is not None and step % eval_freq == 0:
-            totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
-            n = 0
-            for ti, tl in test_iter.epoch():
-                trim = (ti.shape[0] // world) * world
-                if trim == 0:
-                    continue
-                m = eval_fn(*to_device(*shard_batch(ti[:trim], tl[:trim], rank, world), dev))
-                for k in totals:
-                    totals[k] += float(m[k]) * trim
-                n += trim
-            if rank == 0:
-                log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
-                       .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
-                                                                        "prec5"))))
+            validate(step)
         if save_freq and train_dir and step % save_freq == 0:
-            save(step)
+            save(state, step)
             last_saved = step
     if save_freq and train_dir and last_saved < max_steps:
-        save(max_steps)
+        save(state, max_steps)
     return state

@@ -4,10 +4,14 @@ The JAX package splits and folds ``jax.random`` keys; torch has no such
 keys, and its generators cannot reproduce threefry. The port keeps the same
 discipline with plain 63-bit integers: :func:`fold_in` derives an independent
 key from (key, data) with the SplitMix64 finaliser, and a key seeds either a
-``torch.Generator`` or the Philox generator inside a CUDA kernel.
+``torch.Generator`` or the Philox generator inside a CUDA kernel, which
+can also take the key from device memory and fold the leaf index in itself
+(:class:`FoldedSeeds`).
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import torch
 
@@ -34,3 +38,29 @@ def split3(key: int) -> tuple[int, int, int]:
 
 def generator(key: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(key))
+
+
+class FoldedSeeds(Sequence):
+    """The leaf seeds ``fold_in(key, i)`` for ``i`` in ``idxs``, with ``key``
+    a 0-d int64 tensor: the device form of a step's codec seeds. A CUDA
+    graph replays one captured step, so a key that changes from step to
+    step cannot ride a launch's arguments; the QSGD encode kernel reads
+    ``key`` from device memory and folds each leaf's index in itself
+    (``csrc/qsgd_kernels.cu fold_in``). Indexing gives the ints (a host read
+    of ``key``), for the plain versions on the CPU."""
+
+    def __init__(self, key: torch.Tensor, idxs: Sequence[int]):
+        if key.dim() != 0 or key.dtype != torch.int64:
+            raise ValueError(f"key must be a 0-d int64 tensor, got {key.dtype} "
+                             f"{tuple(key.shape)}")
+        self.key = key
+        self.idxs = tuple(int(i) for i in idxs)
+
+    def __len__(self) -> int:
+        return len(self.idxs)
+
+    def __getitem__(self, j: int) -> int:
+        return fold_in(int(self.key), self.idxs[j])
+
+    def subset(self, positions: Sequence[int]) -> "FoldedSeeds":
+        return FoldedSeeds(self.key, [self.idxs[p] for p in positions])

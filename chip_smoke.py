@@ -183,6 +183,23 @@ every hand-written kernel against its plain PyTorch version:
    --nproc-per-node 1`` without ``--n-devices`` (this script with
    ``--budget-cli-child``): its ``Budget:`` and ``Worker:`` lines and
    launches (one encode and two decode launches per width a step).
+14. superstep: ``--superstep K``, the sync-free step replayed as a CUDA
+   graph. (a) In a deterministic child (this script with
+   ``--superstep-child``): ResNet-18 batch 128 qsgd 4 bits, fused, 16 steps
+   with augmentation and an LR change at step 8, as single eager steps, as
+   graph blocks of 8 and of 3 (a tail block of 1): per-step losses,
+   parameters, buffers and momentum equal bit for bit, rows 1-2 launched
+   once a step each way, the replays counted. (b) In this process: the same
+   step at K = 1 and K = 8 (graph) timed without the profiler (median step
+   ms; K = 8 a block's wall over 8) and under it (wall, device busy, idle
+   share); rows 1-2 as one replayed graph each (the tree encode in its
+   device-key form, the tree decode) by CUDA events beside their eager
+   event wall and device time; svd rank 3 in the eager block against K = 1;
+   the data-parallel step at NCCL world 1, qsgd gather, as a graph at K = 8
+   against K = 1; ``train --superstep 8`` through the CLI on one device and
+   under ``torchrun --nproc-per-node 1`` (this script with
+   ``--superstep-cli-child``): the mode line ``Superstep: K=8, graph`` and
+   ``Worker:`` lines at steps 8 and 16.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -2870,6 +2887,347 @@ def phase_budget(work: Path, errs: dict, card: str) -> dict:
     out["card"] = card
     return out
 
+# ----------------------------------------------------------- the superstep phase
+
+SS_STEPS = 16  # two blocks of 8; six blocks of 3 with a tail of 1
+SS_SHRINK = 8  # the LR schedule's change falls at step 8
+SS_ARGS = TRAIN_ARGS + ["--code", "qsgd", "--max-steps", str(SS_STEPS), "--eval-freq", "0",
+                        "--superstep", "8"]
+
+
+def ss_resnet(dev, code: str, k: int, optimizer=None, dist_step: bool = False):
+    """ResNet-18 (batch 128, augmentation on) and its step or block step."""
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step, replicate_state
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    opt = optimizer or make_optimizer("sgd", lr=0.01, momentum=0.9, shrinkage_freq=SS_SHRINK)
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    state = create_state(model, opt, 1, dev)
+    codec = get_codec(code, quantization_level=4, svd_rank=3)
+    if dist_step:
+        return replicate_state(state), make_distributed_train_step(
+            model, opt, codec, aggregate="gather", augment=True, superstep=k)
+    return state, make_train_step(model, opt, codec, augment=True, superstep=k)
+
+
+def ss_stream():
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+
+    return BatchIterator(synthetic_dataset(SPECS["cifar10"], True, size=4096), 128,
+                         seed=1).forever()
+
+
+def ss_run(state, step, k: int, steps: int, stream, timed: bool = False):
+    """``steps`` steps of ``step`` (K = 1) or of the block step in blocks of
+    ``k`` (the last shrunk): per-step losses (one fetch a block), the state,
+    and with ``timed`` each block's wall ms over its steps, block and fetch
+    included."""
+    import torch
+
+    from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.data.pipeline import BlockStream, block_to_device
+
+    blocks = BlockStream(stream)
+    losses, ms, s = [], [], 0
+    while s < steps:
+        kb = min(k, steps - s)
+        t0 = time.perf_counter()
+        if k == 1:
+            state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+            losses.append(float(m["loss"]))
+        else:
+            staged = block_to_device(*blocks.take(kb), "cuda")
+            torch.cuda.current_stream().wait_event(staged.ready)
+            state, m = step(state, 2, staged.images, staged.labels)
+            losses += m["loss"].tolist()
+        if timed:
+            ms.append((time.perf_counter() - t0) * 1e3 / kb)
+        s += kb
+    return state, losses, ms
+
+
+def ss_carried(state):
+    o = state.opt_state
+    return list(state.model.state_dict().values()) + (o.trace or [])
+
+
+def superstep_child(out_path: str) -> int:
+    """The superstep phase's deterministic runs (this script with
+    ``--superstep-child``; cuBLAS's workspace setting precedes its first
+    handle): 16 ResNet-18 qsgd steps eagerly one by one, then as graph
+    blocks of 8 and of 3; writes what it found to ``out_path``."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.training.graph import mode_line
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    runs = {}
+    ref = None
+    for k in (1, 8, 3):
+        state, step = ss_resnet(dev, "qsgd", k)
+        ops.reset_launch_counts()
+        state, losses, _ = ss_run(state, step, k, SS_STEPS, ss_stream())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        carried = [t.detach().clone() for t in ss_carried(state)]
+        run = {"losses": losses, "launches": counts,
+               "mode": mode_line(step) if k > 1 else "per-step",
+               "replays": getattr(step, "replays", 0)}
+        if ref is None:
+            ref = (losses, carried)
+        else:
+            run["losses_equal"] = losses == ref[0]
+            run["state_equal"] = all(
+                torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                for a, b in zip(ref[1], carried))
+        runs[f"K{k}"] = run
+    Path(out_path).write_text(json.dumps(runs))
+    return 0
+
+
+def superstep_cli_child(out_path: str) -> int:
+    """``train --superstep 8`` through the CLI in a ``torchrun
+    --nproc-per-node 1`` process (this script with ``--superstep-cli-child``):
+    the data-parallel step over one NCCL rank. Writes its lines and launch
+    counts."""
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import cli, ops
+
+    lines: list[str] = []
+    ops.reset_launch_counts()
+    rc = cli.main(SS_ARGS, log_fn=lines.append)
+    Path(out_path).write_text(json.dumps({"rc": rc, "lines": lines,
+                                          "launches": ops.launch_counts()}))
+    return rc
+
+
+def ss_profile(label: str, state, step, k: int, stream, steps: int = SS_STEPS) -> dict:
+    """Wall and device-busy ms per step under ``torch.profiler`` over
+    ``steps`` steps (blocks of ``k``), after a warm-up block, and the idle
+    share. A replayed graph's kernels are traced as kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _, _ = ss_run(state, step, k, k, stream)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = ss_run(state, step, k, steps, stream)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda and not e.key.startswith("step.")) / 1e3 / steps
+    if busy <= 0:
+        raise AssertionError(f"superstep profile {label}: the profiler recorded no device time")
+    out = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / wall}
+    log(f"superstep profile {label}: wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step, "
+        f"idle share {out['device_idle_share']:.3f}")
+    return out
+
+
+def ss_rows_graph(dev) -> dict:
+    """Rows 1-2 on ResNet-18's gradient tree at 4 bits, each as a captured
+    graph of its one tree call (the encode in its device-key form) replayed
+    20 times, by CUDA events, beside the eager call's event wall (the seeds
+    by value, as :func:`phase_time` times it) and the device time of the
+    kernel in the replay."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, decode_tree, encode_tree
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.utils.rng import FoldedSeeds
+
+    grads, leaves, _ = resnet_grads(dev)
+    codec = QsgdCodec(bits=4)
+    key = torch.tensor(17, dtype=torch.int64, device=dev)
+    seeds = FoldedSeeds(key, range(len(leaves)))
+    by_value = list(seeds)
+    payloads, _ = encode_tree(codec, 17, grads)
+    out = {}
+    # as phase_time times them: the encode's tree call, the whole decode_tree
+    for name, kernel, eager_fn, fn in (
+            ("quantize_pack", "quantize_pack_kernel",
+             lambda: K.quantize_pack_tree(leaves, bits=4, seeds=by_value),
+             lambda: K.quantize_pack_tree(leaves, bits=4, seeds=seeds)),
+            ("unpack_dequantize", "unpack_dequantize_tree_kernel",
+             lambda: decode_tree(codec, payloads, grads),
+             lambda: decode_tree(codec, payloads, grads))):
+        eager = cuda_ms(eager_fn)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        replay = cuda_ms(g.replay)
+        dev_ms = device_ms(g.replay, kernel)
+        out[name] = {"graph_ms": replay, "eager_ms": eager, "device_ms": dev_ms}
+        log(f"superstep rows {name}: {replay:.4f} ms per call by events as a replayed graph, "
+            f"{eager:.4f} ms as the eager call, {dev_ms:.4f} ms of device time")
+    return out
+
+
+def ss_children(work: Path):
+    """The phase's two child processes, run at once (they check; they time
+    nothing): the deterministic runs (``--superstep-child``) and the CLI
+    under ``torchrun --nproc-per-node 1`` (``--superstep-cli-child``)."""
+    import os
+    import socket
+
+    det_path, cli_path = work / "superstep.json", work / "superstep_cli.json"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    me = str(Path(__file__).resolve())
+    procs = {
+        "deterministic": subprocess.Popen(
+            [sys.executable, me, "--superstep-child", str(det_path)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=str(ROOT)),
+        "torchrun": subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+             "--master-addr", "127.0.0.1", "--master-port", str(port), me,
+             "--superstep-cli-child", str(cli_path)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=dict(os.environ))}
+    for label, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"superstep {label} child failed (exit {proc.returncode}):\n"
+                                 + out[-2000:] + err[-4000:])
+    return json.loads(det_path.read_text()), json.loads(cli_path.read_text())
+
+
+def ss_turns(dev, code: str, turns=(1, 8, 8, 1), steps: int = 8) -> dict:
+    """Median ms a step of ``code`` at K = 1 and K = 8, measured in turns
+    (K 1, K 8, K 8, K 1: ``steps`` steps a turn, one model each, a warm-up
+    block first), so that drift in the host's speed falls on both."""
+    runs = {}
+    for k in sorted(set(turns)):
+        state, step = ss_resnet(dev, code, k)
+        stream = ss_stream()
+        state, _, _ = ss_run(state, step, k, k, stream)
+        runs[k] = [state, step, stream, []]
+    for k in turns:
+        state, step, stream, ms = runs[k]
+        runs[k][0], _, got = ss_run(state, step, k, steps, stream, timed=True)
+        ms.append(statistics.median(got))
+    from atomo_tpu_torch.training.graph import mode_line
+
+    return {f"K{k}": {"median_step_ms_by_turn": r[3], "median_step_ms": statistics.median(r[3]),
+                      "mode": mode_line(r[1]) if k > 1 else "per-step"}
+            for k, r in runs.items()}
+
+
+def phase_superstep(work: Path, card: str) -> dict:
+    """``--superstep``: the deterministic child's bit-for-bit check and the
+    torchrun CLI (both at once), then in this process the K = 1 / K = 8 step
+    times and idle shares, rows 1-2 as replayed graphs, svd3's eager block,
+    the NCCL world-1 graph and the CLI on one device (see the module
+    docstring, phase 14)."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.training.graph import mode_line
+
+    t0 = time.time()
+    det, tr = ss_children(work)
+    seconds = {"children": time.time() - t0}
+    for label, r in det.items():
+        c = r["launches"]
+        if c["quantize_pack"] != SS_STEPS or c["unpack_dequantize"] != SS_STEPS:
+            raise AssertionError(f"superstep {label}: launches {c}, want {SS_STEPS} each way")
+        if label != "K1" and not (r["losses_equal"] and r["state_equal"] and r["replays"] > 0
+                                  and r["mode"].endswith(", graph")):
+            raise AssertionError(f"superstep {label}: {r}")
+    log(f"superstep deterministic: ResNet-18 qsgd 4 bits, batch 128, {SS_STEPS} steps, "
+        f"augmentation on, LR change at step {SS_SHRINK}: K8 ({det['K8']['mode']}, "
+        f"{det['K8']['replays']} replays) and K3 ({det['K3']['replays']} replays, tail block "
+        f"of 1) equal the eager steps bit for bit (losses, parameters, buffers, momentum); "
+        f"rows 1-2 {SS_STEPS} launches each way in each run; losses "
+        + " ".join(f"{v:.4f}" for v in det["K1"]["losses"]))
+    for ln in tr["lines"]:
+        log("  " + ln)
+    dev = torch.device("cuda", 0)
+    res = {"deterministic": det, "card": card}
+    t0 = time.time()
+    times = {}
+    for k in (1, 8):
+        state, step = ss_resnet(dev, "qsgd", k)
+        stream = ss_stream()
+        state, _, ms = ss_run(state, step, k, SS_STEPS + k, stream, timed=True)
+        prof = ss_profile(f"qsgd K={k}", state, step, k, stream)
+        times[f"qsgd_K{k}"] = {"median_step_ms": statistics.median(ms[1:]), **prof,
+                               "mode": mode_line(step) if k > 1 else "per-step"}
+    for k, t in ss_turns(dev, "svd").items():
+        times[f"svd3_{k}"] = t
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/ss_nccl1", world_size=1,
+                      rank=0)
+    try:
+        for k in (1, 8):
+            state, step = ss_resnet(dev, "qsgd", k, dist_step=True)
+            ops.reset_launch_counts()
+            state, losses, ms = ss_run(state, step, k, SS_STEPS, ss_stream(), timed=True)
+            times[f"nccl1_qsgd_K{k}"] = {
+                "median_step_ms": statistics.median(ms[1:]), "launches": ops.launch_counts(),
+                "mode": mode_line(step) if k > 1 else "per-step",
+                "replays": getattr(step, "replays", 0), "losses": losses}
+    finally:
+        launch.shutdown()
+    first = [times[f"nccl1_qsgd_K{k}"]["losses"][0] for k in (1, 8)]
+    if not math.isclose(*first, rel_tol=1e-5):  # outside deterministic mode
+        raise AssertionError(f"superstep nccl-1: first losses {first} at K 1 and 8")
+    for label, t in times.items():
+        log(f"superstep {label} ({card}): median step {t['median_step_ms']:.3f} ms, {t['mode']}"
+            + (f", idle share {t['device_idle_share']:.3f}" if "device_idle_share" in t else "")
+            + (" (turns " + ", ".join(f"{v:.3f}" for v in t["median_step_ms_by_turn"]) + ")"
+               if "median_step_ms_by_turn" in t else "")
+            + (f", launches {t['launches']}, replays {t['replays']}" if "launches" in t else ""))
+    res["times"] = times
+    res["rows"] = ss_rows_graph(dev)
+    seconds["timing"] = time.time() - t0
+    t0 = time.time()
+    expect = ["quantize_pack", "unpack_dequantize"]
+    single = run_cli(SS_ARGS, expect)
+    seconds["cli"] = time.time() - t0
+    res["cli"] = {"single": single, "torchrun": tr}
+    worker = [int(ln.split("Step: ")[1].split(",")[0]) for ln in tr["lines"]
+              if ln.startswith("Worker: ")]
+    if "Superstep: K=8, graph" not in tr["lines"] or worker != [8, 16]:
+        raise AssertionError(f"superstep cli torchrun: lines {tr['lines'][:6]}")
+    if len(single["losses"]) != 2:
+        raise AssertionError(f"superstep cli single-device: Worker: lines {single['losses']}")
+    for label, counts in (("single-device", single["launches"]), ("torchrun", tr["launches"])):
+        if any(counts[n] != SS_STEPS for n in expect):
+            raise AssertionError(f"superstep cli {label}: launches {counts}")
+    log(f"superstep cli: train --superstep 8, {SS_STEPS} steps, single-device and torchrun "
+        f"--nproc-per-node 1: 'Superstep: K=8, graph', Worker: lines at steps 8 and 16, "
+        f"launches {single['launches']} / {tr['launches']}")
+    log("superstep seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    res["seconds"] = seconds
+    res["launches"] = {name: det["K1"]["launches"][name] + det["K8"]["launches"][name]
+                       + det["K3"]["launches"][name] + single["launches"][name]
+                       + tr["launches"][name]
+                       + times["nccl1_qsgd_K1"]["launches"][name]
+                       + times["nccl1_qsgd_K8"]["launches"][name] for name in REPLACES
+                       if name != "flash_attention"}
+    res["launches"]["flash_attention"] = 0
+    return res
 
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
@@ -2884,6 +3242,10 @@ def main() -> int:
         return budget_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--budget-cli-child"]:
         return budget_cli_child(sys.argv[2])
+    if sys.argv[1:2] == ["--superstep-child"]:
+        return superstep_child(sys.argv[2])
+    if sys.argv[1:2] == ["--superstep-cli-child"]:
+        return superstep_cli_child(sys.argv[2])
     import tempfile
 
     import torch
@@ -2947,6 +3309,8 @@ def main() -> int:
         lap("sparse")
         budget = phase_budget(Path(work), errs, card)
         lap("budget")
+        superstep = phase_superstep(Path(work), card)
+        lap("superstep")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -2962,6 +3326,7 @@ def main() -> int:
                       for r in pair.values() if isinstance(r, dict))
                 + sum(r["launches"][name] for r in budget["ef"].values())
                 + budget["cli"]["launches"][name]
+                + superstep["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -2982,6 +3347,7 @@ def main() -> int:
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
+              "superstep": superstep,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

@@ -24,7 +24,15 @@ ResNet-18 run equals the straight one bit for bit on the card, and a
 compressed checkpoint comes back onto the card bit for bit. The sparse-row
 codec's encode on the card equals the CPU's, without a host sync, and the
 embedding tower's hybrid step at one NCCL rank sends the plan's bytes, its
-``DenseCodec`` form equal to ``hybrid=None`` bit for bit.
+``DenseCodec`` form equal to ``hybrid=None`` bit for bit. The QSGD encode's
+device form (the key read from device memory, each leaf's index folded in on
+the card) equals the by-value launch and the plain version at widths 1-16;
+a captured step replayed K times equals K eager steps bit for bit
+(``--superstep``: LeNet sgd, qsgd under Adam, VGG-11 with dropout, ResNet-18
+qsgd and terngrad with augmentation and an LR change, a per-leaf width
+allocation, and the data-parallel step at one NCCL rank with error
+feedback and with the embedding tower's hybrid exchange), with the same
+launches.
 """
 
 import dataclasses
@@ -1027,3 +1035,179 @@ def test_hybrid_nccl_world_one_step(dev, nccl_group):
             assert counts["quantize_pack"] == 2 and counts["unpack_dequantize"] == 2, counts
         params[label] = [p.detach().clone() for p in leaf_params(model)]
     assert all(torch.equal(a, b) for a, b in zip(params["dense_on"], params["dense_off"]))
+
+
+@pytest.mark.parametrize("bits", range(1, 17))
+def test_device_key_form_matches_by_value_and_plain(dev, bits):
+    """The encode with its key in device memory (``FoldedSeeds``: the kernel
+    folds each leaf's index into it) equals the launch with the folded
+    seeds by value and the plain version, words bit for bit, scales equal;
+    the tree launch and the (L, n) stack alike."""
+    from atomo_tpu_torch.utils.rng import FoldedSeeds, fold_in
+
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    leaves = [torch.randn((n,), generator=gen, device=dev) for n in (700, 4113, 512, 33)]
+    key = (1 << 62) + 12345 * bits
+    idxs = [5, 0, 17, 255]
+    dkey = torch.tensor(key, dtype=torch.int64, device=dev)
+    by_value = [fold_in(key, i) for i in idxs]
+    K.reset_launch_counts()
+    dev_form = K.quantize_pack_tree(leaves, bits=bits, seeds=FoldedSeeds(dkey, idxs))
+    val_form = K.quantize_pack_tree(leaves, bits=bits, seeds=by_value)
+    plain = K.quantize_pack_tree_plain(leaves, bits=bits, seeds=by_value)
+    torch.cuda.synchronize()
+    for (wd, sd), (wv, sv), (wp, sp) in zip(dev_form, val_form, plain):
+        assert _same_bits(wd, wv) and _same_bits(wd, wp)
+        assert torch.equal(sd, sv)
+        torch.testing.assert_close(sd, sp, rtol=1e-6, atol=0.0)
+    x = torch.randn((3, 1000), generator=gen, device=dev)
+    wd, sd = K.quantize_pack(x, bits=bits, seeds=FoldedSeeds(dkey, [2, 9, 4]))
+    wv, sv = K.quantize_pack(x, bits=bits, seeds=[fold_in(key, i) for i in (2, 9, 4)])
+    assert _same_bits(wd, wv) and torch.equal(sd, sv)
+    assert K.launch_counts()["quantize_pack"] == 4
+
+
+# a process of its own: cuBLAS reads its workspace setting when its first
+# handle is made, and the replay is held to the eager steps bit for bit
+GRAPH_ON_THE_CARD = """
+import json, sys, torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+from atomo_tpu_torch import ops
+from atomo_tpu_torch.budget import budgeted_codec
+from atomo_tpu_torch.codecs import get_codec
+from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+from atomo_tpu_torch.data.pipeline import BlockStream, block_to_device
+from atomo_tpu_torch.models import get_model
+from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+network, code, optname, where, steps, work = sys.argv[1:7]
+steps = int(steps)
+cifar = network not in ("lenet", "embedding")
+if network == "embedding":  # zipf row ids, (B, 8)
+    from atomo_tpu_torch.data import zipf_dataset
+    ds, shape = zipf_dataset(True, size=512, seed=0), (8,)
+else:
+    spec = SPECS["cifar10" if cifar else "mnist"]
+    ds, shape = synthetic_dataset(spec, True, size=512, seed=3), spec.image_shape
+make, kw = make_train_step, {}
+if where != "single":
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step as make
+    launch.initialize("cuda:0", init_method=f"file://{work}/s", world_size=1, rank=0)
+    kw = {"error_feedback": where == "nccl-ef"}
+
+def codec():
+    if code == "sgd":
+        return None
+    if code == "budget":  # a per-leaf width allocation: widths 2-9 over the leaves
+        n = 62 if network == "resnet18" else 8
+        return budgeted_codec(get_codec("qsgd"), [2 + i % 8 for i in range(n)])
+    return get_codec(code, quantization_level=4)
+
+if where == "nccl-hybrid":  # the table as lossless rows, the rest qsgd
+    from atomo_tpu_torch.sparse import plan_for_model
+    kw["hybrid"] = plan_for_model(codec(), get_model(network, 10, image_shape=shape),
+                                  ds.images[:32], ds.labels[:32], 32, 8)
+    assert kw["hybrid"].any_sparse
+
+def fresh(k):
+    model = get_model(network, 10, image_shape=shape)
+    opt = make_optimizer(optname, lr=0.01, momentum=0.9, shrinkage_freq=5)
+    state = create_state(model, opt, 3, "cuda")
+    return state, make(model, opt, codec(), augment=cifar, superstep=k, **kw)
+
+def carried(state):
+    o = state.opt_state
+    ts = list(state.model.state_dict().values())
+    for name in ("trace", "mu", "nu", "nu_max"):
+        ts += getattr(o, name, None) or []
+    return ts + (state.residual or [])
+
+state, step = fresh(1)
+stream = BatchIterator(ds, 32, seed=3).forever()
+ops.reset_launch_counts()
+losses = []
+for _ in range(steps):
+    state, m = step(state, 7, *to_device(*next(stream), "cuda"))
+    losses.append(float(m["loss"]))
+ref, ref_counts = carried(state), ops.launch_counts()
+for k in (8, 3):
+    state, block = fresh(k)
+    assert block.mode == "graph", block.why
+    blocks = BlockStream(BatchIterator(ds, 32, seed=3).forever())
+    ops.reset_launch_counts()
+    got, s = [], 0
+    while s < steps:
+        kb = min(k, steps - s)
+        staged = block_to_device(*blocks.take(kb), "cuda")
+        if staged.ready is not None:
+            torch.cuda.current_stream().wait_event(staged.ready)
+        state, m = block(state, 7, staged.images, staged.labels)
+        got += m["loss"].tolist()
+        s += kb
+    assert state.step == steps and block.replays == steps - 1, (state.step, block.replays)
+    assert got == losses, (k, got, losses)
+    for a, b in zip(ref, carried(state)):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), k
+    assert ops.launch_counts() == ref_counts, (k, ops.launch_counts(), ref_counts)
+print(json.dumps({"ok": True, "launches": ref_counts}))
+"""
+
+
+@pytest.mark.parametrize("network,code,optimizer,where,steps", [
+    ("lenet", "sgd", "sgd", "single", 7),
+    ("lenet", "qsgd", "adam", "single", 7),
+    ("vgg11", "qsgd", "sgd", "single", 7),
+    ("resnet18", "qsgd", "sgd", "single", 7),
+    ("resnet18", "terngrad", "sgd", "single", 7),
+    ("resnet18", "budget", "sgd", "single", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-ef", 7),
+    ("lenet", "sgd", "sgd", "nccl", 7),
+    ("embedding", "qsgd", "sgd", "nccl-hybrid", 7),
+])
+def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer, where, steps):
+    """7 steps (an LR change at step 5, augmentation on CIFAR shapes,
+    dropout in VGG-11) run eagerly one by one, then as blocks of 8 (one
+    warm-up step, a capture, 6 replays) and of 3 (blocks 3, 3, 1): per-step
+    losses, parameters, buffers, optimizer state and the residual equal bit
+    for bit under torch's deterministic algorithms, with the same kernel
+    launches counted."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-c", GRAPH_ON_THE_CARD, network, code, optimizer, where, str(steps),
+         str(tmp_path)], capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parents[1]),
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["ok"]
+    if code in ("qsgd", "terngrad"):
+        assert out["launches"]["quantize_pack"] == steps
+
+
+def test_graph_rule_names_the_eager_steps(dev):
+    """The rule sends svd, the pack path and num_aggregate to the eager
+    block with their reasons, and qualifies the fused codec at one NCCL
+    rank; the svd block on the card is the eager one."""
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from atomo_tpu_torch.training.graph import graph_rule
+
+    assert graph_rule(device=dev, codec=get_codec("qsgd"), backend="nccl")[0]
+    assert "eigh" in graph_rule(device=dev, codec=get_codec("svd", svd_rank=3))[1]
+    assert "pack path" in graph_rule(device=dev, codec=get_codec("qsgd", use_kernel=False,
+                                                                 pack_kernel=True))[1]
+    assert "num_aggregate" in graph_rule(device=dev, codec=get_codec("qsgd"), backend="nccl",
+                                         world=2, k_agg=1)[1]
+    model = get_model("lenet", 10)
+    opt = make_optimizer("sgd")
+    create_state(model, opt, 0, dev)
+    block = make_train_step(model, opt, get_codec("svd", svd_rank=3), superstep=4)
+    assert block.mode == "eager" and "eigh" in block.why
+    assert make_train_step(model, opt, get_codec("qsgd"), superstep=4).mode == "graph"

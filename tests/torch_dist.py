@@ -18,7 +18,11 @@ Jobs (``JOBS``):
   run is cut after that many steps: rank 0 saves a checkpoint into
   ``train_dir``, and every rank loads it into a fresh model and optimizer
   state and goes on; ``hybrid`` (a pickled ``HybridPlan``) runs the
-  sparse-row exchange, and each step's ``row_overflow`` comes back;
+  sparse-row exchange, and each step's ``row_overflow`` comes back; with
+  ``parts`` the steps run as superstep blocks of those sizes (the block
+  step of ``superstep=k``, each rank on its rows of every step of the
+  block), each step's metrics taken from the block's series and the hash
+  after a block's last step only (None inside a block);
 * ``build``: the data-parallel step's factory on a registry model with
   given arguments; the message of the ``ValueError`` it raises, or None;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
@@ -189,7 +193,7 @@ def state_hash(model) -> str:
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
               dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
-              budget_ks=None, error_feedback=False):
+              budget_ks=None, error_feedback=False, parts=None):
     import dataclasses
 
     import torch.distributed as dist
@@ -197,8 +201,11 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     from atomo_tpu_torch.budget import budgeted_codec
     from atomo_tpu_torch.training import trainer as T
 
+    import numpy as np
+
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.data.pipeline import block_to_device
     from atomo_tpu_torch.training import TrainState, make_optimizer
     from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
     from atomo_tpu_torch.training.trainer import leaf_params
@@ -233,19 +240,32 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     R.encode_tree = recording_encode
     R.encode_leaf_subset = recording_subset
 
-    def make_step(model):
+    def make_step(model, superstep=1):
         c = _codec(codec)
         if budget_ks is not None:
             c = budgeted_codec(c, budget_ks)
         return R.make_distributed_train_step(
             model, opt, c, aggregate=aggregate, num_aggregate=num_aggregate,
             ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid,
-            error_feedback=error_feedback)
+            error_feedback=error_feedback, superstep=superstep)
+
+    def record(m, j=None, last=True):
+        def val(name, cast=float):
+            if name not in m:
+                return None
+            return cast(m[name] if j is None or not hasattr(m[name], "shape") else m[name][j])
+
+        return {"loss": val("loss"), "prec1": val("prec1"), "prec5": val("prec5"),
+                "msg_bytes": val("msg_bytes", int), "dense_bytes": val("dense_bytes", int),
+                "hash": state_hash(model) if last else None,
+                "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm")}
 
     try:
         step = make_step(model)
+        blocks = {}
         steps = []
-        for s, (x, y) in enumerate(batches):
+        s = 0
+        for k in parts or [1] * len(batches):
             if resume_at and s == resume_at:
                 saved = state
                 if error_feedback:
@@ -259,17 +279,27 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 if error_feedback:
                     state = T.own_residual(state, model, rank, world, "cpu")
                 step = make_step(model)
-            xs, ys = R.shard_batch(x, y, rank, world)
-            state, m = step(state, key, *to_device(xs, ys, "cpu"),
-                            draws=_draws(draws[s]) if draws is not None else None,
-                            dropout_masks=masks[s] if masks is not None else None)
-            steps.append({"loss": float(m["loss"]), "prec1": float(m["prec1"]),
-                          "prec5": float(m["prec5"]), "msg_bytes": int(m["msg_bytes"]),
-                          "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model),
-                          "row_overflow": float(m["row_overflow"]) if "row_overflow" in m
-                          else None,
-                          "ef_res_norm": float(m["ef_res_norm"]) if "ef_res_norm" in m
-                          else None})
+                blocks = {}
+            if k == 1:
+                x, y = batches[s]
+                xs, ys = R.shard_batch(x, y, rank, world)
+                state, m = step(state, key, *to_device(xs, ys, "cpu"),
+                                draws=_draws(draws[s]) if draws is not None else None,
+                                dropout_masks=masks[s] if masks is not None else None)
+                steps.append(record(m))
+            else:
+                if k not in blocks:
+                    blocks[k] = make_step(model, superstep=k)
+                xs, ys = R.shard_superbatch(np.stack([b[0] for b in batches[s:s + k]]),
+                                            np.stack([b[1] for b in batches[s:s + k]]),
+                                            rank, world)
+                staged = block_to_device(xs, ys, "cpu")
+                state, m = blocks[k](
+                    state, key, staged.images, staged.labels,
+                    draws=[_draws(d) for d in draws[s:s + k]] if draws is not None else None,
+                    dropout_masks=masks[s:s + k] if masks is not None else None)
+                steps.extend(record(m, j, last=j == k - 1) for j in range(k))
+            s += k
     finally:
         R.encode_tree = encode
         R.encode_leaf_subset = encode_subset
