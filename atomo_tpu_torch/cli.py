@@ -31,12 +31,17 @@ over N processes (``--n-devices N --ways S``: dp = N/S replicas of S
 sequence shards, ``--attn-impl ring|ulysses|ulysses-flash``, ``--aggregate
 gather|psum|ring``), with ``--optimizer``, ``--bf16`` and checkpoints
 (``--train-dir``, ``--save-freq``, ``--resume``, ``--compress``); the other
-layouts, ``--stream-encode`` and ``--overlap`` come with later slices.
+layouts come with later slices. Both verbs take ``--stream-encode`` (layer
+buckets encoded under backward; ``train --stream-bucket-mb``, ``lm
+--stream-bucket-bytes``) and ``--overlap delayed`` (the stale-by-one
+exchange, its in-flight payload in the checkpoints), with the JAX verbs'
+refusals.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import sys
@@ -65,9 +70,11 @@ from atomo_tpu_torch.parallel.lm import (
     LATER,
     DpExchange,
     create_lm_state,
+    init_model_axis_delayed_state,
     make_lm_train_step,
     shard_tokens,
 )
+from atomo_tpu_torch.parallel.overlap import carry_from_saved, gather_carry
 from atomo_tpu_torch.parallel.replicated import replicate_state
 from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, train_loop
 from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -198,6 +205,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "the one encode and exchange: activation memory shrinks to one "
                         "microbatch at a fixed --batch-size (the data-parallel step "
                         "only: --n-devices above 1, or a process group that is up)")
+    p.add_argument("--overlap", type=str, default="off", choices=["off", "delayed"],
+                   help="delayed = stale-by-one overlapped aggregation: at "
+                        "step t each chip computes and encodes grads_t "
+                        "while the optimizer applies the step-(t-1) "
+                        "decoded mean, so the gather/ring exchange and the "
+                        "decode run underneath fwd/bwd+update and leave "
+                        "the critical path (needs a compressing --code and "
+                        "--aggregate gather|ring on a multi-device mesh). "
+                        "Step 0 applies a zero (skipped) update; "
+                        "checkpoints carry the in-flight payload so resume "
+                        "is exact. off (default) = the blocking program, "
+                        "byte-for-byte as before")
+    p.add_argument("--stream-encode", type=str, default="off", choices=["off", "on"],
+                   help="on = backward-interleaved layer-streamed encode: "
+                        "the gradient tree is partitioned DDP-style into "
+                        "size-bounded layer buckets (--stream-bucket-mb, "
+                        "reverse-topological so the last-computed layers "
+                        "form the first-ready buckets) and each bucket's "
+                        "encode — and, under --aggregate ring, its first "
+                        "hops — depends only on that bucket's "
+                        "gradients, so encode runs under backprop and the "
+                        "wire starts before backward finishes. The bucket "
+                        "plan is a layout knob: payloads and trajectories "
+                        "are bit-identical to off for any bucket size "
+                        "(per-leaf codec keys fold from the global leaf "
+                        "index). Needs a compressing --code with "
+                        "--aggregate gather|ring on a multi-device mesh; "
+                        "composes with --superstep and --overlap delayed. "
+                        "off (default) = the monolithic "
+                        "encode, byte-for-byte as before")
+    p.add_argument("--stream-bucket-mb", type=float, default=4.0, metavar="MB",
+                   help="--stream-encode: dense megabytes per layer bucket "
+                        "(<= 0 packs the whole tree into one bucket — "
+                        "stream off's dataflow with stream on's code path). "
+                        "Any value is bit-identical (layout only; tested); "
+                        "smaller buckets pipeline finer at more dispatches")
     p.add_argument("--sparse-rows", type=str, default="off", choices=["off", "auto", "on"],
                    help="per-layer sparse-row hybrid exchange: lookup-table leaves whose "
                         "lossless (row, value) payload beats the dense path's bytes move "
@@ -312,9 +355,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--aggregate ring: 4-byte elements per message (0 = one "
                         "message a hop)")
     q.add_argument("--stream-encode", action="store_true", default=False,
-                   help="not ported yet")
+                   help="interleave per-layer encode with the factor "
+                        "exchange (gather/ring; the replicated path's "
+                        "stream-encode, now on the model-axis layouts)")
+    q.add_argument("--stream-bucket-bytes", type=int, default=4 << 20, metavar="B",
+                   help="layer-bucket coalescing bound for "
+                        "--stream-encode")
     q.add_argument("--overlap", type=str, default="off", choices=["off", "delayed"],
-                   help="not ported yet")
+                   help="delayed = stale-by-one overlapped dp exchange "
+                        "on the model-axis layouts: each step applies "
+                        "the PREVIOUS step's encoded payload, so the "
+                        "gather/ring exchange+decode runs underneath "
+                        "this step's fwd/bwd. "
+                        "Needs a compressing --code and "
+                        "--aggregate gather/ring; step 0 skips (carry "
+                        "starts empty)")
     q.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
     q.set_defaults(fn=cmd_lm)
     return parser
@@ -345,6 +400,65 @@ def _model_and_test_iter(args: argparse.Namespace):
     return model, test_iter
 
 
+def _overlap_preflight(args: argparse.Namespace) -> None:
+    """The JAX verb's argv refusals of ``--overlap delayed`` and
+    ``--stream-encode on`` (``atomo_tpu/cli.py:1013-1084``) for the flags
+    the port has."""
+    if args.overlap == "delayed":
+        if args.code.lower() in DENSE_CODES:
+            raise SystemExit(
+                "--overlap delayed needs a compressing --code (the mode "
+                "overlaps the encoded exchange+decode; dense training has "
+                "no delayed form)")
+        if args.n_devices == 1:
+            raise SystemExit(
+                "--overlap delayed needs a multi-device mesh: single-device "
+                "training has no exchange to take off the critical path")
+        if args.aggregate == "psum":
+            raise SystemExit(
+                f"--overlap delayed does not compose with --aggregate "
+                f"{args.aggregate} (only the compressed flat gather/ring "
+                "exchanges have a delayed form; no two-level topology "
+                "plan — legacy or re-encoded — does)")
+    if args.stream_encode == "on":
+        if args.code.lower() in DENSE_CODES:
+            raise SystemExit(
+                "--stream-encode needs a compressing --code (the mode "
+                "pipelines the per-bucket ENCODE under backprop; dense "
+                "training has no encode to stream)")
+        if args.n_devices == 1:
+            raise SystemExit(
+                "--stream-encode needs a multi-device mesh: single-device "
+                "training has no exchange whose encode is on the critical "
+                "path")
+        if args.aggregate == "psum":
+            raise SystemExit(
+                f"--stream-encode does not compose with --aggregate "
+                f"{args.aggregate}: psum ships dense gradients (no encode "
+                "to stream), and the hierarchical boundary re-encode is "
+                "not bucket-aware yet — the honest reject until it is; "
+                "use --aggregate gather or ring")
+
+
+def _resolved_single(args: argparse.Namespace) -> None:
+    """The JAX verb's refusals that need the resolved device count
+    (``:2730-2742``): delayed and stream-encode on one device."""
+    if args.overlap == "delayed":
+        raise SystemExit(
+            "--overlap delayed needs a multi-device mesh: single-device "
+            "training has no exchange to take off the critical path")
+    if args.stream_encode == "on":
+        raise SystemExit(
+            "--stream-encode needs a multi-device mesh: single-device "
+            "training has no exchange whose encode is on the critical path")
+
+
+def _stream_bucket_bytes(args: argparse.Namespace) -> int:
+    """--stream-bucket-mb -> bytes (<= 0 means the single-bucket plan)."""
+    mb = float(args.stream_bucket_mb)
+    return int(mb * (1 << 20)) if mb > 0 else 0
+
+
 def _sparse_preflight(args: argparse.Namespace) -> None:
     """The JAX verb's argv refusals of ``--sparse-rows`` for the flags the
     port has."""
@@ -360,6 +474,16 @@ def _sparse_preflight(args: argparse.Namespace) -> None:
             "the row payloads would ride a full dense all-reduce "
             "wire, so the sparse exchange degenerates (the SparCML "
             "crossover can never pay); use --aggregate gather or ring")
+    if args.overlap == "delayed":
+        raise SystemExit(
+            "--sparse-rows does not compose with --overlap delayed: "
+            "the carried payload's shapes are assignment-specific "
+            "and the consume chain is not row-aware yet")
+    if args.stream_encode == "on":
+        raise SystemExit(
+            "--sparse-rows does not compose with --stream-encode: "
+            "the layer-bucket encode pipeline is not "
+            "assignment-aware yet; drop one")
     if args.num_aggregate is not None:
         raise SystemExit(
             "--sparse-rows does not compose with --num-aggregate: "
@@ -418,6 +542,11 @@ def _budget_preflight(args: argparse.Namespace) -> None:
             "--error-feedback needs a multi-device mesh: the "
             "residual compensates the exchanged estimator's error, "
             "and single-device training has no exchange")
+    if args.overlap == "delayed":
+        raise SystemExit(
+            "--error-feedback does not compose with --overlap "
+            "delayed: the stale carry's residual semantics are "
+            "unproven — rejected honestly")
     if args.sparse_rows != "off":
         raise SystemExit(
             "--error-feedback does not compose with --sparse-rows "
@@ -573,6 +702,7 @@ def _superstep(args: argparse.Namespace) -> int:
 
 def cmd_train(args: argparse.Namespace, log_fn=print):
     superstep = _superstep(args)
+    _overlap_preflight(args)
     _sparse_preflight(args)
     _budget_preflight(args)
     _warn_dead_flags(args)
@@ -616,6 +746,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     # one process runs the single-device loop unless a process group is up
     # or torchrun started it (one device over NCCL: a torchrun of one process)
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        _resolved_single(args)
         if args.sparse_rows != "off":
             log_fn("--sparse-rows auto: single device, no exchange — running dense")
         if args.num_aggregate is not None:
@@ -641,6 +772,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 f"--n-devices {n_dev} needs {n_dev} processes, one per "
                 f"device; this group has {ctx.world_size}: run torchrun --nproc-per-node "
                 f"{n_dev} -m atomo_tpu_torch train --n-devices {n_dev} ...")
+        if n_dev <= 1:
+            _resolved_single(args)
         rank_log = log_fn if ctx.rank == 0 else (lambda _: None)
         plan = None
         if args.sparse_rows != "off" and n_dev <= 1:
@@ -660,7 +793,9 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
             model, optimizer, train_iter, test_iter, codec=codec, aggregate=aggregate,
             num_aggregate=_num_aggregate(args, aggregate, codec, n_dev),
             ring_bucket_size=args.ring_bucket_size, grad_accum=args.grad_accum, hybrid=plan,
-            error_feedback=args.error_feedback, **{**common, "device": ctx.device})
+            error_feedback=args.error_feedback, overlap=args.overlap,
+            stream_encode=args.stream_encode == "on",
+            stream_bucket_bytes=_stream_bucket_bytes(args), **{**common, "device": ctx.device})
     finally:
         if not was_up:
             launch.shutdown()
@@ -753,10 +888,6 @@ def cmd_lm(args: argparse.Namespace, log_fn=print):
     Returns this rank's final train state."""
     if args.layout not in ("dp", "dp-sp"):
         raise SystemExit(f"--layout {args.layout} {LATER}; this one runs dp and dp-sp")
-    if args.stream_encode:
-        raise SystemExit(f"--stream-encode {LATER}")
-    if args.overlap != "off":
-        raise SystemExit(f"--overlap {args.overlap} {LATER}")
     if args.layout == "dp" and args.ways != 2:  # 2 is the default
         warnings.warn(f"--ways {args.ways} only applies to layouts with a model axis; "
                       "--layout dp is pure data parallelism, ignoring it")
@@ -825,19 +956,70 @@ def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
         raise SystemExit("--aggregate ring streams CODEC payloads around the dp axis; a "
                          "dense code has no payloads to rotate: use psum (or pick a "
                          "compressing --code)")
+    if args.stream_encode and codec is None:
+        warnings.warn(
+            "--stream-encode interleaves CODEC encode with the exchange; "
+            "a dense code has nothing to encode — ignoring it")
+    if args.overlap == "delayed":
+        # the model-axis delayed preflight, in the JAX verb's words
+        if codec is None:
+            raise SystemExit(
+                "--overlap delayed carries the ENCODED payload between "
+                "steps; a dense --code has no payload to carry — pick a "
+                "compressing --code, or drop --overlap")
+        if mesh.n_dp <= 1:
+            raise SystemExit(
+                f"--overlap delayed needs a multi-replica dp axis; "
+                f"--layout {args.layout} at {mesh.n_dp * mesh.n_sp} devices resolves to "
+                "dp=1 — no dp exchange to take off the critical path")
+        if aggregate == "psum":
+            raise SystemExit(
+                "--overlap delayed does not compose with --aggregate "
+                "psum: the dense all-reduce has no encoded payload to "
+                "carry between steps — use gather or ring")
     if aggregate == "auto":
         aggregate = "gather"
         log_fn("--aggregate auto -> gather (the comm-cost model that chooses among "
                "gather, psum and ring is not ported yet)")
-    exchange = DpExchange(aggregate, args.ring_bucket_size) if aggregate == "ring" else None
+    exchange = None
+    if args.stream_encode and codec is not None and aggregate == "psum":
+        warnings.warn(
+            "--stream-encode interleaves encode with the FACTOR exchange "
+            "(gather/ring); psum moves the dense decoded tree — ignoring it")
+    elif (aggregate == "ring" or (args.stream_encode and codec is not None)
+          or args.overlap == "delayed"):
+        exchange = DpExchange(aggregate, args.ring_bucket_size,
+                              stream_encode=bool(args.stream_encode and codec is not None),
+                              stream_bucket_bytes=args.stream_bucket_bytes,
+                              overlap=args.overlap)
     state = create_lm_state(lm_config(args), optimizer, args.seed, dev)
     if dist.is_initialized():
         state = replicate_state(state)
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
     start = 0
+    saved_carry = None
     if args.train_dir and args.resume and latest_step(args.train_dir) is not None:
         state = load_checkpoint(args.train_dir, state)
+        saved_carry, state = state.carry, dataclasses.replace(state, carry=None)
         start = state.step
         log_fn(f"Resumed from {args.train_dir} at step {start}")
+    delayed = exchange is not None and exchange.overlap == "delayed"
+    if delayed:
+        state = init_model_axis_delayed_state(state, codec)
+        if start:  # the payload that step start + 1 consumes
+            carry, why = carry_from_saved(state.carry, saved_carry, rank, world)
+            if why is not None:
+                warnings.warn(
+                    "--overlap delayed resume: checkpoint has no overlap "
+                    f"carry ({why}); restoring the train state only — the "
+                    "first resumed step applies a zero (skipped) update")
+            state = dataclasses.replace(state, carry=carry)
+    elif saved_carry is not None:
+        warnings.warn(
+            "resume: checkpoint was written by --overlap delayed "
+            "(it holds an overlap_carry); restoring its train state and discarding "
+            "the in-flight payload — pass --overlap delayed to "
+            "resume the overlapped run exactly")
     step = make_lm_train_step(state.model, optimizer, codec,
                               attn_impl=args.attn_impl if args.layout == "dp-sp" else "ring",
                               aggregate=aggregate, exchange=exchange, mesh=mesh,
@@ -867,8 +1049,11 @@ def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
                    f"PPL: {math.exp(min(vl, 30.0)):.2f}")
         if args.train_dir and ((args.save_freq and i % args.save_freq == 0)
                                or i == args.max_steps):
+            saved = state
+            if delayed:  # every rank's in-flight payload, one row each (cli.py:3541-3560)
+                saved = dataclasses.replace(state, carry=gather_carry(state.carry, world))
             if (mesh.rank_dp, mesh.rank_sp) == (0, 0):
-                save_checkpoint(args.train_dir, state, compress=args.compress)
+                save_checkpoint(args.train_dir, saved, compress=args.compress)
             if dist.is_initialized():
                 dist.barrier()  # no rank goes on before the file is in place
     return state

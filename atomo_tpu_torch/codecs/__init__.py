@@ -10,6 +10,7 @@ from atomo_tpu_torch.codecs.base import (  # noqa: F401
     decode_tree,
     encode_leaf_subset,
     encode_tree,
+    encode_tree_streamed,
     leaf_codec,
     payload_nbytes,
     stack_leaves,

@@ -2,8 +2,9 @@
 
 Counterpart of ``atomo_tpu/codecs/base.py`` (the whole-tree path, the
 subset encode ``encode_leaf_subset`` that the sparse-row hybrid exchange
-runs over its dense-assigned leaves, and the mean decode over a leading
-replica axis; the streamed encode comes with a later slice).
+runs over its dense-assigned leaves and ``--stream-encode`` runs per layer
+bucket, ``encode_tree_streamed``, and the mean decode over a leading
+replica axis).
 
 A gradient "tree" here is a list of tensors in the canonical leaf order,
 which is the order ``jax.tree_util.tree_flatten`` gives the Flax parameter
@@ -207,6 +208,36 @@ def encode_tree(
     for QSGD, a dict of draws for SVD) replaces the codec's own draws: the
     parity hook through which the tests feed the port what JAX drew."""
     payloads = encode_leaf_subset(codec, key, grads, range(len(grads)), draws, layouts)
+    stats = CodecStats(
+        dense_bytes=tree_nbytes(grads),
+        payload_bytes=sum(payload_nbytes(p) for p in payloads),
+    )
+    return payloads, stats
+
+
+def encode_tree_streamed(
+    codec: Codec,
+    key: int,
+    grads: Sequence[torch.Tensor],
+    plan,
+    draws: Optional[Sequence[Any]] = None,
+    layouts: Optional[Sequence[bool]] = None,
+) -> tuple[list, CodecStats]:
+    """Per-layer-bucket encode of a gradient list (``--stream-encode``):
+    one :func:`encode_leaf_subset` call per bucket of ``plan`` (a
+    :class:`~atomo_tpu_torch.parallel.common.LayerBucketPlan`), in plan
+    order. Every leaf is keyed by its global index, so the payloads equal
+    :func:`encode_tree`'s bit for bit for any plan; the data-parallel step
+    issues the same per-bucket calls from backward hooks instead."""
+    if plan.n_leaves != len(grads):
+        raise ValueError(
+            f"bucket plan covers {plan.n_leaves} leaves but the gradient "
+            f"tree has {len(grads)} — plan and tree must come from the "
+            "same structure")
+    payloads: list = [None] * len(grads)
+    for idxs in plan.buckets:
+        for j, p in zip(idxs, encode_leaf_subset(codec, key, grads, idxs, draws, layouts)):
+            payloads[j] = p
     stats = CodecStats(
         dense_bytes=tree_nbytes(grads),
         payload_bytes=sum(payload_nbytes(p) for p in payloads),

@@ -1,7 +1,7 @@
-"""Payload packing, the ring rotation, and the collectives of the sp axis.
+"""Payload packing, layer buckets, the ring rotation, and the collectives of the sp axis.
 
-Counterpart of ``atomo_tpu/parallel/common.py:34,99`` (``pack_tree_buckets``
-/ ``unpack_tree_buckets``) and of ``atomo_tpu/mesh/collectives.py:19,28``
+Counterpart of ``atomo_tpu/parallel/common.py:34,99,131`` (``pack_tree_buckets``
+/ ``unpack_tree_buckets``, ``plan_layer_buckets``) and of ``atomo_tpu/mesh/collectives.py:19,28``
 (``ring_perm``, ``ppermute_ring``), with the tiled ``all_to_all`` that
 ``atomo_tpu/parallel/ring.py`` calls. :func:`ring_hop` and
 :func:`all_to_all` are differentiable, as ``jax.lax.ppermute`` and
@@ -116,6 +116,49 @@ def unpack_tree_buckets(buf: torch.Tensor, spec: PackSpec) -> list:
                                      t.storage_offset() + off // es))
         out.append(cls(*vals))
     return out
+
+
+class LayerBucketPlan(NamedTuple):
+    """Ordered layer-axis partition of a gradient tree, the unit of
+    ``--stream-encode`` (see :func:`plan_layer_buckets`). ``buckets[b]`` is
+    a tuple of GLOBAL leaf indices (canonical order); every leaf is in
+    exactly one bucket."""
+
+    n_leaves: int
+    buckets: tuple
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.buckets)
+
+
+def plan_layer_buckets(leaves: Sequence[torch.Tensor], bucket_bytes: int = 0) -> LayerBucketPlan:
+    """The JAX package's ``plan_layer_buckets`` over a list of leaves in
+    canonical order (``jax_leaf_order``): the leaves walked in REVERSE
+    canonical order and packed greedily into buckets of at most
+    ``bucket_bytes`` dense bytes (a larger leaf is a bucket of its own);
+    ``bucket_bytes <= 0`` gives one bucket of the whole tree. A pure
+    function of the leaves' sizes and dtypes.
+
+    The canonical order is the sorted order of the Flax parameter names,
+    not the order of the layers: on ResNet-18 at 4 MiB, bucket 0 holds
+    ``Dense_0`` together with the stem (``Conv_0``, ``BatchNorm_0``), so it
+    is complete only when backward ends. The step keeps the plan (the same
+    buckets and payloads as the JAX package) and issues each bucket when
+    its last gradient is ready, not in plan order."""
+    buckets: list[tuple[int, ...]] = []
+    cur: list[int] = []
+    cur_bytes = 0
+    for i in reversed(range(len(leaves))):
+        nbytes = leaves[i].numel() * leaves[i].element_size()
+        if bucket_bytes > 0 and cur and cur_bytes + nbytes > bucket_bytes:
+            buckets.append(tuple(cur))
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nbytes
+    if cur:
+        buckets.append(tuple(cur))
+    return LayerBucketPlan(n_leaves=len(leaves), buckets=tuple(buckets))
 
 
 def ring_perm(n: int) -> list[tuple[int, int]]:

@@ -29,12 +29,27 @@ the program becomes a call over the process's sp or dp group. Each step:
   exchange over the dp group, by ``gather`` (the payload all_gather and
   ``decode_mean_tree``), ``psum`` (the dense mean of the decode) or, through
   :class:`DpExchange`, ``ring`` (the streamed ring of
-  ``parallel.replicated.ring_stream_mean``); then the optimizer.
+  ``parallel.replicated.ring_stream_mean``); then the optimizer;
+* :class:`DpExchange`'s ``stream_encode`` (``:174-290``): the layer-bucket
+  encode. At sp 1 each bucket is issued from a backward hook on the
+  transformer's parameters (:class:`~atomo_tpu_torch.parallel.overlap.
+  BucketStream`) and goes on the gather's or the ring's wire at once; at
+  sp > 1 a gradient is complete only after the sp reduce, so the buckets
+  are encoded there, one after another (``encode_tree_streamed``). The
+  payloads are the monolithic encode's bit for bit;
+* its ``overlap="delayed"`` (``:317-570``, the JAX package's
+  ``delayed_dp_exchange``): the stale-by-one dp exchange. The step's state carries its replica's
+  previous payload (:func:`init_model_axis_delayed_state`); the exchange
+  and decode of the carried payloads over the dp group run on a side
+  stream from the step's start, under forward and backward (the flash
+  kernel's forward included), and the update waits for backward. Step 0
+  applies nothing and ``metrics["skipped"]`` is 1.
 
 Phases are ``record_function`` ranges: ``step.forward_backward``,
 ``step.sp_reduce``, ``step.encode``, ``step.exchange``,
-``step.decode_mean``, ``step.ring_exchange_decode``, ``step.update``.
-``stream_encode`` and ``overlap="delayed"`` are not ported yet.
+``step.decode_mean``, ``step.ring_exchange_decode``, ``step.update``, and
+under delayed ``step.delayed_exchange``, ``step.delayed_decode_mean``,
+``step.delayed_ring_exchange_decode``.
 """
 
 from __future__ import annotations
@@ -48,11 +63,31 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from atomo_tpu_torch.codecs import decode_mean_tree, decode_tree, encode_tree, tree_nbytes
+from atomo_tpu_torch.codecs import (
+    codec_subset,
+    decode_mean_tree,
+    decode_tree,
+    encode_tree,
+    encode_tree_streamed,
+    payload_nbytes,
+    tree_nbytes,
+)
 from atomo_tpu_torch.convert import jax_layouts
 from atomo_tpu_torch.models.transformer import TransformerLM
-from atomo_tpu_torch.parallel.common import ring_hop, unpack_tree_buckets
+from atomo_tpu_torch.parallel.common import plan_layer_buckets, ring_hop, unpack_tree_buckets
 from atomo_tpu_torch.parallel.launch import DpSpMesh
+from atomo_tpu_torch.parallel.overlap import (
+    BucketStream,
+    BucketWire,
+    OverlapCarry,
+    consume,
+    encode_syncs,
+    init_carry,
+    issue_consume,
+    join,
+    pack_payloads,
+    side_stream,
+)
 from atomo_tpu_torch.parallel.replicated import (
     _all_reduce_mean,
     _flat,
@@ -73,13 +108,15 @@ LATER = "comes with a later slice of the port"
 class DpExchange:
     """The dp exchange of a model-axis step as one value (``lm.py:127``):
     ``aggregate`` gather | psum | ring, ``ring_bucket_size`` the ring's
-    4-byte elements per message (<= 0: one message a hop). The JAX package's
-    ``stream_encode`` and ``overlap="delayed"`` are refused: they come with
-    a later slice."""
+    4-byte elements per message (<= 0: one message a hop),
+    ``stream_encode`` the layer-bucket encode over buckets of
+    ``stream_bucket_bytes`` dense bytes, ``overlap`` off | delayed (the
+    stale-by-one exchange, gather or ring)."""
 
     aggregate: str = "gather"
     ring_bucket_size: int = 0
     stream_encode: bool = False
+    stream_bucket_bytes: int = 4 << 20
     overlap: str = "off"
 
     def __post_init__(self):
@@ -89,10 +126,11 @@ class DpExchange:
         if self.overlap not in ("off", "delayed"):
             raise ValueError(f"unknown overlap mode {self.overlap!r}; the model-axis dp "
                              "exchange ships off | delayed")
-        if self.stream_encode:
-            raise ValueError(f"stream_encode (--stream-encode) {LATER}")
-        if self.overlap == "delayed":
-            raise ValueError(f"overlap='delayed' (--overlap delayed) {LATER}")
+        if self.overlap == "delayed" and self.aggregate == "psum":
+            raise ValueError(
+                "overlap='delayed' carries an ENCODED payload between "
+                "steps; the dense psum exchange has no payload to carry — "
+                "use aggregate='gather' or 'ring'")
 
 
 def create_lm_state(lm_config: dict, optimizer: Optimizer, seed: int, device) -> TrainState:
@@ -257,6 +295,17 @@ def _sp_sum(t: torch.Tensor, mesh: DpSpMesh) -> torch.Tensor:
     return t
 
 
+def init_model_axis_delayed_state(state: TrainState, codec) -> TrainState:
+    """``state`` with a fresh carry for the delayed model-axis step
+    (``init_model_axis_delayed_state``, ``lm.py:453``): the zero payload
+    this codec gives the LM's leaves, all-ones flags over the process
+    group's ranks (one row each, as the JAX carry has one per device),
+    ``valid`` False."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return dataclasses.replace(state, carry=init_carry(
+        codec, leaf_params(state.model), world, jax_layouts(state.model)))
+
+
 def make_lm_train_step(
     model: TransformerLM,
     optimizer: Optimizer,
@@ -274,7 +323,11 @@ def make_lm_train_step(
     (B/dp, S/sp) block (:func:`shard_tokens`) on the model's device;
     ``draws`` (one entry per leaf, canonical order) is the codec's parity
     hook. ``metrics`` holds the loss as a 0-d tensor (no host sync) and
-    ``msg_bytes``/``dense_bytes`` as ints."""
+    ``msg_bytes``/``dense_bytes`` as ints. ``exchange`` with
+    ``stream_encode`` encodes per layer bucket; with ``overlap="delayed"``
+    the step takes and returns a state with its carry
+    (:func:`init_model_axis_delayed_state`) and adds ``skipped`` to the
+    metrics."""
     if attn_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"unknown attn_impl {attn_impl!r}; expected one of {sorted(ATTENTION_IMPLS)}"
@@ -284,14 +337,32 @@ def make_lm_train_step(
                         causal=True, group=mesh.sp_group)
     params = leaf_params(model)
     layouts = jax_layouts(model)
+    device = params[0].device
+    delayed = exchange is not None and exchange.overlap == "delayed"
+    if delayed and codec is None:
+        raise ValueError(
+            "overlap='delayed' needs a codec: the carry holds encoded "
+            "payloads (a dense delayed exchange has nothing to carry)")
+    streamed = (exchange is not None and exchange.stream_encode and codec is not None
+                and exchange.aggregate != "psum")
+    plan = plan_layer_buckets(params, exchange.stream_bucket_bytes) if streamed else None
+    # a gradient is whole before the sp reduce only at sp 1: the hooks serve there
+    hooked = streamed and mesh.n_sp == 1 and encode_syncs(codec) is None
+    enc_stream = side_stream(device) if hooked else None
+    cons_stream = side_stream(device) if delayed else None
 
-    def step(state: TrainState, key: int, tokens: torch.Tensor,
-             draws: Optional[Sequence[Any]] = None):
-        k_codec = fold_in(fold_in(key, state.step), mesh.rank_dp)
+    def codec_key(key: int, state: TrainState) -> int:
+        # the same on every sp rank of a replica (lm.py:612-614)
+        return fold_in(fold_in(key, state.step), mesh.rank_dp)
+
+    def grads_fn(state: TrainState, tokens: torch.Tensor, bs):
+        """(this replica's completed gradient, loss)."""
         model.train()
         for p in params:
             p.grad = None
         with record_function("step.forward_backward"):
+            if bs is not None:
+                bs.arm(params)
             logits = forward(model, tokens, compute_dtype,
                              pos_offset=mesh.rank_sp * tokens.shape[1], attention_fn=attention)
             targets, valid = sp_boundary_targets_and_mask(tokens, mesh.n_sp, mesh.sp_group)
@@ -308,9 +379,98 @@ def make_lm_train_step(
                 flat = _sp_sum(torch.cat([_flat(grads), num.detach().reshape(1)]), mesh)
                 grads = _views_like(flat[:-1], grads)
                 num = flat[-1]
-        return dp_exchange_tail(optimizer, codec, state, k_codec, grads, num / total,
+        return grads, num / total
+
+    def bucket_stream(k_codec, draws, wire: bool) -> Optional[BucketStream]:
+        """The step's hook-driven bucket encodes (sp 1), or None."""
+        if not streamed or mesh.n_sp > 1:
+            return None
+        bw = BucketWire(codec, plan, layouts, aggregate=exchange.aggregate, rank=mesh.rank_dp,
+                        world=mesh.n_dp, n_contrib=mesh.n_dp,
+                        ring_bucket_size=exchange.ring_bucket_size, group=mesh.dp_group,
+                        stream=enc_stream) if wire else None
+        return BucketStream(plan, codec, k_codec, layouts=layouts, draws=draws,
+                            feed=lambda i, g: g, on_encoded=bw, hooked=hooked,
+                            stream=enc_stream)
+
+    def encode(bs, k_codec, grads, draws) -> list:
+        """This replica's payloads: the bucket stream's, the buckets one
+        after another (sp > 1), or the monolithic encode."""
+        with record_function("step.encode"):
+            if bs is not None:
+                return bs.finish()
+            if streamed:
+                return encode_tree_streamed(codec, k_codec, grads, plan, draws, layouts)[0]
+            return encode_tree(codec, k_codec, grads, draws, layouts)[0]
+
+    def streamed_tail(state, bs, k_codec, grads, loss, draws):
+        """The blocking dp tail of a streamed step (``compressed_dp_exchange``
+        with ``stream_encode``)."""
+        payloads = encode(bs, k_codec, grads, draws)
+        msg_bytes = sum(payload_nbytes(p) for p in payloads)
+        if bs is not None:
+            mean = bs.on_encoded.mean(grads)
+        elif exchange.aggregate == "gather":
+            with record_function("step.exchange"):
+                gathered = _dp_gather(payloads, mesh)
+            with record_function("step.decode_mean"):
+                mean = decode_mean_tree(codec, gathered, grads, mesh.n_dp, layouts)
+        else:  # one mini-ring a bucket (_ring_stream_mean_layered)
+            mean = [None] * len(grads)
+            with record_function("step.ring_exchange_decode"):
+                for idxs in plan.buckets:
+                    for i, m in zip(idxs, ring_stream_mean(
+                            codec_subset(codec, idxs), [payloads[i] for i in idxs],
+                            [grads[i] for i in idxs], rank=mesh.rank_dp, world=mesh.n_dp,
+                            n_contrib=mesh.n_dp, ring_bucket_size=exchange.ring_bucket_size,
+                            layouts=[layouts[i] for i in idxs], group=mesh.dp_group)):
+                        mean[i] = m
+        return _update(optimizer, state, mean, loss, params, mesh, msg_bytes,
+                       tree_nbytes(grads))
+
+    def delayed_step(state: TrainState, key: int, tokens: torch.Tensor, draws=None):
+        """:func:`delayed_dp_exchange` around this step's forward and
+        backward."""
+        carry = state.carry
+        if not isinstance(carry, OverlapCarry):
+            raise ValueError("overlap='delayed' steps a state that carries its in-flight "
+                             "payload: build it with init_model_axis_delayed_state")
+        mean = None
+        if carry.valid:  # the carried exchange and decode run under forward and backward
+            mean = issue_consume(cons_stream, lambda: consume(
+                codec, carry, [p.detach() for p in params], aggregate=exchange.aggregate,
+                rank=mesh.rank_dp, world=mesh.n_dp, sel_start=None, n_contrib=mesh.n_dp,
+                ring_bucket_size=exchange.ring_bucket_size, layouts=layouts,
+                group=mesh.dp_group))
+        k_codec = codec_key(key, state)
+        bs = bucket_stream(k_codec, draws, wire=False)
+        grads, loss = grads_fn(state, tokens, bs)
+        buf, _, msg_bytes = pack_payloads(encode(bs, k_codec, grads, draws))
+        opt_state = state.opt_state
+        if carry.valid:
+            join(cons_stream, mean)
+            with record_function("step.update"):
+                opt_state = optimizer.update(mean, state.opt_state, params)
+        with torch.no_grad():
+            carry.payload.copy_(buf)  # after the join: the consume read it
+        skipped = torch.zeros((), dtype=torch.float32, device=device)
+        metrics = {"loss": _dp_mean(loss.detach().reshape(1), mesh)[0], "msg_bytes": msg_bytes,
+                   "dense_bytes": tree_nbytes(grads),
+                   "skipped": skipped if carry.valid else skipped + 1}
+        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+                          carry=dataclasses.replace(carry, valid=True)), metrics
+
+    def step(state: TrainState, key: int, tokens: torch.Tensor,
+             draws: Optional[Sequence[Any]] = None):
+        if delayed:
+            return delayed_step(state, key, tokens, draws)
+        k_codec = codec_key(key, state)
+        bs = bucket_stream(k_codec, draws, wire=True)
+        grads, loss = grads_fn(state, tokens, bs)
+        if streamed:
+            return streamed_tail(state, bs, k_codec, grads, loss, draws)
+        return dp_exchange_tail(optimizer, codec, state, k_codec, grads, loss,
                                 params=params, layouts=layouts, mesh=mesh,
                                 aggregate=aggregate, exchange=exchange, draws=draws)
 
     return step
-

@@ -1,7 +1,8 @@
 """Compressed data-parallel training over ``torch.distributed``.
 
-Counterpart of the flat, blocking core of ``atomo_tpu/parallel/replicated.py:847
-make_distributed_train_step``, with ``shard_batch`` (:4629),
+Counterpart of the flat core of ``atomo_tpu/parallel/replicated.py:847
+make_distributed_train_step`` (blocking, and stale-by-one with the carry of
+``:95-206``), with ``shard_batch`` (:4629),
 ``replicate_state`` (:4645) and ``make_distributed_eval_step`` (:2721). The
 JAX package runs one SPMD program over a mesh; the port runs one process per
 device in a process group (:mod:`atomo_tpu_torch.parallel.launch`), each
@@ -66,6 +67,11 @@ holding a replica, and the collectives of the program become calls of
 * per-leaf codecs (:class:`~atomo_tpu_torch.budget.PerLeafCodec`) ride every
   exchange: the tree walkers resolve each leaf's codec, and ``msg_bytes`` is
   the sum of the per-leaf payloads, the allocation's predicted bytes;
+* ``stream_encode`` and ``overlap="delayed"``
+  (:mod:`atomo_tpu_torch.parallel.overlap`): the layer buckets encoded from
+  backward hooks on a side stream (each bucket on the wire at once), and the
+  stale-by-one step whose carried payloads are exchanged and decoded on a
+  side stream under this step's forward and backward;
 * momentum SGD on the mean, then the dp mean of the BatchNorm statistics
   (``:1879``) and of loss and prec@1/5 (``:1881-1883``), one
   ``all_reduce`` over a packed buffer each.
@@ -73,7 +79,9 @@ holding a replica, and the collectives of the program become calls of
 Phases are ``record_function`` ranges named as the reference's
 ``named_phase`` scopes: ``step.forward_backward``, ``step.encode``,
 ``step.exchange``, ``step.decode_mean`` (psum: ``step.decode``), the error
-feedback's ``step.ef_decode``, the ring's
+feedback's ``step.ef_decode``, the bucket encodes' ``step.encode_bucket``,
+the delayed consume's ``step.delayed_exchange``, ``step.delayed_decode_mean``
+and ``step.delayed_ring_exchange_decode``, the ring's
 ``step.ring_exchange_decode``, the hybrid's ``step.hybrid_exchange`` around
 its encode, exchange and decode, ``step.update``. No collective needs a host
 sync: every size is static.
@@ -82,6 +90,7 @@ sync: every size is static.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -107,8 +116,21 @@ from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
 from atomo_tpu_torch.parallel.common import (
     hop_pieces,
     pack_tree_buckets,
+    plan_layer_buckets,
     ring_perm,
     unpack_tree_buckets,
+)
+from atomo_tpu_torch.parallel.overlap import (
+    BucketStream,
+    BucketWire,
+    OverlapCarry,
+    consume,
+    encode_syncs,
+    init_carry,
+    issue_consume,
+    join,
+    pack_payloads,
+    side_stream,
 )
 from atomo_tpu_torch.training.optim import Optimizer
 from atomo_tpu_torch.training import graph as G
@@ -317,7 +339,7 @@ def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, ran
 
 
 def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int,
-                  world: int) -> None:
+                  world: int, overlap: str = "off", stream_encode: bool = False) -> None:
     """The step factory's refusals of ``hybrid=`` (``:1328-1370``) for the
     arguments the port's step has, and of a plan over another tree."""
     if plan.n_leaves != n_leaves:
@@ -332,6 +354,15 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
             "degenerates the row exchange (the rows would ride a "
             "full dense all-reduce), and dense-only training has no "
             "per-leaf payload path to hybridize")
+    if overlap == "delayed":
+        raise ValueError(
+            "hybrid= does not compose with overlap='delayed': the "
+            "carried payload's shapes are assignment-specific and "
+            "the consume chain is not row-aware yet")
+    if stream_encode:
+        raise ValueError(
+            "hybrid= does not compose with stream_encode: the "
+            "layer-bucket encode pipeline is not assignment-aware yet")
     if 0 < num_aggregate < world:
         raise ValueError(
             "hybrid= does not compose with num_aggregate: the "
@@ -339,13 +370,19 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
             "exchange")
 
 
-def _check_error_feedback(codec, hybrid, k_agg: int) -> None:
+def _check_error_feedback(codec, hybrid, k_agg: int, overlap: str = "off") -> None:
     """The step factory's refusals of ``error_feedback`` (``:1277-1330``)
     for the arguments the port's step has."""
     if codec is None:
         raise ValueError(
             "error_feedback accumulates the codec's compression "
             "residual; dense training has no residual to accumulate")
+    if overlap == "delayed":
+        raise ValueError(
+            "error_feedback does not compose with overlap='delayed': "
+            "the carried payload is consumed one step late, so the "
+            "residual would describe a stale encode — the carry "
+            "semantics are unproven; rejected honestly")
     if hybrid is not None:
         raise ValueError(
             "error_feedback does not compose with hybrid= (the "
@@ -357,6 +394,31 @@ def _check_error_feedback(codec, hybrid, k_agg: int) -> None:
             "rotating subset consumes only some replicas' payloads, "
             "so the residual of an unconsumed encode would be "
             "mis-attributed")
+
+
+def _check_overlap(codec, aggregate: str, overlap: str, stream_encode: bool) -> None:
+    """The step factory's refusals of ``overlap`` and ``stream_encode``
+    (``atomo_tpu/parallel/replicated.py:1213-1236``), ``aggregate`` the one
+    in effect."""
+    if overlap not in ("off", "delayed"):
+        raise ValueError(f"unknown overlap mode {overlap!r}; expected 'off' or 'delayed'")
+    if overlap == "delayed" and (codec is None or aggregate not in ("gather", "ring")):
+        raise ValueError(
+            "overlap='delayed' needs a compressing codec with "
+            "aggregate='gather' or 'ring' — the mode takes the encoded "
+            "exchange+decode off the critical path; psum and every "
+            "two-level hierarchical schedule (the legacy plan and the "
+            "topology.schedule re-encoded plans alike) have no delayed "
+            "form")
+    if stream_encode and (codec is None or aggregate not in ("gather", "ring")):
+        raise ValueError(
+            "stream_encode needs a compressing codec with "
+            "aggregate='gather' or 'ring': the layer-bucket pipeline "
+            "restructures the ENCODED exchange — dense psum has no encode "
+            "to stream, and the two-level hierarchical schedules "
+            "(legacy plan and the topology re-encoded plans alike) "
+            "re-encode at the fabric boundary, which is not bucket-aware "
+            "yet — rejected honestly rather than silently degraded")
 
 
 def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
@@ -375,6 +437,18 @@ def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
     return aggregate, k_agg
 
 
+def init_delayed_state(state: TrainState, codec, *, group=None) -> TrainState:
+    """``state`` with a fresh :class:`~atomo_tpu_torch.parallel.overlap.
+    OverlapCarry` (``init_delayed_state``, ``:191``): the zero payload this
+    codec gives the model's leaves, all-ones flags, ``valid`` False. The
+    port's ``DelayedState`` is the :class:`TrainState` with its ``carry``
+    set; a step of ``overlap='delayed'`` takes and returns it."""
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
+    model = state.model
+    return dataclasses.replace(state, carry=init_carry(codec, leaf_params(model), world,
+                                                       jax_layouts(model)))
+
+
 def make_distributed_train_step(
     model: nn.Module,
     optimizer: Optimizer,
@@ -389,6 +463,10 @@ def make_distributed_train_step(
     hybrid=None,
     error_feedback: bool = False,
     superstep: int = 1,
+    overlap: str = "off",
+    stream_encode: bool = False,
+    stream_bucket_bytes: int = 4 << 20,
+    _oracle_parts: bool = False,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
     dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
@@ -414,13 +492,39 @@ def make_distributed_train_step(
     (``state.residual``) into its encode, carries the new one in the
     returned state and adds ``ef_res_norm`` to ``metrics``.
 
+    ``stream_encode`` (gather or ring with a codec) encodes the gradient
+    per layer bucket of ``stream_bucket_bytes`` dense bytes
+    (:func:`~atomo_tpu_torch.parallel.common.plan_layer_buckets`), each
+    bucket issued from a backward hook when its last gradient is ready
+    (:class:`~atomo_tpu_torch.parallel.overlap.BucketStream`): under gather
+    its payloads go out in an ``all_gather`` of their own as soon as they
+    are encoded, and one tree decode reads every bucket's gathered rows in
+    place; under ring each bucket rotates in a mini-ring of its own
+    (``_ring_stream_mean_layered``). The payloads, and so the trajectory,
+    equal ``stream_encode=False``'s bit for bit for any bucket size.
+    ``step.stream_log`` is the last step's readiness and issue log.
+
+    ``overlap='delayed'`` (gather or ring with a codec; no error feedback,
+    no hybrid) is the stale-by-one step: at step t the rank encodes grads_t
+    on the current parameters into its carry, while the optimizer applies
+    the mean of the payloads the ranks carried out of step t - 1, exchanged
+    and decoded on a side stream issued at the step's start. The state must
+    carry an :class:`~atomo_tpu_torch.parallel.overlap.OverlapCarry`
+    (:func:`init_delayed_state`). Step 0 (the carry not valid yet) applies
+    nothing: parameters, optimizer state and BatchNorm statistics hold, and
+    ``metrics["skipped"]`` is 1; ``num_aggregate`` picks its subset by the
+    producing step's counter; ``stream_encode`` streams the produce side.
+    ``_oracle_parts`` returns instead ``{"produce", "apply"}``, the two
+    halves as plain calls (:func:`make_delayed_oracle_steps`).
+
     ``superstep`` K > 1 returns the block step over this rank's shard of
     each step of a (K, batch, ...) block (:func:`shard_superbatch`), as
     :func:`~atomo_tpu_torch.training.trainer.make_train_step` returns it:
     the K sequential steps, (K,) metrics, the hooks lists of per-step
     values; a step that :func:`~atomo_tpu_torch.training.graph.graph_rule`
     qualifies (NCCL, a codec with a device form, no ``num_aggregate``, no
-    ring above one rank) is one CUDA graph replayed K times."""
+    ring above one rank, no stream-encode) is one CUDA graph replayed K
+    times."""
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
@@ -428,14 +532,25 @@ def make_distributed_train_step(
     rank, world = _group()
     params = leaf_params(model)
     if hybrid is not None:
-        _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world)
+        _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world, overlap,
+                      stream_encode)
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
+    _check_overlap(codec, aggregate, overlap, stream_encode)
+    if _oracle_parts and overlap != "delayed":
+        raise ValueError("_oracle_parts only applies to overlap='delayed'")
     if error_feedback:
-        _check_error_feedback(codec, hybrid, k_agg)
+        _check_error_feedback(codec, hybrid, k_agg, overlap)
     n_contrib = k_agg or world
     names = jax_leaf_order(model)
     layouts = jax_layouts(model)
     stats = list(model.buffers())  # the BatchNorm statistics, Flax's batch_stats
+    device = params[0].device
+    plan = plan_layer_buckets(params, stream_bucket_bytes) if stream_encode else None
+    # a codec whose encode syncs has its buckets encoded after backward
+    hooked = stream_encode and encode_syncs(codec) is None
+    enc_stream = side_stream(device) if hooked else None
+    cons_stream = side_stream(device) if overlap == "delayed" else None
+    log_holder: dict = {}
 
     def exchange(state: TrainState, k_codec: int, grads, draws, dense_bytes: int):
         """(mean gradient in the port layout, message bytes, this rank's own
@@ -473,8 +588,27 @@ def make_distributed_train_step(
         # the all-reduce moves dense gradients; its local decode is the own one
         return mean, dense_bytes, decoded if error_feedback else None
 
-    def accumulate(images, labels, k_drop: int, dropout_masks):
-        """(mean gradient over the microbatches, mean loss, prec@1, prec@5)."""
+    def bucket_stream(state: TrainState, k_codec, draws, wire: bool) -> BucketStream:
+        """This step's :class:`BucketStream`; ``wire`` puts each bucket on
+        the gather's or the ring's wire as soon as it is encoded (the
+        blocking step, its :class:`BucketWire` as ``bs.wire``), else the
+        payloads wait for the carry (delayed)."""
+        residual = state.residual if error_feedback else None
+        bw = BucketWire(codec, plan, layouts, aggregate=aggregate, rank=rank, world=world,
+                        n_contrib=n_contrib, ring_bucket_size=ring_bucket_size,
+                        sel_start=state.step % world if k_agg else None,
+                        stream=enc_stream) if wire else None
+        bs = BucketStream(
+            plan, codec, k_codec, layouts=layouts, draws=draws,
+            feed=(lambda i, g: g) if residual is None else (lambda i, g: g + residual[i]),
+            on_encoded=bw, hooked=hooked, stream=enc_stream)
+        bs.wire = bw
+        return bs
+
+    def accumulate(images, labels, k_drop: int, dropout_masks, bs: Optional[BucketStream]):
+        """(mean gradient over the microbatches, mean loss, prec@1, prec@5).
+        With ``bs`` the last microbatch's gradients reach the bucket stream,
+        whose feed adds them and takes the mean (the encode's input)."""
         b = images.shape[0]
         if b % grad_accum:
             raise ValueError(f"per-chip batch {b} not divisible by grad_accum={grad_accum}")
@@ -490,6 +624,9 @@ def make_distributed_train_step(
                 return functional_call(model, cast, (x.to(compute_dtype),)).float()
 
         g_sum = [torch.zeros_like(p) for p in params]
+        if bs is not None:
+            fed = bs.feed
+            bs.feed = lambda i, g: fed(i, _mean(g_sum[i].add_(g.float()), grad_accum))
         sums = torch.zeros(3, dtype=torch.float32, device=images.device)
         # given masks run through the microbatches in call order; else
         # microbatch i draws under fold_in(k_drop, i)
@@ -497,16 +634,65 @@ def make_distributed_train_step(
         with dropout_stream(masks=dropout_masks) if given else contextlib.nullcontext():
             for i in range(grad_accum):
                 x, y = images[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
+                last = bs is not None and i == grad_accum - 1
+                if last:  # only the last microbatch completes a bucket
+                    bs.arm(targets)
                 with contextlib.nullcontext() if given else dropout_stream(fold_in(k_drop, i)):
                     logits = run(x)
                     loss = F.cross_entropy(logits, y)
-                    grads = torch.autograd.grad(loss, targets)
-                for a, g in zip(g_sum, grads):
-                    a.add_(g.float())
+                    if last:
+                        # the same gradient, into the targets' .grad: the
+                        # readiness hooks do not take autograd.grad's leaves
+                        loss.backward(inputs=list(targets))
+                    else:
+                        grads = torch.autograd.grad(loss, targets)
+                if not last:
+                    for a, g in zip(g_sum, grads):
+                        a.add_(g.float())
                 prec1, prec5 = accuracy(logits.detach(), y)
                 sums += torch.stack([loss.detach(), prec1, prec5])
         m = _mean(sums, grad_accum)
+        if bs is not None:
+            return None, m[0], m[1], m[2]
         return [_mean(g, grad_accum) for g in g_sum], m[0], m[1], m[2]
+
+    def forward_backward(images, labels, k_drop, dropout_masks, bs: Optional[BucketStream]):
+        """(gradients, loss, prec@1, prec@5) of this rank's shard; with
+        ``bs`` the bucket stream is armed on the tensors whose gradients
+        the step takes, and the gradients come back None (its inputs are
+        the encode's)."""
+        with record_function("step.forward_backward"):
+            if grad_accum > 1:
+                return accumulate(images, labels, k_drop, dropout_masks, bs)
+            with dropout_stream(k_drop, dropout_masks):
+                if bs is not None:
+                    bs.arm(params)
+                logits = forward(model, images, compute_dtype)
+                loss = F.cross_entropy(logits, labels)
+                loss.backward()
+            prec1, prec5 = accuracy(logits.detach(), labels)
+            return [p.grad for p in params], loss.detach(), prec1, prec5
+
+    def begin(images, aug):
+        if augment:
+            images = augment_with(images, aug)
+        model.train()
+        for p in params:
+            p.grad = None
+        return images
+
+    def update_and_stats(state: TrainState, mean, opt_scalars, local=None):
+        """The optimizer's update, then the dp means of the BatchNorm
+        statistics and of the ``local`` metrics (one ``all_reduce`` each)."""
+        with record_function("step.update"):
+            opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
+        with torch.no_grad():
+            if stats:
+                flat = _all_reduce_mean(_flat(stats), world)
+                for s, v in zip(stats, _views_like(flat, stats)):
+                    s.copy_(v)
+            m = None if local is None else _all_reduce_mean(torch.stack(local), world)
+        return opt_state, m
 
     def core(state: TrainState, images, labels, *, aug, k_drop, k_codec, opt_scalars=None,
              draws: Optional[Sequence[Any]] = None,
@@ -514,23 +700,15 @@ def make_distributed_train_step(
         """The step on given keys (ints, or the device form: ``aug`` drawn,
         ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
         device values)."""
-        if augment:
-            images = augment_with(images, aug)
-        model.train()
-        for p in params:
-            p.grad = None
-        with record_function("step.forward_backward"):
-            if grad_accum > 1:
-                grads, loss, prec1, prec5 = accumulate(images, labels, k_drop, dropout_masks)
-            else:
-                with dropout_stream(k_drop, dropout_masks):
-                    logits = forward(model, images, compute_dtype)
-                    loss = F.cross_entropy(logits, labels)
-                    loss.backward()
-                grads = [p.grad for p in params]
-                loss = loss.detach()
-                prec1, prec5 = accuracy(logits.detach(), labels)
-        if error_feedback and state.residual is not None:
+        images = begin(images, aug)
+        bs = bucket_stream(state, k_codec, draws, wire=True) if stream_encode else None
+        grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, dropout_masks, bs)
+        if bs is not None:
+            with record_function("step.encode"):
+                payloads = bs.finish()
+            log_holder["log"] = bs.log
+            grads = bs.inputs  # the encode's input: g, or g + e
+        elif error_feedback and state.residual is not None:
             # the encode's input is g + e (a fresh carry is zero: g as it is)
             grads = [g + e for g, e in zip(grads, state.residual)]
         dense_bytes = tree_nbytes(grads)
@@ -541,6 +719,13 @@ def make_distributed_train_step(
                     codec, hybrid, grads, k_codec, rank=rank, world=world,
                     aggregate=aggregate, ring_bucket_size=ring_bucket_size, layouts=layouts,
                     draws=draws)
+        elif bs is not None:
+            own = None
+            if error_feedback:
+                with record_function("step.ef_decode"):
+                    own = decode_tree(codec, payloads, grads, layouts)
+            mean = bs.wire.mean(grads)
+            msg_bytes = sum(payload_nbytes(p) for p in payloads)
         else:
             mean, msg_bytes, own = exchange(state, k_codec, grads, draws, dense_bytes)
         local = [loss, prec1, prec5]
@@ -555,14 +740,7 @@ def make_distributed_train_step(
                         r.copy_(new)
                     residual = state.residual
                 local.append(torch.sqrt(sum(torch.sum(r * r) for r in residual)))
-        with record_function("step.update"):
-            opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
-        with torch.no_grad():
-            if stats:
-                flat = _all_reduce_mean(_flat(stats), world)
-                for s, v in zip(stats, _views_like(flat, stats)):
-                    s.copy_(v)
-            m = _all_reduce_mean(torch.stack(local), world)
+        opt_state, m = update_and_stats(state, mean, opt_scalars, local)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes}
         if overflow is not None:
@@ -572,28 +750,160 @@ def make_distributed_train_step(
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
                           residual=residual), metrics
 
+    # ---------------------------------------------- overlap='delayed'
+
+    def produce(state: TrainState, images, labels, *, aug, k_drop, k_codec, draws,
+                dropout_masks):
+        """Forward, backward and encode on the CURRENT parameters (the
+        JAX package's ``delayed_produce``): (payloads, encode input, loss,
+        prec@1, prec@5). The BatchNorm statistics are this step's forward's,
+        in place."""
+        images = begin(images, aug)
+        bs = bucket_stream(state, k_codec, draws, wire=False) if stream_encode else None
+        grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, dropout_masks, bs)
+        with record_function("step.encode"):
+            if bs is not None:
+                payloads = bs.finish()
+                log_holder["log"] = bs.log
+                grads = bs.inputs
+            else:
+                payloads, _ = encode_tree(codec, k_codec, grads, draws, layouts)
+        return payloads, grads, loss, prec1, prec5
+
+    def consume_carry(state: TrainState, carry: OverlapCarry):
+        """The mean of the payloads the ranks carried out of step
+        ``state.step - 1`` (its counter picks the ``num_aggregate`` subset)."""
+        sel_start = (state.step - 1) % world if k_agg else None
+        return consume(codec, carry, [p.detach() for p in params], aggregate=aggregate,
+                       rank=rank, world=world, sel_start=sel_start, n_contrib=n_contrib,
+                       ring_bucket_size=ring_bucket_size, layouts=layouts)
+
+    def skip_metrics(skipped: bool) -> dict:
+        # device constants (fills, not host copies): a graph captures them
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return {"skipped": z + 1 if skipped else z, "dropped": torch.zeros_like(z)}
+
+    def delayed_core(state: TrainState, images, labels, *, aug, k_drop, k_codec,
+                     opt_scalars=None, draws: Optional[Sequence[Any]] = None,
+                     dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+        carry = state.carry
+        if not isinstance(carry, OverlapCarry):
+            raise ValueError("overlap='delayed' steps a state that carries its in-flight "
+                             "payload: build it with init_delayed_state")
+        mean = None
+        if carry.valid:  # the exchange and decode run under forward and backward
+            mean = issue_consume(cons_stream, lambda: consume_carry(state, carry))
+        held = None if carry.valid or not stats else [s.clone() for s in stats]
+        payloads, grads, loss, prec1, prec5 = produce(
+            state, images, labels, aug=aug, k_drop=k_drop, k_codec=k_codec, draws=draws,
+            dropout_masks=dropout_masks)
+        buf, _, msg_bytes = pack_payloads(payloads)
+        dense_bytes = tree_nbytes(grads)
+        local = [loss, prec1, prec5]
+        if carry.valid:
+            join(cons_stream, mean)
+            opt_state, m = update_and_stats(state, mean, opt_scalars, local)
+        else:  # step 0 applies nothing: the statistics come back too
+            with torch.no_grad():
+                for s, h in zip(stats, held or ()):
+                    s.copy_(h)
+                m = _all_reduce_mean(torch.stack(local), world)
+            opt_state = state.opt_state
+        with torch.no_grad():
+            carry.payload.copy_(buf)  # after the join: the consume read it
+        metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
+                   "dense_bytes": dense_bytes, **skip_metrics(not carry.valid)}
+        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+                          carry=dataclasses.replace(carry, valid=True)), metrics
+
+    if _oracle_parts:
+        return _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world,
+                       split_keys=lambda key, s: split3(fold_in(fold_in(key, s), rank)))
+
     def keys(key: int, step_index: int) -> tuple[int, int, int]:
         """(k_aug, k_drop, k_codec) of this rank at step ``step_index``."""
         return split3(fold_in(fold_in(key, step_index), rank))
 
+    run_core = delayed_core if overlap == "delayed" else core
+
     def step(state: TrainState, key: int, images, labels, draws: Optional[Sequence[Any]] = None,
              dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         k_aug, k_drop, k_codec = keys(key, state.step)
-        return core(state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec,
-                    draws=draws, dropout_masks=dropout_masks)
+        out = run_core(state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec,
+                       draws=draws, dropout_masks=dropout_masks)
+        step.stream_log = log_holder.get("log")
+        return out
 
-    step.core = core
+    step.core = run_core
     step.keys = keys
+    step.stream_log = None
+    step.plan = plan
+    # a delayed step whose carry holds nothing yet applies no update
+    step.skips = lambda st: overlap == "delayed" and not st.carry.valid
     # the Dropout streams: one a step, or microbatch i's under fold_in(k_drop, i)
     step.drop_keys = (lambda k_drop, n: [k_drop] if grad_accum == 1
                       else [fold_in(k_drop, i) for i in range(n)])
     if superstep == 1:
         return step
-    device = params[0].device
     rule = G.graph_rule(device=device, codec=codec, backend=dist.get_backend(), world=world,
-                        aggregate=aggregate, k_agg=k_agg)
+                        aggregate=aggregate, k_agg=k_agg, stream_encode=stream_encode)
     return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
                              device=device, rule=rule)
+
+
+def _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world, split_keys):
+    """The two halves of the delayed step as plain calls (see
+    :func:`make_delayed_oracle_steps`), built from the step's own closures."""
+
+    def produce_step(state: TrainState, key: int, images, labels, draws=None,
+                     dropout_masks=None):
+        k_aug, k_drop, k_codec = split_keys(key, state.step)
+        held = [s.clone() for s in stats]
+        payloads, grads, loss, prec1, prec5 = produce(
+            state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec, draws=draws,
+            dropout_masks=dropout_masks)
+        buf, spec, msg_bytes = pack_payloads(payloads)
+        with torch.no_grad():
+            stats_x = [s.clone() for s in stats]
+            for s, h in zip(stats, held):  # the statistics wait for the apply
+                s.copy_(h)
+            m = _all_reduce_mean(torch.stack([loss, prec1, prec5]), world)
+        carry = OverlapCarry(payload=buf, spec=spec,
+                             ok=torch.ones((world,), dtype=torch.float32, device=buf.device),
+                             valid=True)
+        return carry, stats_x, {"loss": m[0], "prec1": m[1], "prec5": m[2],
+                                "msg_bytes": msg_bytes, "dense_bytes": tree_nbytes(grads)}
+
+    def apply_step(state: TrainState, carry: OverlapCarry, stats_x):
+        opt_state = state.opt_state
+        if carry.valid:
+            mean = consume_carry(state, carry)
+            with torch.no_grad():
+                for s, v in zip(stats, stats_x):
+                    s.copy_(v)
+            opt_state, _ = update_and_stats(state, mean, None)
+        return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
+                skip_metrics(not carry.valid))
+
+    return {"produce": produce_step, "apply": apply_step}
+
+
+def make_delayed_oracle_steps(model: nn.Module, optimizer: Optimizer, codec, **kwargs) -> dict:
+    """The two-call oracle of ``overlap='delayed'``
+    (``make_delayed_oracle_steps``, ``:2571``): ``produce(state, key,
+    images, labels, draws=None, dropout_masks=None) -> (carry, stats_x,
+    metrics)`` runs forward, backward and encode on the current parameters
+    and returns this rank's payload as a valid :class:`OverlapCarry`, the
+    BatchNorm statistics of its forward (the model's own come back to
+    their values before it) and the loss metrics; ``apply(state, carry,
+    stats_x) -> (state, metrics)`` exchanges and decodes a carry produced
+    EARLIER, applies the update and the dp mean of ``stats_x`` when the
+    carry is valid, and holds everything otherwise. Driving ``apply`` on
+    step t - 1's carry after ``produce`` of step t is the delayed schedule
+    with each half its own call; start from :func:`init_delayed_state`'s
+    carry. ``kwargs`` are :func:`make_distributed_train_step`'s."""
+    return make_distributed_train_step(model, optimizer, codec, overlap="delayed",
+                                       _oracle_parts=True, **kwargs)
 
 
 def make_distributed_eval_step(model: nn.Module):

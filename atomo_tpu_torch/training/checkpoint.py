@@ -10,7 +10,9 @@ A file is ``magic(4) | crc32(payload) LE(4) | payload``. The payload is
 ``torch.save`` of ``{"step", "model" (the state_dict: parameters and
 BatchNorm statistics), "opt_state" (the optimizer state's fields)}``, with
 ``"ef_residual"`` beside them when the state carries ``--error-feedback``'s
-residual (every rank's, one (N, d) tensor), every
+residual (every rank's, one (N, d) tensor) and ``"overlap_carry"`` when it
+carries ``--overlap delayed``'s in-flight payload (``{"payload": (N, B)
+uint8, "ok": (N,) float32, "valid": 0-d float32}``, every rank's), every
 tensor on the CPU, read back with ``torch.load(weights_only=True)`` and
 copied into the caller's model and optimizer state on their device; with
 ``compress`` it goes through the port's lossless codec
@@ -86,6 +88,12 @@ def _payload(state, step: int) -> bytes:
     }
     if getattr(state, "residual", None) is not None:
         obj["ef_residual"] = state.residual.detach().cpu()
+    carry = getattr(state, "carry", None)
+    if carry is not None:
+        if not isinstance(carry, dict):
+            raise TypeError("save the overlap carry in its gathered form "
+                            "(parallel.overlap.gather_carry): every rank's payload")
+        obj["overlap_carry"] = {k: v.detach().cpu() for k, v in carry.items()}
     buf = io.BytesIO()
     torch.save(obj, buf)
     return buf.getvalue()
@@ -274,8 +282,9 @@ def _load_opt_state(template, saved: dict):
 def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     """Restore a full train state into ``state`` (built by ``create_state``
     with the same model and optimizer: its model and optimizer tensors are
-    overwritten in place) and return it with the checkpoint's step and its
-    error-feedback carry (the saved (N, d) tensor on the CPU, or None).
+    overwritten in place) and return it with the checkpoint's step, its
+    error-feedback carry (the saved (N, d) tensor on the CPU, or None) and
+    its overlap carry (the saved dict on the CPU, or None).
 
     ``step=None`` loads the newest file that passes the checks, skipping
     corrupt ones with a warning, and raises ``FileNotFoundError`` when the
@@ -285,7 +294,7 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     _load_model(state.model, d["model"])
     opt_state = _load_opt_state(state.opt_state, d["opt_state"])
     return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state,
-                               residual=d.get("ef_residual"))
+                               residual=d.get("ef_residual"), carry=d.get("overlap_carry"))
 
 
 def load_params(train_dir: str, model: nn.Module, step: Optional[int] = None) -> int:

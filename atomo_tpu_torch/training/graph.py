@@ -27,21 +27,26 @@ the eager block otherwise. The per-step host values and their device forms:
   them (:func:`~atomo_tpu_torch.data.pipeline.augment_apply`);
 * dropout: the keep-masks likewise (the step's ``dropout_masks=`` hook),
   drawn in the order the warm-up step recorded;
-* error feedback's residual: written in place into the buffers the next
-  replay reads, as the momentum buffers are;
+* error feedback's residual and ``--overlap delayed``'s carried payload:
+  written in place into the buffers the next replay reads, as the momentum
+  buffers are (a delayed step with nothing in flight, which applies no
+  update, can only be the run's first step, the eager warm-up);
 * the launch counters: a replay adds the launches the capture counted.
 
 By that rule the single-device step, the data-parallel step over NCCL, the
 fused QSGD/TernGrad kernels, ``sgd`` (dense), per-leaf QSGD widths, the
-hybrid exchange (its row codec sorts on the device) and error feedback
-qualify. These run the eager block, each for the reason the mode line names:
+hybrid exchange (its row codec sorts on the device), error feedback and
+``--overlap delayed`` (its consume on a side stream forks from and joins the
+captured stream) qualify. These run the eager block, each for the reason the mode line names:
 a tensor not on a CUDA device; ``svd`` (``eigh`` reads its convergence flag
 on the host once per shape group, and its draws come from generators seeded
 on the host); the pack path's torch quantizer (its uniforms come from one
 host-seeded generator per leaf); a gloo group (its collectives run on the
 host); ``num_aggregate`` (the rotating subset's first replica is a host
 value of each step); the ring at N > 1 (its point-to-point hops wait on
-work objects the capture does not take). The decision is made by this rule
+work objects the capture does not take); ``--stream-encode`` (its bucket
+encodes are issued from backward hooks; the rule keeps that schedule
+eager). The decision is made by this rule
 before the run; a step that qualified and then fails to warm up, capture or
 replay raises, it never runs eagerly instead.
 
@@ -99,11 +104,14 @@ def _codec_reason(codec) -> Optional[str]:
 
 
 def graph_rule(*, device, codec, backend: Optional[str] = None, world: int = 1,
-               aggregate: str = "gather", k_agg: int = 0) -> tuple[bool, str]:
+               aggregate: str = "gather", k_agg: int = 0,
+               stream_encode: bool = False) -> tuple[bool, str]:
     """(qualifies, why): whether a step may run as a replayed CUDA graph by
     the rule of this module's docstring. ``backend`` is the process group's
-    (None for the single-device step); ``aggregate`` and ``k_agg`` the
-    data-parallel step's exchange and ``num_aggregate`` in effect."""
+    (None for the single-device step); ``aggregate``, ``k_agg`` and
+    ``stream_encode`` the data-parallel step's exchange, ``num_aggregate``
+    in effect and layer-bucket encode. ``overlap='delayed'`` changes
+    nothing here: its carry is device state written in place."""
     if torch.device(device).type != "cuda":
         return False, "not on a CUDA device"
     why = _codec_reason(codec)
@@ -117,6 +125,10 @@ def graph_rule(*, device, codec, backend: Optional[str] = None, world: int = 1,
     if aggregate == "ring" and world > 1:
         return False, ("the ring at N > 1: its point-to-point hops wait on work "
                        "objects that a capture does not take")
+    if stream_encode:
+        return False, ("stream-encode: its bucket encodes are issued from backward hooks, "
+                       "each on an event of the backward stream; the rule keeps that "
+                       "schedule eager")
     return True, "sync-free, every per-step value in device memory"
 
 
@@ -188,13 +200,13 @@ class GraphBlock:
 
     # ---------------------------------------------------------- per block
 
-    def _scalars(self, key: int, step0: int, count0: int, kb: int) -> torch.Tensor:
+    def _scalars(self, key: int, step0: int, counts: list) -> torch.Tensor:
         """The block's per-step scalars, one row a step, on the device by one
         copy: the codec key's two int32 words, then the optimizer's float32
-        values' bits."""
+        values' bits at each step's optimizer count."""
+        kb = len(counts)
         keys = np.array([self.step.keys(key, step0 + k)[2] for k in range(kb)], dtype=np.int64)
-        opt = np.array([self.optimizer.step_scalars(count0 + k) for k in range(kb)],
-                       dtype=np.float32)
+        opt = np.array([self.optimizer.step_scalars(c) for c in counts], dtype=np.float32)
         rows = np.concatenate([keys.view(np.int32).reshape(kb, 2), opt.view(np.int32)], axis=1)
         return torch.from_numpy(rows).pin_memory().to(self.device, non_blocking=True)
 
@@ -289,7 +301,14 @@ class GraphBlock:
             self.stream = torch.cuda.Stream(self.device)
         kb = images.shape[0]
         step0, count0 = state.step, state.opt_state.count
-        scalars = self._scalars(key, step0, count0, kb)
+        # a first step that applies nothing (a delayed step with no payload
+        # in flight: the run's first, the warm-up) leaves the count as it is
+        skip0 = int(getattr(self.step, "skips", lambda st: False)(state))
+        if skip0 and self.names is not None:
+            raise RuntimeError("a replayed step applies its update: only the run's first "
+                               "step (the warm-up) may be a delayed step with nothing in "
+                               "flight")
+        scalars = self._scalars(key, step0, [count0 + max(k - skip0, 0) for k in range(kb)])
         rows = []
         for k in range(kb):
             k_aug, k_drop, _ = self.step.keys(key, step0 + k)

@@ -40,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +81,10 @@ class TrainState:
     # checkpoint leaves there every rank's residual as one (N, d) CPU tensor
     # (training.checkpoint), which distributed_train_loop takes apart.
     residual: Optional[list] = None
+    # --overlap delayed's in-flight payload (parallel.overlap.OverlapCarry),
+    # None outside that mode. A loaded checkpoint leaves there the dict it
+    # saved (every rank's payload as one (N, B) tensor, ok, valid).
+    carry: Optional[Any] = None
 
 
 def leaf_params(model: nn.Module) -> list[torch.Tensor]:
@@ -300,6 +304,32 @@ def own_residual(state: TrainState, model: nn.Module, rank: int, world: int,
         v.view(p.shape) for v, p in zip(row.split([p.numel() for p in params]), params)])
 
 
+def _check_loop_modes(codec, aggregate: str, overlap: str, stream_encode: bool,
+                      error_feedback: bool) -> None:
+    """The JAX loop's refusals of ``overlap``, ``stream_encode`` and their
+    compositions (``atomo_tpu/parallel/replicated.py:2975-3025, 3085-3100``)."""
+    if overlap not in ("off", "delayed"):
+        raise ValueError(f"unknown overlap mode {overlap!r}; expected 'off' or 'delayed'")
+    if overlap == "delayed" and (codec is None or aggregate not in ("gather", "ring")):
+        raise ValueError(
+            "--overlap delayed needs a compressing codec with "
+            "--aggregate gather or ring (psum and the two-level "
+            "hierarchical schedules — legacy plan or the "
+            "topology re-encoded plans — have no delayed form)")
+    if error_feedback and overlap == "delayed":
+        raise ValueError(
+            "--error-feedback does not compose with --overlap "
+            "delayed: the stale carry's residual semantics are "
+            "unproven — rejected honestly")
+    if stream_encode and (codec is None or aggregate not in ("gather", "ring")):
+        raise ValueError(
+            "--stream-encode needs a compressing codec with "
+            "--aggregate gather or ring (psum has no encode to "
+            "stream; the hierarchical boundary re-encode is not "
+            "bucket-aware yet — rejected rather than silently "
+            "degraded)")
+
+
 def _crossed(cadence: int, lo: int, hi: int) -> bool:
     """True iff a multiple of ``cadence`` lies in (lo, hi]: the boundary test
     that snaps every per-step cadence (log, eval, save) to superstep block
@@ -482,6 +512,9 @@ def distributed_train_loop(
     grad_accum: int = 1,
     hybrid=None,
     error_feedback: bool = False,
+    overlap: str = "off",
+    stream_encode: bool = False,
+    stream_bucket_bytes: int = 4 << 20,
     max_steps: int = 100,
     eval_freq: int = 0,
     seed: int = 0,
@@ -517,9 +550,20 @@ def distributed_train_loop(
     blocks of K steps, each rank on its rows of every step of the block, as
     :func:`train_loop` does; the residual rides from
     step to step inside a block and is gathered into the checkpoints at
-    block boundaries. Runs on CUDA unless ``device='cpu'``."""
+    block boundaries. ``overlap='delayed'`` runs the stale-by-one step
+    (``init_delayed_state``: step 0 applies nothing); its checkpoints hold
+    every rank's in-flight payload, so a delayed resume of a delayed
+    checkpoint continues bit for bit, a delayed resume of a blocking one
+    warns and re-skips its first step, and a blocking resume of a delayed
+    one restores the train state alone, with a warning. ``stream_encode``
+    encodes layer buckets of ``stream_bucket_bytes`` under backward (the
+    same trajectory). Both are validated as the JAX loop validates them
+    (``atomo_tpu/parallel/replicated.py:2975-3100``). Runs on CUDA unless
+    ``device='cpu'``."""
     # imported here: the step's module builds on this one's TrainState
+    from atomo_tpu_torch.parallel.overlap import carry_from_saved, gather_carry
     from atomo_tpu_torch.parallel.replicated import (
+        init_delayed_state,
         make_distributed_eval_step,
         make_distributed_train_step,
         replicate_state,
@@ -527,6 +571,7 @@ def distributed_train_loop(
         shard_superbatch,
     )
 
+    _check_loop_modes(codec, aggregate, overlap, stream_encode, error_feedback)
     dev = resolve_device(device)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     state = replicate_state(create_state(model, optimizer, seed, dev))
@@ -534,11 +579,29 @@ def distributed_train_loop(
     start_step = state.step
     if error_feedback:
         state = own_residual(state, model, rank, world, dev)
+    saved_carry, state = state.carry, dataclasses.replace(state, carry=None)
+    if overlap == "delayed":
+        state = init_delayed_state(state, codec)
+        if start_step > 0:  # resumed: the payload that step start_step + 1 consumes
+            carry, why = carry_from_saved(state.carry, saved_carry, rank, world)
+            if why is not None:
+                warnings.warn(
+                    "--overlap delayed resume: checkpoint has no overlap "
+                    f"carry ({why}); restoring the train state only — the "
+                    "first resumed step applies a zero (skipped) update")
+            state = dataclasses.replace(state, carry=carry)
+    elif saved_carry is not None:
+        warnings.warn(
+            "resume: checkpoint was written by --overlap delayed "
+            "(it holds an overlap_carry); restoring its train state and discarding "
+            "the in-flight payload — pass --overlap delayed to "
+            "resume the overlapped run exactly")
     step_fn = make_distributed_train_step(
         model, optimizer, codec, aggregate=aggregate, augment=augment,
         num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
         compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid,
-        error_feedback=error_feedback, superstep=superstep)
+        error_feedback=error_feedback, superstep=superstep, overlap=overlap,
+        stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes)
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
     timer = Timer()
@@ -550,6 +613,8 @@ def distributed_train_loop(
         saved = st
         if error_feedback:  # every rank's residual, in rank order, to rank 0
             saved = dataclasses.replace(st, residual=gather_residual(st, world))
+        if overlap == "delayed":  # every rank's in-flight payload, likewise
+            saved = dataclasses.replace(saved, carry=gather_carry(st.carry, world))
         if rank == 0:
             save_checkpoint(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
         torch.distributed.barrier()  # no rank goes on before the file is in place

@@ -200,6 +200,27 @@ every hand-written kernel against its plain PyTorch version:
    under ``torchrun --nproc-per-node 1`` (this script with
    ``--superstep-cli-child``): the mode line ``Superstep: K=8, graph`` and
    ``Worker:`` lines at steps 8 and 16.
+15. overlap: ``--stream-encode`` and ``--overlap delayed`` on ResNet-18
+   batch 128, qsgd 4 bits gather, 4 MiB layer buckets. In a deterministic
+   child at NCCL world 1 (this script with ``--overlap-child``): (a) 3
+   streamed steps equal 3 plain ones bit for bit, with the same Msg(MB) and
+   one row-1 launch a bucket (10 a step); (b) delayed: step 0 leaves
+   parameters, momentum and BatchNorm statistics bit-identical, and 4 steps
+   equal the two-call oracle (``make_delayed_oracle_steps``) and delayed
+   with stream-encode bit for bit; (c) 16 delayed steps as blocks of 8 (a
+   CUDA graph by ``graph_rule``) equal the single steps. At once, two gloo
+   ranks on the card (this script with ``--overlap-gloo-child``): (d)
+   ``train --n-devices 2 --aggregate gather --code qsgd --overlap delayed
+   --stream-encode on``, 6 steps straight and cut at 3 and resumed: the
+   replicas and the two runs bit-identical step by step; (e) ``lm --layout
+   dp-sp --ways 1 --attn-impl ulysses-flash --n-devices 2 --overlap delayed
+   --stream-encode`` at the LM recipe's width (svd): replicas equal, step 0
+   skipped, the flash kernel once a layer a step. Then in this process: the
+   bucket encodes and the carry's decode against their plain twins, each
+   run's median step ms in turns (off, stream, delayed, both), and a
+   ``torch.profiler`` trace of the streamed steps (row 1's launches that
+   start before backward's last main-stream kernel, their device time
+   under it, their stream) and of the delayed steps (row 2's likewise).
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -3229,6 +3250,490 @@ def phase_superstep(work: Path, card: str) -> dict:
     res["launches"]["flash_attention"] = 0
     return res
 
+OV_BUCKET = 4 << 20  # --stream-bucket-mb 4, the default
+OV_STEPS = 4  # delayed: the skipped step 0 and three that apply
+OV_K = 8
+OV_TIMED = 8  # steps a turn
+OV_RUNS = {"off": {}, "stream": {"stream_encode": True}, "delayed": {"overlap": "delayed"},
+           "both": {"overlap": "delayed", "stream_encode": True}}
+OV_GLOO_STEPS = 6
+OV_TRAIN = TRAIN_ARGS + ["--code", "qsgd", "--n-devices", "2", "--aggregate", "gather",
+                         "--overlap", "delayed", "--stream-encode", "on", "--eval-freq", "0"]
+OV_LM_STEPS = 3
+OV_LM = LM_ARGS + ["--n-devices", "2", "--overlap", "delayed", "--stream-encode", "--code",
+                   "svd", "--max-steps", str(OV_LM_STEPS), "--train-dir", ""]
+
+
+def ov_resnet(dev, superstep: int = 1, **modes):
+    """ResNet-18 (batch 128, augmentation on) with qsgd 4 bits and its
+    data-parallel step, gather, in ``modes`` (``stream_encode``,
+    ``overlap``; 4 MiB layer buckets); a delayed state carries its fresh
+    carry."""
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import (
+        init_delayed_state,
+        make_distributed_train_step,
+        replicate_state,
+    )
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9, shrinkage_freq=SS_SHRINK)
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    state = replicate_state(create_state(model, opt, 1, dev))
+    codec = QsgdCodec(bits=4)
+    step = make_distributed_train_step(model, opt, codec, aggregate="gather", augment=True,
+                                       stream_bucket_bytes=OV_BUCKET, superstep=superstep,
+                                       **modes)
+    if modes.get("overlap") == "delayed":
+        state = init_delayed_state(state, codec)
+    return opt, codec, state, step
+
+
+def ov_same(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def ov_steps(state, step, batches):
+    """The steps over ``batches``, launch counts set to 0 before and read
+    after: (state, losses, skipped, msg bytes, launches, stream log)."""
+    import torch
+
+    from atomo_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    losses, skipped, m = [], [], None
+    for x, y in batches:
+        state, m = step(state, 2, x, y)
+        losses.append(float(m["loss"]))
+        skipped.append(float(m["skipped"]) if "skipped" in m else None)
+    torch.cuda.synchronize()
+    return state, losses, skipped, int(m["msg_bytes"]), ops.launch_counts(), step.stream_log
+
+
+def overlap_child(work: str, out_path: str) -> int:
+    """The overlap phase's deterministic checks (this script with
+    ``--overlap-child``; cuBLAS's workspace set before its first handle), at
+    NCCL world 1 on ResNet-18 batch 128, qsgd 4 bits gather: (a) 3 streamed
+    steps against 3 plain ones; (b) 4 delayed steps against the initial
+    state (step 0), the two-call oracle and delayed with stream-encode;
+    (c) 16 delayed steps as graph blocks of 8 against single steps."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.overlap import issued_under_backward
+    from atomo_tpu_torch.parallel.replicated import make_delayed_oracle_steps
+    from atomo_tpu_torch.training.graph import mode_line
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/ov_child", world_size=1,
+                      rank=0)
+    out: dict = {}
+    try:
+        batches = resnet_batches(dev, OV_STEPS)
+        runs = {}
+        for label in ("off", "stream", "delayed", "both"):
+            _, _, state, step = ov_resnet(dev, **OV_RUNS[label])
+            init = [t.detach().clone() for t in ss_carried(state)]
+            n = 3 if label in ("off", "stream") else OV_STEPS
+            state, losses, skipped, msg, counts, log_ = ov_steps(state, step, batches[:1])
+            first = [t.detach().clone() for t in ss_carried(state)]
+            state, more, skip2, msg, counts2, _ = ov_steps(state, step, batches[1:n])
+            runs[label] = {"losses": losses + more, "skipped": skipped + skip2, "msg_bytes": msg,
+                           "launches": {k: counts[k] + counts2[k] for k in counts},
+                           "step0_held": ov_same(init, first),
+                           "carried": [t.detach().clone() for t in ss_carried(state)],
+                           "n_buckets": step.plan.n_buckets if step.plan else None,
+                           "issued_under_backward": (issued_under_backward(log_)
+                                                     if log_ else None)}
+        # (b)'s oracle: produce step t, then apply step t - 1's carry
+        opt, codec, st, _ = ov_resnet(dev)
+        oracle = make_delayed_oracle_steps(st.model, opt, codec, aggregate="gather",
+                                           augment=True)
+        from atomo_tpu_torch.parallel.replicated import init_delayed_state
+
+        carry = init_delayed_state(st, codec).carry
+        for x, y in batches:
+            new, stats_x, _ = oracle["produce"](st, 2, x, y)
+            st, _ = oracle["apply"](st, carry, stats_x)
+            carry = new
+        torch.cuda.synchronize()
+        oracle_equal = ov_same(ss_carried(st), runs["delayed"]["carried"])
+        # (c): 16 delayed steps, single and as blocks of 8 (graph by the rule)
+        blocks = {}
+        for k in (1, OV_K):
+            _, _, state, step = ov_resnet(dev, superstep=k, overlap="delayed")
+            from atomo_tpu_torch import ops
+
+            ops.reset_launch_counts()
+            state, losses, _ = ss_run(state, step, k, SS_STEPS, ss_stream())
+            torch.cuda.synchronize()
+            blocks[k] = {"losses": losses, "launches": ops.launch_counts(),
+                         "carried": [t.detach().clone() for t in ss_carried(state)],
+                         "mode": mode_line(step) if k > 1 else "per-step",
+                         "replays": getattr(step, "replays", 0)}
+        out = {
+            "a": {"equal": ov_same(runs["off"]["carried"], runs["stream"]["carried"])
+                  and runs["off"]["losses"] == runs["stream"]["losses"],
+                  **{f"{k}_{f}": runs[k][f] for k in ("off", "stream")
+                     for f in ("losses", "msg_bytes", "launches", "n_buckets",
+                               "issued_under_backward")}},
+            "b": {"step0_held": runs["delayed"]["step0_held"] and runs["both"]["step0_held"],
+                  "skipped": runs["delayed"]["skipped"], "oracle_equal": oracle_equal,
+                  "stream_equal": ov_same(runs["delayed"]["carried"], runs["both"]["carried"])
+                  and runs["delayed"]["losses"] == runs["both"]["losses"],
+                  **{f"{k}_{f}": runs[k][f] for k in ("delayed", "both")
+                     for f in ("losses", "msg_bytes", "launches")}},
+            "c": {"equal": ov_same(blocks[1]["carried"], blocks[OV_K]["carried"])
+                  and blocks[1]["losses"] == blocks[OV_K]["losses"],
+                  "mode": blocks[OV_K]["mode"], "replays": blocks[OV_K]["replays"],
+                  "losses": blocks[1]["losses"],
+                  "launches": {k: blocks[1]["launches"][k] + blocks[OV_K]["launches"][k]
+                               for k in blocks[1]["launches"]}},
+        }
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def overlap_gloo_child(rank: int, work: str, out_path: str) -> int:
+    """One rank of the overlap phase's (d) and (e) (this script with
+    ``--overlap-gloo-child``; deterministic, cuBLAS's workspace set first):
+    over gloo on cuda:0, ``train`` with ``--overlap delayed --stream-encode
+    on`` straight for 6 steps and cut at 3 and resumed, each step's state
+    hashed; then ``lm`` with ``--overlap delayed --stream-encode`` for 3
+    steps, each step's hash and ``skipped``."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.parallel import launch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    launch.initialize(torch.device("cuda", 0), backend="gloo",
+                      init_method=f"file://{work}/ov_gloo_store", world_size=2, rank=rank)
+    trace: list = []
+
+    def traced(factory):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+
+            def run(state, *a, **k):
+                state, m = step(state, *a, **k)
+                trace.append((state_hash(state.model), float(m.get("skipped", -1))))
+                return state, m
+
+            return run
+
+        return make
+
+    make_step, make_lm = R.make_distributed_train_step, cli.make_lm_train_step
+    R.make_distributed_train_step = traced(make_step)
+    cli.make_lm_train_step = traced(make_lm)
+    out: dict = {}
+    try:
+        for label, argv in (
+                ("straight", OV_TRAIN + ["--max-steps", str(OV_GLOO_STEPS), "--train-dir",
+                                         f"{work}/ov_straight", "--save-freq", "3"]),
+                ("cut", OV_TRAIN + ["--max-steps", "3", "--train-dir", f"{work}/ov_cut",
+                                    "--save-freq", "3"]),
+                ("resumed", OV_TRAIN + ["--max-steps", str(OV_GLOO_STEPS), "--train-dir",
+                                        f"{work}/ov_cut", "--save-freq", "3", "--resume"]),
+                ("lm", OV_LM)):
+            lines: list[str] = []
+            trace.clear()
+            ops.reset_launch_counts()
+            args = cli.build_parser().parse_args(argv)
+            args.fn(args, log_fn=lines.append)
+            torch.cuda.synchronize()
+            out[label] = {"lines": lines, "trace": list(trace), "launches": ops.launch_counts()}
+    finally:
+        R.make_distributed_train_step, cli.make_lm_train_step = make_step, make_lm
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def ov_children(work: Path):
+    """The phase's deterministic children, run at once (they check; they
+    time nothing): the NCCL world-1 child and the two gloo ranks."""
+    me = str(Path(__file__).resolve())
+    det_path = work / "overlap.json"
+    gloo_paths = [work / f"overlap_gloo{r}.json" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, me, "--overlap-child", str(work), str(det_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=str(ROOT))]
+    procs += [subprocess.Popen([sys.executable, me, "--overlap-gloo-child", str(r), str(work),
+                                str(gloo_paths[r])], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+              for r in range(2)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=300)[0])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    for label, proc, text in zip(("deterministic", "gloo rank 0", "gloo rank 1"), procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"overlap {label} child failed (exit {proc.returncode}):\n"
+                                 + text[-4000:])
+    return (json.loads(det_path.read_text()),
+            [json.loads(p.read_text()) for p in gloo_paths])
+
+
+def ov_check_kernels(grads, errs: dict) -> dict:
+    """Rows 1-2 at the shapes the overlap path gives them: each 4 MiB layer
+    bucket's tree encode (one launch a bucket, the leaves' global seeds)
+    and the consume's tree decode of the carried buffer, against their
+    plain twins on the same card tensors."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, decode_mean_tree, encode_leaf_subset
+    from atomo_tpu_torch.convert import jax_layouts, jax_view
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel.common import (
+        pack_tree_buckets,
+        plan_layer_buckets,
+        unpack_tree_buckets,
+    )
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    codec = QsgdCodec(bits=4)
+    layouts = jax_layouts(get_model("resnet18", 10, image_shape=(32, 32, 3)))
+    plan = plan_layer_buckets(grads, OV_BUCKET)
+    payloads = [None] * len(grads)
+    for idxs in plan.buckets:
+        got = encode_leaf_subset(codec, 12345, grads, idxs, None, layouts)
+        tree = [codec._clip_leaf(jax_view(grads[i], layouts[i]).reshape(-1)) for i in idxs]
+        want = K.quantize_pack_tree_plain(tree, bits=4, scheme=codec.scheme,
+                                          seeds=[fold_in(12345, i) for i in idxs])
+        for i, g, (ww, ws) in zip(idxs, got, want):
+            if not same_bits(g.words, ww):
+                raise AssertionError(f"overlap check: bucket leaf {i}'s words differ")
+            torch.testing.assert_close(g.scales, ws, rtol=1e-6, atol=0.0)
+            errs["quantize_pack"] = max(errs["quantize_pack"], float((g.scales - ws).abs().max()))
+            payloads[i] = g
+    buf, spec = pack_tree_buckets(payloads)
+    rows = buf.view(1, spec.nbytes)
+    got = decode_mean_tree(codec, unpack_tree_buckets(rows, spec), grads, 1, layouts)
+    views = unpack_tree_buckets(rows, spec)
+    want = K.unpack_dequantize_tree_plain([(v.words, v.scales) for v in views], grads,
+                                          layouts, bits=4, n_replicas=1)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    errs["unpack_dequantize"] = max(errs["unpack_dequantize"], err)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("overlap check: the carry's tree decode differs from its plain twin")
+    log(f"overlap check: the {plan.n_buckets} bucket encodes of the 4 MiB plan (one row-1 "
+        f"launch a bucket) and the carry's tree decode (one row-2 launch) equal their plain "
+        f"twins on the card: words and decoded values bit for bit, decode max abs err {err}")
+    return {"n_buckets": plan.n_buckets, "decode_max_abs_err": err}
+
+
+def ov_trace(prof, kernel: str) -> dict:
+    """From a profile of delayed or streamed steps: per step, the device
+    window of ``step.forward_backward`` up to its last main-stream kernel
+    (backward's end), the ``kernel`` launches (row 1 or 2) that start inside
+    it or before it (after the previous step's window), the share of their
+    device time that lies inside it, and whether they ran on a stream other
+    than the main one."""
+    import collections
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in evs if not e.name.startswith("step.")]
+    if not kernels:
+        raise AssertionError("overlap trace: the profiler recorded no device kernels")
+    main = collections.Counter(e.device_resource_id for e in kernels).most_common(1)[0][0]
+    rows = [e for e in kernels if kernel in e.name]
+    windows = sorted((e.time_range.start, e.time_range.end) for e in evs
+                     if e.name == "step.forward_backward")
+    started, before, inside = 0, 0, 0.0
+    total = sum(e.time_range.elapsed_us() for e in rows)
+    prev_end = float("-inf")
+    for s0, s1 in windows:
+        main_in = [e.time_range.end for e in kernels if e.device_resource_id == main
+                   and kernel not in e.name and s0 <= e.time_range.start < s1]
+        if not main_in:
+            continue
+        end = max(main_in)
+        for e in rows:
+            a, b = e.time_range.start, e.time_range.end
+            started += s0 <= a < end
+            before += prev_end <= a < s0  # done before the step's forward began
+            inside += max(0.0, min(b, end) - max(a, s0))
+        prev_end = end
+    return {"launches": len(rows), "steps": len(windows),
+            "started_under_backward": started, "started_before_forward": before,
+            "device_us": total, "device_us_under_backward": inside,
+            "share_under_backward": inside / total if total else None,
+            "on_side_stream": sum(e.device_resource_id != main for e in rows)}
+
+
+def ov_timing(dev) -> dict:
+    """NCCL world 1, in this process: each run's median ms a step, in turns
+    (off, stream, delayed, both, both, delayed, stream, off: ``OV_TIMED``
+    steps a turn after a warm-up), then 3 profiled steps of stream and of
+    delayed with their row-1 and row-2 trace figures."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atomo_tpu_torch.data import to_device
+
+    runs = {}
+    for label, modes in OV_RUNS.items():
+        _, _, state, step = ov_resnet(dev, **modes)
+        stream = ss_stream()
+        for _ in range(2):
+            state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+        float(m["loss"])
+        runs[label] = [state, step, stream, []]
+    for label in ("off", "stream", "delayed", "both", "both", "delayed", "stream", "off"):
+        state, step, stream, ms = runs[label]
+        got = []
+        for _ in range(OV_TIMED):
+            t0 = time.perf_counter()
+            state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+            float(m["loss"])
+            got.append((time.perf_counter() - t0) * 1e3)
+        runs[label][0] = state
+        ms.append(statistics.median(got))
+    out = {label: {"median_step_ms_by_turn": r[3], "median_step_ms": statistics.median(r[3])}
+           for label, r in runs.items()}
+    for label, kernel in (("stream", "quantize_pack"), ("delayed", "unpack_dequantize")):
+        state, step, stream, _ = runs[label]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+            torch.cuda.synchronize()
+        out[label]["trace"] = ov_trace(prof, kernel)
+    return out
+
+
+def phase_overlap(work: Path, card: str, grads, errs: dict) -> dict:
+    """``--stream-encode`` and ``--overlap delayed`` (see the module
+    docstring, phase 15)."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    det, gloo = ov_children(work)
+    seconds = {"children": time.time() - t0}
+    a, b, c = det["a"], det["b"], det["c"]
+    nb = a["stream_n_buckets"]
+    if not a["equal"] or a["off_msg_bytes"] != a["stream_msg_bytes"]:
+        raise AssertionError(f"overlap (a): streamed steps differ from the plain ones: {a}")
+    if (a["stream_launches"]["quantize_pack"] != 3 * nb
+            or a["stream_launches"]["unpack_dequantize"] != 3):
+        raise AssertionError(f"overlap (a): launches {a['stream_launches']}, want "
+                             f"{3 * nb} row-1 and 3 row-2")
+    log(f"overlap (a) stream-encode nccl-1: ResNet-18 qsgd 4 bits gather, 4 MiB buckets: "
+        f"{nb} buckets, 3 steps equal the plain steps bit for bit (parameters, buffers, "
+        f"momentum; losses {a['off_losses']}), Msg(MB) {a['stream_msg_bytes'] / 2 ** 20:.4f}, "
+        f"launches {a['stream_launches']} ({nb} row-1 launches a step), "
+        f"{a['stream_issued_under_backward']} buckets issued before backward's last hook")
+    if not (b["step0_held"] and b["oracle_equal"] and b["stream_equal"]
+            and b["skipped"] == [1.0] + [0.0] * (OV_STEPS - 1)):
+        raise AssertionError(f"overlap (b): {b}")
+    if (b["delayed_launches"]["quantize_pack"] != OV_STEPS
+            or b["delayed_launches"]["unpack_dequantize"] != OV_STEPS - 1
+            or b["both_launches"]["quantize_pack"] != OV_STEPS * nb):
+        raise AssertionError(f"overlap (b): launches {b['delayed_launches']} / "
+                             f"{b['both_launches']}")
+    log(f"overlap (b) delayed nccl-1: step 0 skipped with parameters, momentum and BatchNorm "
+        f"statistics bit-identical to their initial values; steps 1-{OV_STEPS - 1} equal the "
+        f"two-call oracle and delayed with stream-encode bit for bit; skipped {b['skipped']}, "
+        f"losses {b['delayed_losses']}, launches {b['delayed_launches']} (delayed) "
+        f"{b['both_launches']} (with stream-encode)")
+    if not (c["equal"] and c["mode"].startswith(f"Superstep: K={OV_K}")):
+        raise AssertionError(f"overlap (c): {c}")
+    if c["mode"].endswith("graph") and c["replays"] <= 0:
+        raise AssertionError(f"overlap (c): a graph block that never replayed: {c}")
+    log(f"overlap (c) delayed K={OV_K} nccl-1: '{c['mode']}', {c['replays']} replays; "
+        f"{SS_STEPS} steps equal the single steps bit for bit")
+    r0, r1 = gloo
+    for label in ("straight", "cut", "resumed", "lm"):
+        h0 = [h for h, _ in r0[label]["trace"]]
+        if h0 != [h for h, _ in r1[label]["trace"]]:
+            raise AssertionError(f"overlap gloo-2 {label}: the replicas differ")
+    straight, resumed = r0["straight"]["trace"], r0["resumed"]["trace"]
+    if [h for h, _ in straight[3:]] != [h for h, _ in resumed] or len(resumed) != 3:
+        raise AssertionError("overlap (d): the resumed run differs from the straight run")
+    if [s for _, s in straight] != [1.0] + [0.0] * (OV_GLOO_STEPS - 1):
+        raise AssertionError(f"overlap (d): skipped {[s for _, s in straight]}")
+    worker = [ln for ln in r0["straight"]["lines"] if ln.startswith("Worker: ")]
+    log(f"overlap (d) gloo-2 train --n-devices 2 --overlap delayed --stream-encode on: "
+        f"replicas bit-identical after each of {OV_GLOO_STEPS} steps, step 0 skipped, the run "
+        f"cut at step 3 and resumed equals the straight run bit for bit; launches rank 0 "
+        f"{r0['straight']['launches']}; the gloo exchange is host-staged, so no time is read")
+    for ln in worker:
+        log("  " + ln)
+    lm = r0["lm"]
+    if [s for _, s in lm["trace"]] != [1.0] + [0.0] * (OV_LM_STEPS - 1):
+        raise AssertionError(f"overlap (e): skipped {[s for _, s in lm['trace']]}")
+    if lm["launches"]["flash_attention"] != OV_LM_STEPS * LM_DEPTH:
+        raise AssertionError(f"overlap (e): launches {lm['launches']}")
+    log(f"overlap (e) gloo-2 lm --layout dp-sp --ways 1 --n-devices 2 --overlap delayed "
+        f"--stream-encode (svd, the recipe's width): replicas bit-identical after each of "
+        f"{OV_LM_STEPS} steps, step 0 skipped, launches rank 0 {lm['launches']}")
+    for ln in lm["lines"]:
+        if ln.startswith("LM: "):
+            log("  " + ln)
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    checks = ov_check_kernels(grads, errs)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/ov_nccl1", world_size=1,
+                      rank=0)
+    try:
+        times = ov_timing(dev)
+    finally:
+        launch.shutdown()
+    seconds["timing"] = time.time() - t0
+    for label, t in times.items():
+        log(f"overlap time {label} ({card}): median step {t['median_step_ms']:.3f} ms (turns "
+            + ", ".join(f"{v:.3f}" for v in t["median_step_ms_by_turn"]) + ")")
+    for label, t in times.items():
+        if "trace" in t:
+            tr = t["trace"]
+            log(f"overlap trace {label}: {tr['launches']} launches of "
+                f"{'row 1' if label == 'stream' else 'row 2'} over {tr['steps']} steps, "
+                f"{tr['started_under_backward']} started between forward's first and "
+                f"backward's last main-stream kernel, {tr['started_before_forward']} before "
+                f"forward's first, {tr['device_us_under_backward']:.1f} of "
+                f"{tr['device_us']:.1f} us of their device time under forward and backward "
+                f"(share {tr['share_under_backward']}), {tr['on_side_stream']} on a side "
+                "stream")
+    log("overlap seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    launches = {name: sum(det[p][f"{k}_launches"][name] for p, k in
+                          (("a", "off"), ("a", "stream"), ("b", "delayed"), ("b", "both")))
+                + det["c"]["launches"][name]
+                + sum(r0[label]["launches"][name] for label in ("straight", "cut", "resumed",
+                                                                "lm"))
+                for name in REPLACES}
+    return {"deterministic": det, "gloo": gloo, "times": times, "checks": checks,
+            "seconds": seconds, "card": card, "launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -3246,6 +3751,10 @@ def main() -> int:
         return superstep_child(sys.argv[2])
     if sys.argv[1:2] == ["--superstep-cli-child"]:
         return superstep_cli_child(sys.argv[2])
+    if sys.argv[1:2] == ["--overlap-child"]:
+        return overlap_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--overlap-gloo-child"]:
+        return overlap_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import tempfile
 
     import torch
@@ -3311,6 +3820,8 @@ def main() -> int:
         lap("budget")
         superstep = phase_superstep(Path(work), card)
         lap("superstep")
+        overlap = phase_overlap(Path(work), card, grads, errs)
+        lap("overlap")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -3327,6 +3838,7 @@ def main() -> int:
                 + sum(r["launches"][name] for r in budget["ef"].values())
                 + budget["cli"]["launches"][name]
                 + superstep["launches"][name]
+                + overlap["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -3347,7 +3859,7 @@ def main() -> int:
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
-              "superstep": superstep,
+              "superstep": superstep, "overlap": overlap,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

@@ -31,8 +31,13 @@ a captured step replayed K times equals K eager steps bit for bit
 (``--superstep``: LeNet sgd, qsgd under Adam, VGG-11 with dropout, ResNet-18
 qsgd and terngrad with augmentation and an LR change, a per-leaf width
 allocation, and the data-parallel step at one NCCL rank with error
-feedback and with the embedding tower's hybrid exchange), with the same
-launches.
+feedback, with the embedding tower's hybrid exchange and with the delayed
+step's carry), with the same launches. The layer buckets' encodes (one
+launch a bucket) equal the plain twin; a bucket's encode on the side stream
+reads its gradient only after the event of the backward stream, however
+late the device writes it; the delayed step's step 0 holds parameters,
+momentum and BatchNorm statistics, and its next step decodes the carried
+payload without a host sync.
 """
 
 import dataclasses
@@ -1095,6 +1100,8 @@ if where != "single":
     from atomo_tpu_torch.parallel.replicated import make_distributed_train_step as make
     launch.initialize("cuda:0", init_method=f"file://{work}/s", world_size=1, rank=0)
     kw = {"error_feedback": where == "nccl-ef"}
+    if where == "nccl-delayed":  # the stale-by-one step: its carry updated in place
+        kw = {"overlap": "delayed"}
 
 def codec():
     if code == "sgd":
@@ -1114,14 +1121,18 @@ def fresh(k):
     model = get_model(network, 10, image_shape=shape)
     opt = make_optimizer(optname, lr=0.01, momentum=0.9, shrinkage_freq=5)
     state = create_state(model, opt, 3, "cuda")
-    return state, make(model, opt, codec(), augment=cifar, superstep=k, **kw)
+    c = codec()
+    if where == "nccl-delayed":
+        from atomo_tpu_torch.parallel.replicated import init_delayed_state
+        state = init_delayed_state(state, c)
+    return state, make(model, opt, c, augment=cifar, superstep=k, **kw)
 
 def carried(state):
     o = state.opt_state
     ts = list(state.model.state_dict().values())
     for name in ("trace", "mu", "nu", "nu_max"):
         ts += getattr(o, name, None) or []
-    return ts + (state.residual or [])
+    return ts + (state.residual or []) + ([state.carry.payload] if state.carry else [])
 
 state, step = fresh(1)
 stream = BatchIterator(ds, 32, seed=3).forever()
@@ -1164,14 +1175,16 @@ print(json.dumps({"ok": True, "launches": ref_counts}))
     ("resnet18", "qsgd", "sgd", "nccl-ef", 7),
     ("lenet", "sgd", "sgd", "nccl", 7),
     ("embedding", "qsgd", "sgd", "nccl-hybrid", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-delayed", 7),
 ])
 def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer, where, steps):
     """7 steps (an LR change at step 5, augmentation on CIFAR shapes,
     dropout in VGG-11) run eagerly one by one, then as blocks of 8 (one
     warm-up step, a capture, 6 replays) and of 3 (blocks 3, 3, 1): per-step
-    losses, parameters, buffers, optimizer state and the residual equal bit
-    for bit under torch's deterministic algorithms, with the same kernel
-    launches counted."""
+    losses, parameters, buffers, optimizer state, the residual and the
+    delayed step's carried payload equal bit for bit under torch's
+    deterministic algorithms, with the same kernel launches counted (the
+    delayed step's warm-up is its step 0, which applies nothing)."""
     import json
     import os
     import subprocess
@@ -1211,3 +1224,125 @@ def test_graph_rule_names_the_eager_steps(dev):
     block = make_train_step(model, opt, get_codec("svd", svd_rank=3), superstep=4)
     assert block.mode == "eager" and "eigh" in block.why
     assert make_train_step(model, opt, get_codec("qsgd"), superstep=4).mode == "graph"
+
+
+def _resnet_grads(dev, seed: int = 0):
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return model, [torch.randn(p.shape, generator=gen, device=dev) * (0.01 * (1 + i % 7))
+                   for i, p in enumerate(leaf_params(model))]
+
+
+def test_streamed_bucket_encodes_match_plain(dev):
+    """The 4 MiB layer buckets of ResNet-18 encoded one tree launch a
+    bucket (row 1, 10 launches) equal the plain twin on the same card
+    tensors: words bit for bit, scales within rtol 1e-6; together they are
+    the one-launch encode of the whole tree."""
+    from atomo_tpu_torch.codecs import encode_leaf_subset, encode_tree
+    from atomo_tpu_torch.convert import jax_layouts, jax_view
+    from atomo_tpu_torch.parallel.common import plan_layer_buckets
+    from atomo_tpu_torch.utils.rng import fold_in
+
+    model, grads = _resnet_grads(dev)
+    layouts = jax_layouts(model)
+    codec = QsgdCodec(bits=4)
+    plan = plan_layer_buckets(grads, 4 << 20)
+    whole, _ = encode_tree(codec, 99, grads, None, layouts)
+    K.reset_launch_counts()
+    for idxs in plan.buckets:
+        got = encode_leaf_subset(codec, 99, grads, idxs, None, layouts)
+        want = K.quantize_pack_tree_plain(
+            [jax_view(grads[i], layouts[i]).reshape(-1) for i in idxs], bits=4,
+            seeds=[fold_in(99, i) for i in idxs])
+        for i, g, (ww, ws) in zip(idxs, got, want):
+            assert _same_bits(g.words, ww)
+            torch.testing.assert_close(g.scales, ws, rtol=1e-6, atol=0.0)
+            assert _same_bits(g.words, whole[i].words) and torch.equal(g.scales, whole[i].scales)
+    assert K.launch_counts()["quantize_pack"] == plan.n_buckets == 10
+
+
+class _SlowGrad(torch.autograd.Function):
+    """The identity whose backward makes the gradient late on the device:
+    a spin of the backward stream, then the product that writes it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        torch.cuda._sleep(100_000_000)
+        return g * 3.0
+
+
+def test_bucket_encode_waits_for_its_gradient_event(dev):
+    """The hook fires when backward's host side has issued a bucket's last
+    gradient, long before the device has written it; the side stream's
+    encode waits on the event the hook records, so it reads the finished
+    gradient: the payload equals the encode of ``x.grad`` after a
+    synchronise, bit for bit."""
+    from atomo_tpu_torch.codecs import encode_leaf_subset
+    from atomo_tpu_torch.parallel.common import plan_layer_buckets
+    from atomo_tpu_torch.parallel.overlap import BucketStream, side_stream
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1 << 20, generator=gen, device=dev).requires_grad_()
+    w = torch.randn(1 << 20, generator=gen, device=dev)
+    codec = QsgdCodec(bits=4)
+    plan = plan_layer_buckets([x], 0)
+    bs = BucketStream(plan, codec, 5, layouts=None, feed=lambda i, g: g,
+                      stream=side_stream(dev)).arm([x])
+    (_SlowGrad.apply(x) * w).sum().backward()
+    got = bs.finish()
+    torch.cuda.synchronize()
+    want = encode_leaf_subset(codec, 5, [x.grad], [0])
+    assert bs.log == [("ready", 0), ("issue", 0)]
+    assert _same_bits(got[0].words, want[0].words) and torch.equal(got[0].scales, want[0].scales)
+
+
+def test_delayed_step0_holds_and_the_next_step_consumes(dev, nccl_group):
+    """ResNet-18 at batch 32, qsgd 4 bits, delayed at one NCCL rank: step 0
+    encodes (one row-1 launch), consumes nothing and leaves parameters,
+    momentum and BatchNorm statistics bit for bit as they were; step 1
+    decodes the carried payload (one row-2 launch) on the side stream with
+    no host sync, and moves them."""
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import (
+        init_delayed_state,
+        make_distributed_train_step,
+    )
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    codec = QsgdCodec(bits=4)
+    state = init_delayed_state(create_state(model, opt, 1, dev), codec)
+    step = make_distributed_train_step(model, opt, codec, overlap="delayed", augment=True)
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True, size=256), 32, seed=1).epoch()
+
+    def carried():
+        return [t.detach().clone() for t in list(model.state_dict().values())
+                + state.opt_state.trace]
+
+    before = carried()
+    ops.reset_launch_counts()
+    state, m = step(state, 2, *to_device(*next(it), dev))
+    torch.cuda.synchronize()
+    assert float(m["skipped"]) == 1.0 and state.carry.valid
+    assert all(torch.equal(a, b) for a, b in zip(before, carried()))
+    assert ops.launch_counts()["quantize_pack"] == 1
+    assert ops.launch_counts()["unpack_dequantize"] == 0
+    x, y = to_device(*next(it), dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, 2, x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(m["skipped"]) == 0.0
+    assert ops.launch_counts()["unpack_dequantize"] == 1
+    assert not all(torch.equal(a, b) for a, b in zip(before, carried()))

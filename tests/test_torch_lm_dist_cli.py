@@ -160,8 +160,8 @@ def test_lm_bf16_matches_jax(groups):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--stream-encode"], "later slice"),
-    (["--overlap", "delayed"], "later slice"),
+    (["--stream-encode", "--overlap", "delayed"], "needs a multi-replica dp axis"),
+    (["--overlap", "delayed", "--code", "sgd"], "a dense --code has no payload to carry"),
     (["--aggregate", "ring", "--code", "sgd"], "dense code"),
     (["--layout", "dp-sp", "--ways", "3"], "does not divide 1 devices"),
     (["--n-devices", "2"], "torchrun --nproc-per-node 2"),

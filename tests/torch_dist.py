@@ -193,7 +193,8 @@ def state_hash(model) -> str:
 def job_train(rank, world, *, network, num_classes, image_shape, state_dict, codec, aggregate,
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
               dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
-              budget_ks=None, error_feedback=False, parts=None):
+              budget_ks=None, error_feedback=False, parts=None, overlap="off",
+              stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False):
     import dataclasses
 
     import torch.distributed as dist
@@ -203,9 +204,13 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
 
     import numpy as np
 
+    import torch
+
+    import atomo_tpu_torch.parallel.overlap as O
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.data import to_device
     from atomo_tpu_torch.data.pipeline import block_to_device
+    from atomo_tpu_torch.parallel.overlap import carry_from_saved, gather_carry
     from atomo_tpu_torch.training import TrainState, make_optimizer
     from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
     from atomo_tpu_torch.training.trainer import leaf_params
@@ -239,15 +244,24 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
 
     R.encode_tree = recording_encode
     R.encode_leaf_subset = recording_subset
+    O.encode_leaf_subset = recording_subset  # the bucket encodes of stream-encode
+
+    def make_codec():
+        c = _codec(codec)
+        return c if budget_ks is None else budgeted_codec(c, budget_ks)
 
     def make_step(model, superstep=1):
-        c = _codec(codec)
-        if budget_ks is not None:
-            c = budgeted_codec(c, budget_ks)
         return R.make_distributed_train_step(
-            model, opt, c, aggregate=aggregate, num_aggregate=num_aggregate,
+            model, opt, make_codec(), aggregate=aggregate, num_aggregate=num_aggregate,
             ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid,
-            error_feedback=error_feedback, superstep=superstep)
+            error_feedback=error_feedback, superstep=superstep, overlap=overlap,
+            stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes,
+            compute_dtype=torch.bfloat16 if bf16 else None)
+
+    delayed = overlap == "delayed"
+    if delayed:
+        state = R.init_delayed_state(state, make_codec())
+    hash0 = state_hash(model)
 
     def record(m, j=None, last=True):
         def val(name, cast=float):
@@ -258,7 +272,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
         return {"loss": val("loss"), "prec1": val("prec1"), "prec5": val("prec5"),
                 "msg_bytes": val("msg_bytes", int), "dense_bytes": val("dense_bytes", int),
                 "hash": state_hash(model) if last else None,
-                "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm")}
+                "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm"),
+                "skipped": val("skipped")}
 
     try:
         step = make_step(model)
@@ -271,6 +286,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 if error_feedback:
                     saved = dataclasses.replace(
                         state, residual=T.gather_residual(state, world))
+                if delayed:
+                    saved = dataclasses.replace(saved, carry=gather_carry(state.carry, world))
                 if rank == 0:
                     save_checkpoint(train_dir, saved, compress=True)
                 dist.barrier()
@@ -278,6 +295,13 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 state = load_checkpoint(train_dir, state)
                 if error_feedback:
                     state = T.own_residual(state, model, rank, world, "cpu")
+                if delayed:
+                    saved_carry = state.carry
+                    state = R.init_delayed_state(dataclasses.replace(state, carry=None),
+                                                 make_codec())
+                    carry, why = carry_from_saved(state.carry, saved_carry, rank, world)
+                    assert why is None, why
+                    state = dataclasses.replace(state, carry=carry)
                 step = make_step(model)
                 blocks = {}
             if k == 1:
@@ -303,9 +327,11 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     finally:
         R.encode_tree = encode
         R.encode_leaf_subset = encode_subset
+        O.encode_leaf_subset = encode_subset
     final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
              if rank == 0 else None)
-    return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0)}
+    return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0),
+            "hash0": hash0}
 
 
 def job_build(rank, world, *, network, image_shape, codec, kwargs):
@@ -384,7 +410,7 @@ class _Recorder:
 
 def job_lm(rank, world, *, n_sp, cfg, state_dict, codec, attn_impl, aggregate, optimizer,
            batches, keys, draws=None, bf16=False, resume_at=0, train_dir=None,
-           grads_only=False):
+           grads_only=False, modes=None):
     import torch
 
     import atomo_tpu_torch.parallel.lm as L
@@ -401,25 +427,44 @@ def job_lm(rank, world, *, n_sp, cfg, state_dict, codec, attn_impl, aggregate, o
         model = TransformerLM(**cfg)
         model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
         state = TrainState(0, model, opt.init(leaf_params(model)))
+        c = _codec(codec)
         step = L.make_lm_train_step(
-            model, opt, _codec(codec), attn_impl=attn_impl, aggregate=aggregate, mesh=mesh,
-            exchange=L.DpExchange("ring") if aggregate == "ring" else None,
+            model, opt, c, attn_impl=attn_impl, aggregate=aggregate, mesh=mesh,
+            exchange=(L.DpExchange(aggregate, **modes) if aggregate == "ring" or modes
+                      else None),
             compute_dtype=torch.bfloat16 if bf16 else None)
+        if (modes or {}).get("overlap") == "delayed":
+            state = L.init_model_axis_delayed_state(state, c)
         return model, state, step
 
-    encode = L.encode_tree
+    import atomo_tpu_torch.parallel.overlap as O
+
+    modes = modes or {}
+    encode, subset = L.encode_tree, O.encode_leaf_subset
+    streamed = L.encode_tree_streamed
 
     def recording_encode(*args, **kw):  # the largest quantization step taken
         payloads, stats = encode(*args, **kw)
         scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
         return payloads, stats
 
-    L.encode_tree = recording_encode
+    def recording_streamed(*args, **kw):
+        payloads, stats = streamed(*args, **kw)
+        scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
+        return payloads, stats
+
+    def recording_subset(*args, **kw):  # the bucket encodes of stream-encode
+        payloads = subset(*args, **kw)
+        scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
+        return payloads
+
+    L.encode_tree, L.encode_tree_streamed = recording_encode, recording_streamed
+    O.encode_leaf_subset = recording_subset
     try:
         return _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_at,
                          train_dir, scales)
     finally:
-        L.encode_tree = encode
+        L.encode_tree, L.encode_tree_streamed, O.encode_leaf_subset = encode, streamed, subset
 
 
 def _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_at, train_dir,
@@ -431,6 +476,7 @@ def _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_a
     from atomo_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
     model, state, step = fresh()
+    hash0 = state_hash(model)
     steps = []
     for s, (tokens, key) in enumerate(zip(batches, keys)):
         if resume_at and s == resume_at:
@@ -444,11 +490,12 @@ def _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_a
         if grads_only:
             return {"grads": [g.numpy().copy() for g in opt.grads], "loss": float(m["loss"])}
         steps.append({"loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
-                      "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model)})
+                      "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(model),
+                      "skipped": float(m["skipped"]) if "skipped" in m else None})
     final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
              if rank == 0 else None)
     return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0),
-            "mesh": (mesh.rank_dp, mesh.rank_sp), "step": state.step}
+            "mesh": (mesh.rank_dp, mesh.rank_sp), "step": state.step, "hash0": hash0}
 
 
 def job_attention(rank, world, *, impl, q, k, v, cotangent, causal=True):

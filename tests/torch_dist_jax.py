@@ -168,14 +168,16 @@ class Reference:
         return out, [r["draws"] for r in per_rank]
 
     def run_ranks(self, code: str, aggregate: str, n: int, num_aggregate: int = 0,
-                  grad_accum: int = 1):
+                  grad_accum: int = 1, **modes):
         """As :meth:`run`, with each rank's arguments of the ``train`` job:
         its codec draws and the dropout keep-masks its replica drew (None
-        for a model without dropout)."""
-        args = (code, aggregate, n, num_aggregate, grad_accum)
+        for a model without dropout). ``modes`` go to the JAX step factory
+        (``overlap="delayed"``, ``stream_encode``, ``stream_bucket_bytes``);
+        each step's ``skipped`` metric comes back under delayed."""
+        args = (code, aggregate, n, num_aggregate, grad_accum, tuple(sorted(modes.items())))
         if args not in self._runs:
             with jax_x64(self.x64):
-                self._runs[args] = self._run(*args)
+                self._runs[args] = self._run(*args[:-1], **modes)
         return self._runs[args]
 
     def _masks(self, x, k_drop, grad_accum: int):
@@ -197,14 +199,20 @@ class Reference:
         self._has_dropout = bool(masks)
         return masks
 
-    def _run(self, code, aggregate, n, num_aggregate, grad_accum):
+    def _run(self, code, aggregate, n, num_aggregate, grad_accum, **modes):
+        from atomo_tpu.parallel import init_delayed_state
+
         _, make = CODECS[code]
         mesh = make_mesh(n_devices=n)
-        step = make_distributed_train_step(self.jmodel, self.jopt, mesh, make(),
+        codec = make()
+        step = make_distributed_train_step(self.jmodel, self.jopt, mesh, codec,
                                            aggregate=aggregate, num_aggregate=num_aggregate,
-                                           grad_accum=grad_accum)
+                                           grad_accum=grad_accum, **modes)
         # from host copies: the step donates its state's buffers
         state = replicate_state(mesh, jax.device_get(self.jstate))
+        delayed = modes.get("overlap") == "delayed"
+        if delayed:
+            state = init_delayed_state(mesh, state, codec)
         draw = {"qsgd": qsgd_draws, "terngrad": qsgd_draws, "svd": svd_draws}.get(code)
         out = []
         draws = [[] for _ in range(n)]
@@ -220,18 +228,22 @@ class Reference:
             state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)))[:2]
             out.append({"params": jax.device_get(state.params),
                         "batch_stats": jax.device_get(state.batch_stats),
-                        "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"])})
+                        "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
+                        "skipped": float(m["skipped"]) if delayed else None})
         return out, [{"draws": draws[r] if draw is not None else None,
                       "dropout_masks": masks[r] if any(masks[r]) else None}
                      for r in range(n)]
 
     def job(self, code: str, aggregate: str, num_aggregate: int = 0,
-            ring_bucket_size: int = 65536, grad_accum: int = 1) -> dict:
-        """The shared arguments of the ``train`` job for the port's ranks."""
+            ring_bucket_size: int = 65536, grad_accum: int = 1, **modes) -> dict:
+        """The shared arguments of the ``train`` job for the port's ranks
+        (``modes``: the step's ``overlap``, ``stream_encode``,
+        ``stream_bucket_bytes``)."""
         return dict(network=self.network, num_classes=10, image_shape=self.image_shape,
                     state_dict=self.state_dict, codec=CODECS[code][0], aggregate=aggregate,
                     num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size, lr=LR,
-                    momentum=MOMENTUM, batches=self.batches, key=11, grad_accum=grad_accum)
+                    momentum=MOMENTUM, batches=self.batches, key=11, grad_accum=grad_accum,
+                    **modes)
 
     def port_trees(self, state_dict):
         """A port state_dict (numpy) as the JAX package's (params,

@@ -91,25 +91,34 @@ def batches(steps: int = STEPS, cfg=CFG):
 
 def run(n_dev: int, ways: int, attn_impl: str, code: str, aggregate: str, *,
         optimizer: str = "sgd", lr: float = LR, compute_dtype=None, cfg=CFG,
-        steps: int = STEPS, params=None, token_batches=None):
+        steps: int = STEPS, params=None, token_batches=None, **modes):
     """The reference's steps on a (n_dev / ways, ways) mesh from ``params``
     (default :func:`flax_params`) over ``token_batches`` (default
     :func:`batches` of ``steps``), step i's key ``fold_in(key(7), i)``:
     per step the loss, msg and dense bytes, the final parameters (numpy
     tree), and for each port rank (mesh position r // ways, r % ways) the
-    draws of its replica, one list per step."""
+    draws of its replica, one list per step. ``modes`` (``stream_encode``,
+    ``stream_bucket_bytes``, ``overlap``) go to the step's ``DpExchange``;
+    under ``overlap="delayed"`` each step's ``skipped`` comes back too."""
+    from atomo_tpu.parallel.replicated import DelayedState
+
     params = flax_params(cfg) if params is None else params
     token_batches = batches(steps, cfg) if token_batches is None else token_batches
     jopt = jax_optimizer(optimizer, lr=lr, momentum=MOMENTUM)
     spec = MeshSpec.from_layout("dp-sp", n_dev, ways)
-    exchange = DpExchange(aggregate="ring") if aggregate == "ring" else None
+    exchange = (DpExchange(aggregate=aggregate, **modes) if aggregate == "ring" or modes
+                else None)
     prog = build_model_axis_program(
         spec, cfg, jopt, jax.random.PRNGKey(0), CODECS[code][1](), attn_impl=attn_impl,
         compute_dtype=compute_dtype, aggregate="gather" if exchange else aggregate,
         exchange=exchange)
-    state = prog.state.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
-                               opt_state=jopt.init(params))
-    state = replicate_state(prog.mesh, jax.device_get(state))
+    delayed = isinstance(prog.state, DelayedState)
+    train = prog.state.train if delayed else prog.state
+    train = train.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
+                          opt_state=jopt.init(params))
+    state = replicate_state(prog.mesh, jax.device_get(train))
+    if delayed:  # the carry keeps its placement, one row per device
+        state = DelayedState(train=state, carry=prog.state.carry)
     n_dp = n_dev // ways
     out, draws = [], [[] for _ in range(n_dp)]
     for s, toks in enumerate(token_batches):
@@ -119,7 +128,8 @@ def run(n_dev: int, ways: int, attn_impl: str, code: str, aggregate: str, *,
             draws[r].append(codec_draws(code, k_codec, state.params))
         state, m = prog.step(state, key, prog.shard_tokens(toks))
         out.append({"loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
-                    "dense_bytes": int(m["dense_bytes"])})
+                    "dense_bytes": int(m["dense_bytes"]),
+                    "skipped": float(m["skipped"]) if delayed else None})
     final = jax.device_get(state.params)
     per_rank = [draws[r // ways] if code != "sgd" else None for r in range(n_dev)]
     return out, final, per_rank
@@ -127,13 +137,15 @@ def run(n_dev: int, ways: int, attn_impl: str, code: str, aggregate: str, *,
 
 def job(ways: int, attn_impl: str, code: str, aggregate: str, *, optimizer: str = "sgd",
         lr: float = LR, bf16: bool = False, cfg=CFG, steps: int = STEPS, state_dict=None,
-        token_batches=None) -> dict:
-    """The shared arguments of the ``lm`` job for the port's ranks."""
+        token_batches=None, **modes) -> dict:
+    """The shared arguments of the ``lm`` job for the port's ranks
+    (``modes``: the ``DpExchange``'s ``stream_encode``,
+    ``stream_bucket_bytes``, ``overlap``)."""
     token_batches = batches(steps, cfg) if token_batches is None else token_batches
     return dict(n_sp=ways, cfg=cfg, state_dict=state_dict or port_state_dict(flax_params(cfg)),
                 codec=CODECS[code][0], attn_impl=attn_impl, aggregate=aggregate,
                 optimizer=(optimizer, dict(lr=lr, momentum=MOMENTUM)), batches=token_batches,
-                keys=list(range(1, len(token_batches) + 1)), bf16=bf16)
+                keys=list(range(1, len(token_batches) + 1)), bf16=bf16, modes=modes)
 
 
 def quantization_atol(answers, code: str, steps: int) -> float:
