@@ -26,16 +26,24 @@ default) is the whole process group. A process group that is up (or a
 ``torchrun`` launch) takes even one process through the data-parallel step,
 which is how one card runs ``--grad-accum`` and ``--error-feedback``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
-each new file. ``lm`` runs the layouts ``dp`` and ``dp-sp`` on one device or
-over N processes (``--n-devices N --ways S``: dp = N/S replicas of S
-sequence shards, ``--attn-impl ring|ulysses|ulysses-flash``, ``--aggregate
-gather|psum|ring``), with ``--optimizer``, ``--bf16`` and checkpoints
-(``--train-dir``, ``--save-freq``, ``--resume``, ``--compress``); the other
-layouts come with later slices. Both verbs take ``--stream-encode`` (layer
-buckets encoded under backward; ``train --stream-bucket-mb``, ``lm
---stream-bucket-bytes``) and ``--overlap delayed`` (the stale-by-one
-exchange, its in-flight payload in the checkpoints), with the JAX verbs'
-refusals.
+each new file. ``lm`` runs the six layouts of the JAX verb on one device or
+over N processes (``--n-devices N --ways W``): ``dp``, ``dp-sp`` (sequence
+shards, ``--attn-impl ring|ulysses|ulysses-flash``), ``dp-tp`` (Megatron
+tensor parallel), ``dp-ep`` (switch MoE, ``--num-experts``), ``dp-pp``
+(GPipe, ``--microbatches``) and ``dp-tp-sp`` (``--ways`` tp x ``--sp-ways``
+sp), with ``--optimizer``, ``--bf16``, ``--eval-freq`` (each family's
+single-device forward) and checkpoints (``--train-dir``, ``--save-freq``,
+``--resume``, ``--compress``; a family's full tree in the JAX layout). Both
+verbs take ``--stream-encode`` (layer buckets encoded under backward;
+``train --stream-bucket-mb``, ``lm --stream-bucket-bytes``) and ``--overlap
+delayed`` (the stale-by-one exchange, its in-flight payload in the
+checkpoints), with the JAX verbs' refusals. ``--aggregate auto`` (the
+default of both) is the comm-cost model's pick (``utils/comm_model.py``)
+for the byte budget, the device count and ``--fabric`` (``--codec-tax-ms``),
+printed as the JAX verb prints it: psum for a dense code or one device,
+gather or ring by wire bytes otherwise; where the JAX verb would pick its
+unported two-tier hierarchical mode (a group that spans hosts) the port
+refuses.
 """
 
 from __future__ import annotations
@@ -67,17 +75,11 @@ from atomo_tpu_torch.models import embedding_tower, get_model
 from atomo_tpu_torch.models.transformer import lm_loss
 from atomo_tpu_torch.parallel import launch
 from atomo_tpu_torch.parallel.lm import (
-    LATER,
     DpExchange,
-    create_lm_state,
-    init_model_axis_delayed_state,
-    make_lm_train_step,
-    shard_tokens,
 )
-from atomo_tpu_torch.parallel.overlap import carry_from_saved, gather_carry
-from atomo_tpu_torch.parallel.replicated import replicate_state
+from atomo_tpu_torch.parallel.overlap import carry_from_saved
 from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, train_loop
-from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from atomo_tpu_torch.training.checkpoint import latest_step
 from atomo_tpu_torch.training.evaluator import CheckpointEvaluator
 from atomo_tpu_torch.utils.rng import fold_in
 
@@ -137,6 +139,20 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
                         "distribution (p_i ~ 1/i^A)")
 
 
+def _fabric_flags(p: argparse.ArgumentParser) -> None:
+    """``--fabric`` and ``--codec-tax-ms``, what ``--aggregate auto``
+    prices from."""
+    p.add_argument("--fabric", type=str, default="auto", metavar="F",
+                   help="the fabric --aggregate auto prices the wire on: auto "
+                        "(nvlink on one host, dcn across hosts) | nvlink | ici (the JAX "
+                        "package's name, = nvlink) | dcn | eth10g | a per-device GB/s "
+                        "number")
+    p.add_argument("--codec-tax-ms", type=float, default=None, metavar="MS",
+                   help="measured single-device codec tax for --aggregate auto's "
+                        "advisory; default scales the ResNet-18 anchor measured on the "
+                        "H100 (utils/comm_model.py) by gradient size")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="atomo_tpu_torch",
@@ -192,7 +208,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gradient exchange: gather = payload all_gather (compressed "
                         "wire), ring = its streamed form (payloads rotate, each hop's "
                         "decode overlaps the next transfer), psum = dense all-reduce; "
-                        "auto = gather")
+                        "auto = the comm-cost model's pick for this byte budget, "
+                        "device count and --fabric, printed with its reason (psum for "
+                        "a dense code; the two-tier hierarchical pick is refused: not "
+                        "ported)")
+    _fabric_flags(p)
     p.add_argument("--num-aggregate", type=int, default=None, metavar="N",
                    help="aggregate only K replicas per step (rotating subset; gather "
                         "and ring); unset = all")
@@ -301,12 +321,22 @@ def build_parser() -> argparse.ArgumentParser:
 
     q = sub.add_parser("lm", help="train the transformer LM on one device or a dp x sp mesh")
     q.add_argument("--layout", type=str, default="dp", choices=LM_LAYOUTS,
-                   help="dp | dp-sp; the others come with later slices")
+                   help="mesh composition: dp (data parallel), dp-sp (sequence "
+                        "parallel), dp-tp (Megatron tensor parallel), dp-ep (switch-MoE "
+                        "expert parallel), dp-pp (GPipe pipeline), dp-tp-sp (tensor x "
+                        "sequence)")
     q.add_argument("--ways", type=int, default=2, metavar="N",
-                   help="model-axis size (the sp shards of dp-sp)")
+                   help="model-axis size (tp for dp-tp-sp, whose sp is --sp-ways)")
+    q.add_argument("--sp-ways", type=int, default=2, metavar="N",
+                   help="--layout dp-tp-sp: the sequence axis's size")
+    q.add_argument("--num-experts", type=int, default=8,
+                   help="--layout dp-ep: experts per MoE layer (sharded over ep)")
+    q.add_argument("--microbatches", type=int, default=2,
+                   help="--layout dp-pp: GPipe microbatches per replica batch")
     q.add_argument("--attn-impl", type=str, default="ring",
                    choices=["ring", "ulysses", "ulysses-flash"],
-                   help="dp-sp attention; ulysses-flash runs the flash-attention kernel")
+                   help="dp-sp / dp-tp-sp attention; ulysses-flash runs the "
+                        "flash-attention kernel")
     q.add_argument("--data-file", type=str, default="",
                    help="byte-level text corpus (raw bytes = tokens, needs "
                         "--vocab-size >= 256); default: synthetic token streams")
@@ -349,8 +379,9 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--aggregate", type=str, default="auto",
                    choices=["auto", "gather", "psum", "ring"],
                    help="dp exchange: factor all_gather, dense all-reduce or the "
-                        "streamed ring; auto = gather until the comm-cost model is "
-                        "ported")
+                        "streamed ring; auto = the comm-cost model's pick over the dp "
+                        "axis (priced on the unsharded LM), printed with its reason")
+    _fabric_flags(q)
     q.add_argument("--ring-bucket-size", type=int, default=0, metavar="B",
                    help="--aggregate ring: 4-byte elements per message (0 = one "
                         "message a hop)")
@@ -689,6 +720,109 @@ def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, 
     return None
 
 
+def hosts_in_group() -> int:
+    """Hosts the process group spans: its world over ``LOCAL_WORLD_SIZE``
+    (the processes ``torchrun`` starts on this host; the world when unset).
+    The JAX package's ``jax.process_count()`` counts hosts, and the port runs
+    one process per device, so a world above one is not a mesh that crosses
+    hosts."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    local = int(os.environ.get("LOCAL_WORLD_SIZE") or world)
+    return max(1, world // max(local, 1))
+
+
+def resolve_auto_aggregate(args: argparse.Namespace, codec, model, n_dev: int, *,
+                           allow_hierarchical: bool = True, log=print) -> str:
+    """``--aggregate auto`` as the JAX verbs resolve it
+    (``atomo_tpu/cli.py:726-810``): the comm-cost model's pick for this
+    byte budget (``model``'s leaves under ``codec``), ``n_dev`` ways and
+    ``--fabric``, logged as the JAX line ``--aggregate auto -> <mode>
+    (<reason>)``. A mesh that crosses hosts is hierarchical in the JAX
+    package, whose two-tier schedule is not ported: refused, never
+    replaced."""
+    from atomo_tpu_torch.tuning.probe import byte_budget
+    from atomo_tpu_torch.utils.comm_model import choose_aggregate, resolve_fabric
+
+    n_hosts = hosts_in_group()
+    cross_host = n_hosts > 1 and allow_hierarchical
+    dense_b, payload_b = byte_budget(codec, model) if codec is not None else (0, 0)
+    if cross_host and codec is not None:
+        raise SystemExit(
+            f"--aggregate auto: this group spans {n_hosts} hosts (WORLD_SIZE over "
+            "LOCAL_WORLD_SIZE), where the JAX verb picks --aggregate hierarchical "
+            "(the two-tier schedule), which this port does not have yet; pass "
+            "--aggregate gather, ring or psum")
+    try:
+        bw = resolve_fabric(args.fabric, n_proc=n_hosts)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    mode, reason = choose_aggregate(
+        has_codec=codec is not None, dense_bytes=dense_b, payload_bytes=payload_b,
+        ways=n_dev, fabric_bw=bw,
+        tax_s=None if args.codec_tax_ms is None else args.codec_tax_ms / 1e3,
+        cross_host=cross_host)
+    log(f"--aggregate auto -> {mode} ({reason})")
+    return mode
+
+
+def _hybrid_auto_aggregate(args: argparse.Namespace, plan, n_dev: int, log) -> str:
+    """``--aggregate auto`` under a sparse-row plan (``atomo_tpu/cli.py:
+    2890-2930``): the plan's wire bytes decide, and a psum pick falls back
+    to gather out loud (the row payloads need the payload path)."""
+    from atomo_tpu_torch.utils.comm_model import choose_aggregate, resolve_fabric
+
+    try:
+        bw = resolve_fabric(args.fabric, n_proc=hosts_in_group())
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    mode, reason = choose_aggregate(
+        has_codec=True, dense_bytes=sum(a.dense_bytes for a in plan.assignments),
+        payload_bytes=plan.payload_bytes(), ways=n_dev, fabric_bw=bw,
+        tax_s=None if args.codec_tax_ms is None else args.codec_tax_ms / 1e3)
+    if mode not in ("gather", "ring"):
+        reason = (f"{mode} pick overridden — the sparse-row exchange "
+                  f"needs the payload path ({reason})")
+        mode = "gather"
+    log(f"--aggregate auto -> {mode} (sparse-row hybrid plan: {reason})")
+    return mode
+
+
+def _train_aggregate(args: argparse.Namespace, codec, model, plan, n_dev: int, log) -> str:
+    """The train verb's exchange: ``--aggregate`` as given, or auto resolved
+    as the JAX verb resolves it over more than one device, with the JAX
+    verb's refusals after it (``:2932-2990``). One device runs the
+    single-device program, where the JAX verb resolves nothing: the port's
+    data-parallel step at world 1 takes gather, which is that program."""
+    if args.aggregate != "auto":
+        return args.aggregate
+    if n_dev <= 1:
+        return "gather"
+    if plan is not None:
+        return _hybrid_auto_aggregate(args, plan, n_dev, log)
+    aggregate = resolve_auto_aggregate(args, codec, model, n_dev,
+                                       allow_hierarchical=args.overlap != "delayed", log=log)
+    if args.overlap == "delayed" and aggregate not in ("gather", "ring"):
+        raise SystemExit(
+            "--overlap delayed: --aggregate auto resolved to "
+            f"{aggregate!r} for this byte budget; pass "
+            "--aggregate gather or ring explicitly to keep the "
+            "overlapped schedule, or drop --overlap")
+    if args.stream_encode == "on" and aggregate not in ("gather", "ring"):
+        raise SystemExit(
+            "--stream-encode: --aggregate auto resolved to "
+            f"{aggregate!r} for this deployment; pass "
+            "--aggregate gather or ring explicitly to keep the "
+            "bucket-streamed encode, or drop --stream-encode")
+    if (args.num_aggregate is not None and codec is not None
+            and aggregate not in ("gather", "ring")):
+        warnings.warn(
+            "--num-aggregate only applies to gather/ring "
+            f"aggregation; --aggregate auto resolved to "
+            f"{aggregate!r} — pass --aggregate gather "
+            "explicitly to subset replicas")
+    return aggregate
+
+
 def _superstep(args: argparse.Namespace) -> int:
     """``--superstep`` as the JAX verb takes it (``atomo_tpu/cli.py:930-934``,
     ``:2401-2407``): a negative K refused, 0 resolved to 1 (the JAX verb's
@@ -787,8 +921,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, rank_log, write=ctx.rank == 0)[1].ks)
-        # auto resolves to gather until the comm-cost model is ported
-        aggregate = "gather" if args.aggregate == "auto" else args.aggregate
+        aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
         return distributed_train_loop(
             model, optimizer, train_iter, test_iter, codec=codec, aggregate=aggregate,
             num_aggregate=_num_aggregate(args, aggregate, codec, n_dev),
@@ -877,24 +1010,29 @@ def lm_data(args: argparse.Namespace):
 
 
 def cmd_lm(args: argparse.Namespace, log_fn=print):
-    """LM training, ``--layout dp`` or ``dp-sp``: on one device, or on a
-    (dp, sp) mesh of N processes, one per device, as ``torchrun
-    --nproc-per-node N -m atomo_tpu_torch lm --n-devices N --layout dp-sp
-    --ways S ...`` starts them (dp = N/S, sp = S). Rank 0 prints the JAX
-    package's ``LM:`` lines letter for letter and writes the checkpoints;
-    every rank loads them on ``--resume``. As in the JAX package, a resumed
-    run draws its batches from a fresh ``--seed`` stream (it does not replay
-    the batches taken before the checkpoint) and folds step i's key from i.
-    Returns this rank's final train state."""
-    if args.layout not in ("dp", "dp-sp"):
-        raise SystemExit(f"--layout {args.layout} {LATER}; this one runs dp and dp-sp")
-    if args.layout == "dp" and args.ways != 2:  # 2 is the default
+    """LM training in any of the six layouts (``cmd_lm``,
+    ``atomo_tpu/cli.py:3138-3480``): on one device, or on a mesh of N
+    processes, one per device, as ``torchrun --nproc-per-node N -m
+    atomo_tpu_torch lm --n-devices N --layout L --ways W ...`` starts them
+    (``--ways`` sizes the model axis, ``--sp-ways`` dp-tp-sp's sequence
+    axis; dp = N / model ways). Rank 0 prints the JAX package's lines
+    letter for letter and writes the checkpoints (a family's full tree in
+    the JAX layout); every rank loads them on ``--resume``. As in the JAX
+    package, a resumed run draws its batches from a fresh ``--seed`` stream
+    (it does not replay the batches taken before the checkpoint) and folds
+    step i's key from i. Returns this rank's final train state."""
+    layout = args.layout
+    if layout == "dp" and args.ways != 2:  # 2 is the default
         warnings.warn(f"--ways {args.ways} only applies to layouts with a model axis; "
-                      "--layout dp is pure data parallelism, ignoring it")
-    if args.layout == "dp" and args.attn_impl != "ring":
-        warnings.warn(f"--attn-impl only applies to layout dp-sp/dp-tp-sp; "
-                      f"ignored for --layout {args.layout}")
-    ways = args.ways if args.layout == "dp-sp" else 1
+                      "--layout dp is pure data parallelism — ignoring it")
+    if args.sp_ways != 2 and layout != "dp-tp-sp":  # 2 is the default
+        warnings.warn("--sp-ways only applies to --layout dp-tp-sp (the 2-D layouts "
+                      "size their one model axis with --ways); ignoring it")
+    if layout == "dp-tp-sp":
+        ways_arg, ways = (args.ways, args.sp_ways), args.ways * args.sp_ways
+    else:
+        ways = 1 if layout == "dp" else args.ways
+        ways_arg = ways
     was_up = dist.is_initialized()
     ctx = launch.initialize(args.device)
     try:
@@ -906,13 +1044,14 @@ def cmd_lm(args: argparse.Namespace, log_fn=print):
                 f"atomo_tpu_torch lm --n-devices {n_dev} ...")
         if ways < 1 or n_dev % ways:
             raise SystemExit(f"--ways {ways} does not divide {n_dev} devices")
-        if args.batch_size % (n_dev // ways):
-            raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
-                             f"dp={n_dev // ways}")
-        if args.seq_len % ways:
-            raise SystemExit(f"--seq-len must be divisible by sp ways={ways}")
-        mesh = launch.dp_sp_mesh(ways)
-        return _lm_loop(args, mesh, ctx.device, log_fn if ctx.rank == 0 else (lambda _: None))
+        dp = n_dev // ways
+        if args.batch_size % n_dev and layout == "dp-ep":
+            raise SystemExit(f"--batch-size {args.batch_size} must divide over all "
+                             f"{n_dev} chips for dp-ep")
+        if args.batch_size % dp:
+            raise SystemExit(f"--batch-size {args.batch_size} not divisible by dp={dp}")
+        return _lm_loop(args, n_dev, ways_arg, dp, ctx,
+                        log_fn if ctx.rank == 0 else (lambda _: None))
     finally:
         if not was_up:
             launch.shutdown()
@@ -945,16 +1084,65 @@ def lm_optimizer(args: argparse.Namespace):
     )
 
 
-def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
-    """The steps of :func:`cmd_lm` on this rank's place in ``mesh``;
-    ``log_fn`` prints (rank 0) or drops (the others)."""
+def _lm_eval(args, prog, state, cfg: dict, eval_tokens, dev, dp: int, ways: int):
+    """(held-out mean CE, the line's suffix) by the layout's single-device
+    forward on the gathered parameters (``eval_ppl``, ``:3450-3520``), on
+    rank 0, or None on the other ranks; collective for a family (its
+    parameters are gathered). dp-ep evaluates at the eval batch's own
+    capacity and also at the training capacity, per training-sized chunk."""
+    from atomo_tpu_torch.convert import jax_leaf_order
+    from atomo_tpu_torch.parallel import model_axes as MA
+    from atomo_tpu_torch.parallel import moe
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    toks = torch.from_numpy(eval_tokens[: args.batch_size]).to(dev, torch.int64)
+    if prog.splits is None:
+        if not rank0:
+            return None
+        state.model.eval()
+        with torch.no_grad():
+            return float(lm_loss(state.model(toks), toks)), ""
+    full = MA.gather_leaves(leaf_params(state.model), prog.splits, prog.mesh)
+    if not rank0:
+        return None
+    tree = MA.tree_of(jax_leaf_order(state.model), full)
+    extra = ""
+    with torch.no_grad():
+        if args.layout == "dp-ep":
+            logits = MA.oracle_logits(args.layout, tree, toks, cfg,
+                                      capacity=moe.expert_capacity(toks.numel(),
+                                                                   cfg["num_experts"]))
+            chunk_b = max(1, args.batch_size // (dp * ways))
+            cap_train = moe.expert_capacity(chunk_b * args.seq_len, cfg["num_experts"])
+            n_full = (toks.shape[0] // chunk_b) * chunk_b
+            ces = [float(lm_loss(MA.oracle_logits(args.layout, tree, toks[i:i + chunk_b], cfg,
+                                                  capacity=cap_train), toks[i:i + chunk_b]))
+                   for i in range(0, n_full, chunk_b)]
+            if ces:
+                extra = f", Loss@TrainCap: {sum(ces) / len(ces):.4f} (C={cap_train})"
+        else:
+            logits = MA.oracle_logits(args.layout, tree, toks, cfg)
+        return float(lm_loss(logits, toks)), extra
+
+
+def _lm_loop(args: argparse.Namespace, n_dev: int, ways_arg, dp: int, ctx, log_fn):
+    """The steps of :func:`cmd_lm` on this rank; ``log_fn`` prints (rank 0)
+    or drops (the others)."""
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel import model_axes as MA
+
+    layout, dev = args.layout, ctx.device
+    ways = n_dev // dp
     codec = lm_codec(args, log_fn)
     optimizer = lm_optimizer(args)
     next_batch, eval_tokens = lm_data(args)
+    cfg = lm_config(args)
     aggregate = args.aggregate
     if aggregate == "ring" and codec is None:
         raise SystemExit("--aggregate ring streams CODEC payloads around the dp axis; a "
-                         "dense code has no payloads to rotate: use psum (or pick a "
+                         "dense code has no payloads to rotate — use psum (or pick a "
                          "compressing --code)")
     if args.stream_encode and codec is None:
         warnings.warn(
@@ -967,10 +1155,10 @@ def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
                 "--overlap delayed carries the ENCODED payload between "
                 "steps; a dense --code has no payload to carry — pick a "
                 "compressing --code, or drop --overlap")
-        if mesh.n_dp <= 1:
+        if dp <= 1:
             raise SystemExit(
                 f"--overlap delayed needs a multi-replica dp axis; "
-                f"--layout {args.layout} at {mesh.n_dp * mesh.n_sp} devices resolves to "
+                f"--layout {layout} at {n_dev} devices resolves to "
                 "dp=1 — no dp exchange to take off the critical path")
         if aggregate == "psum":
             raise SystemExit(
@@ -978,9 +1166,17 @@ def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
                 "psum: the dense all-reduce has no encoded payload to "
                 "carry between steps — use gather or ring")
     if aggregate == "auto":
-        aggregate = "gather"
-        log_fn("--aggregate auto -> gather (the comm-cost model that chooses among "
-               "gather, psum and ring is not ported yet)")
+        # priced over the dp axis on the UNSHARDED LM (the model axes shard
+        # both sides of the ratio alike); no hierarchical: the model axes
+        # own the second mesh dimension
+        aggregate = resolve_auto_aggregate(args, codec, TransformerLM(**cfg), dp,
+                                           allow_hierarchical=False, log=log_fn)
+        if args.overlap == "delayed" and aggregate not in ("gather", "ring"):
+            raise SystemExit(
+                "--overlap delayed: --aggregate auto resolved to "
+                f"{aggregate!r} for this byte budget; pass --aggregate "
+                "gather or ring explicitly to keep the overlapped "
+                "schedule, or drop --overlap")
     exchange = None
     if args.stream_encode and codec is not None and aggregate == "psum":
         warnings.warn(
@@ -992,70 +1188,79 @@ def _lm_loop(args: argparse.Namespace, mesh, dev, log_fn):
                               stream_encode=bool(args.stream_encode and codec is not None),
                               stream_bucket_bytes=args.stream_bucket_bytes,
                               overlap=args.overlap)
-    state = create_lm_state(lm_config(args), optimizer, args.seed, dev)
-    if dist.is_initialized():
-        state = replicate_state(state)
+    # layout-inapplicable flags: warned, not silently ignored
+    defaults = {"attn_impl": "ring", "num_experts": 8, "microbatches": 2}
+    applicable = {"attn_impl": ("dp-sp", "dp-tp-sp"), "num_experts": ("dp-ep",),
+                  "microbatches": ("dp-pp",)}
+    for flag, default in defaults.items():
+        if getattr(args, flag) != default and layout not in applicable[flag]:
+            warnings.warn(f"--{flag.replace('_', '-')} only applies to layout "
+                          f"{'/'.join(applicable[flag])}; ignored for --layout {layout}")
+    sp_size = ways if layout == "dp-sp" else (args.sp_ways if layout == "dp-tp-sp" else 1)
+    if args.seq_len % sp_size:
+        raise SystemExit(f"--seq-len must be divisible by sp ways={sp_size}")
+    if layout == "dp-ep":
+        cfg["num_experts"] = args.num_experts
+    if layout == "dp-pp":
+        if args.depth % ways:
+            raise SystemExit(f"--depth {args.depth} must be divisible by pp ways={ways}")
+        if (args.batch_size // dp) % args.microbatches:
+            raise SystemExit(f"per-replica batch {args.batch_size // dp} not divisible "
+                             f"by --microbatches {args.microbatches}")
+    try:
+        spec = MeshSpec.from_layout(layout, n_dev, ways_arg)
+        prog = MA.build_model_axis_program(
+            spec, cfg, optimizer, args.seed, codec, layout=layout, attn_impl=args.attn_impl,
+            num_microbatches=args.microbatches, aggregate=aggregate, exchange=exchange,
+            compute_dtype=torch.bfloat16 if args.bf16 else None, device=dev)
+    except ValueError as e:  # sizing errors -> a clean one-liner
+        raise SystemExit(str(e)) from None
+    state = prog.state
     rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    delayed = exchange is not None and exchange.overlap == "delayed"
     start = 0
-    saved_carry = None
     if args.train_dir and args.resume and latest_step(args.train_dir) is not None:
-        state = load_checkpoint(args.train_dir, state)
-        saved_carry, state = state.carry, dataclasses.replace(state, carry=None)
+        state, saved_carry = MA.load_program_checkpoint(prog, args.train_dir)
         start = state.step
         log_fn(f"Resumed from {args.train_dir} at step {start}")
-    delayed = exchange is not None and exchange.overlap == "delayed"
-    if delayed:
-        state = init_model_axis_delayed_state(state, codec)
-        if start:  # the payload that step start + 1 consumes
-            carry, why = carry_from_saved(state.carry, saved_carry, rank, world)
+        if delayed:  # the payload that step start + 1 consumes
+            carry, why = carry_from_saved(prog.state.carry, saved_carry, rank, world)
             if why is not None:
                 warnings.warn(
                     "--overlap delayed resume: checkpoint has no overlap "
                     f"carry ({why}); restoring the train state only — the "
                     "first resumed step applies a zero (skipped) update")
             state = dataclasses.replace(state, carry=carry)
-    elif saved_carry is not None:
-        warnings.warn(
-            "resume: checkpoint was written by --overlap delayed "
-            "(it holds an overlap_carry); restoring its train state and discarding "
-            "the in-flight payload — pass --overlap delayed to "
-            "resume the overlapped run exactly")
-    step = make_lm_train_step(state.model, optimizer, codec,
-                              attn_impl=args.attn_impl if args.layout == "dp-sp" else "ring",
-                              aggregate=aggregate, exchange=exchange, mesh=mesh,
-                              compute_dtype=torch.bfloat16 if args.bf16 else None)
+        elif saved_carry is not None:
+            warnings.warn(
+                "resume: checkpoint was written by --overlap delayed "
+                "(it holds an overlap_carry); restoring its train state and discarding "
+                "the in-flight payload — pass --overlap delayed to "
+                "resume the overlapped run exactly")
     for i in range(start + 1, args.max_steps + 1):
         t0 = time.time()
         # every rank draws the global batch alike and takes its block
-        tokens = np.ascontiguousarray(shard_tokens(next_batch(), mesh))
-        state, metrics = step(state, fold_in(args.seed, i),
-                              torch.from_numpy(tokens).to(dev, torch.int64))
+        tokens = np.ascontiguousarray(prog.shard_tokens(next_batch()))
+        state, metrics = prog.step(state, fold_in(args.seed, i),
+                                   torch.from_numpy(tokens).to(dev, torch.int64))
         loss = float(metrics["loss"])  # device sync: honest step timing
         if i % args.log_interval == 0 or i == args.max_steps:
             log_fn(
-                f"LM: Step: {i}, Layout: {args.layout}({mesh.describe()}), "
+                f"LM: Step: {i}, Layout: {layout}({spec.describe()}), "
                 f"Loss: {loss:.4f}, PPL: {math.exp(min(loss, 30.0)):.2f}, "
                 f"Time Cost: {time.time() - t0:.4f}, "
                 f"Msg(MB): {metrics['msg_bytes'] / 1e6:.4f}, "
                 f"Dense(MB): {metrics['dense_bytes'] / 1e6:.4f}"
             )
-        if args.eval_freq and i % args.eval_freq == 0 and (mesh.rank_dp, mesh.rank_sp) == (0, 0):
-            # the single-device forward on the replicated parameters
-            state.model.eval()
-            with torch.no_grad():
-                toks = torch.from_numpy(eval_tokens[: args.batch_size]).to(dev, torch.int64)
-                vl = float(lm_loss(state.model(toks), toks))
-            log_fn(f"LM Validation: Step: {i}, Loss: {vl:.4f}, "
-                   f"PPL: {math.exp(min(vl, 30.0)):.2f}")
+        if args.eval_freq and i % args.eval_freq == 0:
+            got = _lm_eval(args, prog, state, cfg, eval_tokens, dev, dp, ways)
+            if got is not None:
+                vl, extra = got
+                log_fn(f"LM Validation: Step: {i}, Loss: {vl:.4f}, "
+                       f"PPL: {math.exp(min(vl, 30.0)):.2f}" + extra)
         if args.train_dir and ((args.save_freq and i % args.save_freq == 0)
                                or i == args.max_steps):
-            saved = state
-            if delayed:  # every rank's in-flight payload, one row each (cli.py:3541-3560)
-                saved = dataclasses.replace(state, carry=gather_carry(state.carry, world))
-            if (mesh.rank_dp, mesh.rank_sp) == (0, 0):
-                save_checkpoint(args.train_dir, saved, compress=args.compress)
-            if dist.is_initialized():
-                dist.barrier()  # no rank goes on before the file is in place
+            MA.save_program_checkpoint(prog, state, args.train_dir, compress=args.compress)
     return state
 
 

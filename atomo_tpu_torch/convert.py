@@ -11,7 +11,11 @@ follows from its module tree:
 * :class:`~atomo_tpu_torch.models.transformer.LayerNorm`: ``scale``;
 * ``nn.Embedding``: ``embedding``, (num, features) on both sides;
 * a parameter held on a module itself (``self.param`` in Flax, as the
-  embedding tower's ``table``): its attribute name, laid out alike.
+  embedding tower's ``table``): its attribute name, laid out alike. The LM
+  layouts' family trees (the tp-laid, MoE and pp-stacked trees) are held
+  so (``parallel.common.ParamTree``), so they ARE the JAX layout:
+  :func:`family_slice` cuts a full JAX tree (numpy) to one rank's slice of
+  the port's state, and :func:`to_numpy_tree` gives it back.
 
 :func:`opt_state_from_jax` / :func:`jax_opt_state` carry the optimizer
 state (optax's momentum trace, Adam's count and moments) both ways, in the
@@ -270,3 +274,51 @@ def jax_opt_state(model: nn.Module, state: OptState, template):
         return node
 
     return fill(template)
+
+
+# ---- the LM layouts' family trees ------------------------------------------
+
+
+def tree_leaves(tree: dict) -> list:
+    """A nested dict's leaves in ``jax.tree_util.tree_flatten`` order (keys
+    sorted as strings at every level)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def slice_tree(full: dict, specs: dict, rank: int, n: int) -> dict:
+    """Rank ``rank``'s slice of a full tree: one of ``n`` along each leaf's
+    sharded dimension (``specs``: per leaf a dimension, or None for a
+    replicated leaf)."""
+    def one(leaf, dim):
+        if dim is None or n == 1:
+            return leaf
+        k = leaf.shape[dim] // n
+        idx = [slice(None)] * leaf.ndim
+        idx[dim] = slice(rank * k, (rank + 1) * k)
+        return leaf[tuple(idx)]
+
+    if isinstance(full, dict):
+        return {k: slice_tree(full[k], specs[k], rank, n) for k in full}
+    return one(full, specs)
+
+
+def family_slice(layout: str, full: dict, mesh) -> dict:
+    """This rank's slice of a layout's full family tree (the JAX package's
+    tp-laid, MoE or pp-stacked tree, numpy or torch): the leaves its model
+    axis shards cut to this rank's index on that axis (``mesh``, a
+    :class:`~atomo_tpu_torch.mesh.spec.ProcessMesh`)."""
+    from atomo_tpu_torch.parallel.model_axes import FAMILY_AXIS, family_specs
+
+    axis = FAMILY_AXIS[layout]
+    return slice_tree(full, family_specs(layout, full), mesh.index(axis), mesh.size(axis))
+
+
+def to_numpy_tree(tree: dict) -> dict:
+    """A nested dict of tensors as numpy copies (a ParamTree's ``tree()``,
+    a gathered full tree): the JAX package's layout as it is."""
+    return {k: to_numpy_tree(v) if isinstance(v, dict)
+            else np.array(v.detach().cpu().numpy(), copy=True) for k, v in tree.items()}

@@ -1,4 +1,5 @@
-"""Payload packing, layer buckets, the ring rotation, and the collectives of the sp axis.
+"""Payload packing, layer buckets, the ring rotation, the collectives of the sp axis,
+and the pieces the LM's model-axis families share.
 
 Counterpart of ``atomo_tpu/parallel/common.py:34,99,131`` (``pack_tree_buckets``
 / ``unpack_tree_buckets``, ``plan_layer_buckets``) and of ``atomo_tpu/mesh/collectives.py:19,28``
@@ -22,14 +23,22 @@ the payloads as they were; of a gathered (N, B) buffer it gives each field
 with a leading replica axis of stride B bytes, which the tree decode reads
 in place (no copy into a replica-contiguous layout). Packing and unpacking
 are a relayout with no arithmetic, so the round trip is exact.
+
+For the tp, MoE and pp families (``atomo_tpu/parallel/common.py:177-242``):
+:class:`ParamTree` (a family's tree, its leaves in the JAX layout),
+:func:`layernorm`, :func:`attention_sublayer` (the MoE and pp blocks'
+attention: the plain ``full_attention``, as in the JAX package) and
+:func:`complete_model_axis_grads`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 _ALIGN = 16  # bytes: the buffer's length is a multiple of it
 
@@ -245,3 +254,91 @@ def all_to_all(x: torch.Tensor, group: Optional[object], n: int) -> torch.Tensor
     if group is None:
         raise ValueError(f"an all-to-all over {n} ranks needs their process group")
     return _AllToAll.apply(x, group)
+
+
+# ---- the LM layouts' parameter trees and shared sublayers ------------------
+# (atomo_tpu/parallel/common.py:177-242)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of float32 tensors held as parameters, each submodule
+    and parameter named as its key in the JAX package's tree (``tok_emb``,
+    ``block0``, ``qkv``, ``kernel``...). So ``convert.jax_leaf_order`` gives
+    the tree's ``tree_flatten`` order, and since a parameter held on a
+    plain module lies alike in both packages, ``convert.jax_layouts`` is
+    False for every leaf: the tensors ARE the JAX layout (a tp qkv kernel
+    (W, 3, H, D), an MoE expert stack (E, W, F), a pp block stack (depth,
+    ...)). The tp, MoE and pp families keep each rank's slice so."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                t = torch.as_tensor(v, dtype=torch.float32)
+                self.register_parameter(k, nn.Parameter(t.clone()))
+
+    def tree(self) -> dict:
+        """The live parameters as a nested dict."""
+        out: dict = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def map_tree(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0) -> torch.Tensor:
+    """Plain normal over 1/sqrt(fan_in) of the contracted axis, untruncated
+    (``common.py dense_init``), drawn from ``gen``."""
+    return torch.randn(tuple(shape), generator=gen) / math.sqrt(shape[in_axis])
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Flax ``LayerNorm(use_bias=False)``: the one-pass variance
+    ``max(mean(x^2) - mean(x)^2, 0)``."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    return (x - mean) * (torch.rsqrt(var + eps) * scale)
+
+
+def attention_sublayer(bp: dict, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The pre-LN causal attention sublayer on stock-layout block params
+    (``ln1``, ``qkv`` (W, 3HD), ``proj`` (HD, W)): ``x + proj(attn)``, its
+    attention the plain causal ``full_attention`` (the MoE and pp blocks')."""
+    from atomo_tpu_torch.parallel.ring import full_attention
+
+    b, s, w = x.shape
+    h = num_heads
+    d = w // h
+    y = layernorm(x, bp["ln1"]["scale"])
+    qkv = (y @ bp["qkv"]["kernel"]).reshape(b, s, 3, h, d)
+    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    att = full_attention(q, k, v, causal=True)
+    return x + att.transpose(1, 2).reshape(b, s, h * d) @ bp["proj"]["kernel"]
+
+
+def complete_model_axis_grads(grads: Sequence[torch.Tensor], sharded: Sequence[bool], group,
+                              n: int) -> list[torch.Tensor]:
+    """Per-rank gradient completion over a model axis of ``n`` ranks (ep,
+    pp): a leaf sharded over the axis is exact for its slice; a replicated
+    leaf holds this rank's partial, which one sum over ``group`` completes
+    (the replicated leaves ride one all_reduce). Nothing is divided: the
+    port's tp gradients carry no n_tp scaling (``mesh.collectives``)."""
+    out = list(grads)
+    rep = [i for i, s in enumerate(sharded) if not s]
+    if n > 1 and rep:
+        flat = torch.cat([grads[i].reshape(-1) for i in rep])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for i in rep:
+            k = grads[i].numel()
+            out[i] = flat[off:off + k].view_as(grads[i])
+            off += k
+    return out

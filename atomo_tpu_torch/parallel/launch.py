@@ -179,28 +179,22 @@ def mesh_position(rank: int, n_sp: int) -> tuple[int, int]:
 
 def dp_sp_mesh(n_sp: int = 1) -> DpSpMesh:
     """The (world / n_sp, n_sp) mesh over the process group that is up, or
-    the one-device mesh when none is. Every rank creates every subgroup, in
-    the same order (``torch.distributed.new_group`` is collective over the
-    world): the sp groups of dp rows 0, 1, ..., then the dp groups of sp
-    columns 0, 1, .... At ``n_sp = 1`` the dp group is the world's."""
+    the one-device mesh when none is: :meth:`~atomo_tpu_torch.mesh.spec.
+    MeshSpec.build` over ``(dp, sp)``, which creates on every rank, in the
+    same order, the sp groups of dp rows 0, 1, ..., then the dp groups of
+    sp columns 0, 1, .... At ``n_sp = 1`` the dp group is the world's."""
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+
     if not dist.is_initialized():
         if n_sp != 1:
             raise ValueError(f"an sp axis of {n_sp} needs a process group of one "
                              "process per device; none is up")
         return DpSpMesh()
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world = dist.get_world_size()
     if n_sp < 1 or world % n_sp:
         raise ValueError(f"sp ways {n_sp} does not divide {world} devices")
-    n_dp = world // n_sp
-
-    def group(ranks: list[int]):
-        # the world's own group for a group of every rank (one communicator)
-        return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
-
-    d, s = mesh_position(rank, n_sp)
-    sp_groups = [group([r * n_sp + c for c in range(n_sp)]) for r in range(n_dp)]
-    dp_groups = [group([r * n_sp + c for r in range(n_dp)]) for c in range(n_sp)]
-    return DpSpMesh(n_dp, n_sp, d, s, dp_groups[s], sp_groups[d])
+    m = MeshSpec((("dp", world // n_sp), ("sp", n_sp))).build()
+    return DpSpMesh(m.n_dp, n_sp, m.index("dp"), m.index("sp"), m.group("dp"), m.group("sp"))
 
 
 def shutdown() -> None:

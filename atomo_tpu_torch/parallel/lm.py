@@ -45,6 +45,9 @@ the program becomes a call over the process's sp or dp group. Each step:
   kernel's forward included), and the update waits for backward. Step 0
   applies nothing and ``metrics["skipped"]`` is 1.
 
+The dp tail is :func:`make_model_axis_step`, which every layout's family
+(``tp``, ``moe``, ``pp``) builds on with its own gradient function.
+
 Phases are ``record_function`` ranges: ``step.forward_backward``,
 ``step.sp_reduce``, ``step.encode``, ``step.exchange``,
 ``step.decode_mean``, ``step.ring_exchange_decode``, ``step.update``, and
@@ -101,7 +104,6 @@ from atomo_tpu_torch.training.trainer import TrainState, create_state, forward, 
 from atomo_tpu_torch.utils.rng import fold_in
 
 AGGREGATES = ("gather", "psum", "ring")
-LATER = "comes with a later slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,24 +338,6 @@ def make_lm_train_step(
     attention = partial(ATTENTION_IMPLS[attn_impl], axis_name="sp", axis_size=mesh.n_sp,
                         causal=True, group=mesh.sp_group)
     params = leaf_params(model)
-    layouts = jax_layouts(model)
-    device = params[0].device
-    delayed = exchange is not None and exchange.overlap == "delayed"
-    if delayed and codec is None:
-        raise ValueError(
-            "overlap='delayed' needs a codec: the carry holds encoded "
-            "payloads (a dense delayed exchange has nothing to carry)")
-    streamed = (exchange is not None and exchange.stream_encode and codec is not None
-                and exchange.aggregate != "psum")
-    plan = plan_layer_buckets(params, exchange.stream_bucket_bytes) if streamed else None
-    # a gradient is whole before the sp reduce only at sp 1: the hooks serve there
-    hooked = streamed and mesh.n_sp == 1 and encode_syncs(codec) is None
-    enc_stream = side_stream(device) if hooked else None
-    cons_stream = side_stream(device) if delayed else None
-
-    def codec_key(key: int, state: TrainState) -> int:
-        # the same on every sp rank of a replica (lm.py:612-614)
-        return fold_in(fold_in(key, state.step), mesh.rank_dp)
 
     def grads_fn(state: TrainState, tokens: torch.Tensor, bs):
         """(this replica's completed gradient, loss)."""
@@ -381,9 +365,56 @@ def make_lm_train_step(
                 num = flat[-1]
         return grads, num / total
 
+    return make_model_axis_step(params, optimizer, codec, grads_fn, mesh=mesh,
+                                layouts=jax_layouts(model), aggregate=aggregate,
+                                exchange=exchange, hookable=mesh.n_sp == 1)
+
+
+def make_model_axis_step(
+    params: Sequence[torch.Tensor],
+    optimizer: Optimizer,
+    codec,
+    grads_fn,
+    *,
+    mesh,
+    layouts: Sequence[bool],
+    aggregate: str = "gather",
+    exchange: Optional[DpExchange] = None,
+    hookable: bool = True,
+):
+    """The dp tail of every LM layout around a family's ``grads_fn(state,
+    tokens, bs) -> (completed gradient, replica loss)`` (``lm.py:290``
+    ``dp_exchange_tail`` and ``make_delayed_model_axis_step``): ``params``
+    are this rank's leaves in the family tree's canonical order, ``mesh``
+    gives ``n_dp``, ``rank_dp`` and ``dp_group``. The codec key is
+    ``fold_in(fold_in(key, step), rank_dp)``, so every model-axis rank of a
+    replica encodes its own slice under its replica's key. ``hookable``
+    says whether a leaf's gradient is whole when backward leaves it (no
+    model-axis reduce after backward, one backward a step): only then may
+    ``--stream-encode`` issue its buckets from backward hooks (``grads_fn``
+    arms ``bs`` on ``params`` before its backward); otherwise the buckets
+    are encoded one after another after the completion. Returns
+    ``step(state, key, tokens, draws=None) -> (state, metrics)``."""
+    device = params[0].device
+    delayed = exchange is not None and exchange.overlap == "delayed"
+    if delayed and codec is None:
+        raise ValueError(
+            "overlap='delayed' needs a codec: the carry holds encoded "
+            "payloads (a dense delayed exchange has nothing to carry)")
+    streamed = (exchange is not None and exchange.stream_encode and codec is not None
+                and exchange.aggregate != "psum")
+    plan = plan_layer_buckets(params, exchange.stream_bucket_bytes) if streamed else None
+    hooked = streamed and hookable and encode_syncs(codec) is None
+    enc_stream = side_stream(device) if hooked else None
+    cons_stream = side_stream(device) if delayed else None
+
+    def codec_key(key: int, state: TrainState) -> int:
+        # the same on every model-axis rank of a replica (lm.py:612-614)
+        return fold_in(fold_in(key, state.step), mesh.rank_dp)
+
     def bucket_stream(k_codec, draws, wire: bool) -> Optional[BucketStream]:
-        """The step's hook-driven bucket encodes (sp 1), or None."""
-        if not streamed or mesh.n_sp > 1:
+        """The step's hook-driven bucket encodes, or None."""
+        if not streamed or not hookable:
             return None
         bw = BucketWire(codec, plan, layouts, aggregate=exchange.aggregate, rank=mesh.rank_dp,
                         world=mesh.n_dp, n_contrib=mesh.n_dp,
@@ -395,7 +426,7 @@ def make_lm_train_step(
 
     def encode(bs, k_codec, grads, draws) -> list:
         """This replica's payloads: the bucket stream's, the buckets one
-        after another (sp > 1), or the monolithic encode."""
+        after another, or the monolithic encode."""
         with record_function("step.encode"):
             if bs is not None:
                 return bs.finish()
@@ -457,7 +488,7 @@ def make_lm_train_step(
         metrics = {"loss": _dp_mean(loss.detach().reshape(1), mesh)[0], "msg_bytes": msg_bytes,
                    "dense_bytes": tree_nbytes(grads),
                    "skipped": skipped if carry.valid else skipped + 1}
-        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+        return TrainState(step=state.step + 1, model=state.model, opt_state=opt_state,
                           carry=dataclasses.replace(carry, valid=True)), metrics
 
     def step(state: TrainState, key: int, tokens: torch.Tensor,

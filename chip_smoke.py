@@ -264,7 +264,8 @@ LM_SHAPE = (16, 4, 1024, 64)  # (B, H, S, D) the flash kernel sees
 LM_ARGS = ["lm", "--layout", "dp-sp", "--ways", "1", "--attn-impl", "ulysses-flash",
            "--vocab-size", "256", "--seq-len", "1024", "--width", "256", "--depth",
            str(LM_DEPTH), "--num-heads", "4", "--batch-size", "16", "--lr", "0.1",
-           "--momentum", "0.9", "--seed", "0", "--log-interval", "1", "--device", "cuda"]
+           "--momentum", "0.9", "--seed", "0", "--log-interval", "1", "--device", "cuda",
+           "--aggregate", "gather"]
 
 
 def log(*parts):
@@ -3419,6 +3420,7 @@ def overlap_gloo_child(rank: int, work: str, out_path: str) -> int:
     import torch
 
     sys.path.insert(0, str(ROOT))
+    import atomo_tpu_torch.parallel.lm as LM
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch import cli, ops
     from atomo_tpu_torch.parallel import launch
@@ -3441,9 +3443,9 @@ def overlap_gloo_child(rank: int, work: str, out_path: str) -> int:
 
         return make
 
-    make_step, make_lm = R.make_distributed_train_step, cli.make_lm_train_step
+    make_step, make_lm = R.make_distributed_train_step, LM.make_lm_train_step
     R.make_distributed_train_step = traced(make_step)
-    cli.make_lm_train_step = traced(make_lm)
+    LM.make_lm_train_step = traced(make_lm)
     out: dict = {}
     try:
         for label, argv in (
@@ -3462,7 +3464,7 @@ def overlap_gloo_child(rank: int, work: str, out_path: str) -> int:
             torch.cuda.synchronize()
             out[label] = {"lines": lines, "trace": list(trace), "launches": ops.launch_counts()}
     finally:
-        R.make_distributed_train_step, cli.make_lm_train_step = make_step, make_lm
+        R.make_distributed_train_step, LM.make_lm_train_step = make_step, make_lm
         launch.shutdown()
     Path(out_path).write_text(json.dumps(out))
     return 0
@@ -3734,6 +3736,329 @@ def phase_overlap(work: Path, card: str, grads, errs: dict) -> dict:
             "seconds": seconds, "card": card, "launches": launches}
 
 
+# ------------------------------------------------------------ the layouts phase
+
+LAYOUTS = ("dp-tp", "dp-ep", "dp-pp", "dp-tp-sp")
+LAYOUT_STEPS = 5  # step ms: the median of steps 2-5
+LAYOUT_CFG = dict(vocab_size=256, max_len=1024, width=256, depth=LM_DEPTH, num_heads=4)
+LAYOUT_EXTRA = {"dp-tp": [], "dp-ep": ["--num-experts", "8"], "dp-pp": ["--microbatches", "2"],
+                "dp-tp-sp": ["--sp-ways", "1", "--attn-impl", "ulysses-flash"]}
+
+
+def layout_argv(layout: str, code: str, *extra) -> list[str]:
+    """``lm --layout <layout> --ways 1`` at the LM recipe (scripts/run_lm_tpu.sh:
+    vocab 256, seq 1024, width 256, depth 4, 4 heads, batch 16), the dp
+    exchange gather (so Msg(MB) is the codec's payload)."""
+    return ["lm", "--layout", layout, "--ways", "1", "--vocab-size", "256", "--seq-len",
+            "1024", "--width", "256", "--depth", str(LM_DEPTH), "--num-heads", "4",
+            "--batch-size", "16", "--lr", "0.1", "--momentum", "0.9", "--seed", "0",
+            "--log-interval", "1", "--device", "cuda", "--train-dir", "", "--aggregate",
+            "gather", "--max-steps", str(LAYOUT_STEPS), "--code", code,
+            *LAYOUT_EXTRA[layout], *extra]
+
+
+def layout_program(layout: str, code: str, dev):
+    """The program ``lm`` builds for ``layout_argv(layout, code)``, with the
+    verb's own config, optimizer, codec and first batch."""
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.parallel import model_axes as MA
+
+    args = cli.build_parser().parse_args(layout_argv(layout, code))
+    cfg = cli.lm_config(args)
+    if layout == "dp-ep":
+        cfg["num_experts"] = args.num_experts
+    spec = MeshSpec.from_layout(layout, 1, (1, 1) if layout == "dp-tp-sp" else 1)
+    prog = MA.build_model_axis_program(
+        spec, cfg, cli.lm_optimizer(args), args.seed, cli.lm_codec(args, lambda _: None),
+        layout=layout, attn_impl=args.attn_impl, num_microbatches=args.microbatches,
+        aggregate="gather", device=dev)
+    return prog, cfg, cli.lm_data(args)[0]()
+
+
+def stock_lm_logits(tree: dict, tokens, cfg: dict):
+    """dp-tp's and dp-tp-sp's oracle: the stock ``TransformerLM`` (its plain
+    attention, nothing of the tp forward) loaded with ``tp_params_to_lm`` of
+    the family tree."""
+    from atomo_tpu_torch.convert import state_dict_from_jax
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.parallel import tp
+    from atomo_tpu_torch.parallel.common import map_tree
+
+    lm = TransformerLM(**cfg)
+    flat = map_tree(lambda t: t.detach().cpu().numpy(),
+                    tp.tp_params_to_lm(tree, cfg["num_heads"]))
+    lm.load_state_dict(state_dict_from_jax(lm, flat, {}))
+    return lm.to(tokens.device)(tokens)
+
+
+def moe_lm_by_expert(tree: dict, tokens, cfg: dict, capacity: int):
+    """dp-ep's oracle, written apart from ``moe.moe_mlp``: each layer routes
+    every token to its top-1 expert, then runs one expert at a time on the
+    first ``capacity`` tokens routed to it (in token order) with plain
+    matmuls, scaled by the gate; a dropped token's MLP output is zero. No
+    slot buffer, no all-to-all, no batched matmul. -> (logits, mean aux)."""
+    import torch
+    import torch.nn.functional as F
+
+    from atomo_tpu_torch.parallel.common import attention_sublayer, layernorm
+
+    b, s = tokens.shape
+    e = cfg["num_experts"]
+    pos = torch.arange(s, device=tokens.device)
+    x = tree["tok_emb"]["embedding"][tokens] + tree["pos_emb"]["embedding"][pos][None]
+    aux = 0.0
+    for i in range(cfg["depth"]):
+        p = tree[f"block{i}"]
+        x = attention_sublayer(p, x, cfg["num_heads"])
+        y = layernorm(x, p["ln2"]["scale"]).reshape(b * s, -1)
+        probs = torch.softmax((y @ p["router"]["kernel"]).float(), dim=-1)
+        expert = torch.argmax(probs, dim=-1)
+        mlp = torch.zeros_like(y)
+        counts = []
+        for j in range(e):
+            mine = (expert == j).nonzero()[:, 0]
+            counts.append(mine.numel())
+            kept = mine[:capacity]
+            h = F.gelu(y[kept] @ p["up"]["kernel"][j], approximate="tanh")
+            mlp[kept] = (h @ p["down"]["kernel"][j]) * probs[kept, j][:, None]
+        share = torch.tensor(counts, dtype=torch.float32, device=y.device) / (b * s)
+        aux = aux + e * (share * probs.mean(dim=0)).sum()
+        x = x + mlp.reshape(b, s, -1)
+    x = layernorm(x, tree["ln_f"]["scale"])
+    return x @ tree["head"]["kernel"], aux / cfg["depth"]
+
+
+def layout_step0(dev) -> dict:
+    """Each family's first-step loss against an oracle that shares no code
+    with its step's forward, on the same parameters and tokens, float32,
+    within 1e-5 relative: dp-tp and dp-tp-sp against the stock LM
+    (:func:`stock_lm_logits`; dp-tp-sp's step runs the flash kernel, the
+    stock LM the plain attention), dp-ep against :func:`moe_lm_by_expert`
+    at the capacity of the whole batch (ep 1: the training capacity) plus
+    0.01 times its aux loss, dp-pp against the layer-by-layer reference
+    (``pp_lm_forward_reference``) of its GPipe step."""
+    import torch
+    import torch.nn.functional as F
+
+    from atomo_tpu_torch.convert import jax_leaf_order
+    from atomo_tpu_torch.parallel import model_axes as MA
+    from atomo_tpu_torch.parallel import moe, pp
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    out = {}
+    for layout in LAYOUTS:
+        prog, cfg, batch = layout_program(layout, "svd", dev)
+        toks = torch.from_numpy(batch).to(dev, torch.int64)
+        aux = 0.0
+        with torch.no_grad():
+            tree = MA.tree_of(jax_leaf_order(prog.state.model),
+                              [p.detach().clone() for p in leaf_params(prog.state.model)])
+            if layout == "dp-ep":
+                cap = moe.expert_capacity(toks.numel(), cfg["num_experts"])
+                logits, aux = moe_lm_by_expert(tree, toks, cfg, cap)
+            elif layout == "dp-pp":
+                logits = pp.pp_lm_forward_reference(tree, toks, cfg)
+            else:
+                logits = stock_lm_logits(tree, toks, cfg)
+            want = F.cross_entropy(logits[:, :-1].reshape(-1, 256), toks[:, 1:].reshape(-1))
+            want = want + 0.01 * aux
+        _, m = prog.step(prog.state, 1, toks)
+        got, want = float(m["loss"]), float(want)
+        if not math.isclose(got, want, rel_tol=1e-5):
+            raise AssertionError(f"layouts {layout}: step-0 loss {got} vs oracle {want}")
+        out[layout] = {"loss": got, "oracle": want}
+        log(f"layouts {layout}: step-0 loss {got:.6f} = oracle forward {want:.6f} (rel 1e-5)")
+        del prog
+    return out
+
+
+def layout_tp_vs_dp(dev, steps: int = 3) -> dict:
+    """dp-tp at tp 1 against dp, ``--code sgd``: the same initialisation
+    re-laid, 3 steps on the same batches, losses within 1e-4 relative."""
+    import torch
+
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.parallel import model_axes as MA
+
+    losses = {}
+    for layout in ("dp", "dp-tp"):
+        argv = layout_argv("dp-tp", "sgd")
+        argv[2] = layout
+        args = cli.build_parser().parse_args(argv)
+        prog = MA.build_model_axis_program(
+            MeshSpec.from_layout(layout, 1, 1), cli.lm_config(args), cli.lm_optimizer(args),
+            args.seed, None, layout=layout, aggregate="psum", device=dev)
+        nxt = cli.lm_data(args)[0]
+        state, ls = prog.state, []
+        for i in range(1, steps + 1):
+            state, m = prog.step(state, i, torch.from_numpy(nxt()).to(dev, torch.int64))
+            ls.append(float(m["loss"]))
+        losses[layout] = ls
+        del prog, state
+    for a, b in zip(losses["dp"], losses["dp-tp"]):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"layouts dp-tp at tp 1 vs dp: losses {losses}")
+    log(f"layouts dp-tp (tp 1) vs dp, sgd: losses {losses['dp-tp']} vs {losses['dp']} "
+        "(rel 1e-4)")
+    return losses
+
+
+def layout_kernel_checks(dev, errs: dict) -> dict:
+    """Rows 1, 2 and 5 at this phase's shapes against their plain versions:
+    the fused QSGD encode (one tree launch) and the tree decode over the
+    MoE LM's leaves (8 experts stacked, the JAX layout), 4 bits, words bit
+    for bit, scales rtol 1e-6, decoded values bit for bit; the flash kernel
+    on the head views the tp forward hands it (``einsum('bsw,wthd->tbhsd')``
+    of the recipe's activations), float32 within 2e-5 and bfloat16 within
+    2e-2 of the float32 plain value."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec
+    from atomo_tpu_torch.ops import attention_kernels as A
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel import moe
+    from atomo_tpu_torch.convert import tree_leaves
+
+    full = moe.init_moe_lm_params(3, dict(LAYOUT_CFG, num_experts=8))
+    leaves = [t.to(dev) * 0.01 for t in tree_leaves(full)]
+    layouts = [False] * len(leaves)
+    codec = QsgdCodec(bits=4)
+    tree = [codec._clip_leaf(x.reshape(-1)) for x in leaves]
+    seeds = [1000003 * (i + 1) for i in range(len(tree))]
+    got = K.quantize_pack_tree(tree, bits=4, scheme=codec.scheme, seeds=seeds)
+    want = K.quantize_pack_tree_plain(tree, bits=4, scheme=codec.scheme, seeds=seeds)
+    for (wk, sk), (wp, sp) in zip(got, want):
+        if not same_bits(wk, wp):
+            raise AssertionError("layouts: quantize_pack_tree words differ on the MoE tree")
+        torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+        errs["quantize_pack"] = max(errs["quantize_pack"], float((sk - sp).abs().max()))
+    payloads = replica_payloads(codec, leaves, 1, layouts)
+    dk = K.unpack_dequantize_tree(payloads, leaves, layouts, bits=4, n_replicas=1)
+    dp = K.unpack_dequantize_tree_plain(payloads, leaves, layouts, bits=4, n_replicas=1)
+    for a, b in zip(dk, dp):
+        if not torch.equal(a, b):
+            raise AssertionError("layouts: unpack_dequantize_tree differs on the MoE tree")
+    errs["unpack_dequantize"] = max([errs["unpack_dequantize"]]
+                                    + [float((a - b).abs().max()) for a, b in zip(dk, dp)])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    y = torch.randn((16, 1024, 256), generator=gen, device=dev)
+    kern = torch.randn((256, 3, 4, 64), generator=gen, device=dev) / 16
+    blk = dict(block_q=512, block_k=512)
+    out = {"moe_leaves": len(leaves)}
+    for dtype, tol, key in ((torch.float32, 2e-5, "flash_attention"),
+                            (torch.bfloat16, 2e-2, "flash_attention_bf16")):
+        qkv = torch.einsum("bsw,wthd->tbhsd", y.to(dtype), kern.to(dtype))
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        a = A.flash_attention_forward(q, k, v, causal=True, **blk)
+        b = A.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, **blk)
+        err = float((a.float() - b).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"layouts: flash on the tp head views {dtype}: err {err}")
+        errs[key] = max(errs[key], err)
+        out[key] = err
+    torch.cuda.synchronize()
+    log(f"layouts check: rows 1-2 over the MoE tree's {len(leaves)} leaves (4 bits) equal their "
+        f"plain versions; the flash kernel on the tp head views (16, 4, 1024, 64): max abs err "
+        f"{out['flash_attention']:.3e} float32 (<= 2e-5), {out['flash_attention_bf16']:.3e} "
+        "bfloat16 (<= 2e-2)")
+    return out
+
+
+def layout_comm(runs: dict, card: str) -> dict:
+    """The ``comm`` lines: the codec tax anchor measured in this call
+    (ResNet-18 svd3's median step minus sgd's, from ``phase_train``) beside
+    the constant ``utils/comm_model.py`` carries, and the ``--aggregate
+    auto`` line each verb prints: ``lm`` at the recipe over dp 1 (this
+    card) and 8, ``train`` (ResNet-18 svd3) priced for 8 ranks on one
+    host."""
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.models.transformer import TransformerLM
+    from atomo_tpu_torch.tuning.probe import byte_budget
+    from atomo_tpu_torch.utils import comm_model
+
+    svd = runs["svd3"]["median_step_ms_after_first"]
+    sgd = runs["sgd"]["median_step_ms_after_first"]
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    dense = byte_budget(None, model)[0]
+    log(f"comm codec tax anchor ({card}): ResNet-18 svd rank 3 median step {svd:.3f} ms - sgd "
+        f"{sgd:.3f} ms = {svd - sgd:.3f} ms on a {dense}-byte dense gradient; "
+        f"utils/comm_model._TAX_ANCHOR_S = {comm_model._TAX_ANCHOR_S * 1e3:.3f} ms")
+    lines = {}
+    lm_args = cli.build_parser().parse_args(layout_argv("dp-tp", "svd"))
+    lm_codec = cli.lm_codec(lm_args, lambda _: None)
+    for ways in (1, 8):
+        cli.resolve_auto_aggregate(lm_args, lm_codec, TransformerLM(**LAYOUT_CFG), ways,
+                                   allow_hierarchical=False,
+                                   log=lambda ln, w=ways: lines.setdefault(f"lm_dp{w}", ln))
+    tr_args = cli.build_parser().parse_args(TRAIN_ARGS + ["--code", "svd", "--svd-rank", "3"])
+    tr_codec = cli.get_codec("svd", svd_rank=3)
+    cli.resolve_auto_aggregate(tr_args, tr_codec, model, 8,
+                               log=lambda ln: lines.setdefault("train_n8", ln))
+    for k, ln in lines.items():
+        log(f"comm {k}: {ln}")
+    return {"svd3_ms": svd, "sgd_ms": sgd, "tax_ms": svd - sgd, "dense_bytes": dense,
+            "constant_ms": comm_model._TAX_ANCHOR_S * 1e3, "auto_lines": lines}
+
+
+def phase_layouts(work: Path, card: str, runs: dict, errs: dict) -> dict:
+    """Phase 16: dp-tp, dp-ep, dp-pp and dp-tp-sp through the ``lm`` verb at
+    NCCL world 1 with the model axis at 1, at the LM recipe (8 experts, 2
+    microbatches): ``--code svd`` (auto rank 24) on each, ``--code qsgd``
+    on dp-ep (rows 1-2 once a step each), dp-tp-sp with ``ulysses-flash``
+    (row 5 once a layer a step) in float32 and ``--bf16``. Each run: its
+    median step ms (steps 2-5), Msg(MB), peak GiB and launches. Then the
+    step-0 oracle checks, dp-tp at tp 1 against dp, rows 1, 2 and 5 against
+    their plain versions at these shapes, and the ``comm`` lines."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    res: dict = {"runs": {}}
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/layouts_nccl1",
+                      world_size=1, rank=0)
+    try:
+        plan = [(f"{lay}_svd", layout_argv(lay, "svd"),
+                 ["flash_attention"] if lay == "dp-tp-sp" else []) for lay in LAYOUTS]
+        plan += [("dp-ep_qsgd", layout_argv("dp-ep", "qsgd", "--quantization-level", "4"),
+                  ["quantize_pack", "unpack_dequantize"]),
+                 ("dp-tp-sp_svd_bf16", layout_argv("dp-tp-sp", "svd", "--bf16"),
+                  ["flash_attention"])]
+        for label, argv, expect in plan:
+            r = run_cli(argv, expect, prefix="LM: ")
+            r["median_step_ms"] = statistics.median(r["step_ms"][1:LAYOUT_STEPS])
+            c = r["launches"]
+            want = {"flash_attention": LM_DEPTH * LAYOUT_STEPS if "dp-tp-sp" in label else 0,
+                    "quantize_pack": LAYOUT_STEPS if "qsgd" in label else 0,
+                    "unpack_dequantize": LAYOUT_STEPS if "qsgd" in label else 0,
+                    "pack_bucketed": 0, "unpack_bucketed": 0}
+            if c != want:
+                raise AssertionError(f"layouts {label}: launches {c}, want {want}")
+            res["runs"][label] = r
+            log(f"layouts {label} ({card}): median step {r['median_step_ms']:.3f} ms (steps "
+                f"2-{LAYOUT_STEPS}), Msg(MB) {r['msg_mb']}, peak {r['peak_gib']:.3f} GiB, "
+                f"launches a step {({k: v / LAYOUT_STEPS for k, v in c.items() if v})}, "
+                f"losses {r['losses']}")
+    finally:
+        launch.shutdown()
+    res["seconds_runs"] = time.time() - t0
+    res["step0"] = layout_step0(dev)
+    res["tp_vs_dp"] = layout_tp_vs_dp(dev)
+    res["checks"] = layout_kernel_checks(dev, errs)
+    res["comm"] = layout_comm(runs, card)
+    res["launches"] = {name: sum(r["launches"][name] for r in res["runs"].values())
+                       for name in REPLACES}
+    res["seconds"] = time.time() - t0
+    log(f"layouts launches on the main path: row 1 {res['launches']['quantize_pack']}, row 2 "
+        f"{res['launches']['unpack_dequantize']}, row 5 {res['launches']['flash_attention']}; "
+        f"phase seconds {res['seconds']:.1f}")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -3822,6 +4147,8 @@ def main() -> int:
         lap("superstep")
         overlap = phase_overlap(Path(work), card, grads, errs)
         lap("overlap")
+        layouts = phase_layouts(Path(work), card, runs, errs)
+        lap("layouts")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -3839,6 +4166,7 @@ def main() -> int:
                 + budget["cli"]["launches"][name]
                 + superstep["launches"][name]
                 + overlap["launches"][name]
+                + layouts["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -3859,7 +4187,7 @@ def main() -> int:
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
-              "superstep": superstep, "overlap": overlap,
+              "superstep": superstep, "overlap": overlap, "layouts": layouts,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

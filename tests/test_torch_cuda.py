@@ -1346,3 +1346,97 @@ def test_delayed_step0_holds_and_the_next_step_consumes(dev, nccl_group):
     assert float(m["skipped"]) == 0.0
     assert ops.launch_counts()["unpack_dequantize"] == 1
     assert not all(torch.equal(a, b) for a, b in zip(before, carried()))
+
+
+# ------------------------------------------------------- the LM layouts, ways 1
+
+
+LAYOUT_CFG = dict(vocab_size=64, max_len=128, width=128, depth=2, num_heads=2, num_experts=4)
+
+
+def _layout_step(layout, d, codec):
+    import numpy as np
+
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.parallel import model_axes as MA
+    from atomo_tpu_torch.training import make_optimizer
+
+    cfg = dict(LAYOUT_CFG)
+    if layout != "dp-ep":
+        cfg.pop("num_experts")
+    full = MA.full_family_init(layout, cfg, 0)
+    # psum, what --aggregate auto takes at dp 1: at one replica its exchange
+    # is no collective, so the CPU twin runs beside this file's NCCL group
+    prog = MA.build_model_axis_program(
+        MeshSpec.from_layout(layout, 1, (1, 1) if layout == "dp-tp-sp" else 1), cfg,
+        make_optimizer("sgd", lr=0.1, momentum=0.9), 0, codec, layout=layout,
+        attn_impl="ulysses-flash", aggregate="psum", params=full, device=d)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (4, 128))).to(d)
+    K.reset_launch_counts()
+    A.reset_launch_counts()
+    state, m = prog.step(prog.state, 1, tokens)
+    counts = {**K.launch_counts(), **A.launch_counts()}
+    return float(m["loss"]), [p.detach().cpu() for p in state.model.parameters()], counts
+
+
+def _held_to_plain(real, plain, check):
+    """``real`` (a kernel wrapper) that, at each call, also runs its plain
+    twin on the same inputs and hands both results to ``check``."""
+    def run(*args, **kwargs):
+        out = real(*args, **kwargs)
+        check(out, plain(*args, **kwargs))
+        return out
+    return run
+
+
+@pytest.mark.parametrize("layout", ["dp-tp", "dp-ep", "dp-pp", "dp-tp-sp"])
+def test_layout_at_ways_one_runs_the_kernels_on_the_card(dev, layout, monkeypatch):
+    """Each layout at model ways 1 on the card with qsgd 4 bits (psum, dp
+    1): one fused encode and one tree decode a step (rows 1-2), dp-tp-sp
+    the flash kernel once a layer (row 5). What rows 1-2 give the step
+    equals their plain twins on the same inputs (words and decoded values
+    bit for bit, scales within 1e-6 relative); the step's loss equals the
+    CPU step's (plain twins) within 1e-4 relative (TF32 off)."""
+    seen = {"encode": 0, "decode": 0}
+
+    def check_encode(out, plain):
+        for (w, sc), (pw, ps) in zip(out, plain):
+            assert torch.equal(w, pw)
+            torch.testing.assert_close(sc, ps, rtol=1e-6, atol=0.0)
+        seen["encode"] += 1
+
+    def check_decode(out, plain):
+        assert all(torch.equal(a, b) for a, b in zip(out, plain))
+        seen["decode"] += 1
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = _layout_step(layout, "cpu", QsgdCodec(bits=4))
+        monkeypatch.setattr(K, "quantize_pack_tree", _held_to_plain(
+            K.quantize_pack_tree, K.quantize_pack_tree_plain, check_encode))
+        monkeypatch.setattr(K, "unpack_dequantize_tree", _held_to_plain(
+            K.unpack_dequantize_tree, K.unpack_dequantize_tree_plain, check_decode))
+        got = _layout_step(layout, dev, QsgdCodec(bits=4))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got[2]["quantize_pack"] == 1 and got[2]["unpack_dequantize"] == 1
+    assert seen == {"encode": 1, "decode": 1}
+    assert got[2]["flash_attention"] == (LAYOUT_CFG["depth"] if layout == "dp-tp-sp" else 0)
+    assert sum(want[2].values()) == 0
+    assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+
+
+@pytest.mark.parametrize("layout", ["dp-tp", "dp-ep", "dp-pp", "dp-tp-sp"])
+def test_layout_at_ways_one_dense_step_matches_the_cpu(dev, layout):
+    """The same step with no codec: parameters within 1e-5 of the CPU's."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _layout_step(layout, dev, None)
+        want = _layout_step(layout, "cpu", None)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+    for a, b in zip(got[1], want[1]):
+        assert float((a - b).abs().max()) <= 1e-5

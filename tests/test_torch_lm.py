@@ -190,7 +190,8 @@ def test_cli_lm_prints_the_jax_line_and_goes_through_the_kernel_wrapper():
     _, lines = _run(["lm", "--layout", "dp-sp", "--ways", "1", "--attn-impl", "ulysses-flash",
                      "--vocab-size", "16", "--seq-len", "32", "--width", "32", "--depth", "2",
                      "--num-heads", "2", "--batch-size", "4", "--max-steps", "3",
-                     "--log-interval", "1", "--code", "svd", "--eval-freq", "3"])
+                     "--log-interval", "1", "--code", "svd", "--eval-freq", "3",
+                     "--aggregate", "gather"])
     assert A.launch_counts() == {"flash_attention": 0}  # CPU tensors: the plain twin
     lm = [ln for ln in lines if ln.startswith("LM: ")]
     assert len(lm) == 3 and all(LM_LINE.match(ln) for ln in lm), lm
@@ -216,7 +217,7 @@ def test_cli_lm_dense_and_data_file(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--layout", "dp-tp"], "later slice"),
+    (["--layout", "dp-tp"], "--ways 2 does not divide 1 devices"),
     (["--layout", "dp-sp", "--ways", "2"], "does not divide 1 devices"),
 ])
 def test_cli_lm_refuses_what_waits(argv, match):

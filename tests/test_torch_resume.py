@@ -105,8 +105,10 @@ def test_dist_cli_resume_is_bit_identical(group, tmp_path):
         answers = group.run("cli", argv=DIST_FLAGS + argv)
         assert [x["rc"] for x in answers] == [0, 0], answers
     lines = answers[0]["lines"]
-    assert lines[0] == f"Resumed from {b} at step 3" and answers[1]["lines"] == []
-    assert lines[1].startswith("Worker: 0, Step: 4,")
+    # the JAX verb's order: its --aggregate auto line, then the resume
+    assert lines[0].startswith("--aggregate auto -> gather (")
+    assert lines[1] == f"Resumed from {b} at step 3" and answers[1]["lines"] == []
+    assert lines[2].startswith("Worker: 0, Step: 4,")
     _assert_bitwise(_loaded(b, 6), _loaded(a, 6))
 
 

@@ -41,7 +41,12 @@ Jobs (``JOBS``):
 * ``mesh``: this rank's place in a dp x sp mesh and its groups' ranks;
 * ``targets``, ``collectives``: the shard-boundary targets, one ring hop
   and one all-to-all over an sp axis of the whole world;
-* ``modules``: the top-level modules loaded in the worker.
+* ``modules``: the top-level modules loaded in the worker;
+* ``layout``: the port's steps of an LM model-axis layout from a full JAX
+  family tree (with ``resume_at``: cut there, checkpointed, loaded and
+  continued), each step's metrics and slice hash, rank 0's gathered tree;
+* ``mesh_spec``, ``model_collectives``: a built ``MeshSpec``'s place and
+  groups, and the model-axis collectives forward and backward.
 """
 
 from __future__ import annotations
@@ -374,21 +379,31 @@ def job_aggregate(rank, world, *, codec, grads, draws, fused_gather, ring_bucket
                          for a, b in zip(mean_g, mean_r))}
 
 
-def job_cli(rank, world, *, argv):
+def job_cli(rank, world, *, argv, env=None):
+    """The CLI with ``argv`` (``env`` set in the environment around it)."""
     import warnings
 
     from atomo_tpu_torch import cli
 
     lines = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        try:
-            rc = cli.main(list(argv), log_fn=lines.append)
-        except SystemExit as e:  # the CLI's refusals: their message, not the worker's exit
-            return {"rc": 1, "lines": lines, "exit": str(e.code),
-                    "warnings": [str(w.message) for w in caught]}
-    return {"rc": rc, "lines": lines, "exit": None,
-            "warnings": [str(w.message) for w in caught]}
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                rc = cli.main(list(argv), log_fn=lines.append)
+            except SystemExit as e:  # the CLI's refusals: their message, not the worker's exit
+                return {"rc": 1, "lines": lines, "exit": str(e.code),
+                        "warnings": [str(w.message) for w in caught]}
+        return {"rc": rc, "lines": lines, "exit": None,
+                "warnings": [str(w.message) for w in caught]}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 class _Recorder:
@@ -498,6 +513,70 @@ def _lm_steps(rank, fresh, batches, keys, draws, mesh, opt, grads_only, resume_a
             "mesh": (mesh.rank_dp, mesh.rank_sp), "step": state.step, "hash0": hash0}
 
 
+def job_layout(rank, world, *, layout, ways, cfg, params, codec, aggregate, microbatches,
+               attn_impl, optimizer, batches, keys, draws=None, bf16=False, modes=None,
+               resume_at=0, train_dir=None):
+    """The port's steps of an LM layout (``build_model_axis_program``) on
+    this rank, from the full tree ``params`` (numpy, the JAX layout); with
+    ``resume_at`` the run is cut there (rank 0 saves the gathered tree, every
+    rank loads it into a fresh program and goes on). Per step the loss, the
+    message and dense bytes and a hash of this rank's slice; every rank's
+    slice coordinates, and rank 0's gathered full tree at the end."""
+    import numpy as np
+    import torch
+
+    import atomo_tpu_torch.parallel.lm as L
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.parallel import model_axes as MA
+    from atomo_tpu_torch.training import make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    scales = []
+    encode = L.encode_tree
+
+    def recording_encode(*args, **kw):  # the largest quantization step taken
+        payloads, stats = encode(*args, **kw)
+        scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
+        return payloads, stats
+
+    modes = modes or {}
+    spec = MeshSpec.from_layout(layout, world, tuple(ways) if layout == "dp-tp-sp" else ways)
+
+    def fresh():
+        opt = make_optimizer(optimizer[0], **optimizer[1])
+        prog = MA.build_model_axis_program(
+            spec, cfg, opt, 0, _codec(codec), layout=layout, attn_impl=attn_impl,
+            num_microbatches=microbatches, aggregate=aggregate,
+            exchange=(L.DpExchange(aggregate, **modes) if aggregate == "ring" or modes
+                      else None),
+            compute_dtype=torch.bfloat16 if bf16 else None, params=params, device="cpu")
+        return prog, opt
+
+    L.encode_tree = recording_encode
+    try:
+        prog, opt = fresh()
+        state, steps = prog.state, []
+        for s, (tokens, key) in enumerate(zip(batches, keys)):
+            if resume_at and s == resume_at:
+                MA.save_program_checkpoint(prog, state, train_dir, compress=True)
+                prog, opt = fresh()
+                state, _ = MA.load_program_checkpoint(prog, train_dir)
+            block = torch.from_numpy(np.ascontiguousarray(prog.shard_tokens(tokens))).long()
+            state, m = prog.step(state, key, block, draws=_draws(draws[s]) if draws else None)
+            steps.append({"loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
+                          "dense_bytes": int(m["dense_bytes"]), "hash": state_hash(state.model),
+                          "skipped": float(m["skipped"]) if "skipped" in m else None})
+        full = MA.gather_leaves(leaf_params(state.model), prog.splits, prog.mesh)
+    finally:
+        L.encode_tree = encode
+    from atomo_tpu_torch.convert import jax_leaf_order, to_numpy_tree
+
+    tree = to_numpy_tree(MA.tree_of(jax_leaf_order(state.model), full))
+    coords = tuple(prog.mesh.index(a) for a, _ in spec.model_axes)
+    return {"steps": steps, "full": tree if rank == 0 else None, "slice": coords,
+            "max_scale": max(scales, default=0.0), "step": state.step}
+
+
 def job_attention(rank, world, *, impl, q, k, v, cotangent, causal=True):
     """``ATTENTION_IMPLS[impl]`` over an sp axis of the whole world on this
     rank's sequence shard: its output block and its q, k, v gradients."""
@@ -562,13 +641,57 @@ def job_collectives(rank, world):
             "a2a_grad": a.grad.tolist()}
 
 
+def job_mesh_spec(rank, world, *, axes):
+    """``MeshSpec(axes).build()`` on this rank: its coordinates and, per
+    axis, the ranks of its group."""
+    import torch.distributed as dist
+
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+
+    m = MeshSpec(tuple(axes)).build()
+    return {"coords": m.coords, "describe": m.spec.describe(),
+            "groups": [dist.get_process_group_ranks(g) for g in m.groups]}
+
+
+def job_model_collectives(rank, world):
+    """Each model-axis collective over the whole world, forward and
+    backward from a cotangent that names the rank."""
+    import torch
+
+    from atomo_tpu_torch.mesh import collectives as C
+    from atomo_tpu_torch.parallel import launch
+
+    group = launch.dp_sp_mesh(world).sp_group
+    out = {}
+    x = torch.tensor([float(rank)], requires_grad=True)
+    y = C.pipeline_hop(x, group, world)
+    y.backward(torch.tensor([10.0 * rank]))
+    out["hop"], out["hop_grad"] = float(y), float(x.grad)
+    x = torch.tensor([1.0 + rank], requires_grad=True)
+    y = C.copy_to(x, group, world) * (rank + 1)
+    y.backward()
+    out["copy"], out["copy_grad"] = float(y), float(x.grad)
+    x = torch.tensor([1.0 + rank], requires_grad=True)
+    y = C.reduce_from(x, group, world) * (rank + 1)
+    y.backward()
+    out["reduce"], out["reduce_grad"] = float(y), float(x.grad)
+    out["pmax"] = float(C.pmax(torch.tensor([float(rank)], requires_grad=True), group, world))
+    out["psum"] = float(C.psum(torch.tensor([float(rank)]), group, world))
+    a = (100.0 * rank + torch.arange(2.0 * world * 3).reshape(2, world, 3)).requires_grad_()
+    b = C.all_to_all_tiled(a, group, world, split_axis=1, concat_axis=2)
+    b.backward(torch.full_like(b, float(rank)) + torch.arange(float(b.numel())).view_as(b))
+    out["a2a"], out["a2a_grad"] = b.detach().numpy(), a.grad.numpy()
+    return out
+
+
 def job_modules(rank, world):
     return sorted({m.split(".")[0] for m in sys.modules})
 
 
-JOBS = {"train": job_train, "build": job_build, "aggregate": job_aggregate, "cli": job_cli, "lm": job_lm,
-        "attention": job_attention, "mesh": job_mesh, "targets": job_targets,
-        "collectives": job_collectives, "modules": job_modules}
+JOBS = {"train": job_train, "build": job_build, "aggregate": job_aggregate, "cli": job_cli,
+        "lm": job_lm, "layout": job_layout, "attention": job_attention, "mesh": job_mesh,
+        "targets": job_targets, "collectives": job_collectives, "modules": job_modules,
+        "mesh_spec": job_mesh_spec, "model_collectives": job_model_collectives}
 
 
 def main(argv) -> int:

@@ -175,3 +175,150 @@ def assert_parity(out, final, answers, *, loss_rtol: float, atol: float, cfg=CFG
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, np.asarray(b), atol=atol, rtol=0)
+
+
+# ---- the model-axis layouts (dp-tp, dp-ep, dp-pp, dp-tp-sp) ---------------
+
+LAYOUT_CFG = dict(vocab_size=16, max_len=8, width=16, depth=4, num_heads=2)
+EXPERTS = 4
+
+
+def layout_cfg(layout: str) -> dict:
+    """The small LM of the layout cases: dp-ep adds its experts, dp-tp-sp
+    takes 4 heads (Ulysses splits tp's local heads again over sp)."""
+    cfg = dict(LAYOUT_CFG)
+    if layout == "dp-ep":
+        cfg["num_experts"] = EXPERTS
+    if layout == "dp-tp-sp":
+        cfg["num_heads"] = 4
+    return cfg
+
+
+def family_params(layout: str, seed: int = 0):
+    """The JAX package's own init of a layout's full tree (numpy), its
+    LayerNorm scales perturbed from a numpy seed so that every leaf
+    matters: the stock LM re-laid for tp, the MoE tree, the stacked tree."""
+    from atomo_tpu.parallel import moe as jmoe
+    from atomo_tpu.parallel import pp as jpp
+    from atomo_tpu.parallel import tp as jtp
+
+    cfg = layout_cfg(layout)
+    key = jax.random.PRNGKey(seed)
+    if layout in ("dp-tp", "dp-tp-sp"):
+        tree = jtp.lm_params_to_tp(flax_params(cfg, seed), cfg["num_heads"])
+    elif layout == "dp-ep":
+        tree = jmoe.init_moe_lm_params(key, cfg)
+    else:
+        tree = jpp.init_pp_lm_params(key, cfg)
+    rng = np.random.default_rng(seed + 1)
+
+    def perturb(path, a):
+        a = np.array(a, dtype=np.float32)
+        names = jax.tree_util.keystr(path)
+        if layout in ("dp-ep", "dp-pp") and "scale" in names:
+            a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+def layout_batches(steps: int = STEPS, batch: int = BATCH, cfg=LAYOUT_CFG) -> list:
+    return [tokens(s + 1, cfg, batch) for s in range(steps)]
+
+
+def _local_shapes(layout: str, params, coords: dict):
+    """Rank ``coords``' slice of the full tree (numpy), cut as the port cuts
+    it (``parallel.model_axes.family_specs``), for the draws' shapes."""
+    from atomo_tpu_torch.parallel.model_axes import FAMILY_AXIS, family_specs
+    from atomo_tpu_torch.convert import slice_tree
+
+    axis = FAMILY_AXIS[layout]
+    return slice_tree(params, family_specs(layout, params), coords[axis], coords["n_" + axis])
+
+
+def run_layout(layout: str, n_dev: int, ways, code: str, aggregate: str, *,
+               microbatches: int = 2, attn_impl: str = "ring", params=None,
+               token_batches=None, steps: int = STEPS, compute_dtype=None, **modes):
+    """The reference's steps of ``layout`` on ``n_dev`` devices (``ways``
+    its model ways; a (tp, sp) pair for dp-tp-sp) from ``params`` (default
+    :func:`family_params`): per step the loss, msg and dense bytes, the
+    final full tree (numpy), and per port rank (row-major over the mesh
+    axes) the draws of its slice under its replica's key, one list a
+    step."""
+    from atomo_tpu.parallel.common import shard_state
+    from atomo_tpu.parallel.replicated import DelayedState
+
+    cfg = layout_cfg(layout)
+    params = family_params(layout) if params is None else params
+    token_batches = layout_batches(steps) if token_batches is None else token_batches
+    jopt = jax_optimizer("sgd", lr=LR, momentum=MOMENTUM)
+    spec = MeshSpec.from_layout(layout, n_dev, ways)
+    exchange = (DpExchange(aggregate=aggregate, **modes) if aggregate == "ring" or modes
+                else None)
+    prog = build_model_axis_program(
+        spec, cfg, jopt, jax.random.PRNGKey(0), CODECS[code][1](), attn_impl=attn_impl,
+        num_microbatches=microbatches, compute_dtype=compute_dtype,
+        aggregate="gather" if exchange else aggregate, exchange=exchange)
+    delayed = isinstance(prog.state, DelayedState)
+    train = prog.state.train if delayed else prog.state
+    train = train.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
+                          opt_state=jopt.init(params))
+    state = shard_state(prog.mesh, train, prog.state_specs)
+    if delayed:
+        state = DelayedState(train=state, carry=prog.state.carry)
+    axes = spec.axes
+    ranks = []
+    for r in range(n_dev):
+        coords, rest = {}, r
+        for name, size in reversed(axes):
+            coords[name], coords["n_" + name] = rest % size, size
+            rest //= size
+        ranks.append(coords)
+    out, draws = [], [[] for _ in range(n_dev)]
+    for s, toks in enumerate(token_batches):
+        key = step_key(s + 1)
+        for r, coords in enumerate(ranks):
+            k_codec = jax.random.fold_in(jax.random.fold_in(key, s), coords["dp"])
+            local = _local_shapes(layout, params, coords)
+            draws[r].append(codec_draws(code, k_codec, local))
+        state, m = prog.step(state, key, prog.shard_tokens(toks))
+        out.append({"loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
+                    "dense_bytes": int(m["dense_bytes"]),
+                    "skipped": float(m["skipped"]) if delayed else None})
+    final = jax.tree_util.tree_map(np.asarray, jax.device_get(state.params))
+    return out, final, [d if code != "sgd" else None for d in draws]
+
+
+def layout_job(layout: str, ways, code: str, aggregate: str, *, params, microbatches: int = 2,
+               attn_impl: str = "ring", token_batches=None, steps: int = STEPS,
+               bf16: bool = False, **modes) -> dict:
+    """The shared arguments of the ``layout`` job for the port's ranks."""
+    token_batches = layout_batches(steps) if token_batches is None else token_batches
+    return dict(layout=layout, ways=ways, cfg=layout_cfg(layout), params=params,
+                codec=CODECS[code][0], aggregate=aggregate, microbatches=microbatches,
+                attn_impl=attn_impl, optimizer=("sgd", dict(lr=LR, momentum=MOMENTUM)),
+                batches=token_batches, keys=list(range(1, len(token_batches) + 1)),
+                bf16=bf16, modes=modes)
+
+
+def assert_layout_parity(out, final, answers, *, loss_rtol: float, atol: float) -> None:
+    """Ranks that hold the same slice (the replicas) hash alike after each
+    step; rank 0's loss within ``loss_rtol`` of the reference's, its
+    ``msg_bytes`` and ``dense_bytes`` exactly equal; after the last step
+    the gathered full tree within ``atol``."""
+    for s, want in enumerate(out):
+        by_slice: dict = {}
+        for a in answers:
+            by_slice.setdefault(a["slice"], set()).add(a["steps"][s]["hash"])
+        assert all(len(h) == 1 for h in by_slice.values()), f"step {s + 1}: replicas differ"
+        got = answers[0]["steps"][s]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=loss_rtol)
+        assert got["msg_bytes"] == want["msg_bytes"], (s, got["msg_bytes"], want["msg_bytes"])
+        assert got["dense_bytes"] == want["dense_bytes"]
+    got = jax.tree_util.tree_leaves_with_path(answers[0]["full"])
+    want = dict((jax.tree_util.keystr(p), v) for p, v in
+                jax.tree_util.tree_leaves_with_path(final))
+    assert len(got) == len(want)
+    for p, a in got:
+        np.testing.assert_allclose(a, np.asarray(want[jax.tree_util.keystr(p)]), atol=atol,
+                                   rtol=0, err_msg=jax.tree_util.keystr(p))
