@@ -1,5 +1,5 @@
 import sys
 
-from atomo_tpu_torch.cli import main
+from atomo_tpu_torch.cli import cli_entry
 
-sys.exit(main())
+sys.exit(cli_entry())

@@ -43,7 +43,14 @@ for the byte budget, the device count and ``--fabric`` (``--codec-tax-ms``),
 printed as the JAX verb prints it: psum for a dense code or one device,
 gather or ring by wire bytes otherwise; where the JAX verb would pick its
 unported two-tier hierarchical mode (a group that spans hosts) the port
-refuses.
+refuses. ``train`` takes the JAX verb's resilience flags: ``--grad-guard``
+and ``--max-grad-norm`` (skip, or mask and rescale, an anomalous gradient),
+``--chaos`` (or ATOMO_CHAOS; the fleet kinds refused), ``--health-timeout``
+(the heartbeat watchdog, exit 13), ``--on-diverge`` with ``--diverge-*``
+and ``--max-rollbacks`` (the divergence doctor, exit 23 once its budget is
+spent) and ``--max-restarts`` with ``--restart-backoff`` (the supervisor,
+one process), their argv refusals checked before the supervisor re-executes
+the command. From the process entry a refusal exits 2.
 """
 
 from __future__ import annotations
@@ -137,6 +144,252 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--zipf-alpha", type=float, default=1.1, metavar="A",
                    help="--dataset zipf: power-law exponent of the row access "
                         "distribution (p_i ~ 1/i^A)")
+
+
+def _resilience_flags(p: argparse.ArgumentParser) -> None:
+    """``train``'s resilience flags, with the JAX verb's defaults
+    (``atomo_tpu/cli.py:333-500``)."""
+    p.add_argument("--health-timeout", type=float, default=0.0,
+                   help="arm the step-heartbeat watchdog: interrupt the job "
+                        "if no step completes within this many seconds "
+                        "(0 = off); recovery = restart from last checkpoint")
+    p.add_argument("--grad-guard", action="store_true", default=False,
+                   help="anomaly-guarded stepping: screen each replica's "
+                        "raw gradient for non-finite values, drop anomalous "
+                        "contributions and re-scale the surviving average "
+                        "by n/kept (valid because the codecs are unbiased); "
+                        "a step with no survivors is skipped")
+    p.add_argument("--max-grad-norm", type=float, default=0.0, metavar="L2",
+                   help="with the guard: also drop contributions whose "
+                        "global L2 norm exceeds this (0 = finiteness only). "
+                        "A screen, not clipping — implies --grad-guard")
+    p.add_argument("--chaos", type=str, default="", metavar="SPEC",
+                   help="fault-injection spec for drills, e.g. "
+                        "'nan@3,kill@6,truncate@4,spike@5:3,crashloop@2' "
+                        "(see atomo_tpu_torch/utils/chaos.py); defaults "
+                        "to the ATOMO_CHAOS env var")
+    p.add_argument("--on-diverge", type=str, default="off",
+                   choices=["off", "skip", "rewarm", "densify"],
+                   help="arm the divergence doctor: a windowed robust "
+                        "z-score over the per-step loss series (plus guard "
+                        "skip-rate and grad-norm trend counters) detects "
+                        "divergence the per-step screen cannot see; on "
+                        "alarm the run rolls back to the newest HEALTHY "
+                        "checkpoint, replays the data stream, and applies "
+                        "this remedy: skip = replay unchanged (transient-"
+                        "fault model), rewarm = LR re-warmup ramp over the "
+                        "detector window, densify = temporary dense "
+                        "(uncompressed) aggregation for the window — valid "
+                        "because every codec is an unbiased estimator of "
+                        "the same mean. off (default) = detector disarmed")
+    p.add_argument("--diverge-window", type=int, default=16, metavar="W",
+                   help="divergence-detector window: EMA span, healthy-"
+                        "tag clearance, and remedy duration (steps)")
+    p.add_argument("--diverge-zmax", type=float, default=6.0, metavar="Z",
+                   help="robust z-score threshold for the loss series")
+    p.add_argument("--diverge-patience", type=int, default=3, metavar="N",
+                   help="consecutive above-threshold steps before the "
+                        "alarm fires (one bad batch is noise; a sustained "
+                        "excursion is divergence)")
+    p.add_argument("--diverge-min-history", type=int, default=8, metavar="N",
+                   help="warmup steps before z/skip/trend alarms arm")
+    p.add_argument("--max-rollbacks", type=int, default=2, metavar="N",
+                   help="in-process rollback budget; exhaustion exits with "
+                        "the rollback-requested code (23) so a supervisor "
+                        "can prune to the last healthy checkpoint and "
+                        "restart")
+    p.add_argument("--max-restarts", type=int, default=0, metavar="N",
+                   help="supervise this run: re-exec the same command "
+                        "under a crash-loop budget of N restarts with "
+                        "jittered exponential backoff, resuming from the "
+                        "last checkpoint; decisions land in "
+                        "train_dir/incidents.jsonl (0 = unsupervised; one "
+                        "process only)")
+    p.add_argument("--restart-backoff", type=float, default=1.0, metavar="SEC",
+                   help="supervisor backoff base seconds (decorrelated "
+                        "jitter, capped at 30x)")
+
+
+def _chaos_preflight(args: argparse.Namespace) -> None:
+    """The chaos half of the JAX verb's argv preflight
+    (``atomo_tpu/cli.py:1483-1560``): a bad spec, in the flag or in
+    ATOMO_CHAOS, fails here with its reason, as do die@ and slow@ faults
+    the run could not honour; the fleet lease faults are refused (the
+    fleet layer is not ported)."""
+    from atomo_tpu_torch.utils.chaos import ChaosConfig
+    from atomo_tpu_torch.utils.tracing import MEMBERSHIP_EPOCH_ENV
+
+    specs = [args.chaos] if args.chaos else []
+    if not args.chaos and os.environ.get("ATOMO_CHAOS"):
+        specs.append(os.environ["ATOMO_CHAOS"])
+    for spec in specs:
+        try:
+            cfg = ChaosConfig.from_spec(spec)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+        fleet = cfg.fleet_kinds()
+        if fleet:
+            raise SystemExit(
+                f"chaos {'/'.join(fleet)}@ faults drill the fleet control plane, "
+                "which is not ported (ROADMAP queue 1 item 11); train takes the "
+                "step, host and checkpoint faults")
+        epoch0 = int(os.environ.get(MEMBERSHIP_EPOCH_ENV, "0") or 0) == 0
+        if cfg.die_faults and epoch0:
+            if not (args.grad_guard or args.max_grad_norm > 0):
+                raise SystemExit(
+                    "chaos die@S:R models a replica that stops "
+                    "contributing and is carried by the guard's "
+                    "skip-and-rescale; arm --grad-guard (or "
+                    "--max-grad-norm)")
+            if args.n_devices == 1:
+                raise SystemExit(
+                    "chaos die@S:R targets one replica of a multi-device "
+                    "mesh; single-device training has no surviving "
+                    "replicas to continue on")
+            bad = [r for _, r in cfg.die_faults if r >= args.n_devices >= 2]
+            if bad:
+                raise SystemExit(
+                    f"chaos die@S:R targets replica(s) {sorted(bad)} "
+                    f"outside the {args.n_devices}-device mesh "
+                    "(replicas are 0-based); the fault would never "
+                    "fire and the drill would prove nothing")
+        if cfg.slow_replica_faults and epoch0:
+            if args.n_devices == 1:
+                raise SystemExit(
+                    "chaos slow@S:R:SEC delays one replica of a "
+                    "multi-device mesh; single-device training has no "
+                    "exchange for a straggler to hold up")
+            bad = [r for _, r, _ in cfg.slow_replica_faults if r >= args.n_devices >= 2]
+            if bad:
+                raise SystemExit(
+                    f"chaos slow@S:R:SEC targets replica(s) "
+                    f"{sorted(bad)} outside the "
+                    f"{args.n_devices}-device mesh (replicas are "
+                    "0-based); the fault would never fire and the "
+                    "drill would prove nothing")
+
+
+def _diverge_preflight(args: argparse.Namespace) -> None:
+    """The doctor's half of the argv preflight (``:1620-1665``): the
+    detector's knobs and the conflict matrix, as far as argv knows."""
+    if args.on_diverge == "off":
+        return
+    from atomo_tpu_torch.training.resilience import DetectorConfig, diverge_conflict
+
+    try:
+        DetectorConfig(window=args.diverge_window, zmax=args.diverge_zmax,
+                       patience=args.diverge_patience, min_history=args.diverge_min_history)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
+    multi = args.n_devices >= 2
+    reason = diverge_conflict(
+        args.on_diverge, train_dir=args.train_dir,
+        codec=None if args.code.lower() in DENSE_CODES else args.code,
+        aggregate=args.aggregate if multi else None, overlap=args.overlap,
+        num_aggregate=args.num_aggregate if multi else None, keep_ckpts=args.keep_ckpts,
+        save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
+    if reason:
+        raise SystemExit(reason)
+    if args.error_feedback:
+        raise SystemExit(
+            "--error-feedback does not compose with --on-diverge: "
+            "the rollback reload does not rebuild the residual "
+            "template yet — drop one")
+
+
+def _resolved_chaos(chaos, n_dev: int) -> None:
+    """The resolved-world half of the die@ and slow@ range checks
+    (``:2395-2445``): --n-devices 0 needs the group's size."""
+    if chaos is None or chaos.membership_epoch:
+        return
+    cfg = chaos.config
+    if cfg.die_faults:
+        bad = [r for _, r in cfg.die_faults if r >= n_dev]
+        if bad or n_dev <= 1:
+            raise SystemExit(
+                f"chaos die@S:R targets replica(s) "
+                f"{sorted(r for _, r in cfg.die_faults)} but this "
+                f"run resolved to a {n_dev}-device mesh (replicas are "
+                "0-based); the fault would never fire")
+    if cfg.slow_replica_faults:
+        bad = [r for _, r, _ in cfg.slow_replica_faults if r >= n_dev]
+        if bad or n_dev <= 1:
+            raise SystemExit(
+                f"chaos slow@S:R:SEC targets replica(s) "
+                f"{sorted(r for _, r, _ in cfg.slow_replica_faults)} "
+                f"but this run resolved to a {n_dev}-device mesh (replicas "
+                "are 0-based); the fault would never fire")
+
+
+def _diverge_config(args: argparse.Namespace, codec, n_dev: int, aggregate):
+    """``--on-diverge``'s :class:`DivergeConfig` after the conflict check
+    with the resolved world (``:2697-2730``), or None."""
+    if args.on_diverge == "off":
+        return None
+    from atomo_tpu_torch.training.resilience import (
+        DetectorConfig,
+        DivergeConfig,
+        diverge_conflict,
+    )
+
+    reason = diverge_conflict(
+        args.on_diverge, train_dir=args.train_dir, codec=codec,
+        aggregate=aggregate if n_dev > 1 else None, overlap=args.overlap,
+        num_aggregate=args.num_aggregate if n_dev > 1 else None, keep_ckpts=args.keep_ckpts,
+        save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
+    if reason:
+        raise SystemExit(reason)
+    return DivergeConfig(
+        remedy=args.on_diverge,
+        detector=DetectorConfig(window=args.diverge_window, zmax=args.diverge_zmax,
+                                patience=args.diverge_patience,
+                                min_history=args.diverge_min_history),
+        max_rollbacks=args.max_rollbacks)
+
+
+def _supervise(args: argparse.Namespace, log_fn) -> Optional[int]:
+    """``--max-restarts``: re-exec this command as a supervised child
+    (``atomo_tpu/cli.py:2307-2340``) and return its triaged exit code, or
+    None when this process is the child (or unsupervised)."""
+    from atomo_tpu_torch.training.resilience import SUPERVISED_ENV, run_supervised
+
+    if args.max_restarts <= 0 or os.environ.get(SUPERVISED_ENV) == "1":
+        return None
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        raise SystemExit(
+            "--max-restarts supervises one process: a restarted rank would re-join "
+            "a process group whose store already holds its keys, so the port "
+            "refuses it above one rank (restart the whole torchrun job instead)")
+    argv = getattr(args, "_argv", None)
+    if argv is None:
+        warnings.warn(
+            "--max-restarts needs the CLI entrypoint's argv to re-exec "
+            "itself; running unsupervised (call atomo_tpu_torch.cli.main)")
+        return None
+    if not args.train_dir:
+        warnings.warn(
+            "--max-restarts with --train-dir '': checkpointing is "
+            "off, so every restart retrains from step 0 and no "
+            "incidents.jsonl is written")
+    return run_supervised(
+        [sys.executable, "-m", "atomo_tpu_torch"] + list(argv),
+        max_restarts=args.max_restarts, backoff_base=args.restart_backoff,
+        backoff_max=args.restart_backoff * 30, train_dir=args.train_dir,
+        resume_flag="--resume" if args.train_dir else None, log_fn=log_fn)
+
+
+def _diverged_exit(exc: Exception) -> int:
+    """A spent rollback budget as the rollback-requested exit code."""
+    from atomo_tpu_torch.training.resilience import ROLLBACK_EXIT_CODE
+
+    print(
+        f"Divergence doctor gave up: {exc}; diverged checkpoint tail "
+        f"pruned to the last healthy step, exiting rc={ROLLBACK_EXIT_CODE} "
+        "(rollback-requested — a supervisor restarts from there, and an "
+        "unsupervised --resume lands there too)",
+        flush=True,
+    )
+    return ROLLBACK_EXIT_CODE
 
 
 def _fabric_flags(p: argparse.ArgumentParser) -> None:
@@ -303,6 +556,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "picks the device)")
     _svd_flags(p, "0 = rank 3 for the fixed-budget samplers (the reference's "
                   "rank-0 mode only with --sample bernoulli)")
+    _resilience_flags(p)
     p.add_argument("--svd-mode", type=str, default="auto",
                    choices=["auto", "exact", "randomized"],
                    help="alias over --svd-algo (the two must agree when both are "
@@ -835,11 +1089,23 @@ def _superstep(args: argparse.Namespace) -> int:
 
 
 def cmd_train(args: argparse.Namespace, log_fn=print):
+    from atomo_tpu_torch.training.resilience import DivergenceError, GuardConfig
+    from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
+
     superstep = _superstep(args)
     _overlap_preflight(args)
     _sparse_preflight(args)
     _budget_preflight(args)
+    _chaos_preflight(args)
+    _diverge_preflight(args)
+    rc = _supervise(args, log_fn)
+    if rc is not None:
+        return rc
     _warn_dead_flags(args)
+    guard = (GuardConfig(max_grad_norm=args.max_grad_norm)
+             if args.grad_guard or args.max_grad_norm > 0 else None)
+    # no --chaos: the loops read ATOMO_CHAOS from the env
+    chaos = ChaosInjector(ChaosConfig.from_spec(args.chaos)) if args.chaos else None
     name = canonical_name(args.dataset)
     train_ds = _dataset(args, True)
     train_iter = BatchIterator(train_ds, args.batch_size, seed=args.seed)
@@ -876,7 +1142,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                   log_every=args.log_interval, device=args.device,
                   train_dir=args.train_dir, save_freq=args.save_freq or args.eval_freq,
                   resume=args.resume, keep_ckpts=args.keep_ckpts, compress_ckpt=args.compress,
-                  compute_dtype=torch.bfloat16 if args.bf16 else None, superstep=superstep)
+                  compute_dtype=torch.bfloat16 if args.bf16 else None, superstep=superstep,
+                  guard=guard, chaos=chaos, health_timeout=args.health_timeout)
     # one process runs the single-device loop unless a process group is up
     # or torchrun started it (one device over NCCL: a torchrun of one process)
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
@@ -896,7 +1163,13 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, log_fn)[1].ks)
-        return train_loop(model, optimizer, train_iter, test_iter, codec=codec, **common)
+        _resolved_chaos(chaos, 1)
+        diverge = _diverge_config(args, codec, 1, None)
+        try:
+            return train_loop(model, optimizer, train_iter, test_iter, codec=codec,
+                              diverge=diverge, **common)
+        except DivergenceError as exc:
+            return _diverged_exit(exc)
     was_up = torch.distributed.is_initialized()
     ctx = launch.initialize(args.device)
     try:
@@ -922,13 +1195,19 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, rank_log, write=ctx.rank == 0)[1].ks)
         aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
-        return distributed_train_loop(
-            model, optimizer, train_iter, test_iter, codec=codec, aggregate=aggregate,
-            num_aggregate=_num_aggregate(args, aggregate, codec, n_dev),
-            ring_bucket_size=args.ring_bucket_size, grad_accum=args.grad_accum, hybrid=plan,
-            error_feedback=args.error_feedback, overlap=args.overlap,
-            stream_encode=args.stream_encode == "on",
-            stream_bucket_bytes=_stream_bucket_bytes(args), **{**common, "device": ctx.device})
+        _resolved_chaos(chaos, n_dev)
+        diverge = _diverge_config(args, codec, n_dev, aggregate)
+        try:
+            return distributed_train_loop(
+                model, optimizer, train_iter, test_iter, codec=codec, aggregate=aggregate,
+                num_aggregate=_num_aggregate(args, aggregate, codec, n_dev),
+                ring_bucket_size=args.ring_bucket_size, grad_accum=args.grad_accum,
+                hybrid=plan, error_feedback=args.error_feedback, overlap=args.overlap,
+                stream_encode=args.stream_encode == "on",
+                stream_bucket_bytes=_stream_bucket_bytes(args), diverge=diverge,
+                **{**common, "device": ctx.device})
+        except DivergenceError as exc:
+            return _diverged_exit(exc)
     finally:
         if not was_up:
             launch.shutdown()
@@ -1265,12 +1544,38 @@ def _lm_loop(args: argparse.Namespace, n_dev: int, ways_arg, dp: int, ctx, log_f
 
 
 def main(argv: Optional[list[str]] = None, log_fn=print) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if getattr(args, "fn", None) is None:
         build_parser().print_help()
         return 2
-    args.fn(args, log_fn=log_fn)
-    return 0
+    args._argv = argv  # the supervisor re-executes this exact command
+    rc = args.fn(args, log_fn=log_fn)
+    return rc if isinstance(rc, int) else 0
+
+
+def cli_entry() -> int:
+    """The process entry (``python -m atomo_tpu_torch``): a SystemExit that
+    carries a message is a deterministic config refusal, so it exits with
+    ``CONFIG_EXIT_CODE`` (2) and a supervisor gives up at once; a
+    KeyboardInterrupt sent by the heartbeat watchdog exits with its code
+    (13). In-process callers of :func:`main` keep the raising behaviour."""
+    from atomo_tpu_torch.parallel.launch import WATCHDOG_EXIT_CODE, WATCHDOG_FIRED
+    from atomo_tpu_torch.training.resilience import CONFIG_EXIT_CODE
+
+    try:
+        return main()
+    except SystemExit as exc:
+        if isinstance(exc.code, str):
+            print(exc.code, file=sys.stderr, flush=True)
+            return CONFIG_EXIT_CODE
+        raise
+    except KeyboardInterrupt:
+        if WATCHDOG_FIRED.is_set():
+            print(f"HealthWatchdog: exiting with {WATCHDOG_EXIT_CODE}", file=sys.stderr,
+                  flush=True)
+            return WATCHDOG_EXIT_CODE
+        raise
 
 
 if __name__ == "__main__":

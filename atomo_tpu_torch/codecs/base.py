@@ -340,9 +340,20 @@ def decode_tree(
                           lambda p, n, shape: codec.decode_stack(p, n, shape=shape))
 
 
+def mask_gathered(gathered: Sequence[Payload], replica_ok: torch.Tensor) -> list:
+    """The gathered payloads with every field of an unhealthy replica (its
+    flag in the (N,) ``replica_ok`` not above 0) zeroed: the JAX package's
+    ``_mask_gathered`` (:func:`~atomo_tpu_torch.ops.qsgd_kernels.
+    mask_replica_rows`); a zeroed payload decodes to zero under every codec."""
+    from atomo_tpu_torch.ops.qsgd_kernels import mask_replica_rows
+
+    return [type(p)(*(mask_replica_rows(t, replica_ok) for t in p)) for p in gathered]
+
+
 def decode_mean_tree(
     codec: Codec, gathered: Sequence[Payload], grads_like: Sequence[torch.Tensor],
     n_replicas: int, layouts: Optional[Sequence[bool]] = None, fused: bool = True,
+    replica_ok: Optional[torch.Tensor] = None,
 ) -> list[torch.Tensor]:
     """Decode gathered payloads (each leaf's with a leading replica axis of
     ``n_replicas``, the fields of a gathered buffer included) and average
@@ -352,14 +363,21 @@ def decode_mean_tree(
     one (m, N*k) @ (N*k, n) product), else decode every replica and sum the
     decodes in replica order, then divide: the ring's order, as the JAX
     package's ``fused=False``. A per-leaf codec runs this once per resolved
-    codec, each leaf's fields read where they lie."""
+    codec, each leaf's fields read where they lie. ``replica_ok`` (the
+    guard: an (N,) float32 flag per replica) leaves the unhealthy replicas
+    out as the JAX package's masked decode does: the fused QSGD kernel
+    adds a zero at their place and never reads their fields; every other
+    codec decodes :func:`mask_gathered`'s payloads."""
     out = _per_codec(codec, gathered, grads_like, layouts,
-                     lambda c, p, g, lay: decode_mean_tree(c, p, g, n_replicas, lay, fused))
+                     lambda c, p, g, lay: decode_mean_tree(c, p, g, n_replicas, lay, fused,
+                                                           replica_ok))
     if out is not None:
         return out
     decode_leaves = getattr(codec, "decode_leaves", None)
     if decode_leaves is not None:
-        return decode_leaves(gathered, grads_like, layouts, n_replicas)
+        return decode_leaves(gathered, grads_like, layouts, n_replicas, replica_ok=replica_ok)
+    if replica_ok is not None:
+        gathered = mask_gathered(gathered, replica_ok)
     fused_mean = getattr(codec, "decode_mean_stack", None) if fused else None
 
     def mean(stacked, n, shape):

@@ -222,6 +222,7 @@ class QsgdCodec:
         grads_like: Sequence[torch.Tensor],
         layouts: Optional[Sequence[bool]] = None,
         n_replicas: int = 1,
+        replica_ok: Optional[torch.Tensor] = None,
     ) -> list[torch.Tensor]:
         """Decode every leaf of a tree straight into the port layout of
         ``grads_like`` (float32; ``layouts`` as for :func:`encode_tree`); with
@@ -231,15 +232,22 @@ class QsgdCodec:
         gathered (N, bytes) buffer do, at a stride: both kernels read them in
         place. The fused path is one :func:`unpack_dequantize_tree` call (one
         launch on the card); the pack path one :func:`unpack_bucketed_tree`
-        call and one dequantization over the rows of every leaf."""
+        call and one dequantization over the rows of every leaf.
+        ``replica_ok`` (an (N,) float32 flag per replica, the guard's) leaves
+        the flagged-out replicas out: the fused kernel adds a zero at their
+        place; the pack path decodes ``mask_gathered``'s payloads."""
         if not payloads:
             return []
         if self._fused(payloads[0].words):
             # a QsgdPayload is the (words, scales) pair the wrapper takes
             return K.unpack_dequantize_tree(
                 payloads, grads_like, layouts, bits=self.bits,
-                bucket_size=self.bucket_size, n_replicas=n_replicas,
+                bucket_size=self.bucket_size, n_replicas=n_replicas, replica_ok=replica_ok,
             )
+        if replica_ok is not None:
+            from atomo_tpu_torch.codecs.base import mask_gathered
+
+            payloads = mask_gathered(payloads, replica_ok)
         self._check_pack(payloads[0].words)
         geoms = [K.geometry(g.numel(), self.bits, self.bucket_size) for g in grads_like]
         K.check_decode_args(payloads, grads_like, n_replicas, geoms)

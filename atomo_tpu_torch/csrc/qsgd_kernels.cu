@@ -255,6 +255,13 @@ constexpr int kDecWarps = 8;   // 256 threads; a flat tile is 8 buckets, a warp 
 constexpr int kDecTileC = 32;  // a transposed tile: 32 output rows (one per lane) ...
 constexpr int kDecTileK = 64;  // ... of 64 values along the port's contiguous axis
 
+// The guard's per-replica flags (rok: n_replicas floats in device memory, or
+// null for none): a replica whose flag is not above 0 is left out of the
+// mean by adding 0.0f at its place, its words and scales never read.
+__device__ __forceinline__ bool replica_in(const float* __restrict__ rok, int r) {
+  return rok == nullptr || rok[r] > 0.f;
+}
+
 // (sign * level) * (scale / levels): the association XLA gives the JAX
 // reference, which hoists the constant product out of the field loop.
 template <int BITS>
@@ -283,7 +290,8 @@ __device__ __forceinline__ float dequantize(uint32_t field, float step) {
 template <int BITS, bool kPow2>
 __global__ void __launch_bounds__(32 * kDecWarps, 4)
 unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs, int bs_shift,
-                              int nw, unsigned nw_magic, int n_replicas) {
+                              int nw, unsigned nw_magic, int n_replicas,
+                              const float* __restrict__ rok) {
   constexpr int kBpv = BITS + 1;
   constexpr int kVpw = 32 / kBpv;
   constexpr uint32_t kMask = (1u << kBpv) - 1u;
@@ -311,13 +319,23 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
     for (int w = lane; w < nw; w += 32) {
       const long long at = (long long)lb * nw + w;
       float acc[kVpw];
-      uint32_t word = words[at];
-      float step = __fmul_rn(kInvLevels, scales[lb]);
+      if (replica_in(rok, 0)) {
+        const uint32_t word = words[at];
+        const float step = __fmul_rn(kInvLevels, scales[lb]);
 #pragma unroll
-      for (int j = 0; j < kVpw; ++j) acc[j] = dequantize<BITS>((word >> (j * kBpv)) & kMask, step);
+        for (int j = 0; j < kVpw; ++j) acc[j] = dequantize<BITS>((word >> (j * kBpv)) & kMask, step);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVpw; ++j) acc[j] = 0.f;  // a zeroed payload's +0.0
+      }
       for (int r = 1; r < n_replicas; ++r) {
-        word = words[r * wstride + at];
-        step = __fmul_rn(kInvLevels, scales[r * sstride + lb]);
+        if (!replica_in(rok, r)) {  // its place in the order: + 0.0f, its bytes unread
+#pragma unroll
+          for (int j = 0; j < kVpw; ++j) acc[j] = __fadd_rn(acc[j], 0.f);
+          continue;
+        }
+        const uint32_t word = words[r * wstride + at];
+        const float step = __fmul_rn(kInvLevels, scales[r * sstride + lb]);
 #pragma unroll
         for (int j = 0; j < kVpw; ++j) {
           acc[j] = __fadd_rn(acc[j], dequantize<BITS>((word >> (j * kBpv)) & kMask, step));
@@ -362,6 +380,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
   float sc[kPer];
   int sh[kPer];
   unsigned ok = 0u;
+  const bool in0 = replica_in(rok, 0);
   {
     int b = kw / A, a = kw - b * A;
 #pragma unroll
@@ -372,8 +391,10 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
       if (kw + i < K && lane_in) {
         int at, lb;
         position(a, b, at, lb, sh[i]);
-        wv[i] = words[at];
-        sc[i] = scales[lb];
+        if (in0) {  // a flagged-out replica 0 decodes as the zero payload
+          wv[i] = words[at];
+          sc[i] = scales[lb];
+        }
         ok |= 1u << i;
       }
       if (++a == A) {
@@ -397,6 +418,10 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
         int at, lb, shift;
         position(a, b, at, lb, shift);
         for (int r = 1; r < n_replicas; ++r) {
+          if (!replica_in(rok, r)) {
+            acc[i] = __fadd_rn(acc[i], 0.f);
+            continue;
+          }
           const float step = __fmul_rn(kInvLevels, scales[r * sstride + lb]);
           acc[i] = __fadd_rn(acc[i], dequantize<BITS>(words[r * wstride + at] >> shift, step));
         }
@@ -663,7 +688,7 @@ int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const
                                 const long long* wstride, const long long* sstride,
                                 float* out, const long long* out_off, const int* n,
                                 const int* dims, int n_leaves, int bs, int nw, int bits,
-                                int n_replicas, void* stream) {
+                                int n_replicas, void* stream, const float* replica_ok) {
   if (n_leaves <= 0) return 0;
   if (bs <= 0 || nw <= 0 || n_replicas <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -703,10 +728,10 @@ int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const
 #define QSGD_UD(B)                                                                    \
   if (pow2) {                                                                           \
     unpack_dequantize_tree_kernel<B, true><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>(  \
-        t, bs, bs_shift, nw, magic, n_replicas);                                        \
+        t, bs, bs_shift, nw, magic, n_replicas, replica_ok);                            \
   } else {                                                                              \
     unpack_dequantize_tree_kernel<B, false><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>( \
-        t, bs, bs_shift, nw, magic, n_replicas);                                        \
+        t, bs, bs_shift, nw, magic, n_replicas, replica_ok);                            \
   }
     QSGD_DISPATCH_BITS(bits, QSGD_UD)
 #undef QSGD_UD

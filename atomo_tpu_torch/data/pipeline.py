@@ -106,6 +106,29 @@ class BatchIterator:
                     continue
                 yield self.images[sel], self.labels[sel]
 
+    def snapshot_rng(self):
+        """The shuffle RNG's state; take it right before the first
+        :meth:`forever` call and hand it to :meth:`restream`."""
+        return self._rng.get_state()
+
+    def rng_signature(self) -> int:
+        """A CRC32 fingerprint of the shuffle RNG's state (the JAX
+        package's: two streams from one seed with one consumption history
+        fingerprint alike)."""
+        import zlib
+
+        kind, keys, pos, has_gauss, cached = self._rng.get_state()
+        h = zlib.crc32(f"{kind}:{pos}:{has_gauss}".encode())
+        return zlib.crc32(np.asarray(keys).tobytes(), h)
+
+    def restream(self, rng_state, skip: int = 0):
+        """A fresh stream for an in-process rollback: the shuffle RNG
+        restored to ``rng_state`` (:meth:`snapshot_rng`), ``skip`` batches
+        skipped, so the replay is a restarted process's ``forever(skip)``
+        batch for batch."""
+        self._rng.set_state(rng_state)
+        return self.forever(skip=skip)
+
 
 def to_device(images: np.ndarray, labels: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
     """An NHWC numpy batch as (NCHW float32, int64 labels) on ``device``; a
@@ -200,6 +223,14 @@ class SuperstepFeed:
     def start(self, k: int) -> None:
         if k > 0:
             self._staged = self._put(*self._blocks.take(k))
+
+    def drop(self) -> int:
+        """Discard the staged block (a rollback: it belongs to the timeline
+        just abandoned); returns its step count (0 when none was staged)."""
+        staged, self._staged = self._staged, None
+        if staged is not None and staged.ready is not None:
+            staged.ready.synchronize()  # its copy is done before the memory goes
+        return 0 if staged is None else staged.k
 
     def take(self):
         staged, self._staged = self._staged, None

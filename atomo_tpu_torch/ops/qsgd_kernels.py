@@ -435,6 +435,25 @@ def check_decode_args(payloads, outs_like, n_replicas: int, geoms) -> None:
                 f"hold {n_replicas} x {g.n_buckets} buckets of {g.n_words} words")
 
 
+def mask_replica_rows(t: torch.Tensor, replica_ok: torch.Tensor) -> torch.Tensor:
+    """``t`` (a payload field with a leading axis of N replicas) with the
+    rows of every replica whose flag in the (N,) float32 ``replica_ok`` is
+    not above 0 zeroed: the JAX package's ``_mask_gathered`` (``where``, not
+    a product, which would keep NaN; a uint32 field through an int32 view)."""
+    keep = (replica_ok > 0).reshape((replica_ok.shape[0],) + (1,) * (t.dim() - 1))
+    if t.dtype == torch.uint32:
+        return torch.where(keep, t.view(torch.int32), 0).view(torch.uint32)
+    return torch.where(keep, t, torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def mask_replicas(payloads: Sequence, replica_ok: torch.Tensor) -> list:
+    """(words, scales) pairs with the flagged-out replicas' fields zeroed
+    (:func:`mask_replica_rows`)."""
+    n = replica_ok.shape[0]
+    return [(mask_replica_rows(w.reshape((n,) + tuple(w.shape[-2:])), replica_ok),
+             mask_replica_rows(sc.reshape(n, -1), replica_ok)) for w, sc in payloads]
+
+
 def unpack_dequantize_tree_plain(
     payloads: Sequence,
     outs_like: Sequence[torch.Tensor],
@@ -443,13 +462,18 @@ def unpack_dequantize_tree_plain(
     bits: int,
     bucket_size: int = 512,
     n_replicas: int = 1,
+    replica_ok: Optional[torch.Tensor] = None,
 ) -> list:
     """Plain twin of :func:`unpack_dequantize_tree`: each leaf decoded alone
     by :func:`unpack_dequantize_plain`, the replicas averaged by
     :func:`replica_mean`, then laid out as the port holds it. Takes the
-    payloads the kernel takes, views of a gathered buffer included."""
+    payloads the kernel takes, views of a gathered buffer included; with
+    ``replica_ok`` the payloads are :func:`mask_replicas`'s first (the JAX
+    package's masked decode)."""
     geoms = [geometry(like.numel(), bits, bucket_size) for like in outs_like]
     check_decode_args(payloads, outs_like, n_replicas, geoms)
+    if replica_ok is not None:
+        payloads = mask_replicas(payloads, replica_ok)
     out = []
     for (words, scales), like, tr, g in zip(payloads, outs_like,
                                             tree_layouts(outs_like, layouts), geoms):
@@ -525,7 +549,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_qsgd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-        lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p,
+                                                    p]
         lib.qsgd_pack_codes_tree.argtypes = [p, p, i, i, i, p]
         lib.qsgd_unpack_codes_tree.argtypes = [p, p, p, p, i, p, i, i, p]
         for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize_tree,
@@ -754,18 +779,19 @@ def _decode_layout(shapes: tuple, layouts: tuple, bits: int, bucket_size: int,
 
 
 def _launch_unpack_dequantize(words, scales, wstrides, sstrides, out, layout, *, bits,
-                              bucket_size, n_replicas):
+                              bucket_size, n_replicas, replica_ok=None):
     """Launch the tree decode over leaves whose words and scales lie at the
     data pointers ``words`` and ``scales``, replica r's ``r * wstrides[l]``
     words and ``r * sstrides[l]`` scales on, into ``out`` laid out as
-    ``layout``."""
+    ``layout``; ``replica_ok`` (device pointer to N float32 flags, or None)
+    leaves the flagged-out replicas out."""
     n_leaves = len(words)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     rc = _lib().qsgd_unpack_dequantize_tree(
         (vp * n_leaves)(*words), (vp * n_leaves)(*scales), (ll * n_leaves)(*wstrides),
         (ll * n_leaves)(*sstrides), _ptr(out), layout.offsets,
         layout.ns, layout.dims, n_leaves, bucket_size, layout.geoms[0].n_words, bits,
-        n_replicas, _stream(),
+        n_replicas, _stream(), _ptr(replica_ok),
     )
     _raise_if(rc, "qsgd_unpack_dequantize_tree")
     unpack_dequantize.launches += -(-n_leaves // _MAX_LEAVES)
@@ -779,6 +805,7 @@ def unpack_dequantize_tree(
     bits: int,
     bucket_size: int = 512,
     n_replicas: int = 1,
+    replica_ok: Optional[torch.Tensor] = None,
 ) -> list:
     """Fused QSGD decode of a whole tree in one launch: ``payloads`` holds
     one (words, scales) pair per leaf, words (n_buckets, n_words) uint32 and
@@ -791,14 +818,30 @@ def unpack_dequantize_tree(
     an embedding table), contiguous, a view into one buffer; over replicas
     it is their mean, summed in order and divided by ``n_replicas``. The
     leaf table rides in the kernel's arguments: no copy to the device and
-    no host sync."""
+    no host sync.
+
+    ``replica_ok`` (the guard's flags: an (n_replicas,) float32 tensor on
+    the payloads' device, or None) leaves out every replica whose flag is
+    not above 0: the kernel adds ``0.0f`` at its place in the replica order
+    and never reads its words or scales, which is the arithmetic of the JAX
+    package's ``where(ok, payload, 0)`` followed by the decode, bit for bit
+    (a zeroed payload decodes to +0.0, so a partial sum of -0.0 becomes
+    +0.0 there too). None launches as before."""
     if not payloads:
         return []
     w0 = payloads[0][0]
+    if replica_ok is not None and (replica_ok.dtype != torch.float32
+                                   or tuple(replica_ok.shape) != (n_replicas,)):
+        raise ValueError(f"replica_ok must be ({n_replicas},) float32, got "
+                         f"{tuple(replica_ok.shape)} {replica_ok.dtype}")
     if not _on_card(w0):
         _on_card(*(t for p in payloads for t in p))  # refuses a mix of devices
         return unpack_dequantize_tree_plain(payloads, outs_like, layouts, bits=bits,
-                                            bucket_size=bucket_size, n_replicas=n_replicas)
+                                            bucket_size=bucket_size, n_replicas=n_replicas,
+                                            replica_ok=replica_ok)
+    if replica_ok is not None:
+        _on_card(w0, replica_ok)  # the flags on the payloads' card
+        replica_ok = replica_ok.contiguous()
     layout = _decode_layout(tuple(g.shape for g in outs_like),
                             tree_layouts(outs_like, layouts), bits, bucket_size, True)
     if len(payloads) != len(outs_like) or n_replicas < 1:
@@ -818,7 +861,8 @@ def unpack_dequantize_tree(
         sstrides.append(ss)
     out = torch.empty((layout.total,), dtype=f32, device=w0.device)
     _launch_unpack_dequantize(word_ptrs, scale_ptrs, wstrides, sstrides, out, layout,
-                              bits=bits, bucket_size=bucket_size, n_replicas=n_replicas)
+                              bits=bits, bucket_size=bucket_size, n_replicas=n_replicas,
+                              replica_ok=replica_ok)
     return [out.as_strided(shape, stride, offset) for shape, stride, offset in layout.views]
 
 

@@ -24,6 +24,15 @@ groups of a (dp, sp) mesh over the world: rank ``r`` is mesh position
 sequence shards of one replica) and one dp group per sp column (the replicas
 that exchange gradients).
 
+Failure detection (``atomo_tpu/parallel/launch.py:150-244``): the train
+loops ``beat()`` a :class:`HealthMonitor` after every step (every block under
+``--superstep``), and a :class:`HealthWatchdog` thread checks it. When the
+heartbeat stops, the default failure path prints the diagnosis, interrupts
+the main thread (a SIGINT, so a blocking call returns and the
+``KeyboardInterrupt`` it raises becomes exit 13 at the process entry), and, should the main thread not return
+within a grace period (a collective or a graph replay that never ends runs
+no bytecode), hard-exits with 13 so a scheduler sees a dead process.
+
 One device per process. Each rank binds its device (``cuda:LOCAL_RANK``
 unless the caller names one) with ``torch.cuda.set_device`` before any
 kernel launches, and the binding is checked: a process that binds a second,
@@ -39,8 +48,9 @@ import dataclasses
 import datetime
 import os
 import sys
+import threading
 import time
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -201,3 +211,88 @@ def shutdown() -> None:
     """Tear down this process's group, if one is up."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+class HealthMonitor:
+    """Step-heartbeat failure detector: ``beat(step)`` after every
+    completed step; ``check()`` raises ``RuntimeError`` once no beat came
+    for ``timeout`` seconds."""
+
+    def __init__(self, timeout: float = 300.0):
+        self.timeout = timeout
+        self._last = time.monotonic()
+        self._last_step = -1
+
+    def beat(self, step: int) -> None:
+        self._last = time.monotonic()
+        self._last_step = step
+
+    def check(self) -> None:
+        silent = time.monotonic() - self._last
+        if silent > self.timeout:
+            raise RuntimeError(
+                f"no training heartbeat for {silent:.0f}s "
+                f"(last completed step {self._last_step}); "
+                "restart from the latest checkpoint")
+
+
+_EXIT_GRACE_S = 30.0
+WATCHDOG_EXIT_CODE = 13
+# set when the default failure path fired: the process entry turns the
+# KeyboardInterrupt it sent into the watchdog's exit code
+WATCHDOG_FIRED = threading.Event()
+
+
+def _default_failure(exc: RuntimeError) -> None:
+    """Print the diagnosis, interrupt the main thread, and hard-exit with
+    13 after a grace period: a main thread inside a collective or a graph
+    replay that never returns runs no bytecode, so the interrupt alone
+    would leave the process hung."""
+    import signal
+
+    print(f"HealthWatchdog: {exc}", file=sys.stderr, flush=True)
+    WATCHDOG_FIRED.set()
+    # a real SIGINT to the main thread (not _thread.interrupt_main, which
+    # only sets a flag): a blocking sleep or wait returns with EINTR and the
+    # KeyboardInterrupt is raised at once
+    signal.pthread_kill(threading.main_thread().ident, signal.SIGINT)
+    time.sleep(_EXIT_GRACE_S)
+    print(f"HealthWatchdog: main thread did not exit within {_EXIT_GRACE_S}s "
+          "of interrupt (hung collective?); hard-exiting for scheduler restart",
+          file=sys.stderr, flush=True)
+    os._exit(WATCHDOG_EXIT_CODE)
+
+
+class HealthWatchdog:
+    """A daemon thread that calls ``monitor.check()`` every ``interval``
+    seconds and ``on_failure(exc)`` (default: :func:`_default_failure`)
+    when the heartbeat stopped."""
+
+    def __init__(self, monitor: HealthMonitor, interval: float = 10.0,
+                 on_failure: Optional[Callable[[RuntimeError], None]] = None):
+        self.monitor = monitor
+        self.interval = interval
+        self.on_failure = on_failure or _default_failure
+        self._stop = threading.Event()
+        self._fired = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "HealthWatchdog":
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.monitor.check()
+            except RuntimeError as exc:
+                self._fired.set()
+                self.on_failure(exc)
+                return
+
+    def stop(self) -> None:
+        self._stop.set()
+        # a fired watchdog sits in its grace period: the process is ending
+        if self._thread is not None and not self._fired.is_set():
+            self._thread.join(timeout=5.0)

@@ -189,22 +189,24 @@ class BucketWire:
     after the stream's ``finish``, waits on the gathers and decodes every
     bucket's rows in one tree decode (read in place), or returns the
     mini-rings' means. ``sel_start`` is the ``num_aggregate`` subset's
-    first replica, None for all."""
+    first replica, None for all. ``deferred`` (the guard) holds the ring's
+    buckets until :meth:`mean`, where this rank's health flag is known and
+    rotates with each bucket's payload; the gather's buckets go out as
+    before and the flags reach their decode."""
 
     def __init__(self, codec, plan, layouts, *, aggregate: str, rank: int, world: int,
                  n_contrib: int, ring_bucket_size: int, sel_start: Optional[int] = None,
-                 group=None, stream=None):
+                 group=None, stream=None, deferred: bool = False):
         self.codec, self.plan, self.layouts = codec, plan, layouts
         self.aggregate, self.rank, self.world, self.group = aggregate, rank, world, group
         self.n_contrib, self.sel_start = n_contrib, sel_start
         self.ring_bucket_size, self.stream = ring_bucket_size, stream
+        self.deferred = deferred
         self.gathered: dict = {}
+        self.rings: dict = {}
         self.means: list = [None] * plan.n_leaves
 
     def __call__(self, b: int, idxs, inputs, payloads) -> None:
-        from atomo_tpu_torch.codecs import codec_subset
-        from atomo_tpu_torch.parallel.replicated import ring_stream_mean
-
         if self.aggregate == "gather":
             buf, spec = pack_tree_buckets(payloads)
             if not dist.is_initialized():  # one replica and no group: its own row
@@ -214,25 +216,41 @@ class BucketWire:
             work = dist.all_gather_into_tensor(out, buf, group=self.group, async_op=True)
             self.gathered[b] = (out.view(self.world, spec.nbytes), spec, work, buf)
             return
-        mean_b = ring_stream_mean(codec_subset(self.codec, idxs), payloads, inputs,
-                                  rank=self.rank, world=self.world, sel_start=self.sel_start,
-                                  n_contrib=self.n_contrib,
-                                  ring_bucket_size=self.ring_bucket_size,
-                                  layouts=[self.layouts[i] for i in idxs], group=self.group)
+        if self.deferred:
+            self.rings[b] = (idxs, inputs, payloads)
+            return
+        self._ring(idxs, inputs, payloads)
+
+    def _ring(self, idxs, inputs, payloads, ok=None):
+        from atomo_tpu_torch.codecs import codec_subset
+        from atomo_tpu_torch.parallel.replicated import ring_stream_mean
+
+        out = ring_stream_mean(codec_subset(self.codec, idxs), payloads, inputs,
+                               rank=self.rank, world=self.world, sel_start=self.sel_start,
+                               n_contrib=self.n_contrib, ring_bucket_size=self.ring_bucket_size,
+                               layouts=[self.layouts[i] for i in idxs], group=self.group, ok=ok)
+        mean_b, kept = out if ok is not None else (out, None)
         for i, m in zip(idxs, mean_b):
             self.means[i] = m
+        return kept
 
-    def mean(self, like: Sequence[torch.Tensor]) -> list:
-        """The mean gradient (port layout), on the current stream."""
+    def mean(self, like: Sequence[torch.Tensor], ok: Optional[torch.Tensor] = None):
+        """The mean gradient (port layout), on the current stream; with
+        ``ok`` (this rank's guard flag) ``(mean over the healthy replicas'
+        slots, the survivors' count)``, the caller rescaling by n/kept."""
         from atomo_tpu_torch.parallel.replicated import _rotating_rows
 
         cur = None if self.stream is None else torch.cuda.current_stream(self.stream.device)
         if self.aggregate == "ring":
+            kept = None
+            for b in sorted(self.rings):
+                kept = self._ring(*self.rings.pop(b), ok=ok)
             for m in self.means:
                 if cur is not None:
                     m.record_stream(cur)
-            return list(self.means)
+            return list(self.means) if ok is None else (list(self.means), kept)
         parts: list = [None] * self.plan.n_leaves
+        okg = None
         with record_function("step.exchange"):
             for b, (rows, spec, work, _) in sorted(self.gathered.items()):
                 if work is not None:
@@ -243,8 +261,26 @@ class BucketWire:
                     rows = _rotating_rows(rows, self.sel_start, self.n_contrib)
                 for i, p in zip(self.plan.buckets[b], unpack_tree_buckets(rows, spec)):
                     parts[i] = p
+            if ok is not None:
+                okg = gather_flags(ok, self.world, self.group)
+                if self.sel_start is not None:
+                    okg = _rotating_rows(okg.view(self.world, 1), self.sel_start,
+                                         self.n_contrib).reshape(-1)
         with record_function("step.decode_mean"):
-            return decode_mean_tree(self.codec, parts, like, self.n_contrib, self.layouts)
+            mean = decode_mean_tree(self.codec, parts, like, self.n_contrib, self.layouts,
+                                    replica_ok=okg)
+        return mean if ok is None else (mean, okg.sum())
+
+
+def gather_flags(ok: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """Every rank's guard flag, (N,) float32 in rank order."""
+    okg = torch.empty((world,), dtype=torch.float32, device=ok.device)
+    flag = ok.to(torch.float32).reshape(1)
+    if world > 1 and dist.is_initialized():
+        dist.all_gather_into_tensor(okg, flag, group=group)
+    else:
+        okg.copy_(flag)
+    return okg
 
 
 def issued_under_backward(log: Sequence) -> int:
@@ -265,8 +301,8 @@ class OverlapCarry:
     of the previous step, packed as the gather ships it (one (B,) uint8
     buffer, ``spec`` its layout), updated in place each step (a CUDA graph
     reads the same buffer at every replay); ``ok`` the producing step's
-    per-rank health flags, (N,) float32, all ones (the guard is not
-    ported); ``valid`` False until a payload is in flight: the step that
+    per-rank guard flags, (N,) float32 (all ones without the guard), which
+    the consume masks the payloads with; ``valid`` False until a payload is in flight: the step that
     consumes an invalid carry applies nothing. A loaded checkpoint leaves
     in ``TrainState.carry`` instead the dict it saved (every rank's payload
     as one (N, B) tensor), which :func:`carry_from_saved` takes apart."""
@@ -321,15 +357,20 @@ def carry_from_saved(fresh: OverlapCarry, saved, rank: int, world: int):
 
 def consume(codec, carry: OverlapCarry, like: Sequence[torch.Tensor], *, aggregate: str,
             rank: int, world: int, sel_start: Optional[int], n_contrib: int,
-            ring_bucket_size: int, layouts, group=None) -> list:
+            ring_bucket_size: int, layouts, group=None, guard: bool = False):
     """The carried payload's exchange and decode-mean (the JAX package's
     ``delayed_apply`` consume section): gather, one ``all_gather`` of the
     packed buffer and one tree decode of the rows (the rotating subset from
     ``sel_start`` under ``num_aggregate``); ring, the staged ring mean.
-    ``like`` gives the leaves' shapes (the parameters)."""
+    ``like`` gives the leaves' shapes (the parameters). With ``guard`` the
+    carry's flags (the producing step's, every rank's) mask the decode and
+    the call returns ``(mean, kept)``."""
     from atomo_tpu_torch.parallel.replicated import _rotating_rows, ring_stream_mean
 
     spec = carry.spec
+    okg = carry.ok if guard else None
+    if okg is not None and sel_start is not None:
+        okg = _rotating_rows(okg.view(world, 1), sel_start, n_contrib).reshape(-1)
     if aggregate == "gather":
         with record_function("step.delayed_exchange"):
             if world > 1:
@@ -342,13 +383,16 @@ def consume(codec, carry: OverlapCarry, like: Sequence[torch.Tensor], *, aggrega
         with record_function("step.delayed_decode_mean"):
             if sel_start is not None:
                 rows = _rotating_rows(rows, sel_start, n_contrib)
-            return decode_mean_tree(codec, unpack_tree_buckets(rows, spec), like, n_contrib,
-                                    layouts)
+            mean = decode_mean_tree(codec, unpack_tree_buckets(rows, spec), like, n_contrib,
+                                    layouts, replica_ok=okg)
+            return mean if okg is None else (mean, okg.sum())
     with record_function("step.delayed_ring_exchange_decode"):
+        # this rank's flag rotates with its payload
         return ring_stream_mean(codec, unpack_tree_buckets(carry.payload, spec), like,
                                 rank=rank, world=world, sel_start=sel_start,
                                 n_contrib=n_contrib, ring_bucket_size=ring_bucket_size,
-                                layouts=layouts, group=group)
+                                layouts=layouts, group=group,
+                                ok=carry.ok[rank] if guard else None)
 
 
 def issue_consume(stream, fn: Callable[[], list]) -> list:

@@ -126,6 +126,7 @@ from atomo_tpu_torch.parallel.overlap import (
     OverlapCarry,
     consume,
     encode_syncs,
+    gather_flags,
     init_carry,
     issue_consume,
     join,
@@ -134,7 +135,21 @@ from atomo_tpu_torch.parallel.overlap import (
 )
 from atomo_tpu_torch.training.optim import Optimizer
 from atomo_tpu_torch.training import graph as G
-from atomo_tpu_torch.training.trainer import TrainState, augment_with, forward, leaf_params
+from atomo_tpu_torch.training.resilience import (
+    apply_remedy,
+    global_sq_norm,
+    grad_ok,
+    masked_mean,
+    rescale_by_survivors,
+    zero_if,
+)
+from atomo_tpu_torch.training.trainer import (
+    Guarded,
+    TrainState,
+    augment_with,
+    forward,
+    leaf_params,
+)
 from atomo_tpu_torch.utils.metrics import accuracy
 from atomo_tpu_torch.utils.rng import fold_in, split3
 
@@ -236,7 +251,7 @@ def gather_payloads(payloads: Sequence, world: int, group=None):
 def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *, rank: int,
                      world: int, sel_start: Optional[int] = None, n_contrib: int,
                      ring_bucket_size: int = 65536,
-                     layouts: Optional[Sequence[bool]] = None, group=None) -> list[torch.Tensor]:
+                     layouts: Optional[Sequence[bool]] = None, group=None, ok=None):
     """The ring's decode-mean (``_ring_stream_mean``): rotate the packed
     payloads N - 1 hops to ``rank - 1``, decode each arrival into this
     rank's segment of the flat JAX-layout gradient at its source's
@@ -245,7 +260,11 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
     with one ``all_gather_into_tensor``. Returns the mean, port layout
     (``layouts`` as for :func:`~atomo_tpu_torch.codecs.encode_tree`).
     ``rank`` and ``world`` are this rank's place in ``group`` (the default
-    group when None); a world of one makes no collective call."""
+    group when None); a world of one makes no collective call. ``ok`` (the
+    guard: this rank's 0-d health flag) rotates with the payload, each
+    arrival's staged slice masked by its source's flag before the sum
+    (``where``, not a product: NaN times 0 is NaN); the call then returns
+    ``(mean, kept)``, kept the selected sources' flags summed."""
     numels = [g.numel() for g in grads]
     d_flat = sum(numels)
     chunk = -(-d_flat // world)
@@ -254,6 +273,11 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
     buf, spec = pack_tree_buckets(payloads)
     nxt = torch.empty_like(buf)
     stage = torch.zeros((world, chunk), dtype=torch.float32, device=buf.device)
+    ok_t = ok_nxt = ok_stage = None
+    if ok is not None:
+        ok_t = ok.to(torch.float32).reshape(1).clone()
+        ok_nxt = torch.empty_like(ok_t)
+        ok_stage = torch.zeros((world,), dtype=torch.float32, device=buf.device)
     send_to, recv_from = ring_perm(world)[rank][1], (rank + 1) % world
     if world > 1 and group is not None:  # P2P peers are global ranks
         send_to, recv_from = (dist.get_global_rank(group, r) for r in (send_to, recv_from))
@@ -267,14 +291,24 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
             for a, b in hop_pieces(spec.nbytes, ring_bucket_size):
                 ops.append(dist.P2POp(dist.isend, buf[a:b], send_to, group))
                 ops.append(dist.P2POp(dist.irecv, nxt[a:b], recv_from, group))
+            if ok_t is not None:  # the flag travels with its payload
+                ops.append(dist.P2POp(dist.isend, ok_t, send_to, group))
+                ops.append(dist.P2POp(dist.irecv, ok_nxt, recv_from, group))
             reqs = dist.batch_isend_irecv(ops)
         src = (rank + t) % world
         decoded = decode_tree(codec, unpack_tree_buckets(buf, spec), grads, flat_layouts)
         if hi > lo:
-            stage[src, : hi - lo] = torch.cat([v.reshape(-1) for v in decoded])[lo:hi]
+            sl = torch.cat([v.reshape(-1) for v in decoded])[lo:hi]
+            if ok_t is not None:
+                sl = torch.where(ok_t > 0, sl, torch.zeros((), dtype=sl.dtype, device=sl.device))
+            stage[src, : hi - lo] = sl
+        if ok_t is not None:
+            ok_stage[src] = ok_t[0]
         for r in reqs:
             r.wait()
         buf, nxt = nxt, buf
+        if ok_t is not None and t < world - 1:
+            ok_t, ok_nxt = ok_nxt, ok_t
     rows = stage if sel_start is None else _rotating_rows(stage, sel_start, n_contrib)
     seg = replica_mean(rows)
     if world == 1:  # this rank's segment is the whole mean
@@ -283,8 +317,13 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
         full = torch.empty((world * chunk,), dtype=torch.float32, device=seg.device)
         dist.all_gather_into_tensor(full, seg.contiguous(), group=group)
     layouts = [True] * len(grads) if layouts is None else layouts
-    return [to_port_layout(v, g.shape, tr) for v, g, tr in
+    mean = [to_port_layout(v, g.shape, tr) for v, g, tr in
             zip(full[:d_flat].split(numels), grads, layouts)]
+    if ok is None:
+        return mean
+    kept_rows = ok_stage if sel_start is None else _rotating_rows(
+        ok_stage.view(world, 1), sel_start, n_contrib).reshape(-1)
+    return mean, kept_rows.sum()
 
 
 def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, rank: int,
@@ -339,7 +378,8 @@ def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, ran
 
 
 def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int,
-                  world: int, overlap: str = "off", stream_encode: bool = False) -> None:
+                  world: int, overlap: str = "off", stream_encode: bool = False,
+                  guard=None) -> None:
     """The step factory's refusals of ``hybrid=`` (``:1328-1370``) for the
     arguments the port's step has, and of a plan over another tree."""
     if plan.n_leaves != n_leaves:
@@ -363,6 +403,11 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
         raise ValueError(
             "hybrid= does not compose with stream_encode: the "
             "layer-bucket encode pipeline is not assignment-aware yet")
+    if guard is not None:
+        raise ValueError(
+            "hybrid= does not compose with the guard (and therefore "
+            "elastic membership): the row exchange has no "
+            "skip-and-rescale masking yet — run the guard all-dense")
     if 0 < num_aggregate < world:
         raise ValueError(
             "hybrid= does not compose with num_aggregate: the "
@@ -370,7 +415,8 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
             "exchange")
 
 
-def _check_error_feedback(codec, hybrid, k_agg: int, overlap: str = "off") -> None:
+def _check_error_feedback(codec, hybrid, k_agg: int, overlap: str = "off",
+                          guard=None) -> None:
     """The step factory's refusals of ``error_feedback`` (``:1277-1330``)
     for the arguments the port's step has."""
     if codec is None:
@@ -383,6 +429,13 @@ def _check_error_feedback(codec, hybrid, k_agg: int, overlap: str = "off") -> No
             "the carried payload is consumed one step late, so the "
             "residual would describe a stale encode — the carry "
             "semantics are unproven; rejected honestly")
+    if guard is not None:
+        raise ValueError(
+            "error_feedback does not compose with the guard (and "
+            "therefore elastic membership): skip-and-rescale rests "
+            "on the unbiasedness EF trades away, and a skipped "
+            "step's residual semantics are unproven — run EF "
+            "unguarded")
     if hybrid is not None:
         raise ValueError(
             "error_feedback does not compose with hybrid= (the "
@@ -466,6 +519,12 @@ def make_distributed_train_step(
     overlap: str = "off",
     stream_encode: bool = False,
     stream_bucket_bytes: int = 4 << 20,
+    guard=None,
+    chaos=None,
+    remedy=None,
+    track_grad_norm: bool = False,
+    track_ok_bits: bool = False,
+    survivor_exact: bool = False,
     _oracle_parts: bool = False,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
@@ -524,22 +583,53 @@ def make_distributed_train_step(
     values; a step that :func:`~atomo_tpu_torch.training.graph.graph_rule`
     qualifies (NCCL, a codec with a device form, no ``num_aggregate``, no
     ring above one rank, no stream-encode) is one CUDA graph replayed K
-    times."""
+    times.
+
+    The guard (``atomo_tpu/parallel/replicated.py:1490-1840``): ``chaos``
+    poisons this rank's raw gradient at its steps (replica ``rank``; a
+    starred fault every rank); ``guard`` screens it (finiteness, the norm
+    ceiling) and masks an unhealthy rank's contribution out of the
+    exchange, the survivors' mean rescaled by n/kept: gather all-gathers
+    the flags and decodes with them (the QSGD tree kernel leaves a flagged
+    replica out, other codecs decode masked payloads; with
+    ``num_aggregate`` the flags take the payloads' rotating subset), the
+    ring rotates each payload's flag with it and masks the arrival before
+    staging, psum sums ``where(ok, g, 0)`` and the survivors' count in one
+    all-reduce. Under ``stream_encode`` the flags reach the gathered rows'
+    decode, and the ring's bucket rings wait for the flag (after
+    backward); under ``overlap="delayed"`` the producing step's flags
+    travel with the carried payload and the consuming step masks with
+    them. A step with no survivor holds parameters, optimizer state and
+    BatchNorm statistics (``metrics["skipped"]`` 1); ``metrics["dropped"]``
+    counts the masked contributions; loss, precision, grad norm and the
+    BatchNorm statistics are means over the healthy ranks. ``remedy``
+    scales the mean by the rewarm ramp; ``track_grad_norm`` adds
+    ``metrics["grad_norm"]``."""
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
     params = leaf_params(model)
+    if track_ok_bits and guard is None:
+        raise ValueError(
+            "track_ok_bits reports the guard's per-replica screen "
+            "verdicts; arm guard= (the elastic membership layer has "
+            "nothing to observe without the screen)")
+    if track_ok_bits or survivor_exact:
+        raise ValueError(
+            f"{'track_ok_bits' if track_ok_bits else 'survivor_exact'} belongs to the "
+            "elastic membership layer, which is not ported (ROADMAP queue 1 item 11)")
+    if error_feedback:
+        k_pre = num_aggregate if 0 < num_aggregate < world else 0
+        _check_error_feedback(codec, hybrid, k_pre, overlap, guard)
     if hybrid is not None:
         _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world, overlap,
-                      stream_encode)
+                      stream_encode, guard)
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
     _check_overlap(codec, aggregate, overlap, stream_encode)
-    if _oracle_parts and overlap != "delayed":
-        raise ValueError("_oracle_parts only applies to overlap='delayed'")
-    if error_feedback:
-        _check_error_feedback(codec, hybrid, k_agg, overlap)
+    if _oracle_parts and (overlap != "delayed" or guard is not None):
+        raise ValueError("_oracle_parts only applies to overlap='delayed', unguarded")
     n_contrib = k_agg or world
     names = jax_leaf_order(model)
     layouts = jax_layouts(model)
@@ -551,57 +641,101 @@ def make_distributed_train_step(
     enc_stream = side_stream(device) if hooked else None
     cons_stream = side_stream(device) if overlap == "delayed" else None
     log_holder: dict = {}
+    if chaos is not None:
+        chaos.prepare(device)
+    guarded = Guarded(optimizer, params, stats, device) if guard is not None else None
+    # svd's eigh refuses non-finite input where XLA's returns NaN: under the
+    # guard its encode takes the gradient with non-finite entries zeroed (an
+    # unhealthy replica's payload is masked out either way, and a healthy
+    # one's gradient is finite, so every output is the same)
+    finite_encode = guard is not None and encode_syncs(codec) is not None
 
-    def exchange(state: TrainState, k_codec: int, grads, draws, dense_bytes: int):
+    def encodable(grads):
+        return [torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for g in grads] \
+            if finite_encode else grads
+
+    def poison(grads, step_index):
+        """This rank's gradient with its chaos faults (1-based step)."""
+        return grads if chaos is None else chaos.inject_grads(grads, step_index + 1,
+                                                              replica=rank)
+
+    def exchange(state: TrainState, k_codec: int, grads, draws, dense_bytes: int, ok=None):
         """(mean gradient in the port layout, message bytes, this rank's own
-        decode of its payloads under ``error_feedback``, else None)."""
+        decode of its payloads under ``error_feedback``, else None, and the
+        surviving contributions under the guard, else None)."""
         if codec is None:
             with record_function("step.exchange"):
+                if ok is not None:
+                    mean, kept = masked_mean(grads, ok, world)
+                    return mean, dense_bytes, None, kept
                 return (_views_like(_all_reduce_mean(_flat(grads), world), grads), dense_bytes,
-                        None)
+                        None, None)
         with record_function("step.encode"):
-            payloads, cstats = encode_tree(codec, k_codec, grads, draws, layouts)
+            payloads, cstats = encode_tree(codec, k_codec, encodable(grads), draws, layouts)
         own = None
         if error_feedback and aggregate != "psum":
             with record_function("step.ef_decode"):
                 own = decode_tree(codec, payloads, grads, layouts)
         sel_start = state.step % world if k_agg else None
+        kept = None
         if aggregate == "gather":
             with record_function("step.exchange"):
                 gathered, spec = gather_payloads(payloads, world)
+                okg = gather_flags(ok, world) if ok is not None else None
             with record_function("step.decode_mean"):
                 if k_agg:
                     gathered = _rotating_rows(gathered, sel_start, k_agg)
+                    if okg is not None:
+                        okg = _rotating_rows(okg.view(world, 1), sel_start, k_agg).reshape(-1)
                 mean = decode_mean_tree(codec, unpack_tree_buckets(gathered, spec), grads,
-                                        n_contrib, layouts)
-            return mean, cstats.payload_bytes, own
+                                        n_contrib, layouts, replica_ok=okg)
+                if okg is not None:
+                    kept = okg.sum()
+                    mean = rescale_by_survivors(mean, n_contrib, kept)
+            return mean, cstats.payload_bytes, own, kept
         if aggregate == "ring":
             with record_function("step.ring_exchange_decode"):
                 mean = ring_stream_mean(codec, payloads, grads, rank=rank, world=world,
                                         sel_start=sel_start, n_contrib=n_contrib,
-                                        ring_bucket_size=ring_bucket_size, layouts=layouts)
-            return mean, cstats.payload_bytes, own
+                                        ring_bucket_size=ring_bucket_size, layouts=layouts,
+                                        ok=ok)
+                if ok is not None:
+                    mean, kept = mean
+                    mean = rescale_by_survivors(mean, n_contrib, kept)
+            return mean, cstats.payload_bytes, own, kept
         with record_function("step.decode"):
             decoded = decode_tree(codec, payloads, grads, layouts)
         with record_function("step.exchange"):
-            mean = _views_like(_all_reduce_mean(_flat(decoded), world), grads)
+            if ok is not None:
+                mean, kept = masked_mean(decoded, ok, world)
+            else:
+                mean = _views_like(_all_reduce_mean(_flat(decoded), world), grads)
         # the all-reduce moves dense gradients; its local decode is the own one
-        return mean, dense_bytes, decoded if error_feedback else None
+        return mean, dense_bytes, decoded if error_feedback else None, kept
 
-    def bucket_stream(state: TrainState, k_codec, draws, wire: bool) -> BucketStream:
+    def bucket_stream(state: TrainState, k_codec, draws, wire: bool,
+                      step_index=0) -> BucketStream:
         """This step's :class:`BucketStream`; ``wire`` puts each bucket on
         the gather's or the ring's wire as soon as it is encoded (the
         blocking step, its :class:`BucketWire` as ``bs.wire``), else the
-        payloads wait for the carry (delayed)."""
+        payloads wait for the carry (delayed). Chaos poisons each leaf as
+        it is fed (its faults are elementwise)."""
         residual = state.residual if error_feedback else None
         bw = BucketWire(codec, plan, layouts, aggregate=aggregate, rank=rank, world=world,
                         n_contrib=n_contrib, ring_bucket_size=ring_bucket_size,
                         sel_start=state.step % world if k_agg else None,
-                        stream=enc_stream) if wire else None
-        bs = BucketStream(
-            plan, codec, k_codec, layouts=layouts, draws=draws,
-            feed=(lambda i, g: g) if residual is None else (lambda i, g: g + residual[i]),
-            on_encoded=bw, hooked=hooked, stream=enc_stream)
+                        stream=enc_stream, deferred=guarded is not None) if wire else None
+
+        def feed(i, g):
+            g = poison([g], step_index)[0]
+            return g if residual is None else g + residual[i]
+
+        if finite_encode:
+            raw = feed
+            feed = lambda i, g: encodable([raw(i, g)])[0]  # noqa: E731
+
+        bs = BucketStream(plan, codec, k_codec, layouts=layouts, draws=draws, feed=feed,
+                          on_encoded=bw, hooked=hooked, stream=enc_stream)
         bs.wire = bw
         return bs
 
@@ -681,38 +815,77 @@ def make_distributed_train_step(
             p.grad = None
         return images
 
-    def update_and_stats(state: TrainState, mean, opt_scalars, local=None):
+    def update_and_stats(state: TrainState, mean, opt_scalars, local=None, ok=None,
+                         with_stats: bool = True):
         """The optimizer's update, then the dp means of the BatchNorm
-        statistics and of the ``local`` metrics (one ``all_reduce`` each)."""
-        with record_function("step.update"):
-            opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
+        statistics and of the ``local`` metrics (one ``all_reduce`` each);
+        with ``ok`` (the guard) means over the healthy ranks only, the
+        JAX package's ``_healthy_mean``: ``where(ok, x, 0)`` summed with the
+        healthy count, divided by max(count, 1). Returns (optimizer state,
+        metric means, healthy ranks or None). ``mean`` None updates nothing,
+        ``with_stats`` False leaves the statistics alone."""
+        if mean is not None:
+            with record_function("step.update"):
+                opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
+        else:
+            opt_state = state.opt_state
         with torch.no_grad():
-            if stats:
-                flat = _all_reduce_mean(_flat(stats), world)
-                for s, v in zip(stats, _views_like(flat, stats)):
+            if ok is None:
+                if stats and with_stats:
+                    flat = _all_reduce_mean(_flat(stats), world)
+                    for s, v in zip(stats, _views_like(flat, stats)):
+                        s.copy_(v)
+                m = None if local is None else _all_reduce_mean(torch.stack(local), world)
+                return opt_state, m, None
+            okf = ok.to(torch.float32).reshape(1)
+            kept_chips = None
+            if stats and with_stats:
+                flat = torch.cat([_flat(zero_if(~ok, stats)), okf])
+                if world > 1:
+                    dist.all_reduce(flat)
+                kept_chips = flat[-1]
+                for s, v in zip(stats, _views_like(flat[:-1] / torch.clamp(kept_chips, min=1.0),
+                                                   stats)):
                     s.copy_(v)
-            m = None if local is None else _all_reduce_mean(torch.stack(local), world)
-        return opt_state, m
+            m = None
+            if local is not None:
+                flat = torch.cat([torch.stack(zero_if(~ok, local)), okf])
+                if world > 1:
+                    dist.all_reduce(flat)
+                kept_chips = flat[-1]
+                m = flat[:-1] / torch.clamp(kept_chips, min=1.0)
+        return opt_state, m, kept_chips
 
     def core(state: TrainState, images, labels, *, aug, k_drop, k_codec, opt_scalars=None,
-             draws: Optional[Sequence[Any]] = None,
+             step_t=None, count_t=None, draws: Optional[Sequence[Any]] = None,
              dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         """The step on given keys (ints, or the device form: ``aug`` drawn,
         ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
-        device values)."""
+        device values, ``step_t`` and ``count_t`` the step and the
+        optimizer's count as 0-d device integers)."""
         images = begin(images, aug)
-        bs = bucket_stream(state, k_codec, draws, wire=True) if stream_encode else None
+        step_index = state.step if step_t is None else step_t  # 0-based
+        if guarded is not None:
+            guarded.snapshot(state)  # before forward: it moves the statistics
+        bs = (bucket_stream(state, k_codec, draws, wire=True, step_index=step_index)
+              if stream_encode else None)
         grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, dropout_masks, bs)
         if bs is not None:
             with record_function("step.encode"):
                 payloads = bs.finish()
             log_holder["log"] = bs.log
             grads = bs.inputs  # the encode's input: g, or g + e
-        elif error_feedback and state.residual is not None:
-            # the encode's input is g + e (a fresh carry is zero: g as it is)
-            grads = [g + e for g, e in zip(grads, state.residual)]
+        else:
+            grads = poison(grads, step_index)
+            if error_feedback and state.residual is not None:
+                # the encode's input is g + e (a fresh carry is zero: g as it is)
+                grads = [g + e for g, e in zip(grads, state.residual)]
+        gnorm = torch.sqrt(global_sq_norm(grads)) if track_grad_norm else None
+        # the raw gradient is screened before the encode: a codec carries
+        # NaN and Inf into its payloads, where they could not be told apart
+        ok = grad_ok(grads, guard.max_grad_norm) if guarded is not None else None
         dense_bytes = tree_nbytes(grads)
-        overflow = residual = None
+        overflow = residual = kept = None
         if hybrid is not None:
             with record_function("step.hybrid_exchange"):
                 mean, msg_bytes, overflow = hybrid_mean(
@@ -724,11 +897,16 @@ def make_distributed_train_step(
             if error_feedback:
                 with record_function("step.ef_decode"):
                     own = decode_tree(codec, payloads, grads, layouts)
-            mean = bs.wire.mean(grads)
+            mean = bs.wire.mean(grads, ok=ok)
+            if ok is not None:
+                mean, kept = mean
+                mean = rescale_by_survivors(mean, n_contrib, kept)
             msg_bytes = sum(payload_nbytes(p) for p in payloads)
         else:
-            mean, msg_bytes, own = exchange(state, k_codec, grads, draws, dense_bytes)
-        local = [loss, prec1, prec5]
+            mean, msg_bytes, own, kept = exchange(state, k_codec, grads, draws, dense_bytes, ok)
+        if remedy is not None:
+            mean = apply_remedy(remedy, step_index, mean)
+        local = [loss, prec1, prec5] + ([gnorm] if gnorm is not None else [])
         if error_feedback:
             with torch.no_grad():
                 # the part of the fed gradient that the wire did not carry
@@ -740,26 +918,39 @@ def make_distributed_train_step(
                         r.copy_(new)
                     residual = state.residual
                 local.append(torch.sqrt(sum(torch.sum(r * r) for r in residual)))
-        opt_state, m = update_and_stats(state, mean, opt_scalars, local)
+        held = None
+        if guarded is not None:
+            held = guarded.held(state)
+            opt_scalars = guarded.opt_scalars(state, held, count_t)
+        opt_state, m, _ = update_and_stats(state, mean, opt_scalars, local, ok)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes}
+        if gnorm is not None:
+            metrics["grad_norm"] = m[3]
         if overflow is not None:
             metrics["row_overflow"] = overflow
         if error_feedback:
-            metrics["ef_res_norm"] = m[3]
+            metrics["ef_res_norm"] = m[-1]
+        if guarded is not None:
+            ok_step = kept > 0  # any survivor: the rescaled mean applies
+            guarded.hold(ok_step, state, held)
+            metrics["skipped"] = 1.0 - ok_step.to(torch.float32)
+            metrics["dropped"] = n_contrib - kept
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
-                          residual=residual), metrics
+                          residual=residual, held=held), metrics
 
     # ---------------------------------------------- overlap='delayed'
 
     def produce(state: TrainState, images, labels, *, aug, k_drop, k_codec, draws,
-                dropout_masks):
+                dropout_masks, step_index=None):
         """Forward, backward and encode on the CURRENT parameters (the
         JAX package's ``delayed_produce``): (payloads, encode input, loss,
         prec@1, prec@5). The BatchNorm statistics are this step's forward's,
-        in place."""
+        in place. Chaos poisons the gradient before the encode."""
+        step_index = state.step if step_index is None else step_index
         images = begin(images, aug)
-        bs = bucket_stream(state, k_codec, draws, wire=False) if stream_encode else None
+        bs = (bucket_stream(state, k_codec, draws, wire=False, step_index=step_index)
+              if stream_encode else None)
         grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, dropout_masks, bs)
         with record_function("step.encode"):
             if bs is not None:
@@ -767,16 +958,24 @@ def make_distributed_train_step(
                 log_holder["log"] = bs.log
                 grads = bs.inputs
             else:
-                payloads, _ = encode_tree(codec, k_codec, grads, draws, layouts)
+                grads = poison(grads, step_index)
+                payloads, _ = encode_tree(codec, k_codec, encodable(grads), draws, layouts)
         return payloads, grads, loss, prec1, prec5
 
     def consume_carry(state: TrainState, carry: OverlapCarry):
         """The mean of the payloads the ranks carried out of step
-        ``state.step - 1`` (its counter picks the ``num_aggregate`` subset)."""
+        ``state.step - 1`` (its counter picks the ``num_aggregate`` subset);
+        under the guard ``(mean rescaled by the survivors, kept)``, masked
+        by the producing step's flags."""
         sel_start = (state.step - 1) % world if k_agg else None
-        return consume(codec, carry, [p.detach() for p in params], aggregate=aggregate,
-                       rank=rank, world=world, sel_start=sel_start, n_contrib=n_contrib,
-                       ring_bucket_size=ring_bucket_size, layouts=layouts)
+        out = consume(codec, carry, [p.detach() for p in params], aggregate=aggregate,
+                      rank=rank, world=world, sel_start=sel_start, n_contrib=n_contrib,
+                      ring_bucket_size=ring_bucket_size, layouts=layouts,
+                      guard=guarded is not None)
+        if guarded is None:
+            return out
+        mean, kept = out
+        return rescale_by_survivors(mean, n_contrib, kept), kept
 
     def skip_metrics(skipped: bool) -> dict:
         # device constants (fills, not host copies): a graph captures them
@@ -784,37 +983,70 @@ def make_distributed_train_step(
         return {"skipped": z + 1 if skipped else z, "dropped": torch.zeros_like(z)}
 
     def delayed_core(state: TrainState, images, labels, *, aug, k_drop, k_codec,
-                     opt_scalars=None, draws: Optional[Sequence[Any]] = None,
+                     opt_scalars=None, step_t=None, count_t=None,
+                     draws: Optional[Sequence[Any]] = None,
                      dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         carry = state.carry
         if not isinstance(carry, OverlapCarry):
             raise ValueError("overlap='delayed' steps a state that carries its in-flight "
                              "payload: build it with init_delayed_state")
+        step_index = state.step if step_t is None else step_t
+        if guarded is not None:
+            guarded.snapshot(state)
         mean = None
         if carry.valid:  # the exchange and decode run under forward and backward
             mean = issue_consume(cons_stream, lambda: consume_carry(state, carry))
         held = None if carry.valid or not stats else [s.clone() for s in stats]
         payloads, grads, loss, prec1, prec5 = produce(
             state, images, labels, aug=aug, k_drop=k_drop, k_codec=k_codec, draws=draws,
-            dropout_masks=dropout_masks)
+            dropout_masks=dropout_masks, step_index=step_index)
         buf, _, msg_bytes = pack_payloads(payloads)
         dense_bytes = tree_nbytes(grads)
-        local = [loss, prec1, prec5]
+        gnorm = torch.sqrt(global_sq_norm(grads)) if track_grad_norm else None
+        ok = okg = kept = count_held = None
+        if guarded is not None:
+            ok = grad_ok(grads, guard.max_grad_norm)
+            okg = gather_flags(ok, world)  # travels with this step's payload
+        local = [loss, prec1, prec5] + ([gnorm] if gnorm is not None else [])
+        consume_ok = None
         if carry.valid:
             join(cons_stream, mean)
-            opt_state, m = update_and_stats(state, mean, opt_scalars, local)
+            if guarded is not None:
+                mean, kept = mean
+                count_held = guarded.held(state)
+                opt_scalars = guarded.opt_scalars(state, count_held, count_t)
+            if remedy is not None:  # the consuming step's counter drives the ramp
+                mean = apply_remedy(remedy, step_index, mean)
+            opt_state, m, kept_chips = update_and_stats(state, mean, opt_scalars, local, ok)
+            if guarded is not None:
+                consume_ok = kept > 0
+                # this step's statistics apply only with a healthy forward
+                guarded.hold(consume_ok, state, count_held,
+                             stats_ok=consume_ok & (kept_chips > 0))
         else:  # step 0 applies nothing: the statistics come back too
             with torch.no_grad():
                 for s, h in zip(stats, held or ()):
                     s.copy_(h)
-                m = _all_reduce_mean(torch.stack(local), world)
-            opt_state = state.opt_state
+            opt_state, m, _ = update_and_stats(state, None, None, local, ok, with_stats=False)
+            count_held = state.held
         with torch.no_grad():
             carry.payload.copy_(buf)  # after the join: the consume read it
+            if okg is not None:
+                carry.ok.copy_(okg)
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
                    "dense_bytes": dense_bytes, **skip_metrics(not carry.valid)}
+        if gnorm is not None:
+            metrics["grad_norm"] = m[3]
+        if guarded is not None:
+            if consume_ok is not None:
+                metrics["skipped"] = 1.0 - consume_ok.to(torch.float32)
+                metrics["dropped"] = n_contrib - kept
+            if track_grad_norm:
+                # the doctor follows this forward, not the consumed payload
+                metrics["sample_skipped"] = 1.0 - (okg.sum() > 0).to(torch.float32)
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
-                          carry=dataclasses.replace(carry, valid=True)), metrics
+                          carry=dataclasses.replace(carry, valid=True),
+                          held=count_held), metrics
 
     if _oracle_parts:
         return _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world,
@@ -843,6 +1075,8 @@ def make_distributed_train_step(
     # the Dropout streams: one a step, or microbatch i's under fold_in(k_drop, i)
     step.drop_keys = (lambda k_drop, n: [k_drop] if grad_accum == 1
                       else [fold_in(k_drop, i) for i in range(n)])
+    if guarded is not None:
+        step.reserve = guarded.table.reserve
     if superstep == 1:
         return step
     rule = G.graph_rule(device=device, codec=codec, backend=dist.get_backend(), world=world,
@@ -881,7 +1115,7 @@ def _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world
             with torch.no_grad():
                 for s, v in zip(stats, stats_x):
                     s.copy_(v)
-            opt_state, _ = update_and_stats(state, mean, None)
+            opt_state, _, _ = update_and_stats(state, mean, None)
         return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
                 skip_metrics(not carry.valid))
 

@@ -1,15 +1,15 @@
 """CRC checkpoints of the port, with resume and keep-last-K retention.
 
-Counterpart of ``atomo_tpu/training/checkpoint.py`` without its
-divergence-doctor parts (healthy tags, ``prune_after``, the verify memo
-cache, sharded loads). Files keep the reference's ``train_dir/model_step_N``
+Counterpart of ``atomo_tpu/training/checkpoint.py`` (its sharded loads
+excepted: every family's full tree is saved and loaded whole). Files keep the reference's ``train_dir/model_step_N``
 naming (src/sync_replicas_master_nn.py:331-336), so tools that poll the
 directory work unchanged.
 
 A file is ``magic(4) | crc32(payload) LE(4) | payload``. The payload is
 ``torch.save`` of ``{"step", "model" (the state_dict: parameters and
 BatchNorm statistics), "opt_state" (the optimizer state's fields)}``, with
-``"ef_residual"`` beside them when the state carries ``--error-feedback``'s
+``"ef_residual"`` beside them (a guarded state's optimizer count is saved
+held, less the steps the guard skipped) when the state carries ``--error-feedback``'s
 residual (every rank's, one (N, d) tensor) and ``"overlap_carry"`` when it
 carries ``--overlap delayed``'s in-flight payload (``{"payload": (N, B)
 uint8, "ok": (N,) float32, "valid": 0-d float32}``, every rank's), every
@@ -73,17 +73,101 @@ def latest_step(train_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+# path -> ((mtime_ns, size, inode), crc_ok, full_ok); full_ok None while only
+# the CRC probe ran for that stat
+_verify_cache: dict = {}
+
+
+def reset_verify_cache() -> None:
+    """Forget every memoized verdict."""
+    _verify_cache.clear()
+
+
+def _cache_key(path: str):
+    try:
+        st = os.stat(path)
+    except OSError:
+        _verify_cache.pop(path, None)
+        return None
+    return st.st_mtime_ns, st.st_size, st.st_ino
+
+
+def _cache_get(path: str, *, full: bool):
+    key = _cache_key(path)
+    if key is None:
+        return False  # a missing file is invalid
+    hit = _verify_cache.get(path)
+    if hit is None or hit[0] != key:
+        return None
+    return hit[2] if full else hit[1]
+
+
+def _cache_put(path: str, *, crc_ok: bool, full_ok: Optional[bool]) -> None:
+    key = _cache_key(path)
+    if key is None:
+        return
+    prev = _verify_cache.get(path)
+    if full_ok is None and prev is not None and prev[0] == key:
+        full_ok = prev[2]  # keep the stronger verdict the probe cannot give
+    _verify_cache[path] = (key, crc_ok, full_ok)
+
+
+def healthy_marker_path(train_dir: str, step: int) -> str:
+    return checkpoint_path(train_dir, step) + ".healthy"
+
+
+def mark_healthy(train_dir: str, step: int) -> None:
+    """Grant model_step_N the healthy tag (an atomic sidecar write)."""
+    path = healthy_marker_path(train_dir, step)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("healthy\n")
+    os.replace(tmp, path)
+
+
+def is_marked_healthy(train_dir: str, step: int) -> bool:
+    return os.path.exists(healthy_marker_path(train_dir, step))
+
+
+def latest_healthy_step(train_dir: str) -> Optional[int]:
+    """The newest step both tagged healthy and passing the checks."""
+    for s in reversed(list_steps(train_dir)):
+        if is_marked_healthy(train_dir, s) and verify_checkpoint(train_dir, s):
+            return s
+    return None
+
+
+def prune_after(train_dir: str, step: int) -> list[int]:
+    """Remove every model_step_N (and its tag) with N > ``step``: the
+    rollback's cut of the diverged timeline. Returns the steps removed."""
+    removed = []
+    for s in list_steps(train_dir):
+        if s <= step:
+            continue
+        for path in (checkpoint_path(train_dir, s), healthy_marker_path(train_dir, s)):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        _verify_cache.pop(checkpoint_path(train_dir, s), None)
+        removed.append(s)
+    return removed
+
+
 def _cpu(t: Optional[list[torch.Tensor]]):
     return None if t is None else [x.detach().cpu() for x in t]
 
 
 def _payload(state, step: int) -> bytes:
     opt = state.opt_state
+    # a guarded state's optimizer count is its host count less the steps the
+    # guard held (the count the JAX package's optax state keeps)
+    held = getattr(state, "held", None)
+    count = opt.count - (int(held) if held is not None else 0)
     obj = {
         "step": step,
         "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "opt_state": {f.name: (getattr(opt, f.name) if f.name == "count"
-                               else _cpu(getattr(opt, f.name)))
+        "opt_state": {f.name: (count if f.name == "count" else _cpu(getattr(opt, f.name)))
                       for f in dataclasses.fields(opt)},
     }
     if getattr(state, "residual", None) is not None:
@@ -138,7 +222,10 @@ def save_checkpoint(train_dir: str, state, step: Optional[int] = None,
         # others. By step order alone a stale higher-numbered corpse would
         # push out the new file (a timeline resumed below the corpse), and
         # a corrupt file in a slot would halve the redundancy and live on.
+        # The newest healthy-tagged file is the doctor's rollback anchor: it
+        # rides outside the budget until a newer save earns the tag.
         retained = 0
+        anchor_kept = is_marked_healthy(train_dir, step)
         for s in sorted((s for s in list_steps(train_dir) if s != step), reverse=True):
             other = checkpoint_path(train_dir, s)
             ok = _crc_ok(other)
@@ -146,17 +233,29 @@ def save_checkpoint(train_dir: str, state, step: Optional[int] = None,
                 continue
             if ok and retained < keep - 1:
                 retained += 1
+                anchor_kept = anchor_kept or is_marked_healthy(train_dir, s)
                 continue
-            try:
-                os.remove(other)
-            except OSError:
-                pass  # already gone: retention is best effort
+            if ok and not anchor_kept and is_marked_healthy(train_dir, s):
+                anchor_kept = True
+                continue
+            # the tag follows its file out: an orphaned tag would let a later
+            # file of the same step inherit a verdict it never earned
+            for victim in (other, healthy_marker_path(train_dir, s)):
+                try:
+                    os.remove(victim)
+                except OSError:
+                    pass  # already gone: retention is best effort
+            _verify_cache.pop(other, None)
     return path
 
 
 def _crc_ok(path: str) -> Optional[bool]:
     """Header and CRC only (no decompress, no unpickling): the retention
-    probe. None for a JAX-package file, which is not the port's to judge."""
+    probe, memoized. None for a JAX-package file, which is not the port's
+    to judge."""
+    cached = _cache_get(path, full=False)
+    if cached is not None:
+        return cached
     try:
         with open(path, "rb") as f:
             blob = f.read()
@@ -164,8 +263,10 @@ def _crc_ok(path: str) -> Optional[bool]:
         return False
     if blob[:4] in JAX_MAGICS:
         return None
-    return (blob[:4] in (MAGIC_RAW, MAGIC_LZ) and len(blob) >= HEADER_LEN
-            and zlib.crc32(blob[HEADER_LEN:]) == int.from_bytes(blob[4:HEADER_LEN], "little"))
+    ok = (blob[:4] in (MAGIC_RAW, MAGIC_LZ) and len(blob) >= HEADER_LEN
+          and zlib.crc32(blob[HEADER_LEN:]) == int.from_bytes(blob[4:HEADER_LEN], "little"))
+    _cache_put(path, crc_ok=ok, full_ok=None if ok else False)
+    return ok
 
 
 def _read_payload(path: str) -> dict:
@@ -209,12 +310,20 @@ def _read_payload(path: str) -> dict:
 
 def verify_checkpoint(train_dir: str, step: int) -> bool:
     """True iff model_step_N exists and passes the header, CRC and payload
-    checks."""
+    checks (memoized by the file's stat)."""
+    path = checkpoint_path(train_dir, step)
+    cached = _cache_get(path, full=True)
+    if cached is not None:
+        return cached
     try:
-        _read_payload(checkpoint_path(train_dir, step))
-    except (CorruptCheckpointError, OSError):
-        return False
-    return True
+        _read_payload(path)
+        ok = True
+    except CorruptCheckpointError:
+        ok = False
+    except OSError:
+        return False  # a transient read failure is not memoized
+    _cache_put(path, crc_ok=ok, full_ok=ok)
+    return ok
 
 
 def latest_valid_step(train_dir: str) -> Optional[int]:
@@ -294,7 +403,8 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     _load_model(state.model, d["model"])
     opt_state = _load_opt_state(state.opt_state, d["opt_state"])
     return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state,
-                               residual=d.get("ef_residual"), carry=d.get("overlap_carry"))
+                               residual=d.get("ef_residual"), carry=d.get("overlap_carry"),
+                               held=None)
 
 
 def load_params(train_dir: str, model: nn.Module, step: Optional[int] = None) -> int:

@@ -31,7 +31,11 @@ the eager block otherwise. The per-step host values and their device forms:
   written in place into the buffers the next replay reads, as the momentum
   buffers are (a delayed step with nothing in flight, which applies no
   update, can only be the run's first step, the eager warm-up);
-* the launch counters: a replay adds the launches the capture counted.
+* the launch counters: a replay adds the launches the capture counted;
+* the step counter and the optimizer's count (the guard, chaos and the
+  rewarm remedy read them): int32 device words beside the key, so a
+  replayed step selects its own chaos fault and its own held optimizer
+  count (:mod:`atomo_tpu_torch.training.resilience`).
 
 By that rule the single-device step, the data-parallel step over NCCL, the
 fused QSGD/TernGrad kernels, ``sgd`` (dense), per-leaf QSGD widths, the
@@ -160,9 +164,11 @@ class _Static:
 
     images: torch.Tensor
     labels: torch.Tensor
-    scalars: torch.Tensor  # int32: the codec key's two words, then float32 bits
+    scalars: torch.Tensor  # int32: the key's two words, float32 bits, step, count
     key: torch.Tensor  # 0-d int64 view of scalars[:2]
-    opt: torch.Tensor  # float32 view of scalars[2:]
+    opt: torch.Tensor  # float32 view of scalars[2:-2]
+    step: torch.Tensor  # 0-d int32: the state's 0-based step
+    count: torch.Tensor  # 0-d int32: the optimizer's host count
     aug: Optional[tuple]  # (offsets, flips)
     masks: Optional[list]  # dropout keep-masks, call order
     metrics: Optional[torch.Tensor] = None  # (n,) float32
@@ -202,12 +208,15 @@ class GraphBlock:
 
     def _scalars(self, key: int, step0: int, counts: list) -> torch.Tensor:
         """The block's per-step scalars, one row a step, on the device by one
-        copy: the codec key's two int32 words, then the optimizer's float32
-        values' bits at each step's optimizer count."""
+        copy: the codec key's two int32 words, the optimizer's float32
+        values' bits at each step's optimizer count, then the step and the
+        count."""
         kb = len(counts)
         keys = np.array([self.step.keys(key, step0 + k)[2] for k in range(kb)], dtype=np.int64)
         opt = np.array([self.optimizer.step_scalars(c) for c in counts], dtype=np.float32)
-        rows = np.concatenate([keys.view(np.int32).reshape(kb, 2), opt.view(np.int32)], axis=1)
+        tail = np.array([[step0 + k, c] for k, c in enumerate(counts)], dtype=np.int32)
+        rows = np.concatenate([keys.view(np.int32).reshape(kb, 2), opt.view(np.int32), tail],
+                              axis=1)
         return torch.from_numpy(rows).pin_memory().to(self.device, non_blocking=True)
 
     def _alloc(self, images: torch.Tensor, labels: torch.Tensor, width: int) -> _Static:
@@ -219,7 +228,8 @@ class GraphBlock:
                    torch.zeros((n,), dtype=torch.bool, device=self.device))
         return _Static(images=torch.empty_like(images), labels=torch.empty_like(labels),
                        scalars=scalars, key=scalars[:2].view(torch.int64)[0],
-                       opt=scalars[2:].view(torch.float32), aug=aug, masks=None)
+                       opt=scalars[2:-2].view(torch.float32), step=scalars[-2],
+                       count=scalars[-1], aug=aug, masks=None)
 
     def _draw(self, k_aug: int, k_drop: int) -> None:
         """This step's augmentation draws and dropout masks into the static
@@ -244,7 +254,8 @@ class GraphBlock:
     def _core(self, state, k_drop, masks):
         st = self.static
         return self.step.core(state, st.images, st.labels, aug=st.aug, k_drop=k_drop,
-                              k_codec=st.key, opt_scalars=st.opt, dropout_masks=masks)
+                              k_codec=st.key, opt_scalars=st.opt, step_t=st.step,
+                              count_t=st.count, dropout_masks=masks)
 
     def _warmup(self, state, k_drop: int):
         """One eager step of the device form on the side stream, no host
@@ -309,6 +320,11 @@ class GraphBlock:
                                "step (the warm-up) may be a delayed step with nothing in "
                                "flight")
         scalars = self._scalars(key, step0, [count0 + max(k - skip0, 0) for k in range(kb)])
+        # a guarded step's table of optimizer values must cover the block's
+        # counts; a table reallocated under a captured graph means a capture
+        reserve = getattr(self.step, "reserve", None)
+        if reserve is not None and reserve(count0 + kb + 1) and self.graph is not None:
+            self.graph = None
         rows = []
         for k in range(kb):
             k_aug, k_drop, _ = self.step.keys(key, step0 + k)

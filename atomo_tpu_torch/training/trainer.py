@@ -15,7 +15,13 @@ one bit for bit. ``superstep`` K > 1 runs blocks of K steps with one metric
 fetch a block (``_superstep_steps``, ``atomo_tpu/training/trainer.py:709``):
 on the card a step that qualifies is one CUDA graph replayed K times, any
 other step an eager K-step block (:mod:`atomo_tpu_torch.training.graph`).
-Guard, chaos, doctor, recorder and tuner are not ported yet.
+The resilience stack rides both loops (``guard``, ``chaos``,
+``health_timeout``, ``diverge``; :mod:`atomo_tpu_torch.training.resilience`):
+the guarded step skips (one device) or masks and rescales (data-parallel) a
+non-finite or exploding gradient without a host sync, chaos injects faults
+at exact steps, a watchdog thread ends a run whose heartbeat stops, and the
+divergence doctor rolls the run back to its newest healthy checkpoint.
+The recorder and the tuner are not ported yet.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the CLI's ``--bf16``) is
 the JAX package's (``cast_compute_inputs`` / ``cast_compute_outputs``):
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
 from typing import Any, Optional, Sequence
 
@@ -64,7 +71,7 @@ from atomo_tpu_torch.models.embedding import TABLE_INIT_STD, EmbeddingTower
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
 from atomo_tpu_torch.training import graph as G
-from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint
 from atomo_tpu_torch.training.optim import Optimizer, OptState
 from atomo_tpu_torch.utils.device import resolve_device
 from atomo_tpu_torch.utils.metrics import StepMetrics, Timer, accuracy
@@ -85,6 +92,10 @@ class TrainState:
     # None outside that mode. A loaded checkpoint leaves there the dict it
     # saved (every rank's payload as one (N, B) tensor, ok, valid).
     carry: Optional[Any] = None
+    # the guard's count of skipped steps (0-d int64 on the device), None for
+    # the zero it starts from: the optimizer's count is opt_state.count minus
+    # it, as the JAX package holds optax's count on a skipped step
+    held: Optional[torch.Tensor] = None
 
 
 def leaf_params(model: nn.Module) -> list[torch.Tensor]:
@@ -128,6 +139,9 @@ def init_params(model: nn.Module, seed: int) -> None:
 
 
 def create_state(model: nn.Module, optimizer: Optimizer, seed: int, device) -> TrainState:
+    # the draws come from a CPU generator: a model already on a card (a
+    # rollback's fresh start) is drawn on the CPU and moved back
+    model.cpu()
     init_params(model, seed)
     model.to(device)
     return TrainState(step=0, model=model, opt_state=optimizer.init(leaf_params(model)))
@@ -158,8 +172,77 @@ def augment_with(images: torch.Tensor, aug) -> torch.Tensor:
     return augment_batch(images, generator(aug, images.device))
 
 
+def opt_buffers(opt_state) -> list:
+    """Every tensor of an optimizer state (momentum trace, Adam's moments),
+    in field order: what the guard's skip holds."""
+    out = []
+    for f in dataclasses.fields(opt_state):
+        v = getattr(opt_state, f.name)
+        if isinstance(v, list):
+            out.extend(v)
+    return out
+
+
+class Guarded:
+    """The guard's per-step machinery over one model and optimizer
+    (:mod:`atomo_tpu_torch.training.resilience`): fixed buffers that take
+    the pre-step parameters, optimizer buffers and BatchNorm statistics
+    (:meth:`snapshot`), the skip written back in place (:meth:`hold`), and
+    the optimizer's values at the held count from a device table
+    (:meth:`opt_scalars`). Every call is a device op: no host sync."""
+
+    def __init__(self, optimizer, params, stats, device):
+        from atomo_tpu_torch.training.resilience import OptScalarTable
+
+        self.params, self.stats = list(params), list(stats)
+        self.table = OptScalarTable(optimizer, device)
+        self.device = torch.device(device)
+        self.before: Optional[list] = None
+
+    def live(self, state) -> list:
+        return self.params + opt_buffers(state.opt_state) + self.stats
+
+    @torch.no_grad()
+    def snapshot(self, state) -> list:
+        live = self.live(state)
+        if self.before is None or len(self.before) != len(live):
+            self.before = [torch.empty_like(t) for t in live]
+        torch._foreach_copy_(self.before, live)
+        return self.before
+
+    def held(self, state) -> torch.Tensor:
+        """The state's device count of skipped steps (a fresh zero)."""
+        if state.held is None:
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+        return state.held
+
+    def opt_scalars(self, state, held: torch.Tensor, count_t=None) -> torch.Tensor:
+        """The optimizer's values at count ``count - held``: ``count_t`` the
+        graph's device count, else the state's host count."""
+        if count_t is None:
+            self.table.reserve(state.opt_state.count + 1)
+            count = torch.full((), state.opt_state.count, dtype=torch.int64,
+                               device=self.device)
+        else:
+            count = count_t.to(torch.int64)
+        return self.table.row(count - held)
+
+    @torch.no_grad()
+    def hold(self, ok: torch.Tensor, state, held: torch.Tensor, stats_ok=None) -> None:
+        """Keep the step's new values where ``ok``, else the snapshot's (the
+        statistics by ``stats_ok`` when given), and count a held step."""
+        from atomo_tpu_torch.training.resilience import hold_
+
+        live = self.live(state)
+        n = len(live) - len(self.stats)
+        hold_(ok, live[:n], self.before[:n])
+        hold_(ok if stats_ok is None else stats_ok, live[n:], self.before[n:])
+        held.add_((~ok).to(torch.int64))
+
+
 def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,
-                    compute_dtype=None, superstep: int = 1):
+                    compute_dtype=None, superstep: int = 1, guard=None, chaos=None,
+                    remedy=None, track_grad_norm: bool = False):
     """Build the step ``(state, key, images, labels, uniforms=None,
     dropout_masks=None) -> (state, metrics)`` over ``model`` (which
     ``state.model`` must be), in float32 or, with ``compute_dtype``, mixed
@@ -175,6 +258,20 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     drew. ``metrics`` holds 0-d tensors (no host sync) and ``msg_bytes`` as
     an int.
 
+    The resilience hooks (``atomo_tpu/training/trainer.py:115-298``), in the
+    JAX step's order: ``chaos`` (a :class:`~atomo_tpu_torch.utils.chaos.
+    ChaosInjector`) poisons the raw gradient of its steps; ``track_grad_norm``
+    adds ``metrics["grad_norm"]``, its global L2; ``guard`` (a
+    :class:`~atomo_tpu_torch.training.resilience.GuardConfig`) screens it
+    (:func:`~atomo_tpu_torch.training.resilience.grad_ok`), zeroes a failing
+    gradient before the codec and the update, and holds parameters,
+    optimizer state (its count included) and BatchNorm statistics at their
+    pre-step values on such a step, ``metrics["skipped"]`` 1 (the step
+    counter still advances: the batch was consumed); ``remedy`` (a
+    :class:`~atomo_tpu_torch.training.resilience.RemedyConfig`) scales the
+    decoded gradient by the rewarm ramp. None of them reads a device value
+    on the host.
+
     ``superstep`` K > 1 returns the block step ``(state, key, images (K, B,
     ...), labels (K, B), uniforms=None, dropout_masks=None) -> (state,
     metrics)``: the K sequential steps (keys from ``fold_in(key,
@@ -183,26 +280,49 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     step that :func:`~atomo_tpu_torch.training.graph.graph_rule` qualifies
     is one captured CUDA graph replayed K times, any other an eager K-step
     loop; the block carries ``mode`` and ``why``."""
+    from atomo_tpu_torch.training.resilience import (
+        apply_remedy,
+        global_sq_norm,
+        grad_ok,
+        zero_if,
+    )
+
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     params = leaf_params(model)
+    device = params[0].device
+    if chaos is not None:
+        chaos.prepare(device)
+    guarded = Guarded(optimizer, params, model.buffers(), device) if guard is not None else None
 
     def core(state: TrainState, images, labels, *, aug, k_drop, k_codec, opt_scalars=None,
+             step_t=None, count_t=None,
              uniforms: Optional[Sequence[torch.Tensor]] = None,
              dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         """The step on given keys (ints, or the device form: ``aug`` drawn,
         ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
-        device values)."""
+        device values, ``step_t`` and ``count_t`` the step and the
+        optimizer's count as 0-d device integers)."""
         if augment:
             images = augment_with(images, aug)
         model.train()
         for p in params:
             p.grad = None
+        if guarded is not None:
+            guarded.snapshot(state)  # before forward: it moves the statistics
         with record_function("step.forward_backward"), dropout_stream(k_drop, dropout_masks):
             logits = forward(model, images, compute_dtype)
             loss = F.cross_entropy(logits, labels)
             loss.backward()
         grads = [p.grad for p in params]
+        step_index = state.step if step_t is None else step_t  # 0-based
+        if chaos is not None:
+            grads = chaos.inject_grads(grads, step_index + 1)
+        gnorm = torch.sqrt(global_sq_norm(grads)) if track_grad_norm else None
+        ok = None
+        if guarded is not None:
+            ok = grad_ok(grads, guard.max_grad_norm)
+            grads = zero_if(~ok, grads)
         msg_bytes = 0
         if codec is not None:
             with record_function("step.encode"):
@@ -210,12 +330,24 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
             with record_function("step.decode"):
                 grads = decode_tree(codec, payloads, grads)
             msg_bytes = stats.payload_bytes
+        if remedy is not None:
+            grads = apply_remedy(remedy, step_index, grads)
+        held = None
+        if guarded is not None:
+            held = guarded.held(state)
+            opt_scalars = guarded.opt_scalars(state, held, count_t)
         with record_function("step.update"):
             opt_state = optimizer.update(grads, state.opt_state, params, scalars=opt_scalars)
         prec1, prec5 = accuracy(logits.detach(), labels)
         metrics = {"loss": loss.detach(), "prec1": prec1, "prec5": prec5,
                    "msg_bytes": msg_bytes}
-        return TrainState(step=state.step + 1, model=model, opt_state=opt_state), metrics
+        if guarded is not None:
+            guarded.hold(ok, state, held)
+            metrics["skipped"] = 1.0 - ok.to(torch.float32)
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm
+        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+                          held=held), metrics
 
     def keys(key: int, step_index: int) -> tuple[int, int, int]:
         """(k_aug, k_drop, k_codec) of step ``step_index``."""
@@ -231,9 +363,10 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     step.core = core
     step.keys = keys
     step.drop_keys = lambda k_drop, n: [k_drop]  # one stream drives every Dropout
+    if guarded is not None:
+        step.reserve = guarded.table.reserve
     if superstep == 1:
         return step
-    device = params[0].device
     return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
                              device=device, rule=G.graph_rule(device=device, codec=codec))
 
@@ -368,19 +501,59 @@ def _fetch_block(metrics: dict) -> dict:
     return out
 
 
+def _chaos_corrupt_range(chaos, path, lo: int, hi: int) -> None:
+    """Apply the checkpoint faults aimed at any step in (lo, hi] to the file
+    written at ``hi`` (``atomo_tpu/training/trainer.py:676``): a fault
+    snaps to the block boundary as kill and sleep do."""
+    if chaos is None or path is None:
+        return
+    for t in range(lo + 1, hi + 1):
+        chaos.maybe_corrupt_checkpoint(path, t)
+
+
+def _host_faults(chaos, lo: int, hi: int, world: int = 0) -> None:
+    """The chaos host faults aimed at steps (lo, hi], before they run: kill,
+    sleep and, with ``world`` ranks, the stragglers' lag."""
+    if chaos is None:
+        return
+    for t in range(lo + 1, hi + 1):
+        chaos.maybe_die(t)
+        chaos.maybe_sleep(t)
+        if world:
+            chaos.maybe_sleep_replica(t, world)
+
+
+def _fetch(metrics: dict, names: Sequence[str]) -> dict:
+    """The named tensor metrics of one step on the host by one copy."""
+    have = [n for n in names if n in metrics]
+    host = torch.stack([metrics[n].to(torch.float32).reshape(()) for n in have]).cpu()
+    return {n: float(v) for n, v in zip(have, host.tolist())}
+
+
+DOCTOR_SERIES = ("loss", "skipped", "sample_skipped", "grad_norm")
+
+
 def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_train: int,
                      start_step: int, max_steps: int, superstep: int, log_every: int,
                      log_fn, eval_freq: int, evaluate_fn, save_freq: int, train_dir,
-                     save_fn, timer: Timer):
+                     save_fn, timer: Timer, monitor=None, chaos=None, rig=None,
+                     guard_line=None, world: int = 0, before_recover=None):
     """The block loop of both train loops (``_superstep_steps`` :709 and
     ``_distributed_superstep_steps``, ``atomo_tpu/parallel/replicated.py:4391``):
     one ``block_fn`` call per K steps on a block :class:`SuperstepFeed`
     staged behind the previous one (``put_fn`` puts a numpy block on the
     device), the last block shrunk to ``max_steps``, one metric fetch a
-    block; the ``Worker:`` line, ``evaluate_fn(step)`` and
-    ``save_fn(state, step)`` fire at the boundary of a block that crossed
+    block; the ``Worker:`` line, ``evaluate_fn(step)`` and ``save_fn(state,
+    step) -> path or None`` fire at the boundary of a block that crossed
     their cadence, and the final state is saved when the last save came
-    before ``max_steps``."""
+    before ``max_steps``. Resilience at block boundaries: chaos kill and
+    sleep aimed anywhere in a block fire before it runs, checkpoint faults
+    after the boundary save; the watchdog ``monitor`` beats once a block;
+    ``guard_line(step, kb, m)`` gives the block's ``Guard:`` line (or None);
+    ``rig`` (a :class:`~atomo_tpu_torch.training.resilience.RecoveryRig`)
+    folds the block's series at its one fetch and, on an alarm, rolls back:
+    the feed's staged block is dropped and the feed rebuilt on the replayed
+    stream (``before_recover()`` first, a barrier over the ranks)."""
     log_fn(G.mode_line(block_fn))
     feed = SuperstepFeed(BlockStream(stream), put_fn)
     s = last_saved = last_logged = start_step
@@ -388,9 +561,30 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
     while s < max_steps:
         kb, images, labels = feed.take()
         b0, s = s, s + kb
+        _host_faults(chaos, b0, s, world)
         state, mblk = block_fn(state, key, images, labels)
         feed.start(min(superstep, max_steps - s))  # the next copy runs behind this block
         m = _fetch_block(mblk)
+        if monitor is not None:
+            monitor.beat(s)
+        if rig is not None:
+            alarm_step, reason = rig.observe(b0 + 1, m)
+            if reason is not None:
+                if before_recover is not None:
+                    before_recover()
+                state, stream, block_fn, chaos, s = rig.recover(alarm_step, reason, chaos)
+                last_saved, last_logged = min(last_saved, s), min(last_logged, s)
+                feed.drop()  # the lookahead belongs to the abandoned timeline
+                feed = SuperstepFeed(BlockStream(stream), put_fn)
+                feed.start(min(superstep, max_steps - s))
+                continue
+            new_fn = rig.maybe_end_densify(s)
+            if new_fn is not None:
+                block_fn = new_fn
+        if guard_line is not None and _crossed(log_every, b0, s):
+            line = guard_line(s, kb, m)
+            if line:
+                log_fn(line)
         if _crossed(log_every, b0, s):
             log_fn(_block_log_record(s, m, train_iter, n_train, timer.lap(),
                                      last_logged).worker_line())
@@ -398,11 +592,40 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
         if eval_freq and evaluate_fn is not None and _crossed(eval_freq, b0, s):
             evaluate_fn(s)
         if save_freq and train_dir and _crossed(save_freq, b0, s):
-            save_fn(state, s)
+            path = save_fn(state, s)
             last_saved = s
+            if rig is not None:
+                rig.note_save(s)
+            _chaos_corrupt_range(chaos, path, b0, s)
     if save_freq and train_dir and last_saved < max_steps:
-        save_fn(state, max_steps)
+        path = save_fn(state, max_steps)
+        if rig is not None:
+            rig.note_save(max_steps)
+        _chaos_corrupt_range(chaos, path, last_saved, max_steps)
     return state
+
+
+def _incidents(train_dir, armed: bool):
+    """The run's incident log when it has a ``train_dir`` and either a
+    doctor or a supervisor above it, else None."""
+    from atomo_tpu_torch.training.resilience import SUPERVISED_ENV
+    from atomo_tpu_torch.utils.tracing import IncidentLog
+
+    if train_dir and (armed or os.environ.get(SUPERVISED_ENV) == "1"):
+        return IncidentLog.for_train_dir(train_dir)
+    return None
+
+
+def _check_diverge(diverge, *, train_dir, codec, save_freq, keep_ckpts, **kw) -> None:
+    if diverge is None:
+        return
+    from atomo_tpu_torch.training.resilience import diverge_conflict
+
+    reason = diverge_conflict(diverge.remedy, train_dir=train_dir, codec=codec,
+                              keep_ckpts=keep_ckpts, save_freq=save_freq,
+                              window=diverge.detector.window, **kw)
+    if reason:
+        raise ValueError(reason)
 
 
 def train_loop(
@@ -426,75 +649,166 @@ def train_loop(
     log_every: int = 1,
     device=None,
     superstep: int = 1,
+    guard=None,
+    chaos=None,
+    health_timeout: float = 0.0,
+    on_health_failure=None,
+    diverge=None,
 ) -> TrainState:
     """The reference train-and-validate loop: ``Worker:`` lines every
     ``log_every`` steps, ``Validation:`` lines every ``eval_freq`` steps, a
     checkpoint into ``train_dir`` every ``save_freq`` steps (keeping the
     newest ``keep_ckpts`` when > 0, lossless-compressed with
-    ``compress_ckpt``) and of the final state when the last save came
-    before ``max_steps``. ``resume`` continues from the newest valid
-    checkpoint there: the data stream skips the batches already taken, so
-    the run goes on as the interrupted one would have. ``superstep`` K > 1
+    ``compress_ckpt``, saved with retries) and of the final state when the
+    last save came before ``max_steps``. ``resume`` continues from the newest
+    valid checkpoint there: the data stream skips the batches already taken,
+    so the run goes on as the interrupted one would have. ``superstep`` K > 1
     runs blocks of K steps (:func:`make_train_step`'s block step), one
-    metric fetch a block, every cadence snapped to the block
-    boundaries; trajectories are those of K = 1 bit for bit, and resume
-    works at any step. Runs on CUDA unless ``device='cpu'``."""
+    metric fetch a block, every cadence snapped to the block boundaries;
+    trajectories are those of K = 1 bit for bit, and resume works at any
+    step. Runs on CUDA unless ``device='cpu'``.
+
+    The resilience stack (``atomo_tpu/training/trainer.py:327-668``):
+    ``guard`` skips a step whose gradient fails the screen (a ``Guard:``
+    line at the log cadence); ``chaos`` (default: the ATOMO_CHAOS env)
+    injects its faults (crashloop at the start, kill and sleep before their
+    step, checkpoint damage after the save); ``health_timeout`` > 0 arms
+    the heartbeat watchdog (beaten once a step, once a block scaled by K);
+    ``diverge`` (a :class:`~atomo_tpu_torch.training.resilience.
+    DivergeConfig`) arms the doctor, which folds the loss, skip and grad-norm
+    series (one fetch a step, or the block's), grants healthy tags and rolls
+    back to the newest healthy checkpoint with the data stream replayed and
+    the chaos generation bumped; its budget spent, it raises
+    :class:`~atomo_tpu_torch.training.resilience.DivergenceError`."""
+    from atomo_tpu_torch.training.resilience import (
+        DivergenceDoctor,
+        RecoveryRig,
+        heartbeat_watchdog,
+        resolve_chaos,
+        retrying_saver,
+    )
+
+    chaos = resolve_chaos(chaos)
+    if chaos is not None:
+        chaos.maybe_die_crashloop()
     dev = resolve_device(device)
     state = _resume(create_state(model, optimizer, seed, dev), train_dir, resume, log_fn)
     start_step = state.step
-    step_fn = make_train_step(model, optimizer, codec=codec, augment=augment,
-                              compute_dtype=compute_dtype, superstep=superstep)
+    _check_diverge(diverge, train_dir=train_dir, codec=codec, save_freq=save_freq,
+                   keep_ckpts=keep_ckpts)
+    incidents = _incidents(train_dir, diverge is not None)
+
+    def build_step(generation=0, remedy_cfg=None, densify=False):
+        chaos_now = chaos.with_generation(generation) if chaos is not None and generation \
+            else chaos
+        return make_train_step(model, optimizer, codec=None if densify else codec,
+                               augment=augment, compute_dtype=compute_dtype,
+                               superstep=superstep, guard=guard, chaos=chaos_now,
+                               remedy=remedy_cfg, track_grad_norm=diverge is not None)
+
+    step_fn = build_step()
+    saver = retrying_saver(log_fn, incidents)
+
+    def save_fn(st, step):
+        return saver(train_dir, st, step, compress=compress_ckpt, keep=keep_ckpts)
+
     key = seed + 1
     timer = Timer()
+    # the replay anchor of a rollback, taken before forever() draws
+    rng_snapshot = train_iter.snapshot_rng() if diverge is not None else None
     stream = train_iter.forever(skip=start_step)
     n_train = len(train_iter.dataset)
-    last_saved = start_step
-    if superstep > 1:
-        def evaluate_fn(step: int) -> None:
-            ev = evaluate(model, test_iter, dev)
-            log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}".format(
-                step, ev["loss"], ev["prec1"], ev["prec5"]))
+    rig = None
+    if diverge is not None:
+        def _reload(target):
+            st = create_state(model, optimizer, seed, dev)
+            return st if target <= 0 else load_checkpoint(train_dir, st, step=target)
 
-        return _superstep_steps(
-            state, step_fn, key, stream, lambda x, y: block_to_device(x, y, dev),
-            train_iter=train_iter, n_train=n_train, start_step=start_step,
-            max_steps=max_steps, superstep=superstep, log_every=log_every, log_fn=log_fn,
-            eval_freq=eval_freq, evaluate_fn=evaluate_fn if test_iter is not None else None,
-            save_freq=save_freq, train_dir=train_dir, timer=timer,
-            save_fn=lambda st, step: save_checkpoint(train_dir, st, step, compress=compress_ckpt,
-                                                     keep=keep_ckpts))
-    while state.step < max_steps:
-        images, labels = to_device(*next(stream), dev)
-        state, metrics = step_fn(state, key, images, labels)
-        step = state.step
-        if log_every and step % log_every == 0:
-            rec = StepMetrics(
-                rank=0,
-                step=step,
-                epoch=step * train_iter.batch_size // max(n_train, 1),
-                samples_seen=(step * train_iter.batch_size) % max(n_train, 1),
-                dataset_size=n_train,
-                loss=float(metrics["loss"]),
-                time_cost=timer.lap(),
-                msg_bytes=int(metrics["msg_bytes"]),
-                prec1=float(metrics["prec1"]),
-                prec5=float(metrics["prec5"]),
-            )
-            log_fn(rec.worker_line())
-        if eval_freq and test_iter is not None and step % eval_freq == 0:
-            ev = evaluate(model, test_iter, dev)
-            log_fn(
-                "Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}".format(
-                    step, ev["loss"], ev["prec1"], ev["prec5"]
+        rig = RecoveryRig(DivergenceDoctor(diverge, train_dir, incidents, log_fn), diverge,
+                          _reload, lambda target: train_iter.restream(rng_snapshot, skip=target),
+                          build_step)
+
+    def validate(step: int) -> None:
+        ev = evaluate(model, test_iter, dev)
+        log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}".format(
+            step, ev["loss"], ev["prec1"], ev["prec5"]))
+
+    if superstep > 1:
+        def guard_line(s, kb, m):
+            n_skipped = float(np.sum(m["skipped"]))
+            if n_skipped <= 0:
+                return None
+            return (f"Guard: Step: {s}, Dropped: {int(n_skipped)}/{kb}, "
+                    "Action: skip (anomalous gradient inside the superstep; "
+                    "params/opt state held for those steps)")
+
+        # one beat a block: the budget scales by K
+        with heartbeat_watchdog(health_timeout * superstep, on_health_failure) as monitor:
+            return _superstep_steps(
+                state, step_fn, key, stream, lambda x, y: block_to_device(x, y, dev),
+                train_iter=train_iter, n_train=n_train, start_step=start_step,
+                max_steps=max_steps, superstep=superstep, log_every=log_every, log_fn=log_fn,
+                eval_freq=eval_freq, evaluate_fn=validate if test_iter is not None else None,
+                save_freq=save_freq, train_dir=train_dir, timer=timer, save_fn=save_fn,
+                monitor=monitor, chaos=chaos, rig=rig,
+                guard_line=guard_line if guard is not None else None)
+    last_saved = start_step
+    with heartbeat_watchdog(health_timeout, on_health_failure) as monitor:
+        step = start_step
+        while step < max_steps:
+            step += 1
+            _host_faults(chaos, step - 1, step)
+            images, labels = to_device(*next(stream), dev)
+            state, metrics = step_fn(state, key, images, labels)
+            if monitor is not None:
+                float(metrics["loss"])  # the step is done before it counts
+                monitor.beat(step)
+            if rig is not None:
+                # one fetch a step: per-step rollback granularity's price
+                alarm_step, reason = rig.observe(step, _fetch(metrics, DOCTOR_SERIES))
+                if reason is not None:
+                    state, stream, step_fn, chaos, step = rig.recover(alarm_step, reason, chaos)
+                    last_saved = min(last_saved, step)
+                    continue
+                new_fn = rig.maybe_end_densify(step)
+                if new_fn is not None:
+                    step_fn = new_fn
+            # the guard's diagnostics share the log cadence: no fetch a step
+            if (guard is not None and log_every and step % log_every == 0
+                    and float(metrics["skipped"]) > 0):
+                log_fn(f"Guard: Step: {step}, Dropped: 1/1, Action: skip "
+                       "(anomalous gradient; params/opt state held)")
+            if log_every and step % log_every == 0:
+                rec = StepMetrics(
+                    rank=0,
+                    step=step,
+                    epoch=step * train_iter.batch_size // max(n_train, 1),
+                    samples_seen=(step * train_iter.batch_size) % max(n_train, 1),
+                    dataset_size=n_train,
+                    loss=float(metrics["loss"]),
+                    time_cost=timer.lap(),
+                    msg_bytes=int(metrics["msg_bytes"]),
+                    prec1=float(metrics["prec1"]),
+                    prec5=float(metrics["prec5"]),
                 )
-            )
-        if save_freq and train_dir and step % save_freq == 0:
-            save_checkpoint(train_dir, state, step, compress=compress_ckpt, keep=keep_ckpts)
-            last_saved = step
-    # the final state, so that a restart never replays the tail (strictly
-    # below: a resume past max_steps runs no step and writes nothing)
-    if save_freq and train_dir and last_saved < max_steps:
-        save_checkpoint(train_dir, state, max_steps, compress=compress_ckpt, keep=keep_ckpts)
+                log_fn(rec.worker_line())
+            if eval_freq and test_iter is not None and step % eval_freq == 0:
+                validate(step)
+            if save_freq and train_dir and step % save_freq == 0:
+                path = save_fn(state, step)
+                last_saved = step
+                if rig is not None:
+                    rig.note_save(step)
+                if chaos is not None:
+                    chaos.maybe_corrupt_checkpoint(path, step)
+        # the final state, so that a restart never replays the tail (strictly
+        # below: a resume past max_steps runs no step and writes nothing)
+        if save_freq and train_dir and last_saved < max_steps:
+            path = save_fn(state, max_steps)
+            if rig is not None:
+                rig.note_save(max_steps)
+            if chaos is not None:  # checkpoint faults aim at the autosave too
+                chaos.maybe_corrupt_checkpoint(path, max_steps)
     return state
 
 
@@ -528,6 +842,11 @@ def distributed_train_loop(
     log_every: int = 1,
     device=None,
     superstep: int = 1,
+    guard=None,
+    chaos=None,
+    health_timeout: float = 0.0,
+    on_health_failure=None,
+    diverge=None,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -559,23 +878,218 @@ def distributed_train_loop(
     encodes layer buckets of ``stream_bucket_bytes`` under backward (the
     same trajectory). Both are validated as the JAX loop validates them
     (``atomo_tpu/parallel/replicated.py:2975-3100``). Runs on CUDA unless
-    ``device='cpu'``."""
+    ``device='cpu'``.
+
+    The resilience stack as :func:`train_loop`'s, over the ranks
+    (``atomo_tpu/parallel/replicated.py:2749-``, guard, chaos, watchdog and
+    doctor): ``guard`` masks a replica whose gradient fails the screen out
+    of the exchange and rescales the survivors' mean (a ``Guard:`` line
+    with the dropped count at the log cadence); chaos targets replica 0
+    unless a fault is starred, and ``slow@S:R:SEC`` holds every rank's step
+    for the straggler; every rank's doctor folds the same dp-mean series
+    and so decides alike, rank 0 alone writes tags, prunes and incidents,
+    and a rollback starts at a barrier."""
     # imported here: the step's module builds on this one's TrainState
-    from atomo_tpu_torch.parallel.overlap import carry_from_saved, gather_carry
+    from atomo_tpu_torch.parallel.overlap import gather_carry
     from atomo_tpu_torch.parallel.replicated import (
-        init_delayed_state,
         make_distributed_eval_step,
         make_distributed_train_step,
-        replicate_state,
         shard_batch,
         shard_superbatch,
     )
+    from atomo_tpu_torch.training.resilience import (
+        DivergenceDoctor,
+        RecoveryRig,
+        heartbeat_watchdog,
+        resolve_chaos,
+        retrying_saver,
+    )
 
     _check_loop_modes(codec, aggregate, overlap, stream_encode, error_feedback)
+    if error_feedback and guard is not None:
+        raise ValueError(
+            "--error-feedback does not compose with --grad-guard / "
+            "--elastic: skip-and-rescale rests on the unbiasedness "
+            "EF trades away")
+    if error_feedback and diverge is not None:
+        raise ValueError(
+            "--error-feedback does not compose with --on-diverge: "
+            "the rollback reload does not rebuild the residual "
+            "template yet — drop one")
+    _check_diverge(diverge, train_dir=train_dir, codec=codec, save_freq=save_freq,
+                   keep_ckpts=keep_ckpts, aggregate=aggregate, overlap=overlap,
+                   num_aggregate=num_aggregate)
+    chaos = resolve_chaos(chaos)
+    if chaos is not None:
+        chaos.maybe_die_crashloop()
     dev = resolve_device(device)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    quiet = log_fn if rank == 0 else (lambda _: None)
+    state = _start_replica(model, optimizer, seed, dev, codec, overlap, error_feedback,
+                           rank, world, resume=resume, train_dir=train_dir, log_fn=quiet)
+    start_step = state.step
+    incidents = _incidents(train_dir, diverge is not None) if rank == 0 else None
+
+    def build_step(generation=0, remedy_cfg=None, densify=False):
+        chaos_now = chaos.with_generation(generation) if chaos is not None and generation \
+            else chaos
+        return make_distributed_train_step(
+            model, optimizer, None if densify else codec,
+            aggregate="psum" if densify else aggregate, augment=augment,
+            num_aggregate=0 if densify else num_aggregate, ring_bucket_size=ring_bucket_size,
+            compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid,
+            error_feedback=error_feedback, superstep=superstep, overlap=overlap,
+            stream_encode=stream_encode and not densify,
+            stream_bucket_bytes=stream_bucket_bytes, guard=guard, chaos=chaos_now,
+            remedy=remedy_cfg, track_grad_norm=diverge is not None)
+
+    step_fn = build_step()
+    eval_fn = make_distributed_eval_step(model)
+    key = seed + 1
+    timer = Timer()
+    rng_snapshot = train_iter.snapshot_rng() if diverge is not None else None
+    stream = train_iter.forever(skip=start_step)
+    n_train = len(train_iter.dataset)
+    saver = retrying_saver(quiet, incidents)
+
+    def save(st: TrainState, step: int):
+        saved = st
+        if error_feedback:  # every rank's residual, in rank order, to rank 0
+            saved = dataclasses.replace(st, residual=gather_residual(st, world))
+        if overlap == "delayed":  # every rank's in-flight payload, likewise
+            saved = dataclasses.replace(saved, carry=gather_carry(st.carry, world))
+        path = None
+        if rank == 0:
+            path = saver(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
+        torch.distributed.barrier()  # no rank goes on before the file is in place
+        return path
+
+    def validate(step: int) -> None:
+        totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
+        n = 0
+        for ti, tl in test_iter.epoch():
+            trim = (ti.shape[0] // world) * world
+            if trim == 0:
+                continue
+            m = eval_fn(*to_device(*shard_batch(ti[:trim], tl[:trim], rank, world), dev))
+            for k in totals:
+                totals[k] += float(m[k]) * trim
+            n += trim
+        if rank == 0:
+            log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
+                   .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
+                                                                    "prec5"))))
+
+    rig = None
+    if diverge is not None:
+        def _reload(target):
+            return _start_replica(model, optimizer, seed, dev, codec, overlap, False, rank,
+                                  world, load_step=target if target > 0 else None,
+                                  train_dir=train_dir, log_fn=quiet)
+
+        # every rank plans alike from the same series; rank 0 alone tags and prunes
+        rig = RecoveryRig(
+            DivergenceDoctor(diverge, train_dir, incidents, quiet, owner=rank == 0),
+            diverge, _reload, lambda target: train_iter.restream(rng_snapshot, skip=target),
+            build_step)
+
+    def dropped_line(step, n_drop, n_skip, where):
+        action = "skip" if n_skip > 0 else "rescale"
+        return f"Guard: Step: {step}, Dropped: {int(n_drop)}, Action: {action} ({where})"
+
+    if superstep > 1:
+        def guard_line(s, kb, m):
+            n_drop = float(np.sum(m.get("dropped", 0.0)))
+            if n_drop <= 0:
+                return None
+            return dropped_line(s, n_drop, float(np.sum(m.get("skipped", 0.0))),
+                                "anomalous contributions masked inside the superstep")
+
+        with heartbeat_watchdog(health_timeout * superstep, on_health_failure) as monitor:
+            return _superstep_steps(
+                state, step_fn, key, stream,
+                lambda x, y: block_to_device(*shard_superbatch(x, y, rank, world), dev),
+                train_iter=train_iter, n_train=n_train, start_step=start_step,
+                max_steps=max_steps, superstep=superstep, log_every=log_every,
+                log_fn=quiet, eval_freq=eval_freq,
+                evaluate_fn=validate if test_iter is not None else None, save_freq=save_freq,
+                train_dir=train_dir, save_fn=save, timer=timer, monitor=monitor, chaos=chaos,
+                rig=rig, guard_line=guard_line if guard is not None else None, world=world,
+                before_recover=torch.distributed.barrier)
+    last_saved = start_step
+    with heartbeat_watchdog(health_timeout, on_health_failure) as monitor:
+        step = start_step
+        while step < max_steps:
+            step += 1
+            _host_faults(chaos, step - 1, step, world)
+            images, labels = shard_batch(*next(stream), rank, world)
+            state, metrics = step_fn(state, key, *to_device(images, labels, dev))
+            if monitor is not None:
+                float(metrics["loss"])
+                monitor.beat(step)
+            if rig is not None:
+                alarm_step, reason = rig.observe(step, _fetch(metrics, DOCTOR_SERIES))
+                if reason is not None:
+                    torch.distributed.barrier()
+                    state, stream, step_fn, chaos, step = rig.recover(alarm_step, reason, chaos)
+                    last_saved = min(last_saved, step)
+                    continue
+                new_fn = rig.maybe_end_densify(step)
+                if new_fn is not None:
+                    step_fn = new_fn
+            if guard is not None and log_every and step % log_every == 0:
+                g = _fetch(metrics, ("dropped", "skipped"))
+                if g.get("dropped", 0.0) > 0:
+                    quiet(dropped_line(step, g["dropped"], g.get("skipped", 0.0),
+                                       "anomalous contribution masked from the aggregate"))
+            if log_every and step % log_every == 0:
+                loss = float(metrics["loss"])  # every rank waits for its step here
+                if rank == 0:
+                    log_fn(StepMetrics(
+                        rank=0,
+                        step=step,
+                        epoch=step * train_iter.batch_size // max(n_train, 1),
+                        samples_seen=(step * train_iter.batch_size) % max(n_train, 1),
+                        dataset_size=n_train,
+                        loss=loss,
+                        time_cost=timer.lap(),
+                        msg_bytes=int(metrics["msg_bytes"]),
+                        prec1=float(metrics["prec1"]),
+                        prec5=float(metrics["prec5"]),
+                    ).worker_line())
+            if eval_freq and test_iter is not None and step % eval_freq == 0:
+                validate(step)
+            if save_freq and train_dir and step % save_freq == 0:
+                path = save(state, step)
+                last_saved = step
+                if rig is not None:
+                    rig.note_save(step)
+                if chaos is not None and path is not None:
+                    chaos.maybe_corrupt_checkpoint(path, step)
+        if save_freq and train_dir and last_saved < max_steps:
+            path = save(state, max_steps)
+            if rig is not None:
+                rig.note_save(max_steps)
+            if chaos is not None and path is not None:
+                chaos.maybe_corrupt_checkpoint(path, max_steps)
+    return state
+
+
+def _start_replica(model, optimizer, seed: int, dev, codec, overlap: str, error_feedback: bool,
+                   rank: int, world: int, *, resume: bool = False, load_step=None,
+                   train_dir=None, log_fn=print) -> TrainState:
+    """This rank's replica: the seeded init broadcast from rank 0, then (with
+    ``resume``) the newest valid checkpoint of ``train_dir``, or (with
+    ``load_step``) that step's, with the error-feedback residual and the
+    delayed carry taken apart as the run needs them."""
+    from atomo_tpu_torch.parallel.overlap import carry_from_saved
+    from atomo_tpu_torch.parallel.replicated import init_delayed_state, replicate_state
+
     state = replicate_state(create_state(model, optimizer, seed, dev))
-    state = _resume(state, train_dir, resume, log_fn if rank == 0 else (lambda _: None))
+    if load_step is not None:
+        state = load_checkpoint(train_dir, state, step=load_step)
+    else:
+        state = _resume(state, train_dir, resume, log_fn)
     start_step = state.step
     if error_feedback:
         state = own_residual(state, model, rank, world, dev)
@@ -596,78 +1110,4 @@ def distributed_train_loop(
             "(it holds an overlap_carry); restoring its train state and discarding "
             "the in-flight payload — pass --overlap delayed to "
             "resume the overlapped run exactly")
-    step_fn = make_distributed_train_step(
-        model, optimizer, codec, aggregate=aggregate, augment=augment,
-        num_aggregate=num_aggregate, ring_bucket_size=ring_bucket_size,
-        compute_dtype=compute_dtype, grad_accum=grad_accum, hybrid=hybrid,
-        error_feedback=error_feedback, superstep=superstep, overlap=overlap,
-        stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes)
-    eval_fn = make_distributed_eval_step(model)
-    key = seed + 1
-    timer = Timer()
-    stream = train_iter.forever(skip=start_step)
-    n_train = len(train_iter.dataset)
-    last_saved = start_step
-
-    def save(st: TrainState, step: int) -> None:
-        saved = st
-        if error_feedback:  # every rank's residual, in rank order, to rank 0
-            saved = dataclasses.replace(st, residual=gather_residual(st, world))
-        if overlap == "delayed":  # every rank's in-flight payload, likewise
-            saved = dataclasses.replace(saved, carry=gather_carry(st.carry, world))
-        if rank == 0:
-            save_checkpoint(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
-        torch.distributed.barrier()  # no rank goes on before the file is in place
-
-    def validate(step: int) -> None:
-        totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
-        n = 0
-        for ti, tl in test_iter.epoch():
-            trim = (ti.shape[0] // world) * world
-            if trim == 0:
-                continue
-            m = eval_fn(*to_device(*shard_batch(ti[:trim], tl[:trim], rank, world), dev))
-            for k in totals:
-                totals[k] += float(m[k]) * trim
-            n += trim
-        if rank == 0:
-            log_fn("Validation: Step: {}, Loss: {:.4f}, Prec@1: {:.4f}, Prec@5: {:.4f}"
-                   .format(step, *(totals[k] / max(n, 1) for k in ("loss", "prec1",
-                                                                    "prec5"))))
-
-    if superstep > 1:
-        return _superstep_steps(
-            state, step_fn, key, stream,
-            lambda x, y: block_to_device(*shard_superbatch(x, y, rank, world), dev),
-            train_iter=train_iter, n_train=n_train, start_step=start_step,
-            max_steps=max_steps, superstep=superstep, log_every=log_every,
-            log_fn=log_fn if rank == 0 else (lambda _: None), eval_freq=eval_freq,
-            evaluate_fn=validate if test_iter is not None else None, save_freq=save_freq,
-            train_dir=train_dir, save_fn=save, timer=timer)
-    while state.step < max_steps:
-        images, labels = shard_batch(*next(stream), rank, world)
-        state, metrics = step_fn(state, key, *to_device(images, labels, dev))
-        step = state.step
-        if log_every and step % log_every == 0:
-            loss = float(metrics["loss"])  # every rank waits for its step here
-            if rank == 0:
-                log_fn(StepMetrics(
-                    rank=0,
-                    step=step,
-                    epoch=step * train_iter.batch_size // max(n_train, 1),
-                    samples_seen=(step * train_iter.batch_size) % max(n_train, 1),
-                    dataset_size=n_train,
-                    loss=loss,
-                    time_cost=timer.lap(),
-                    msg_bytes=int(metrics["msg_bytes"]),
-                    prec1=float(metrics["prec1"]),
-                    prec5=float(metrics["prec5"]),
-                ).worker_line())
-        if eval_freq and test_iter is not None and step % eval_freq == 0:
-            validate(step)
-        if save_freq and train_dir and step % save_freq == 0:
-            save(state, step)
-            last_saved = step
-    if save_freq and train_dir and last_saved < max_steps:
-        save(state, max_steps)
     return state

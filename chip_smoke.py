@@ -221,6 +221,22 @@ every hand-written kernel against its plain PyTorch version:
    ``torch.profiler`` trace of the streamed steps (row 1's launches that
    start before backward's last main-stream kernel, their device time
    under it, their stream) and of the delayed steps (row 2's likewise).
+16. resilience: ``--grad-guard`` on ResNet-18 batch 128, qsgd 4 bits. In a
+   deterministic child (this script with ``--resilience-child``), ``--chaos
+   nan@3`` skips step 3 (its state equals step 2's bit for bit, every later
+   loss finite) one step at a time and as the K = 8 CUDA graph, which
+   equals the eager steps bit for bit; then, through the CLI in that
+   process, the straight ResNet-18 run and the LeNet ``spike@7:3
+   --on-diverge skip`` drill (a rollback, exit 0). At once, the drills that
+   end processes, as processes of their own (deterministic through a
+   sitecustomize on their path): ``kill@5 --max-restarts 1``, held to the
+   straight run (the final checkpoints byte for byte), and ``slow@3:60
+   --health-timeout 5`` (exit 13).
+   Then row 2 with per-replica flags over a 4-replica gathered buffer whose
+   replica 2 came from a NaN gradient: equal to its plain twin bit for bit,
+   within 2 ulp of the three survivors' decode rescaled, its device ms
+   beside the unflagged launch's; and the step ms with the guard and
+   without it, eager and as the graph, in turns.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -4059,6 +4075,329 @@ def phase_layouts(work: Path, card: str, runs: dict, errs: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- resilience
+
+RS_STEPS = 10
+RS_SPEC = "nan@3"
+RS_TRAIN = ["train", "--network", "ResNet18", "--dataset", "Cifar10", "--synthetic",
+            "--batch-size", "128", "--code", "qsgd", "--quantization-level", "4",
+            "--eval-freq", "0", "--log-interval", "1", "--save-freq", "2", "--max-steps", "8",
+            "--seed", "1", "--device", "cuda"]
+RS_LENET = ["train", "--network", "LeNet", "--dataset", "MNIST", "--synthetic",
+            "--batch-size", "16", "--eval-freq", "0", "--log-interval", "1", "--code", "sgd",
+            "--device", "cuda"]
+RS_DOCTOR = ["--max-steps", "14", "--save-freq", "2", "--grad-guard", "--on-diverge", "skip",
+             "--diverge-window", "4", "--diverge-zmax", "4", "--diverge-patience", "2",
+             "--diverge-min-history", "4", "--chaos", "spike@7:3"]
+
+
+def rs_resnet(dev, k: int, guard: bool, spec: str = RS_SPEC):
+    """ResNet-18 (batch 128, augmentation on, qsgd 4 bits) and its step, or
+    its block step of ``k``, guarded (with ``spec``'s faults, when given) or
+    not."""
+    from atomo_tpu_torch.training.resilience import GuardConfig
+    from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+    state = create_state(model, opt, 1, dev)
+    kw = {}
+    if guard:
+        kw = dict(guard=GuardConfig())
+    if guard and spec:
+        kw["chaos"] = ChaosInjector(ChaosConfig.from_spec(spec, environ={}), membership_epoch=0)
+    return state, make_train_step(model, opt, get_codec("qsgd", quantization_level=4),
+                                  augment=True, superstep=k, **kw)
+
+
+def rs_steps(state, step, k: int, steps: int, stream, on_step=None, timed: bool = False):
+    """``steps`` steps in blocks of ``k`` (1: one by one): per-step losses,
+    skipped flags and (``timed``) wall ms a step; ``on_step(s, state)``
+    after each block's last step."""
+    import torch
+
+    from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.data.pipeline import BlockStream, block_to_device
+
+    blocks = BlockStream(stream)
+    losses, skipped, ms, s = [], [], [], 0
+    while s < steps:
+        kb = min(k, steps - s)
+        t0 = time.perf_counter()
+        if k == 1:
+            state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+        else:
+            staged = block_to_device(*blocks.take(kb), "cuda")
+            torch.cuda.current_stream().wait_event(staged.ready)
+            state, m = step(state, 2, staged.images, staged.labels)
+        loss = m["loss"].reshape(-1).tolist()
+        losses += loss
+        skipped += m["skipped"].reshape(-1).tolist() if "skipped" in m else [0.0] * kb
+        if timed:
+            ms.append((time.perf_counter() - t0) * 1e3 / kb)
+        s += kb
+        if on_step is not None:
+            on_step(s, state)
+    return state, losses, skipped, ms
+
+
+def resilience_child(work: str, out_path: str) -> int:
+    """The guard's deterministic runs (this script with
+    ``--resilience-child``; cuBLAS's workspace set before its first
+    handle): ResNet-18 qsgd 4 bits with ``--grad-guard --chaos nan@3``, 10
+    steps one by one (the state after step 3 against the state after step
+    2) and as graph blocks of 8 (the rule still qualifies the guarded
+    step); then, through the CLI in this process, the straight ResNet-18 run
+    the kill drill is held to and the LeNet spike drill. Writes what it
+    found to ``out_path``."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.training.graph import mode_line
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    runs = {}
+    for k in (1, 8):
+        state, step = rs_resnet(dev, k, guard=True)
+        seen = {}
+
+        def on_step(s, st):
+            if s in (2, 3):
+                seen[s] = [t.detach().clone() for t in ss_carried(st)]
+
+        ops.reset_launch_counts()
+        state, losses, skipped, _ = rs_steps(state, step, k, RS_STEPS, ss_stream(),
+                                             on_step=on_step if k == 1 else None)
+        torch.cuda.synchronize()
+        run = {"losses": losses, "skipped": skipped, "launches": ops.launch_counts(),
+               "mode": mode_line(step) if k > 1 else "per-step",
+               "replays": getattr(step, "replays", 0), "held": int(state.held),
+               "count": state.opt_state.count,
+               "carried": [t.detach().clone() for t in ss_carried(state)]}
+        if k == 1:
+            run["step3_equals_step2"] = all(torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                for a, b in zip(seen[2], seen[3]))
+        runs[f"K{k}"] = run
+    a, b = runs["K1"].pop("carried"), runs["K8"].pop("carried")
+    runs["graph_equals_eager"] = runs["K1"]["losses"] == runs["K8"]["losses"] and all(
+        torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+    from atomo_tpu_torch import cli
+
+    runs["straight_rc"] = cli.main(RS_TRAIN + ["--train-dir", str(Path(work) / "rs_a")],
+                                   log_fn=lambda _: None)
+    os.environ["ATOMO_CHAOS_SPIKE_SCALE"] = "100"
+    lines: list = []
+    runs["spike_rc"] = cli.main(RS_LENET + RS_DOCTOR + ["--train-dir", str(Path(work) / "rs_c")],
+                                log_fn=lines.append)
+    runs["spike_doctor"] = [ln for ln in lines if ln.startswith("Doctor:")]
+    Path(out_path).write_text(json.dumps(runs))
+    return 0
+
+
+def rs_row2(grads, errs: dict) -> dict:
+    """Row 2 with per-replica flags over a 4-replica gathered buffer of the
+    ResNet-18 tree (4 bits) built on the card, replica 2 encoded from a NaN
+    gradient (row 1 on non-finite input) and flagged 0: against its plain
+    twin (bit for bit), against the decode of the three survivors rescaled
+    by 4/3 (in ulp). Returns the result and a timing function (device ms
+    with the flags and without them)."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, encode_tree
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+    from atomo_tpu_torch.training.resilience import rescale_by_survivors
+
+    codec = QsgdCodec(bits=4)
+    bufs = []
+    for r in range(4):
+        g = grads if r != 2 else [x * float("nan") for x in grads]
+        payloads, _ = encode_tree(codec, r + 1, g)
+        buf, spec = pack_tree_buckets(payloads)
+        bufs.append(buf)
+    torch.cuda.synchronize()  # row 1 took the NaN gradient without a fault
+    rows = torch.stack(bufs)
+    pays = [tuple(p) for p in unpack_tree_buckets(rows, spec)]
+    flags = torch.tensor([1.0, 1.0, 0.0, 1.0], device=rows.device)
+    got = K.unpack_dequantize_tree(pays, grads, bits=4, n_replicas=4, replica_ok=flags)
+    plain = K.unpack_dequantize_tree_plain(pays, grads, bits=4, n_replicas=4, replica_ok=flags)
+    twin = all(same_bits(a, b) for a, b in zip(got, plain))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    keep = rows[[0, 1, 3]]
+    surv = K.unpack_dequantize_tree([tuple(p) for p in unpack_tree_buckets(keep, spec)], grads,
+                                    bits=4, n_replicas=3)
+    scaled = rescale_by_survivors(got, 4, torch.tensor(3.0, device=rows.device))
+    ulps = max(float(((a.double() - b.double()).abs()
+                      / torch.finfo(torch.float32).eps
+                      / b.double().abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
+               for a, b in zip(scaled, surv))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    errs["unpack_dequantize"] = max(errs["unpack_dequantize"], err)
+    if not (twin and finite and ulps <= 2.0):
+        raise AssertionError(f"row 2 with flags: twin {twin}, finite {finite}, "
+                             f"survivor ulps {ulps}")
+    res = {"twin_bit_equal": twin, "finite": finite, "survivor_max_ulp": ulps,
+           "bytes_a_replica": int(rows.shape[1])}
+
+    def timing():
+        res["device_ms_flags"] = device_ms(lambda: K.unpack_dequantize_tree(
+            pays, grads, bits=4, n_replicas=4, replica_ok=flags), "unpack_dequantize")
+        res["device_ms_unflagged"] = device_ms(lambda: K.unpack_dequantize_tree(
+            pays, grads, bits=4, n_replicas=4), "unpack_dequantize")
+        log(f"resilience row 2 flags: 4-replica gathered ResNet-18 buffer "
+            f"({res['bytes_a_replica']} bytes a replica), replica 2 from a NaN gradient "
+            f"flagged 0: equals its plain twin bit for bit, finite, within {ulps:.3f} ulp of "
+            f"the three survivors' decode rescaled by 4/3; device ms "
+            f"{res['device_ms_flags']:.4f} with flags, {res['device_ms_unflagged']:.4f} "
+            f"without")
+        return res
+
+    return res, timing
+
+
+def rs_timing(dev, card: str) -> dict:
+    """Median step ms of ResNet-18 qsgd 4 bits with ``--grad-guard`` (no
+    chaos) and without it, eager and as the K = 8 graph, in turns within
+    this call."""
+    import torch
+
+    out = {}
+    for turn in range(2):
+        for k in (1, 8):
+            for guard in (False, True):
+                state, step = rs_resnet(dev, k, guard, spec=None)
+                steps = 24 if k == 8 else 12
+                _, _, _, ms = rs_steps(state, step, k, steps, ss_stream(), timed=True)
+                torch.cuda.synchronize()
+                key = f"{'graph' if k > 1 else 'eager'}_{'guard' if guard else 'off'}"
+                out.setdefault(key, []).append(statistics.median(ms[1:]))
+    res = {k: statistics.median(v) for k, v in out.items()}
+    log(f"resilience time ({card}): median step ms eager {res['eager_off']:.3f} off, "
+        f"{res['eager_guard']:.3f} guarded; graph K=8 {res['graph_off']:.3f} off, "
+        f"{res['graph_guard']:.3f} guarded")
+    return res
+
+
+def rs_drills_start(work: Path) -> dict:
+    """The CLI drills that end processes, started at once as processes of
+    their own (a sitecustomize on their path sets the deterministic
+    algorithms before anything runs): ResNet-18 qsgd for 8 steps with
+    ``kill@5`` under ``--max-restarts 1``, and the LeNet ``slow@3:60`` drill
+    under ``--health-timeout 5``."""
+    import os
+
+    det = work / "rs_det"
+    det.mkdir(exist_ok=True)
+    (det / "sitecustomize.py").write_text(
+        "import torch\ntorch.use_deterministic_algorithms(True, warn_only=True)\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join([str(det), str(ROOT)]))
+    for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "atomo_tpu_torch"]
+    plans = {
+        "kill": (RS_TRAIN + ["--train-dir", str(work / "rs_b"), "--chaos", "kill@5",
+                             "--max-restarts", "1", "--restart-backoff", "0.1"], {}),
+        "slow": (RS_LENET + ["--max-steps", "6", "--train-dir", "", "--chaos", "slow@3:60",
+                             "--health-timeout", "5"], {}),
+    }
+    t0 = time.time()
+    return {name: (subprocess.Popen(cmd + argv, env={**env, **extra}, cwd=str(ROOT),
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True), t0)
+            for name, (argv, extra) in plans.items()}
+
+
+def rs_drills_finish(work: Path, procs: dict, det: dict) -> dict:
+    """Wait for the drills and hold each to its outcome (the straight run
+    and the spike drill from the deterministic child's ``det``)."""
+    res = {}
+    for name, (p, t0) in procs.items():
+        out, err = p.communicate(timeout=300)
+        res[name] = {"rc": p.returncode, "stdout": out, "stderr": err}
+    a, b = work / "rs_a" / "model_step_8", work / "rs_b" / "model_step_8"
+    kill = res["kill"]
+    inc = work / "rs_b" / "incidents.jsonl"
+    drills = {
+        "kill_equal": a.exists() and b.exists() and a.read_bytes() == b.read_bytes(),
+        "kill_rc": kill["rc"],
+        "kill_died": "CHAOS: killing process before step 5" in kill["stderr"],
+        "kill_resumed": "at step 4" in kill["stdout"],
+        "kill_incidents": [json.loads(ln).get("cause") for ln in inc.read_text().splitlines()]
+        if inc.exists() else [],
+        "spike_rc": det["spike_rc"], "spike_doctor": det["spike_doctor"],
+        "slow_rc": res["slow"]["rc"],
+        "seconds": time.time() - min(t0 for _, t0 in procs.values()),
+    }
+    ok = (drills["kill_equal"] and drills["kill_rc"] == 0 and drills["kill_died"]
+          and drills["kill_resumed"] and drills["kill_incidents"] == ["crash", "clean_exit"]
+          and drills["spike_rc"] == 0 and drills["spike_doctor"] and drills["slow_rc"] == 13
+          and det["straight_rc"] == 0)
+    if not ok:
+        tails = {k: (v["rc"], v["stdout"][-1500:], v["stderr"][-1500:]) for k, v in res.items()}
+        raise AssertionError(f"resilience drills failed: {drills}; {tails}")
+    log(f"resilience drill kill@5 --max-restarts 1 (deterministic): rc 0, attempt 0 died before "
+        f"step 5 (exit 43), attempt 1 resumed at step 4; model_step_8 equals the straight "
+        f"run's byte for byte; incidents {drills['kill_incidents']}")
+    log(f"resilience drill spike@7:3 --on-diverge skip: rc 0, {drills['spike_doctor'][0]}")
+    log(f"resilience drill slow@3:60 --health-timeout 5: rc {drills['slow_rc']}; the drills "
+        f"and the deterministic child together took {drills['seconds']:.1f} s")
+    return drills
+
+
+def phase_resilience(work: Path, card: str, grads, errs: dict) -> dict:
+    """The guard, its kernel form and the drills (the module docstring's
+    item 16): the drills and the deterministic child start at once, row 2's
+    check runs beside them, and the timings run once they are done."""
+    import torch
+
+    t0 = time.time()
+    out_path = work / "resilience_child.json"
+    me = str(Path(__file__).resolve())
+    child = subprocess.Popen([sys.executable, me, "--resilience-child", str(work),
+                              str(out_path)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = rs_drills_start(work)
+    row2, row2_timing = rs_row2(grads, errs)
+    log_child, _ = child.communicate(timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f"resilience child failed:\n{log_child[-3000:]}")
+    det = json.loads(out_path.read_text())
+    drills = rs_drills_finish(work, procs, det)
+    k1, k8 = det["K1"], det["K8"]
+    want_skip = [1.0 if s == 3 else 0.0 for s in range(1, RS_STEPS + 1)]
+    finite = all(math.isfinite(v) for v in k1["losses"][3:])
+    ok = (k1["step3_equals_step2"] and det["graph_equals_eager"] and finite
+          and k1["skipped"] == want_skip == k8["skipped"] and k8["mode"].endswith("graph")
+          and k1["held"] == k8["held"] == 1
+          and k1["launches"]["quantize_pack"] == k1["launches"]["unpack_dequantize"] == RS_STEPS)
+    if not ok:
+        raise AssertionError(f"resilience guard runs: {det}")
+    log(f"resilience guard nan@3 (deterministic): step 3 skipped, its state equals step 2's bit "
+        f"for bit, losses after it finite; '{k8['mode']}' ({k8['replays']} replays) equals the "
+        f"eager steps bit for bit; optimizer count {k1['count']} with {k1['held']} held; "
+        f"launches eager {k1['launches']}, graph {k8['launches']}")
+    t_checks = time.time() - t0
+    row2 = row2_timing()
+    timing = rs_timing(torch.device("cuda"), card)
+    launches = {k: k1["launches"][k] + k8["launches"][k] for k in REPLACES}
+    res = {"guard": det, "row2": row2, "timing": timing, "drills": drills,
+           "launches": launches, "seconds_checks": t_checks, "seconds": time.time() - t0}
+    log(f"resilience phase seconds {res['seconds']:.1f} (checks and drills "
+        f"{t_checks:.1f})")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -4080,6 +4419,8 @@ def main() -> int:
         return overlap_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--overlap-gloo-child"]:
         return overlap_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--resilience-child"]:
+        return resilience_child(sys.argv[2], sys.argv[3])
     import tempfile
 
     import torch
@@ -4149,6 +4490,8 @@ def main() -> int:
         lap("overlap")
         layouts = phase_layouts(Path(work), card, runs, errs)
         lap("layouts")
+        resilience = phase_resilience(Path(work), card, grads, errs)
+        lap("resilience")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -4167,6 +4510,7 @@ def main() -> int:
                 + superstep["launches"][name]
                 + overlap["launches"][name]
                 + layouts["launches"][name]
+                + resilience["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -4188,7 +4532,7 @@ def main() -> int:
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
-              "phase_seconds": seconds,
+              "resilience": resilience, "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

@@ -716,6 +716,43 @@ def test_tree_kernels_read_gathered_rows_in_place(dev, bits, scheme, n):
     assert torch.equal(codes, K.unpack_bucketed_tree_plain([w for w, _ in views], bits=bits))
 
 
+@pytest.mark.parametrize("n,flags", [(4, [1, 1, 0, 1]), (4, [0, 1, 1, 0]), (2, [1, 0]),
+                                     (1, [0]), (8, [1] * 8), (3, [0, 0, 0])])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_tree_decode_with_replica_flags_matches_plain(dev, bits, n, flags):
+    """Row 2's flag form: over the rows of a gathered buffer of ResNet-18's
+    62 leaves whose flagged-out replicas were encoded from a NaN gradient
+    (row 1 on non-finite input, no fault), the tree decode with
+    ``replica_ok`` in one launch and without a host sync equals its plain
+    twin (``mask_replicas`` then the plain decode) bit for bit and is
+    finite; all-ones flags equal the unflagged launch bit for bit."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    codec = QsgdCodec(bits=bits)
+    grads = _resnet18_grads(dev, seed=bits + n)
+    reps = [encode_tree(codec, 100 + r, grads if f else [g * float("nan") for g in grads])[0]
+            for r, f in enumerate(flags)]
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = [(v.words, v.scales) for v in unpack_tree_buckets(
+        torch.stack([b for b, _ in packed]), packed[0][1])]
+    ok = torch.tensor(flags, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n, replica_ok=ok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert K.launch_counts()["unpack_dequantize"] == 1
+    twin = K.unpack_dequantize_tree_plain(views, grads, bits=bits, n_replicas=n, replica_ok=ok)
+    for a, b in zip(got, twin):
+        assert _same_bits(a, b) and bool(torch.isfinite(a).all())
+    if all(flags):
+        for a, b in zip(got, K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n)):
+            assert _same_bits(a, b)
+
+
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("path", ["fused", "pack"])
 def test_mixed_width_tree_matches_plain(dev, path, n):
@@ -1095,13 +1132,18 @@ else:
     spec = SPECS["cifar10" if cifar else "mnist"]
     ds, shape = synthetic_dataset(spec, True, size=512, seed=3), spec.image_shape
 make, kw = make_train_step, {}
-if where != "single":
+if not where.startswith("single"):
     from atomo_tpu_torch.parallel import launch
     from atomo_tpu_torch.parallel.replicated import make_distributed_train_step as make
     launch.initialize("cuda:0", init_method=f"file://{work}/s", world_size=1, rank=0)
     kw = {"error_feedback": where == "nccl-ef"}
     if where == "nccl-delayed":  # the stale-by-one step: its carry updated in place
         kw = {"overlap": "delayed"}
+if where.endswith("guard"):  # the guard holds step 3 and step 6 (chaos on the device)
+    from atomo_tpu_torch.training.resilience import GuardConfig
+    from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
+    kw = {"guard": GuardConfig(), "chaos": ChaosInjector(
+        ChaosConfig.from_spec("nan@3,inf@6", environ={}), membership_epoch=0)}
 
 def codec():
     if code == "sgd":
@@ -1132,7 +1174,8 @@ def carried(state):
     ts = list(state.model.state_dict().values())
     for name in ("trace", "mu", "nu", "nu_max"):
         ts += getattr(o, name, None) or []
-    return ts + (state.residual or []) + ([state.carry.payload] if state.carry else [])
+    return (ts + (state.residual or []) + ([state.carry.payload] if state.carry else [])
+            + ([state.held] if state.held is not None else []))
 
 state, step = fresh(1)
 stream = BatchIterator(ds, 32, seed=3).forever()
@@ -1176,6 +1219,8 @@ print(json.dumps({"ok": True, "launches": ref_counts}))
     ("lenet", "sgd", "sgd", "nccl", 7),
     ("embedding", "qsgd", "sgd", "nccl-hybrid", 7),
     ("resnet18", "qsgd", "sgd", "nccl-delayed", 7),
+    ("resnet18", "qsgd", "sgd", "single-guard", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-guard", 7),
 ])
 def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer, where, steps):
     """7 steps (an LR change at step 5, augmentation on CIFAR shapes,
@@ -1184,7 +1229,10 @@ def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer
     losses, parameters, buffers, optimizer state, the residual and the
     delayed step's carried payload equal bit for bit under torch's
     deterministic algorithms, with the same kernel launches counted (the
-    delayed step's warm-up is its step 0, which applies nothing)."""
+    delayed step's warm-up is its step 0, which applies nothing); guarded
+    with ``nan@3,inf@6`` (one device and NCCL world 1), the replayed graph
+    selects each step's fault from the device table and holds steps 3 and
+    6 as the eager steps do, its held count included."""
     import json
     import os
     import subprocess

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch_dist_jax as J
-from test_torch_svd import jax_draws
 from torch_dist import Group
 
 from atomo_tpu import budget as jb
@@ -84,9 +83,8 @@ def _draws(code, k_codec, params, ks):
     if code == "qsgd":  # a uniform per value: the same at every width
         return J.qsgd_draws(k_codec, params)
     base = CODES[code][1]
-    return [{k: v.numpy() for k, v in jax_draws(
-                base if ks is None else SvdCodec(rank=ks[i], sample=base.sample),
-                jax.random.fold_in(k_codec, i), tuple(leaf.shape)).items()}
+    return [J.jit_svd_draws(base if ks is None else SvdCodec(rank=ks[i], sample=base.sample),
+                            jax.random.fold_in(k_codec, i), tuple(leaf.shape))
             for i, leaf in enumerate(jax.tree_util.tree_leaves(params))]
 
 

@@ -46,7 +46,7 @@ from atomo_tpu_torch.ops import attention_kernels as A
 from atomo_tpu_torch.parallel.lm import make_lm_train_step
 from atomo_tpu_torch.training import make_optimizer
 from atomo_tpu_torch.training.trainer import TrainState, leaf_params
-from test_torch_svd import jax_draws
+import torch_dist_jax as J
 
 CFG = dict(vocab_size=16, max_len=32, width=32, depth=2, num_heads=2)
 RECIPE = dict(vocab_size=256, max_len=1024, width=256, depth=4, num_heads=4)
@@ -135,7 +135,8 @@ def test_recipe_leaves_and_wire_bytes_match_jax():
 
 def _svd_draws(codec, key, step, params):
     k_codec = jax.random.fold_in(jax.random.fold_in(key, step), 0)
-    return [jax_draws(codec, jax.random.fold_in(k_codec, i), tuple(a.shape))
+    return [{k: torch.from_numpy(v.copy()) for k, v in
+             J.jit_svd_draws(codec, jax.random.fold_in(k_codec, i), tuple(a.shape)).items()}
             for i, a in enumerate(jax.tree_util.tree_leaves(params))]
 
 

@@ -80,7 +80,13 @@ def _jax_codec(c: SvdCodec):
 
 def jax_draws(codec: SvdCodec, key, shape):
     """The draws ``atomo_tpu.codecs.svd.SvdCodec.encode`` makes for one leaf
-    of ``shape`` under ``key``, as numpy arrays keyed as the port's hook."""
+    of ``shape`` under ``key``, as tensors keyed as the port's hook."""
+    return {name: torch.from_numpy(np.asarray(a).copy())
+            for name, a in jax_draw_arrays(codec, key, shape).items()}
+
+
+def jax_draw_arrays(codec: SvdCodec, key, shape):
+    """:func:`jax_draws` as JAX arrays (traceable: one jit a leaf shape)."""
     if codec._dense_fallback(shape):
         return {}
     m, n = codec._dims(shape)
@@ -115,7 +121,7 @@ def jax_draws(codec: SvdCodec, key, shape):
         ku, kv = jax.random.split(k_wire)
         out["wire_u"] = jax.random.bits(ku, (m, u_cols), jnp.uint16).astype(jnp.int32)
         out["wire_vt"] = jax.random.bits(kv, (u_cols, n), jnp.uint16).astype(jnp.int32)
-    return {name: torch.from_numpy(np.asarray(a).copy()) for name, a in out.items()}
+    return out
 
 
 def test_jax_draw_identities():

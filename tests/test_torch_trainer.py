@@ -97,40 +97,57 @@ def _jax_uniforms(key, step, params, bucket):
     return out, k_codec
 
 
-def _jax_grads(model, state, images, labels):
-    has_bn = bool(jax.tree_util.tree_leaves(state.batch_stats))
+def _jax_grad_fn(model, has_bn: bool):
+    """The JAX gradient of a train-mode step as one jitted function of
+    (params, batch_stats, images, labels), compiled once a run (a closure
+    over each step's state would be traced and compiled at every step)."""
 
-    def loss_fn(params):
+    def loss_fn(params, batch_stats, images, labels):
         variables = {"params": params}
         if has_bn:
-            variables["batch_stats"] = state.batch_stats
+            variables["batch_stats"] = batch_stats
         logits, _ = model.apply(
             variables, images, train=True, rngs={"dropout": jax.random.PRNGKey(0)},
             mutable=["batch_stats"] if has_bn else [],
         )
         return cross_entropy_loss(logits, labels)
 
-    return jax.jit(jax.grad(loss_fn))(state.params)
+    return jax.jit(jax.grad(loss_fn))
 
 
 def _fields(words):
     return (words[..., None] >> (np.arange(32 // (BITS + 1)) * (BITS + 1))) & 31
 
 
+_STARTS: dict = {}
+
+
+def _start(name, dataset, x64):
+    """(batches, Flax model, JAX state, the port's state_dict) of a case,
+    made once for both codecs (the Flax init of ResNet-18 runs op by op)."""
+    if (name, dataset, x64) not in _STARTS:
+        batches = _batches(dataset)
+        jmodel = jax_model(name, 10)
+        jopt = jax_optimizer("sgd", lr=LR, momentum=MOMENTUM)
+        jstate = create_state(jmodel, jopt, jax.random.PRNGKey(0), jnp.asarray(batches[0][0]))
+        # the port starts from the float32 init either way
+        sd = state_dict_from_jax(get_model(name, 10, image_shape=JAX_SPECS[dataset].image_shape),
+                                 jax.device_get(jstate.params),
+                                 jax.device_get(jstate.batch_stats))
+        _STARTS[name, dataset, x64] = (batches, jmodel, jax.device_get(jstate), sd)
+    return _STARTS[name, dataset, x64]
+
+
 @pytest.mark.parametrize("code", ["sgd", "qsgd"])
 @pytest.mark.parametrize("name,dataset,x64", CASES)
 def test_train_steps_match_jax(name, dataset, x64, code, monkeypatch):
-    batches = _batches(dataset)
     image_shape = JAX_SPECS[dataset].image_shape
     with _jax_x64(x64):
-        jmodel = jax_model(name, 10)
+        batches, jmodel, jstate, sd = _start(name, dataset, x64)
         jopt = jax_optimizer("sgd", lr=LR, momentum=MOMENTUM)
-        jstate = create_state(jmodel, jopt, jax.random.PRNGKey(0),
-                              jnp.asarray(batches[0][0]))
-        # the port starts from the float32 init either way
+        jstate = jax.tree_util.tree_map(jnp.asarray, jstate)
         model = get_model(name, 10, image_shape=image_shape)
-        model.load_state_dict(state_dict_from_jax(
-            model, jax.device_get(jstate.params), jax.device_get(jstate.batch_stats)))
+        model.load_state_dict(sd)
         if x64:
             jstate = _f64(jstate)
         jcodec = JaxQsgd(bits=BITS) if code == "qsgd" else None
@@ -153,13 +170,17 @@ def test_train_steps_match_jax(name, dataset, x64, code, monkeypatch):
 
         fields = same = 0
         max_step = 0.0
+        jgrad = _jax_grad_fn(jmodel, bool(jax.tree_util.tree_leaves(jstate.batch_stats)))
+        # one compiled encode (op by op, each step's leaves compile hundreds
+        # of small programs)
+        jencode = jax.jit(lambda k, g: jax_encode_tree(jcodec, k, g)[0])
         for s, (x, y) in enumerate(batches):
             uniforms = None
             jx = jnp.asarray(x, jnp.float64 if x64 else jnp.float32)
             if code == "qsgd":
                 uniforms, k_codec = _jax_uniforms(key, s, jstate.params, 512)
-                jgrads = _jax_grads(jmodel, jstate, jx, jnp.asarray(y))
-                jpay, _ = jax_encode_tree(jcodec, k_codec, jgrads)
+                jgrads = jgrad(jstate.params, jstate.batch_stats, jx, jnp.asarray(y))
+                jpay = jencode(k_codec, jgrads)
                 jpay = jax.tree_util.tree_leaves(jpay, is_leaf=lambda p: hasattr(p, "words"))
             jstate, jm = jstep(jstate, key, jx, jnp.asarray(y))
             state, pm = pstep(state, SEED + 1, *to_device(x, y, "cpu"), uniforms=uniforms)

@@ -22,7 +22,9 @@ Jobs (``JOBS``):
   ``parts`` the steps run as superstep blocks of those sizes (the block
   step of ``superstep=k``, each rank on its rows of every step of the
   block), each step's metrics taken from the block's series and the hash
-  after a block's last step only (None inside a block);
+  after a block's last step only (None inside a block); ``guard`` (a max
+  grad norm) arms the guard with ``chaos`` (a spec) aimed at
+  ``target_replica``, each step's ``skipped`` and ``dropped`` coming back;
 * ``build``: the data-parallel step's factory on a registry model with
   given arguments; the message of the ``ValueError`` it raises, or None;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
@@ -199,7 +201,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
               num_aggregate, ring_bucket_size, lr, momentum, batches, key, draws=None,
               dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
               budget_ks=None, error_feedback=False, parts=None, overlap="off",
-              stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False):
+              stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False, guard=None,
+              chaos=None, target_replica=0):
     import dataclasses
 
     import torch.distributed as dist
@@ -255,13 +258,25 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
         c = _codec(codec)
         return c if budget_ks is None else budgeted_codec(c, budget_ks)
 
+    def resilience():
+        """The guard (its max grad norm, or None) and the chaos injector (a
+        spec aimed at ``target_replica``)."""
+        if guard is None:
+            return {}
+        from atomo_tpu_torch.training.resilience import GuardConfig
+        from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
+
+        cfg = dataclasses.replace(ChaosConfig.from_spec(chaos, environ={}),
+                                  target_replica=target_replica)
+        return dict(guard=GuardConfig(guard), chaos=ChaosInjector(cfg, membership_epoch=0))
+
     def make_step(model, superstep=1):
         return R.make_distributed_train_step(
             model, opt, make_codec(), aggregate=aggregate, num_aggregate=num_aggregate,
             ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid,
             error_feedback=error_feedback, superstep=superstep, overlap=overlap,
             stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes,
-            compute_dtype=torch.bfloat16 if bf16 else None)
+            compute_dtype=torch.bfloat16 if bf16 else None, **resilience())
 
     delayed = overlap == "delayed"
     if delayed:
@@ -278,7 +293,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 "msg_bytes": val("msg_bytes", int), "dense_bytes": val("dense_bytes", int),
                 "hash": state_hash(model) if last else None,
                 "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm"),
-                "skipped": val("skipped")}
+                "skipped": val("skipped"), "dropped": val("dropped")}
 
     try:
         step = make_step(model)

@@ -30,7 +30,7 @@ from atomo_tpu_torch.codecs import SvdCodec
 from atomo_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
 from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
 from atomo_tpu_torch.models import get_model
-from test_torch_svd import jax_draws
+from test_torch_svd import jax_draw_arrays
 from torch_dist import build_model
 
 LR, MOMENTUM = 0.001, 0.9
@@ -52,18 +52,41 @@ def batches(dataset: str, batch: int, steps: int, seed: int = 3):
     return [next(it) for _ in range(steps)]
 
 
+_UNIFORMS: dict = {}
+
+
+def _uniform_fn(shape: tuple):
+    """``jax.random.uniform`` of one shape (in the default float type) as one
+    compiled program: the same draws as its op-by-op run."""
+    key = (shape, bool(jax.config.jax_enable_x64))
+    if key not in _UNIFORMS:
+        _UNIFORMS[key] = jax.jit(lambda k: jax.random.uniform(k, shape))
+    return _UNIFORMS[key]
+
+
 def qsgd_draws(k_codec, params, bucket: int = 512):
     """The uniforms the JAX QSGD codec draws for each leaf under ``k_codec``."""
-    return [np.asarray(jax.random.uniform(jax.random.fold_in(k_codec, i),
-                                          (-(-leaf.size // bucket), bucket)))
+    return [np.asarray(_uniform_fn((-(-leaf.size // bucket), bucket))(
+                jax.random.fold_in(k_codec, i)))
             for i, leaf in enumerate(jax.tree_util.tree_leaves(params))]
+
+
+_SVD_DRAWS: dict = {}
+
+
+def jit_svd_draws(codec, key, shape: tuple) -> dict:
+    """``test_torch_svd.jax_draws`` as numpy arrays, one compiled program a
+    (codec, leaf shape): the same draws as its op-by-op run, compiled once a
+    shape instead of once an op."""
+    if (codec, shape) not in _SVD_DRAWS:
+        _SVD_DRAWS[codec, shape] = jax.jit(lambda k: jax_draw_arrays(codec, k, shape))
+    return {k: np.asarray(v) for k, v in _SVD_DRAWS[codec, shape](key).items()}
 
 
 def svd_draws(k_codec, params, rank: int = 3):
     """The draws the JAX SVD codec makes for each leaf under ``k_codec``."""
     codec = SvdCodec(rank=rank)
-    return [{k: v.numpy() for k, v in
-             jax_draws(codec, jax.random.fold_in(k_codec, i), tuple(leaf.shape)).items()}
+    return [jit_svd_draws(codec, jax.random.fold_in(k_codec, i), tuple(leaf.shape))
             for i, leaf in enumerate(jax.tree_util.tree_leaves(params))]
 
 
@@ -172,8 +195,9 @@ class Reference:
         """As :meth:`run`, with each rank's arguments of the ``train`` job:
         its codec draws and the dropout keep-masks its replica drew (None
         for a model without dropout). ``modes`` go to the JAX step factory
-        (``overlap="delayed"``, ``stream_encode``, ``stream_bucket_bytes``);
-        each step's ``skipped`` metric comes back under delayed."""
+        (``overlap="delayed"``, ``stream_encode``, ``stream_bucket_bytes``,
+        ``guard``, ``chaos``); each step's ``skipped`` metric comes back
+        under delayed or the guard, ``dropped`` under the guard."""
         args = (code, aggregate, n, num_aggregate, grad_accum, tuple(sorted(modes.items())))
         if args not in self._runs:
             with jax_x64(self.x64):
@@ -226,10 +250,12 @@ class Reference:
                                             drop_key(self.key, s, r), grad_accum))
             x = jnp.asarray(x, jnp.float64 if self.x64 else jnp.float32)
             state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)))[:2]
+            guarded = modes.get("guard") is not None
             out.append({"params": jax.device_get(state.params),
                         "batch_stats": jax.device_get(state.batch_stats),
                         "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
-                        "skipped": float(m["skipped"]) if delayed else None})
+                        "skipped": float(m["skipped"]) if delayed or guarded else None,
+                        "dropped": float(m["dropped"]) if guarded else None})
         return out, [{"draws": draws[r] if draw is not None else None,
                       "dropout_masks": masks[r] if any(masks[r]) else None}
                      for r in range(n)]
