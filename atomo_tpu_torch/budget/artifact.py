@@ -27,20 +27,9 @@ import os
 from typing import Optional
 
 from atomo_tpu_torch.budget.allocator import Allocation, allocation_leaf_budgets
+from atomo_tpu_torch.utils.tracing import write_json_atomic
 
 BUDGET_ALLOC_NAME = "budget_alloc.json"
-
-
-def write_json_atomic(path: str, obj) -> None:
-    """Write ``obj`` as JSON through a temporary file and ``os.replace``:
-    a reader never sees a torn file."""
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(obj, f, indent=1)
-    os.replace(tmp, path)
 
 
 def alloc_path(train_dir: str) -> str:

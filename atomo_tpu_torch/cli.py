@@ -1,6 +1,6 @@
-"""Command line of the port: ``python -m atomo_tpu_torch train|evaluate|lm ...``.
+"""Command line of the port: ``python -m atomo_tpu_torch train|evaluate|lm|report ...``.
 
-Counterpart of the ``train``, ``evaluate`` and ``lm`` verbs of
+Counterpart of the ``train``, ``evaluate``, ``lm`` and ``report`` verbs of
 ``atomo_tpu/cli.py``, with the flags ported so far. The defaults are the JAX
 package's. ``train`` trains any model of the registry (``--network``, case
 blind: LeNet, FC, the ResNets, the VGGs, DenseNet, DenseNet100, AlexNet) on
@@ -26,7 +26,8 @@ default) is the whole process group. A process group that is up (or a
 ``torchrun`` launch) takes even one process through the data-parallel step,
 which is how one card runs ``--grad-accum`` and ``--error-feedback``.
 ``evaluate`` polls a checkpoint directory and prints the test metrics of
-each new file. ``lm`` runs the six layouts of the JAX verb on one device or
+each new file; it takes every flag of ``train``, as the JAX verb does.
+``lm`` runs the six layouts of the JAX verb on one device or
 over N processes (``--n-devices N --ways W``): ``dp``, ``dp-sp`` (sequence
 shards, ``--attn-impl ring|ulysses|ulysses-flash``), ``dp-tp`` (Megatron
 tensor parallel), ``dp-ep`` (switch MoE, ``--num-experts``), ``dp-pp``
@@ -50,7 +51,14 @@ and ``--max-grad-norm`` (skip, or mask and rescale, an anomalous gradient),
 and ``--max-rollbacks`` (the divergence doctor, exit 23 once its budget is
 spent) and ``--max-restarts`` with ``--restart-backoff`` (the supervisor,
 one process), their argv refusals checked before the supervisor re-executes
-the command. From the process entry a refusal exits 2.
+the command. ``--obs-record`` writes the flight recorder
+(``train_dir/metrics.jsonl``, :mod:`atomo_tpu_torch.obs.recorder`), which
+``lm`` writes whenever it has a ``--train-dir``; ``--obs-quality`` adds the
+per-layer estimator-quality probes (:mod:`atomo_tpu_torch.obs.quality`).
+``report`` joins a run's artifacts into ``run_report.json`` with the JAX
+verb's consistency checks (``--strict`` exits 3 on a failed one); its
+``timeline`` mode and ``--fleet`` are not ported yet. From the process entry
+a refusal exits 2.
 """
 
 from __future__ import annotations
@@ -406,13 +414,10 @@ def _fabric_flags(p: argparse.ArgumentParser) -> None:
                         "H100 (utils/comm_model.py) by gradient size")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        prog="atomo_tpu_torch",
-        description="PyTorch/CUDA port of atomo_tpu (compressed data-parallel SGD)",
-    )
-    sub = parser.add_subparsers(dest="command")
-    p = sub.add_parser("train", help="train a model on one device or data-parallel")
+def _fit_flags(p: argparse.ArgumentParser) -> None:
+    """The flags of ``train``, which ``evaluate`` takes too (the JAX verbs'
+    ``_add_fit_args``): a flag line shared by both verbs parses on both, and
+    ``evaluate`` reads what it needs and ignores the rest."""
     _model_flags(p)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--max-steps", type=int, default=10000)
@@ -547,6 +552,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "step, boundary or not). 0 (default) = auto: 1 here (the JAX "
                         "verb's 8 is for TPU backends); 1 = the per-step loop exactly "
                         "as before")
+    p.add_argument("--obs-record", action="store_true", default=False,
+                   help="arm the flight recorder: one JSON line per "
+                        "training step appended to train-dir/"
+                        "metrics.jsonl (loss, step wall ms, guard "
+                        "verdicts, wire bytes, the aggregate mode in "
+                        "effect, membership epoch, chaos generation, "
+                        "drift state, rolling predicted-vs-measured "
+                        "calibration), pruned in lockstep with the "
+                        "checkpoint timeline on rollback/resume. Off "
+                        "(default): zero new device ops, byte-identical "
+                        "programs and stdout. Read it back with the "
+                        "`report` verb")
+    p.add_argument("--obs-quality", action="store_true", default=False,
+                   help="in-graph estimator-quality probes: per-layer "
+                        "||decode(encode(g))-g||^2 and relative variance "
+                        "proxy inside the fused step (the ATOMO "
+                        "estimator's variance, observable at last — the "
+                        "feed for adaptive variance budgets). Needs a "
+                        "compressing --code with flat gather/ring/psum "
+                        "aggregation; off = byte-identical programs, on "
+                        "= bit-identical trajectories (the probe only "
+                        "adds metric outputs). Costs one extra decode + "
+                        "one f32 reduction per layer per step")
     p.add_argument("--comm-type", type=str, default="Bcast", metavar="N",
                    help="accepted for parity with the reference and ignored")
     p.add_argument("--enable-gpu", action="store_true", default=False,
@@ -562,10 +590,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alias over --svd-algo (the two must agree when both are "
                         "pinned): randomized = the Halko sketch at every size, exact = "
                         "the exact SVD, auto = --svd-algo's choice")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="atomo_tpu_torch",
+        description="PyTorch/CUDA port of atomo_tpu (compressed data-parallel SGD)",
+    )
+    sub = parser.add_subparsers(dest="command")
+    p = sub.add_parser("train", help="train a model on one device or data-parallel")
+    _fit_flags(p)
     p.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate", help="poll a checkpoint directory and evaluate")
-    _model_flags(e)
+    _fit_flags(e)
     e.add_argument("--model-dir", type=str, default="",
                    help="checkpoint directory (default: --train-dir)")
     e.add_argument("--poll-interval", type=float, default=10.0)
@@ -657,6 +695,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "starts empty)")
     q.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
     q.set_defaults(fn=cmd_lm)
+
+    r = sub.add_parser(
+        "report",
+        help="join metrics.jsonl + incidents.jsonl + membership.json + "
+             "tune_decision.json + fabric_probe.json into run_report.json "
+             "and print the post-mortem timeline (cross-artifact "
+             "consistency checks); `report timeline` (not ported yet) parses "
+             "a --profile-dir trace into per-step phase spans instead",
+    )
+    r.add_argument("what", nargs="?", default="run", choices=["run", "timeline"],
+                   help="run (default): the cross-artifact run report; timeline: "
+                        "per-step phase spans from a --profile-dir trace (refused: "
+                        "not ported yet)")
+    r.add_argument("--train-dir", type=str, default="output/models/", metavar="N",
+                   help="the run's artifact directory")
+    r.add_argument("--profile-dir", type=str, default="", metavar="DIR",
+                   help="for `report timeline` (refused: not ported yet)")
+    r.add_argument("--fleet", action="store_true", default=False,
+                   help="the fleet report over train-dir/hosts/ (refused: not ported yet)")
+    r.add_argument("--strict", action="store_true", default=False,
+                   help="exit rc=3 when a consistency check fails "
+                        "(default: report and exit 0 — the report "
+                        "itself is the product)")
+    r.set_defaults(fn=cmd_report)
     return parser
 
 
@@ -816,6 +878,15 @@ def _budget_preflight(args: argparse.Namespace) -> None:
                 "its default. --auto controller prices and probes "
                 "exactly that cross term (the +sp+ab candidates) — use "
                 "it; the static pairing stays rejected")
+        if args.on_diverge != "off" and args.obs_quality and args.obs_record:
+            raise SystemExit(
+                "--budget-alloc variance with --obs-quality --obs-record "
+                "arms online re-allocation at checkpoint boundaries, "
+                "which cannot compose with --on-diverge: a rollback "
+                "would replay pre-reallocation steps under the "
+                "post-reallocation program — drop --on-diverge, or "
+                "freeze the allocation by dropping --obs-record or "
+                "--obs-quality")
     if not args.error_feedback:
         return
     if code in DENSE_CODES:
@@ -1088,6 +1159,89 @@ def _superstep(args: argparse.Namespace) -> int:
     return args.superstep or 1
 
 
+def _codec(args: argparse.Namespace):
+    """The codec of the fit flags, as the JAX verbs' ``_build_common`` makes
+    it (its warning for ``--svd-rank 0``, its refusal of a disagreeing
+    ``--svd-mode``), or None for a dense code."""
+    fused = args.qsgd_path == "fused"
+    svd_rank = args.svd_rank
+    if svd_rank == 0 and args.sample != "bernoulli":
+        # rank 0 is the reference's p_i = s_i/s_0 mode, which only the
+        # bernoulli sampler has; the fixed-budget samplers take rank 3
+        if args.code.lower() == "svd":
+            warnings.warn(
+                "--svd-rank 0 maps to the reference's rank-0 mode only with "
+                "--sample bernoulli; using rank 3 for the fixed-budget sampler"
+            )
+        svd_rank = 3
+    codec = get_codec(
+        args.code, svd_rank=svd_rank, quantization_level=args.quantization_level,
+        bucket_size=args.bucket_size, sample=args.sample, algorithm=_svd_algo(args),
+        wire_dtype=args.svd_wire,
+        use_kernel=None if fused else False, pack_kernel=None if fused else True,
+    )
+    # dense: no encode/decode in the step, as the JAX trainer
+    return None if codec.name == "sgd" else codec
+
+
+def _obs_preflight(args: argparse.Namespace) -> None:
+    """The JAX verb's argv refusals of ``--obs-record`` and ``--obs-quality``
+    (``atomo_tpu/cli.py:1167-1196``) for the flags the port has."""
+    if args.obs_record and not args.train_dir:
+        raise SystemExit(
+            "--obs-record appends per-step telemetry to "
+            "train-dir/metrics.jsonl and needs a --train-dir")
+    if args.obs_quality:
+        if args.code.lower() in DENSE_CODES:
+            raise SystemExit(
+                "--obs-quality probes the codec's estimator error; dense "
+                "training (--code sgd) has no estimator to probe")
+        if args.overlap == "delayed":
+            raise SystemExit(
+                "--obs-quality does not compose with --overlap delayed: "
+                "the carried payload describes the PREVIOUS step, so a "
+                "per-step per-layer error column would be off by one — "
+                "rejected honestly rather than silently mis-attributed")
+
+
+def _recorder(args: argparse.Namespace, n_dev: int, log_fn, write: bool = True):
+    """The flight recorder of ``--obs-record`` (None without it), built as
+    the JAX verb builds it (``atomo_tpu/cli.py:2787-2870``), after the
+    allocation: no prediction to calibrate against (the port has no
+    ``--auto``); under ``--budget-alloc variance`` the allocation's meta line
+    (from ``budget_alloc.json``) and the ``budget_epoch`` column, and the
+    allocation's line: frozen, since the online re-allocation the JAX verb
+    arms over several devices with both obs flags and a save cadence is
+    refused here. Every rank calls it (the refusal is every rank's);
+    ``write`` (rank 0, which wrote the allocation) alone gets a recorder."""
+    recorder = None
+    if args.obs_record and write:
+        from atomo_tpu_torch.obs.recorder import FlightRecorder
+
+        recorder = FlightRecorder.for_train_dir(args.train_dir)
+    if args.budget_alloc != "variance":
+        return recorder
+    if recorder is not None:
+        from atomo_tpu_torch.budget import allocation_meta, latest_epoch, read_alloc
+
+        ep = latest_epoch(read_alloc(args.train_dir))
+        recorder.write_meta(allocation_meta(ep))
+        recorder.set_context(budget_epoch=int(ep["epoch"]))
+    if (n_dev > 1 and args.obs_quality and args.obs_record and args.train_dir
+            and (args.save_freq or args.eval_freq) and args.on_diverge == "off"):
+        raise SystemExit(
+            "--budget-alloc variance with --obs-quality --obs-record and a save "
+            "cadence over several devices arms the JAX verb's online re-allocation "
+            "(the q_err2-fed re-solve at checkpoint boundaries, budget/retune.py), "
+            "which this port does not have yet (ROADMAP queue 1 item 7f); drop "
+            "--obs-quality or --obs-record to freeze the allocation")
+    log_fn("Budget: allocation frozen for this run"
+           + ("" if args.obs_quality and args.obs_record
+              else " (arm --obs-quality --obs-record with a "
+                   "checkpoint cadence to re-solve at boundaries)"))
+    return recorder
+
+
 def cmd_train(args: argparse.Namespace, log_fn=print):
     from atomo_tpu_torch.training.resilience import DivergenceError, GuardConfig
     from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
@@ -1095,6 +1249,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     superstep = _superstep(args)
     _overlap_preflight(args)
     _sparse_preflight(args)
+    _obs_preflight(args)
     _budget_preflight(args)
     _chaos_preflight(args)
     _diverge_preflight(args)
@@ -1116,25 +1271,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         weight_decay=args.weight_decay, beta1=args.adam_beta1, beta2=args.adam_beta2,
         eps=args.adam_eps, amsgrad=args.amsgrad,
     )
-    fused = args.qsgd_path == "fused"
-    svd_rank = args.svd_rank
-    if svd_rank == 0 and args.sample != "bernoulli":
-        # rank 0 is the reference's p_i = s_i/s_0 mode, which only the
-        # bernoulli sampler has; the fixed-budget samplers take rank 3
-        if args.code.lower() == "svd":
-            warnings.warn(
-                "--svd-rank 0 maps to the reference's rank-0 mode only with "
-                "--sample bernoulli; using rank 3 for the fixed-budget sampler"
-            )
-        svd_rank = 3
-    codec = get_codec(
-        args.code, svd_rank=svd_rank, quantization_level=args.quantization_level,
-        bucket_size=args.bucket_size, sample=args.sample, algorithm=_svd_algo(args),
-        wire_dtype=args.svd_wire,
-        use_kernel=None if fused else False, pack_kernel=None if fused else True,
-    )
-    if codec.name == "sgd":
-        codec = None  # dense: no encode/decode in the step, as the JAX trainer
+    codec = _codec(args)
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
     common = dict(augment=name.startswith("cifar") and not args.no_augment,
                   max_steps=min(args.max_steps, args.epochs * steps_per_epoch),
@@ -1163,11 +1300,13 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, log_fn)[1].ks)
+        recorder = _recorder(args, 1, log_fn)
         _resolved_chaos(chaos, 1)
         diverge = _diverge_config(args, codec, 1, None)
         try:
             return train_loop(model, optimizer, train_iter, test_iter, codec=codec,
-                              diverge=diverge, **common)
+                              diverge=diverge, track_quality=args.obs_quality,
+                              recorder=recorder, **common)
         except DivergenceError as exc:
             return _diverged_exit(exc)
     was_up = torch.distributed.is_initialized()
@@ -1194,6 +1333,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, rank_log, write=ctx.rank == 0)[1].ks)
+        # every rank runs the probes and the reduce; rank 0 alone writes
+        recorder = _recorder(args, n_dev, rank_log, write=ctx.rank == 0)
         aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
         _resolved_chaos(chaos, n_dev)
         diverge = _diverge_config(args, codec, n_dev, aggregate)
@@ -1205,6 +1346,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 hybrid=plan, error_feedback=args.error_feedback, overlap=args.overlap,
                 stream_encode=args.stream_encode == "on",
                 stream_bucket_bytes=_stream_bucket_bytes(args), diverge=diverge,
+                track_quality=args.obs_quality, recorder=recorder,
                 **{**common, "device": ctx.device})
         except DivergenceError as exc:
             return _diverged_exit(exc)
@@ -1215,7 +1357,11 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
 
 def cmd_evaluate(args: argparse.Namespace, log_fn=print) -> int:
     """Evaluate each new checkpoint of ``--model-dir`` (``--train-dir``) with
-    the reference's ``Evaluator:`` line, every ``--poll-interval`` seconds."""
+    the reference's ``Evaluator:`` line, every ``--poll-interval`` seconds.
+    The verb takes every flag of ``train``, as the JAX verb takes them: the
+    model and data flags shape the run, the codec flags are checked as
+    ``train`` checks them (with its warnings), and the rest are ignored."""
+    _codec(args)
     model, test_iter = _model_and_test_iter(args)
     ev = CheckpointEvaluator(model, test_iter, args.model_dir or args.train_dir,
                              poll_interval=args.poll_interval, log_fn=log_fn,
@@ -1516,13 +1662,40 @@ def _lm_loop(args: argparse.Namespace, n_dev: int, ways_arg, dp: int, ctx, log_f
                 "(it holds an overlap_carry); restoring its train state and discarding "
                 "the in-flight payload — pass --overlap delayed to "
                 "resume the overlapped run exactly")
+    recorder = None
+    if args.train_dir and rank == 0:
+        # the run recorded, as the JAX verb records it, so that `report` can
+        # check the recorded axis layout against what ran (rank 0 writes,
+        # as it does the checkpoints)
+        from atomo_tpu_torch.obs.recorder import FlightRecorder
+        from atomo_tpu_torch.training.trainer import fetch_metrics
+
+        recorder = FlightRecorder.for_train_dir(args.train_dir)
+        if start:
+            recorder.prune_past(start)
+        recorder.set_context(aggregate=aggregate)
+        recorder.write_meta({
+            "what": "model_axes",
+            "layout": layout,
+            "mesh_axes": spec.shape_dict(),
+            "exchange": None if exchange is None else {
+                "aggregate": exchange.aggregate,
+                "stream_encode": exchange.stream_encode,
+                "overlap": exchange.overlap,
+            },
+        })
     for i in range(start + 1, args.max_steps + 1):
         t0 = time.time()
         # every rank draws the global batch alike and takes its block
         tokens = np.ascontiguousarray(prog.shard_tokens(next_batch()))
         state, metrics = prog.step(state, fold_in(args.seed, i),
                                    torch.from_numpy(tokens).to(dev, torch.int64))
-        loss = float(metrics["loss"])  # device sync: honest step timing
+        if recorder is not None:  # one host copy of the step's metrics
+            host = fetch_metrics(metrics)
+            loss = host["loss"]
+            recorder.record_block(i, host, wall_s=time.time() - t0)
+        else:
+            loss = float(metrics["loss"])  # device sync: honest step timing
         if i % args.log_interval == 0 or i == args.max_steps:
             log_fn(
                 f"LM: Step: {i}, Layout: {layout}({spec.describe()}), "
@@ -1541,6 +1714,37 @@ def _lm_loop(args: argparse.Namespace, n_dev: int, ways_arg, dp: int, ctx, log_f
                                or i == args.max_steps):
             MA.save_program_checkpoint(prog, state, args.train_dir, compress=args.compress)
     return state
+
+
+def cmd_report(args: argparse.Namespace, log_fn=print) -> int:
+    """``report`` in ``run`` mode (``atomo_tpu/cli.py:3651-3740``): the run's
+    artifacts joined into ``train_dir/run_report.json`` (written atomically)
+    with the cross-artifact consistency checks, and the post-mortem printed;
+    ``--strict`` exits 3 when a check fails. A pure host-side read: no
+    device, no card. ``report timeline`` and ``--fleet`` are refused by name
+    (ROADMAP queue 1 items 7d and 11)."""
+    from atomo_tpu_torch.obs.report import build_report, report_path, summarize_report
+    from atomo_tpu_torch.utils.tracing import write_json_atomic
+
+    if args.what == "timeline":
+        raise SystemExit(
+            "report timeline: the trace-based phase timeline (--profile-dir, "
+            "obs/timeline.py) is not ported yet (ROADMAP queue 1 item 7d); "
+            "run `report` for the run report")
+    if not args.train_dir or not os.path.isdir(args.train_dir):
+        raise SystemExit(f"report: train dir {args.train_dir!r} does not exist")
+    if args.fleet:
+        raise SystemExit(
+            "report --fleet: the fleet report over train-dir/hosts/ is not "
+            "ported yet (ROADMAP queue 1 item 11, with elastic and fleet); run "
+            "`report` without --fleet for the run report")
+    doc = build_report(args.train_dir)
+    write_json_atomic(report_path(args.train_dir), doc)
+    log_fn(summarize_report(doc))
+    log_fn(f"run report -> {report_path(args.train_dir)}")
+    if args.strict and not doc["consistent"]:
+        return 3
+    return 0
 
 
 def main(argv: Optional[list[str]] = None, log_fn=print) -> int:

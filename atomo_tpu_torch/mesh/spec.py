@@ -150,6 +150,11 @@ class MeshSpec:
         included)."""
         return tuple((n, s) for n, s in self.axes if n not in ("dp", "ici"))
 
+    def shape_dict(self) -> dict:
+        """The artifact form, ``{"dp": K, "sp": M}`` in mesh order (the
+        ``model_axes`` meta record of ``lm``'s ``metrics.jsonl``)."""
+        return {name: size for name, size in self.axes}
+
     def describe(self) -> str:
         """``dp4``, ``dp2xtp2``: the string the log lines print."""
         return "x".join(f"{n}{s}" for n, s in self.axes)

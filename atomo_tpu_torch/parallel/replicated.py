@@ -79,9 +79,10 @@ holding a replica, and the collectives of the program become calls of
 Phases are ``record_function`` ranges named as the reference's
 ``named_phase`` scopes: ``step.forward_backward``, ``step.encode``,
 ``step.exchange``, ``step.decode_mean`` (psum: ``step.decode``), the error
-feedback's ``step.ef_decode``, the bucket encodes' ``step.encode_bucket``,
-the delayed consume's ``step.delayed_exchange``, ``step.delayed_decode_mean``
-and ``step.delayed_ring_exchange_decode``, the ring's
+feedback's ``step.ef_decode``, the quality probe's ``step.quality``, the
+bucket encodes' ``step.encode_bucket``, the delayed consume's
+``step.delayed_exchange``, ``step.delayed_decode_mean`` and
+``step.delayed_ring_exchange_decode``, the ring's
 ``step.ring_exchange_decode``, the hybrid's ``step.hybrid_exchange`` around
 its encode, exchange and decode, ``step.update``. No collective needs a host
 sync: every size is static.
@@ -112,6 +113,7 @@ from atomo_tpu_torch.codecs import (
 )
 from atomo_tpu_torch.convert import from_jax_view, jax_layouts, jax_leaf_order, jax_view
 from atomo_tpu_torch.models.dropout import dropout_stream
+from atomo_tpu_torch.obs.quality import quality_from_decoded, quality_probe
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
 from atomo_tpu_torch.parallel.common import (
     hop_pieces,
@@ -329,13 +331,16 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
 def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, rank: int,
                 world: int, aggregate: str, ring_bucket_size: int = 65536,
                 layouts: Optional[Sequence[bool]] = None, draws: Optional[Sequence[Any]] = None,
-                group=None):
+                group=None, track_quality: bool = False):
     """The hybrid exchange of one step (``_hybrid_mean``): the mean gradient
     in the port layout, the wire bytes, and the nonzero rows the row budgets
     dropped, summed over the ranks (a 0-d float32 tensor). ``plan`` covers
     the leaves of ``grads`` (canonical order; ``layouts`` as for
     ``encode_tree``); ``draws`` (one entry per leaf of the whole tree) feed
-    the dense-assigned encode."""
+    the dense-assigned encode. ``track_quality`` adds a fourth value, the
+    per-layer quality series of this rank's own payloads (the dense-assigned
+    leaves by one tree decode, each sparse-assigned leaf by its row codec,
+    which is lossless: those read exactly 0), else None."""
     layouts = [True] * len(grads) if layouts is None else list(layouts)
     d_idxs, s_idxs = list(plan.dense_idxs), list(plan.sparse_idxs)
     d_codec = codec_subset(codec, d_idxs)  # the sub-list decodes with local indices
@@ -374,7 +379,18 @@ def hybrid_mean(codec, plan, grads: Sequence[torch.Tensor], k_codec: int, *, ran
             overflow = overflow + p.overflow.sum().to(torch.float32)
     for i, m in zip(d_idxs, mean_d):
         out[i] = m
-    return out, msg_bytes, overflow
+    qm = None
+    if track_quality:
+        decoded: list = [None] * len(grads)
+        if d_idxs:
+            for i, d in zip(d_idxs, decode_tree(d_codec, d_payloads, d_grads, d_layouts)):
+                decoded[i] = d
+        for i, p in zip(s_idxs, s_payloads):
+            dec = plan.row_codec(i).decode(p, jax_view(grads[i], layouts[i]).shape,
+                                           grads[i].dtype)
+            decoded[i] = from_jax_view(dec, layouts[i])
+        qm = quality_from_decoded(decoded, grads)
+    return out, msg_bytes, overflow, qm
 
 
 def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int,
@@ -525,6 +541,7 @@ def make_distributed_train_step(
     track_grad_norm: bool = False,
     track_ok_bits: bool = False,
     survivor_exact: bool = False,
+    track_quality: bool = False,
     _oracle_parts: bool = False,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
@@ -604,7 +621,19 @@ def make_distributed_train_step(
     counts the masked contributions; loss, precision, grad norm and the
     BatchNorm statistics are means over the healthy ranks. ``remedy``
     scales the mean by the rewarm ramp; ``track_grad_norm`` adds
-    ``metrics["grad_norm"]``."""
+    ``metrics["grad_norm"]``.
+
+    ``track_quality`` (``atomo_tpu/parallel/replicated.py:1261-1275,
+    1730-1737,1948-1957``) adds ``metrics["q_err2"]`` and ``metrics["q_rel"]``:
+    each rank's per-layer error of its own encode (the encode's input: g, or
+    g + e under error feedback), (L,) in the canonical leaf order, averaged
+    over the ranks (over the healthy ranks under the guard) in the one
+    all-reduce the step makes for its metrics. The error-feedback decode and
+    psum's local decode are this rank's own, so the probe shares them;
+    gather and ring decode the rank's payloads once more (one tree decode,
+    one replica), the hybrid decodes its row leaves losslessly (they read
+    0). It needs a codec and the blocking step: ``overlap='delayed'``'s
+    carry describes the previous step."""
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
@@ -620,6 +649,19 @@ def make_distributed_train_step(
         raise ValueError(
             f"{'track_ok_bits' if track_ok_bits else 'survivor_exact'} belongs to the "
             "elastic membership layer, which is not ported (ROADMAP queue 1 item 11)")
+    if track_quality:
+        if codec is None:
+            raise ValueError(
+                "track_quality (--obs-quality) probes the codec's "
+                "estimator error; dense training has no estimator to "
+                "probe — drop one")
+        if overlap == "delayed":
+            raise ValueError(
+                "track_quality needs flat blocking aggregation: the "
+                "hierarchical boundary re-encode composes two estimators "
+                "per layer and the delayed carry's payload describes the "
+                "PREVIOUS step — neither is per-layer-probe-aware yet; "
+                "rejected honestly rather than silently mis-attributed")
     if error_feedback:
         k_pre = num_aggregate if 0 < num_aggregate < world else 0
         _check_error_feedback(codec, hybrid, k_pre, overlap, guard)
@@ -659,23 +701,35 @@ def make_distributed_train_step(
         return grads if chaos is None else chaos.inject_grads(grads, step_index + 1,
                                                               replica=rank)
 
+    def probe(payloads, grads, own):
+        """The quality series of this rank's payloads (``own`` its decode
+        when the step has one), or None when the probe is off."""
+        if not track_quality:
+            return None
+        with record_function("step.quality"):
+            if own is not None:
+                return quality_from_decoded(own, grads)
+            return quality_probe(codec, payloads, grads, layouts)
+
     def exchange(state: TrainState, k_codec: int, grads, draws, dense_bytes: int, ok=None):
         """(mean gradient in the port layout, message bytes, this rank's own
-        decode of its payloads under ``error_feedback``, else None, and the
-        surviving contributions under the guard, else None)."""
+        decode of its payloads under ``error_feedback``, else None, the
+        surviving contributions under the guard, else None, and the quality
+        series under ``track_quality``, else None)."""
         if codec is None:
             with record_function("step.exchange"):
                 if ok is not None:
                     mean, kept = masked_mean(grads, ok, world)
-                    return mean, dense_bytes, None, kept
+                    return mean, dense_bytes, None, kept, None
                 return (_views_like(_all_reduce_mean(_flat(grads), world), grads), dense_bytes,
-                        None, None)
+                        None, None, None)
         with record_function("step.encode"):
             payloads, cstats = encode_tree(codec, k_codec, encodable(grads), draws, layouts)
         own = None
         if error_feedback and aggregate != "psum":
             with record_function("step.ef_decode"):
                 own = decode_tree(codec, payloads, grads, layouts)
+        qm = probe(payloads, grads, own) if aggregate != "psum" else None
         sel_start = state.step % world if k_agg else None
         kept = None
         if aggregate == "gather":
@@ -692,7 +746,7 @@ def make_distributed_train_step(
                 if okg is not None:
                     kept = okg.sum()
                     mean = rescale_by_survivors(mean, n_contrib, kept)
-            return mean, cstats.payload_bytes, own, kept
+            return mean, cstats.payload_bytes, own, kept, qm
         if aggregate == "ring":
             with record_function("step.ring_exchange_decode"):
                 mean = ring_stream_mean(codec, payloads, grads, rank=rank, world=world,
@@ -702,16 +756,17 @@ def make_distributed_train_step(
                 if ok is not None:
                     mean, kept = mean
                     mean = rescale_by_survivors(mean, n_contrib, kept)
-            return mean, cstats.payload_bytes, own, kept
+            return mean, cstats.payload_bytes, own, kept, qm
         with record_function("step.decode"):
             decoded = decode_tree(codec, payloads, grads, layouts)
+        qm = probe(payloads, grads, decoded)
         with record_function("step.exchange"):
             if ok is not None:
                 mean, kept = masked_mean(decoded, ok, world)
             else:
                 mean = _views_like(_all_reduce_mean(_flat(decoded), world), grads)
         # the all-reduce moves dense gradients; its local decode is the own one
-        return mean, dense_bytes, decoded if error_feedback else None, kept
+        return mean, dense_bytes, decoded if error_feedback else None, kept, qm
 
     def bucket_stream(state: TrainState, k_codec, draws, wire: bool,
                       step_index=0) -> BucketStream:
@@ -818,7 +873,8 @@ def make_distributed_train_step(
     def update_and_stats(state: TrainState, mean, opt_scalars, local=None, ok=None,
                          with_stats: bool = True):
         """The optimizer's update, then the dp means of the BatchNorm
-        statistics and of the ``local`` metrics (one ``all_reduce`` each);
+        statistics and of the ``local`` metrics (scalars, then any per-layer
+        series, flattened in order; one ``all_reduce`` each);
         with ``ok`` (the guard) means over the healthy ranks only, the
         JAX package's ``_healthy_mean``: ``where(ok, x, 0)`` summed with the
         healthy count, divided by max(count, 1). Returns (optimizer state,
@@ -835,7 +891,7 @@ def make_distributed_train_step(
                     flat = _all_reduce_mean(_flat(stats), world)
                     for s, v in zip(stats, _views_like(flat, stats)):
                         s.copy_(v)
-                m = None if local is None else _all_reduce_mean(torch.stack(local), world)
+                m = None if local is None else _all_reduce_mean(_flat(local), world)
                 return opt_state, m, None
             okf = ok.to(torch.float32).reshape(1)
             kept_chips = None
@@ -849,7 +905,7 @@ def make_distributed_train_step(
                     s.copy_(v)
             m = None
             if local is not None:
-                flat = torch.cat([torch.stack(zero_if(~ok, local)), okf])
+                flat = torch.cat([_flat(zero_if(~ok, local)), okf])
                 if world > 1:
                     dist.all_reduce(flat)
                 kept_chips = flat[-1]
@@ -885,25 +941,27 @@ def make_distributed_train_step(
         # NaN and Inf into its payloads, where they could not be told apart
         ok = grad_ok(grads, guard.max_grad_norm) if guarded is not None else None
         dense_bytes = tree_nbytes(grads)
-        overflow = residual = kept = None
+        overflow = residual = kept = qm = None
         if hybrid is not None:
             with record_function("step.hybrid_exchange"):
-                mean, msg_bytes, overflow = hybrid_mean(
+                mean, msg_bytes, overflow, qm = hybrid_mean(
                     codec, hybrid, grads, k_codec, rank=rank, world=world,
                     aggregate=aggregate, ring_bucket_size=ring_bucket_size, layouts=layouts,
-                    draws=draws)
+                    draws=draws, track_quality=track_quality)
         elif bs is not None:
             own = None
             if error_feedback:
                 with record_function("step.ef_decode"):
                     own = decode_tree(codec, payloads, grads, layouts)
+            qm = probe(payloads, grads, own)
             mean = bs.wire.mean(grads, ok=ok)
             if ok is not None:
                 mean, kept = mean
                 mean = rescale_by_survivors(mean, n_contrib, kept)
             msg_bytes = sum(payload_nbytes(p) for p in payloads)
         else:
-            mean, msg_bytes, own, kept = exchange(state, k_codec, grads, draws, dense_bytes, ok)
+            mean, msg_bytes, own, kept, qm = exchange(state, k_codec, grads, draws, dense_bytes,
+                                                      ok)
         if remedy is not None:
             mean = apply_remedy(remedy, step_index, mean)
         local = [loss, prec1, prec5] + ([gnorm] if gnorm is not None else [])
@@ -922,9 +980,15 @@ def make_distributed_train_step(
         if guarded is not None:
             held = guarded.held(state)
             opt_scalars = guarded.opt_scalars(state, held, count_t)
+        n_scalars = len(local)
+        if qm is not None:  # the per-layer series ride the metrics' one reduce
+            local = local + [qm["q_err2"], qm["q_rel"]]
         opt_state, m, _ = update_and_stats(state, mean, opt_scalars, local, ok)
+        if qm is not None:  # the rank means of the series
+            qm = dict(zip(("q_err2", "q_rel"), m[n_scalars:].view(2, -1)))
+            m = m[:n_scalars]
         metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2], "msg_bytes": msg_bytes,
-                   "dense_bytes": dense_bytes}
+                   "dense_bytes": dense_bytes, **(qm or {})}
         if gnorm is not None:
             metrics["grad_norm"] = m[3]
         if overflow is not None:
@@ -1082,7 +1146,7 @@ def make_distributed_train_step(
     rule = G.graph_rule(device=device, codec=codec, backend=dist.get_backend(), world=world,
                         aggregate=aggregate, k_agg=k_agg, stream_encode=stream_encode)
     return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
-                             device=device, rule=rule)
+                             device=device, rule=rule, probe=track_quality)
 
 
 def _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world, split_keys):

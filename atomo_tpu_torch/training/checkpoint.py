@@ -139,7 +139,11 @@ def latest_healthy_step(train_dir: str) -> Optional[int]:
 
 def prune_after(train_dir: str, step: int) -> list[int]:
     """Remove every model_step_N (and its tag) with N > ``step``: the
-    rollback's cut of the diverged timeline. Returns the steps removed."""
+    rollback's cut of the diverged timeline. Returns the steps removed. The
+    flight recorder's ``metrics.jsonl`` is cut past ``step`` in the same
+    call (:func:`~atomo_tpu_torch.obs.recorder.prune_metrics_after`), so both
+    prune surfaces, the doctor's rollback and the supervisor's exit-23 cut,
+    leave no metrics tail of a discarded timeline."""
     removed = []
     for s in list_steps(train_dir):
         if s <= step:
@@ -151,6 +155,9 @@ def prune_after(train_dir: str, step: int) -> list[int]:
                 pass
         _verify_cache.pop(checkpoint_path(train_dir, s), None)
         removed.append(s)
+    from atomo_tpu_torch.obs.recorder import prune_metrics_after
+
+    prune_metrics_after(train_dir, step)
     return removed
 
 

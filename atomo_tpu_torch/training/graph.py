@@ -32,6 +32,10 @@ the eager block otherwise. The per-step host values and their device forms:
   buffers are (a delayed step with nothing in flight, which applies no
   update, can only be the run's first step, the eager warm-up);
 * the launch counters: a replay adds the launches the capture counted;
+* the quality probes (``--obs-quality``): device outputs only, their (L,)
+  per-layer series packed with the step's other metrics at fixed
+  addresses, so the step keeps the graph and the mode line says the probes
+  ride it;
 * the step counter and the optimizer's count (the guard, chaos and the
   rewarm remedy read them): int32 device words beside the key, so a
   replayed step selects its own chaos fault and its own held optimizer
@@ -142,8 +146,9 @@ def eager_block(step: Callable, superstep: int):
     :func:`~atomo_tpu_torch.parallel.replicated.make_distributed_train_step`):
     ``(state, key, images (K, B, ...), labels (K, B), **hooks) -> (state,
     metrics)``, each hook (``uniforms=``, ``draws=``, ``dropout_masks=``) a
-    list of the per-step values; tensor metrics stacked to (K,), ints
-    (``msg_bytes``, ``dense_bytes``) the last step's (a per-step constant)."""
+    list of the per-step values; tensor metrics stacked to (K,) (the
+    quality probe's (L,) series to (K, L)), ints (``msg_bytes``,
+    ``dense_bytes``) the last step's (a per-step constant)."""
 
     def block(state, key, images, labels, **hooks):
         per_step = []
@@ -171,7 +176,7 @@ class _Static:
     count: torch.Tensor  # 0-d int32: the optimizer's host count
     aug: Optional[tuple]  # (offsets, flips)
     masks: Optional[list]  # dropout keep-masks, call order
-    metrics: Optional[torch.Tensor] = None  # (n,) float32
+    metrics: Optional[torch.Tensor] = None  # every tensor metric flattened, float32
 
 
 def _counters() -> list:
@@ -197,6 +202,7 @@ class GraphBlock:
         self.device = torch.device(device)
         self.static: Optional[_Static] = None
         self.names: Optional[list] = None  # the tensor metrics, packed in this order
+        self.shapes: list = []  # each one's per-step shape: () or the probe's (L,)
         self.consts: dict = {}  # the int metrics (per-step constants)
         self.drop_calls: list = []  # (stream index, shape, keep_prob) of each Dropout call
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -249,7 +255,7 @@ class GraphBlock:
                 mask.copy_(torch.rand(shape, generator=gens[j], device=self.device) < keep_prob)
 
     def _pack(self, metrics: dict) -> torch.Tensor:
-        return torch.stack([metrics[n].to(torch.float32) for n in self.names])
+        return torch.cat([metrics[n].to(torch.float32).reshape(-1) for n in self.names])
 
     def _core(self, state, k_drop, masks):
         st = self.static
@@ -271,6 +277,7 @@ class GraphBlock:
                 torch.cuda.set_sync_debug_mode(prior)
             if self.names is None:
                 self.names = sorted(n for n, v in m.items() if torch.is_tensor(v))
+                self.shapes = [tuple(m[n].shape) for n in self.names]
                 self.consts = {n: v for n, v in m.items() if not torch.is_tensor(v)}
                 self.drop_calls = calls
             row = self._pack(m)
@@ -345,17 +352,24 @@ class GraphBlock:
             state = self._replay(state)
             rows.append(st.metrics.clone())
         packed = torch.stack(rows)
-        metrics = {n: packed[:, j] for j, n in enumerate(self.names)}
+        metrics, at = {}, 0
+        for n, shape in zip(self.names, self.shapes):
+            size = int(np.prod(shape, dtype=np.int64))
+            metrics[n] = packed[:, at:at + size].reshape(kb, *shape)
+            at += size
         metrics.update(self.consts)
         return state, metrics
 
 
 def make_block_step(step: Callable, superstep: int, *, optimizer, augment: bool, device,
-                    rule: tuple[bool, str]):
+                    rule: tuple[bool, str], probe: bool = False):
     """The K-step block over ``step``: a :class:`GraphBlock` when ``rule``
     (from :func:`graph_rule`) qualifies the step, else :func:`eager_block`.
     The block carries ``mode`` ('graph' or 'eager') and ``why`` (the rule's
-    reason), which :func:`mode_line` prints."""
+    reason), which :func:`mode_line` prints, and ``probe``: the step runs
+    the quality probes (``--obs-quality``), which change nothing in the rule
+    (they add device outputs only: in the graph, the (L,) series are static
+    outputs of the captured step, gathered into the block's (K, L))."""
     ok, why = rule
     if ok:
         block = GraphBlock(step, superstep, optimizer=optimizer, augment=augment,
@@ -364,11 +378,15 @@ def make_block_step(step: Callable, superstep: int, *, optimizer, augment: bool,
         block = eager_block(step, superstep)
     block.mode = "graph" if ok else "eager"
     block.why = why
+    block.probe = probe
     return block
 
 
 def mode_line(block) -> str:
     """The line the loops print naming the block's mode."""
     if block.mode == "graph":
+        if getattr(block, "probe", False):
+            return (f"Superstep: K={block.superstep}, graph (quality probes armed: their "
+                    "per-layer series are outputs of the graph)")
         return f"Superstep: K={block.superstep}, graph"
     return f"Superstep: K={block.superstep}, eager block ({block.why})"

@@ -21,7 +21,11 @@ the guarded step skips (one device) or masks and rescales (data-parallel) a
 non-finite or exploding gradient without a host sync, chaos injects faults
 at exact steps, a watchdog thread ends a run whose heartbeat stops, and the
 divergence doctor rolls the run back to its newest healthy checkpoint.
-The recorder and the tuner are not ported yet.
+``recorder`` (a :class:`~atomo_tpu_torch.obs.recorder.FlightRecorder`)
+writes one ``metrics.jsonl`` record a step from the fetch the loop makes
+anyway (one host copy a step, or a block), and ``track_quality`` adds the
+per-layer estimator-quality probes to the step
+(:mod:`atomo_tpu_torch.obs.quality`). The tuner is not ported yet.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the CLI's ``--bf16``) is
 the JAX package's (``cast_compute_inputs`` / ``cast_compute_outputs``):
@@ -46,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 import warnings
 from typing import Any, Optional, Sequence
 
@@ -70,6 +75,8 @@ from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.models.embedding import TABLE_INIT_STD, EmbeddingTower
 from atomo_tpu_torch.models.resnet import BatchNorm
 from atomo_tpu_torch.models.transformer import LayerNorm
+from atomo_tpu_torch.obs.quality import quality_from_decoded, quality_meta
+from atomo_tpu_torch.obs.recorder import emit_worker_line
 from atomo_tpu_torch.training import graph as G
 from atomo_tpu_torch.training.checkpoint import latest_step, load_checkpoint
 from atomo_tpu_torch.training.optim import Optimizer, OptState
@@ -242,7 +249,7 @@ class Guarded:
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment: bool = False,
                     compute_dtype=None, superstep: int = 1, guard=None, chaos=None,
-                    remedy=None, track_grad_norm: bool = False):
+                    remedy=None, track_grad_norm: bool = False, track_quality: bool = False):
     """Build the step ``(state, key, images, labels, uniforms=None,
     dropout_masks=None) -> (state, metrics)`` over ``model`` (which
     ``state.model`` must be), in float32 or, with ``compute_dtype``, mixed
@@ -272,6 +279,12 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     decoded gradient by the rewarm ramp. None of them reads a device value
     on the host.
 
+    ``track_quality`` (``atomo_tpu/training/trainer.py:241-246``) adds
+    ``metrics["q_err2"]`` and ``metrics["q_rel"]``, (L,) float32 device
+    tensors in the canonical leaf order: the per-layer error of this step's
+    own encode (:func:`~atomo_tpu_torch.obs.quality.quality_from_decoded`
+    over the decode the step makes anyway). It needs a codec.
+
     ``superstep`` K > 1 returns the block step ``(state, key, images (K, B,
     ...), labels (K, B), uniforms=None, dropout_masks=None) -> (state,
     metrics)``: the K sequential steps (keys from ``fold_in(key,
@@ -289,6 +302,10 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
 
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
+    if track_quality and codec is None:
+        raise ValueError(
+            "track_quality probes the codec's estimator error; dense "
+            "training has no estimator to probe — drop one")
     params = leaf_params(model)
     device = params[0].device
     if chaos is not None:
@@ -324,11 +341,16 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
             ok = grad_ok(grads, guard.max_grad_norm)
             grads = zero_if(~ok, grads)
         msg_bytes = 0
+        qm = None
         if codec is not None:
             with record_function("step.encode"):
                 payloads, stats = encode_tree(codec, k_codec, grads, uniforms)
             with record_function("step.decode"):
-                grads = decode_tree(codec, payloads, grads)
+                decoded = decode_tree(codec, payloads, grads)
+            if track_quality:
+                # the step's own decode is this replica's: no second decode
+                qm = quality_from_decoded(decoded, grads)
+            grads = decoded
             msg_bytes = stats.payload_bytes
         if remedy is not None:
             grads = apply_remedy(remedy, step_index, grads)
@@ -346,6 +368,8 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
             metrics["skipped"] = 1.0 - ok.to(torch.float32)
         if gnorm is not None:
             metrics["grad_norm"] = gnorm
+        if qm is not None:
+            metrics.update(qm)
         return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
                           held=held), metrics
 
@@ -368,7 +392,8 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, codec=None, augment:
     if superstep == 1:
         return step
     return G.make_block_step(step, superstep, optimizer=optimizer, augment=augment,
-                             device=device, rule=G.graph_rule(device=device, codec=codec))
+                             device=device, rule=G.graph_rule(device=device, codec=codec),
+                             probe=track_quality)
 
 
 @torch.no_grad()
@@ -490,17 +515,6 @@ def _block_log_record(s, m, train_iter, n_train, lap, last_logged) -> StepMetric
     )
 
 
-def _fetch_block(metrics: dict) -> dict:
-    """A block's metrics on the host by one copy: the (K,) tensors stacked
-    and moved together (the block's one host sync), ints as they are."""
-    names = [n for n, v in metrics.items() if torch.is_tensor(v)]
-    out = {n: v for n, v in metrics.items() if not torch.is_tensor(v)}
-    if names:
-        host = torch.stack([metrics[n].to(torch.float32) for n in names]).cpu().numpy()
-        out.update(zip(names, host))
-    return out
-
-
 def _chaos_corrupt_range(chaos, path, lo: int, hi: int) -> None:
     """Apply the checkpoint faults aimed at any step in (lo, hi] to the file
     written at ``hi`` (``atomo_tpu/training/trainer.py:676``): a fault
@@ -523,11 +537,28 @@ def _host_faults(chaos, lo: int, hi: int, world: int = 0) -> None:
             chaos.maybe_sleep_replica(t, world)
 
 
-def _fetch(metrics: dict, names: Sequence[str]) -> dict:
-    """The named tensor metrics of one step on the host by one copy."""
+def fetch_metrics(metrics: dict, names: Optional[Sequence[str]] = None) -> dict:
+    """The named tensor metrics (with ``names`` None every tensor metric,
+    and the ints as they are) on the host by one copy, every tensor
+    flattened into one float32 buffer: a 0-d metric as a float, a series
+    (a block's (K,), the probes' (L,) or (K, L)) as a numpy array of its
+    shape. A step's or a block's one host sync."""
+    out = {}
+    if names is None:
+        out = {n: v for n, v in metrics.items() if not torch.is_tensor(v)}
+        names = [n for n, v in metrics.items() if torch.is_tensor(v)]
     have = [n for n in names if n in metrics]
-    host = torch.stack([metrics[n].to(torch.float32).reshape(()) for n in have]).cpu()
-    return {n: float(v) for n, v in zip(have, host.tolist())}
+    if not have:
+        return out
+    flat = torch.cat([metrics[n].to(torch.float32).reshape(-1) for n in have]).cpu().numpy()
+    at = 0
+    for n in have:
+        shape = tuple(metrics[n].shape)
+        size = int(np.prod(shape, dtype=np.int64))
+        v = flat[at:at + size].reshape(shape)
+        out[n] = float(v) if v.ndim == 0 else v
+        at += size
+    return out
 
 
 DOCTOR_SERIES = ("loss", "skipped", "sample_skipped", "grad_norm")
@@ -537,7 +568,7 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
                      start_step: int, max_steps: int, superstep: int, log_every: int,
                      log_fn, eval_freq: int, evaluate_fn, save_freq: int, train_dir,
                      save_fn, timer: Timer, monitor=None, chaos=None, rig=None,
-                     guard_line=None, world: int = 0, before_recover=None):
+                     guard_line=None, world: int = 0, before_recover=None, recorder=None):
     """The block loop of both train loops (``_superstep_steps`` :709 and
     ``_distributed_superstep_steps``, ``atomo_tpu/parallel/replicated.py:4391``):
     one ``block_fn`` call per K steps on a block :class:`SuperstepFeed`
@@ -553,10 +584,15 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
     ``rig`` (a :class:`~atomo_tpu_torch.training.resilience.RecoveryRig`)
     folds the block's series at its one fetch and, on an alarm, rolls back:
     the feed's staged block is dropped and the feed rebuilt on the replayed
-    stream (``before_recover()`` first, a barrier over the ranks)."""
+    stream (``before_recover()`` first, a barrier over the ranks).
+    ``recorder`` writes the block's K step records from its one fetch, the
+    block's host wall as K equal shares, before the doctor observes it (a
+    diverged block lands in the timeline and the rollback's prune cuts it);
+    the ``Worker:`` line goes through its sink."""
     log_fn(G.mode_line(block_fn))
     feed = SuperstepFeed(BlockStream(stream), put_fn)
     s = last_saved = last_logged = start_step
+    t_rec = time.perf_counter()  # the recorder's wall anchor
     feed.start(min(superstep, max_steps - s))
     while s < max_steps:
         kb, images, labels = feed.take()
@@ -564,9 +600,14 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
         _host_faults(chaos, b0, s, world)
         state, mblk = block_fn(state, key, images, labels)
         feed.start(min(superstep, max_steps - s))  # the next copy runs behind this block
-        m = _fetch_block(mblk)
+        m = fetch_metrics(mblk)
         if monitor is not None:
             monitor.beat(s)
+        if recorder is not None:
+            now_r = time.perf_counter()
+            recorder.record_block(b0 + 1, m, wall_s=now_r - t_rec,
+                                  generation=rig.doctor.generation if rig is not None else None)
+            t_rec = now_r
         if rig is not None:
             alarm_step, reason = rig.observe(b0 + 1, m)
             if reason is not None:
@@ -577,6 +618,7 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
                 feed.drop()  # the lookahead belongs to the abandoned timeline
                 feed = SuperstepFeed(BlockStream(stream), put_fn)
                 feed.start(min(superstep, max_steps - s))
+                t_rec = time.perf_counter()  # recovery is not step time
                 continue
             new_fn = rig.maybe_end_densify(s)
             if new_fn is not None:
@@ -586,8 +628,8 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
             if line:
                 log_fn(line)
         if _crossed(log_every, b0, s):
-            log_fn(_block_log_record(s, m, train_iter, n_train, timer.lap(),
-                                     last_logged).worker_line())
+            emit_worker_line(recorder, _block_log_record(s, m, train_iter, n_train, timer.lap(),
+                                                         last_logged), log_fn)
             last_logged = s
         if eval_freq and evaluate_fn is not None and _crossed(eval_freq, b0, s):
             evaluate_fn(s)
@@ -597,6 +639,7 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
             if rig is not None:
                 rig.note_save(s)
             _chaos_corrupt_range(chaos, path, b0, s)
+        t_rec = time.perf_counter()  # boundary work (eval, save) is not step time
     if save_freq and train_dir and last_saved < max_steps:
         path = save_fn(state, max_steps)
         if rig is not None:
@@ -628,6 +671,25 @@ def _check_diverge(diverge, *, train_dir, codec, save_freq, keep_ckpts, **kw) ->
         raise ValueError(reason)
 
 
+def _arm_recorder(recorder, track_quality: bool, codec, model, start_step: int, *,
+                  aggregate: Optional[str] = None, hybrid=None,
+                  stream_bucket_bytes: Optional[int] = None) -> None:
+    """Ready ``recorder`` for a run from ``start_step``: the aggregate
+    column (``local`` on one device unless set), the tail past the
+    resumed step cut before the replay re-records it, and with
+    ``track_quality`` the per-layer byte split written once."""
+    if recorder is None:
+        return
+    if aggregate is None:
+        recorder.context.setdefault("aggregate", "local")
+    else:
+        recorder.set_context(aggregate=aggregate)
+    recorder.prune_past(start_step)
+    if track_quality:
+        recorder.write_meta(quality_meta(codec, model, stream_bucket_bytes=stream_bucket_bytes,
+                                         hybrid=hybrid))
+
+
 def train_loop(
     model: nn.Module,
     optimizer: Optimizer,
@@ -654,6 +716,8 @@ def train_loop(
     health_timeout: float = 0.0,
     on_health_failure=None,
     diverge=None,
+    track_quality: bool = False,
+    recorder=None,
 ) -> TrainState:
     """The reference train-and-validate loop: ``Worker:`` lines every
     ``log_every`` steps, ``Validation:`` lines every ``eval_freq`` steps, a
@@ -679,7 +743,16 @@ def train_loop(
     series (one fetch a step, or the block's), grants healthy tags and rolls
     back to the newest healthy checkpoint with the data stream replayed and
     the chaos generation bumped; its budget spent, it raises
-    :class:`~atomo_tpu_torch.training.resilience.DivergenceError`."""
+    :class:`~atomo_tpu_torch.training.resilience.DivergenceError`.
+
+    ``recorder`` (:class:`~atomo_tpu_torch.obs.recorder.FlightRecorder`,
+    ``atomo_tpu/training/trainer.py:484-497,548-567``) arms the flight
+    recorder: the file is cut past the resumed step before the replay, one
+    ``step`` record a step (a block's K from its one fetch) with the host
+    wall, before the doctor observes it, and each ``Worker:`` line mirrored
+    as a ``log`` record. ``track_quality`` arms the step's quality probes
+    (:func:`make_train_step`) and records their per-layer byte split once as
+    a ``meta`` line. Disarmed, the loop prints exactly what it printed."""
     from atomo_tpu_torch.training.resilience import (
         DivergenceDoctor,
         RecoveryRig,
@@ -688,6 +761,10 @@ def train_loop(
         retrying_saver,
     )
 
+    if track_quality and codec is None:
+        raise ValueError(
+            "track_quality (--obs-quality) probes the codec's estimator "
+            "error; dense training has no estimator — drop one")
     chaos = resolve_chaos(chaos)
     if chaos is not None:
         chaos.maybe_die_crashloop()
@@ -704,8 +781,11 @@ def train_loop(
         return make_train_step(model, optimizer, codec=None if densify else codec,
                                augment=augment, compute_dtype=compute_dtype,
                                superstep=superstep, guard=guard, chaos=chaos_now,
-                               remedy=remedy_cfg, track_grad_norm=diverge is not None)
+                               remedy=remedy_cfg, track_grad_norm=diverge is not None,
+                               # the densify window runs dense: no estimator to probe
+                               track_quality=track_quality and not densify)
 
+    _arm_recorder(recorder, track_quality, codec, model, start_step)
     step_fn = build_step()
     saver = retrying_saver(log_fn, incidents)
 
@@ -751,10 +831,11 @@ def train_loop(
                 eval_freq=eval_freq, evaluate_fn=validate if test_iter is not None else None,
                 save_freq=save_freq, train_dir=train_dir, timer=timer, save_fn=save_fn,
                 monitor=monitor, chaos=chaos, rig=rig,
-                guard_line=guard_line if guard is not None else None)
+                guard_line=guard_line if guard is not None else None, recorder=recorder)
     last_saved = start_step
     with heartbeat_watchdog(health_timeout, on_health_failure) as monitor:
         step = start_step
+        t_rec = time.perf_counter()  # the recorder's wall anchor
         while step < max_steps:
             step += 1
             _host_faults(chaos, step - 1, step)
@@ -763,12 +844,22 @@ def train_loop(
             if monitor is not None:
                 float(metrics["loss"])  # the step is done before it counts
                 monitor.beat(step)
+            host = None
+            if recorder is not None:
+                # one fetch a step, recorded before the doctor observes it
+                host = fetch_metrics(metrics)
+                now_r = time.perf_counter()
+                recorder.record_block(step, host, wall_s=now_r - t_rec,
+                                      generation=rig.doctor.generation if rig else None)
+                t_rec = now_r
             if rig is not None:
                 # one fetch a step: per-step rollback granularity's price
-                alarm_step, reason = rig.observe(step, _fetch(metrics, DOCTOR_SERIES))
+                alarm_step, reason = rig.observe(
+                    step, host if host is not None else fetch_metrics(metrics, DOCTOR_SERIES))
                 if reason is not None:
                     state, stream, step_fn, chaos, step = rig.recover(alarm_step, reason, chaos)
                     last_saved = min(last_saved, step)
+                    t_rec = time.perf_counter()  # recovery is not step time
                     continue
                 new_fn = rig.maybe_end_densify(step)
                 if new_fn is not None:
@@ -791,7 +882,7 @@ def train_loop(
                     prec1=float(metrics["prec1"]),
                     prec5=float(metrics["prec5"]),
                 )
-                log_fn(rec.worker_line())
+                emit_worker_line(recorder, rec, log_fn)
             if eval_freq and test_iter is not None and step % eval_freq == 0:
                 validate(step)
             if save_freq and train_dir and step % save_freq == 0:
@@ -801,6 +892,7 @@ def train_loop(
                     rig.note_save(step)
                 if chaos is not None:
                     chaos.maybe_corrupt_checkpoint(path, step)
+            t_rec = time.perf_counter()  # boundary work (eval, save) is not step time
         # the final state, so that a restart never replays the tail (strictly
         # below: a resume past max_steps runs no step and writes nothing)
         if save_freq and train_dir and last_saved < max_steps:
@@ -847,6 +939,8 @@ def distributed_train_loop(
     health_timeout: float = 0.0,
     on_health_failure=None,
     diverge=None,
+    track_quality: bool = False,
+    recorder=None,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -888,7 +982,14 @@ def distributed_train_loop(
     unless a fault is starred, and ``slow@S:R:SEC`` holds every rank's step
     for the straggler; every rank's doctor folds the same dp-mean series
     and so decides alike, rank 0 alone writes tags, prunes and incidents,
-    and a rollback starts at a barrier."""
+    and a rollback starts at a barrier.
+
+    ``track_quality`` and ``recorder`` as :func:`train_loop`'s
+    (``atomo_tpu/parallel/replicated.py:3927-3945``): every rank runs the
+    probes and the reduce of their series, and rank 0 alone writes (a
+    recorder given to another rank is not used); the ``aggregate`` column
+    is the exchange in effect, and the byte split carries the hybrid plan's
+    columns and, under ``stream_encode``, the bucket size."""
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.overlap import gather_carry
     from atomo_tpu_torch.parallel.replicated import (
@@ -941,8 +1042,12 @@ def distributed_train_loop(
             error_feedback=error_feedback, superstep=superstep, overlap=overlap,
             stream_encode=stream_encode and not densify,
             stream_bucket_bytes=stream_bucket_bytes, guard=guard, chaos=chaos_now,
-            remedy=remedy_cfg, track_grad_norm=diverge is not None)
+            remedy=remedy_cfg, track_grad_norm=diverge is not None,
+            track_quality=track_quality and not densify)
 
+    recorder = recorder if rank == 0 else None
+    _arm_recorder(recorder, track_quality, codec, model, start_step, aggregate=aggregate,
+                  hybrid=hybrid, stream_bucket_bytes=stream_bucket_bytes if stream_encode else None)
     step_fn = build_step()
     eval_fn = make_distributed_eval_step(model)
     key = seed + 1
@@ -1015,10 +1120,11 @@ def distributed_train_loop(
                 evaluate_fn=validate if test_iter is not None else None, save_freq=save_freq,
                 train_dir=train_dir, save_fn=save, timer=timer, monitor=monitor, chaos=chaos,
                 rig=rig, guard_line=guard_line if guard is not None else None, world=world,
-                before_recover=torch.distributed.barrier)
+                before_recover=torch.distributed.barrier, recorder=recorder)
     last_saved = start_step
     with heartbeat_watchdog(health_timeout, on_health_failure) as monitor:
         step = start_step
+        t_rec = time.perf_counter()  # the recorder's wall anchor
         while step < max_steps:
             step += 1
             _host_faults(chaos, step - 1, step, world)
@@ -1027,25 +1133,34 @@ def distributed_train_loop(
             if monitor is not None:
                 float(metrics["loss"])
                 monitor.beat(step)
+            host = None
+            if recorder is not None:
+                host = fetch_metrics(metrics)
+                now_r = time.perf_counter()
+                recorder.record_block(step, host, wall_s=now_r - t_rec,
+                                      generation=rig.doctor.generation if rig else None)
+                t_rec = now_r
             if rig is not None:
-                alarm_step, reason = rig.observe(step, _fetch(metrics, DOCTOR_SERIES))
+                alarm_step, reason = rig.observe(
+                    step, host if host is not None else fetch_metrics(metrics, DOCTOR_SERIES))
                 if reason is not None:
                     torch.distributed.barrier()
                     state, stream, step_fn, chaos, step = rig.recover(alarm_step, reason, chaos)
                     last_saved = min(last_saved, step)
+                    t_rec = time.perf_counter()
                     continue
                 new_fn = rig.maybe_end_densify(step)
                 if new_fn is not None:
                     step_fn = new_fn
             if guard is not None and log_every and step % log_every == 0:
-                g = _fetch(metrics, ("dropped", "skipped"))
+                g = fetch_metrics(metrics, ("dropped", "skipped"))
                 if g.get("dropped", 0.0) > 0:
                     quiet(dropped_line(step, g["dropped"], g.get("skipped", 0.0),
                                        "anomalous contribution masked from the aggregate"))
             if log_every and step % log_every == 0:
                 loss = float(metrics["loss"])  # every rank waits for its step here
                 if rank == 0:
-                    log_fn(StepMetrics(
+                    emit_worker_line(recorder, StepMetrics(
                         rank=0,
                         step=step,
                         epoch=step * train_iter.batch_size // max(n_train, 1),
@@ -1056,7 +1171,7 @@ def distributed_train_loop(
                         msg_bytes=int(metrics["msg_bytes"]),
                         prec1=float(metrics["prec1"]),
                         prec5=float(metrics["prec5"]),
-                    ).worker_line())
+                    ), log_fn)
             if eval_freq and test_iter is not None and step % eval_freq == 0:
                 validate(step)
             if save_freq and train_dir and step % save_freq == 0:
@@ -1066,6 +1181,7 @@ def distributed_train_loop(
                     rig.note_save(step)
                 if chaos is not None and path is not None:
                     chaos.maybe_corrupt_checkpoint(path, step)
+            t_rec = time.perf_counter()  # boundary work is not step time
         if save_freq and train_dir and last_saved < max_steps:
             path = save(state, max_steps)
             if rig is not None:

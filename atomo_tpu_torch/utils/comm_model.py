@@ -3,7 +3,9 @@
 Counterpart of ``atomo_tpu/utils/comm_model.py:70-592`` and ``:1180-1266``
 (the byte formulas, ``choose_aggregate`` behind ``--aggregate auto``,
 ``resolve_fabric``, the overlap and pipeline-bubble pricing and the
-crossover report). The autopilot's predictor (``:595-1178``) is not ported.
+crossover report), and of ``rolling_calibration`` (``:1153-1177``), the
+flight recorder's calibration column. The rest of the autopilot's predictor
+(``:595-1152``) is not ported.
 
 Model (the JAX package's, unchanged):
 
@@ -480,3 +482,25 @@ def crossover_report(
         ),
         "ways": rows,
     }
+
+
+def rolling_calibration(
+    prev: float | None,
+    measured_s: float,
+    predicted_s: float,
+    window: int = 32,
+) -> float | None:
+    """One fold of the tracked calibration series: an EMA (span ``window``)
+    of the measured/predicted step-time ratio, the per-step column the
+    flight recorder writes (:mod:`atomo_tpu_torch.obs.recorder`). ``prev``
+    is the previous EMA value (None on the first sample); returns the new
+    EMA, or ``prev`` unchanged when either input is unusable (a gap is not a
+    sample)."""
+    m, p = float(measured_s), float(predicted_s)
+    if not (m > 0 and p > 0) or not (math.isfinite(m) and math.isfinite(p)):
+        return prev
+    ratio = m / p
+    if prev is None:
+        return ratio
+    alpha = 2.0 / (max(window, 2) + 1.0)
+    return prev + alpha * (ratio - prev)

@@ -237,6 +237,22 @@ every hand-written kernel against its plain PyTorch version:
    within 2 ulp of the three survivors' decode rescaled, its device ms
    beside the unflagged launch's; and the step ms with the guard and
    without it, eager and as the graph, in turns.
+17. obs: the flight recorder and the quality probes. ``train --obs-record
+   --obs-quality`` on ResNet-18 batch 128 with qsgd 4 bits and svd rank 3,
+   6 steps each into a scratch train dir: one ``step`` record a step with
+   62 finite per-layer errors, ``report --strict`` over the dir exits 0 and
+   reads consistent, rows 1-2 once a step each (one device: the probe reads
+   the step's own decode). The data-parallel step at NCCL world 1 with the
+   probe: row 2 twice a step (the gather's decode and the probe's decode of
+   the rank's own payload). Row 2's probe decode (one replica) of the
+   ResNet-18 tree at 4 bits: its ``q_err2`` against the one through row 2's
+   plain twin (rtol 1e-6; the decodes bit for bit), and its device ms
+   beside its bound. In the superstep phase's deterministic child: the
+   probe armed, 16 eager steps and 2 graph blocks of 8 give the same
+   ``q_err2`` series step for step, and both end in the state of the
+   unarmed eager run, bit for bit. Then the median step ms armed and off,
+   eager and at K = 8 (qsgd a graph, svd rank 3 the eager block), in two
+   turns.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -2933,8 +2949,10 @@ SS_ARGS = TRAIN_ARGS + ["--code", "qsgd", "--max-steps", str(SS_STEPS), "--eval-
                         "--superstep", "8"]
 
 
-def ss_resnet(dev, code: str, k: int, optimizer=None, dist_step: bool = False):
-    """ResNet-18 (batch 128, augmentation on) and its step or block step."""
+def ss_resnet(dev, code: str, k: int, optimizer=None, dist_step: bool = False,
+              quality: bool = False):
+    """ResNet-18 (batch 128, augmentation on) and its step or block step,
+    with the quality probes armed where ``quality`` is set."""
     from atomo_tpu_torch.codecs import get_codec
     from atomo_tpu_torch.models import get_model
     from atomo_tpu_torch.parallel.replicated import make_distributed_train_step, replicate_state
@@ -2946,8 +2964,10 @@ def ss_resnet(dev, code: str, k: int, optimizer=None, dist_step: bool = False):
     codec = get_codec(code, quantization_level=4, svd_rank=3)
     if dist_step:
         return replicate_state(state), make_distributed_train_step(
-            model, opt, codec, aggregate="gather", augment=True, superstep=k)
-    return state, make_train_step(model, opt, codec, augment=True, superstep=k)
+            model, opt, codec, aggregate="gather", augment=True, superstep=k,
+            track_quality=quality)
+    return state, make_train_step(model, opt, codec, augment=True, superstep=k,
+                                  track_quality=quality)
 
 
 def ss_stream():
@@ -2995,7 +3015,8 @@ def superstep_child(out_path: str) -> int:
     """The superstep phase's deterministic runs (this script with
     ``--superstep-child``; cuBLAS's workspace setting precedes its first
     handle): 16 ResNet-18 qsgd steps eagerly one by one, then as graph
-    blocks of 8 and of 3; writes what it found to ``out_path``."""
+    blocks of 8 and of 3; then the obs phase's armed runs
+    (:func:`obs_deterministic`); writes what it found to ``out_path``."""
     import os
 
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -3027,6 +3048,7 @@ def superstep_child(out_path: str) -> int:
                 torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
                 for a, b in zip(ref[1], carried))
         runs[f"K{k}"] = run
+    runs["obs"] = obs_deterministic(dev, ref[1])
     Path(out_path).write_text(json.dumps(runs))
     return 0
 
@@ -3185,6 +3207,7 @@ def phase_superstep(work: Path, card: str) -> dict:
 
     t0 = time.time()
     det, tr = ss_children(work)
+    obs_det = det.pop("obs")  # the obs phase's runs, checked there
     seconds = {"children": time.time() - t0}
     for label, r in det.items():
         c = r["launches"]
@@ -3202,7 +3225,7 @@ def phase_superstep(work: Path, card: str) -> dict:
     for ln in tr["lines"]:
         log("  " + ln)
     dev = torch.device("cuda", 0)
-    res = {"deterministic": det, "card": card}
+    res = {"deterministic": det, "card": card, "obs_deterministic": obs_det}
     t0 = time.time()
     times = {}
     for k in (1, 8):
@@ -4398,6 +4421,233 @@ def phase_resilience(work: Path, card: str, grads, errs: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------------- the obs phase
+
+OBS_STEPS = 6
+OBS_CODES = (("qsgd", ["--code", "qsgd"], ["quantize_pack", "unpack_dequantize"]),
+             ("svd3", ["--code", "svd", "--svd-rank", "3"], []))
+OBS_NCCL_STEPS = 3
+OBS_RTOL = 1e-6  # row 2's probe decode against its plain twin
+
+
+def obs_run(state, step, k: int, steps: int, stream):
+    """``steps`` steps of a step armed with the quality probes, one by one
+    (``k`` 1) or in blocks of ``k``: the state and each step's ``q_err2``
+    row (one fetch a step, or a block)."""
+    import torch
+
+    from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.data.pipeline import BlockStream, block_to_device
+
+    blocks = BlockStream(stream)
+    rows, s = [], 0
+    while s < steps:
+        kb = min(k, steps - s)
+        if k == 1:
+            state, m = step(state, 2, *to_device(*next(stream), "cuda"))
+            rows.append(m["q_err2"].tolist())
+        else:
+            staged = block_to_device(*blocks.take(kb), "cuda")
+            torch.cuda.current_stream().wait_event(staged.ready)
+            state, m = step(state, 2, staged.images, staged.labels)
+            rows += m["q_err2"].tolist()
+        s += kb
+    return state, rows
+
+
+def obs_deterministic(dev, off_state) -> dict:
+    """The probe's deterministic runs, in the superstep child: ResNet-18
+    qsgd 4 bits with ``track_quality``, ``SS_STEPS`` eager steps and graph
+    blocks of 8: their ``q_err2`` series, launches and mode, and whether
+    each final state equals ``off_state`` (the unarmed eager run's) bit for
+    bit."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.training.graph import mode_line
+
+    out = {}
+    for k in (1, 8):
+        state, step = ss_resnet(dev, "qsgd", k, quality=True)
+        ops.reset_launch_counts()
+        state, rows = obs_run(state, step, k, SS_STEPS, ss_stream())
+        torch.cuda.synchronize()
+        out[f"K{k}"] = {
+            "q_err2": rows, "launches": ops.launch_counts(),
+            "mode": mode_line(step) if k > 1 else "per-step",
+            "replays": getattr(step, "replays", 0),
+            "state_equals_off": all(
+                torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                for a, b in zip(off_state, ss_carried(state)))}
+    out["graph_equals_eager"] = out["K1"]["q_err2"] == out["K8"]["q_err2"]
+    return out
+
+
+def obs_cli(work: Path) -> dict:
+    """``train --obs-record --obs-quality`` for qsgd 4 bits and svd rank 3
+    into a scratch train dir each, then ``report --strict`` over it."""
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.obs.recorder import FlightRecorder, metrics_path
+
+    out = {}
+    for label, flags, expect in OBS_CODES:
+        d = work / f"obs_{label}"
+        argv = (TRAIN_ARGS[:-1] + [str(d)] + flags
+                + ["--max-steps", str(OBS_STEPS), "--eval-freq", "0", "--save-freq", "3",
+                   "--obs-record", "--obs-quality"])
+        r = run_cli(argv, expect)
+        steps = FlightRecorder.read_steps(metrics_path(str(d)))
+        lines: list[str] = []
+        rc = cli.main(["report", "--train-dir", str(d), "--strict"], log_fn=lines.append)
+        doc = json.loads((d / "run_report.json").read_text())
+        series_ok = [s["step"] for s in steps] == list(range(1, OBS_STEPS + 1)) and all(
+            len(s["q_err2"]) == len(s["q_rel"]) == 62
+            and all(v is not None and math.isfinite(v) for v in s["q_err2"] + s["q_rel"])
+            for s in steps)
+        want = {n: OBS_STEPS if n in expect else 0 for n in REPLACES}
+        if not (series_ok and rc == 0 and doc["consistent"] and r["launches"] == want):
+            raise AssertionError(f"obs cli {label}: {len(steps)} step records, report rc {rc}, "
+                                 f"consistent {doc['consistent']}, launches {r['launches']}; "
+                                 + "\n".join(lines))
+        ran = sum(not c["skipped"] for c in doc["checks"])
+        r["report"] = {"rc": rc, "consistent": doc["consistent"], "checks_ran": ran,
+                       "steps_recorded": len(steps)}
+        r["q_err2_first"] = sum(steps[0]["q_err2"])
+        log(f"obs cli {label}: train --obs-record --obs-quality, {len(steps)} step records of "
+            f"62 finite q_err2/q_rel each (sum of q_err2 at step 1 {r['q_err2_first']:.6g}); "
+            f"report --strict rc {rc}, consistent ({ran} check ran); launches {r['launches']}")
+        out[label] = r
+    return out
+
+
+def obs_nccl1(work: Path) -> dict:
+    """The data-parallel step at NCCL world 1 with the probe armed (qsgd 4
+    bits, gather): row 2 twice a step, the gather's decode and the probe's
+    decode of the rank's own payload."""
+    import torch
+
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work.resolve()}/obs_nccl1",
+                      world_size=1, rank=0)
+    try:
+        state, step = ss_resnet(dev, "qsgd", 1, dist_step=True, quality=True)
+        ops.reset_launch_counts()
+        state, rows = obs_run(state, step, 1, OBS_NCCL_STEPS, ss_stream())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        launch.shutdown()
+    finite = all(math.isfinite(v) for row in rows for v in row)
+    if not (finite and len(rows) == OBS_NCCL_STEPS and counts["quantize_pack"] == OBS_NCCL_STEPS
+            and counts["unpack_dequantize"] == 2 * OBS_NCCL_STEPS):
+        raise AssertionError(f"obs nccl-1: launches {counts}, finite {finite}")
+    log(f"obs nccl-1 qsgd gather with the probe: {OBS_NCCL_STEPS} steps, launches {counts} "
+        f"(row 2 twice a step: the gather's decode and the probe's own decode), q_err2 finite")
+    return {"launches": counts, "q_err2": rows}
+
+
+def obs_row2(grads, errs: dict) -> dict:
+    """Row 2's probe decode of one replica's payload (the ResNet-18 tree at
+    4 bits, encoded on the card) against its plain twin: the decodes bit for
+    bit, ``q_err2`` within ``OBS_RTOL``; then its device ms beside its
+    bound (one replica's words and scales read, the float32 tree written)."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, decode_tree, encode_tree, payload_nbytes
+    from atomo_tpu_torch.obs.quality import quality_from_decoded, quality_probe
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+
+    codec = QsgdCodec(bits=4)
+    payloads, _ = encode_tree(codec, 3, grads)
+    got = quality_probe(codec, payloads, grads)
+    plain_dec = K.unpack_dequantize_tree_plain(payloads, grads, bits=4)
+    want = quality_from_decoded(plain_dec, grads)
+    dec = decode_tree(codec, payloads, grads)
+    err = max(float((a - b).abs().max()) for a, b in zip(dec, plain_dec))
+    errs["unpack_dequantize"] = max(errs["unpack_dequantize"], err)
+    rel = float(((got["q_err2"] - want["q_err2"]).abs()
+                 / want["q_err2"].abs().clamp_min(1e-30)).max())
+    same = all(same_bits(a, b) for a, b in zip(dec, plain_dec))
+    if not (same and rel <= OBS_RTOL and torch.isfinite(got["q_err2"]).all()):
+        raise AssertionError(f"obs row 2 probe decode: decodes bit for bit {same}, q_err2 "
+                             f"max rel {rel}")
+    nbytes = sum(payload_nbytes(p) for p in payloads) + sum(g.numel() * 4 for g in grads)
+    bound_ms, by = bound(nbytes, sum(g.numel() for g in grads))
+    dms = device_ms(lambda: K.unpack_dequantize_tree(payloads, grads, bits=4),
+                    "unpack_dequantize")
+    log(f"obs row 2 probe decode (one replica, 62 leaves, 4 bits): decodes equal the plain "
+        f"twin's bit for bit, q_err2 max rel diff {rel:.3e} (limit {OBS_RTOL}); device ms "
+        f"{dms:.4f} against a bound of {bound_ms:.4f} by {by} ({nbytes / 1e6:.1f} MB)")
+    return {"max_abs_err": err, "q_err2_max_rel": rel, "device_ms": dms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes}
+
+
+def obs_timing(dev, card: str) -> dict:
+    """Median step ms armed and off, eager (K 1) and at K = 8 (qsgd: the
+    graph; svd rank 3: the eager block), each config a model of its own
+    after a warm-up block, in two turns (off first, then armed first)."""
+    import torch
+
+    from atomo_tpu_torch.training.graph import mode_line
+
+    out, modes = {}, {}
+    for turn in range(2):
+        for code in ("qsgd", "svd"):
+            for k in (1, 8):
+                for armed in ((False, True) if turn == 0 else (True, False)):
+                    state, step = ss_resnet(dev, code, k, quality=armed)
+                    stream = ss_stream()
+                    state, _, _ = ss_run(state, step, k, k, stream)
+                    _, _, ms = ss_run(state, step, k, 16 if k == 8 else 8, stream, timed=True)
+                    torch.cuda.synchronize()
+                    key = f"{'svd3' if code == 'svd' else code}_K{k}_{'armed' if armed else 'off'}"
+                    out.setdefault(key, []).append(statistics.median(ms))
+                    modes[key] = mode_line(step) if k > 1 else "per-step"
+    res = {k: {"median_step_ms": statistics.median(v), "by_turn": v, "mode": modes[k]}
+           for k, v in out.items()}
+    for code in ("qsgd", "svd3"):
+        log(f"obs time {code} ({card}): median step ms eager "
+            f"{res[f'{code}_K1_off']['median_step_ms']:.3f} off, "
+            f"{res[f'{code}_K1_armed']['median_step_ms']:.3f} armed; K=8 "
+            f"{res[f'{code}_K8_off']['median_step_ms']:.3f} off, "
+            f"{res[f'{code}_K8_armed']['median_step_ms']:.3f} armed "
+            f"('{res[f'{code}_K8_armed']['mode']}')")
+    return res
+
+
+def phase_obs(work: Path, card: str, grads, errs: dict, det: dict) -> dict:
+    """The flight recorder and the quality probes (the module docstring's
+    item 17); ``det`` is the superstep child's armed runs."""
+    import torch
+
+    t0 = time.time()
+    k1, k8 = det["K1"], det["K8"]
+    if not (det["graph_equals_eager"] and k1["state_equals_off"] and k8["state_equals_off"]
+            and k8["mode"].startswith("Superstep: K=8, graph (quality probes armed")
+            and k8["replays"] > 0 and len(k1["q_err2"]) == SS_STEPS
+            and all(math.isfinite(v) for row in k1["q_err2"] for v in row)):
+        raise AssertionError(f"obs deterministic: {det}")
+    log(f"obs deterministic: ResNet-18 qsgd 4 bits with the probe, {SS_STEPS} steps: "
+        f"'{k8['mode']}' ({k8['replays']} replays) gives the eager steps' q_err2 series step "
+        f"for step ({SS_STEPS} x 62 values), and both end in the unarmed eager run's state bit "
+        f"for bit; launches eager {k1['launches']}, graph {k8['launches']}")
+    cli_runs = obs_cli(work)
+    nccl1 = obs_nccl1(work)
+    row2 = obs_row2(grads, errs)
+    t_checks = time.time() - t0
+    timing = obs_timing(torch.device("cuda", 0), card)
+    launches = {n: sum(r["launches"][n] for r in cli_runs.values()) + nccl1["launches"][n]
+                + k1["launches"][n] + k8["launches"][n] for n in REPLACES}
+    res = {"deterministic": det, "cli": cli_runs, "nccl1": nccl1, "row2": row2,
+           "timing": timing, "launches": launches, "seconds_checks": t_checks,
+           "seconds": time.time() - t0}
+    log(f"obs phase seconds {res['seconds']:.1f} (checks {t_checks:.1f})")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -4492,6 +4742,8 @@ def main() -> int:
         lap("layouts")
         resilience = phase_resilience(Path(work), card, grads, errs)
         lap("resilience")
+        obs = phase_obs(Path(work), card, grads, errs, superstep["obs_deterministic"])
+        lap("obs")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -4511,6 +4763,7 @@ def main() -> int:
                 + overlap["launches"][name]
                 + layouts["launches"][name]
                 + resilience["launches"][name]
+                + obs["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -4532,7 +4785,7 @@ def main() -> int:
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
-              "resilience": resilience, "phase_seconds": seconds,
+              "resilience": resilience, "obs": obs, "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

@@ -32,7 +32,9 @@ a captured step replayed K times equals K eager steps bit for bit
 qsgd and terngrad with augmentation and an LR change, a per-leaf width
 allocation, and the data-parallel step at one NCCL rank with error
 feedback, with the embedding tower's hybrid exchange and with the delayed
-step's carry), with the same launches. The layer buckets' encodes (one
+step's carry; with the quality probes armed, their series too), with the
+same launches. The quality probe's decode of one replica's payload equals
+its plain twin's. The layer buckets' encodes (one
 launch a bucket) equal the plain twin; a bucket's encode on the side stream
 reads its gradient only after the event of the backward stream, however
 late the device writes it; the delayed step's step 0 holds parameters,
@@ -1139,6 +1141,8 @@ if not where.startswith("single"):
     kw = {"error_feedback": where == "nccl-ef"}
     if where == "nccl-delayed":  # the stale-by-one step: its carry updated in place
         kw = {"overlap": "delayed"}
+if where.endswith("probe"):  # the quality probes: their (K, L) series are graph outputs
+    kw["track_quality"] = True
 if where.endswith("guard"):  # the guard holds step 3 and step 6 (chaos on the device)
     from atomo_tpu_torch.training.resilience import GuardConfig
     from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
@@ -1180,17 +1184,18 @@ def carried(state):
 state, step = fresh(1)
 stream = BatchIterator(ds, 32, seed=3).forever()
 ops.reset_launch_counts()
-losses = []
+losses, qs = [], []
 for _ in range(steps):
     state, m = step(state, 7, *to_device(*next(stream), "cuda"))
     losses.append(float(m["loss"]))
+    qs += [m["q_err2"].tolist()] if "q_err2" in m else []
 ref, ref_counts = carried(state), ops.launch_counts()
 for k in (8, 3):
     state, block = fresh(k)
     assert block.mode == "graph", block.why
     blocks = BlockStream(BatchIterator(ds, 32, seed=3).forever())
     ops.reset_launch_counts()
-    got, s = [], 0
+    got, gq, s = [], [], 0
     while s < steps:
         kb = min(k, steps - s)
         staged = block_to_device(*blocks.take(kb), "cuda")
@@ -1198,9 +1203,11 @@ for k in (8, 3):
             torch.cuda.current_stream().wait_event(staged.ready)
         state, m = block(state, 7, staged.images, staged.labels)
         got += m["loss"].tolist()
+        gq += m["q_err2"].tolist() if "q_err2" in m else []
         s += kb
     assert state.step == steps and block.replays == steps - 1, (state.step, block.replays)
     assert got == losses, (k, got, losses)
+    assert gq == qs and len(qs) == (steps if "track_quality" in kw else 0), (k, gq, qs)
     for a, b in zip(ref, carried(state)):
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), k
     assert ops.launch_counts() == ref_counts, (k, ops.launch_counts(), ref_counts)
@@ -1221,6 +1228,8 @@ print(json.dumps({"ok": True, "launches": ref_counts}))
     ("resnet18", "qsgd", "sgd", "nccl-delayed", 7),
     ("resnet18", "qsgd", "sgd", "single-guard", 7),
     ("resnet18", "qsgd", "sgd", "nccl-guard", 7),
+    ("resnet18", "qsgd", "sgd", "single-probe", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-probe", 7),
 ])
 def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer, where, steps):
     """7 steps (an LR change at step 5, augmentation on CIFAR shapes,
@@ -1232,7 +1241,9 @@ def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer
     delayed step's warm-up is its step 0, which applies nothing); guarded
     with ``nan@3,inf@6`` (one device and NCCL world 1), the replayed graph
     selects each step's fault from the device table and holds steps 3 and
-    6 as the eager steps do, its held count included."""
+    6 as the eager steps do, its held count included; with the quality
+    probes armed (``--obs-quality``) the blocks' per-layer ``q_err2`` series
+    equal the eager steps' step for step."""
     import json
     import os
     import subprocess
@@ -1249,6 +1260,33 @@ def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer
     assert out["ok"]
     if code in ("qsgd", "terngrad"):
         assert out["launches"]["quantize_pack"] == steps
+    if where == "nccl-probe":  # the gather's decode and the probe's own decode
+        assert out["launches"]["unpack_dequantize"] == 2 * steps
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_probe_decode_of_one_replica_matches_the_plain_twin(dev, bits):
+    """The quality probe's decode of one replica's payload (row 2 at N = 1,
+    one launch over ResNet-18's 62 leaves) against the plain twin's decode:
+    the decodes bit for bit, so the per-layer errors too; no host sync."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.obs.quality import quality_from_decoded, quality_probe
+
+    _, grads = _resnet_grads(dev, seed=bits)
+    codec = QsgdCodec(bits=bits)
+    payloads, _ = encode_tree(codec, 5, grads)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = quality_probe(codec, payloads, grads)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert K.launch_counts()["unpack_dequantize"] == 1
+    want = quality_from_decoded(K.unpack_dequantize_tree_plain(payloads, grads, bits=bits), grads)
+    for name in ("q_err2", "q_rel"):
+        assert got[name].shape == (62,) and _same_bits(got[name], want[name])
+    assert torch.isfinite(got["q_err2"]).all() and (got["q_err2"] > 0).all()
 
 
 def test_graph_rule_names_the_eager_steps(dev):

@@ -24,24 +24,34 @@ after each step; ``msg_bytes`` and ``dense_bytes`` exactly equal; loss rtol
 moved (``quantization_atol``). The port's tp gradients come from
 Megatron's pair where the JAX package divides n_tp-scaled ones, so the two
 agree to float32 rounding, inside these tolerances.
+
+This file runs the cases on 2 ranks; ``test_torch_lm_dist_layouts4.py`` runs
+those on 4 (a file a group, so that the two balance over test workers).
 """
 
 import pytest
 import torch_dist_lm_jax as L
-from torch_dist import Group
+from torch_dist import Groups
 
 
 @pytest.fixture(scope="module")
 def groups(tmp_path_factory):
-    gs = {n: Group(n, tmp_path_factory.mktemp(f"layouts{n}")) for n in (2, 4)}
+    gs = Groups(tmp_path_factory, "layouts")
     yield gs
-    for g in gs.values():
-        g.close()
+    gs.close()
+
+
+class _Starts(dict):
+    """Each family's full tree, made at its first use."""
+
+    def __missing__(self, layout):
+        self[layout] = L.family_params(layout)
+        return self[layout]
 
 
 @pytest.fixture(scope="module")
 def starts():
-    return {lay: L.family_params(lay) for lay in ("dp-tp", "dp-ep", "dp-pp", "dp-tp-sp")}
+    return _Starts()
 
 
 def _run(groups, starts, layout, n, ways, code, aggregate, *, microbatches=2,
@@ -91,8 +101,14 @@ def _id(c):
         f"-{att}" if lay == "dp-tp-sp" else "")
 
 
-@pytest.mark.parametrize("layout,n,ways,code,aggregate,microbatches,attn_impl", CASES,
-                         ids=[_id(c) for c in CASES])
+def cases(world: int) -> list:
+    """The cases on ``world`` ranks, as ``parametrize`` takes them."""
+    return [pytest.param(*(c.values if hasattr(c, "values") else c), id=_id(c),
+                         marks=getattr(c, "marks", ()))
+            for c in CASES if (c.values if hasattr(c, "values") else c)[1] == world]
+
+
+@pytest.mark.parametrize("layout,n,ways,code,aggregate,microbatches,attn_impl", cases(2))
 def test_layout_steps_match_jax(groups, starts, layout, n, ways, code, aggregate,
                                 microbatches, attn_impl):
     out, final, answers = _run(groups, starts, layout, n, ways, code, aggregate,
@@ -102,11 +118,7 @@ def test_layout_steps_match_jax(groups, starts, layout, n, ways, code, aggregate
     assert out[0]["msg_bytes"] < out[0]["dense_bytes"] or aggregate == "psum"
 
 
-@pytest.mark.parametrize("modes", [
-    dict(stream_encode=True, stream_bucket_bytes=1),
-    dict(overlap="delayed"),
-], ids=["stream-encode", "delayed"])
-def test_dp_tp_exchange_modes_match_jax(groups, starts, modes):
+def dp_tp_exchange_modes_match_jax(groups, starts, modes):
     """``--stream-encode`` (one bucket a leaf; at tp 2 the buckets are
     encoded one after another after backward: the hooks serve only at
     model ways 1) and ``--overlap delayed`` (step 0 skipped) on dp-tp 2x2

@@ -30,9 +30,14 @@ float32 comparison would measure XLA's rounding, not the port. At 8x8 or
 float32 itself is ill-conditioned (see tests/test_torch_models.py). Under x64
 the JAX codec draws float64 uniforms; the port's torch quantizer compares
 given uniforms in their own type, so both round alike.
+
+This file runs the ``sgd`` cases; ``test_torch_trainer_qsgd.py`` runs this
+test with ``qsgd`` (a file of its own, so that the two balance over test
+workers).
 """
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -129,7 +134,11 @@ def _start(name, dataset, x64):
         batches = _batches(dataset)
         jmodel = jax_model(name, 10)
         jopt = jax_optimizer("sgd", lr=LR, momentum=MOMENTUM)
-        jstate = create_state(jmodel, jopt, jax.random.PRNGKey(0), jnp.asarray(batches[0][0]))
+        # one compiled init: op by op, ResNet-18's Flax init compiles each of
+        # its operations; for LeNet and ResNet-18 the compiled init draws the
+        # op-by-op parameters bit for bit (a VGG's He-scaled one would not)
+        jstate = jax.jit(functools.partial(create_state, jmodel, jopt))(
+            jax.random.PRNGKey(0), jnp.asarray(batches[0][0]))
         # the port starts from the float32 init either way
         sd = state_dict_from_jax(get_model(name, 10, image_shape=JAX_SPECS[dataset].image_shape),
                                  jax.device_get(jstate.params),
@@ -138,7 +147,7 @@ def _start(name, dataset, x64):
     return _STARTS[name, dataset, x64]
 
 
-@pytest.mark.parametrize("code", ["sgd", "qsgd"])
+@pytest.mark.parametrize("code", ["sgd"])
 @pytest.mark.parametrize("name,dataset,x64", CASES)
 def test_train_steps_match_jax(name, dataset, x64, code, monkeypatch):
     image_shape = JAX_SPECS[dataset].image_shape

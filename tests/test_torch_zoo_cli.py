@@ -1,6 +1,6 @@
 """``atomo_tpu_torch train --network <zoo model>`` against the JAX verb.
 
-VGG11 on synthetic CIFAR-10 for two steps prints the JAX verb's ``Worker:``
+VGG11 on synthetic CIFAR-10 for two steps on one device prints the JAX verb's ``Worker:``
 lines: the same steps, epochs and sample counts and the same ``Msg(MB)``
 (the loss and accuracy differ: each package draws its own init).
 ``--svd-mode`` is an alias over ``--svd-algo`` that refuses a
@@ -30,7 +30,10 @@ def _fields(lines):
 
 
 def test_vgg11_worker_lines_match_jax_cli(capsys):
-    argv = BASE + ["--network", "VGG11", "--code", "svd", "--svd-rank", "3"]
+    # one device on both sides: the port's run is single-device either way,
+    # and the JAX verb's default would spread the batch of 8 over the
+    # suite's 8 forced CPU devices
+    argv = BASE + ["--network", "VGG11", "--code", "svd", "--svd-rank", "3", "--n-devices", "1"]
     lines = []
     assert port_cli.main(argv + ["--device", "cpu"], log_fn=lines.append) == 0
     capsys.readouterr()

@@ -25,6 +25,8 @@ Jobs (``JOBS``):
   after a block's last step only (None inside a block); ``guard`` (a max
   grad norm) arms the guard with ``chaos`` (a spec) aimed at
   ``target_replica``, each step's ``skipped`` and ``dropped`` coming back;
+  ``track_quality`` arms the quality probes, each step's ``q_err2`` and
+  ``q_rel`` coming back as lists;
 * ``build``: the data-parallel step's factory on a registry model with
   given arguments; the message of the ``ValueError`` it raises, or None;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
@@ -127,6 +129,25 @@ class Group:
             assert p.poll() is not None
 
 
+class Groups:
+    """Gloo groups by world size, each started at its first use, so that a
+    file whose cases need one size starts that group alone."""
+
+    def __init__(self, tmp_path_factory, prefix: str, timeout: float = 240.0):
+        self._tmp, self._prefix, self._timeout = tmp_path_factory, prefix, timeout
+        self._groups: dict = {}
+
+    def __getitem__(self, world: int) -> Group:
+        if world not in self._groups:
+            self._groups[world] = Group(world, self._tmp.mktemp(f"{self._prefix}{world}"),
+                                        self._timeout)
+        return self._groups[world]
+
+    def close(self):
+        for g in self._groups.values():
+            g.close()
+
+
 def _write(f, obj) -> None:
     data = pickle.dumps(obj)
     f.write(struct.pack("<Q", len(data)) + data)
@@ -202,7 +223,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
               dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
               budget_ks=None, error_feedback=False, parts=None, overlap="off",
               stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False, guard=None,
-              chaos=None, target_replica=0):
+              chaos=None, target_replica=0, track_quality=False):
     import dataclasses
 
     import torch.distributed as dist
@@ -276,7 +297,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             ring_bucket_size=ring_bucket_size, grad_accum=grad_accum, hybrid=hybrid,
             error_feedback=error_feedback, superstep=superstep, overlap=overlap,
             stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes,
-            compute_dtype=torch.bfloat16 if bf16 else None, **resilience())
+            compute_dtype=torch.bfloat16 if bf16 else None, track_quality=track_quality,
+            **resilience())
 
     delayed = overlap == "delayed"
     if delayed:
@@ -289,11 +311,17 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 return None
             return cast(m[name] if j is None or not hasattr(m[name], "shape") else m[name][j])
 
+        def vec(name):  # a per-layer series: (L,) a step, (K, L) a block
+            if name not in m:
+                return None
+            return [float(v) for v in (m[name] if j is None else m[name][j])]
+
         return {"loss": val("loss"), "prec1": val("prec1"), "prec5": val("prec5"),
                 "msg_bytes": val("msg_bytes", int), "dense_bytes": val("dense_bytes", int),
                 "hash": state_hash(model) if last else None,
                 "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm"),
-                "skipped": val("skipped"), "dropped": val("dropped")}
+                "skipped": val("skipped"), "dropped": val("dropped"),
+                "q_err2": vec("q_err2"), "q_rel": vec("q_rel")}
 
     try:
         step = make_step(model)

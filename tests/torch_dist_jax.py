@@ -90,6 +90,33 @@ def svd_draws(k_codec, params, rank: int = 3):
             for i, leaf in enumerate(jax.tree_util.tree_leaves(params))]
 
 
+_MASK_FNS: dict = {}
+
+
+def _dropout_apply(model, variables, x, key, has_bn: bool):
+    """The train-mode apply with its Dropout layers' keep-masks captured:
+    (masks in call order, output)."""
+    import flax.linen as nn
+
+    masks = []
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if (isinstance(mod, nn.Dropout) and context.method_name == "__call__"
+                and not mod.deterministic and 0.0 < mod.rate < 1.0):
+            rng = mod.make_rng(mod.rng_collection)
+            masks.append(jax.random.bernoulli(rng, 1.0 - mod.rate, args[0].shape))
+            return next_fun(*args, **kwargs, rng=rng)
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(intercept):
+        out = model.apply(variables, x, train=True, rngs={"dropout": key},
+                          mutable=["batch_stats"] if has_bn else [])
+    if has_bn or isinstance(out, tuple):
+        out = out[0]
+    return masks, out
+
+
 def flax_dropout_masks(model, variables, x, key, return_output: bool = False):
     """The keep-masks the Flax model's ``nn.Dropout`` layers draw in a
     train-mode apply on ``x`` under dropout key ``key``, in call order.
@@ -100,28 +127,21 @@ def flax_dropout_masks(model, variables, x, key, return_output: bool = False):
     layer that key; the apply's output is unchanged. A mask depends on the
     key and the shape alone, so the masks of a step's apply are those of
     this one on an input of the same shape. Run it under the x64 setting of
-    the step it stands for: the draw's uniform takes the default float."""
-    import flax.linen as nn
-
-    masks = []
-
-    def intercept(next_fun, args, kwargs, context):
-        mod = context.module
-        if (isinstance(mod, nn.Dropout) and context.method_name == "__call__"
-                and not mod.deterministic and 0.0 < mod.rate < 1.0):
-            rng = mod.make_rng(mod.rng_collection)
-            masks.append(np.asarray(jax.random.bernoulli(rng, 1.0 - mod.rate,
-                                                         args[0].shape)))
-            return next_fun(*args, **kwargs, rng=rng)
-        return next_fun(*args, **kwargs)
-
+    the step it stands for: the draw's uniform takes the default float.
+    The masks alone come from one compiled program a model and x64 setting
+    (op by op, every layer compiles its own): a draw is integer arithmetic
+    on the key, the same bits either way. With ``return_output`` the apply
+    runs op by op, its output the JAX package's eager one."""
     has_bn = "batch_stats" in variables
-    with nn.intercept_methods(intercept):
-        out = model.apply(variables, jnp.asarray(x), train=True, rngs={"dropout": key},
-                          mutable=["batch_stats"] if has_bn else [])
-    if has_bn or isinstance(out, tuple):
-        out = out[0]
-    return (masks, out) if return_output else masks
+    if return_output:
+        masks, out = _dropout_apply(model, variables, jnp.asarray(x), key, has_bn)
+        return [np.asarray(m) for m in masks], out
+    fkey = (id(model), has_bn, bool(jax.config.jax_enable_x64))
+    if fkey not in _MASK_FNS:
+        # the model is kept with its program, so that its id stays its own
+        _MASK_FNS[fkey] = (model, jax.jit(
+            lambda v, xx, k: _dropout_apply(model, v, xx, k, has_bn)[0]))
+    return [np.asarray(m) for m in _MASK_FNS[fkey][1](variables, jnp.asarray(x), key)]
 
 
 def codec_key(key, step: int, replica: int):
@@ -255,7 +275,8 @@ class Reference:
                         "batch_stats": jax.device_get(state.batch_stats),
                         "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
                         "skipped": float(m["skipped"]) if delayed or guarded else None,
-                        "dropped": float(m["dropped"]) if guarded else None})
+                        "dropped": float(m["dropped"]) if guarded else None,
+                        **{q: np.asarray(m[q]) for q in ("q_err2", "q_rel") if q in m}})
         return out, [{"draws": draws[r] if draw is not None else None,
                       "dropout_masks": masks[r] if any(masks[r]) else None}
                      for r in range(n)]
