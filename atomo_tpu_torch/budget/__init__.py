@@ -1,9 +1,7 @@
 """Adaptive variance budgets: ATOMO's per-layer allocation of atoms under a
 wire budget.
 
-Counterpart of ``atomo_tpu/budget/`` (the same names, but for
-``BudgetRetuner``: the online re-solve reads the ``--obs-quality`` q_err2
-series, which the port does not have yet):
+Counterpart of ``atomo_tpu/budget/`` (the same names):
 
 * :mod:`~atomo_tpu_torch.budget.allocator`: per-layer spectra measured from
   a probe gradient and the water-filling solver that spreads a global
@@ -12,7 +10,10 @@ series, which the port does not have yet):
 * :mod:`~atomo_tpu_torch.budget.codec`: :class:`PerLeafCodec`, the wrapper
   that carries the allocation's per-leaf knobs through the tree walkers;
 * :mod:`~atomo_tpu_torch.budget.artifact`: ``budget_alloc.json``, written
-  atomically and reused on ``--resume``.
+  atomically and reused on ``--resume``;
+* :mod:`~atomo_tpu_torch.budget.retune`: :class:`BudgetRetuner`, the online
+  re-solve at checkpoint boundaries from the recorded ``--obs-quality``
+  q_err2 series.
 """
 
 from atomo_tpu_torch.budget.allocator import (  # noqa: F401
@@ -38,3 +39,4 @@ from atomo_tpu_torch.budget.artifact import (  # noqa: F401
     write_alloc,
 )
 from atomo_tpu_torch.budget.codec import PerLeafCodec, budgeted_codec  # noqa: F401
+from atomo_tpu_torch.budget.retune import BudgetRetuner  # noqa: F401

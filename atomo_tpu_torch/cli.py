@@ -54,11 +54,19 @@ one process), their argv refusals checked before the supervisor re-executes
 the command. ``--obs-record`` writes the flight recorder
 (``train_dir/metrics.jsonl``, :mod:`atomo_tpu_torch.obs.recorder`), which
 ``lm`` writes whenever it has a ``--train-dir``; ``--obs-quality`` adds the
-per-layer estimator-quality probes (:mod:`atomo_tpu_torch.obs.quality`).
+per-layer estimator-quality probes (:mod:`atomo_tpu_torch.obs.quality`), and
+with ``--budget-alloc variance`` and a save cadence over several devices the
+two arm the online re-allocation at checkpoint boundaries
+(:mod:`atomo_tpu_torch.budget.retune`). ``--profile-dir`` traces three
+steady-state steps of the data-parallel loop; ``--phase-metrics``
+(deprecated, as in the JAX verb) times the gather step's four phases on the
+host; ``--fabric measured`` probes the run's process group at startup and
+prices ``--aggregate auto`` from it (:mod:`atomo_tpu_torch.obs.fabric`).
 ``report`` joins a run's artifacts into ``run_report.json`` with the JAX
-verb's consistency checks (``--strict`` exits 3 on a failed one); its
-``timeline`` mode and ``--fleet`` are not ported yet. From the process entry
-a refusal exits 2.
+verb's consistency checks, and ``report timeline`` turns a ``--profile-dir``
+trace into per-step phase spans (:mod:`atomo_tpu_torch.obs.timeline`);
+``--strict`` exits 3 on a failed check; ``--fleet`` is not ported yet. From
+the process entry a refusal exits 2.
 """
 
 from __future__ import annotations
@@ -97,6 +105,7 @@ from atomo_tpu_torch.training import distributed_train_loop, make_optimizer, tra
 from atomo_tpu_torch.training.checkpoint import latest_step
 from atomo_tpu_torch.training.evaluator import CheckpointEvaluator
 from atomo_tpu_torch.utils.rng import fold_in
+from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT
 
 DENSE_CODES = ("sgd", "dense", "none")
 LM_LAYOUTS = ("dp", "dp-sp", "dp-tp", "dp-ep", "dp-pp", "dp-tp-sp")
@@ -294,6 +303,7 @@ def _diverge_preflight(args: argparse.Namespace) -> None:
         args.on_diverge, train_dir=args.train_dir,
         codec=None if args.code.lower() in DENSE_CODES else args.code,
         aggregate=args.aggregate if multi else None, overlap=args.overlap,
+        phase_metrics=args.phase_metrics,
         num_aggregate=args.num_aggregate if multi else None, keep_ckpts=args.keep_ckpts,
         save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
     if reason:
@@ -343,6 +353,7 @@ def _diverge_config(args: argparse.Namespace, codec, n_dev: int, aggregate):
     reason = diverge_conflict(
         args.on_diverge, train_dir=args.train_dir, codec=codec,
         aggregate=aggregate if n_dev > 1 else None, overlap=args.overlap,
+        phase_metrics=args.phase_metrics,
         num_aggregate=args.num_aggregate if n_dev > 1 else None, keep_ckpts=args.keep_ckpts,
         save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
     if reason:
@@ -407,7 +418,11 @@ def _fabric_flags(p: argparse.ArgumentParser) -> None:
                    help="the fabric --aggregate auto prices the wire on: auto "
                         "(nvlink on one host, dcn across hosts) | nvlink | ici (the JAX "
                         "package's name, = nvlink) | dcn | eth10g | a per-device GB/s "
-                        "number")
+                        "number | measured (train: a startup probe times fenced ring-hop "
+                        "and all_gather ladders on the run's own process group, records "
+                        "train_dir/fabric_probe.json, and --aggregate auto prices from it; "
+                        "PRICING ONLY: measured trains bit-identical to the same run under "
+                        "its measured GB/s pinned)")
     p.add_argument("--codec-tax-ms", type=float, default=None, metavar="MS",
                    help="measured single-device codec tax for --aggregate auto's "
                         "advisory; default scales the ResNet-18 anchor measured on the "
@@ -575,6 +590,16 @@ def _fit_flags(p: argparse.ArgumentParser) -> None:
                         "= bit-identical trajectories (the probe only "
                         "adds metric outputs). Costs one extra decode + "
                         "one f32 reduction per layer per step")
+    p.add_argument("--phase-metrics", action="store_true", default=False,
+                   help="split the step into separately-jitted phases and "
+                        "log real Comp/Encode/Comm (+ master Gather/Decode) "
+                        "seconds — the reference's per-phase observability; "
+                        "costs fusion, so default off")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="capture a torch.profiler device trace of a few "
+                        "steady-state steps into this dir (Chrome-trace / "
+                        "TensorBoard loadable) — phase cost inside the fused "
+                        "step; read it with `report timeline`")
     p.add_argument("--comm-type", type=str, default="Bcast", metavar="N",
                    help="accepted for parity with the reference and ignored")
     p.add_argument("--enable-gpu", action="store_true", default=False,
@@ -701,17 +726,23 @@ def build_parser() -> argparse.ArgumentParser:
         help="join metrics.jsonl + incidents.jsonl + membership.json + "
              "tune_decision.json + fabric_probe.json into run_report.json "
              "and print the post-mortem timeline (cross-artifact "
-             "consistency checks); `report timeline` (not ported yet) parses "
-             "a --profile-dir trace into per-step phase spans instead",
+             "consistency checks); `report timeline` parses a "
+             "--profile-dir trace into per-step phase spans instead",
     )
     r.add_argument("what", nargs="?", default="run", choices=["run", "timeline"],
-                   help="run (default): the cross-artifact run report; timeline: "
-                        "per-step phase spans from a --profile-dir trace (refused: "
-                        "not ported yet)")
+                   help="run (default): the cross-artifact run "
+                        "report; timeline: per-step encode/exchange/"
+                        "decode/compute spans from a --profile-dir "
+                        "trace, joined against metrics.jsonl — the "
+                        "replacement for the deprecated "
+                        "--phase-metrics mode")
     r.add_argument("--train-dir", type=str, default="output/models/", metavar="N",
                    help="the run's artifact directory")
     r.add_argument("--profile-dir", type=str, default="", metavar="DIR",
-                   help="for `report timeline` (refused: not ported yet)")
+                   help="for `report timeline`: the torch.profiler "
+                        "trace directory a training run captured "
+                        "with --profile-dir (default: "
+                        "train-dir/trace)")
     r.add_argument("--fleet", action="store_true", default=False,
                    help="the fleet report over train-dir/hosts/ (refused: not ported yet)")
     r.add_argument("--strict", action="store_true", default=False,
@@ -767,6 +798,11 @@ def _overlap_preflight(args: argparse.Namespace) -> None:
                 f"{args.aggregate} (only the compressed flat gather/ring "
                 "exchanges have a delayed form; no two-level topology "
                 "plan — legacy or re-encoded — does)")
+        if args.phase_metrics:
+            raise SystemExit(
+                "--phase-metrics times blocking phase programs and cannot "
+                "describe the overlapped step; drop one of the flags"
+                + PHASE_METRICS_HINT)
     if args.stream_encode == "on":
         if args.code.lower() in DENSE_CODES:
             raise SystemExit(
@@ -785,6 +821,12 @@ def _overlap_preflight(args: argparse.Namespace) -> None:
                 "to stream), and the hierarchical boundary re-encode is "
                 "not bucket-aware yet — the honest reject until it is; "
                 "use --aggregate gather or ring")
+        if args.phase_metrics:
+            raise SystemExit(
+                "--phase-metrics times a monolithic encode phase program "
+                "and cannot describe the bucket-streamed schedule; drop "
+                "one of the flags"
+                + PHASE_METRICS_HINT)
 
 
 def _resolved_single(args: argparse.Namespace) -> None:
@@ -836,6 +878,12 @@ def _sparse_preflight(args: argparse.Namespace) -> None:
             "--sparse-rows does not compose with --num-aggregate: "
             "the rotating replica subset is not wired into the row "
             "exchange")
+    if args.phase_metrics:
+        raise SystemExit(
+            "--sparse-rows is not supported with --phase-metrics "
+            "(the phased programs assume one whole-tree codec "
+            "exchange; there is no row-aware phase split)"
+            + PHASE_METRICS_HINT)
 
 
 def _budget_preflight(args: argparse.Namespace) -> None:
@@ -878,6 +926,11 @@ def _budget_preflight(args: argparse.Namespace) -> None:
                 "its default. --auto controller prices and probes "
                 "exactly that cross term (the +sp+ab candidates) — use "
                 "it; the static pairing stays rejected")
+        if args.phase_metrics:
+            raise SystemExit(
+                "--budget-alloc variance shapes the fused step's per-leaf "
+                "payloads; --phase-metrics has no fused step"
+                + PHASE_METRICS_HINT)
         if args.on_diverge != "off" and args.obs_quality and args.obs_record:
             raise SystemExit(
                 "--budget-alloc variance with --obs-quality --obs-record "
@@ -911,6 +964,11 @@ def _budget_preflight(args: argparse.Namespace) -> None:
         raise SystemExit(
             "--error-feedback does not compose with --num-aggregate: "
             "an unconsumed encode's residual would be mis-attributed")
+    if args.phase_metrics:
+        raise SystemExit(
+            "--error-feedback needs the fused step (the residual "
+            "rides its carry); --phase-metrics has no fused step"
+            + PHASE_METRICS_HINT)
     if not (code == "svd" and args.sample == "topk"):
         warnings.warn(
             "--error-feedback pairs with a CONTRACTION compressor "
@@ -954,11 +1012,12 @@ def _num_aggregate(args: argparse.Namespace, aggregate: str, codec, n_dev: int) 
 
 def budget_allocation(args: argparse.Namespace, model, codec, train_iter, log_fn,
                       write: bool = True):
-    """``--budget-alloc variance``: (spectra, allocation) as the JAX verb
-    makes and prints them (``:2565-2645``). The probe gradient is taken over
-    a direct slice of the training arrays, so the batch stream does not
-    advance; ``--resume`` reuses a recorded ``budget_alloc.json`` that fits,
-    else solves again. ``write`` (rank 0) writes the artifact."""
+    """``--budget-alloc variance``: (spectra, allocation, artifact document)
+    as the JAX verb makes and prints them (``:2565-2645``). The probe
+    gradient is taken over a direct slice of the training arrays, so the
+    batch stream does not advance; ``--resume`` reuses the last epoch of a
+    recorded ``budget_alloc.json`` that fits, else solves again. ``write``
+    (rank 0) writes the artifact."""
     from atomo_tpu_torch.budget import (
         Allocation,
         alloc_path,
@@ -978,7 +1037,7 @@ def budget_allocation(args: argparse.Namespace, model, codec, train_iter, log_fn
                                   train_iter.labels[:probe_n])
     spectra = measure_spectra(codec, grads, jax_leaf_paths(model), jax_layouts(model))
     budget_b = int(args.budget_bytes) if args.budget_bytes > 0 else None
-    alloc = None
+    alloc = doc = None
     if args.resume and args.train_dir:
         # a resume replays the recorded allocation, never a fresh solve
         prior = read_alloc(args.train_dir)
@@ -993,20 +1052,22 @@ def budget_allocation(args: argparse.Namespace, model, codec, train_iter, log_fn
                 predicted_variance=float(ep.get("predicted_variance", 0.0)),
                 epoch=int(ep["epoch"]),
             )
+            doc = prior
             log_fn(f"Budget: {why} (budget_alloc.json)")
         elif prior is not None:
             log_fn(f"Budget: NOT reusing budget_alloc.json: {why}")
     if alloc is None:
         alloc = solve_allocation(codec, spectra, budget_bytes=budget_b, mode="variance")
+        doc = new_alloc_doc(codec, spectra, alloc)
         if args.train_dir:
             if write:
-                write_alloc(args.train_dir, new_alloc_doc(codec, spectra, alloc))
+                write_alloc(args.train_dir, doc)
             log_fn(f"Budget: allocation artifact -> {alloc_path(args.train_dir)}")
     log_fn(alloc.describe())
     for l in spectra:
         log_fn(f"  [{l.index}] {l.name}: k={alloc.ks[l.index]}"
                + ("" if l.adaptive else " (dense at any rank — fixed)"))
-    return spectra, alloc
+    return spectra, alloc, doc
 
 
 def sparse_plan(args: argparse.Namespace, model, codec, train_iter, n_dev: int, log_fn):
@@ -1078,7 +1139,8 @@ def resolve_auto_aggregate(args: argparse.Namespace, codec, model, n_dev: int, *
             "(the two-tier schedule), which this port does not have yet; pass "
             "--aggregate gather, ring or psum")
     try:
-        bw = resolve_fabric(args.fabric, n_proc=n_hosts)
+        bw = resolve_fabric(args.fabric, n_proc=n_hosts,
+                            measured=getattr(args, "_fabric_probe", None))
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
     mode, reason = choose_aggregate(
@@ -1097,7 +1159,8 @@ def _hybrid_auto_aggregate(args: argparse.Namespace, plan, n_dev: int, log) -> s
     from atomo_tpu_torch.utils.comm_model import choose_aggregate, resolve_fabric
 
     try:
-        bw = resolve_fabric(args.fabric, n_proc=hosts_in_group())
+        bw = resolve_fabric(args.fabric, n_proc=hosts_in_group(),
+                            measured=getattr(args, "_fabric_probe", None))
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
     mode, reason = choose_aggregate(
@@ -1184,6 +1247,47 @@ def _codec(args: argparse.Namespace):
     return None if codec.name == "sgd" else codec
 
 
+def _fabric_preflight(args: argparse.Namespace) -> None:
+    """The argv half of the measured-fabric contract
+    (``atomo_tpu/cli.py:981-995``); the resolved device count is checked
+    again in the run."""
+    if args.fabric == "measured":
+        if not args.train_dir:
+            raise SystemExit(
+                "--fabric measured records the startup probe in "
+                "train_dir/fabric_probe.json and needs a --train-dir")
+        if args.n_devices == 1:
+            raise SystemExit(
+                "--fabric measured needs a multi-device mesh: a single "
+                "device has no inter-chip fabric to measure")
+
+
+FABRIC_ONE_DEVICE = (
+    "--fabric measured needs a multi-device mesh: this host "
+    "resolved to 1 device, so there is no inter-chip fabric "
+    "to measure")
+
+
+def _fabric_probe(args: argparse.Namespace, n_dev: int, ctx, log_fn) -> None:
+    """``--fabric measured``'s startup probe (``atomo_tpu/cli.py:
+    2459-2485``), before anything prices from the fabric: every rank takes
+    part, rank 0 writes ``fabric_probe.json`` (or a ``--resume`` reuses
+    it), and the document rides on ``args._fabric_probe`` to the pricing
+    (``utils.comm_model.resolve_fabric(measured=)``)."""
+    if args.fabric != "measured":
+        return
+    from atomo_tpu_torch.obs.fabric import ensure_fabric_probe
+
+    if n_dev <= 1:
+        raise SystemExit(FABRIC_ONE_DEVICE)
+    try:
+        args._fabric_probe = ensure_fabric_probe(
+            args.train_dir, n_dev=n_dev, reuse=args.resume, log_fn=log_fn,
+            write=ctx.rank == 0, device=ctx.device)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+
+
 def _obs_preflight(args: argparse.Namespace) -> None:
     """The JAX verb's argv refusals of ``--obs-record`` and ``--obs-quality``
     (``atomo_tpu/cli.py:1167-1196``) for the flags the port has."""
@@ -1196,6 +1300,11 @@ def _obs_preflight(args: argparse.Namespace) -> None:
             raise SystemExit(
                 "--obs-quality probes the codec's estimator error; dense "
                 "training (--code sgd) has no estimator to probe")
+        if args.phase_metrics:
+            raise SystemExit(
+                "--obs-quality probes the fused step's encode in-graph; "
+                "--phase-metrics has no fused step — drop one"
+                + PHASE_METRICS_HINT)
         if args.overlap == "delayed":
             raise SystemExit(
                 "--obs-quality does not compose with --overlap delayed: "
@@ -1204,23 +1313,27 @@ def _obs_preflight(args: argparse.Namespace) -> None:
                 "rejected honestly rather than silently mis-attributed")
 
 
-def _recorder(args: argparse.Namespace, n_dev: int, log_fn, write: bool = True):
-    """The flight recorder of ``--obs-record`` (None without it), built as
-    the JAX verb builds it (``atomo_tpu/cli.py:2787-2870``), after the
-    allocation: no prediction to calibrate against (the port has no
-    ``--auto``); under ``--budget-alloc variance`` the allocation's meta line
-    (from ``budget_alloc.json``) and the ``budget_epoch`` column, and the
-    allocation's line: frozen, since the online re-allocation the JAX verb
-    arms over several devices with both obs flags and a save cadence is
-    refused here. Every rank calls it (the refusal is every rank's);
-    ``write`` (rank 0, which wrote the allocation) alone gets a recorder."""
+def _recorder(args: argparse.Namespace, n_dev: int, log_fn, write: bool = True, budget=None):
+    """(flight recorder, budget retuner) as the JAX verb builds them
+    (``atomo_tpu/cli.py:2787-2880``), after the allocation: the recorder of
+    ``--obs-record`` (None without it; no prediction to calibrate against,
+    the port has no ``--auto``), and under ``--budget-alloc variance`` the
+    allocation's meta line (from ``budget_alloc.json``) and the
+    ``budget_epoch`` column. ``budget`` is ``(base codec, spectra,
+    allocation, artifact document)``: over several devices with both obs
+    flags, a train dir, a save cadence and no doctor the online
+    re-allocation is armed (a :class:`~atomo_tpu_torch.budget.
+    BudgetRetuner`), else the allocation is frozen, each with the JAX
+    verb's line. Every rank calls it and gets the retuner (each re-solves
+    alike); ``write`` (rank 0, which wrote the allocation) alone gets a
+    recorder and writes."""
     recorder = None
     if args.obs_record and write:
         from atomo_tpu_torch.obs.recorder import FlightRecorder
 
         recorder = FlightRecorder.for_train_dir(args.train_dir)
     if args.budget_alloc != "variance":
-        return recorder
+        return recorder, None
     if recorder is not None:
         from atomo_tpu_torch.budget import allocation_meta, latest_epoch, read_alloc
 
@@ -1229,17 +1342,22 @@ def _recorder(args: argparse.Namespace, n_dev: int, log_fn, write: bool = True):
         recorder.set_context(budget_epoch=int(ep["epoch"]))
     if (n_dev > 1 and args.obs_quality and args.obs_record and args.train_dir
             and (args.save_freq or args.eval_freq) and args.on_diverge == "off"):
-        raise SystemExit(
-            "--budget-alloc variance with --obs-quality --obs-record and a save "
-            "cadence over several devices arms the JAX verb's online re-allocation "
-            "(the q_err2-fed re-solve at checkpoint boundaries, budget/retune.py), "
-            "which this port does not have yet (ROADMAP queue 1 item 7f); drop "
-            "--obs-quality or --obs-record to freeze the allocation")
+        # online re-allocation: armed only when its signal (the recorded
+        # q_err2 series) actually lands on disk
+        from atomo_tpu_torch.budget import BudgetRetuner
+
+        base, spectra, alloc, doc = budget
+        tuner = BudgetRetuner(train_dir=args.train_dir, base_codec=base, spectra=spectra,
+                              alloc=alloc, doc=doc, owner=write)
+        log_fn("Budget: online re-allocation armed (q_err2-fed re-solve "
+               "at checkpoint boundaries; decisions land in "
+               "incidents.jsonl as budget_realloc)")
+        return recorder, tuner
     log_fn("Budget: allocation frozen for this run"
            + ("" if args.obs_quality and args.obs_record
               else " (arm --obs-quality --obs-record with a "
                    "checkpoint cadence to re-solve at boundaries)"))
-    return recorder
+    return recorder, None
 
 
 def cmd_train(args: argparse.Namespace, log_fn=print):
@@ -1247,6 +1365,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
 
     superstep = _superstep(args)
+    _fabric_preflight(args)
     _overlap_preflight(args)
     _sparse_preflight(args)
     _obs_preflight(args)
@@ -1257,6 +1376,21 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     if rc is not None:
         return rc
     _warn_dead_flags(args)
+    if args.phase_metrics:
+        warnings.warn(
+            "--phase-metrics is DEPRECATED: it times the four phases as "
+            "separate blocking programs, so it cannot observe any fused "
+            "program we ship (superstep, stream-encode, sparse-rows, "
+            "tune, delayed, elastic, hierarchical are all rejected). "
+            "The replacement is trace-based: run with --profile-dir and "
+            "use `report timeline` to get per-step "
+            "encode/exchange/decode/compute spans of the REAL fused step")
+        if superstep > 1:
+            warnings.warn(
+                "--phase-metrics times individual phase programs and cannot "
+                "run under a fused superstep scan; forcing --superstep 1"
+                + PHASE_METRICS_HINT)
+            superstep = 1
     guard = (GuardConfig(max_grad_norm=args.max_grad_norm)
              if args.grad_guard or args.max_grad_norm > 0 else None)
     # no --chaos: the loops read ATOMO_CHAOS from the env
@@ -1284,6 +1418,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     # one process runs the single-device loop unless a process group is up
     # or torchrun started it (one device over NCCL: a torchrun of one process)
     if args.n_devices <= 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        if args.fabric == "measured":
+            raise SystemExit(FABRIC_ONE_DEVICE)
         _resolved_single(args)
         if args.sparse_rows != "off":
             log_fn("--sparse-rows auto: single device, no exchange — running dense")
@@ -1300,7 +1436,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, log_fn)[1].ks)
-        recorder = _recorder(args, 1, log_fn)
+        recorder, _ = _recorder(args, 1, log_fn)
         _resolved_chaos(chaos, 1)
         diverge = _diverge_config(args, codec, 1, None)
         try:
@@ -1321,6 +1457,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if n_dev <= 1:
             _resolved_single(args)
         rank_log = log_fn if ctx.rank == 0 else (lambda _: None)
+        _fabric_probe(args, n_dev, ctx, rank_log)
         plan = None
         if args.sparse_rows != "off" and n_dev <= 1:
             rank_log("--sparse-rows auto: single device, no exchange — running dense")
@@ -1330,11 +1467,15 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 # --code sgd: the dense-assigned leaves ride the payload
                 # exchange as uncompressed DenseCodec payloads
                 codec = DenseCodec()
+        budget = None
         if args.budget_alloc == "variance":
-            codec = budgeted_codec(codec, budget_allocation(
-                args, model, codec, train_iter, rank_log, write=ctx.rank == 0)[1].ks)
+            spectra, alloc, doc = budget_allocation(args, model, codec, train_iter, rank_log,
+                                                    write=ctx.rank == 0)
+            budget = (codec, spectra, alloc, doc)
+            codec = budgeted_codec(codec, alloc.ks)
         # every rank runs the probes and the reduce; rank 0 alone writes
-        recorder = _recorder(args, n_dev, rank_log, write=ctx.rank == 0)
+        recorder, budget_tuner = _recorder(args, n_dev, rank_log, write=ctx.rank == 0,
+                                           budget=budget)
         aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
         _resolved_chaos(chaos, n_dev)
         diverge = _diverge_config(args, codec, n_dev, aggregate)
@@ -1347,12 +1488,20 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 stream_encode=args.stream_encode == "on",
                 stream_bucket_bytes=_stream_bucket_bytes(args), diverge=diverge,
                 track_quality=args.obs_quality, recorder=recorder,
+                phase_metrics=args.phase_metrics, lr_fn=_reference_lr(args),
+                profile_dir=args.profile_dir or None, budget_tuner=budget_tuner,
                 **{**common, "device": ctx.device})
         except DivergenceError as exc:
             return _diverged_exit(exc)
     finally:
         if not was_up:
             launch.shutdown()
+
+
+def _reference_lr(args: argparse.Namespace):
+    """The master line's ``Cur lr``: the JAX verb's stepwise schedule in
+    Python floats (its ``stepwise_shrink``), so the line reads as its."""
+    return lambda step: args.lr * args.lr_shrinkage ** (step // args.shrinkage_freq)
 
 
 def cmd_evaluate(args: argparse.Namespace, log_fn=print) -> int:
@@ -1717,20 +1866,45 @@ def _lm_loop(args: argparse.Namespace, n_dev: int, ways_arg, dp: int, ctx, log_f
 
 
 def cmd_report(args: argparse.Namespace, log_fn=print) -> int:
-    """``report`` in ``run`` mode (``atomo_tpu/cli.py:3651-3740``): the run's
-    artifacts joined into ``train_dir/run_report.json`` (written atomically)
-    with the cross-artifact consistency checks, and the post-mortem printed;
-    ``--strict`` exits 3 when a check fails. A pure host-side read: no
-    device, no card. ``report timeline`` and ``--fleet`` are refused by name
-    (ROADMAP queue 1 items 7d and 11)."""
+    """``report`` (``atomo_tpu/cli.py:3651-3740``): in ``run`` mode the
+    run's artifacts joined into ``train_dir/run_report.json`` (written
+    atomically) with the cross-artifact consistency checks, and the
+    post-mortem printed; ``report timeline`` parses the newest
+    ``--profile-dir`` trace (default ``train-dir/trace``) into per-step
+    encode/exchange/decode/compute spans joined against ``metrics.jsonl``
+    (:mod:`atomo_tpu_torch.obs.timeline`), printed and, with a train dir,
+    written to ``timeline_report.json``. ``--strict`` exits 3 when a check
+    fails. Pure host-side reads: no device, no card. ``--fleet`` is refused
+    by name (ROADMAP queue 1 item 11)."""
     from atomo_tpu_torch.obs.report import build_report, report_path, summarize_report
     from atomo_tpu_torch.utils.tracing import write_json_atomic
 
     if args.what == "timeline":
-        raise SystemExit(
-            "report timeline: the trace-based phase timeline (--profile-dir, "
-            "obs/timeline.py) is not ported yet (ROADMAP queue 1 item 7d); "
-            "run `report` for the run report")
+        from atomo_tpu_torch.obs.timeline import (
+            TIMELINE_REPORT_NAME,
+            build_timeline,
+            summarize_timeline,
+        )
+
+        prof = args.profile_dir
+        if not prof and args.train_dir:
+            # convention fallback: a trace captured into the train dir
+            prof = os.path.join(args.train_dir, "trace")
+        if not prof or not os.path.isdir(prof):
+            raise SystemExit(
+                f"report timeline: profile dir {prof!r} does not exist — "
+                "run training with --profile-dir DIR to capture a trace, "
+                "then report timeline --profile-dir DIR")
+        train_dir = args.train_dir if args.train_dir and os.path.isdir(args.train_dir) else None
+        doc = build_timeline(prof, train_dir)
+        log_fn(summarize_timeline(doc))
+        if train_dir:
+            out = os.path.join(train_dir, TIMELINE_REPORT_NAME)
+            write_json_atomic(out, doc)
+            log_fn(f"timeline report -> {out}")
+        if args.strict and not doc["consistent"]:
+            return 3
+        return 0
     if not args.train_dir or not os.path.isdir(args.train_dir):
         raise SystemExit(f"report: train dir {args.train_dir!r} does not exist")
     if args.fleet:

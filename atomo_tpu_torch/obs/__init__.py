@@ -1,7 +1,8 @@
 """Observability of the port: the flight recorder, the estimator-quality
 probes and the run report.
 
-Counterpart of ``atomo_tpu/obs/`` for ROADMAP queue 1 items 7a-7c:
+Counterpart of ``atomo_tpu/obs/`` (ROADMAP queue 1 items 7a-7f, the fleet
+report aside):
 
 * :mod:`~atomo_tpu_torch.obs.recorder`: ``FlightRecorder``, one JSON line a
   training step into ``train_dir/metrics.jsonl`` (``train --obs-record``;
@@ -10,10 +11,11 @@ Counterpart of ``atomo_tpu/obs/`` for ROADMAP queue 1 items 7a-7c:
   the codec inside the step (``train --obs-quality``);
 * :mod:`~atomo_tpu_torch.obs.report`: the ``report`` verb's run mode, every
   artifact of a run joined into ``run_report.json`` with consistency checks;
-* :mod:`~atomo_tpu_torch.obs.fabric`: the measured fabric's artifact name
-  and reader (the probe itself is item 7e).
-
-The phase timeline (``report timeline``, item 7d) is not ported yet.
+* :mod:`~atomo_tpu_torch.obs.fabric`: the measured fabric
+  (``train --fabric measured``): the startup probe of the run's process
+  group and its ``fabric_probe.json``;
+* :mod:`~atomo_tpu_torch.obs.timeline`: the trace-based phase timeline
+  (``train --profile-dir``, ``report timeline``).
 """
 
 from atomo_tpu_torch.obs.fabric import (  # noqa: F401

@@ -22,14 +22,16 @@ Record kinds (every record carries ``kind``):
     predicted-vs-measured calibration column (``predicted_ms`` / ``calib``,
     :func:`~atomo_tpu_torch.utils.comm_model.rolling_calibration`). The JAX
     package's drift (``drift_ms`` / ``drift_hot``) and per-tier
-    (``calib_tiers``) columns come from its online tuner and measured
-    fabric, which the port does not have yet (ROADMAP queue 1 items 7e, 12).
+    (``calib_tiers``) columns come from its online tuner, which the port
+    does not have yet (ROADMAP queue 1 item 12).
 ``log``
     the reference worker line, structured: the same ``StepMetrics`` record
     the stdout line is formatted from (:func:`emit_worker_line`, one sink).
 ``meta``
     one-off run context (the per-layer byte split of ``--obs-quality``,
-    :func:`atomo_tpu_torch.obs.quality.quality_meta`).
+    :func:`atomo_tpu_torch.obs.quality.quality_meta`; each allocation epoch
+    of ``--budget-alloc variance``; the ``profile_window`` of
+    ``--profile-dir``, the steps its trace covers).
 
 Cost: disarmed (no recorder) the loops add no device work and print what
 they printed before; armed, the block loops ride the one metric fetch a

@@ -543,6 +543,7 @@ def make_distributed_train_step(
     survivor_exact: bool = False,
     track_quality: bool = False,
     _oracle_parts: bool = False,
+    _phase_parts: bool = False,
 ):
     """Build the step ``(state, key, images, labels, draws=None,
     dropout_masks=None) -> (state, metrics)`` of this rank, over ``model``
@@ -1115,6 +1116,10 @@ def make_distributed_train_step(
     if _oracle_parts:
         return _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world,
                        split_keys=lambda key, s: split3(fold_in(fold_in(key, s), rank)))
+    if _phase_parts:
+        return _phase_programs(codec, model, begin, forward_backward, update_and_stats, stats,
+                               world, layouts,
+                               split_keys=lambda key, s: split3(fold_in(fold_in(key, s), rank)))
 
     def keys(key: int, step_index: int) -> tuple[int, int, int]:
         """(k_aug, k_drop, k_codec) of this rank at step ``step_index``."""
@@ -1202,6 +1207,133 @@ def make_delayed_oracle_steps(model: nn.Module, optimizer: Optimizer, codec, **k
     carry. ``kwargs`` are :func:`make_distributed_train_step`'s."""
     return make_distributed_train_step(model, optimizer, codec, overlap="delayed",
                                        _oracle_parts=True, **kwargs)
+
+
+def _phase_programs(codec, model, begin, forward_backward, update_and_stats, stats, world: int,
+                    layouts, split_keys) -> dict:
+    """The four phases of the gather step as plain calls (see
+    :func:`make_phase_train_steps`), built from the step's own closures."""
+
+    def comp(state: TrainState, key: int, images, labels):
+        k_aug, k_drop, _ = split_keys(key, state.step)
+        images = begin(images, k_aug)
+        grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, None, None)
+        with torch.no_grad():  # the dp means the fused step takes after its update
+            if stats:
+                flat = _all_reduce_mean(_flat(stats), world)
+                for s, v in zip(stats, _views_like(flat, stats)):
+                    s.copy_(v)
+            m = _all_reduce_mean(_flat([loss, prec1, prec5]), world)
+        return grads, {"loss": m[0], "prec1": m[1], "prec5": m[2],
+                       "dense_bytes": tree_nbytes(grads)}
+
+    def encode(state: TrainState, key: int, grads):
+        _, _, k_codec = split_keys(key, state.step)
+        with record_function("step.encode"):
+            payloads, cstats = encode_tree(codec, k_codec, grads, None, layouts)
+        return payloads, cstats.payload_bytes
+
+    def comm(wire):
+        with record_function("step.exchange"):
+            if codec is None:  # the dense gradient's all-reduce mean
+                return _views_like(_all_reduce_mean(_flat(wire), world), wire)
+            return gather_payloads(wire, world)
+
+    def update(state: TrainState, wire, grads) -> TrainState:
+        mean = wire
+        if codec is not None:
+            gathered, spec = wire
+            with record_function("step.decode_mean"):
+                mean = decode_mean_tree(codec, unpack_tree_buckets(gathered, spec), grads, world,
+                                        layouts)
+        opt_state, _, _ = update_and_stats(state, mean, None, with_stats=False)
+        return TrainState(step=state.step + 1, model=model, opt_state=opt_state)
+
+    fns = {"comp": comp, "comm": comm, "update": update}
+    if codec is not None:
+        fns["encode"] = encode
+    return fns
+
+
+def make_phase_train_steps(model: nn.Module, optimizer: Optimizer, codec=None, *,
+                           augment: bool = False, compute_dtype=None) -> dict:
+    """The gather step split into four calls so that the host can time each
+    phase (``make_phase_train_steps``, ``atomo_tpu/parallel/replicated.py:
+    2620-2700``): the reference log line's worker Comp/Encode/Comm and master
+    Gather/Decode (``src/distributed_worker.py:228-247``,
+    ``src/sync_replicas_master_nn.py:197-221``), which the fused step cannot
+    show.
+
+    * ``comp(state, key, images, labels) -> (grads, metrics)``: forward and
+      backward on this rank's shard, then the dp means of the BatchNorm
+      statistics and of loss and prec@1/5;
+    * ``encode(state, key, grads) -> (payloads, msg_bytes)`` (with a codec);
+    * ``comm(payloads) -> (gathered, spec)``: the payloads'
+      ``all_gather_into_tensor``; without a codec ``comm(grads)`` is the
+      dense all-reduce mean;
+    * ``update(state, wire, grads) -> state``: ``decode_mean_tree`` over the
+      gathered rows (with a codec), then the optimizer's update.
+
+    Each runs the fused step's own operations (the same closures), so the
+    phases run in order give the fused gather step's parameters bit for
+    bit; only the host fences between them differ."""
+    return make_distributed_train_step(model, optimizer, codec, aggregate="gather",
+                                       augment=augment, compute_dtype=compute_dtype,
+                                       _phase_parts=True)
+
+
+def _fence(t: torch.Tensor) -> None:
+    """A host read of one element of ``t``: the call waits for the work
+    that made it (one copy of four bytes, no kernel)."""
+    t.reshape(-1)[-1:].cpu()
+
+
+def make_phased_step(model: nn.Module, optimizer: Optimizer, codec=None, *,
+                     augment: bool = False, compute_dtype=None):
+    """``(state, key, images, labels) -> (state, metrics, phase_seconds)``:
+    :func:`make_phase_train_steps`'s calls in order, each fenced by a host
+    read and timed on the host (``_make_phased_step_fn``,
+    ``atomo_tpu/parallel/replicated.py:4062-4110``); ``phase_seconds`` has
+    ``comp``, ``encode`` (0 without a codec), ``gather`` and ``decode``
+    (the decode-mean and the update)."""
+    import time
+
+    fns = make_phase_train_steps(model, optimizer, codec, augment=augment,
+                                 compute_dtype=compute_dtype)
+
+    def step_fn(state: TrainState, key: int, images, labels):
+        ph = {}
+        t0 = time.perf_counter()
+        grads, metrics = fns["comp"](state, key, images, labels)
+        _fence(metrics["loss"])
+        ph["comp"] = time.perf_counter() - t0
+        if codec is not None:
+            t0 = time.perf_counter()
+            wire, msg_bytes = fns["encode"](state, key, grads)
+            _fence(_leaf_tensor(wire[-1]))
+            ph["encode"] = time.perf_counter() - t0
+        else:
+            wire, msg_bytes = grads, metrics["dense_bytes"]
+            ph["encode"] = 0.0
+        t0 = time.perf_counter()
+        gathered = fns["comm"](wire)
+        _fence(gathered[0] if codec is not None else gathered[-1])
+        ph["gather"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = fns["update"](state, gathered, grads)
+        _fence(leaf_params(model)[-1])
+        ph["decode"] = time.perf_counter() - t0
+        return state, {**metrics, "msg_bytes": msg_bytes}, ph
+
+    return step_fn
+
+
+def _leaf_tensor(payload) -> torch.Tensor:
+    """One tensor of a leaf's payload (a tuple of fields), to fence on."""
+    for v in payload:
+        if torch.is_tensor(v):
+            return v
+    raise TypeError(f"payload {type(payload).__name__} holds no tensor")
 
 
 def make_distributed_eval_step(model: nn.Module):

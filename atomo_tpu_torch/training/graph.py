@@ -71,12 +71,21 @@ buffers, and after it one copy moves the step's metrics into the block's
 the residual are updated in place, so nothing the graph reads is rebound;
 gradients and payloads live in the graph's private pool at fixed addresses.
 Under ``torch.profiler`` a replayed step shows as one graph launch: the
-``record_function`` phase ranges do not exist inside a replay.
+``record_function`` phase ranges do not exist inside a replay. So, when a
+profile is armed (``phase_map_dir``, set by the loops under
+``--profile-dir``), the capture itself runs under the profiler, and the
+phase of each node it recorded, in capture order (the innermost ``step.*``
+range around each launch call, :func:`atomo_tpu_torch.obs.timeline.
+capture_phase_map`), is written to ``phase_map_dir/graph_phase_map.json``:
+the timeline gives each replayed event the phase of its place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import tempfile
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -209,6 +218,7 @@ class GraphBlock:
         self.replays = 0
         self.launch_delta: list = []  # launches of one replay, per counter
         self.stream: Optional[torch.cuda.Stream] = None
+        self.phase_map_dir: Optional[str] = None  # a profile is armed: record the capture's phases
 
     # ---------------------------------------------------------- per block
 
@@ -294,13 +304,35 @@ class GraphBlock:
                         for _, shape, _ in self.drop_calls]
         before = [fn.launches for fn in _counters()]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            _, m = self._core(state, None, st.masks)
-            st.metrics = self._pack(m)
+        with self._phase_map():
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                _, m = self._core(state, None, st.masks)
+                st.metrics = self._pack(m)
         after = [fn.launches for fn in _counters()]
         self.launch_delta = [a - b for a, b in zip(after, before)]
         for fn, b in zip(_counters(), before):
             fn.launches = b
+
+    @contextlib.contextmanager
+    def _phase_map(self):
+        """With ``phase_map_dir`` set, profile the capture and write the
+        phase of each captured node, in capture order, beside the trace the
+        loop is about to take; otherwise nothing."""
+        if not self.phase_map_dir:
+            yield
+            return
+        from atomo_tpu_torch.obs.timeline import GRAPH_PHASE_MAP_NAME, capture_phase_map
+        from atomo_tpu_torch.utils.tracing import TRACE_SUFFIX, profile, write_json_atomic
+
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(tmp, device=self.device):
+                yield
+            trace = next(os.path.join(tmp, f) for f in os.listdir(tmp)
+                         if f.endswith(TRACE_SUFFIX))
+            entries = capture_phase_map(trace)
+        write_json_atomic(os.path.join(self.phase_map_dir, GRAPH_PHASE_MAP_NAME),
+                          {"kind": "graph_phase_map", "superstep": self.superstep,
+                           "n": len(entries), "entries": entries})
 
     def _replay(self, state):
         self.graph.replay()

@@ -35,7 +35,9 @@ statistics stay float32, so the codecs and the wire see float32 gradients.
 
 The phases of a step are ``torch.profiler.record_function`` ranges
 (``step.forward_backward``, ``step.encode``, ``step.decode``,
-``step.update``), so a profiler trace splits the step's time by phase.
+``step.update``), so a profiler trace splits the step's time by phase:
+:func:`distributed_train_loop`'s ``profile_dir`` takes such a trace, which
+``report timeline`` reads (:mod:`atomo_tpu_torch.obs.timeline`).
 
 PyTorch idiom: the model is an ``nn.Module`` updated in place (its
 parameters and BatchNorm statistics); :class:`TrainState` carries it with the
@@ -568,7 +570,8 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
                      start_step: int, max_steps: int, superstep: int, log_every: int,
                      log_fn, eval_freq: int, evaluate_fn, save_freq: int, train_dir,
                      save_fn, timer: Timer, monitor=None, chaos=None, rig=None,
-                     guard_line=None, world: int = 0, before_recover=None, recorder=None):
+                     guard_line=None, world: int = 0, before_recover=None, recorder=None,
+                     profile_dir: Optional[str] = None, device=None, retune=None):
     """The block loop of both train loops (``_superstep_steps`` :709 and
     ``_distributed_superstep_steps``, ``atomo_tpu/parallel/replicated.py:4391``):
     one ``block_fn`` call per K steps on a block :class:`SuperstepFeed`
@@ -588,16 +591,38 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
     ``recorder`` writes the block's K step records from its one fetch, the
     block's host wall as K equal shares, before the doctor observes it (a
     diverged block lands in the timeline and the rollback's prune cuts it);
-    the ``Worker:`` line goes through its sink."""
+    the ``Worker:`` line goes through its sink. ``profile_dir`` traces the
+    second block (the first warms up and captures) with
+    :func:`~atomo_tpu_torch.utils.tracing.profile` and records its
+    ``profile_window``; a graph block records its capture's phase map there
+    (:class:`~atomo_tpu_torch.training.graph.GraphBlock`). ``retune(step)``
+    runs after each boundary save and returns a rebuilt block function or
+    None."""
+    from atomo_tpu_torch.utils.tracing import profile
+
     log_fn(G.mode_line(block_fn))
+    if profile_dir and getattr(block_fn, "mode", None) == "graph":
+        block_fn.phase_map_dir = profile_dir
     feed = SuperstepFeed(BlockStream(stream), put_fn)
     s = last_saved = last_logged = start_step
+    block_idx = 0
+    prof_ctx = None
     t_rec = time.perf_counter()  # the recorder's wall anchor
     feed.start(min(superstep, max_steps - s))
     while s < max_steps:
         kb, images, labels = feed.take()
         b0, s = s, s + kb
+        block_idx += 1
         _host_faults(chaos, b0, s, world)
+        if profile_dir and block_idx == 2 and prof_ctx is None:
+            # block 1 warms up (and captures a graph); trace the second block
+            prof_ctx = profile(profile_dir, device=device)
+            prof_ctx.__enter__()
+            log_fn(f"Profiling superstep block {b0 + 1}..{s} -> {profile_dir}")
+            if recorder is not None:
+                # the `report timeline` join key (per-step-loop twin)
+                recorder.write_meta({"what": "profile_window", "first_step": b0 + 1,
+                                     "last_step": s, "profile_dir": profile_dir})
         state, mblk = block_fn(state, key, images, labels)
         feed.start(min(superstep, max_steps - s))  # the next copy runs behind this block
         m = fetch_metrics(mblk)
@@ -608,6 +633,10 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
             recorder.record_block(b0 + 1, m, wall_s=now_r - t_rec,
                                   generation=rig.doctor.generation if rig is not None else None)
             t_rec = now_r
+        if prof_ctx is not None:
+            prof_ctx.__exit__(None, None, None)
+            prof_ctx = None
+            block_fn.phase_map_dir = None
         if rig is not None:
             alarm_step, reason = rig.observe(b0 + 1, m)
             if reason is not None:
@@ -639,6 +668,12 @@ def _superstep_steps(state, block_fn, key, stream, put_fn, *, train_iter, n_trai
             if rig is not None:
                 rig.note_save(s)
             _chaos_corrupt_range(chaos, path, b0, s)
+            if retune is not None:
+                # a re-allocation snaps to the checkpoint: the rebuilt block
+                # (a fresh capture under a graph) runs from the next block
+                new_fn = retune(s)
+                if new_fn is not None:
+                    block_fn = new_fn
         t_rec = time.perf_counter()  # boundary work (eval, save) is not step time
     if save_freq and train_dir and last_saved < max_steps:
         path = save_fn(state, max_steps)
@@ -941,6 +976,11 @@ def distributed_train_loop(
     diverge=None,
     track_quality: bool = False,
     recorder=None,
+    phase_metrics: bool = False,
+    lr_fn=None,
+    profile_dir: Optional[str] = None,
+    profile_steps: int = 3,
+    budget_tuner=None,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -989,12 +1029,32 @@ def distributed_train_loop(
     probes and the reduce of their series, and rank 0 alone writes (a
     recorder given to another rank is not used); the ``aggregate`` column
     is the exchange in effect, and the byte split carries the hybrid plan's
-    columns and, under ``stream_encode``, the bucket size."""
+    columns and, under ``stream_encode``, the bucket size.
+
+    ``profile_dir`` (``atomo_tpu/parallel/replicated.py:4117-4175``) traces
+    ``profile_steps`` steps from ``start_step + 2`` (under ``superstep`` the
+    second block) on rank 0 with :func:`~atomo_tpu_torch.utils.tracing.
+    profile`, logs ``Profiling steps a..b -> DIR`` and records the window as
+    a ``profile_window`` meta line: what ``report timeline`` reads.
+    ``phase_metrics`` runs the phased gather step
+    (:func:`~atomo_tpu_torch.parallel.replicated.make_phased_step`): the
+    ``Worker:`` line carries real Comp/Encode/Comm seconds and rank 0 adds the
+    reference's ``Master:`` line with its Gather and Decode seconds and
+    ``lr_fn(step)``; it refuses every mode the phased step cannot describe,
+    with the JAX loop's texts. ``budget_tuner`` (a :class:`~atomo_tpu_torch.
+    budget.BudgetRetuner`) re-solves the allocation at each checkpoint
+    boundary (``:3054-3072,3882-3920``) and, when it changed, the step is
+    rebuilt from the new codec (a fresh capture under a graph); it needs
+    the recorded quality series and a save cadence, and refuses the
+    doctor."""
+    from atomo_tpu_torch.utils.metrics import master_line
+    from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT, profile
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.overlap import gather_carry
     from atomo_tpu_torch.parallel.replicated import (
         make_distributed_eval_step,
         make_distributed_train_step,
+        make_phased_step,
         shard_batch,
         shard_superbatch,
     )
@@ -1007,6 +1067,47 @@ def distributed_train_loop(
     )
 
     _check_loop_modes(codec, aggregate, overlap, stream_encode, error_feedback)
+    if phase_metrics and overlap == "delayed":
+        raise ValueError(
+            "--phase-metrics times blocking phase programs and cannot "
+            "describe the overlapped step; drop one of the flags"
+            + PHASE_METRICS_HINT)
+    if error_feedback and phase_metrics:
+        raise ValueError(
+            "--error-feedback needs the fused step (the residual "
+            "rides its carry); --phase-metrics has no fused step"
+            + PHASE_METRICS_HINT)
+    if budget_tuner is not None:
+        if diverge is not None:
+            raise ValueError(
+                "--budget-alloc variance online re-allocation does not "
+                "compose with --on-diverge: a rollback would replay "
+                "pre-reallocation steps under the post-reallocation "
+                "program — freeze the allocation (drop --obs-record or "
+                "--obs-quality) or drop --on-diverge")
+        # the recorder is rank 0's (the others read what it writes)
+        has_recorder = recorder is not None or (torch.distributed.is_initialized()
+                                                and torch.distributed.get_rank() != 0)
+        if not (track_quality and has_recorder and train_dir):
+            raise ValueError(
+                "budget_tuner needs its signal on disk: --obs-quality + "
+                "--obs-record + a --train-dir (the recorded q_err2 "
+                "series is what the boundary re-solve folds)")
+        if not save_freq:
+            raise ValueError(
+                "budget_tuner re-allocates at checkpoint boundaries and "
+                "needs a save cadence (--save-freq or --eval-freq > 0)")
+    if track_quality and phase_metrics:
+        raise ValueError(
+            "--obs-quality probes the fused step's encode in-graph; "
+            "--phase-metrics has no fused step — drop one"
+            + PHASE_METRICS_HINT)
+    if stream_encode and phase_metrics:
+        raise ValueError(
+            "--phase-metrics times a monolithic encode phase program "
+            "and cannot describe the bucket-streamed schedule; drop "
+            "one of the flags"
+            + PHASE_METRICS_HINT)
     if error_feedback and guard is not None:
         raise ValueError(
             "--error-feedback does not compose with --grad-guard / "
@@ -1019,8 +1120,11 @@ def distributed_train_loop(
             "template yet — drop one")
     _check_diverge(diverge, train_dir=train_dir, codec=codec, save_freq=save_freq,
                    keep_ckpts=keep_ckpts, aggregate=aggregate, overlap=overlap,
-                   num_aggregate=num_aggregate)
+                   num_aggregate=num_aggregate, phase_metrics=phase_metrics)
     chaos = resolve_chaos(chaos)
+    if phase_metrics:
+        _check_phase_metrics(superstep, guard, chaos, grad_accum, hybrid, num_aggregate, codec,
+                             aggregate)
     if chaos is not None:
         chaos.maybe_die_crashloop()
     dev = resolve_device(device)
@@ -1031,9 +1135,14 @@ def distributed_train_loop(
     start_step = state.step
     incidents = _incidents(train_dir, diverge is not None) if rank == 0 else None
 
+    # the budget retuner may re-allocate the per-leaf knobs mid-run: every
+    # (re)build reads the codec in effect from this cell
+    codec_cell = {"codec": codec}
+
     def build_step(generation=0, remedy_cfg=None, densify=False):
         chaos_now = chaos.with_generation(generation) if chaos is not None and generation \
             else chaos
+        codec = codec_cell["codec"]
         return make_distributed_train_step(
             model, optimizer, None if densify else codec,
             aggregate="psum" if densify else aggregate, augment=augment,
@@ -1048,8 +1157,13 @@ def distributed_train_loop(
     recorder = recorder if rank == 0 else None
     _arm_recorder(recorder, track_quality, codec, model, start_step, aggregate=aggregate,
                   hybrid=hybrid, stream_bucket_bytes=stream_bucket_bytes if stream_encode else None)
-    step_fn = build_step()
+    if phase_metrics:
+        step_fn = make_phased_step(model, optimizer, codec, augment=augment,
+                                   compute_dtype=compute_dtype)
+    else:
+        step_fn = build_step()
     eval_fn = make_distributed_eval_step(model)
+    prof_dir = profile_dir if rank == 0 else None  # rank 0 alone traces and writes
     key = seed + 1
     timer = Timer()
     rng_snapshot = train_iter.snapshot_rng() if diverge is not None else None
@@ -1102,6 +1216,20 @@ def distributed_train_loop(
         action = "skip" if n_skip > 0 else "rescale"
         return f"Guard: Step: {step}, Dropped: {int(n_drop)}, Action: {action} ({where})"
 
+    retune = None
+    if budget_tuner is not None:
+        budget_tuner.bind(incidents=_incidents(train_dir, True) if rank == 0 else None,
+                          recorder=recorder, log_fn=quiet)
+
+        def retune(step):
+            """The checkpoint-boundary re-solve: a rebuilt step when the
+            allocation changed (the payload shapes with it), else None."""
+            new_codec = budget_tuner.maybe_realloc(step)
+            if new_codec is None:
+                return None
+            codec_cell["codec"] = new_codec
+            return build_step()
+
     if superstep > 1:
         def guard_line(s, kb, m):
             n_drop = float(np.sum(m.get("dropped", 0.0)))
@@ -1120,16 +1248,31 @@ def distributed_train_loop(
                 evaluate_fn=validate if test_iter is not None else None, save_freq=save_freq,
                 train_dir=train_dir, save_fn=save, timer=timer, monitor=monitor, chaos=chaos,
                 rig=rig, guard_line=guard_line if guard is not None else None, world=world,
-                before_recover=torch.distributed.barrier, recorder=recorder)
+                before_recover=torch.distributed.barrier, recorder=recorder,
+                profile_dir=prof_dir, device=dev, retune=retune)
     last_saved = start_step
+    # trace steady-state steps only: step 1 pays the first-call costs
+    prof_first = start_step + 2 if prof_dir else None
+    prof_ctx = None
     with heartbeat_watchdog(health_timeout, on_health_failure) as monitor:
         step = start_step
         t_rec = time.perf_counter()  # the recorder's wall anchor
         while step < max_steps:
             step += 1
             _host_faults(chaos, step - 1, step, world)
+            if prof_first is not None and step == prof_first:
+                prof_ctx = profile(prof_dir, device=dev)
+                prof_ctx.__enter__()
+                quiet(f"Profiling steps {step}..{step + profile_steps - 1} -> {prof_dir}")
+                if recorder is not None:
+                    # the artifact-side join key for `report timeline`
+                    recorder.write_meta({"what": "profile_window", "first_step": step,
+                                         "last_step": step + profile_steps - 1,
+                                         "profile_dir": prof_dir})
             images, labels = shard_batch(*next(stream), rank, world)
-            state, metrics = step_fn(state, key, *to_device(images, labels, dev))
+            out = step_fn(state, key, *to_device(images, labels, dev))
+            state, metrics = out[0], out[1]
+            phases = out[2] if len(out) > 2 else None
             if monitor is not None:
                 float(metrics["loss"])
                 monitor.beat(step)
@@ -1140,10 +1283,17 @@ def distributed_train_loop(
                 recorder.record_block(step, host, wall_s=now_r - t_rec,
                                       generation=rig.doctor.generation if rig else None)
                 t_rec = now_r
+            if prof_ctx is not None and step >= prof_first + profile_steps - 1:
+                prof_ctx.__exit__(None, None, None)
+                prof_ctx = None
             if rig is not None:
                 alarm_step, reason = rig.observe(
                     step, host if host is not None else fetch_metrics(metrics, DOCTOR_SERIES))
                 if reason is not None:
+                    if prof_ctx is not None:  # close the trace before the timeline jumps
+                        prof_ctx.__exit__(None, None, None)
+                        prof_ctx = None
+                    prof_first = None  # the replayed window is not traced twice
                     torch.distributed.barrier()
                     state, stream, step_fn, chaos, step = rig.recover(alarm_step, reason, chaos)
                     last_saved = min(last_saved, step)
@@ -1168,10 +1318,17 @@ def distributed_train_loop(
                         dataset_size=n_train,
                         loss=loss,
                         time_cost=timer.lap(),
+                        comp_dur=phases["comp"] if phases else 0.0,
+                        encode_dur=phases["encode"] if phases else 0.0,
+                        comm_dur=phases["gather"] if phases else 0.0,
                         msg_bytes=int(metrics["msg_bytes"]),
                         prec1=float(metrics["prec1"]),
                         prec5=float(metrics["prec5"]),
                     ), log_fn)
+                    if phases:
+                        log_fn(master_line(step, phases["decode"],
+                                           float(lr_fn(step)) if lr_fn is not None else 0.0,
+                                           phases["gather"]))
             if eval_freq and test_iter is not None and step % eval_freq == 0:
                 validate(step)
             if save_freq and train_dir and step % save_freq == 0:
@@ -1181,7 +1338,15 @@ def distributed_train_loop(
                     rig.note_save(step)
                 if chaos is not None and path is not None:
                     chaos.maybe_corrupt_checkpoint(path, step)
+                if retune is not None:
+                    # the re-solve snaps to the checkpoint just written, so a
+                    # resume from it replays the new epoch exactly
+                    new_fn = retune(step)
+                    if new_fn is not None:
+                        step_fn = new_fn
             t_rec = time.perf_counter()  # boundary work is not step time
+        if prof_ctx is not None:  # a window cut short by max_steps
+            prof_ctx.__exit__(None, None, None)
         if save_freq and train_dir and last_saved < max_steps:
             path = save(state, max_steps)
             if rig is not None:
@@ -1189,6 +1354,42 @@ def distributed_train_loop(
             if chaos is not None and path is not None:
                 chaos.maybe_corrupt_checkpoint(path, max_steps)
     return state
+
+
+def _check_phase_metrics(superstep: int, guard, chaos, grad_accum: int, hybrid,
+                         num_aggregate: int, codec, aggregate: str) -> None:
+    """The JAX loop's refusals and warnings of ``phase_metrics``
+    (``atomo_tpu/parallel/replicated.py:3677-3720``), text for text."""
+    from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT
+
+    if superstep > 1:
+        raise ValueError(
+            "--phase-metrics times individual phase programs and cannot "
+            "run under a fused superstep scan; drop --phase-metrics or "
+            "use --superstep 1"
+            + PHASE_METRICS_HINT)
+    if guard is not None or chaos is not None:
+        raise ValueError(
+            "--phase-metrics is an observability mode without the "
+            "anomaly-guard/chaos hooks; drop --phase-metrics to use "
+            "--grad-guard / --chaos")
+    if grad_accum > 1:
+        raise ValueError(
+            "--grad-accum is not supported with --phase-metrics (the "
+            "phase split assumes one fused compute program)")
+    if hybrid is not None:
+        raise ValueError(
+            "--sparse-rows is not supported with --phase-metrics "
+            "(the phased programs assume one whole-tree codec "
+            "exchange; there is no row-aware phase split)"
+            + PHASE_METRICS_HINT)
+    if num_aggregate:
+        warnings.warn("--phase-metrics uses full aggregation; ignoring --num-aggregate")
+    if codec is not None and aggregate != "gather":
+        warnings.warn(
+            "--phase-metrics always uses gather aggregation (its phase "
+            "split is gather/decode); ignoring --aggregate "
+            f"{aggregate!r} — drop --phase-metrics to time the psum path")
 
 
 def _start_replica(model, optimizer, seed: int, dev, codec, overlap: str, error_feedback: bool,

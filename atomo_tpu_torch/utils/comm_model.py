@@ -373,14 +373,25 @@ def overlap_report(
 def resolve_fabric(fabric: str, *, n_proc: int = 1, measured=None) -> float:
     """Per-card bandwidth (bytes/s) for a ``--fabric`` value: ``auto``
     (nvlink on one host, dcn across hosts; ``n_proc`` counts HOSTS), a named
-    preset, or a positive finite per-card GB/s number. Raises ValueError
-    with the usage line on anything else, in the JAX package's words.
-    ``measured`` is not ported: the startup fabric probe it reads
-    (``obs/fabric.py``) waits for a later slice."""
+    preset, ``measured`` (the ``fabric_probe.json`` artifact: the caller
+    threads the probe document via ``measured=``, and the value is its
+    SLOWEST tier's bandwidth, :func:`atomo_tpu_torch.obs.fabric.
+    measured_outer_bw`), or a positive finite per-card GB/s number. Raises
+    ValueError with the usage line on anything else, in the JAX package's
+    words (``atomo_tpu/utils/comm_model.py:519-560``): without a document
+    the token is a config error with the instruction attached (a preset
+    must never silently stand in for a measurement)."""
     if fabric == "measured":
-        raise ValueError(
-            "--fabric measured needs the startup fabric probe (obs/fabric.py), "
-            "which this port does not have yet; pass a preset or a GB/s number")
+        if measured is None:
+            raise ValueError(
+                "--fabric measured resolves from a fabric_probe.json "
+                "artifact (obs.fabric.probe_fabric) and this surface has "
+                "none — run `train --fabric measured` with a --train-dir "
+                "so the startup probe measures the mesh and records it"
+            )
+        from atomo_tpu_torch.obs.fabric import measured_outer_bw
+
+        return measured_outer_bw(measured)
     if fabric == "auto":
         return FABRICS["dcn" if n_proc > 1 else "nvlink"]
     if fabric in FABRICS:

@@ -71,6 +71,13 @@ class StepMetrics:
         return json.dumps(dataclasses.asdict(self))
 
 
+def master_line(step: int, decode_dur: float, lr: float, gather_dur: float) -> str:
+    """Reference master print format (sync_replicas_master_nn.py:221)."""
+    return "Master: Step: {}, Decode Cost: {}, Cur lr {}, Gather: {}".format(
+        step, decode_dur, lr, gather_dur
+    )
+
+
 class Timer:
     """Wall-clock span timer. Spans of CUDA work are only meaningful when
     the caller has synchronised (reading a loss as a float does)."""

@@ -1,21 +1,27 @@
-"""The incident log and the run-protocol names of the resilience stack.
+"""The incident log, the run-protocol names of the resilience stack, and the
+profiler window.
 
-Counterpart of the stdlib part of ``atomo_tpu/utils/tracing.py:36-305``:
-the environment names the supervisor hands its children
-(:data:`ATTEMPT_ENV`, :data:`MEMBERSHIP_EPOCH_ENV`), the atomic JSON
-writer, the tolerant JSONL reader, and :class:`IncidentLog`, the
-machine-readable post-mortem of a run (``train_dir/incidents.jsonl``): every
-divergence alarm, rollback, retried save, supervised restart and give-up is
-one JSON line there. The schema is the JAX package's key for key (README
-"Incident log"), so each package reads the other's file.
+Counterpart of ``atomo_tpu/utils/tracing.py``: the environment names the
+supervisor hands its children (:data:`ATTEMPT_ENV`,
+:data:`MEMBERSHIP_EPOCH_ENV`), the atomic JSON writer, the tolerant JSONL
+reader, :class:`IncidentLog`, the machine-readable post-mortem of a run
+(``train_dir/incidents.jsonl``: every divergence alarm, rollback, retried
+save, supervised restart and give-up is one JSON line there, the JAX
+package's schema key for key, so each package reads the other's file), and
+:func:`profile` (``:134-143``), the trace window of ``--profile-dir`` that
+``report timeline`` (:mod:`atomo_tpu_torch.obs.timeline`) reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import socket
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+TRACE_SUFFIX = ".pt.trace.json"
 
 # the supervisor's 0-based run attempt on each child (run_supervised sets
 # it, utils.chaos keys crashloop@M and kill@S on it)
@@ -44,6 +50,35 @@ def write_json_atomic(path: str, obj) -> None:
     with open(tmp, "w") as f:
         json.dump(obj, f, indent=1)
     os.replace(tmp, path)
+
+
+@contextlib.contextmanager
+def profile(log_dir: str, device=None) -> Iterator:
+    """Capture a ``torch.profiler`` trace around a block: the CPU activity
+    (the host's operator events and the ``step.*`` ranges), plus the CUDA
+    activity when ``device`` is a card (kernels, copies and sets, each
+    linked to the runtime call that launched it by its ``correlation`` id).
+    On exit (the device synchronized first) it writes one Chrome trace,
+    ``<host>_<pid>.<unix ns>.pt.trace.json``, under ``log_dir``; the
+    trace's ``baseTimeNanoseconds`` plus an event's ``ts`` (microseconds) is
+    the event's unix time. Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    cuda = device is not None and torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch_profile(activities=acts)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        if cuda:
+            torch.cuda.synchronize(device)
+        prof.__exit__(None, None, None)
+        name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}{TRACE_SUFFIX}"
+        prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
 def read_jsonl(path: str) -> list[dict]:

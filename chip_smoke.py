@@ -253,6 +253,36 @@ every hand-written kernel against its plain PyTorch version:
    unarmed eager run, bit for bit. Then the median step ms armed and off,
    eager and at K = 8 (qsgd a graph, svd rank 3 the eager block), in two
    turns.
+18. timeline: the trace-based phase timeline, ``--phase-metrics``,
+   ``--fabric measured`` and the online budget re-allocation. In a
+   deterministic child at NCCL world 1 (this script with
+   ``--timeline-child``): ``distributed_train_loop`` with ``profile_dir``
+   and the flight recorder on ResNet-18 batch 128, qsgd 4 bits eager (steps
+   2-4 traced) and as the K 8 graph (the second block traced, its capture
+   profiled into the phase map), svd rank 3 eager; ``report timeline
+   --strict`` reads each consistent; each dispatch's encode (decode) busy
+   holds row 1's (row 2's) kernels, which the timeline puts there, and the
+   window's encode (decode) busy is at least 0.9 x row 1's (row 2's) device
+   ms timed alone in the `time` phase; eagerly the events the timeline gives
+   each phase fill its ``step.*`` range's device spans (Kineto's own
+   ``gpu_user_annotation``, which ``profile_steps`` reads, in the same
+   trace) edge to edge within 2 us, none of them outside; as the graph each
+   phase's busy ms a step is within 25 % of the eager run's; then 4 phased
+   steps (``phase_metrics``) equal the fused gather loop's parameters bit
+   for bit, with non-zero Comp/Encode/Comm seconds. At once, two gloo ranks
+   on the card (this script with ``--timeline-gloo-child``, deterministic
+   through a sitecustomize): ``train --fabric measured`` (ResNet-18 qsgd, 2
+   steps) writes a complete ``fabric_probe.json`` (host buffers, the gloo
+   backend named), prices and trains as ``--fabric <its GB/s>`` (the same
+   ``--aggregate auto`` line, ``model_step_2`` byte for byte) and is
+   reused on ``--resume``; ``--budget-alloc variance --obs-record
+   --obs-quality --save-freq 8`` (16 steps) re-allocates at step 8 (the
+   recorded series with the largest sub-16-bit leaf's error times 1e4:
+   ``tl_doctor_series``), and the same run killed at step 12 and resumed
+   writes the straight run's ``model_step_16`` byte for byte. Rows 1-2 at
+   the re-allocated widths equal their plain twins (``mixed_tree_check``).
+   ``profile_steps`` (the ``profile ...`` lines) reads its trace through
+   the timeline module too.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -1161,47 +1191,59 @@ def phase_time_flash():
 
 
 def profile_steps(label: str, step_once, steps: int = 3):
-    """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
-    ``step_once()`` (after two warm-up calls), the device's busy time (sum of
-    kernel times) against the host's wall time, each ``step.*`` phase's host
-    time and its span on the device's timeline, and the kernels that take
-    the most."""
+    """Where a step's time goes: a ``--profile-dir`` trace
+    (:func:`atomo_tpu_torch.utils.tracing.profile`) over ``steps`` calls of
+    ``step_once()`` (after two warm-up calls), read by the timeline module
+    (:mod:`atomo_tpu_torch.obs.timeline`): the device's busy time (every
+    attributed kernel, copy and set) against the host's wall time, each
+    ``step.*`` phase's host time and its span on the device's timeline
+    (Kineto's ``gpu_user_annotation``), the timeline's busy / exposed /
+    hidden split by phase, and the kernels that take the most."""
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from atomo_tpu_torch.obs.timeline import (
+        PHASES,
+        build_timeline,
+        latest_trace,
+        parse_trace,
+        phase_totals,
+    )
+    from atomo_tpu_torch.utils.tracing import profile
 
     for _ in range(2):
         step_once()
     torch.cuda.synchronize()
-
-    def dev_us(e):
-        return e.self_device_time_total
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step_once()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # the step.* ranges appear twice: as host ranges, and as annotations on
-    # the device's timeline spanning their kernels (not kernels themselves)
-    kernels = [e for e in events if e.device_type == cuda and not e.key.startswith("step.")]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        with profile(tmp, device="cuda"):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step_once()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        trace = parse_trace(latest_trace(tmp))
+        doc = build_timeline(tmp, trace=trace)
+    totals = phase_totals(doc)
+    busy_ms = (totals["compute_ms"] + sum(totals[p]["busy_ms"] for p in PHASES)) / steps
     phases: dict = {}
-    for e in events:
-        if e.key.startswith("step."):
-            ph = phases.setdefault(e.key, {"host_ms": 0.0, "device_span_ms": 0.0})
-            if e.device_type == cuda:
-                ph["device_span_ms"] += dev_us(e) / 1e3 / steps
-            else:
-                ph["host_ms"] += e.cpu_time_total / 1e3 / steps
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    kernels: dict = {}
+    for e in trace["events"]:
+        cat, name, ms = e.get("cat"), str(e["name"]), float(e.get("dur", 0.0)) / 1e3 / steps
+        if name.startswith("step.") and cat in ("user_annotation", "gpu_user_annotation"):
+            ph = phases.setdefault(name, {"host_ms": 0.0, "device_span_ms": 0.0})
+            ph["host_ms" if cat == "user_annotation" else "device_span_ms"] += ms
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            k = kernels.setdefault(name, [0.0, 0])
+            k[0] += ms
+            k[1] += 1
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     out = {"steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
            "phases": phases,
-           "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / steps,
-                            "count_per_step": e.count / steps} for e in top]}
+           "timeline": {p: {k: v / steps for k, v in totals[p].items()} for p in PHASES},
+           "top_kernels": [{"name": n[:90], "ms_per_step": ms, "count_per_step": c / steps}
+                           for n, (ms, c) in top]}
     if busy_ms <= 0:
         raise AssertionError(f"{label}: the profiler recorded no device time")
     log(f"profile {label}: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
@@ -1209,6 +1251,9 @@ def profile_steps(label: str, step_once, steps: int = 3):
     for k, v in sorted(phases.items()):
         log(f"profile {label} phase {k}: host {v['host_ms']:.3f} ms, device span "
             f"{v['device_span_ms']:.3f} ms")
+    log(f"profile {label} timeline ms/step: " + ", ".join(
+        f"{p} busy {t['busy_ms']:.3f} exposed {t['exposed_ms']:.3f} hidden {t['hidden_ms']:.3f}"
+        for p, t in out["timeline"].items()))
     for t in out["top_kernels"]:
         log(f"profile {label} kernel {t['ms_per_step']:.3f} ms x{t['count_per_step']:.0f} "
             f"{t['name']}")
@@ -2544,7 +2589,8 @@ def budget_allocation(flags, budget_bytes: float = 0.0):
     model = get_model("resnet18", 10, image_shape=(32, 32, 3))
     codec = get_codec(args.code, svd_rank=args.svd_rank or 3,
                       quantization_level=args.quantization_level, sample=args.sample)
-    spectra, alloc = cli.budget_allocation(args, model, codec, it, lambda ln: log("  " + ln))
+    spectra, alloc, _ = cli.budget_allocation(args, model, codec, it,
+                                              lambda ln: log("  " + ln))
     return codec, budgeted_codec(codec, alloc.ks), spectra, alloc
 
 
@@ -2880,12 +2926,29 @@ def phase_budget(work: Path, errs: dict, card: str) -> dict:
     ResNet-18's real gradient at the qsgd variance allocation's widths and at
     a forced allocation of every width 1-16; (b) variance against uniform at
     equal wire bytes; (c) error feedback in a deterministic child; (d) the
-    CLI end to end under torchrun."""
+    CLI end to end under torchrun. The two children start first and run
+    beside (a) and DenseNet's groups; (b), which is timed, runs once they
+    are done."""
     import os
     import socket
 
     import torch
 
+    ef_path = work / "ef.json"
+    ef_proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--budget-child",
+                                str(work), str(ef_path)], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cli_path = work / "budget_cli.json"
+    env = dict(os.environ, OMP_NUM_THREADS=str(os.cpu_count() or 1))  # the CPU probe's threads
+    cli_proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                                 "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+                                 "--master-port", str(port), str(Path(__file__).resolve()),
+                                 "--budget-cli-child", str(cli_path)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=str(ROOT), env=env)
     allocs = {label: budget_allocation(flags) for label, flags in BUDGET_CODES}
     grads = real_resnet_grads(torch.device("cuda"))
     out = {"check": {
@@ -2893,34 +2956,23 @@ def phase_budget(work: Path, errs: dict, card: str) -> dict:
         "every_width": mixed_tree_check(grads, [1 + i % 16 for i in range(len(grads))],
                                         "every width", errs)}}
     del grads
-    out["pairs"] = budget_pairs(work, allocs)
     out["densenet"] = budget_densenet_groups()
     out["ks"] = {label: list(a[3].ks) for label, a in allocs.items()}
-    ef_path = work / "ef.json"
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--budget-child",
-                           str(work), str(ef_path)], capture_output=True, text=True,
-                          timeout=600, cwd=str(ROOT))
-    if proc.returncode != 0:
-        raise AssertionError(f"ef: the deterministic runs failed (exit {proc.returncode}):\n"
-                             + proc.stdout[-2000:] + proc.stderr[-4000:])
+    ef_out, ef_err = ef_proc.communicate(timeout=600)
+    if ef_proc.returncode != 0:
+        raise AssertionError(f"ef: the deterministic runs failed (exit {ef_proc.returncode}):\n"
+                             + ef_out[-2000:] + ef_err[-4000:])
+    cli_out, cli_err = cli_proc.communicate(timeout=600)
+    if cli_proc.returncode != 0 or not cli_path.exists():
+        raise AssertionError(f"budget cli: torchrun failed (exit {cli_proc.returncode}):\n"
+                             + cli_out[-2000:] + cli_err[-4000:])
+    out["pairs"] = budget_pairs(work, allocs)
     out["ef"] = json.loads(ef_path.read_text())
     for label, r in out["ef"].items():
         log(f"ef nccl-1 {label}: ef_res_norm steps 1-{EF_STEPS} "
             + " ".join(f"{v:.6g}" for v in r["ef_res_norm"])
             + f"; step 1 equals the plain step bit for bit; cut after step {EF_CUT} and resumed"
             f" equals the straight run bit for bit (residual included); launches {r['launches']}")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    cli_path = work / "budget_cli.json"
-    env = dict(os.environ, OMP_NUM_THREADS=str(os.cpu_count() or 1))  # the CPU probe's threads
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-                           "1", "--master-addr", "127.0.0.1", "--master-port", str(port),
-                           str(Path(__file__).resolve()), "--budget-cli-child", str(cli_path)],
-                          capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
-    if proc.returncode != 0 or not cli_path.exists():
-        raise AssertionError(f"budget cli: torchrun failed (exit {proc.returncode}):\n"
-                             + proc.stdout[-2000:] + proc.stderr[-4000:])
     res = json.loads(cli_path.read_text())
     lines = res["lines"]
     block = [ln for ln in lines if ln.startswith(("budget allocation", "  [", "Budget:"))]
@@ -4648,6 +4700,449 @@ def phase_obs(work: Path, card: str, grads, errs: dict, det: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------- the timeline phase
+
+TL_STEPS = 6  # eager: the profiled window is steps 2-4
+TL_K8_STEPS = 24  # K 8: the second block, steps 9-16, is traced
+TL_RUNS = (("qsgd_eager", "qsgd", 1, TL_STEPS), ("qsgd_k8", "qsgd", 8, TL_K8_STEPS),
+           ("svd3_eager", "svd", 1, TL_STEPS))
+TL_PHASED_STEPS = 4
+# eagerly, the events the timeline gives a phase against Kineto's own span
+# of the range (its ``gpu_user_annotation``: the first to the last kernel the
+# range launched): each span's edges within 2 us of the extent of that
+# phase's events inside it, and no event of the phase outside every span
+TL_EDGE_US = 2.0
+# the K 8 graph's busy ms a step of each phase against the eager run's
+TL_GRAPH_REL = 0.25
+# a span's encode (decode) busy against row 1's (row 2's) device ms timed
+# alone in this call's `time` phase: the clocks move a few percent
+TL_ROW_REL = 0.9
+TL_REALLOC = ["--code", "qsgd", "--quantization-level", "4", "--budget-alloc", "variance",
+              "--obs-record", "--obs-quality", "--save-freq", "8", "--max-steps", "16",
+              "--n-devices", "2", "--aggregate", "gather", "--eval-freq", "0"]
+TL_FABRIC = ["--code", "qsgd", "--quantization-level", "4", "--n-devices", "2",
+             "--eval-freq", "0", "--save-freq", "2"]
+
+
+def span_agreement(trace: dict) -> dict:
+    """For each phase of the eager step: Kineto's spans of the range that
+    carries it (``gpu_user_annotation``, one a range instance on the stream
+    its kernels ran on) against the kernels the timeline attributes to the
+    phase on that stream: the largest distance of a span's edge from the
+    extent of the phase's events inside it (µs), the phase's events on that
+    stream outside every span, and the phase's events on streams with no
+    span of the range (NCCL's own stream: Kineto's span of a range covers
+    one stream), with both totals in ms."""
+    from atomo_tpu_torch.obs import timeline as TL
+
+    events, _ = TL.attributed_events(trace, None)
+    out = {}
+    for phase, rng in (("encode", "step.encode"), ("exchange", "step.exchange"),
+                       ("decode", "step.decode_mean")):
+        wins: dict = {}
+        for e in trace["events"]:
+            if e.get("cat") == "gpu_user_annotation" and e["name"] == rng:
+                wins.setdefault((e.get("pid"), e.get("tid")), []).append(
+                    (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+        # Kineto spans a range from its kernels: its copies and sets aside
+        mine = [e for e in events if e["phase"] == phase and e["cat"] == "kernel"]
+        edge, outside = 0.0, 0
+        for line, ws in wins.items():
+            on = [e for e in mine if e["line"] == line]
+            seen = set()
+            for s, t in ws:
+                inside = [i for i, e in enumerate(on) if s - TL_EDGE_US <= e["start_us"] <= t]
+                seen.update(inside)
+                edge = max(edge, abs(min(on[i]["start_us"] for i in inside) - s),
+                           abs(max(on[i]["end_us"] for i in inside) - t)) if inside else \
+                    max(edge, t - s)
+            outside += len(on) - len(seen)
+        other = [e for e in mine if e["line"] not in wins]
+        out[phase] = {"spans": sum(len(w) for w in wins.values()), "max_edge_us": edge,
+                      "outside": outside, "other_streams": len(other),
+                      "other_names": sorted({e["name"][:60] for e in other}),
+                      "span_ms": sum(t - s for ws in wins.values() for s, t in ws) / 1e3,
+                      "busy_ms": sum(e["end_us"] - e["start_us"] for e in mine) / 1e3}
+    return out
+
+
+def row_kernels_by_span(trace: dict) -> list:
+    """For each dispatch of the timeline's segmentation: the device ms of row
+    1's and row 2's kernels in it and the phases they were given."""
+    from atomo_tpu_torch.obs import timeline as TL
+
+    events, _ = TL.attributed_events(trace, TL.read_graph_map(str(Path(trace["path"]).parent)))
+    events.sort(key=lambda e: e["start_us"])
+    out = []
+    for ex in TL._segment_executions(events):
+        row = {}
+        for name, kernel in (("quantize_pack", "quantize_pack_kernel"),
+                             ("unpack_dequantize", "unpack_dequantize_tree_kernel")):
+            hits = [e for e in ex if kernel in e["name"]]
+            row[name] = {"ms": sum(e["end_us"] - e["start_us"] for e in hits) / 1e3,
+                         "phases": sorted({e["phase"] for e in hits})}
+        out.append(row)
+    return out
+
+
+def timeline_child(work: str, out_path: str) -> int:
+    """The timeline phase's deterministic runs at NCCL world 1 (this script
+    with ``--timeline-child``): ``distributed_train_loop`` with
+    ``profile_dir`` and the flight recorder on ResNet-18 batch 128, qsgd 4
+    bits eager and as the K 8 graph and svd rank 3 eager, each read back by
+    ``report timeline --strict``; then ``--phase-metrics`` against the fused
+    gather loop, 4 steps each from one start."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.obs.recorder import FlightRecorder
+    from atomo_tpu_torch.obs.timeline import latest_trace, parse_trace
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.training import distributed_train_loop, make_optimizer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/tl_nccl1", world_size=1,
+                      rank=0)
+    out = {}
+
+    def loop(code, k, steps, d, **kw):
+        model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+        it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True, size=4096), 128, seed=1)
+        lines: list[str] = []
+        ops.reset_launch_counts()
+        state = distributed_train_loop(
+            model, make_optimizer("sgd", lr=0.01, momentum=0.9), it, None,
+            codec=get_codec(code, quantization_level=4, svd_rank=3), aggregate="gather",
+            augment=True, max_steps=steps, seed=1, train_dir=str(d), save_freq=0,
+            log_fn=lines.append, log_every=1, device=dev, superstep=k, **kw)
+        torch.cuda.synchronize()
+        return state, lines, ops.launch_counts()
+
+    try:
+        for label, code, k, steps in TL_RUNS:
+            d = Path(work) / f"tl_{label}"
+            t0 = time.perf_counter()
+            _, lines, counts = loop(code, k, steps, d, recorder=FlightRecorder.for_train_dir(
+                str(d)), profile_dir=str(d / "prof"))
+            run_s = time.perf_counter() - t0
+            report: list[str] = []
+            rc = cli.main(["report", "timeline", "--profile-dir", str(d / "prof"), "--train-dir",
+                           str(d), "--strict"], log_fn=report.append)
+            trace = latest_trace(str(d / "prof"))
+            parsed = parse_trace(trace)
+            out[label] = {"rc": rc, "report": report, "launches": counts, "run_s": run_s,
+                          "lines": [ln for ln in lines if not ln.startswith("Worker:")],
+                          "doc": json.loads((d / "timeline_report.json").read_text()),
+                          "trace": trace, "trace_mb": os.path.getsize(trace) / 1e6,
+                          "rows": row_kernels_by_span(parsed),
+                          "spans": span_agreement(parsed) if k == 1 else None}
+        fused, f_lines, f_counts = loop("qsgd", 1, TL_PHASED_STEPS, Path(work) / "tl_fused")
+        phased, p_lines, p_counts = loop("qsgd", 1, TL_PHASED_STEPS, Path(work) / "tl_phased",
+                                         phase_metrics=True,
+                                         lr_fn=lambda s: 0.01 * 0.95 ** (s // 50))
+        out["phased"] = {
+            "equal": state_hash(fused.model) == state_hash(phased.model),
+            "fused_lines": f_lines, "lines": p_lines, "launches": p_counts,
+            "fused_launches": f_counts}
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def tl_doctor_series() -> None:
+    """The re-allocation drill's hook (both ranks, every run alike): the
+    recorded ``q_err2`` series as the retuner reads it, with the error of
+    the largest adaptive leaf below 16 bits in epoch 0 multiplied by 1e4,
+    so the boundary re-solve moves bits to it (``tests/test_budget.py``'s
+    doctored series, applied to the run's own recorded rows)."""
+    from atomo_tpu_torch.budget import read_alloc
+    from atomo_tpu_torch.obs.recorder import FlightRecorder
+
+    read = FlightRecorder.read_steps
+
+    def doctored(path):
+        recs = read(path)
+        doc = read_alloc(str(Path(path).parent))
+        if not doc:
+            return recs
+        layers = doc["epochs"][0]["layers"]
+        target = max((lay["dense_bytes"], i) for i, lay in enumerate(layers)
+                     if lay["adaptive"] and lay["k"] < 16)[1]
+        for r in recs:
+            if isinstance(r.get("q_err2"), list):
+                r["q_err2"] = [v * 1e4 if i == target and v is not None else v
+                               for i, v in enumerate(r["q_err2"])]
+        return recs
+
+    FlightRecorder.read_steps = staticmethod(doctored)
+
+
+def timeline_gloo_child(rank: int, work: str, role: str, out_path: str) -> int:
+    """One rank of the timeline phase's gloo groups of two on cuda:0 (this
+    script with ``--timeline-gloo-child``), deterministic through the
+    sitecustomize on its path. ``role`` ``main``: the straight
+    re-allocation run (16 steps), ``train --fabric measured`` (ResNet-18
+    qsgd 4 bits, 2 steps), the same run with ``--fabric`` pinned to the
+    measured GB/s, the measured run resumed to step 3, then, once the
+    killed run's ranks are gone, that run resumed; ``kill``: the
+    re-allocation run with ``--chaos kill@12``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="gloo", init_method=f"file://{work}/tl_gloo_{role}",
+                      world_size=2, rank=rank)
+    tl_doctor_series()
+    w = Path(work)
+    out = {}
+
+    def run(name, argv):
+        lines: list[str] = []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(TRAIN_ARGS[:-1] + argv, log_fn=lines.append)
+        out[name] = {"rc": rc, "lines": lines, "launches": ops.launch_counts(),
+                     "seconds": time.perf_counter() - t0}
+        Path(out_path).write_text(json.dumps(out))
+
+    try:
+        if role == "kill":
+            run("killed", [str(w / "tl_realloc_killed")] + TL_REALLOC + ["--chaos", "kill@12"])
+            return 1  # the kill ends the process before this
+        run("straight", [str(w / "tl_realloc")] + TL_REALLOC)
+        run("measured", [str(w / "tl_fabric")] + TL_FABRIC + ["--max-steps", "2", "--fabric",
+                                                               "measured"])
+        doc = json.loads((w / "tl_fabric" / "fabric_probe.json").read_text())
+        run("pinned", [str(w / "tl_pinned")] + TL_FABRIC + [
+            "--max-steps", "2", "--fabric", repr(doc["tiers"][0]["bandwidth_gbps"])])
+        run("fabric_resumed", [str(w / "tl_fabric")] + TL_FABRIC + [
+            "--max-steps", "3", "--fabric", "measured", "--resume"])
+        marker = w / "tl_killed_done"  # the parent writes it when the kill ranks end
+        deadline = time.time() + 300
+        while not marker.exists():
+            if time.time() > deadline:
+                raise TimeoutError("the killed run's ranks never ended")
+            time.sleep(0.1)
+        run("resumed", [str(w / "tl_realloc_killed")] + TL_REALLOC + ["--resume"])
+    finally:
+        launch.shutdown()
+    return 0
+
+
+def tl_gloo_spawn(work: Path, role: str, env: dict) -> list:
+    paths = [work / f"tl_gloo_{role}{r}.json" for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--timeline-gloo-child", str(r),
+         str(work), role, str(paths[r])], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return [procs, paths]
+
+
+def tl_check_run(label: str, r: dict, eager: dict, times: dict, card: str) -> dict:
+    """Hold one traced run to the phase's checks (module docstring's
+    item 18) and print its lines."""
+    from atomo_tpu_torch.obs.timeline import PHASES, phase_totals
+
+    doc = r["doc"]
+    k8 = label == "qsgd_k8"
+    n_steps = 8 if k8 else 3
+    totals = phase_totals(doc)
+    per_step = {p: totals[p]["busy_ms"] / n_steps for p in PHASES}
+    names = [c["name"] for c in doc["checks"]]
+    ok = r["rc"] == 0 and doc["consistent"] and per_step["encode"] > 0 and \
+        per_step["decode"] > 0 and (not k8 or "timeline_graph_map" in names)
+    if not ok:
+        raise AssertionError(f"timeline {label}: rc {r['rc']}, checks {doc['checks']}, "
+                             f"busy {per_step}\n" + "\n".join(r["report"]))
+    res = {"per_step_busy_ms": per_step, "totals": totals, "n_dispatches": doc["n_dispatches"],
+           "checks": names, "trace_mb": r["trace_mb"]}
+    if label.startswith("qsgd"):
+        for row, ph in (("quantize_pack", "encode"), ("unpack_dequantize", "decode")):
+            busy = [s["phases"][ph]["busy_ms"] for s in doc["spans"]]
+            per_row = [x[row] for x in r["rows"]]
+            alone = times[row]["device_ms"] * n_steps  # the window's launches, timed alone
+            if (any(x["phases"] not in ([ph], []) for x in per_row)
+                    or any(b < x["ms"] for b, x in zip(busy, per_row))
+                    or sum(busy) < TL_ROW_REL * alone):
+                raise AssertionError(f"timeline {label}: {ph} busy {busy} against row "
+                                     f"{row} {per_row} and {alone} ms timed alone")
+            res[f"{row}_in_{ph}"] = {"busy": busy, "row_ms": [x["ms"] for x in per_row],
+                                     "alone_ms": alone}
+    if k8:
+        for p in ("encode", "decode"):
+            a, b = per_step[p], eager["per_step_busy_ms"][p]
+            if abs(a - b) > TL_GRAPH_REL * b:
+                raise AssertionError(f"timeline {label}: {p} busy {a} ms a step against the eager "
+                                     f"{b}")
+    else:
+        for p, a in r["spans"].items():
+            if a["max_edge_us"] > TL_EDGE_US or a["outside"]:
+                raise AssertionError(f"timeline {label}: {p} against its range's spans: {a}")
+            res[f"{p}_spans"] = a
+    log(f"timeline {label} ({card}): report timeline --strict rc 0, consistent, checks {names}; "
+        f"{doc['n_dispatches']} dispatch(es) over {n_steps} steps; busy ms a step "
+        + ", ".join(f"{p} {per_step[p]:.4f} (exposed {totals[p]['exposed_ms'] / n_steps:.4f}, "
+                    f"hidden {totals[p]['hidden_ms'] / n_steps:.4f})" for p in PHASES)
+        + f", compute {totals['compute_ms'] / n_steps:.4f}, device wall "
+        f"{totals['wall_ms'] / n_steps:.4f}"
+        + (f"; each phase's events fill its range's device spans edge to edge (within "
+           f"{TL_EDGE_US} us; span ms a step " + ", ".join(
+               f"{p} {res[p + '_spans']['span_ms'] / n_steps:.4f}"
+               for p in ("encode", "exchange", "decode")) + ")"
+           + "; on other streams " + ", ".join(
+               f"{p} {res[p + '_spans']['other_streams']} {res[p + '_spans']['other_names']}"
+               for p in ("encode", "exchange", "decode"))
+           if not k8 else "; the capture map attributed every replayed event")
+        + (f"; row 1 in encode {res['quantize_pack_in_encode']['row_ms'][0]:.4f} ms, row 2 in "
+           f"decode {res['unpack_dequantize_in_decode']['row_ms'][0]:.4f} ms"
+           if label.startswith("qsgd") else "") + f"; trace {r['trace_mb']:.1f} MB")
+    return res
+
+
+def phase_timeline(work: Path, card: str, times: dict, errs: dict) -> dict:
+    """The trace-based timeline, the phased step, the measured fabric and the
+    online budget re-allocation on the card (the module docstring's item
+    18): the deterministic NCCL child and the gloo ranks start at once."""
+    import os
+
+    import torch
+
+    t0 = time.time()
+    det = work / "tl_det"
+    det.mkdir(exist_ok=True)
+    (det / "sitecustomize.py").write_text(
+        "import torch\ntorch.use_deterministic_algorithms(True, warn_only=True)\n")
+    # four gloo ranks at once, each with a CPU probe gradient: two threads a
+    # rank share the host's cores instead of oversubscribing them
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(det), str(ROOT)]))
+    for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT", "WORLD_SIZE"):
+        env.pop(k, None)
+    out_path = work / "timeline_child.json"
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--timeline-child",
+                              str(work), str(out_path)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+    kill_procs, _ = tl_gloo_spawn(work, "kill", env)
+    main_procs, main_paths = tl_gloo_spawn(work, "main", env)
+    ends = {}
+    kill_logs = [p.communicate(timeout=300)[0] for p in kill_procs]
+    ends["kill"] = time.time() - t0
+    (work / "tl_killed_done").write_text("")
+    main_logs = [p.communicate(timeout=300)[0] for p in main_procs]
+    ends["main"] = time.time() - t0
+    log_child, _ = child.communicate(timeout=300)
+    ends["nccl child"] = time.time() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"timeline child failed:\n{log_child[-4000:]}")
+    if [p.returncode for p in main_procs] != [0, 0]:
+        raise AssertionError("timeline gloo ranks failed:\n" + "\n".join(
+            t[-3000:] for t in main_logs))
+    t_children = time.time() - t0
+    runs_s = {k: round(v["seconds"], 1) for k, v in json.loads(main_paths[0].read_text()).items()}
+    log("timeline children end (s from the phase's start): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ends.items()) + f"; gloo runs (rank 0, s) {runs_s}")
+    res = json.loads(out_path.read_text())
+    checks = {"qsgd_eager": tl_check_run("qsgd_eager", res["qsgd_eager"], {}, times, card)}
+    checks["qsgd_k8"] = tl_check_run("qsgd_k8", res["qsgd_k8"], checks["qsgd_eager"], times, card)
+    checks["svd3_eager"] = tl_check_run("svd3_eager", res["svd3_eager"], {}, times, card)
+    mode = [ln for ln in res["qsgd_k8"]["lines"] if ln.startswith("Superstep:")]
+    if mode != ["Superstep: K=8, graph"]:
+        raise AssertionError(f"timeline qsgd_k8: {mode}")
+    ph = res["phased"]
+    workers = [ln for ln in ph["lines"] if ln.startswith("Worker:")]
+    masters = [ln for ln in ph["lines"] if ln.startswith("Master:")]
+    figs = [tuple(float(x) for x in re.search(
+        r"Comp: ([\d.]+), Encode: +([\d.]+), Comm: +([\d.]+)", ln).groups()) for ln in workers]
+    n = TL_PHASED_STEPS
+    if not (ph["equal"] and len(workers) == len(masters) == n
+            and all(min(f) > 0 for f in figs)
+            and ph["launches"]["quantize_pack"] == ph["launches"]["unpack_dequantize"] == n):
+        raise AssertionError(f"timeline phased: {ph}")
+    log(f"phase-metrics nccl-1 qsgd ({card}): {n} phased steps equal the fused gather loop's "
+        f"parameters bit for bit; launches {ph['launches']}; Comp/Encode/Comm s by step "
+        + "; ".join(f"{c:.4f}/{e:.4f}/{m:.4f}" for c, e, m in figs) + f"; last: {masters[-1]}")
+    # the gloo ranks: the measured fabric and the re-allocation
+    ranks = [json.loads(p.read_text()) for p in main_paths]
+    r0 = ranks[0]
+    for name, r in r0.items():
+        if r["rc"] != 0 or ranks[1][name]["rc"] != 0:
+            raise AssertionError(f"timeline gloo {name}: {r}")
+    fab = json.loads((work / "tl_fabric" / "fabric_probe.json").read_text())
+    tier = fab["tiers"][0]
+    auto = {k: [ln for ln in r0[k]["lines"] if ln.startswith("--aggregate auto ->")]
+            for k in ("measured", "pinned")}
+    same_state = all((work / "tl_fabric" / f"model_step_{s}").read_bytes()
+                     == (work / "tl_pinned" / f"model_step_{s}").read_bytes() for s in (2,))
+    reused = any(ln.startswith("Fabric probe: reusing") for ln in r0["fabric_resumed"]["lines"])
+    if not (fab["complete"] and auto["measured"] == auto["pinned"] and auto["measured"]
+            and same_state and reused and fab["meta"]["group_backend"] == "gloo"):
+        raise AssertionError(f"timeline fabric: {fab['meta']}, {auto}, state {same_state}, "
+                             f"reused {reused}")
+    log(f"fabric measured gloo-2 on the card ({card}): {fab['meta']['group_backend']} group, "
+        f"{fab['meta']['buffers']} buffers (gloo sends host buffers): {tier['bandwidth_gbps']} "
+        f"GB/s/chip, {tier['latency_us']} us/hop (all_gather {tier['allgather_gbps']} GB/s), "
+        f"probe {fab['meta']['probe_wall_s']} s; complete; the run priced and trained as "
+        f"--fabric {tier['bandwidth_gbps']} (the same auto line, model_step_2 byte for byte); "
+        f"--resume reused the probe; {auto['measured'][0]}")
+    for ln in r0["measured"]["lines"][:2]:
+        log("  " + ln)
+    incidents = [json.loads(ln) for ln in (work / "tl_realloc" / "incidents.jsonl")
+                 .read_text().splitlines()]
+    re_doc = json.loads((work / "tl_realloc" / "budget_alloc.json").read_text())
+    killed_rcs = [p.returncode for p in kill_procs]
+    a = (work / "tl_realloc" / "model_step_16").read_bytes()
+    b_path = work / "tl_realloc_killed" / "model_step_16"
+    equal = b_path.exists() and a == b_path.read_bytes()
+    resumed = r0["resumed"]["lines"]
+    moved = [r for r in incidents if r["cause"] == "budget_realloc"
+             and r["action"].startswith("realloc->")]
+    if not (moved and killed_rcs == [43, 43] and equal and len(re_doc["epochs"]) >= 2
+            and any(ln.startswith("Resumed from") and ln.endswith("at step 8") for ln in resumed)
+            and "Budget: online re-allocation armed (q_err2-fed re-solve at checkpoint "
+                "boundaries; decisions land in incidents.jsonl as budget_realloc)"
+            in r0["straight"]["lines"]):
+        raise AssertionError(f"timeline realloc: incidents {incidents}, killed {killed_rcs}, "
+                             f"equal {equal}, resumed {resumed[:6]}\n" + kill_logs[0][-2000:])
+    new_ks = moved[0]["ks_new"]
+    log(f"realloc gloo-2 qsgd 4 bits ({card}): {len(incidents)} budget_realloc decisions "
+        f"{[(r['step'], r['action']) for r in incidents]}; epoch 1 moved "
+        f"{len(moved[0]['moved'])} leaves, predicted variance {moved[0]['predicted_variance_old']}"
+        f" -> {moved[0]['predicted_variance_new']} (the recorded q_err2 series with the "
+        "largest sub-16-bit leaf's error times 1e4, tl_doctor_series); killed at step 12 "
+        f"(exit codes {killed_rcs}) and resumed from step 8 under epoch 1: model_step_16 "
+        "equals the straight run's byte for byte")
+    t_checks = time.time() - t0
+    grads = real_resnet_grads(torch.device("cuda"))
+    rows = mixed_tree_check(grads, new_ks, "realloc epoch 1", errs)
+    del grads
+    launches = {k: res["qsgd_eager"]["launches"][k] + res["qsgd_k8"]["launches"][k]
+                + res["svd3_eager"]["launches"][k] + ph["launches"][k]
+                + ph["fused_launches"][k] + sum(r["launches"][k] for r in r0.values())
+                for k in REPLACES}
+    out = {"child": {k: {kk: vv for kk, vv in v.items() if kk not in ("doc",)}
+                     for k, v in res.items()},
+           "checks": checks, "fabric": fab, "realloc": {"incidents": incidents,
+                                                        "epochs": re_doc["epochs"],
+                                                        "rows": rows},
+           "launches": launches, "seconds_children": t_children, "seconds_checks": t_checks,
+           "seconds": time.time() - t0}
+    log(f"timeline phase seconds {out['seconds']:.1f} (children {t_children:.1f}, checks "
+        f"{t_checks:.1f})")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -4671,6 +5166,10 @@ def main() -> int:
         return overlap_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--resilience-child"]:
         return resilience_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--timeline-child"]:
+        return timeline_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--timeline-gloo-child"]:
+        return timeline_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     import tempfile
 
     import torch
@@ -4693,6 +5192,7 @@ def main() -> int:
 
     def lap(name):  # wall seconds of each group of phases, for the time budget
         seconds[name] = time.time() - t_start - sum(seconds.values())
+        log(f"phase {name}: {seconds[name]:.1f} s")
 
     phase_build()
     lap("build")
@@ -4744,6 +5244,8 @@ def main() -> int:
         lap("resilience")
         obs = phase_obs(Path(work), card, grads, errs, superstep["obs_deterministic"])
         lap("obs")
+        timeline = phase_timeline(Path(work), card, times, errs)
+        lap("timeline")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -4764,6 +5266,7 @@ def main() -> int:
                 + layouts["launches"][name]
                 + resilience["launches"][name]
                 + obs["launches"][name]
+                + timeline["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -4785,7 +5288,8 @@ def main() -> int:
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
-              "resilience": resilience, "obs": obs, "phase_seconds": seconds,
+              "resilience": resilience, "obs": obs, "timeline": timeline,
+              "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"
     out_dir.mkdir(exist_ok=True)

@@ -137,7 +137,13 @@ def test_resolve_fabric_presets_are_the_cards():
     assert P.resolve_fabric("auto", n_proc=1) == 450e9
     assert P.resolve_fabric("auto", n_proc=2) == P.resolve_fabric("dcn") == 50e9
     assert P.resolve_fabric("eth10g") == J.resolve_fabric("eth10g")
-    with pytest.raises(ValueError, match="obs/fabric.py"):
+    # measured: the startup probe's document (its slowest tier), and without
+    # one the JAX package's instruction
+    doc = {"tiers": [{"label": "ici", "bandwidth_gbps": 40.0},
+                     {"label": "dcn", "bandwidth_gbps": 5.0}]}
+    assert P.resolve_fabric("measured", measured=doc) == \
+        J.resolve_fabric("measured", measured=doc) == 5.0e9
+    with pytest.raises(ValueError, match="fabric_probe.json"):
         P.resolve_fabric("measured")
 
 

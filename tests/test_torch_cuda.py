@@ -39,7 +39,11 @@ launch a bucket) equal the plain twin; a bucket's encode on the side stream
 reads its gradient only after the event of the backward stream, however
 late the device writes it; the delayed step's step 0 holds parameters,
 momentum and BatchNorm statistics, and its next step decodes the carried
-payload without a host sync.
+payload without a host sync. A profiled data-parallel loop at one NCCL rank
+reads as a consistent ``report timeline``, eagerly and as a replayed graph
+(whose profiled capture maps every replayed event to its phase), rows 1 and
+2 in encode and decode; rows 1-2 at the widths of a boundary re-allocation
+equal their plain twins.
 """
 
 import dataclasses
@@ -1526,3 +1530,107 @@ def test_layout_at_ways_one_dense_step_matches_the_cpu(dev, layout):
     assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
     for a, b in zip(got[1], want[1]):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_profiled_loop_reads_as_a_timeline_on_the_card(dev, nccl_group, tmp_path, k):
+    """``distributed_train_loop`` with ``profile_dir`` at one NCCL rank
+    (LeNet, qsgd 4 bits, gather): ``report timeline`` reads the trace
+    consistent, with encode, exchange and decode spans. As blocks of 4 the
+    step is a replayed CUDA graph: its capture, profiled, wrote the phase
+    map beside the trace, every replay ran the captured number of device
+    events, and row 1's and row 2's kernels land in encode and decode."""
+    import json
+
+    from atomo_tpu_torch import cli
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.obs import timeline as TL
+    from atomo_tpu_torch.obs.recorder import FlightRecorder
+    from atomo_tpu_torch.training import distributed_train_loop, make_optimizer
+
+    it = BatchIterator(synthetic_dataset(SPECS["mnist"], True, size=512), 32, seed=1)
+    lines = []
+    distributed_train_loop(
+        get_model("lenet", 10), make_optimizer("sgd", lr=0.01, momentum=0.9), it, None,
+        codec=get_codec("qsgd", quantization_level=4), aggregate="gather",
+        max_steps=12 if k > 1 else 6, seed=1, train_dir=str(tmp_path), log_fn=lines.append,
+        log_every=1, device=dev, superstep=k,
+        recorder=FlightRecorder.for_train_dir(str(tmp_path)),
+        profile_dir=str(tmp_path / "prof"))
+    assert cli.main(["report", "timeline", "--profile-dir", str(tmp_path / "prof"),
+                     "--train-dir", str(tmp_path), "--strict"], log_fn=lines.append) == 0
+    doc = json.loads((tmp_path / TL.TIMELINE_REPORT_NAME).read_text())
+    totals = TL.phase_totals(doc)
+    assert doc["consistent"] and all(totals[p]["busy_ms"] > 0 for p in ("encode", "decode"))
+    trace = TL.parse_trace(TL.latest_trace(str(tmp_path / "prof")))
+    gmap = TL.read_graph_map(str(tmp_path / "prof"))
+    events, notes = TL.attributed_events(trace, gmap)
+    rows = {e["phase"] for e in events if "quantize_pack_kernel" in e["name"]}, \
+        {e["phase"] for e in events if "unpack_dequantize_tree_kernel" in e["name"]}
+    assert rows == ({"encode"}, {"decode"})
+    if k > 1:
+        assert gmap and notes["graph_replays"] == 4 and not notes["graph_mismatch"]
+        assert "timeline_graph_map" in [c["name"] for c in doc["checks"]]
+        assert any(ln == "Profiling superstep block 5..8 -> " + str(tmp_path / "prof")
+                   for ln in lines)
+    else:
+        assert gmap is None and notes["graph_replays"] == 0
+
+
+def test_reallocated_widths_rows_match_plain(dev, tmp_path):
+    """Rows 1-2 at the widths a boundary re-allocation gives ResNet-18 (its
+    spectra from a gradient on the card, the recorded series doctored so
+    that the least-fed leaf carries the error): the encode one launch per
+    width, the decode of 2 gathered replicas one launch per width, against
+    the plain versions on the CPU (scales within 1 ulp, words bit for bit
+    where the scales are the same float, the decoded mean bit for bit)."""
+    import json
+
+    from atomo_tpu_torch import budget as B
+    from atomo_tpu_torch.codecs import decode_mean_tree, encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    base = QsgdCodec(bits=4, use_kernel=True)  # on the CPU: the kernels' plain twins
+    grads = _resnet18_grads(dev, seed=33)
+    spectra = B.measure_spectra(base, grads, [f"leaf{i}" for i in range(len(grads))])
+    alloc = B.solve_allocation(base, spectra)
+    doc = B.new_alloc_doc(base, spectra, alloc)
+    target = min((alloc.ks[s.index], s.index) for s in spectra if s.adaptive
+                 and alloc.ks[s.index] < s.r_full)[1]
+    row = [0.0] * len(spectra)
+    row[target] = 1e6
+    (tmp_path / "metrics.jsonl").write_text("".join(
+        json.dumps({"kind": "step", "step": s, "q_err2": row}) + "\n" for s in range(1, 9)))
+    rt = B.BudgetRetuner(train_dir=str(tmp_path), base_codec=base, spectra=spectra,
+                         alloc=alloc, doc=doc, log_fn=lambda *_: None)
+    codec = rt.maybe_realloc(8)
+    assert codec is not None and codec.ks != alloc.ks
+    cpu = [g.cpu() for g in grads]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    reps = []
+    widths = len(set(codec.ks))
+    for r in range(2):
+        u = [torch.rand((K.geometry(g.numel(), 1).n_buckets, BUCKET), generator=gen,
+                        device=dev) for g in grads]
+        K.reset_launch_counts()
+        got = encode_tree(codec, 40 + r, grads, draws=u)[0]
+        assert K.launch_counts()["quantize_pack"] == widths
+        want = encode_tree(codec, 40 + r, cpu, draws=[t.cpu() for t in u])[0]
+        for a, b in zip(got, want):
+            sa = a.scales.cpu()
+            assert float(_ulps(sa, b.scales).max()) <= 1.0
+            same = sa == b.scales
+            assert _same_bits(a.words.cpu().view(torch.int32)[same],
+                              b.words.view(torch.int32)[same])
+        reps.append(got)
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = unpack_tree_buckets(torch.stack([b for b, _ in packed]), packed[0][1])
+    K.reset_launch_counts()
+    mean = decode_mean_tree(codec, views, grads, 2)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["unpack_dequantize"] == widths
+    plain = decode_mean_tree(codec, [QsgdPayload(v.words.cpu(), v.scales.cpu())
+                                     for v in views], cpu, 2)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(mean, plain))

@@ -2,8 +2,10 @@
 verb and ``evaluate``'s flags, against the JAX verbs on the CPU.
 
 * The refusals of the obs flags carry the JAX verb's messages; the port
-  refuses the online budget re-allocation the JAX verb would arm (ROADMAP
-  queue 1 item 7f) by name, and ``report timeline`` and ``--fleet``; a
+  arms the online budget re-allocation where the JAX verb arms it (several
+  devices, both obs flags, a save cadence) with the JAX verb's line, and
+  prints the frozen line otherwise; ``report timeline`` without a trace
+  exits with the JAX verb's message and ``--fleet`` is refused by name; a
   frozen variance allocation is recorded and passes the JAX report's audit.
 * ``report`` over a directory written by the port's ``train`` (LeNet, qsgd,
   both obs flags, 6 steps): one ``step`` record a step, every layer's
@@ -78,16 +80,31 @@ def test_refusals_carry_the_jax_messages(extra):
 
 def test_online_reallocation_is_refused_by_name(tmp_path):
     """Over several devices with both obs flags and a save cadence the JAX
-    verb arms its online re-allocation; the port names the missing item,
-    and with one flag off it prints the JAX verb's frozen line."""
+    verb arms its online re-allocation, and so does the port, with its line
+    (a retuner on every rank, the writer's alone owning the artifacts);
+    with one flag off, or on one device, it prints the JAX verb's frozen
+    line."""
+    from atomo_tpu_torch.budget import BudgetRetuner, Allocation
+
     args = cli.build_parser().parse_args(
         LENET + ["--code", "qsgd", "--budget-alloc", "variance", "--obs-quality",
                  "--obs-record", "--save-freq", "2", "--train-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 7f"):
-        cli._recorder(args, 2, print, write=False)
-    args.obs_quality = False
+    alloc = Allocation(mode="variance", ks=(4, 4), payload_bytes=8, budget_bytes=8,
+                       predicted_variance=1.0)
+    doc = {"epochs": [{"epoch": 0, "start_step": 0}]}
     lines = []
-    assert cli._recorder(args, 2, lines.append, write=False) is None
+    recorder, tuner = cli._recorder(args, 2, lines.append, write=False,
+                                    budget=("codec", [], alloc, doc))
+    assert recorder is None and isinstance(tuner, BudgetRetuner) and not tuner.owner
+    assert tuner.alloc is alloc and tuner.last_boundary == 0
+    assert lines == ["Budget: online re-allocation armed (q_err2-fed re-solve at checkpoint "
+                     "boundaries; decisions land in incidents.jsonl as budget_realloc)"]
+    lines.clear()
+    assert cli._recorder(args, 1, lines.append, write=False) == (None, None)
+    assert lines == ["Budget: allocation frozen for this run"]
+    args.obs_quality = False
+    lines.clear()
+    assert cli._recorder(args, 2, lines.append, write=False) == (None, None)
     assert lines == ["Budget: allocation frozen for this run (arm --obs-quality "
                      "--obs-record with a checkpoint cadence to re-solve at boundaries)"]
 
@@ -110,7 +127,8 @@ def test_budget_allocation_is_recorded_and_audited(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["report", "timeline"], "ROADMAP queue 1 item 7d"),
+    (["report", "timeline"], "report timeline: profile dir .* does not exist — run training "
+                             "with --profile-dir DIR to capture a trace"),
     (["report", "--fleet"], "ROADMAP queue 1 item 11"),
 ], ids=["timeline", "fleet"])
 def test_report_modes_not_ported_are_refused(tmp_path, argv, match):
