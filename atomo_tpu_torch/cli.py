@@ -303,7 +303,7 @@ def _diverge_preflight(args: argparse.Namespace) -> None:
         args.on_diverge, train_dir=args.train_dir,
         codec=None if args.code.lower() in DENSE_CODES else args.code,
         aggregate=args.aggregate if multi else None, overlap=args.overlap,
-        phase_metrics=args.phase_metrics,
+        zero1=_partition(args) == "zero1" and multi, phase_metrics=args.phase_metrics,
         num_aggregate=args.num_aggregate if multi else None, keep_ckpts=args.keep_ckpts,
         save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
     if reason:
@@ -353,7 +353,7 @@ def _diverge_config(args: argparse.Namespace, codec, n_dev: int, aggregate):
     reason = diverge_conflict(
         args.on_diverge, train_dir=args.train_dir, codec=codec,
         aggregate=aggregate if n_dev > 1 else None, overlap=args.overlap,
-        phase_metrics=args.phase_metrics,
+        zero1=_partition(args) == "zero1" and n_dev > 1, phase_metrics=args.phase_metrics,
         num_aggregate=args.num_aggregate if n_dev > 1 else None, keep_ckpts=args.keep_ckpts,
         save_freq=args.save_freq or args.eval_freq, window=args.diverge_window)
     if reason:
@@ -459,6 +459,22 @@ def _fit_flags(p: argparse.ArgumentParser) -> None:
                    help="retain only the newest K model_step_N checkpoints (0 = all)")
     p.add_argument("--compress", action="store_true", default=False,
                    help="lossless-compress checkpoints (the port's host codec)")
+    p.add_argument("--zero1", action="store_true", default=False,
+                   help="ZeRO-1 optimizer-state sharding: each rank holds 1/n of the "
+                        "flat momentum/Adam buffers, updates its slice, and one "
+                        "all_gather reassembles the replicated params (multi-device "
+                        "only). Alias for --partition zero1")
+    p.add_argument("--partition", type=str, default="replicated",
+                   choices=["replicated", "zero1", "sharded-update"],
+                   help="weight-update partitioning: 'replicated' keeps params+optimizer "
+                        "state on every rank; 'zero1' shards the optimizer state only; "
+                        "'sharded-update' (Xu et al. 2004.13336) shards master weights AND "
+                        "optimizer state AND the update over the ranks — per-rank "
+                        "persistent state drops to 1/n, the dense model exists only "
+                        "transiently inside the step, trajectories stay bit-identical to "
+                        "replicated per codec, and — unlike zero1 — checkpoints carry the "
+                        "--overlap delayed in-flight payload, so supervised restarts "
+                        "resume bit-exact")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="mixed precision: forward and backward in bfloat16; master "
                         "params, optimizer state, gradients, loss and BatchNorm "
@@ -778,6 +794,43 @@ def _model_and_test_iter(args: argparse.Namespace):
     return model, test_iter
 
 
+def _partition(args: argparse.Namespace) -> str:
+    """The weight-update partition, one of replicated | zero1 |
+    sharded_update (``atomo_tpu/cli.py:849-864``): ``--zero1`` is the alias
+    of ``--partition zero1`` and conflicts with the sharded update."""
+    p = getattr(args, "partition", "replicated").replace("-", "_")
+    if getattr(args, "zero1", False):
+        if p == "sharded_update":
+            raise SystemExit(
+                "--zero1 conflicts with --partition sharded-update: "
+                "ZeRO-1 is the sharded update's shard-state-only "
+                "degenerate point — pass one of the two")
+        p = "zero1"
+    return p
+
+
+def _partition_preflight(args: argparse.Namespace) -> None:
+    """The sharded update's argv refusals (``atomo_tpu/cli.py:898-930``)
+    for the flags the port has (``--elastic`` is not ported)."""
+    if _partition(args) != "sharded_update":  # raises on the --zero1 conflict
+        return
+    if args.phase_metrics:
+        raise SystemExit(
+            "--partition sharded-update is not supported with "
+            "--phase-metrics (the phased update program assumes a "
+            "replicated optimizer state)")
+    if args.on_diverge != "off":
+        raise SystemExit(
+            "--on-diverge rollback rebuilds replicated templates "
+            "and cannot re-thread the sharded master layout yet; "
+            "drop --partition sharded-update or --on-diverge")
+    if args.sparse_rows != "off":
+        raise SystemExit(
+            "--partition sharded-update does not compose with "
+            "--sparse-rows yet (the row exchange is untested "
+            "against the flat master layout)")
+
+
 def _overlap_preflight(args: argparse.Namespace) -> None:
     """The JAX verb's argv refusals of ``--overlap delayed`` and
     ``--stream-encode on`` (``atomo_tpu/cli.py:1013-1084``) for the flags
@@ -803,6 +856,16 @@ def _overlap_preflight(args: argparse.Namespace) -> None:
                 "--phase-metrics times blocking phase programs and cannot "
                 "describe the overlapped step; drop one of the flags"
                 + PHASE_METRICS_HINT)
+        if _partition(args) == "zero1" and args.max_restarts > 0 and args.train_dir:
+            raise SystemExit(
+                "--max-restarts with --zero1 --overlap delayed cannot work: "
+                "supervised restarts resume from checkpoints, and a "
+                "--zero1 run cannot resume the delayed in-flight payload "
+                "(the legacy sharded optimizer template cannot carry it) "
+                "— every restart would fail instantly and burn the "
+                "budget; drop one of the three, or switch to --partition "
+                "sharded-update, whose checkpoints hold the payload as a "
+                "sharded carry leaf and resume bit-exact")
     if args.stream_encode == "on":
         if args.code.lower() in DENSE_CODES:
             raise SystemExit(
@@ -964,6 +1027,11 @@ def _budget_preflight(args: argparse.Namespace) -> None:
         raise SystemExit(
             "--error-feedback does not compose with --num-aggregate: "
             "an unconsumed encode's residual would be mis-attributed")
+    if _partition(args) != "replicated":
+        raise SystemExit(
+            "--error-feedback does not compose with --zero1 / "
+            "--partition sharded-update yet: the residual carry is "
+            "untested against the sharded state templates")
     if args.phase_metrics:
         raise SystemExit(
             "--error-feedback needs the fused step (the residual "
@@ -1364,6 +1432,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     from atomo_tpu_torch.training.resilience import DivergenceError, GuardConfig
     from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
 
+    _partition_preflight(args)
     superstep = _superstep(args)
     _fabric_preflight(args)
     _overlap_preflight(args)
@@ -1433,6 +1502,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
             warnings.warn("--error-feedback needs a multi-device mesh; single-device "
                           "training has no exchanged estimator to compensate — "
                           "ignoring it")
+        _single_partition_warnings(args)
         if args.budget_alloc == "variance":
             codec = budgeted_codec(codec, budget_allocation(
                 args, model, codec, train_iter, log_fn)[1].ks)
@@ -1477,6 +1547,12 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         recorder, budget_tuner = _recorder(args, n_dev, rank_log, write=ctx.rank == 0,
                                            budget=budget)
         aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
+        partition = _partition(args).replace("_", "-")
+        if partition == "zero1" and n_dev <= 1:
+            # zero1 = partition == "zero1" and n_dev > 1 (atomo_tpu/cli.py:1750);
+            # the sharded update at one rank is its degenerate case and runs
+            warnings.warn(ZERO1_ONE_DEVICE)
+            partition = "replicated"
         _resolved_chaos(chaos, n_dev)
         diverge = _diverge_config(args, codec, n_dev, aggregate)
         try:
@@ -1490,12 +1566,31 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 track_quality=args.obs_quality, recorder=recorder,
                 phase_metrics=args.phase_metrics, lr_fn=_reference_lr(args),
                 profile_dir=args.profile_dir or None, budget_tuner=budget_tuner,
-                **{**common, "device": ctx.device})
+                partition=partition, **{**common, "device": ctx.device})
         except DivergenceError as exc:
             return _diverged_exit(exc)
     finally:
         if not was_up:
             launch.shutdown()
+
+
+ZERO1_ONE_DEVICE = (
+    "--zero1 needs a multi-device mesh; single-device training "
+    "has no dp axis to shard the optimizer state over — "
+    "ignoring it")
+
+
+def _single_partition_warnings(args: argparse.Namespace) -> None:
+    """The JAX verb's warnings for a partition on the single-device path
+    (``atomo_tpu/cli.py:3095-3119``), which trains the replicated update."""
+    if args.zero1:
+        warnings.warn(ZERO1_ONE_DEVICE)
+    if _partition(args) != "replicated":
+        warnings.warn(
+            f"--partition {_partition(args)} is wired into the "
+            "distributed loop; the single-device path trains the "
+            "replicated update (the --zero1 precedent — there is "
+            "nothing to shard a 1-chip update over)")
 
 
 def _reference_lr(args: argparse.Namespace):

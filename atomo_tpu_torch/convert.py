@@ -322,3 +322,81 @@ def to_numpy_tree(tree: dict) -> dict:
     a gathered full tree): the JAX package's layout as it is."""
     return {k: to_numpy_tree(v) if isinstance(v, dict)
             else np.array(v.detach().cpu().numpy(), copy=True) for k, v in tree.items()}
+
+
+# ---- the flat layout of the partitioned update ------------------------------
+# The JAX package's ZeRO-1 and sharded update ravel the params tree
+# (``ravel_pytree``: the canonical leaf order, each leaf in the JAX layout)
+# and pad it to chunk * N; the port's flat vector takes the same leaves in the
+# same order, each in the PORT's layout (mesh.update), padded alike. The two
+# hold the same values at other places within each leaf.
+
+
+def _leaf_sizes(model: nn.Module) -> tuple[list, list, list]:
+    """(names, port shapes, transposed?) of the params in canonical order."""
+    named = dict(model.named_parameters())
+    names = jax_leaf_order(model)
+    keep = _untransposed(model)
+    return names, [tuple(named[n].shape) for n in names], [n not in keep for n in names]
+
+
+def port_flat_from_jax(model: nn.Module, flat) -> torch.Tensor:
+    """A JAX flat vector (``ravel_pytree`` order and layout, any padding at
+    the end, kept as it is) as the port's flat vector of the same length."""
+    src = torch.from_numpy(np.array(flat, dtype=np.float32).reshape(-1))
+    out = src.clone()
+    at = 0
+    for _, shape, tr in zip(*_leaf_sizes(model)):
+        n = int(np.prod(shape, dtype=np.int64))
+        jshape = tuple(jax_view(torch.empty(shape), tr).shape)
+        out[at:at + n] = from_jax_view(src[at:at + n].view(jshape), tr).reshape(-1)
+        at += n
+    return out
+
+
+def jax_flat_from_port(model: nn.Module, flat: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`port_flat_from_jax`: the port's flat vector as the
+    JAX package's, the padding kept."""
+    src = flat.detach().cpu().reshape(-1)
+    out = src.clone()
+    at = 0
+    for _, shape, tr in zip(*_leaf_sizes(model)):
+        n = int(np.prod(shape, dtype=np.int64))
+        out[at:at + n] = jax_view(src[at:at + n].view(shape), tr).reshape(-1)
+        at += n
+    return out.numpy().copy()
+
+
+def flat_opt_from_jax(model: nn.Module, opt_state) -> dict:
+    """The JAX package's flat optimizer state (``flat_opt_state``'s: each
+    per-leaf field one (N * chunk,) vector) as the port's full flat fields:
+    ``{"count": int, field: [port flat vector]}`` for each field the optax
+    state holds (``trace``; ``mu``, ``nu``, ``nu_max``)."""
+    fields = {f: getattr(s, f) for s in _named_states(opt_state) for f in s._fields}
+    if "count" not in fields:
+        raise ValueError("not an optax state of atomo_tpu's make_optimizer: no count")
+    out = {"count": int(np.asarray(fields["count"]))}
+    for key in _PER_LEAF:
+        if key in fields:
+            out[key] = [port_flat_from_jax(model, np.asarray(fields[key]))]
+    return out
+
+
+def jax_flat_opt(model: nn.Module, full: dict, template):
+    """The JAX package's flat optax state from the port's full flat fields
+    (:func:`flat_opt_from_jax`'s form): ``template`` (the JAX optimizer's
+    ``init`` on a flat vector) with its count and vectors replaced."""
+    values = {"count": np.asarray(full["count"], np.int32)}
+    for key in _PER_LEAF:
+        if full.get(key) is not None:
+            values[key] = jax_flat_from_port(model, full[key][0])
+
+    def fill(node):
+        if hasattr(node, "_fields"):
+            return node._replace(**{f: values[f] if f in values else fill(getattr(node, f))
+                                    for f in node._fields})
+        if isinstance(node, tuple):
+            return tuple(fill(t) for t in node)
+        return node
+
+    return fill(template)

@@ -74,7 +74,9 @@ holding a replica, and the collectives of the program become calls of
   side stream under this step's forward and backward;
 * momentum SGD on the mean, then the dp mean of the BatchNorm statistics
   (``:1879``) and of loss and prec@1/5 (``:1881-1883``), one
-  ``all_reduce`` over a packed buffer each.
+  ``all_reduce`` over a packed buffer each; under ``zero1`` or
+  ``sharded_update`` (:mod:`atomo_tpu_torch.mesh.update`) the update runs on
+  this rank's slice of the flat parameter vector.
 
 Phases are ``record_function`` ranges named as the reference's
 ``named_phase`` scopes: ``step.forward_backward``, ``step.encode``,
@@ -84,7 +86,8 @@ bucket encodes' ``step.encode_bucket``, the delayed consume's
 ``step.delayed_exchange``, ``step.delayed_decode_mean`` and
 ``step.delayed_ring_exchange_decode``, the ring's
 ``step.ring_exchange_decode``, the hybrid's ``step.hybrid_exchange`` around
-its encode, exchange and decode, ``step.update``. No collective needs a host
+its encode, exchange and decode, ``step.update``, and the sharded update's
+``step.materialize_params`` and ``step.sharded_update``. No collective needs a host
 sync: every size is static.
 """
 
@@ -490,6 +493,38 @@ def _check_overlap(codec, aggregate: str, overlap: str, stream_encode: bool) -> 
             "yet — rejected honestly rather than silently degraded")
 
 
+def _check_partition(zero1, sharded_update, hybrid, world: int, parts: bool):
+    """The step factory's refusals of ``zero1`` and ``sharded_update``
+    (``atomo_tpu/parallel/replicated.py:1368-1405``); returns the specs in
+    effect, or None for the replicated update."""
+    if sharded_update is not None:
+        if zero1 is not None:
+            raise ValueError(
+                "sharded_update supersedes zero1 (ZeRO-1 is its "
+                "shard-state-only degenerate point); pass one, not both")
+        if hybrid is not None:
+            raise ValueError(
+                "sharded_update does not compose with hybrid= yet: the "
+                "per-layer row exchange is untested against the flat "
+                "master layout — run hybrid with the replicated or "
+                "zero1 update")
+    part = sharded_update if sharded_update is not None else zero1
+    if part is None:
+        return None
+    if parts:
+        raise ValueError(
+            "the oracle and phase programs drive the replicated update; the "
+            "partitions are drilled against the replicated trajectory instead "
+            "(bit-identical per codec)")
+    if part.n_shards != world:
+        raise ValueError(
+            f"{part.partition} specs shard over {part.n_shards} ranks but this "
+            f"step's group has {world} — build the state with "
+            f"{'sharded_update_state' if sharded_update is not None else 'zero1_state'} "
+            "in this group")
+    return part
+
+
 def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
     """(aggregate in effect, k of num_aggregate or 0), as the reference
     resolves them (``:1205-1212``)."""
@@ -542,6 +577,8 @@ def make_distributed_train_step(
     track_ok_bits: bool = False,
     survivor_exact: bool = False,
     track_quality: bool = False,
+    zero1=None,
+    sharded_update=None,
     _oracle_parts: bool = False,
     _phase_parts: bool = False,
 ):
@@ -634,7 +671,28 @@ def make_distributed_train_step(
     gather and ring decode the rank's payloads once more (one tree decode,
     one replica), the hybrid decodes its row leaves losslessly (they read
     0). It needs a codec and the blocking step: ``overlap='delayed'``'s
-    carry describes the previous step."""
+    carry describes the previous step.
+
+    ``zero1`` and ``sharded_update`` (the specs of
+    :func:`~atomo_tpu_torch.mesh.update.zero1_state` or
+    :func:`~atomo_tpu_torch.mesh.update.sharded_update_state`, one or the
+    other; ``atomo_tpu/parallel/replicated.py:399-463,1849-1876,2181-2195``)
+    partition the update over the group's ranks. ZeRO-1 updates this rank's
+    slice of the flat parameter vector with its flat optimizer slice (the
+    mean gradient's matching slice) and one ``all_gather_into_tensor``
+    rebuilds the replicated parameters. The sharded update steps a
+    :class:`~atomo_tpu_torch.mesh.update.ShardedUpdateState`: at the
+    step's start one ``all_gather_into_tensor`` of the masters fills the
+    working buffer whose views the parameters are
+    (``step.materialize_params``), after the exchange this rank's (master,
+    optimizer) slice is updated (``step.sharded_update``) with no closing
+    gather, and the eager step releases the working buffer and the
+    gradients after it (a graph keeps them: static graph memory). Both
+    compose with every exchange, ``num_aggregate``, ``stream_encode``,
+    ``superstep``, chaos, the quality probe, mixed precision,
+    ``grad_accum``, the guard (a skipped step holds the slices) and
+    ``overlap='delayed'``; ZeRO-1 with ``hybrid`` too. Their trajectories
+    equal the replicated one's bit for bit."""
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
@@ -666,6 +724,14 @@ def make_distributed_train_step(
     if error_feedback:
         k_pre = num_aggregate if 0 < num_aggregate < world else 0
         _check_error_feedback(codec, hybrid, k_pre, overlap, guard)
+        if zero1 is not None or sharded_update is not None:
+            raise ValueError(
+                "error_feedback does not compose with zero1/"
+                "sharded-update yet: the residual carry is untested "
+                "against the sharded state templates")
+    part = _check_partition(zero1, sharded_update, hybrid, world,
+                            _oracle_parts or _phase_parts)
+    su = sharded_update
     if hybrid is not None:
         _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world, overlap,
                       stream_encode, guard)
@@ -687,6 +753,9 @@ def make_distributed_train_step(
     if chaos is not None:
         chaos.prepare(device)
     guarded = Guarded(optimizer, params, stats, device) if guard is not None else None
+    if part is not None and part.flat.device != device:
+        raise ValueError(f"the partition's flat buffer is on {part.flat.device}, the model on "
+                         f"{device}: build the specs from this model")
     # svd's eigh refuses non-finite input where XLA's returns NaN: under the
     # guard its encode takes the gradient with non-finite entries zeroed (an
     # unhealthy replica's payload is masked out either way, and a healthy
@@ -871,6 +940,33 @@ def make_distributed_train_step(
             p.grad = None
         return images
 
+    def materialize(state: TrainState) -> None:
+        """The sharded update's working parameters from every rank's master."""
+        if su is None:
+            return
+        if getattr(state, "master", None) is None:
+            raise ValueError("sharded_update steps a ShardedUpdateState: build it with "
+                             "mesh.update.sharded_update_state")
+        with record_function("step.materialize_params"):
+            su.materialize(state.master)
+
+    def apply_update(state: TrainState, mean, opt_scalars):
+        """The optimizer's update of the partition in effect; returns the
+        optimizer state."""
+        if su is not None:  # this rank's (master, optimizer) slice, no gather
+            with record_function("step.sharded_update"):
+                return optimizer.update([su.grad_slice(mean)], state.opt_state, [state.master],
+                                        scalars=opt_scalars)
+        with record_function("step.update"):
+            if zero1 is None:
+                return optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
+            own = zero1.own(zero1.flat)  # this rank's slice of the parameters, a view
+            opt_state = optimizer.update([zero1.grad_slice(mean)], state.opt_state, [own],
+                                         scalars=opt_scalars)
+            if world > 1:  # the updated slices rebuild the replicated parameters
+                dist.all_gather_into_tensor(zero1.flat, own.clone())
+            return opt_state
+
     def update_and_stats(state: TrainState, mean, opt_scalars, local=None, ok=None,
                          with_stats: bool = True):
         """The optimizer's update, then the dp means of the BatchNorm
@@ -882,8 +978,7 @@ def make_distributed_train_step(
         metric means, healthy ranks or None). ``mean`` None updates nothing,
         ``with_stats`` False leaves the statistics alone."""
         if mean is not None:
-            with record_function("step.update"):
-                opt_state = optimizer.update(mean, state.opt_state, params, scalars=opt_scalars)
+            opt_state = apply_update(state, mean, opt_scalars)
         else:
             opt_state = state.opt_state
         with torch.no_grad():
@@ -920,6 +1015,7 @@ def make_distributed_train_step(
         ``k_codec`` a 0-d device tensor, ``opt_scalars`` the optimizer's
         device values, ``step_t`` and ``count_t`` the step and the
         optimizer's count as 0-d device integers)."""
+        materialize(state)
         images = begin(images, aug)
         step_index = state.step if step_t is None else step_t  # 0-based
         if guarded is not None:
@@ -1001,8 +1097,8 @@ def make_distributed_train_step(
             guarded.hold(ok_step, state, held)
             metrics["skipped"] = 1.0 - ok_step.to(torch.float32)
             metrics["dropped"] = n_contrib - kept
-        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
-                          residual=residual, held=held), metrics
+        return dataclasses.replace(state, step=state.step + 1, model=model, opt_state=opt_state,
+                                   residual=residual, held=held), metrics
 
     # ---------------------------------------------- overlap='delayed'
 
@@ -1056,6 +1152,7 @@ def make_distributed_train_step(
             raise ValueError("overlap='delayed' steps a state that carries its in-flight "
                              "payload: build it with init_delayed_state")
         step_index = state.step if step_t is None else step_t
+        materialize(state)
         if guarded is not None:
             guarded.snapshot(state)
         mean = None
@@ -1109,9 +1206,10 @@ def make_distributed_train_step(
             if track_grad_norm:
                 # the doctor follows this forward, not the consumed payload
                 metrics["sample_skipped"] = 1.0 - (okg.sum() > 0).to(torch.float32)
-        return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
-                          carry=dataclasses.replace(carry, valid=True),
-                          held=count_held), metrics
+        return dataclasses.replace(state, step=state.step + 1, model=model,
+                                   opt_state=opt_state,
+                                   carry=dataclasses.replace(carry, valid=True),
+                                   held=count_held), metrics
 
     if _oracle_parts:
         return _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world,
@@ -1133,12 +1231,15 @@ def make_distributed_train_step(
         out = run_core(state, images, labels, aug=k_aug, k_drop=k_drop, k_codec=k_codec,
                        draws=draws, dropout_masks=dropout_masks)
         step.stream_log = log_holder.get("log")
+        if su is not None:  # between eager steps a rank holds its slices alone
+            su.release(params)
         return out
 
     step.core = run_core
     step.keys = keys
     step.stream_log = None
     step.plan = plan
+    step.partition = part
     # a delayed step whose carry holds nothing yet applies no update
     step.skips = lambda st: overlap == "delayed" and not st.carry.valid
     # the Dropout streams: one a step, or microbatch i's under fold_in(k_drop, i)

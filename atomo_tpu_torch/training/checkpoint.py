@@ -14,7 +14,14 @@ residual (every rank's, one (N, d) tensor) and ``"overlap_carry"`` when it
 carries ``--overlap delayed``'s in-flight payload (``{"payload": (N, B)
 uint8, "ok": (N,) float32, "valid": 0-d float32}``, every rank's), every
 tensor on the CPU, read back with ``torch.load(weights_only=True)`` and
-copied into the caller's model and optimizer state on their device; with
+copied into the caller's model and optimizer state on their device. A
+``--partition sharded-update`` state saves ``"master"`` (the gathered flat
+parameter vector, :mod:`atomo_tpu_torch.mesh.update`'s layout) and
+``"buffers"`` (the BatchNorm statistics) in the place of ``"model"``, its
+optimizer fields as full flat vectors (ZeRO-1's are saved so too, beside
+its ``"model"``); such a file is read with :func:`read_checkpoint` and has no
+per-leaf parameters, so :func:`load_params` refuses it as the JAX package's
+does. With
 ``compress`` it goes through the port's lossless codec
 (:mod:`atomo_tpu_torch.native.lossless`) first. The port reads flax msgpack
 no more than it imports flax, so its magics are its own, and a file of the
@@ -173,10 +180,15 @@ def _payload(state, step: int) -> bytes:
     count = opt.count - (int(held) if held is not None else 0)
     obj = {
         "step": step,
-        "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
         "opt_state": {f.name: (count if f.name == "count" else _cpu(getattr(opt, f.name)))
                       for f in dataclasses.fields(opt)},
     }
+    master = getattr(state, "master", None)
+    if master is None:
+        obj["model"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    else:  # the sharded update: the gathered flat master and the statistics
+        obj["master"] = master.detach().cpu()
+        obj["buffers"] = {k: v.detach().cpu() for k, v in state.model.named_buffers()}
     if getattr(state, "residual", None) is not None:
         obj["ef_residual"] = state.residual.detach().cpu()
     carry = getattr(state, "carry", None)
@@ -310,7 +322,8 @@ def _read_payload(path: str) -> dict:
         d = torch.load(io.BytesIO(payload), map_location="cpu", weights_only=True)
     except Exception as exc:  # the unpickler raises several kinds
         raise CorruptCheckpointError(f"{path!r}: undecodable payload ({exc})") from exc
-    if not isinstance(d, dict) or not {"step", "model", "opt_state"} <= set(d):
+    if (not isinstance(d, dict) or not {"step", "opt_state"} <= set(d)
+            or not ({"model"} <= set(d) or {"master", "buffers"} <= set(d))):
         raise CorruptCheckpointError(f"{path!r}: not a checkpoint payload")
     return d
 
@@ -407,7 +420,7 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     directory holds none; an explicit ``step`` raises
     :class:`CorruptCheckpointError` rather than substitute other weights."""
     d = _read(train_dir, step)
-    _load_model(state.model, d["model"])
+    _load_model(state.model, _params_of(d))
     opt_state = _load_opt_state(state.opt_state, d["opt_state"])
     return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state,
                                residual=d.get("ef_residual"), carry=d.get("overlap_carry"),
@@ -419,5 +432,26 @@ def load_params(train_dir: str, model: nn.Module, step: Optional[int] = None) ->
     and return the checkpoint's step: the evaluator's path, whatever
     optimizer wrote the file."""
     d = _read(train_dir, step)
-    _load_model(model, d["model"])
+    _load_model(model, _params_of(d))
     return int(d["step"])
+
+
+def _params_of(d: dict) -> dict:
+    """A payload's per-leaf state_dict. A sharded-update file has none: the
+    JAX package's ``load_params`` reads ``d["params"]`` and raises KeyError
+    on such a file (``atomo_tpu/training/checkpoint.py:438-449``), and the
+    port refuses it alike."""
+    if "model" not in d:
+        raise KeyError(
+            "params: a --partition sharded-update checkpoint holds the flat "
+            "master vector, not per-leaf parameters (read it with "
+            "read_checkpoint)")
+    return d["model"]
+
+
+def read_checkpoint(train_dir: str, step: Optional[int] = None) -> dict:
+    """The checked payload of the newest valid checkpoint (or of ``step``),
+    as :func:`load_checkpoint` reads it: the dict of CPU tensors, whatever
+    layout wrote it (``"model"`` per leaf, or the sharded update's
+    ``"master"``)."""
+    return _read(train_dir, step)

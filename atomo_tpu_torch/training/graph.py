@@ -43,9 +43,13 @@ the eager block otherwise. The per-step host values and their device forms:
 
 By that rule the single-device step, the data-parallel step over NCCL, the
 fused QSGD/TernGrad kernels, ``sgd`` (dense), per-leaf QSGD widths, the
-hybrid exchange (its row codec sorts on the device), error feedback and
+hybrid exchange (its row codec sorts on the device), error feedback,
 ``--overlap delayed`` (its consume on a side stream forks from and joins the
-captured stream) qualify. These run the eager block, each for the reason the mode line names:
+captured stream) and both partitions of the update (``--partition
+zero1|sharded-update``: ZeRO-1's closing gather and the sharded update's
+materialize are NCCL collectives in the capture; the sharded update's
+working buffer, which the eager step releases after each step, is then
+static graph memory, held between replays) qualify. These run the eager block, each for the reason the mode line names:
 a tensor not on a CUDA device; ``svd`` (``eigh`` reads its convergence flag
 on the host once per shape group, and its draws come from generators seeded
 on the host); the pack path's torch quantizer (its uniforms come from one
@@ -128,7 +132,8 @@ def graph_rule(*, device, codec, backend: Optional[str] = None, world: int = 1,
     (None for the single-device step); ``aggregate``, ``k_agg`` and
     ``stream_encode`` the data-parallel step's exchange, ``num_aggregate``
     in effect and layer-bucket encode. ``overlap='delayed'`` changes
-    nothing here: its carry is device state written in place."""
+    nothing here: its carry is device state written in place; nor does a
+    partition of the update: its gathers are the group's collectives."""
     if torch.device(device).type != "cuda":
         return False, "not on a CUDA device"
     why = _codec_reason(codec)

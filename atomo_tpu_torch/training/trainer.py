@@ -209,7 +209,10 @@ class Guarded:
         self.before: Optional[list] = None
 
     def live(self, state) -> list:
-        return self.params + opt_buffers(state.opt_state) + self.stats
+        # a sharded-update state holds its master slice in the parameters' place
+        master = getattr(state, "master", None)
+        params = self.params if master is None else [master]
+        return params + opt_buffers(state.opt_state) + self.stats
 
     @torch.no_grad()
     def snapshot(self, state) -> list:
@@ -981,6 +984,7 @@ def distributed_train_loop(
     profile_dir: Optional[str] = None,
     profile_steps: int = 3,
     budget_tuner=None,
+    partition: str = "replicated",
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -1046,7 +1050,21 @@ def distributed_train_loop(
     boundary (``:3054-3072,3882-3920``) and, when it changed, the step is
     rebuilt from the new codec (a fresh capture under a graph); it needs
     the recorded quality series and a save cadence, and refuses the
-    doctor."""
+    doctor.
+
+    ``partition`` (``atomo_tpu/parallel/replicated.py:3294-3480``) picks
+    the weight update: ``replicated``, ``zero1`` (the optimizer state
+    sharded over the ranks) or ``sharded-update`` (the parameters too:
+    :mod:`atomo_tpu_torch.mesh.update`). Their checkpoints hold the
+    gathered flat optimizer buffers (and the sharded update's gathered
+    master in the parameters' place, with ``--overlap delayed``'s carry),
+    written by rank 0 after the gather; a resume of one restores it bit for
+    bit, a replicated (or ZeRO-1) checkpoint resumed into a sharded-update
+    run restores the parameters and re-initializes the sharded optimizer
+    state with the JAX loop's warning, as does a ZeRO-1 resume whose
+    optimizer layout does not match. Evaluation and the final state read
+    parameters materialized from the masters. The refusals are the JAX
+    loop's (:func:`_check_loop_partition`)."""
     from atomo_tpu_torch.utils.metrics import master_line
     from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT, profile
     # imported here: the step's module builds on this one's TrainState
@@ -1067,6 +1085,9 @@ def distributed_train_loop(
     )
 
     _check_loop_modes(codec, aggregate, overlap, stream_encode, error_feedback)
+    _check_loop_partition(partition, overlap=overlap, resume=resume,
+                          error_feedback=error_feedback, phase_metrics=phase_metrics,
+                          diverge=diverge, hybrid=hybrid)
     if phase_metrics and overlap == "delayed":
         raise ValueError(
             "--phase-metrics times blocking phase programs and cannot "
@@ -1120,18 +1141,26 @@ def distributed_train_loop(
             "template yet — drop one")
     _check_diverge(diverge, train_dir=train_dir, codec=codec, save_freq=save_freq,
                    keep_ckpts=keep_ckpts, aggregate=aggregate, overlap=overlap,
-                   num_aggregate=num_aggregate, phase_metrics=phase_metrics)
+                   num_aggregate=num_aggregate, phase_metrics=phase_metrics,
+                   zero1=partition == "zero1")
     chaos = resolve_chaos(chaos)
     if phase_metrics:
         _check_phase_metrics(superstep, guard, chaos, grad_accum, hybrid, num_aggregate, codec,
-                             aggregate)
+                             aggregate, zero1=partition == "zero1")
     if chaos is not None:
         chaos.maybe_die_crashloop()
     dev = resolve_device(device)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     quiet = log_fn if rank == 0 else (lambda _: None)
-    state = _start_replica(model, optimizer, seed, dev, codec, overlap, error_feedback,
-                           rank, world, resume=resume, train_dir=train_dir, log_fn=quiet)
+    part = None  # the partition's flat layout (mesh.update), None when replicated
+    if partition == "replicated":
+        state = _start_replica(model, optimizer, seed, dev, codec, overlap, error_feedback,
+                               rank, world, resume=resume, train_dir=train_dir, log_fn=quiet)
+    else:
+        state, part = _start_partition(model, optimizer, seed, dev, codec, overlap, partition,
+                                       resume=resume, train_dir=train_dir, log_fn=quiet)
+    sharded = partition == "sharded-update"
+    master = state.master if sharded else None  # updated in place for the whole run
     start_step = state.step
     incidents = _incidents(train_dir, diverge is not None) if rank == 0 else None
 
@@ -1152,7 +1181,9 @@ def distributed_train_loop(
             stream_encode=stream_encode and not densify,
             stream_bucket_bytes=stream_bucket_bytes, guard=guard, chaos=chaos_now,
             remedy=remedy_cfg, track_grad_norm=diverge is not None,
-            track_quality=track_quality and not densify)
+            track_quality=track_quality and not densify,
+            zero1=part if partition == "zero1" else None,
+            sharded_update=part if sharded else None)
 
     recorder = recorder if rank == 0 else None
     _arm_recorder(recorder, track_quality, codec, model, start_step, aggregate=aggregate,
@@ -1177,6 +1208,8 @@ def distributed_train_loop(
             saved = dataclasses.replace(st, residual=gather_residual(st, world))
         if overlap == "delayed":  # every rank's in-flight payload, likewise
             saved = dataclasses.replace(saved, carry=gather_carry(st.carry, world))
+        if part is not None:  # every rank's slices as full flat vectors
+            saved = _gathered_partition(saved, part)
         path = None
         if rank == 0:
             path = saver(train_dir, saved, step, compress=compress_ckpt, keep=keep_ckpts)
@@ -1184,6 +1217,8 @@ def distributed_train_loop(
         return path
 
     def validate(step: int) -> None:
+        if master is not None:  # the parameters, from every rank's master
+            part.materialize(master)
         totals = {"loss": 0.0, "prec1": 0.0, "prec5": 0.0}
         n = 0
         for ti, tl in test_iter.epoch():
@@ -1239,7 +1274,7 @@ def distributed_train_loop(
                                 "anomalous contributions masked inside the superstep")
 
         with heartbeat_watchdog(health_timeout * superstep, on_health_failure) as monitor:
-            return _superstep_steps(
+            state = _superstep_steps(
                 state, step_fn, key, stream,
                 lambda x, y: block_to_device(*shard_superbatch(x, y, rank, world), dev),
                 train_iter=train_iter, n_train=n_train, start_step=start_step,
@@ -1250,6 +1285,9 @@ def distributed_train_loop(
                 rig=rig, guard_line=guard_line if guard is not None else None, world=world,
                 before_recover=torch.distributed.barrier, recorder=recorder,
                 profile_dir=prof_dir, device=dev, retune=retune)
+        if master is not None:  # the returned model holds the trained parameters
+            part.materialize(master)
+        return state
     last_saved = start_step
     # trace steady-state steps only: step 1 pays the first-call costs
     prof_first = start_step + 2 if prof_dir else None
@@ -1353,11 +1391,183 @@ def distributed_train_loop(
                 rig.note_save(max_steps)
             if chaos is not None and path is not None:
                 chaos.maybe_corrupt_checkpoint(path, max_steps)
+    if master is not None:  # the returned model holds the trained parameters
+        part.materialize(master)
     return state
 
 
+PARTITIONS = ("replicated", "zero1", "sharded-update")
+
+
+def _check_loop_partition(partition: str, *, overlap: str, resume: bool, error_feedback: bool,
+                          phase_metrics: bool, diverge, hybrid) -> None:
+    """The JAX loop's refusals of ``zero1`` and ``sharded_update``
+    (``atomo_tpu/parallel/replicated.py:2993-2999,3036-3040,3154-3183``),
+    text for text."""
+    from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT
+
+    if partition not in PARTITIONS:
+        raise ValueError(f"unknown partition {partition!r}; expected one of "
+                         f"{'|'.join(PARTITIONS)}")
+    if overlap == "delayed" and partition == "zero1" and resume:
+        raise ValueError(
+            "--overlap delayed cannot resume a --zero1 run (the "
+            "legacy sharded optimizer template cannot carry the "
+            "overlap payload); drop --resume or --zero1 — or use "
+            "--partition sharded-update, whose checkpoints hold the "
+            "in-flight payload as a sharded carry leaf and resume "
+            "bit-exact")
+    if error_feedback and partition != "replicated":
+        raise ValueError(
+            "--error-feedback does not compose with --zero1 / "
+            "--partition sharded-update yet: the residual carry is "
+            "untested against the sharded state templates")
+    if partition != "sharded-update":
+        return
+    if phase_metrics:
+        raise ValueError(
+            "--partition sharded-update is not supported with "
+            "--phase-metrics (the phased update program assumes a "
+            "replicated optimizer state)" + PHASE_METRICS_HINT)
+    if diverge is not None:
+        raise ValueError(
+            "--on-diverge rollback rebuilds replicated templates and "
+            "cannot re-thread the sharded master layout yet; drop "
+            "--partition sharded-update or --on-diverge")
+    if hybrid is not None:
+        raise ValueError(
+            "--partition sharded-update does not compose with "
+            "--sparse-rows yet (the row exchange is untested against "
+            "the flat master layout)")
+
+
+def _gathered_partition(state, part):
+    """``state`` with every rank's optimizer slices (and the sharded
+    update's masters) as full flat CPU vectors: the checkpoint form.
+    Collective over the group."""
+    from atomo_tpu_torch.mesh.update import gather_host
+
+    host = gather_host(state, part)
+    opt = dataclasses.replace(state.opt_state, **{
+        k: v for k, v in host["opt"].items() if isinstance(v, list)})
+    out = dataclasses.replace(state, opt_state=opt)
+    if "master" in host:
+        out = dataclasses.replace(out, master=host["master"])
+    return out
+
+
+def _flat_layout_matches(saved_opt: dict, template, part) -> bool:
+    """Whether a checkpoint's optimizer fields are this run's flat layout:
+    the same fields, each buffer list one full ``(N * chunk,)`` vector."""
+    names = [f.name for f in dataclasses.fields(template)]
+    if sorted(saved_opt) != sorted(names):
+        return False
+    for name in names:
+        want, got = getattr(template, name), saved_opt[name]
+        if isinstance(want, list) or isinstance(got, list):
+            if not (isinstance(want, list) and isinstance(got, list) and len(got) == len(want)
+                    and all(g.numel() == part.n_shards * part.chunk for g in got)):
+                return False
+    return True
+
+
+@torch.no_grad()
+def _start_partition(model, optimizer, seed: int, dev, codec, overlap: str, partition: str, *,
+                     resume: bool = False, train_dir=None, log_fn=print):
+    """This rank's partitioned state and the run's flat layout: the seeded
+    init broadcast from rank 0, partitioned (:mod:`atomo_tpu_torch.mesh.
+    update`), then with ``resume`` the newest valid checkpoint of
+    ``train_dir`` as the JAX loop restores it (``atomo_tpu/parallel/
+    replicated.py:3294-3480``) and the delayed carry set up."""
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.parallel.overlap import carry_from_saved
+    from atomo_tpu_torch.parallel.replicated import init_delayed_state, replicate_state
+    from atomo_tpu_torch.training.checkpoint import read_checkpoint
+
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    state = replicate_state(create_state(model, optimizer, seed, dev))
+    d = None
+    if resume and train_dir and latest_step(train_dir) is not None:
+        try:
+            d = read_checkpoint(train_dir)
+        except FileNotFoundError as exc:
+            log_fn(f"Resume requested but {exc}; starting fresh")
+    saved_carry = None
+    if partition == "sharded-update":
+        if d is not None and "master" not in d:
+            # a replicated (or ZeRO-1) checkpoint: its parameters carry over
+            warnings.warn(
+                "--partition sharded-update resume: checkpoint "
+                "layout does not match (it holds per-leaf params, not a "
+                "master vector); restoring params only, optimizer state "
+                "re-initialized sharded")
+            model.load_state_dict(d["model"])
+            state = dataclasses.replace(state, step=int(d["step"]))
+            state, part = U.sharded_state_from_params(state, optimizer)
+        else:
+            state, part = U.sharded_update_state(state, optimizer)
+            if d is not None:
+                want = (part.n_shards * part.chunk,)
+                if tuple(d["master"].shape) != want:
+                    raise ValueError(
+                        "--partition sharded-update resume: checkpoint master "
+                        f"vector has shape {tuple(d['master'].shape)} but this "
+                        f"model/mesh expects {want} — the mesh shape changed; "
+                        "re-shard via mesh.reshard or restart without "
+                        "--resume")
+                if not _flat_layout_matches(d["opt_state"], state.opt_state, part):
+                    raise ValueError(
+                        f"the checkpoint's optimizer state has {sorted(d['opt_state'])}, "
+                        "not this optimizer's flat layout: resume with the optimizer it "
+                        "was written with")
+                named = dict(model.named_buffers())
+                for k, v in d["buffers"].items():
+                    named[k].copy_(v)
+                state = U.place_sharded_update(state, {"step": d["step"], "master": d["master"],
+                                                       "opt": d["opt_state"]}, part)
+                saved_carry = d.get("overlap_carry")
+                if (saved_carry is None) != (overlap != "delayed"):
+                    why = ("no overlap_carry in the checkpoint" if saved_carry is None
+                           else "the checkpoint holds an overlap_carry, this run is blocking")
+                    warnings.warn(
+                        "--partition sharded-update resume: checkpoint "
+                        f"overlap-carry layout does not match ({why}); "
+                        "restoring the sharded train state only — any "
+                        "in-flight payload is discarded (a delayed "
+                        "resume re-skips its first step)")
+                    saved_carry = None
+    else:
+        if d is not None and "model" not in d:
+            raise ValueError(
+                "--zero1 resume: the checkpoint was written by --partition "
+                "sharded-update (a master vector, no per-leaf params); resume it "
+                "with --partition sharded-update")
+        if d is not None:
+            model.load_state_dict(d["model"])
+        state, part = U.zero1_state(state, optimizer)
+        if d is not None:
+            if _flat_layout_matches(d["opt_state"], state.opt_state, part):
+                state = U.place_sharded_update(state, {"step": d["step"], "opt": d["opt_state"]},
+                                               part)
+            else:
+                # a replicated checkpoint (or a ZeRO-1 one of another world)
+                warnings.warn(
+                    "--zero1 resume: checkpoint optimizer layout does not "
+                    "match this mesh's zero1 layout; params restored, "
+                    "optimizer state re-initialized sharded")
+                state = dataclasses.replace(state, step=int(d["step"]))
+    if d is not None:
+        log_fn(f"Resumed from {train_dir} at step {state.step}")
+    if overlap == "delayed":
+        state = init_delayed_state(state, codec)
+        if state.step > 0:  # resumed: the payload that the next step consumes
+            carry, _ = carry_from_saved(state.carry, saved_carry, rank, world)
+            state = dataclasses.replace(state, carry=carry)
+    return state, part
+
+
 def _check_phase_metrics(superstep: int, guard, chaos, grad_accum: int, hybrid,
-                         num_aggregate: int, codec, aggregate: str) -> None:
+                         num_aggregate: int, codec, aggregate: str, zero1: bool = False) -> None:
     """The JAX loop's refusals and warnings of ``phase_metrics``
     (``atomo_tpu/parallel/replicated.py:3677-3720``), text for text."""
     from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT
@@ -1373,6 +1583,10 @@ def _check_phase_metrics(superstep: int, guard, chaos, grad_accum: int, hybrid,
             "--phase-metrics is an observability mode without the "
             "anomaly-guard/chaos hooks; drop --phase-metrics to use "
             "--grad-guard / --chaos")
+    if zero1:
+        raise ValueError(
+            "--zero1 is not supported with --phase-metrics (the phased "
+            "update program assumes a replicated optimizer state)")
     if grad_accum > 1:
         raise ValueError(
             "--grad-accum is not supported with --phase-metrics (the "

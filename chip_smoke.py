@@ -283,6 +283,26 @@ every hand-written kernel against its plain PyTorch version:
    the re-allocated widths equal their plain twins (``mixed_tree_check``).
    ``profile_steps`` (the ``profile ...`` lines) reads its trace through
    the timeline module too.
+19. partition: the sharded weight update (``mesh/update.py``). In a
+   deterministic child at NCCL world 1 (this script with
+   ``--partition-child``): ResNet-18 batch 128, qsgd 4 bits and svd rank 3,
+   the replicated and the sharded-update step 6 steps each from one init,
+   the sharded step's parameters and momentum equal to the replicated
+   step's bit for bit, and the qsgd sharded step as the K 8 graph (one
+   warm-up, 5 replays) equal to its eager steps. At once, two gloo ranks on
+   the card (``--partition-gloo-child``): ResNet-18 qsgd 3 steps and AlexNet
+   at 224 (1000 classes, 61 M parameters) 1 step under the replicated,
+   ZeRO-1 and sharded-update steps, each rank's bytes between steps
+   (``memory_allocated``, gradients dropped, after one warm-up step) and its
+   peak, the states equal across the three; and the supervised drill
+   (``--partition-drill-child`` under ``run_supervised``):
+   ``distributed_train_loop`` with the sharded update and ``--overlap
+   delayed`` at NCCL world 1, killed before step 5 and restarted once,
+   writes the straight run's ``model_step_6`` byte for byte (the CLI
+   refuses ``--overlap delayed`` on one device, as the JAX verb does, so
+   the drill drives the loop). Then, in this process, the replicated and
+   the sharded eager steps timed in turns at NCCL world 1 (qsgd, svd3) and
+   the materialize alone.
 
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
 name and power limit, and last
@@ -307,6 +327,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 ROOT = Path(__file__).resolve().parent
+T_START = time.time()  # this process's start, for the children's set-up seconds
 REPLACES = {
     "quantize_pack": "atomo_tpu/ops/qsgd_kernels.py:215",
     "unpack_dequantize": "atomo_tpu/ops/qsgd_kernels.py:387",
@@ -5143,6 +5164,474 @@ def phase_timeline(work: Path, card: str, times: dict, errs: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- partition
+
+PT_STEPS = 6
+PT_GLOO_STEPS = 3
+PT_DRILL_STEPS = 6
+PT_DATA = 1024  # the phase's synthetic CIFAR-10 images
+
+
+def pt_batches(device, n: int, rank: int = 0, world: int = 1):
+    """``n`` global ResNet-18 batches (CIFAR-10 shapes, 128) of a small
+    seeded synthetic set (1024 images: a process makes it in a fraction of
+    a second), this rank's rows of each, on ``device``."""
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset, to_device
+    from atomo_tpu_torch.parallel.replicated import shard_batch
+
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True, size=PT_DATA), 128,
+                       seed=1).epoch()
+    return [to_device(*shard_batch(*next(it), rank, world), device) for _ in range(n)]
+
+
+def pt_state(dev, partition: str, code: str, network: str = "resnet18", image_shape=(32, 32, 3),
+             num_classes: int = 10, superstep: int = 1):
+    """(state, step, specs) of one partition in the group that is up:
+    momentum SGD, ``code``'s codec, the gather exchange."""
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step, replicate_state
+    from atomo_tpu_torch.training import create_state, make_optimizer
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    model = get_model(network, num_classes, image_shape=image_shape)
+    state = replicate_state(create_state(model, opt, 1, dev))
+    spec, kw = None, {}
+    if partition == "zero1":
+        state, spec = U.zero1_state(state, opt)
+        kw["zero1"] = spec
+    elif partition == "sharded-update":
+        state, spec = U.sharded_update_state(state, opt)
+        kw["sharded_update"] = spec
+    step = make_distributed_train_step(model, opt, make_codec(code), aggregate="gather",
+                                       superstep=superstep, **kw)
+    return state, step, spec
+
+
+def pt_digest(state, spec) -> str:
+    """A hash of the trained parameters (materialized from the masters under
+    the sharded update) and of the momentum, flat in canonical order."""
+    import hashlib
+
+    import torch
+
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    if spec is not None and spec.partition == "sharded-update":
+        spec.materialize(state.master)
+    h = hashlib.sha256()
+    params = leaf_params(state.model)
+    trace = state.opt_state.trace
+    flat = (torch.cat([t.reshape(-1) for t in trace]) if spec is None
+            else spec.gather(trace[0])[:spec.d_flat])
+    for t in params + [flat]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pt_run(state, step, spec, batches) -> tuple:
+    """The eager steps with the launch counts set to 0 before and read after:
+    (state, losses, host ms a step, launches, digest)."""
+    import torch
+
+    from atomo_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, 2, x, y)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    return state, {"losses": losses, "step_ms": ms, "launches": launches,
+                   "digest": pt_digest(state, spec)}
+
+
+def partition_child(work: str, out_path: str) -> int:
+    """The deterministic NCCL-world-1 runs of the ``partition`` phase (this
+    script with ``--partition-child``; cuBLAS's workspace set before its
+    first handle): ResNet-18 batch 128, qsgd 4 bits and svd rank 3, the
+    replicated and the sharded-update step 6 steps each from one init, and
+    the qsgd sharded step as the K 8 graph over the same 6 batches."""
+    import os
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{work}/pt_nccl1", world_size=1,
+                      rank=0)
+    t0 = float(os.environ["PT_T0"])  # the phase's start: seconds below count from it
+    out = {"started": {"launches": {}, "seconds": T_START - t0},
+           "group up": {"launches": {}, "seconds": time.time() - t0}}
+    try:
+        batches = pt_batches(dev, PT_STEPS)
+        for code in ("qsgd", "svd3"):
+            for part in ("replicated", "sharded-update"):
+                state, step, spec = pt_state(dev, part, code)
+                _, out[f"{code}_{part}"] = pt_run(state, step, spec, batches)
+                out[f"{code}_{part}"]["seconds"] = time.time() - t0
+        state, block, spec = pt_state(dev, "sharded-update", "qsgd", superstep=8)
+        xs = torch.stack([x for x, _ in batches])
+        ys = torch.stack([y for _, y in batches])
+        ops.reset_launch_counts()
+        state, m = block(state, 2, xs, ys)
+        torch.cuda.synchronize()
+        out["qsgd_sharded_k8"] = {"losses": m["loss"].tolist(), "mode": block.mode,
+                                  "why": block.why, "replays": block.replays,
+                                  "launches": ops.launch_counts(),
+                                  "digest": pt_digest(state, spec),
+                                  "d_flat": spec.d_flat, "chunk": spec.chunk,
+                                  "n_params": sum(p.numel() for p in leaf_params(state.model)),
+                                  "seconds": time.time() - t0}
+        del state, block, spec
+        # the drill's straight run, in this group
+        ops.reset_launch_counts()
+        pt_drill_loop(dev, str(Path(work) / "pt_straight"), None, resume=False)
+        out["drill_straight"] = {"launches": ops.launch_counts(), "seconds": time.time() - t0}
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def pt_memory(dev, partition: str, code: str, batches, network="resnet18",
+              image_shape=(32, 32, 3), num_classes=10) -> dict:
+    """One partition's steps on this rank: the bytes the rank holds between
+    steps (``memory_allocated`` above the batches, the gradients dropped: the
+    next step's start drops them, and the sharded step drops its own) and its
+    peak, the digest, the losses and the launches."""
+    import gc
+
+    import torch
+
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    gc.collect()  # the previous run's step closures hold its state in cycles
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, spec = pt_state(dev, partition, code, network, image_shape, num_classes)
+    state, r = pt_run(state, step, spec, batches)
+    for p in leaf_params(state.model):
+        p.grad = None
+    if spec is not None and spec.partition == "sharded-update":
+        spec.release(leaf_params(state.model))  # pt_run's digest materialized it
+    gc.collect()
+    torch.cuda.synchronize()
+    r["persistent_bytes"] = torch.cuda.memory_allocated() - base
+    r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    r["n_params"] = sum(p.numel() for p in leaf_params(state.model))
+    del state, step, spec
+    return r
+
+
+def partition_gloo_child(rank: int, store: str, out_path: str) -> int:
+    """One of two gloo ranks on the card (this script with
+    ``--partition-gloo-child``; deterministic through a sitecustomize):
+    ResNet-18 qsgd 4 bits gather at global batch 128, 3 steps of each
+    partition from one init, then AlexNet at 224 (1000 classes, 61 M
+    parameters, global batch 8) one step of each: per partition the bytes
+    between steps, the peak, the digest, the launches."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch.parallel import launch
+    from atomo_tpu_torch.parallel.replicated import shard_batch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="gloo", init_method=f"file://{store}", world_size=2,
+                      rank=rank)
+    t0 = float(os.environ["PT_T0"])  # the phase's start: seconds below count from it
+    out = {"seconds": {"started": T_START - t0, "group up": time.time() - t0}}
+    try:
+        batches = pt_batches(dev, PT_GLOO_STEPS, rank, 2)
+        # one step first: cuBLAS's and cuDNN's workspaces are not a partition's
+        pt_memory(dev, "replicated", "qsgd", batches[:1])
+        out["seconds"]["warm-up"] = time.time() - t0
+        for part in ("replicated", "zero1", "sharded-update"):
+            out[f"resnet18_{part}"] = pt_memory(dev, part, "qsgd", batches)
+            out["seconds"][f"resnet18_{part}"] = time.time() - t0
+        del batches
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn((8, 3, 224, 224), generator=gen).numpy()
+        y = torch.randint(0, 1000, (8,), generator=gen).numpy()
+        xs, ys = shard_batch(x, y, rank, 2)
+        big = [(torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))]
+        for part in ("replicated", "zero1", "sharded-update"):
+            out[f"alexnet_{part}"] = pt_memory(dev, part, "qsgd", big, "alexnet",
+                                               (224, 224, 3), 1000)
+            out["seconds"][f"alexnet_{part}"] = time.time() - t0
+    finally:
+        launch.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def pt_drill_loop(dev, train_dir: str, chaos, resume: bool, log_fn=print) -> None:
+    """The drill's run: ``distributed_train_loop`` in the group that is up,
+    the sharded update with ``overlap='delayed'``, ResNet-18 qsgd 4 bits
+    gather batch 128, 6 steps, a checkpoint every 2; ``chaos`` a fault spec
+    or None."""
+    from atomo_tpu_torch.data import SPECS, BatchIterator, synthetic_dataset
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.training import distributed_train_loop, make_optimizer
+    from atomo_tpu_torch.utils.chaos import ChaosConfig, ChaosInjector
+
+    it = BatchIterator(synthetic_dataset(SPECS["cifar10"], True, size=PT_DATA), 128, seed=1)
+    distributed_train_loop(
+        get_model("resnet18", 10, image_shape=(32, 32, 3)),
+        make_optimizer("sgd", lr=0.01, momentum=0.9), it, None, codec=make_codec("qsgd"),
+        aggregate="gather", overlap="delayed", partition="sharded-update",
+        max_steps=PT_DRILL_STEPS, save_freq=2, seed=1, train_dir=train_dir, resume=resume,
+        log_every=1, log_fn=log_fn, device=dev, compress_ckpt=False,
+        chaos=None if chaos is None else ChaosInjector(ChaosConfig.from_spec(chaos,
+                                                                             environ={})))
+
+
+def partition_drill_child(train_dir: str, chaos: str, *extra: str) -> int:
+    """One attempt of the supervised drill (this script with
+    ``--partition-drill-child``; deterministic through a sitecustomize):
+    :func:`pt_drill_loop` at NCCL world 1 with ``chaos``, quiet; ``--resume``
+    (a supervisor's restart) continues from the newest checkpoint. Writes
+    ``<train_dir>.attempt-<n>.json`` when its group is up and again at its
+    end: seconds into the phase (``PT_T0``) and the launch counts."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from atomo_tpu_torch import ops
+    from atomo_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="nccl", init_method=f"file://{train_dir}.store{os.getpid()}",
+                      world_size=1, rank=0)
+    t0 = float(os.environ["PT_T0"])
+    rec = {"started": T_START - t0, "group_up": time.time() - t0}
+    out = Path(f"{train_dir}.attempt-{os.environ.get('ATOMO_RUN_ATTEMPT', '0')}.json")
+    out.write_text(json.dumps(rec))
+    try:
+        ops.reset_launch_counts()
+        pt_drill_loop(dev, train_dir, chaos, "--resume" in extra, log_fn=lambda line: None)
+        out.write_text(json.dumps({**rec, "done": time.time() - t0,
+                                   "launches": ops.launch_counts()}))
+    finally:
+        launch.shutdown()
+    return 0
+
+
+def pt_children(work: Path) -> dict:
+    """Start the phase's children at once: the supervised drill (its
+    supervisor a thread of this process, its attempts children), the
+    deterministic NCCL child and the two gloo ranks; returns the processes,
+    the drill's thread and box, and their paths."""
+    import os
+    import threading
+
+    from atomo_tpu_torch.training.resilience import run_supervised
+
+    det = work / "pt_det"
+    det.mkdir(exist_ok=True)
+    (det / "sitecustomize.py").write_text(
+        "import torch\ntorch.use_deterministic_algorithms(True, warn_only=True)\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(det), str(ROOT)]))
+    for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT", "WORLD_SIZE"):
+        env.pop(k, None)
+    env["PT_T0"] = repr(time.time())
+    me = str(Path(__file__).resolve())
+    paths = {"det": work / "pt_det.json", "gloo": [work / f"pt_gloo{r}.json" for r in range(2)],
+             "straight": work / "pt_straight", "drill": work / "pt_drill"}
+    # the drill first (its chain is the longest): kill@5 ends attempt 0
+    # (exit 43), attempt 1 resumes
+    box = {"lines": []}
+
+    def drill():
+        box["rc"] = run_supervised(
+            [sys.executable, me, "--partition-drill-child", str(paths["drill"]), "kill@5"],
+            max_restarts=1, backoff_base=0.05, backoff_max=0.1, train_dir=str(paths["drill"]),
+            env=env, log_fn=box["lines"].append)
+
+    thread = threading.Thread(target=drill, daemon=True)
+    thread.start()
+    # the others start once attempt 0 is up: processes that import torch and
+    # make their CUDA contexts at once slow each other several-fold
+    first = Path(f"{paths['drill']}.attempt-0.json")
+    deadline = time.time() + 60
+    while not first.exists() and thread.is_alive() and time.time() < deadline:
+        time.sleep(0.2)
+    procs = {"det": subprocess.Popen([sys.executable, me, "--partition-child", str(work),
+                                      str(paths["det"])], env=env, cwd=str(ROOT),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)}
+    procs["gloo"] = [subprocess.Popen(
+        [sys.executable, me, "--partition-gloo-child", str(r), str(work / "pt_gloo_store"),
+         str(paths["gloo"][r])], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return {"procs": procs, "paths": paths, "drill": (thread, box)}
+
+
+def pt_timing(dev, work: Path) -> dict:
+    """Median host ms a step (steps 2-6) of the replicated and the sharded
+    eager step at NCCL world 1, qsgd and svd3, in turns replicated,
+    sharded, sharded, replicated; and the materialize alone."""
+    import torch
+
+    from atomo_tpu_torch.parallel import launch
+
+    up = torch.distributed.is_initialized()
+    if not up:
+        launch.initialize(dev, backend="nccl", init_method=f"file://{work}/pt_time",
+                          world_size=1, rank=0)
+    res = {"launches": {name: 0 for name in REPLACES}}
+    try:
+        batches = pt_batches(dev, PT_STEPS)
+        for code in ("qsgd", "svd3"):
+            meds = {"replicated": [], "sharded-update": []}
+            runs = {part: pt_state(dev, part, code) for part in meds}
+            for part in ("replicated", "sharded-update", "sharded-update", "replicated"):
+                state, step, spec = runs[part]
+                state, r = pt_run(state, step, spec, batches)
+                runs[part] = (state, step, spec)
+                meds[part].append(statistics.median(r["step_ms"][1:]))
+                for k, v in r["launches"].items():
+                    res["launches"][k] = res["launches"].get(k, 0) + v
+                if part == "sharded-update" and "materialize_ms" not in res:
+                    res["materialize_ms"] = cuda_ms(lambda: spec.materialize(state.master))
+                    res["materialize_bytes"] = spec.flat.numel() * 4
+            del runs, state, step, spec
+            res[code] = {k: statistics.median(v) for k, v in meds.items()}
+    finally:
+        if not up:
+            launch.shutdown()
+    return res
+
+
+def phase_partition(work: Path, card: str) -> dict:
+    """The partitioned update on the card (the module docstring's item 19)."""
+    import torch
+
+    t0 = time.time()
+    kids = pt_children(work)
+    procs, paths = kids["procs"], kids["paths"]
+    logs, ends = {}, {}
+    logs["det"] = procs["det"].communicate(timeout=300)[0]
+    ends["det"] = time.time() - t0
+    logs["gloo"] = [p.communicate(timeout=300)[0] for p in procs["gloo"]]
+    ends["gloo"] = time.time() - t0
+    thread, box = kids["drill"]
+    thread.join(timeout=300)
+    ends["drill"] = time.time() - t0
+    t_children = time.time() - t0
+    log("partition children end (s from the phase's start): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ends.items()))
+    if procs["det"].returncode != 0:
+        raise AssertionError(f"partition child failed:\n{logs['det'][-4000:]}")
+    if [p.returncode for p in procs["gloo"]] != [0, 0]:
+        raise AssertionError("partition gloo ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs["gloo"]))
+    attempts = {p.name: json.loads(p.read_text())
+                for p in sorted(work.glob("pt_drill.attempt-*.json"))}
+    if thread.is_alive() or box.get("rc") != 0:
+        raise AssertionError(f"partition drill failed: rc {box.get('rc')}, {box['lines']}, "
+                             f"attempts {attempts}")
+    det = json.loads(paths["det"].read_text())
+    out = {"det": det}
+    for code in ("qsgd", "svd3"):
+        rep, su = det[f"{code}_replicated"], det[f"{code}_sharded-update"]
+        if rep["digest"] != su["digest"] or rep["losses"] != su["losses"]:
+            raise AssertionError(f"partition nccl-1 {code}: sharded {su} vs replicated {rep}")
+        log(f"partition nccl-1 {code} (deterministic): sharded-update's parameters and momentum "
+            f"equal the replicated step's bit for bit after {PT_STEPS} steps; losses "
+            f"{[round(v, 4) for v in su['losses']]}; launches a run {su['launches']}")
+    k8, su = det["qsgd_sharded_k8"], det["qsgd_sharded-update"]
+    if not (k8["mode"] == "graph" and k8["digest"] == su["digest"]
+            and k8["losses"] == su["losses"] and k8["replays"] == PT_STEPS - 1
+            and k8["launches"] == su["launches"]):
+        raise AssertionError(f"partition K=8 graph: {k8} vs eager {su}")
+    log(f"partition nccl-1 qsgd sharded-update as the K 8 graph: 1 warm-up, {k8['replays']} "
+        f"replays, equal to its eager steps bit for bit (master, momentum, losses, launches "
+        f"{k8['launches']}); flat {k8['d_flat']} values, chunk {k8['chunk']}")
+    ranks = [json.loads(p.read_text()) for p in paths["gloo"]]
+    for net in ("resnet18", "alexnet"):
+        digests = {ranks[r][f"{net}_{p}"]["digest"] for r in range(2)
+                   for p in ("replicated", "zero1", "sharded-update")}
+        if len(digests) != 1:
+            raise AssertionError(f"partition gloo-2 {net}: {len(digests)} distinct states")
+        rows = []
+        for p in ("replicated", "zero1", "sharded-update"):
+            a = [ranks[r][f"{net}_{p}"] for r in range(2)]
+            rows.append(f"{p} persistent {a[0]['persistent_bytes'] / 1e6:.1f}/"
+                        f"{a[1]['persistent_bytes'] / 1e6:.1f} MB, peak "
+                        f"{a[0]['peak_bytes'] / 1e6:.1f}/{a[1]['peak_bytes'] / 1e6:.1f} MB, step ms "
+                        f"{statistics.median(a[0]['step_ms'][1:] or a[0]['step_ms']):.1f}")
+        per = {p: [ranks[r][f"{net}_{p}"]["persistent_bytes"] for r in range(2)]
+               for p in ("replicated", "zero1", "sharded-update")}
+        if not all(per["sharded-update"][r] < per["zero1"][r] < per["replicated"][r]
+                   for r in range(2)):
+            raise AssertionError(f"partition gloo-2 {net}: persistent bytes {per}")
+        n = ranks[0][f"{net}_replicated"]["n_params"]
+        log(f"partition gloo-2 {net} ({n} params, rank 0/rank 1) ({card}): " + "; ".join(rows)
+            + "; parameters and momentum equal across the three")
+    out["gloo"] = ranks
+    log("partition children's stages (s into the phase): nccl " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in det.items()) + "; gloo rank 0 " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+    runs = [r[k] for r in ranks for k in r if k != "seconds"]
+    a = (paths["straight"] / f"model_step_{PT_DRILL_STEPS}").read_bytes()
+    b_path = paths["drill"] / f"model_step_{PT_DRILL_STEPS}"
+    incidents = [json.loads(ln) for ln in (paths["drill"] / "incidents.jsonl").read_text()
+                 .splitlines()]
+    acts = [(r["cause"], r["action"]) for r in incidents]
+    if not (b_path.exists() and b_path.read_bytes() == a
+            and acts[:1] == [("crash", "restart")] and acts[-1] == ("clean_exit", "done")):
+        raise AssertionError(f"partition drill: incidents {acts}, equal "
+                             f"{b_path.exists() and b_path.read_bytes() == a}; "
+                             f"supervisor {box['lines']}, attempts {attempts}")
+    for ln in box["lines"]:
+        log("  " + ln)
+    log("  drill attempts (s into the phase): " + "; ".join(
+        f"{k.split('.')[1]} started {v['started']:.1f}, group up {v['group_up']:.1f}"
+        + (f", done {v['done']:.1f}" if "done" in v else ", killed") for k, v in attempts.items()))
+    log(f"partition drill nccl-1 (sharded-update, --overlap delayed, kill@5, one restart): "
+        f"incidents {acts}; model_step_{PT_DRILL_STEPS} equals the straight run's byte for "
+        "byte (the checkpoint carries the in-flight payload)")
+    t_checks = time.time() - t0
+    dev = torch.device("cuda", 0)
+    timing = pt_timing(dev, work)
+    out["timing"] = timing
+    for code in ("qsgd", "svd3"):
+        t = timing[code]
+        log(f"partition time nccl-1 {code} ({card}): median step ms replicated "
+            f"{t['replicated']:.3f}, sharded-update {t['sharded-update']:.3f} "
+            f"({t['sharded-update'] / t['replicated'] - 1:+.1%})")
+    log(f"partition materialize nccl-1 ({card}): {timing['materialize_bytes'] / 1e6:.1f} MB "
+        f"device copy {timing['materialize_ms']:.4f} ms "
+        f"(bound {timing['materialize_bytes'] * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    drill_launches = [v["launches"] for v in attempts.values() if "launches" in v]
+    launches = {name: timing["launches"].get(name, 0)
+                + sum(det[k]["launches"].get(name, 0) for k in det)
+                + sum(r["launches"].get(name, 0) for r in runs)
+                + sum(d.get(name, 0) for d in drill_launches)
+                for name in REPLACES}
+    out.update({"launches": launches, "seconds_children": t_children,
+                "seconds_checks": t_checks, "seconds": time.time() - t0})
+    log(f"partition phase seconds {out['seconds']:.1f} (children {t_children:.1f}, timing "
+        f"{out['seconds'] - t_checks:.1f}); rows 1-2 launches {launches['quantize_pack']}, "
+        f"{launches['unpack_dequantize']}")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -5168,6 +5657,12 @@ def main() -> int:
         return resilience_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--timeline-child"]:
         return timeline_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--partition-child"]:
+        return partition_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--partition-gloo-child"]:
+        return partition_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--partition-drill-child"]:
+        return partition_drill_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--timeline-gloo-child"]:
         return timeline_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     import tempfile
@@ -5246,6 +5741,8 @@ def main() -> int:
         lap("obs")
         timeline = phase_timeline(Path(work), card, times, errs)
         lap("timeline")
+        partition = phase_partition(Path(work), card)
+        lap("partition")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -5267,6 +5764,7 @@ def main() -> int:
                 + resilience["launches"][name]
                 + obs["launches"][name]
                 + timeline["launches"][name]
+                + partition["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -5289,6 +5787,7 @@ def main() -> int:
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
               "resilience": resilience, "obs": obs, "timeline": timeline,
+              "partition": partition,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

@@ -43,7 +43,10 @@ payload without a host sync. A profiled data-parallel loop at one NCCL rank
 reads as a consistent ``report timeline``, eagerly and as a replayed graph
 (whose profiled capture maps every replayed event to its phase), rows 1 and
 2 in encode and decode; rows 1-2 at the widths of a boundary re-allocation
-equal their plain twins.
+equal their plain twins. At one NCCL rank the ZeRO-1 and sharded-update
+steps equal the replicated step bit for bit, the eager sharded step leaves
+its working buffer and gradients released (the parameters' bytes back to
+the allocator), and their K-step graphs replay the eager steps bit for bit.
 """
 
 import dataclasses
@@ -917,6 +920,67 @@ def test_nccl_world_one_step_equals_the_single_device_step(dev, nccl_group, aggr
         assert torch.equal(a, b)
 
 
+def test_partitioned_steps_equal_replicated_and_release_the_buffer(dev, nccl_group):
+    """ResNet-18 qsgd 4 bits at one NCCL rank, 3 steps each of the
+    replicated, ZeRO-1 and sharded-update steps from one init: parameters,
+    momentum and losses equal bit for bit (cuDNN deterministic). After each
+    eager sharded step the working buffer holds no storage and no gradient
+    is kept: materializing it takes the parameters' bytes from the
+    allocator again."""
+    from atomo_tpu_torch.codecs.qsgd import QsgdCodec as Codec
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.parallel.replicated import make_distributed_train_step
+    from atomo_tpu_torch.training import create_state, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batches = [(torch.randn((32, 3, 32, 32), generator=gen, device=dev),
+                torch.randint(0, 10, (32,), generator=gen, device=dev)) for _ in range(3)]
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for part in ("replicated", "zero1", "sharded-update"):
+            model = get_model("resnet18", 10, image_shape=(32, 32, 3))
+            state, kw, spec = create_state(model, opt, 1, dev), {}, None
+            if part == "zero1":
+                state, spec = U.zero1_state(state, opt)
+                kw["zero1"] = spec
+            elif part == "sharded-update":
+                state, spec = U.sharded_update_state(state, opt)
+                kw["sharded_update"] = spec
+            step = make_distributed_train_step(model, opt, Codec(bits=4), **kw)
+            losses = []
+            for x, y in batches:
+                state, m = step(state, 5, x, y)
+                losses.append(float(m["loss"]))
+                if part == "sharded-update":
+                    assert not spec.materialized()
+                    assert all(p.grad is None for p in leaf_params(model))
+            if part == "sharded-update":
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                spec.materialize(state.master)
+                torch.cuda.synchronize()
+                assert torch.cuda.memory_allocated() - before >= 4 * spec.d_flat
+                trace = state.opt_state.trace[0][:spec.d_flat]
+            elif part == "zero1":
+                trace = state.opt_state.trace[0][:spec.d_flat]
+            else:
+                trace = torch.cat([t.reshape(-1) for t in state.opt_state.trace])
+            out[part] = (losses, [p.detach().clone() for p in leaf_params(model)], trace)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = out["replicated"]
+    for part in ("zero1", "sharded-update"):
+        got = out[part]
+        assert got[0] == want[0], part
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), part
+        assert torch.equal(got[2], want[2]), part
+
+
 # a process of its own: cuBLAS reads its workspace setting when its first
 # handle is made, which in this process happened long before
 RESUME_ON_THE_CARD = """
@@ -1172,14 +1236,24 @@ def fresh(k):
     opt = make_optimizer(optname, lr=0.01, momentum=0.9, shrinkage_freq=5)
     state = create_state(model, opt, 3, "cuda")
     c = codec()
+    part = {}
+    if where in ("nccl-zero1", "nccl-sharded"):  # the partitioned update
+        from atomo_tpu_torch.mesh import update as U
+        if where == "nccl-zero1":
+            state, part["zero1"] = U.zero1_state(state, opt)
+        else:
+            state, part["sharded_update"] = U.sharded_update_state(state, opt)
     if where == "nccl-delayed":
         from atomo_tpu_torch.parallel.replicated import init_delayed_state
         state = init_delayed_state(state, c)
-    return state, make(model, opt, c, augment=cifar, superstep=k, **kw)
+    return state, make(model, opt, c, augment=cifar, superstep=k, **kw, **part)
 
 def carried(state):
     o = state.opt_state
-    ts = list(state.model.state_dict().values())
+    if getattr(state, "master", None) is not None:  # the sharded update's slice
+        ts = [state.master.clone()] + [b.clone() for b in state.model.buffers()]
+    else:
+        ts = list(state.model.state_dict().values())
     for name in ("trace", "mu", "nu", "nu_max"):
         ts += getattr(o, name, None) or []
     return (ts + (state.residual or []) + ([state.carry.payload] if state.carry else [])
@@ -1234,6 +1308,8 @@ print(json.dumps({"ok": True, "launches": ref_counts}))
     ("resnet18", "qsgd", "sgd", "nccl-guard", 7),
     ("resnet18", "qsgd", "sgd", "single-probe", 7),
     ("resnet18", "qsgd", "sgd", "nccl-probe", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-zero1", 7),
+    ("resnet18", "qsgd", "sgd", "nccl-sharded", 7),
 ])
 def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer, where, steps):
     """7 steps (an LR change at step 5, augmentation on CIFAR shapes,
@@ -1247,7 +1323,9 @@ def test_graph_replay_equals_eager_steps(dev, tmp_path, network, code, optimizer
     selects each step's fault from the device table and holds steps 3 and
     6 as the eager steps do, its held count included; with the quality
     probes armed (``--obs-quality``) the blocks' per-layer ``q_err2`` series
-    equal the eager steps' step for step."""
+    equal the eager steps' step for step; the ZeRO-1 and sharded-update
+    steps' graphs (their gathers NCCL collectives in the capture) replay
+    their eager steps, the sharded one's master slice included."""
     import json
     import os
     import subprocess

@@ -39,11 +39,13 @@ def test_no_jax_import_in_source(path):
 
 
 def test_the_sources_hold_the_slice_modules():
-    """The trace-based timeline, the measured fabric and the online budget
-    re-allocation are among the checked sources, each a module of its own."""
+    """The trace-based timeline, the measured fabric, the online budget
+    re-allocation and the partitioned update with its reshard are among the
+    checked sources, each a module of its own."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"atomo_tpu_torch/obs/timeline.py", "atomo_tpu_torch/obs/fabric.py",
-            "atomo_tpu_torch/budget/retune.py", "atomo_tpu_torch/utils/tracing.py"} <= names
+            "atomo_tpu_torch/budget/retune.py", "atomo_tpu_torch/utils/tracing.py",
+            "atomo_tpu_torch/mesh/update.py", "atomo_tpu_torch/mesh/reshard.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -128,8 +128,10 @@ def test_phase_of_names_and_the_table():
     assert P.phase_of("jit(f)/encode_bucket/x") == J.phase_of("jit(f)/encode_bucket/x")
 
 
-# the ranges the JAX step leaves unscoped: compute, on purpose
-COMPUTE_RANGES = {"forward_backward", "update", "sp_reduce", "decode", "ef_decode", "quality"}
+# the ranges the JAX step leaves unscoped, and the sharded update's two,
+# whose JAX scopes its table leaves out: compute, on purpose
+COMPUTE_RANGES = {"forward_backward", "update", "sp_reduce", "decode", "ef_decode", "quality",
+                  "materialize_params", "sharded_update"}
 
 
 @pytest.mark.parametrize("name", sorted(set(PORT_RANGES)))

@@ -26,9 +26,19 @@ Jobs (``JOBS``):
   grad norm) arms the guard with ``chaos`` (a spec) aimed at
   ``target_replica``, each step's ``skipped`` and ``dropped`` coming back;
   ``track_quality`` arms the quality probes, each step's ``q_err2`` and
-  ``q_rel`` coming back as lists;
+  ``q_rel`` coming back as lists; ``partition`` (``zero1`` or
+  ``sharded-update``) runs the partitioned update (``mesh.update``), the
+  hash taken on the materialized parameters, each step's persistent state
+  bytes coming back; with ``optimizer`` ((name, kwargs) of
+  ``make_optimizer``) in place of sgd; every run returns the optimizer
+  state as full flat vectors (the partitions' slices gathered);
 * ``build``: the data-parallel step's factory on a registry model with
   given arguments; the message of the ``ValueError`` it raises, or None;
+  ``partition_build`` likewise over a partitioned state;
+  ``partition_layout``: a partitioned state's flat layout from given weights;
+  ``partition_host`` and ``partition_reshard``: a sharded state gathered on
+  one world and resharded onto another; ``reshard_lm``: an LM's live
+  reshard between model-axis layouts;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
 * ``cli``: ``atomo_tpu_torch train`` (or ``lm``) with the given
@@ -223,7 +233,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
               dropout_masks=None, grad_accum=1, resume_at=0, train_dir=None, hybrid=None,
               budget_ks=None, error_feedback=False, parts=None, overlap="off",
               stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False, guard=None,
-              chaos=None, target_replica=0, track_quality=False):
+              chaos=None, target_replica=0, track_quality=False, partition="replicated",
+              optimizer=None):
     import dataclasses
 
     import torch.distributed as dist
@@ -250,10 +261,19 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
         model = build_model(network, num_classes, image_shape)
         return model, TrainState(0, model, opt.init(leaf_params(model)))
 
-    opt = make_optimizer("sgd", lr=lr, momentum=momentum)
+    opt = (make_optimizer("sgd", lr=lr, momentum=momentum) if optimizer is None
+           else make_optimizer(optimizer[0], **optimizer[1]))
     model, state = fresh()
     model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
     state = R.replicate_state(state)
+    from atomo_tpu_torch.mesh import update as U
+
+    spec = None
+    if partition == "zero1":
+        state, spec = U.zero1_state(state, opt)
+    elif partition == "sharded-update":
+        state, spec = U.sharded_update_state(state, opt)
+    assert not (spec is not None and resume_at), "partitions resume through the loop"
     scales = []
     encode = R.encode_tree
 
@@ -298,7 +318,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             error_feedback=error_feedback, superstep=superstep, overlap=overlap,
             stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes,
             compute_dtype=torch.bfloat16 if bf16 else None, track_quality=track_quality,
-            **resilience())
+            zero1=spec if partition == "zero1" else None,
+            sharded_update=spec if partition == "sharded-update" else None, **resilience())
 
     delayed = overlap == "delayed"
     if delayed:
@@ -306,6 +327,9 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     hash0 = state_hash(model)
 
     def record(m, j=None, last=True):
+        if last and partition == "sharded-update":  # the parameters, from every master
+            spec.materialize(state.master)
+
         def val(name, cast=float):
             if name not in m:
                 return None
@@ -321,7 +345,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 "hash": state_hash(model) if last else None,
                 "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm"),
                 "skipped": val("skipped"), "dropped": val("dropped"),
-                "q_err2": vec("q_err2"), "q_rel": vec("q_rel")}
+                "q_err2": vec("q_err2"), "q_rel": vec("q_rel"),
+                "state_bytes": state_nbytes(state) if last else None}
 
     try:
         step = make_step(model)
@@ -379,7 +404,38 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
     final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
              if rank == 0 else None)
     return {"steps": steps, "state_dict": final, "max_scale": max(scales, default=0.0),
-            "hash0": hash0}
+            "hash0": hash0, "opt": _flat_opt(state, spec), "count": state.opt_state.count}
+
+
+def state_nbytes(state) -> int:
+    """Bytes of a rank's persistent train state: the parameters (the master
+    slice under the sharded update, whose working buffer is transient), the
+    optimizer buffers and the statistics."""
+    from atomo_tpu_torch.training.trainer import leaf_params, opt_buffers
+
+    master = getattr(state, "master", None)
+    params = leaf_params(state.model) if master is None else [master]
+    tensors = params + opt_buffers(state.opt_state) + list(state.model.buffers())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _flat_opt(state, spec):
+    """The optimizer's buffers as full flat numpy vectors (canonical order,
+    port layout, no padding), by field: a partition's slices gathered."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for f in dataclasses.fields(state.opt_state):
+        v = getattr(state.opt_state, f.name)
+        if not isinstance(v, list):
+            continue
+        if spec is None:
+            out[f.name] = torch.cat([t.reshape(-1) for t in v]).numpy().copy()
+        else:
+            out[f.name] = spec.gather(v[0])[:spec.d_flat].numpy().copy()
+    return out
 
 
 def job_build(rank, world, *, network, image_shape, codec, kwargs):
@@ -392,6 +448,230 @@ def job_build(rank, world, *, network, image_shape, codec, kwargs):
     except ValueError as e:
         return str(e)
     return None
+
+
+def job_partition_build(rank, world, *, network, image_shape, codec, partition, kwargs,
+                        with_zero1=False):
+    """The step factory over a partitioned state of a registry model (both
+    specs with ``with_zero1``); the message of the ``ValueError`` it raises
+    (the state's build included), or None."""
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", momentum=0.9)
+    model = build_model(network, 10, image_shape)
+    state = TrainState(0, model, opt.init(leaf_params(model)))
+    try:
+        build = U.zero1_state if partition == "zero1" else U.sharded_update_state
+        _, spec = build(state, opt)
+        kw = {"zero1" if partition == "zero1" else "sharded_update": spec}
+        if with_zero1:
+            kw["zero1"] = spec
+        R.make_distributed_train_step(model, opt, _codec(codec), **kw, **kwargs)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def job_partition_layout(rank, world, *, network, image_shape, state_dict, partition):
+    """The flat layout of a partitioned state of a registry model from given
+    weights: chunk, d_flat, the full flat parameter vector (the sharded
+    update's masters gathered, ZeRO-1's persistent buffer) and the length of
+    this rank's optimizer slice."""
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", momentum=0.9)
+    model = build_model(network, 10, image_shape)
+    model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    state = R.replicate_state(TrainState(0, model, opt.init(leaf_params(model))))
+    if partition == "zero1":
+        state, spec = U.zero1_state(state, opt)
+        flat = spec.flat.clone()
+    else:
+        state, spec = U.sharded_update_state(state, opt)
+        flat = spec.gather(state.master)
+    return {"chunk": spec.chunk, "d_flat": spec.d_flat, "n": spec.n_shards,
+            "flat": flat.numpy().copy(), "opt_len": state.opt_state.trace[0].numel()}
+
+
+def _lenet_replicated(state_dict, image_shape):
+    """(model, momentum SGD, qsgd 4 bits, the replicated state) of LeNet
+    from given weights, in the group."""
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.training import TrainState, make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    model = build_model("lenet", 10, image_shape)
+    model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    state = R.replicate_state(TrainState(0, model, opt.init(leaf_params(model))))
+    return model, opt, get_codec("qsgd", quantization_level=4), state
+
+
+def job_partition_host(rank, world, *, state_dict, image_shape, batches):
+    """Sharded-update steps of LeNet on this world, then the gathered host
+    state (``mesh.update.gather_host``) as numpy on rank 0."""
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.mesh import update as U
+
+    model, opt, codec, state = _lenet_replicated(state_dict, image_shape)
+    state, spec = U.sharded_update_state(state, opt)
+    step = R.make_distributed_train_step(model, opt, codec, sharded_update=spec)
+    for x, y in batches:
+        state, _ = step(state, 11, *to_device(*R.shard_batch(x, y, rank, world), "cpu"))
+    host = U.gather_host(state, spec)
+    if rank:
+        return None
+    return {"step": host["step"], "master": host["master"].numpy(),
+            "opt": {"count": host["opt"]["count"],
+                    "trace": [t.numpy() for t in host["opt"]["trace"]]}, "buffers": {}}
+
+
+def _lenet_from_host(host, state_dict, image_shape):
+    """A replicated LeNet state holding a gathered host state's parameters,
+    momentum, count and step."""
+    import dataclasses
+
+    import torch
+
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    model, opt, codec, state = _lenet_replicated(state_dict, image_shape)
+    params = leaf_params(model)
+    d = sum(p.numel() for p in params)
+    with torch.no_grad():
+        for dst, src in ((params, host["master"]), (state.opt_state.trace,
+                                                    host["opt"]["trace"][0])):
+            at = 0
+            for t in dst:
+                t.copy_(src[at:at + t.numel()].view(t.shape))
+                at += t.numel()
+            assert at == d
+    opt_state = dataclasses.replace(state.opt_state, count=host["opt"]["count"])
+    return model, opt, codec, dataclasses.replace(state, step=host["step"], opt_state=opt_state)
+
+
+def job_partition_reshard(rank, world, *, state_dict, image_shape, host, batches):
+    """The host state of another world resharded onto this one
+    (``mesh.reshard.reshard_sharded_update``) against a fresh sharded build
+    from the same values (master and momentum slices, step, count), then
+    stepped beside the replicated step from those values: per step, loss
+    and parameters equal."""
+    import torch
+
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch.data import to_device
+    from atomo_tpu_torch.mesh import update as U
+    from atomo_tpu_torch.mesh.reshard import reshard_sharded_update
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    host = {"step": host["step"], "master": _t(host["master"]),
+            "opt": {"count": host["opt"]["count"], "trace": [_t(t) for t in host["opt"]["trace"]]},
+            "buffers": {}}
+    model, opt, codec, _ = _lenet_replicated(state_dict, image_shape)
+    st, spec = reshard_sharded_update(host, model, opt)
+    _, _, _, rep = _lenet_from_host(host, state_dict, image_shape)
+    fresh, fspec = U.sharded_update_state(rep, opt)
+    trace = host["opt"]["trace"][0][:spec.d_flat]
+    padded = torch.nn.functional.pad(trace, (0, spec.n_shards * spec.chunk - spec.d_flat))
+    slices = (torch.equal(st.master, fresh.master) and fspec.chunk == spec.chunk
+              and torch.equal(st.opt_state.trace[0], spec.own(padded))
+              and (st.step, st.opt_state.count) == (host["step"], host["opt"]["count"]))
+    model3, _, _, rep3 = _lenet_from_host(host, state_dict, image_shape)
+    s_step = R.make_distributed_train_step(model, opt, codec, sharded_update=spec)
+    r_step = R.make_distributed_train_step(model3, opt, codec)
+    same = []
+    for x, y in batches:
+        xs, ys = to_device(*R.shard_batch(x, y, rank, world), "cpu")
+        st, ms = s_step(st, 11, xs, ys)
+        rep3, mr = r_step(rep3, 11, xs, ys)
+        spec.materialize(st.master)
+        same.append(float(ms["loss"]) == float(mr["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(leaf_params(model), leaf_params(model3))))
+    return {"slices": slices, "same": same, "chunk": spec.chunk, "n": spec.n_shards}
+
+
+def job_reshard_lm(rank, world, *, cfg, codec):
+    """``mesh.reshard.reshard_model_axes`` on a live LM: dp (world ranks)
+    onto dp-tp (tp = world) and back, against a fresh build of the tp
+    layout from the same values (momentum included), the round trip
+    against the start; a delayed program's carry reset; dp-ep refused."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import atomo_tpu_torch.parallel.lm as L
+    from atomo_tpu_torch.convert import tree_leaves
+    from atomo_tpu_torch.mesh.reshard import reshard_model_axes
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.parallel import model_axes as MA
+    from atomo_tpu_torch.parallel.tp import lm_params_to_tp
+    from atomo_tpu_torch.training import make_optimizer
+    from atomo_tpu_torch.training.trainer import leaf_params
+
+    opt = make_optimizer("sgd", lr=0.01, momentum=0.9)
+    c = _codec(codec)
+    spec_dp = MeshSpec.from_layout("dp", world)
+    spec_tp = MeshSpec.from_layout("dp-tp", world, world)
+    prog = MA.build_model_axis_program(spec_dp, cfg, opt, 0, c, device="cpu")
+    with torch.no_grad():  # non-trivial momentum, a step counter and a count
+        for t, p in zip(prog.state.opt_state.trace, leaf_params(prog.state.model)):
+            t.copy_(p * 0.5)
+    prog = prog._replace(state=dataclasses.replace(
+        prog.state, step=3, opt_state=dataclasses.replace(prog.state.opt_state, count=3)))
+    tp = reshard_model_axes(prog, spec_tp, cfg, opt, codec=c)
+    # the oracle: the bijection by hand and a fresh build of the tp layout
+    from atomo_tpu_torch.convert import jax_from_state_dict
+
+    params = lm_params_to_tp(jax_from_state_dict(prog.state.model)[0], cfg["num_heads"])
+    fresh = MA.build_model_axis_program(spec_tp, cfg, opt, 0, c, layout="dp-tp", params=params,
+                                        device="cpu")
+    mom = lm_params_to_tp(jax_from_state_dict(prog.state.model, {
+        k: 0.5 * v for k, v in prog.state.model.state_dict().items()})[0], cfg["num_heads"])
+    want_mom = MA.slice_leaves([torch.from_numpy(x) for x in tree_leaves(mom)], fresh.splits,
+                               fresh.mesh)
+    tp_equal = (all(torch.equal(a, b) for a, b in zip(leaf_params(tp.state.model),
+                                                      leaf_params(fresh.state.model)))
+                and all(torch.equal(a, b) for a, b in zip(tp.state.opt_state.trace, want_mom))
+                and (tp.state.step, tp.state.opt_state.count) == (3, 3))
+    back = reshard_model_axes(tp, spec_dp, cfg, opt, codec=c)
+    round_trip = (all(torch.equal(a, b) for a, b in zip(leaf_params(back.state.model),
+                                                        leaf_params(prog.state.model)))
+                  and all(torch.equal(a, b) for a, b in zip(back.state.opt_state.trace,
+                                                            prog.state.opt_state.trace)))
+    out = {"tp_equal": tp_equal, "round_trip": round_trip, "splits": tp.splits is not None}
+    ex = L.DpExchange("gather", overlap="delayed")
+    dprog = MA.build_model_axis_program(spec_dp, cfg, opt, 0, c, exchange=ex, device="cpu")
+    dprog = dprog._replace(state=dataclasses.replace(dprog.state, carry=dataclasses.replace(
+        dprog.state.carry, valid=True)))
+    try:
+        reshard_model_axes(dprog, spec_tp, cfg, opt)
+        out["no_codec"] = None
+    except ValueError as e:
+        out["no_codec"] = str(e)
+    dtp = reshard_model_axes(dprog, spec_tp, cfg, opt, codec=c, exchange=ex)
+    plain = reshard_model_axes(dprog._replace(state=dataclasses.replace(dprog.state, carry=None)),
+                               spec_tp, cfg, opt, codec=c)
+    out["carry_reset"] = (not dtp.state.carry.valid and all(
+        torch.equal(a, b) for a, b in zip(leaf_params(dtp.state.model),
+                                          leaf_params(plain.state.model))))
+    try:
+        reshard_model_axes(prog, MeshSpec.from_layout("dp-ep", world, world), cfg, opt, codec=c)
+        out["ep"] = None
+    except ValueError as e:
+        out["ep"] = str(e)
+    out["loss_finite"] = bool(np.isfinite(float(tp.step(
+        tp.state, 5, torch.from_numpy(np.ascontiguousarray(tp.shard_tokens(
+            np.arange(4 * cfg["max_len"]).reshape(4, -1) % cfg["vocab_size"]))).long())[1]["loss"])))
+    return out
 
 
 def job_aggregate(rank, world, *, codec, grads, draws, fused_gather, ring_bucket_size,
@@ -731,7 +1011,10 @@ def job_modules(rank, world):
     return sorted({m.split(".")[0] for m in sys.modules})
 
 
-JOBS = {"train": job_train, "build": job_build, "aggregate": job_aggregate, "cli": job_cli,
+JOBS = {"train": job_train, "build": job_build, "partition_build": job_partition_build,
+        "partition_layout": job_partition_layout, "partition_host": job_partition_host,
+        "partition_reshard": job_partition_reshard, "reshard_lm": job_reshard_lm,
+        "aggregate": job_aggregate, "cli": job_cli,
         "lm": job_lm, "layout": job_layout, "attention": job_attention, "mesh": job_mesh,
         "targets": job_targets, "collectives": job_collectives, "modules": job_modules,
         "mesh_spec": job_mesh_spec, "model_collectives": job_model_collectives}

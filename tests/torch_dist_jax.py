@@ -243,17 +243,27 @@ class Reference:
         self._has_dropout = bool(masks)
         return masks
 
-    def _run(self, code, aggregate, n, num_aggregate, grad_accum, **modes):
+    def _run(self, code, aggregate, n, num_aggregate, grad_accum, partition=None, **modes):
         from atomo_tpu.parallel import init_delayed_state
 
         _, make = CODECS[code]
         mesh = make_mesh(n_devices=n)
         codec = make()
+        # from host copies: the step donates its state's buffers
+        state, su = replicate_state(mesh, jax.device_get(self.jstate)), None
+        if partition == "zero1":
+            from atomo_tpu.parallel.replicated import zero1_state
+
+            state, modes["zero1_specs"] = zero1_state(mesh, state, self.jopt)
+        elif partition == "sharded-update":
+            from atomo_tpu.mesh.update import sharded_update_state
+
+            state, su = sharded_update_state(mesh, jax.device_get(self.jstate), self.jopt)
+            modes["sharded_update"] = su
         step = make_distributed_train_step(self.jmodel, self.jopt, mesh, codec,
                                            aggregate=aggregate, num_aggregate=num_aggregate,
                                            grad_accum=grad_accum, **modes)
-        # from host copies: the step donates its state's buffers
-        state = replicate_state(mesh, jax.device_get(self.jstate))
+        tree = jax.device_get(self.jstate.params)  # the leaf shapes the draws take
         delayed = modes.get("overlap") == "delayed"
         if delayed:
             state = init_delayed_state(mesh, state, codec)
@@ -265,14 +275,17 @@ class Reference:
             per = x.shape[0] // n
             for r in range(n):
                 if draw is not None:
-                    draws[r].append(draw(codec_key(self.key, s, r), state.params))
+                    draws[r].append(draw(codec_key(self.key, s, r), tree))
                 masks[r].append(self._masks(x[r * per:(r + 1) * per],
                                             drop_key(self.key, s, r), grad_accum))
             x = jnp.asarray(x, jnp.float64 if self.x64 else jnp.float32)
             state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)))[:2]
             guarded = modes.get("guard") is not None
-            out.append({"params": jax.device_get(state.params),
-                        "batch_stats": jax.device_get(state.batch_stats),
+            train = state.train if hasattr(state, "train") else state
+            out.append({"params": (su.materialize_host(train.master) if su is not None
+                                   else jax.device_get(train.params)),
+                        "batch_stats": jax.device_get(train.batch_stats),
+                        "opt_state": jax.device_get(train.opt_state),
                         "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
                         "skipped": float(m["skipped"]) if delayed or guarded else None,
                         "dropped": float(m["dropped"]) if guarded else None,
