@@ -185,6 +185,42 @@ def _resilience_flags(p: argparse.ArgumentParser) -> None:
                         "'nan@3,kill@6,truncate@4,spike@5:3,crashloop@2' "
                         "(see atomo_tpu_torch/utils/chaos.py); defaults "
                         "to the ATOMO_CHAOS env var")
+    p.add_argument("--quorum", type=str, default="off", metavar="Q",
+                   help="bounded-staleness quorum aggregation: each step "
+                        "consumes whatever payloads have ARRIVED (a "
+                        "straggler's payload rides a staleness ring, "
+                        "bounded at --staleness steps stale, then dropped "
+                        "+ counted) and waits only until Q of the N "
+                        "replicas are present — the surviving mean is "
+                        "the survivor-exact mean (one division by the "
+                        "kept count). The per-step arrival schedule is "
+                        "recorded to train-dir/arrival_schedule.jsonl "
+                        "so --replay-arrivals replays the trajectory "
+                        "bit-exact. Needs a compressing --code, "
+                        "--aggregate gather|ring and a multi-device "
+                        "group; conflicts with --overlap delayed, "
+                        "--sparse-rows, --stream-encode, "
+                        "--error-feedback, --zero1/--partition "
+                        "sharded-update, --num-aggregate, --superstep > "
+                        "1, --obs-quality. off (default) = blocking "
+                        "aggregation")
+    p.add_argument("--staleness", type=int, default=1, metavar="K",
+                   help="with --quorum: the staleness bound — a payload "
+                        "may be consumed at most K steps late; one that "
+                        "would exceed K is DROPPED (one "
+                        "staleness_exceeded incident each, never a "
+                        "silent stale apply)")
+    p.add_argument("--quorum-period-ms", type=float, default=100.0, metavar="MS",
+                   help="with --quorum: the modelled step period used to "
+                        "convert a chaos slow@S:R:SEC straggler's lag "
+                        "into whole steps (lag = ceil(SEC/period))")
+    p.add_argument("--replay-arrivals", type=str, default="", metavar="PATH",
+                   help="with --quorum: replay a recorded "
+                        "arrival_schedule.jsonl instead of deriving (and "
+                        "waiting out) a live schedule — the trajectory "
+                        "is bit-identical to the recorded run's; refuses "
+                        "a schedule recorded under different "
+                        "Q/K/N/period knobs")
     p.add_argument("--on-diverge", type=str, default="off",
                    choices=["off", "skip", "rewarm", "densify"],
                    help="arm the divergence doctor: a windowed robust "
@@ -284,6 +320,136 @@ def _chaos_preflight(args: argparse.Namespace) -> None:
                     f"{args.n_devices}-device mesh (replicas are "
                     "0-based); the fault would never fire and the "
                     "drill would prove nothing")
+
+
+def _quorum_q(args: argparse.Namespace) -> Optional[int]:
+    """``--quorum``: None for 'off', else the validated Q floor
+    (``atomo_tpu/cli.py:867-890``)."""
+    q = args.quorum
+    if q in ("off", ""):
+        return None
+    try:
+        v = int(q)
+    except (TypeError, ValueError):
+        raise SystemExit(
+            f"--quorum {q!r}: expected 'off' or a positive integer "
+            "(the number of replicas a step waits for)")
+    if v < 1:
+        raise SystemExit(
+            f"--quorum {v}: must be >= 1 (a step has to consume at "
+            "least one arrival)")
+    return v
+
+
+def _quorum_preflight(args: argparse.Namespace) -> None:
+    """The quorum half of the JAX verb's argv preflight
+    (``atomo_tpu/cli.py:1356-1482``) for the flags the port has."""
+    if _quorum_q(args) is None:
+        if args.replay_arrivals:
+            raise SystemExit(
+                "--replay-arrivals replays a recorded quorum arrival "
+                "schedule and needs --quorum")
+        return
+    if args.staleness < 1:
+        raise SystemExit(
+            f"--staleness {args.staleness}: must be >= 1 (0 would "
+            "mean blocking aggregation — drop --quorum instead)")
+    if args.quorum_period_ms <= 0:
+        raise SystemExit(
+            f"--quorum-period-ms {args.quorum_period_ms}: must be "
+            "> 0 (it converts a straggler's seconds of lag into "
+            "whole steps)")
+    if args.code.lower() in DENSE_CODES:
+        raise SystemExit(
+            "--quorum rides the encoded payload exchange (the "
+            "staleness ring carries payloads, not dense gradients); "
+            "pick a compressing --code")
+    if args.n_devices == 1:
+        raise SystemExit(
+            "--quorum needs a multi-device mesh: a single device "
+            "has no stragglers to absorb")
+    if args.aggregate == "psum":  # (the port's --aggregate has no hierarchical yet)
+        raise SystemExit(
+            f"--quorum does not compose with --aggregate "
+            f"{args.aggregate}: only the flat payload gather/ring "
+            "exchanges carry the staleness ring; psum ships dense "
+            "gradients and the hierarchical boundary re-encode is "
+            "not arrival-aware")
+    if args.overlap == "delayed":
+        raise SystemExit(
+            "--quorum does not compose with --overlap delayed: "
+            "both modes carry cross-step payload state, and "
+            "composing the delayed carry with the staleness ring "
+            "would double-count a step of lag — the quorum carry "
+            "IS the bounded generalization of the delayed one")
+    if args.stream_encode == "on":
+        raise SystemExit(
+            "--quorum does not compose with --stream-encode: the "
+            "bucket-streamed encode is not staleness-ring-aware yet")
+    if args.sparse_rows != "off":
+        raise SystemExit(
+            "--quorum does not compose with --sparse-rows: the "
+            "row payloads' shapes are assignment-specific and the "
+            "staleness ring is not row-aware yet")
+    if args.error_feedback:
+        raise SystemExit(
+            "--quorum does not compose with --error-feedback: a "
+            "dropped stale payload's residual would be "
+            "mis-attributed — rejected honestly")
+    if _partition(args) != "replicated":
+        raise SystemExit(
+            "--quorum does not compose with --zero1 / --partition "
+            "sharded-update yet: the staleness-ring carry is "
+            "untested against the sharded state templates")
+    if args.num_aggregate is not None:
+        raise SystemExit(
+            "--quorum does not compose with --num-aggregate: the "
+            "arrival schedule already decides which replicas "
+            "contribute each step")
+    if args.superstep > 1:
+        raise SystemExit(
+            f"--superstep {args.superstep} does not compose with "
+            "--quorum: the host feeds a fresh arrival vector every "
+            "step, which a fused K-step scan cannot consume")
+    if args.phase_metrics:
+        raise SystemExit(
+            "--quorum needs the fused step (the staleness ring "
+            "rides its carry); --phase-metrics has no fused step"
+            + PHASE_METRICS_HINT)
+    if args.obs_quality:
+        raise SystemExit(
+            "--quorum does not compose with --obs-quality: a stale "
+            "payload's per-layer error column would describe an "
+            "earlier step's gradient — rejected honestly rather "
+            "than silently mis-attributed")
+    if args.on_diverge != "off":
+        raise SystemExit(
+            "--quorum does not compose with --on-diverge: the "
+            "rollback reload does not rebuild the staleness-ring "
+            "template yet")
+    if args.replay_arrivals and not os.path.exists(args.replay_arrivals):
+        raise SystemExit(f"--replay-arrivals {args.replay_arrivals!r}: no such file")
+
+
+def _quorum_config(args: argparse.Namespace, n_dev: int):
+    """The resolved-world half of the quorum checks (``:2446-2458``), then
+    the :class:`~atomo_tpu_torch.quorum.QuorumConfig` the loop takes
+    (``:2776-2786``), or None without ``--quorum``."""
+    q = _quorum_q(args)
+    if q is None:
+        return None
+    if n_dev <= 1:
+        raise SystemExit(
+            "--quorum waits for Q of N replica payloads: this run "
+            "resolved to 1 device, so there is no exchange to quorum on")
+    if q > n_dev:
+        raise SystemExit(
+            f"--quorum {q} exceeds the resolved "
+            f"{n_dev}-replica mesh: a quorum larger than the world "
+            "can never be met")
+    from atomo_tpu_torch.quorum import QuorumConfig
+
+    return QuorumConfig(q, staleness=args.staleness, period_s=args.quorum_period_ms / 1e3)
 
 
 def _diverge_preflight(args: argparse.Namespace) -> None:
@@ -1439,6 +1605,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     _sparse_preflight(args)
     _obs_preflight(args)
     _budget_preflight(args)
+    _quorum_preflight(args)
     _chaos_preflight(args)
     _diverge_preflight(args)
     rc = _supervise(args, log_fn)
@@ -1508,6 +1675,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 args, model, codec, train_iter, log_fn)[1].ks)
         recorder, _ = _recorder(args, 1, log_fn)
         _resolved_chaos(chaos, 1)
+        _quorum_config(args, 1)
         diverge = _diverge_config(args, codec, 1, None)
         try:
             return train_loop(model, optimizer, train_iter, test_iter, codec=codec,
@@ -1554,6 +1722,9 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
             warnings.warn(ZERO1_ONE_DEVICE)
             partition = "replicated"
         _resolved_chaos(chaos, n_dev)
+        # (the JAX verb forces --superstep 1 here where its backend's auto
+        # default is 8; the port's auto is 1, and an argv K above 1 is refused)
+        quorum = _quorum_config(args, n_dev)
         diverge = _diverge_config(args, codec, n_dev, aggregate)
         try:
             return distributed_train_loop(
@@ -1566,7 +1737,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 track_quality=args.obs_quality, recorder=recorder,
                 phase_metrics=args.phase_metrics, lr_fn=_reference_lr(args),
                 profile_dir=args.profile_dir or None, budget_tuner=budget_tuner,
-                partition=partition, **{**common, "device": ctx.device})
+                partition=partition, quorum=quorum,
+                quorum_replay=args.replay_arrivals or None, **{**common, "device": ctx.device})
         except DivergenceError as exc:
             return _diverged_exit(exc)
     finally:

@@ -53,7 +53,7 @@ from typing import Any, Optional, Protocol, Sequence
 import torch
 
 from atomo_tpu_torch.convert import from_jax_view, jax_view
-from atomo_tpu_torch.ops.qsgd_kernels import replica_mean
+from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, survivor_divisor
 from atomo_tpu_torch.utils.rng import FoldedSeeds, fold_in
 
 Payload = Any  # a NamedTuple of tensors
@@ -353,7 +353,7 @@ def mask_gathered(gathered: Sequence[Payload], replica_ok: torch.Tensor) -> list
 def decode_mean_tree(
     codec: Codec, gathered: Sequence[Payload], grads_like: Sequence[torch.Tensor],
     n_replicas: int, layouts: Optional[Sequence[bool]] = None, fused: bool = True,
-    replica_ok: Optional[torch.Tensor] = None,
+    replica_ok: Optional[torch.Tensor] = None, survivor: bool = False,
 ) -> list[torch.Tensor]:
     """Decode gathered payloads (each leaf's with a leading replica axis of
     ``n_replicas``, the fields of a gathered buffer included) and average
@@ -367,18 +367,23 @@ def decode_mean_tree(
     guard: an (N,) float32 flag per replica) leaves the unhealthy replicas
     out as the JAX package's masked decode does: the fused QSGD kernel
     adds a zero at their place and never reads their fields; every other
-    codec decodes :func:`mask_gathered`'s payloads."""
+    codec decodes :func:`mask_gathered`'s payloads. ``survivor`` (with
+    ``replica_ok``) is the survivor-exact mean: each sum divided once by
+    max(kept, 1) in place of ``n_replicas``, every replica decoded alone and
+    the decodes summed in replica order (no fused mean)."""
     out = _per_codec(codec, gathered, grads_like, layouts,
                      lambda c, p, g, lay: decode_mean_tree(c, p, g, n_replicas, lay, fused,
-                                                           replica_ok))
+                                                           replica_ok, survivor))
     if out is not None:
         return out
     decode_leaves = getattr(codec, "decode_leaves", None)
     if decode_leaves is not None:
-        return decode_leaves(gathered, grads_like, layouts, n_replicas, replica_ok=replica_ok)
+        return decode_leaves(gathered, grads_like, layouts, n_replicas, replica_ok=replica_ok,
+                             survivor=survivor)
+    divisor = survivor_divisor(replica_ok) if survivor else None
     if replica_ok is not None:
         gathered = mask_gathered(gathered, replica_ok)
-    fused_mean = getattr(codec, "decode_mean_stack", None) if fused else None
+    fused_mean = getattr(codec, "decode_mean_stack", None) if fused and not survivor else None
 
     def mean(stacked, n, shape):
         if fused_mean is not None:
@@ -387,6 +392,6 @@ def decode_mean_tree(
         flat = type(stacked)(*(a.reshape(n_leaves * n_replicas, *a.shape[2:])
                                for a in stacked))
         vals = codec.decode_stack(flat, n, shape=shape)
-        return replica_mean(vals.reshape(n_leaves, n_replicas, n).transpose(0, 1))
+        return replica_mean(vals.reshape(n_leaves, n_replicas, n).transpose(0, 1), divisor)
 
     return _decode_groups(codec, gathered, grads_like, layouts, mean)

@@ -223,6 +223,7 @@ class QsgdCodec:
         layouts: Optional[Sequence[bool]] = None,
         n_replicas: int = 1,
         replica_ok: Optional[torch.Tensor] = None,
+        survivor: bool = False,
     ) -> list[torch.Tensor]:
         """Decode every leaf of a tree straight into the port layout of
         ``grads_like`` (float32; ``layouts`` as for :func:`encode_tree`); with
@@ -235,7 +236,11 @@ class QsgdCodec:
         call and one dequantization over the rows of every leaf.
         ``replica_ok`` (an (N,) float32 flag per replica, the guard's) leaves
         the flagged-out replicas out: the fused kernel adds a zero at their
-        place; the pack path decodes ``mask_gathered``'s payloads."""
+        place; the pack path decodes ``mask_gathered``'s payloads.
+        ``survivor`` (with ``replica_ok``) divides each sum by max(kept, 1)
+        in place of ``n_replicas`` (the survivor-exact mean): the fused
+        kernel counts the flags itself, the pack path divides by
+        :func:`~atomo_tpu_torch.ops.qsgd_kernels.survivor_divisor`."""
         if not payloads:
             return []
         if self._fused(payloads[0].words):
@@ -243,7 +248,9 @@ class QsgdCodec:
             return K.unpack_dequantize_tree(
                 payloads, grads_like, layouts, bits=self.bits,
                 bucket_size=self.bucket_size, n_replicas=n_replicas, replica_ok=replica_ok,
+                survivor=survivor,
             )
+        divisor = K.survivor_divisor(replica_ok) if survivor else None
         if replica_ok is not None:
             from atomo_tpu_torch.codecs.base import mask_gathered
 
@@ -258,7 +265,7 @@ class QsgdCodec:
         for g, like, tr in zip(geoms, grads_like, layouts):
             rows = n_replicas * g.n_buckets
             leaf = vals[row: row + rows].reshape(n_replicas, -1)[:, : g.n]
-            out.append(K.to_port_layout(K.replica_mean(leaf), like.shape, tr))
+            out.append(K.to_port_layout(K.replica_mean(leaf, divisor), like.shape, tr))
             row += rows
         return out
 

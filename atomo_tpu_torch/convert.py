@@ -400,3 +400,57 @@ def jax_flat_opt(model: nn.Module, full: dict, template):
         return node
 
     return fill(template)
+
+
+# ------------------------------------------------ the quorum staleness ring
+# The JAX package's QuorumCarry holds, per payload field (tree_leaves order:
+# leaf by leaf in canonical order, each payload's fields in order), one
+# (n_dev, K+1, *field shape) array and a (n_dev, K+1) ring_ok; the port's
+# ring is a rank's (K+1, B) packed rows (parallel.common.PackSpec), and its
+# checkpoint form every rank's, (N, K+1, B). A field lies alike in both
+# packages (the codecs encode the JAX view), so a field's bytes move as
+# they are.
+
+
+_NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32, torch.uint32: np.uint32,
+              torch.float32: np.float32, torch.bfloat16: np.uint16, torch.float16: np.float16,
+              torch.int64: np.int64}
+
+
+def _spec_fields(spec) -> list:
+    return [f for leaf in spec.fields for f in leaf]
+
+
+def quorum_ring_from_jax(fields, ring_ok, spec) -> dict:
+    """A JAX ``QuorumCarry`` (its ``tree_leaves(ring)`` as numpy arrays and
+    its ``ring_ok``) as the port's gathered ring: ``{"ring": (N, K+1, B)
+    uint8, "ring_ok": (N, K+1) float32}``, ``spec`` the port's layout of one
+    payload row (``QuorumCarry.spec``). Padding bytes are zero."""
+    flat = _spec_fields(spec)
+    if len(fields) != len(flat):
+        raise ValueError(f"the JAX ring has {len(fields)} payload fields, the port's "
+                         f"layout {len(flat)}")
+    lead = tuple(np.asarray(ring_ok).shape)
+    ring = np.zeros(lead + (spec.nbytes,), np.uint8)
+    for a, (off, nbytes, dtype, shape, _) in zip(fields, flat):
+        a = np.ascontiguousarray(a)
+        if a.shape != lead + tuple(shape) or a.nbytes != nbytes * int(np.prod(lead)):
+            raise ValueError(f"JAX ring field {a.shape} {a.dtype} does not fill the port's "
+                             f"{lead + tuple(shape)} field of {nbytes} bytes")
+        ring[..., off:off + nbytes] = a.view(np.uint8).reshape(lead + (nbytes,))
+    return {"ring": torch.from_numpy(ring),
+            "ring_ok": torch.from_numpy(np.asarray(ring_ok, np.float32).copy())}
+
+
+def jax_quorum_ring(saved: dict, spec) -> tuple[list, np.ndarray]:
+    """Inverse of :func:`quorum_ring_from_jax`: the port's gathered ring as
+    the JAX ``QuorumCarry``'s (field arrays in ``tree_leaves`` order,
+    ``ring_ok``), each field (N, K+1, *shape) in its own dtype."""
+    ring = saved["ring"].detach().cpu().contiguous().numpy()
+    lead = ring.shape[:-1]
+    out = []
+    for off, nbytes, dtype, shape, _ in _spec_fields(spec):
+        np_dtype = _NP_DTYPES[dtype]
+        out.append(np.ascontiguousarray(ring[..., off:off + nbytes]).view(np_dtype)
+                   .reshape(lead + tuple(shape)))
+    return out, saved["ring_ok"].detach().cpu().numpy().copy()

@@ -262,6 +262,18 @@ __device__ __forceinline__ bool replica_in(const float* __restrict__ rok, int r)
   return rok == nullptr || rok[r] > 0.f;
 }
 
+// The divisor of the replica mean: n_replicas, or in the survivor mode
+// (survivor != 0, flags given) max(kept, 1), kept the flags above 0, read
+// from device memory (at most a few dozen floats), so the step needs no
+// host read of the count. A divisor of 1 skips the division.
+__device__ __forceinline__ float mean_divisor(const float* __restrict__ rok, int n_replicas,
+                                              int survivor) {
+  if (!survivor || rok == nullptr) return (float)n_replicas;
+  int kept = 0;
+  for (int r = 0; r < n_replicas; ++r) kept += rok[r] > 0.f ? 1 : 0;
+  return (float)(kept > 1 ? kept : 1);
+}
+
 // (sign * level) * (scale / levels): the association XLA gives the JAX
 // reference, which hoists the constant product out of the field loop.
 template <int BITS>
@@ -291,7 +303,7 @@ template <int BITS, bool kPow2>
 __global__ void __launch_bounds__(32 * kDecWarps, 4)
 unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs, int bs_shift,
                               int nw, unsigned nw_magic, int n_replicas,
-                              const float* __restrict__ rok) {
+                              const float* __restrict__ rok, int survivor) {
   constexpr int kBpv = BITS + 1;
   constexpr int kVpw = 32 / kBpv;
   constexpr uint32_t kMask = (1u << kBpv) - 1u;
@@ -309,6 +321,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
   float* __restrict__ out = table.out[leaf];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int A = table.dims[leaf][0];
+  const float denom = mean_divisor(rok, n_replicas, survivor);
 
   if (A == 0) {
     const int lb = t * kDecWarps + warp;
@@ -344,7 +357,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
 #pragma unroll
       for (int j = 0; j < kVpw; ++j) {
         const int p = j * nw + w;
-        if (p < valid) ob[p] = n_replicas == 1 ? acc[j] : __fdiv_rn(acc[j], (float)n_replicas);
+        if (p < valid) ob[p] = denom == 1.f ? acc[j] : __fdiv_rn(acc[j], denom);
       }
     }
     return;
@@ -436,7 +449,7 @@ unpack_dequantize_tree_kernel(const __grid_constant__ DecodeTable table, int bs,
   for (int i = 0; i < kPer; ++i) {
     const int kk = warp * kPer + i;
     tile[lane * kDecTileK + (kk ^ lane)] =
-        n_replicas == 1 ? acc[i] : __fdiv_rn(acc[i], (float)n_replicas);
+        denom == 1.f ? acc[i] : __fdiv_rn(acc[i], denom);
   }
   __syncthreads();
 
@@ -683,12 +696,15 @@ int qsgd_quantize_pack(const float* const* x, const float* const* u,
 // at words[l] + r * wstride[l] and (nb,) scales at scales[l] + r *
 // sstride[l], nb = ceil(n[l] / bs), are decoded, averaged over the replicas
 // (summed in order, then divided) and written to out + out_off[l] in the
-// layout dims[3 l .. 3 l + 2] (see DecodeTable).
+// layout dims[3 l .. 3 l + 2] (see DecodeTable). replica_ok (n_replicas
+// floats on the card, or null) leaves the replicas whose flag is not above 0
+// out; survivor != 0 divides by max(kept, 1) in place of n_replicas.
 int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const* scales,
                                 const long long* wstride, const long long* sstride,
                                 float* out, const long long* out_off, const int* n,
                                 const int* dims, int n_leaves, int bs, int nw, int bits,
-                                int n_replicas, void* stream, const float* replica_ok) {
+                                int n_replicas, void* stream, const float* replica_ok,
+                                int survivor) {
   if (n_leaves <= 0) return 0;
   if (bs <= 0 || nw <= 0 || n_replicas <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -728,10 +744,10 @@ int qsgd_unpack_dequantize_tree(const uint32_t* const* words, const float* const
 #define QSGD_UD(B)                                                                    \
   if (pow2) {                                                                           \
     unpack_dequantize_tree_kernel<B, true><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>(  \
-        t, bs, bs_shift, nw, magic, n_replicas, replica_ok);                            \
+        t, bs, bs_shift, nw, magic, n_replicas, replica_ok, survivor);                  \
   } else {                                                                              \
     unpack_dequantize_tree_kernel<B, false><<<(unsigned)tiles, 32 * kDecWarps, 0, s>>>( \
-        t, bs, bs_shift, nw, magic, n_replicas, replica_ok);                            \
+        t, bs, bs_shift, nw, magic, n_replicas, replica_ok, survivor);                  \
   }
     QSGD_DISPATCH_BITS(bits, QSGD_UD)
 #undef QSGD_UD

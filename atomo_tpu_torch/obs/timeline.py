@@ -89,6 +89,10 @@ RANGE_PREFIX = "step."
 PORT_PHASE_OF_RANGE = {
     "encode_bucket": "encode",
     "delayed_ring_exchange_decode": "exchange",
+    # the quorum step's (the JAX table leaves its scopes out too)
+    "quorum_exchange": "exchange",
+    "quorum_decode_mean": "decode",
+    "quorum_ring_exchange_decode": "exchange",
     "decode": "compute",
     "ef_decode": "compute",
     "quality": "compute",

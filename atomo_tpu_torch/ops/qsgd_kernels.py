@@ -369,17 +369,29 @@ def to_port_layout(flat: torch.Tensor, shape: Sequence[int], transpose: bool = T
     return flat.view(dims).permute(2, 1, 0).contiguous().view(shape)
 
 
-def replica_mean(vals: torch.Tensor) -> torch.Tensor:
+def replica_mean(vals: torch.Tensor, divisor: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, n) -> (n,): the replicas summed in order 0..N-1 in float32, then
-    divided by N, the order of the tree kernel (one replica is itself)."""
+    divided by N, the order of the tree kernel (one replica is itself).
+    ``divisor`` (a 0-d float32 tensor on the values' device: the survivor
+    mode's max(kept, 1)) divides in place of N."""
     acc = vals[0]
     for r in range(1, vals.shape[0]):
         acc = acc + vals[r]
+    if divisor is not None:
+        return acc / divisor.to(acc.dtype).expand_as(acc)
     if vals.shape[0] == 1:
         return acc
     # a tensor divisor: on CUDA, torch multiplies by the reciprocal of a
     # Python scalar divisor, which is not the division for every N
     return acc / torch.full_like(acc, vals.shape[0])
+
+
+def survivor_divisor(replica_ok: Optional[torch.Tensor]) -> torch.Tensor:
+    """The survivor mode's divisor: max(kept, 1), kept the flags of the (N,)
+    ``replica_ok`` above 0, as a 0-d float32 tensor on its device (no host
+    read)."""
+    _check_survivor(True, replica_ok)
+    return torch.clamp((replica_ok > 0).sum().to(torch.float32), min=1.0)
 
 
 def tree_layouts(outs_like: Sequence[torch.Tensor], layouts) -> tuple:
@@ -463,15 +475,19 @@ def unpack_dequantize_tree_plain(
     bucket_size: int = 512,
     n_replicas: int = 1,
     replica_ok: Optional[torch.Tensor] = None,
+    survivor: bool = False,
 ) -> list:
     """Plain twin of :func:`unpack_dequantize_tree`: each leaf decoded alone
     by :func:`unpack_dequantize_plain`, the replicas averaged by
     :func:`replica_mean`, then laid out as the port holds it. Takes the
     payloads the kernel takes, views of a gathered buffer included; with
     ``replica_ok`` the payloads are :func:`mask_replicas`'s first (the JAX
-    package's masked decode)."""
+    package's masked decode), and ``survivor`` divides by
+    :func:`survivor_divisor` (the JAX package's roster fold over the
+    survivors, one division by the kept count)."""
     geoms = [geometry(like.numel(), bits, bucket_size) for like in outs_like]
     check_decode_args(payloads, outs_like, n_replicas, geoms)
+    divisor = survivor_divisor(replica_ok) if survivor else None
     if replica_ok is not None:
         payloads = mask_replicas(payloads, replica_ok)
     out = []
@@ -482,8 +498,13 @@ def unpack_dequantize_tree_plain(
             scales.reshape(n_replicas, g.n_buckets),
             bits=bits, bucket_size=bucket_size, n=g.n,
         )
-        out.append(to_port_layout(replica_mean(vals), like.shape, tr))
+        out.append(to_port_layout(replica_mean(vals, divisor), like.shape, tr))
     return out
+
+
+def _check_survivor(survivor: bool, replica_ok) -> None:
+    if survivor and replica_ok is None:
+        raise ValueError("the survivor mode divides by the flags above 0: pass replica_ok")
 
 
 def unpack_bucketed_tree_plain(words_per_leaf: Sequence[torch.Tensor], *, bits: int):
@@ -550,7 +571,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qsgd_quantize_pack.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.qsgd_unpack_dequantize_tree.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p,
-                                                    p]
+                                                    p, i]
         lib.qsgd_pack_codes_tree.argtypes = [p, p, i, i, i, p]
         lib.qsgd_unpack_codes_tree.argtypes = [p, p, p, p, i, p, i, i, p]
         for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize_tree,
@@ -779,22 +800,25 @@ def _decode_layout(shapes: tuple, layouts: tuple, bits: int, bucket_size: int,
 
 
 def _launch_unpack_dequantize(words, scales, wstrides, sstrides, out, layout, *, bits,
-                              bucket_size, n_replicas, replica_ok=None):
+                              bucket_size, n_replicas, replica_ok=None, survivor=False):
     """Launch the tree decode over leaves whose words and scales lie at the
     data pointers ``words`` and ``scales``, replica r's ``r * wstrides[l]``
     words and ``r * sstrides[l]`` scales on, into ``out`` laid out as
     ``layout``; ``replica_ok`` (device pointer to N float32 flags, or None)
-    leaves the flagged-out replicas out."""
+    leaves the flagged-out replicas out, and ``survivor`` divides by
+    max(kept, 1) in place of N."""
     n_leaves = len(words)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     rc = _lib().qsgd_unpack_dequantize_tree(
         (vp * n_leaves)(*words), (vp * n_leaves)(*scales), (ll * n_leaves)(*wstrides),
         (ll * n_leaves)(*sstrides), _ptr(out), layout.offsets,
         layout.ns, layout.dims, n_leaves, bucket_size, layout.geoms[0].n_words, bits,
-        n_replicas, _stream(), _ptr(replica_ok),
+        n_replicas, _stream(), _ptr(replica_ok), int(bool(survivor)),
     )
     _raise_if(rc, "qsgd_unpack_dequantize_tree")
     unpack_dequantize.launches += -(-n_leaves // _MAX_LEAVES)
+    if survivor:
+        unpack_dequantize.survivor_launches += -(-n_leaves // _MAX_LEAVES)
 
 
 def unpack_dequantize_tree(
@@ -806,6 +830,7 @@ def unpack_dequantize_tree(
     bucket_size: int = 512,
     n_replicas: int = 1,
     replica_ok: Optional[torch.Tensor] = None,
+    survivor: bool = False,
 ) -> list:
     """Fused QSGD decode of a whole tree in one launch: ``payloads`` holds
     one (words, scales) pair per leaf, words (n_buckets, n_words) uint32 and
@@ -826,7 +851,13 @@ def unpack_dequantize_tree(
     and never reads its words or scales, which is the arithmetic of the JAX
     package's ``where(ok, payload, 0)`` followed by the decode, bit for bit
     (a zeroed payload decodes to +0.0, so a partial sum of -0.0 becomes
-    +0.0 there too). None launches as before."""
+    +0.0 there too). None launches as before.
+
+    ``survivor`` (with ``replica_ok``) is the survivor mode of the elastic
+    operator (``atomo_tpu/elastic/shrink.py:102-167``): the kernel counts
+    the flags above 0 itself and divides each sum by max(kept, 1) in place
+    of ``n_replicas``, so the divisor never leaves the card. With every
+    flag up it is the flagged form's division, bit for bit."""
     if not payloads:
         return []
     w0 = payloads[0][0]
@@ -834,11 +865,12 @@ def unpack_dequantize_tree(
                                    or tuple(replica_ok.shape) != (n_replicas,)):
         raise ValueError(f"replica_ok must be ({n_replicas},) float32, got "
                          f"{tuple(replica_ok.shape)} {replica_ok.dtype}")
+    _check_survivor(survivor, replica_ok)
     if not _on_card(w0):
         _on_card(*(t for p in payloads for t in p))  # refuses a mix of devices
         return unpack_dequantize_tree_plain(payloads, outs_like, layouts, bits=bits,
                                             bucket_size=bucket_size, n_replicas=n_replicas,
-                                            replica_ok=replica_ok)
+                                            replica_ok=replica_ok, survivor=survivor)
     if replica_ok is not None:
         _on_card(w0, replica_ok)  # the flags on the payloads' card
         replica_ok = replica_ok.contiguous()
@@ -862,7 +894,7 @@ def unpack_dequantize_tree(
     out = torch.empty((layout.total,), dtype=f32, device=w0.device)
     _launch_unpack_dequantize(word_ptrs, scale_ptrs, wstrides, sstrides, out, layout,
                               bits=bits, bucket_size=bucket_size, n_replicas=n_replicas,
-                              replica_ok=replica_ok)
+                              replica_ok=replica_ok, survivor=survivor)
     return [out.as_strided(shape, stride, offset) for shape, stride, offset in layout.views]
 
 
@@ -1020,6 +1052,9 @@ def unpack_bucketed(words: torch.Tensor, bits: int) -> torch.Tensor:
 KERNELS = (quantize_pack, unpack_dequantize, pack_bucketed, unpack_bucketed)
 for _fn in KERNELS:
     _fn.launches = 0
+# row 2's launches in its survivor mode, counted in unpack_dequantize.launches
+# too: the survivor form's own entry in a report
+unpack_dequantize.survivor_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -1029,3 +1064,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    unpack_dequantize.survivor_launches = 0

@@ -192,16 +192,18 @@ class BucketWire:
     first replica, None for all. ``deferred`` (the guard) holds the ring's
     buckets until :meth:`mean`, where this rank's health flag is known and
     rotates with each bucket's payload; the gather's buckets go out as
-    before and the flags reach their decode."""
+    before and the flags reach their decode. ``survivor`` (with the guard)
+    takes the survivor-exact mean: one division by the kept count, which
+    the caller does not rescale."""
 
     def __init__(self, codec, plan, layouts, *, aggregate: str, rank: int, world: int,
                  n_contrib: int, ring_bucket_size: int, sel_start: Optional[int] = None,
-                 group=None, stream=None, deferred: bool = False):
+                 group=None, stream=None, deferred: bool = False, survivor: bool = False):
         self.codec, self.plan, self.layouts = codec, plan, layouts
         self.aggregate, self.rank, self.world, self.group = aggregate, rank, world, group
         self.n_contrib, self.sel_start = n_contrib, sel_start
         self.ring_bucket_size, self.stream = ring_bucket_size, stream
-        self.deferred = deferred
+        self.deferred, self.survivor = deferred, survivor
         self.gathered: dict = {}
         self.rings: dict = {}
         self.means: list = [None] * plan.n_leaves
@@ -228,7 +230,8 @@ class BucketWire:
         out = ring_stream_mean(codec_subset(self.codec, idxs), payloads, inputs,
                                rank=self.rank, world=self.world, sel_start=self.sel_start,
                                n_contrib=self.n_contrib, ring_bucket_size=self.ring_bucket_size,
-                               layouts=[self.layouts[i] for i in idxs], group=self.group, ok=ok)
+                               layouts=[self.layouts[i] for i in idxs], group=self.group, ok=ok,
+                               survivor_exact=self.survivor and ok is not None)
         mean_b, kept = out if ok is not None else (out, None)
         for i, m in zip(idxs, mean_b):
             self.means[i] = m
@@ -267,8 +270,9 @@ class BucketWire:
                     okg = _rotating_rows(okg.view(self.world, 1), self.sel_start,
                                          self.n_contrib).reshape(-1)
         with record_function("step.decode_mean"):
+            surv = self.survivor and okg is not None
             mean = decode_mean_tree(self.codec, parts, like, self.n_contrib, self.layouts,
-                                    replica_ok=okg)
+                                    fused=not surv, replica_ok=okg, survivor=surv)
         return mean if ok is None else (mean, okg.sum())
 
 

@@ -115,6 +115,7 @@ from atomo_tpu_torch.codecs import (
     tree_nbytes,
 )
 from atomo_tpu_torch.convert import from_jax_view, jax_layouts, jax_leaf_order, jax_view
+from atomo_tpu_torch.elastic.shrink import survivor_decode_mean
 from atomo_tpu_torch.models.dropout import dropout_stream
 from atomo_tpu_torch.obs.quality import quality_from_decoded, quality_probe
 from atomo_tpu_torch.ops.qsgd_kernels import replica_mean, to_port_layout
@@ -138,6 +139,7 @@ from atomo_tpu_torch.parallel.overlap import (
     pack_payloads,
     side_stream,
 )
+from atomo_tpu_torch.quorum.schedule import DROPPED
 from atomo_tpu_torch.training.optim import Optimizer
 from atomo_tpu_torch.training import graph as G
 from atomo_tpu_torch.training.resilience import (
@@ -256,7 +258,8 @@ def gather_payloads(payloads: Sequence, world: int, group=None):
 def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *, rank: int,
                      world: int, sel_start: Optional[int] = None, n_contrib: int,
                      ring_bucket_size: int = 65536,
-                     layouts: Optional[Sequence[bool]] = None, group=None, ok=None):
+                     layouts: Optional[Sequence[bool]] = None, group=None, ok=None,
+                     survivor_exact: bool = False):
     """The ring's decode-mean (``_ring_stream_mean``): rotate the packed
     payloads N - 1 hops to ``rank - 1``, decode each arrival into this
     rank's segment of the flat JAX-layout gradient at its source's
@@ -269,7 +272,10 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
     guard: this rank's 0-d health flag) rotates with the payload, each
     arrival's staged slice masked by its source's flag before the sum
     (``where``, not a product: NaN times 0 is NaN); the call then returns
-    ``(mean, kept)``, kept the selected sources' flags summed."""
+    ``(mean, kept)``, kept the selected sources' flags summed.
+    ``survivor_exact`` (with ``ok``) divides the in-order sum of the staged
+    rows by max(kept, 1) in place of the row count (``:607-619``): the
+    survivor-exact mean, which the caller does not rescale."""
     numels = [g.numel() for g in grads]
     d_flat = sum(numels)
     chunk = -(-d_flat // world)
@@ -315,7 +321,12 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
         if ok_t is not None and t < world - 1:
             ok_t, ok_nxt = ok_nxt, ok_t
     rows = stage if sel_start is None else _rotating_rows(stage, sel_start, n_contrib)
-    seg = replica_mean(rows)
+    kept_rows = None
+    if ok is not None:
+        kept_rows = ok_stage if sel_start is None else _rotating_rows(
+            ok_stage.view(world, 1), sel_start, n_contrib).reshape(-1)
+    survivors = survivor_exact and kept_rows is not None
+    seg = replica_mean(rows, torch.clamp(kept_rows.sum(), min=1.0) if survivors else None)
     if world == 1:  # this rank's segment is the whole mean
         full = seg.reshape(-1)
     else:
@@ -326,8 +337,6 @@ def ring_stream_mean(codec, payloads: Sequence, grads: Sequence[torch.Tensor], *
             zip(full[:d_flat].split(numels), grads, layouts)]
     if ok is None:
         return mean
-    kept_rows = ok_stage if sel_start is None else _rotating_rows(
-        ok_stage.view(world, 1), sel_start, n_contrib).reshape(-1)
     return mean, kept_rows.sum()
 
 
@@ -493,7 +502,8 @@ def _check_overlap(codec, aggregate: str, overlap: str, stream_encode: bool) -> 
             "yet — rejected honestly rather than silently degraded")
 
 
-def _check_partition(zero1, sharded_update, hybrid, world: int, parts: bool):
+def _check_partition(zero1, sharded_update, hybrid, world: int, parts: bool,
+                     survivor_exact: bool = False):
     """The step factory's refusals of ``zero1`` and ``sharded_update``
     (``atomo_tpu/parallel/replicated.py:1368-1405``); returns the specs in
     effect, or None for the replicated update."""
@@ -508,6 +518,12 @@ def _check_partition(zero1, sharded_update, hybrid, world: int, parts: bool):
                 "per-layer row exchange is untested against the flat "
                 "master layout — run hybrid with the replicated or "
                 "zero1 update")
+        if survivor_exact:
+            raise ValueError(
+                "sharded_update does not compose with elastic membership "
+                "(track_ok_bits/survivor_exact): a reshape re-shards the "
+                "live state via mesh.reshard instead — the elastic loop "
+                "runs the replicated update")
     part = sharded_update if sharded_update is not None else zero1
     if part is None:
         return None
@@ -553,6 +569,145 @@ def init_delayed_state(state: TrainState, codec, *, group=None) -> TrainState:
                                                        jax_layouts(model)))
 
 
+@dataclasses.dataclass
+class QuorumCarry:
+    """The bounded-staleness payload history of ``--quorum``
+    (``atomo_tpu/parallel/replicated.py:290-320``), in the packed-payload
+    form of :class:`~atomo_tpu_torch.parallel.overlap.OverlapCarry`:
+    ``ring`` is this rank's last K + 1 encoded payloads, a (K+1, B) uint8
+    buffer (``spec`` the layout of a row), slot ``t mod (K+1)`` holding the
+    payload produced at step counter t; ``ring_ok`` (K+1,) float32 the
+    producing step's guard flag a slot (1.0 without the guard) and the
+    warm-up gate: a slot never written stays 0.0, so a staleness reaching
+    before the run's history selects nothing. Both are updated in place."""
+
+    ring: torch.Tensor
+    ring_ok: torch.Tensor
+    spec: Any
+
+
+# The JAX package's QuorumState (``:323-344``) is TrainState + QuorumCarry;
+# the port's is the TrainState with its ``ring`` set, as its DelayedState is
+# the TrainState with its ``carry`` set.
+QuorumState = TrainState
+
+
+def init_quorum_state(state: TrainState, codec, staleness: int) -> TrainState:
+    """``state`` with a fresh :class:`QuorumCarry` (``init_quorum_state``,
+    ``:373-392``): K + 1 zero payloads of the size this codec gives the
+    model's leaves and all-zero flags, every slot unwritten."""
+    model = state.model
+    fresh = init_carry(codec, leaf_params(model), 1, jax_layouts(model))
+    depth = staleness + 1
+    ring = torch.zeros((depth, fresh.payload.numel()), dtype=torch.uint8,
+                       device=fresh.payload.device)
+    ring_ok = torch.zeros((depth,), dtype=torch.float32, device=ring.device)
+    return dataclasses.replace(state, ring=QuorumCarry(ring=ring, ring_ok=ring_ok,
+                                                       spec=fresh.spec))
+
+
+def gather_ring(carry: QuorumCarry, world: int, group=None) -> dict:
+    """The checkpoint form of a ring: every rank's ring as one (N, K+1, B)
+    uint8 tensor and its flags as one (N, K+1) float32 tensor (two
+    all-gathers over ``group``)."""
+    ring, ok = carry.ring.contiguous(), carry.ring_ok.contiguous()
+    if world > 1:
+        out = torch.empty((world * ring.numel(),), dtype=torch.uint8, device=ring.device)
+        dist.all_gather_into_tensor(out, ring.reshape(-1), group=group)
+        out_ok = torch.empty((world * ok.numel(),), dtype=torch.float32, device=ok.device)
+        dist.all_gather_into_tensor(out_ok, ok, group=group)
+    else:
+        out, out_ok = ring, ok
+    return {"ring": out.view((world,) + tuple(ring.shape)),
+            "ring_ok": out_ok.view(world, ok.numel())}
+
+
+def ring_from_saved(fresh: QuorumCarry, saved, rank: int, world: int):
+    """(carry, why): ``fresh`` with this rank's rows of a saved ring
+    (:func:`gather_ring`'s dict) copied in, or ``fresh`` and the reason the
+    saved one does not fit (None saved: no ring in the checkpoint)."""
+    if saved is None:
+        return fresh, "no quorum_carry in the checkpoint"
+    want = (world,) + tuple(fresh.ring.shape)
+    if tuple(saved["ring"].shape) != want:
+        return fresh, f"its ring is {tuple(saved['ring'].shape)}, this run needs {want}"
+    with torch.no_grad():
+        fresh.ring.copy_(saved["ring"][rank])
+        fresh.ring_ok.copy_(saved["ring_ok"][rank])
+    return fresh, None
+
+
+def _check_quorum(quorum, codec, aggregate: str, world: int, *, overlap: str, hybrid,
+                  partition, error_feedback: bool, survivor_exact: bool, k_agg: int,
+                  superstep: int, stream_encode: bool, track_quality: bool,
+                  oracle: bool) -> None:
+    """The step factory's quorum refusals (``atomo_tpu/parallel/replicated.py:
+    1405-1480``) for the arguments the port's step has."""
+    if codec is None or aggregate not in ("gather", "ring"):
+        raise ValueError(
+            "quorum= needs a compressing codec with "
+            "aggregate='gather' or 'ring': the staleness ring carries "
+            "ENCODED payloads (dense psum has no payload to carry, "
+            "and the hierarchical boundary re-encode is not "
+            "staleness-aware)")
+    if not 1 <= quorum.quorum <= world:
+        raise ValueError(
+            f"quorum Q={quorum.quorum} out of range for the "
+            f"{world}-replica mesh (need 1 <= Q <= {world})")
+    if overlap == "delayed":
+        raise ValueError(
+            "quorum= does not compose with overlap='delayed': the "
+            "staleness ring GENERALIZES the stale-by-one carry — "
+            "quorum with K>=1 already consumes stale payloads; "
+            "stacking both would apply staleness twice")
+    if hybrid is not None:
+        raise ValueError(
+            "quorum= does not compose with hybrid= (sparse rows): "
+            "the staleness ring's slots are codec-payload-shaped and "
+            "the row exchange is not ring-carry-aware yet")
+    if partition is not None:
+        raise ValueError(
+            "quorum= does not compose with sharded-update/ZeRO-1 "
+            "yet: the staleness ring is untested against the sharded "
+            "state templates — run the replicated update")
+    if error_feedback:
+        raise ValueError(
+            "quorum= does not compose with error_feedback: a "
+            "dropped-or-stale payload would orphan its residual and "
+            "the telescoping bound no longer holds — run one or the "
+            "other")
+    if survivor_exact:
+        raise ValueError(
+            "quorum= does not compose with elastic membership "
+            "(track_ok_bits/survivor_exact): elastic SHRINKS the "
+            "roster while quorum rides out stragglers at fixed "
+            "membership — the two disagree about who is in the mean")
+    if k_agg:
+        raise ValueError(
+            "quorum= does not compose with num_aggregate: the "
+            "arrival schedule already decides which replicas "
+            "contribute each step — a second rotating subset would "
+            "double-select")
+    if superstep > 1:
+        raise ValueError(
+            "quorum= needs superstep=1: the host rig feeds each "
+            "step's arrival vector at dispatch time, and a fused "
+            "K-step scan has no per-step host boundary to feed it "
+            "through")
+    if stream_encode:
+        raise ValueError(
+            "quorum= does not compose with stream_encode yet: the "
+            "layer-bucket encode pipeline is not ring-carry-aware")
+    if track_quality:
+        raise ValueError(
+            "quorum= does not compose with track_quality: the "
+            "per-layer probe describes THIS step's encode while the "
+            "consumed payloads may be stale — mis-attribution, "
+            "rejected honestly")
+    if oracle:
+        raise ValueError("_oracle_parts drives the delayed-overlap oracle only")
+
+
 def make_distributed_train_step(
     model: nn.Module,
     optimizer: Optimizer,
@@ -579,6 +734,7 @@ def make_distributed_train_step(
     track_quality: bool = False,
     zero1=None,
     sharded_update=None,
+    quorum=None,
     _oracle_parts: bool = False,
     _phase_parts: bool = False,
 ):
@@ -704,10 +860,10 @@ def make_distributed_train_step(
             "track_ok_bits reports the guard's per-replica screen "
             "verdicts; arm guard= (the elastic membership layer has "
             "nothing to observe without the screen)")
-    if track_ok_bits or survivor_exact:
+    if track_ok_bits:
         raise ValueError(
-            f"{'track_ok_bits' if track_ok_bits else 'survivor_exact'} belongs to the "
-            "elastic membership layer, which is not ported (ROADMAP queue 1 item 11)")
+            "track_ok_bits belongs to the elastic membership layer, which is not "
+            "ported (ROADMAP queue 1 item 11)")
     if track_quality:
         if codec is None:
             raise ValueError(
@@ -730,11 +886,18 @@ def make_distributed_train_step(
                 "sharded-update yet: the residual carry is untested "
                 "against the sharded state templates")
     part = _check_partition(zero1, sharded_update, hybrid, world,
-                            _oracle_parts or _phase_parts)
+                            _oracle_parts or _phase_parts, survivor_exact)
     su = sharded_update
     if hybrid is not None:
         _check_hybrid(hybrid, len(params), codec, aggregate, num_aggregate, world, overlap,
                       stream_encode, guard)
+    if quorum is not None:
+        _check_quorum(quorum, codec, aggregate, world, overlap=overlap, hybrid=hybrid,
+                      partition=part, error_feedback=error_feedback,
+                      survivor_exact=survivor_exact,
+                      k_agg=num_aggregate if 0 < num_aggregate < world else 0,
+                      superstep=superstep, stream_encode=stream_encode,
+                      track_quality=track_quality, oracle=_oracle_parts)
     aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
     _check_overlap(codec, aggregate, overlap, stream_encode)
     if _oracle_parts and (overlap != "delayed" or guard is not None):
@@ -811,21 +974,28 @@ def make_distributed_train_step(
                     gathered = _rotating_rows(gathered, sel_start, k_agg)
                     if okg is not None:
                         okg = _rotating_rows(okg.view(world, 1), sel_start, k_agg).reshape(-1)
-                mean = decode_mean_tree(codec, unpack_tree_buckets(gathered, spec), grads,
-                                        n_contrib, layouts, replica_ok=okg)
+                parts = unpack_tree_buckets(gathered, spec)
+                if okg is not None and survivor_exact:
+                    # one division by the kept count: the caller does not rescale
+                    mean = survivor_decode_mean(codec, parts, okg, grads, layouts)
+                else:
+                    mean = decode_mean_tree(codec, parts, grads, n_contrib, layouts,
+                                            replica_ok=okg)
                 if okg is not None:
                     kept = okg.sum()
-                    mean = rescale_by_survivors(mean, n_contrib, kept)
+                    if not survivor_exact:
+                        mean = rescale_by_survivors(mean, n_contrib, kept)
             return mean, cstats.payload_bytes, own, kept, qm
         if aggregate == "ring":
             with record_function("step.ring_exchange_decode"):
                 mean = ring_stream_mean(codec, payloads, grads, rank=rank, world=world,
                                         sel_start=sel_start, n_contrib=n_contrib,
                                         ring_bucket_size=ring_bucket_size, layouts=layouts,
-                                        ok=ok)
+                                        ok=ok, survivor_exact=survivor_exact)
                 if ok is not None:
                     mean, kept = mean
-                    mean = rescale_by_survivors(mean, n_contrib, kept)
+                    if not survivor_exact:
+                        mean = rescale_by_survivors(mean, n_contrib, kept)
             return mean, cstats.payload_bytes, own, kept, qm
         with record_function("step.decode"):
             decoded = decode_tree(codec, payloads, grads, layouts)
@@ -849,7 +1019,8 @@ def make_distributed_train_step(
         bw = BucketWire(codec, plan, layouts, aggregate=aggregate, rank=rank, world=world,
                         n_contrib=n_contrib, ring_bucket_size=ring_bucket_size,
                         sel_start=state.step % world if k_agg else None,
-                        stream=enc_stream, deferred=guarded is not None) if wire else None
+                        stream=enc_stream, deferred=guarded is not None,
+                        survivor=survivor_exact) if wire else None
 
         def feed(i, g):
             g = poison([g], step_index)[0]
@@ -1054,7 +1225,8 @@ def make_distributed_train_step(
             mean = bs.wire.mean(grads, ok=ok)
             if ok is not None:
                 mean, kept = mean
-                mean = rescale_by_survivors(mean, n_contrib, kept)
+                if not survivor_exact:
+                    mean = rescale_by_survivors(mean, n_contrib, kept)
             msg_bytes = sum(payload_nbytes(p) for p in payloads)
         else:
             mean, msg_bytes, own, kept, qm = exchange(state, k_codec, grads, draws, dense_bytes,
@@ -1211,6 +1383,100 @@ def make_distributed_train_step(
                                    carry=dataclasses.replace(carry, valid=True),
                                    held=count_held), metrics
 
+    # ----------------------------------------------------------- quorum=
+
+    k_bound = quorum.staleness if quorum is not None else 0
+    depth = k_bound + 1
+    held_q = None
+    if quorum is not None:
+        # a kept count of zero holds the parameters and the optimizer state,
+        # guard or not: the guard's fixed snapshot buffers serve that hold
+        held_q = guarded if guarded is not None else Guarded(optimizer, params, stats, device)
+
+    def quorum_core(state: TrainState, images, labels, arrivals, *, aug, k_drop, k_codec,
+                    draws: Optional[Sequence[Any]] = None,
+                    dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+        """The bounded-staleness quorum step (``spmd_quorum``,
+        ``atomo_tpu/parallel/replicated.py:2331-2540``). ``arrivals`` is the
+        host rig's (N,) staleness vector: this rank's entry sigma picks the
+        payload produced sigma steps ago from its ring; a sigma outside [0,
+        K] (dropped, absent, or a corrupted schedule) or an unwritten or
+        unhealthy slot contributes nothing."""
+        carry = state.ring
+        if not isinstance(carry, QuorumCarry):
+            raise ValueError("quorum= steps a state that carries its staleness ring: build "
+                             "it with init_quorum_state")
+        arrivals = [int(a) for a in np.asarray(arrivals).reshape(-1)]
+        if len(arrivals) != world:
+            raise ValueError(f"arrivals has {len(arrivals)} entries for a {world}-rank group")
+        step_index = state.step
+        images = begin(images, aug)
+        held_q.snapshot(state)  # before forward: it moves the statistics
+        grads, loss, prec1, prec5 = forward_backward(images, labels, k_drop, dropout_masks,
+                                                     None)
+        grads = poison(grads, step_index)
+        gnorm = torch.sqrt(global_sq_norm(grads)) if track_grad_norm else None
+        ok = grad_ok(grads, guard.max_grad_norm) if guarded is not None else None
+        dense_bytes = tree_nbytes(grads)
+        with record_function("step.encode"):
+            payloads, cstats = encode_tree(codec, k_codec, encodable(grads), draws, layouts)
+            buf, _ = pack_tree_buckets(payloads)
+        with torch.no_grad():
+            # this step's payload into slot step mod (K+1), its health beside it
+            slot = step_index % depth
+            carry.ring[slot].copy_(buf)
+            if ok is not None:
+                carry.ring_ok[slot].copy_(ok.to(torch.float32))
+            else:
+                carry.ring_ok[slot].fill_(1.0)
+            sigma = arrivals[rank]
+            sel = (step_index - sigma) % depth
+            sel_payload = carry.ring[sel]
+            # the staleness bound and the warm-up gate: sigma outside [0, K]
+            # masks out, and an unwritten slot's flag is 0
+            present = carry.ring_ok[sel] * float(0 <= sigma <= k_bound)
+        if aggregate == "gather":
+            with record_function("step.quorum_exchange"):
+                # one payload a rank, whatever its staleness: blocking's wire
+                rows = sel_payload.view(1, -1)
+                if world > 1:
+                    rows = torch.empty((world, sel_payload.numel()), dtype=torch.uint8,
+                                       device=sel_payload.device)
+                    dist.all_gather_into_tensor(rows.view(-1), sel_payload)
+                okg = gather_flags(present, world)
+            kept = okg.sum()
+            with record_function("step.quorum_decode_mean"):
+                mean = survivor_decode_mean(codec, unpack_tree_buckets(rows, carry.spec), okg,
+                                            grads, layouts)
+        else:
+            with record_function("step.quorum_ring_exchange_decode"):
+                mean, kept = ring_stream_mean(
+                    codec, unpack_tree_buckets(sel_payload, carry.spec), grads, rank=rank,
+                    world=world, n_contrib=world, ring_bucket_size=ring_bucket_size,
+                    layouts=layouts, ok=present, survivor_exact=True)
+        if remedy is not None:
+            mean = apply_remedy(remedy, step_index, mean)
+        held = held_q.held(state)
+        opt_scalars = held_q.opt_scalars(state, held)
+        local = [loss, prec1, prec5] + ([gnorm] if gnorm is not None else [])
+        opt_state, m, kept_chips = update_and_stats(state, mean, opt_scalars, local, ok)
+        ok_step = kept > 0  # no payload kept: the step holds
+        # the statistics are this step's forward's (the healthy mean under
+        # the guard), held with the update, and with no healthy forward
+        held_q.hold(ok_step, state, held,
+                    stats_ok=None if ok is None else ok_step & (kept_chips > 0))
+        metrics = {"loss": m[0], "prec1": m[1], "prec5": m[2],
+                   "msg_bytes": cstats.payload_bytes, "dense_bytes": dense_bytes,
+                   "skipped": 1.0 - ok_step.to(torch.float32),
+                   # contributions absent from this mean, whatever the cause
+                   "dropped": world - kept, "quorum_kept": kept,
+                   # the schedule's staleness-bound drops alone
+                   "stale_dropped": float(sum(1 for a in arrivals if a == DROPPED))}
+        if gnorm is not None:
+            metrics["grad_norm"] = m[3]
+        return dataclasses.replace(state, step=state.step + 1, model=model,
+                                   opt_state=opt_state, held=held), metrics
+
     if _oracle_parts:
         return _oracle(produce, consume_carry, update_and_stats, skip_metrics, stats, world,
                        split_keys=lambda key, s: split3(fold_in(fold_in(key, s), rank)))
@@ -1222,6 +1488,24 @@ def make_distributed_train_step(
     def keys(key: int, step_index: int) -> tuple[int, int, int]:
         """(k_aug, k_drop, k_codec) of this rank at step ``step_index``."""
         return split3(fold_in(fold_in(key, step_index), rank))
+
+    if quorum is not None:
+        def quorum_step(state: TrainState, key: int, images, labels, arrivals,
+                        draws: Optional[Sequence[Any]] = None,
+                        dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+            k_aug, k_drop, k_codec = keys(key, state.step)
+            return quorum_core(state, images, labels, arrivals, aug=k_aug, k_drop=k_drop,
+                               k_codec=k_codec, draws=draws, dropout_masks=dropout_masks)
+
+        quorum_step.core = quorum_core
+        quorum_step.keys = keys
+        quorum_step.stream_log = None
+        quorum_step.plan = None
+        quorum_step.partition = None
+        quorum_step.skips = lambda st: False
+        quorum_step.quorum = quorum
+        quorum_step.reserve = held_q.table.reserve
+        return quorum_step
 
     run_core = delayed_core if overlap == "delayed" else core
 

@@ -1,21 +1,26 @@
-"""``train_dir/arrival_schedule.jsonl``: the quorum run's replay anchor, read.
+"""``train_dir/arrival_schedule.jsonl``: the quorum run's replay anchor.
 
-Counterpart of ``atomo_tpu/quorum/artifact.py:31-81`` (the file's name, its
-path and its reader), which :mod:`atomo_tpu_torch.obs.report` opens. The
-schema is the JAX package's, one JSON object a line::
+Counterpart of ``atomo_tpu/quorum/artifact.py``: the file's name and path,
+its append-only writer, its reader and the resume's cut. The schema is the
+JAX package's, one JSON object a line, so each package reads the other's
+file::
 
     {"kind": "meta", "what": "quorum_config", "quorum": Q, "staleness": K,
      "n_replicas": N, "period_s": P}
     {"kind": "arrival", "step": s, "staleness": [...], "kept": k,
      "dropped": d, "exposed_wait_ms": w}
 
-The quorum mode that writes it is not ported yet (ROADMAP queue 1 item 9).
+A staleness entry is >= 0 (present at that staleness), -1 (dropped: the
+bound exceeded) or -2 (absent: warm-up). The meta header pins the knobs the
+vectors were derived under; the rig refuses to adopt a file recorded under
+other ones.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Optional
 
 ARRIVAL_SCHEDULE_NAME = "arrival_schedule.jsonl"
@@ -23,6 +28,18 @@ ARRIVAL_SCHEDULE_NAME = "arrival_schedule.jsonl"
 
 def schedule_path(train_dir: str) -> str:
     return os.path.join(train_dir, ARRIVAL_SCHEDULE_NAME)
+
+
+def append_record(path: str, rec: dict) -> None:
+    """One newline-terminated line a record, one ``write()`` a line (the
+    append-only artifact discipline). An unwritable file warns: it costs
+    the run its replay anchor, never its training."""
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    except OSError as exc:
+        print(f"WARNING: could not append to {path}: {exc}", file=sys.stderr)
 
 
 def read_schedule(path: str):
@@ -47,3 +64,12 @@ def read_schedule(path: str):
             elif rec.get("kind") == "arrival" and "step" in rec:
                 arrivals[int(rec["step"])] = rec
     return meta, arrivals
+
+
+def prune_schedule_after(train_dir: str, step: int) -> None:
+    """Cut every arrival record past ``step`` by an atomic rewrite (the meta
+    header, which has no step, stays): a resumed run re-records the steps
+    above its checkpoint instead of duplicating the killed attempt's."""
+    from atomo_tpu_torch.obs.recorder import _prune_file_after
+
+    _prune_file_after(schedule_path(train_dir), step)

@@ -12,7 +12,9 @@ BatchNorm statistics), "opt_state" (the optimizer state's fields)}``, with
 held, less the steps the guard skipped) when the state carries ``--error-feedback``'s
 residual (every rank's, one (N, d) tensor) and ``"overlap_carry"`` when it
 carries ``--overlap delayed``'s in-flight payload (``{"payload": (N, B)
-uint8, "ok": (N,) float32, "valid": 0-d float32}``, every rank's), every
+uint8, "ok": (N,) float32, "valid": 0-d float32}``, every rank's) and
+``"quorum_carry"`` when it carries ``--quorum``'s staleness ring (``{"ring":
+(N, K+1, B) uint8, "ring_ok": (N, K+1) float32}``, every rank's), every
 tensor on the CPU, read back with ``torch.load(weights_only=True)`` and
 copied into the caller's model and optimizer state on their device. A
 ``--partition sharded-update`` state saves ``"master"`` (the gathered flat
@@ -197,6 +199,12 @@ def _payload(state, step: int) -> bytes:
             raise TypeError("save the overlap carry in its gathered form "
                             "(parallel.overlap.gather_carry): every rank's payload")
         obj["overlap_carry"] = {k: v.detach().cpu() for k, v in carry.items()}
+    ring = getattr(state, "ring", None)
+    if ring is not None:
+        if not isinstance(ring, dict):
+            raise TypeError("save the quorum ring in its gathered form "
+                            "(parallel.replicated.gather_ring): every rank's ring")
+        obj["quorum_carry"] = {k: v.detach().cpu() for k, v in ring.items()}
     buf = io.BytesIO()
     torch.save(obj, buf)
     return buf.getvalue()
@@ -412,8 +420,9 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     """Restore a full train state into ``state`` (built by ``create_state``
     with the same model and optimizer: its model and optimizer tensors are
     overwritten in place) and return it with the checkpoint's step, its
-    error-feedback carry (the saved (N, d) tensor on the CPU, or None) and
-    its overlap carry (the saved dict on the CPU, or None).
+    error-feedback carry (the saved (N, d) tensor on the CPU, or None), its
+    overlap carry and its quorum ring (the saved dicts on the CPU, or
+    None).
 
     ``step=None`` loads the newest file that passes the checks, skipping
     corrupt ones with a warning, and raises ``FileNotFoundError`` when the
@@ -424,7 +433,7 @@ def load_checkpoint(train_dir: str, state, step: Optional[int] = None):
     opt_state = _load_opt_state(state.opt_state, d["opt_state"])
     return dataclasses.replace(state, step=int(d["step"]), opt_state=opt_state,
                                residual=d.get("ef_residual"), carry=d.get("overlap_carry"),
-                               held=None)
+                               ring=d.get("quorum_carry"), held=None)
 
 
 def load_params(train_dir: str, model: nn.Module, step: Optional[int] = None) -> int:

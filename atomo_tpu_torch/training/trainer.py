@@ -101,6 +101,10 @@ class TrainState:
     # None outside that mode. A loaded checkpoint leaves there the dict it
     # saved (every rank's payload as one (N, B) tensor, ok, valid).
     carry: Optional[Any] = None
+    # --quorum's staleness ring (parallel.replicated.QuorumCarry), None
+    # outside that mode. A loaded checkpoint leaves there the dict it saved
+    # (every rank's ring as one (N, K+1, B) tensor and its (N, K+1) flags).
+    ring: Optional[Any] = None
     # the guard's count of skipped steps (0-d int64 on the device), None for
     # the zero it starts from: the optimizer's count is opt_state.count minus
     # it, as the JAX package holds optax's count on a skipped step
@@ -985,6 +989,8 @@ def distributed_train_loop(
     profile_steps: int = 3,
     budget_tuner=None,
     partition: str = "replicated",
+    quorum=None,
+    quorum_replay: Optional[str] = None,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -1064,12 +1070,27 @@ def distributed_train_loop(
     state with the JAX loop's warning, as does a ZeRO-1 resume whose
     optimizer layout does not match. Evaluation and the final state read
     parameters materialized from the masters. The refusals are the JAX
-    loop's (:func:`_check_loop_partition`)."""
+    loop's (:func:`_check_loop_partition`).
+
+    ``quorum`` (a :class:`~atomo_tpu_torch.quorum.QuorumConfig`; ``--quorum
+    Q --staleness K``, ``atomo_tpu/parallel/replicated.py:2945-2960``) runs
+    the bounded-staleness quorum step: every rank builds a
+    :class:`~atomo_tpu_torch.quorum.QuorumRig` on the same chaos table, so
+    each derives the same arrival vector a step (and sleeps the same
+    exposed wait; the chaos blocking sleep stands down), and rank 0 alone
+    writes ``arrival_schedule.jsonl`` and the ``staleness_exceeded``
+    incidents; ``quorum_replay`` (``--replay-arrivals PATH``) feeds a
+    recorded schedule instead. The checkpoints hold every rank's staleness
+    ring, so a resume replays the same stale selections bit for bit (a
+    checkpoint without a matching ring warns and warms the ring up from
+    empty); a resume cuts the schedule past its step. The refusals are the
+    JAX loop's (:func:`_check_loop_quorum`)."""
     from atomo_tpu_torch.utils.metrics import master_line
     from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT, profile
     # imported here: the step's module builds on this one's TrainState
     from atomo_tpu_torch.parallel.overlap import gather_carry
     from atomo_tpu_torch.parallel.replicated import (
+        gather_ring,
         make_distributed_eval_step,
         make_distributed_train_step,
         make_phased_step,
@@ -1143,6 +1164,17 @@ def distributed_train_loop(
                    keep_ckpts=keep_ckpts, aggregate=aggregate, overlap=overlap,
                    num_aggregate=num_aggregate, phase_metrics=phase_metrics,
                    zero1=partition == "zero1")
+    if quorum is not None:
+        _check_loop_quorum(codec, aggregate, overlap=overlap, hybrid=hybrid,
+                           partition=partition, error_feedback=error_feedback,
+                           phase_metrics=phase_metrics, superstep=superstep, diverge=diverge,
+                           num_aggregate=num_aggregate, stream_encode=stream_encode,
+                           track_quality=track_quality, budget_tuner=budget_tuner)
+    elif quorum_replay:
+        raise ValueError(
+            "--replay-arrivals replays a recorded quorum schedule and "
+            "needs --quorum (with the recorded Q/K — the rig refuses a "
+            "mismatch)")
     chaos = resolve_chaos(chaos)
     if phase_metrics:
         _check_phase_metrics(superstep, guard, chaos, grad_accum, hybrid, num_aggregate, codec,
@@ -1151,18 +1183,35 @@ def distributed_train_loop(
         chaos.maybe_die_crashloop()
     dev = resolve_device(device)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    if quorum is not None and world < 2:
+        raise ValueError(
+            "--quorum needs a multi-replica mesh: with one replica "
+            "there is nobody to be late (use --n-devices >= 2 or a "
+            "forced multi-device CPU mesh)")
     quiet = log_fn if rank == 0 else (lambda _: None)
     part = None  # the partition's flat layout (mesh.update), None when replicated
     if partition == "replicated":
         state = _start_replica(model, optimizer, seed, dev, codec, overlap, error_feedback,
-                               rank, world, resume=resume, train_dir=train_dir, log_fn=quiet)
+                               rank, world, resume=resume, train_dir=train_dir, log_fn=quiet,
+                               quorum=quorum)
     else:
         state, part = _start_partition(model, optimizer, seed, dev, codec, overlap, partition,
                                        resume=resume, train_dir=train_dir, log_fn=quiet)
     sharded = partition == "sharded-update"
     master = state.master if sharded else None  # updated in place for the whole run
     start_step = state.step
-    incidents = _incidents(train_dir, diverge is not None) if rank == 0 else None
+    incidents = (_incidents(train_dir, diverge is not None or quorum is not None)
+                 if rank == 0 else None)
+    qrig = None
+    if quorum is not None:
+        from atomo_tpu_torch.quorum.rig import QuorumRig
+
+        # every rank derives (or replays) the same vectors and sleeps the
+        # same waits; rank 0 alone writes the schedule and the incidents
+        qrig = QuorumRig(quorum, n_dev=world, train_dir=train_dir, chaos=chaos,
+                         incidents=incidents, replay_path=quorum_replay, log_fn=quiet,
+                         write=rank == 0)
+        qrig.prune_past(start_step)  # a resume re-records the steps above its checkpoint
 
     # the budget retuner may re-allocate the per-leaf knobs mid-run: every
     # (re)build reads the codec in effect from this cell
@@ -1183,7 +1232,7 @@ def distributed_train_loop(
             remedy=remedy_cfg, track_grad_norm=diverge is not None,
             track_quality=track_quality and not densify,
             zero1=part if partition == "zero1" else None,
-            sharded_update=part if sharded else None)
+            sharded_update=part if sharded else None, quorum=quorum)
 
     recorder = recorder if rank == 0 else None
     _arm_recorder(recorder, track_quality, codec, model, start_step, aggregate=aggregate,
@@ -1208,6 +1257,8 @@ def distributed_train_loop(
             saved = dataclasses.replace(st, residual=gather_residual(st, world))
         if overlap == "delayed":  # every rank's in-flight payload, likewise
             saved = dataclasses.replace(saved, carry=gather_carry(st.carry, world))
+        if quorum is not None:  # every rank's staleness ring, likewise
+            saved = dataclasses.replace(saved, ring=gather_ring(st.ring, world))
         if part is not None:  # every rank's slices as full flat vectors
             saved = _gathered_partition(saved, part)
         path = None
@@ -1297,7 +1348,8 @@ def distributed_train_loop(
         t_rec = time.perf_counter()  # the recorder's wall anchor
         while step < max_steps:
             step += 1
-            _host_faults(chaos, step - 1, step, world)
+            # the rig owns the straggler wait: the blocking sleep stands down
+            _host_faults(chaos, step - 1, step, 0 if qrig is not None else world)
             if prof_first is not None and step == prof_first:
                 prof_ctx = profile(prof_dir, device=dev)
                 prof_ctx.__enter__()
@@ -1308,7 +1360,10 @@ def distributed_train_loop(
                                          "last_step": step + profile_steps - 1,
                                          "profile_dir": prof_dir})
             images, labels = shard_batch(*next(stream), rank, world)
-            out = step_fn(state, key, *to_device(images, labels, dev))
+            # the rig decides (or replays) this step's staleness vector,
+            # sleeps its exposed wait and records it; the step consumes it
+            extra = () if qrig is None else (qrig.begin_step(step),)
+            out = step_fn(state, key, *to_device(images, labels, dev), *extra)
             state, metrics = out[0], out[1]
             phases = out[2] if len(out) > 2 else None
             if monitor is not None:
@@ -1606,15 +1661,97 @@ def _check_phase_metrics(superstep: int, guard, chaos, grad_accum: int, hybrid,
             f"{aggregate!r} — drop --phase-metrics to time the psum path")
 
 
+def _check_loop_quorum(codec, aggregate: str, *, overlap: str, hybrid, partition: str,
+                       error_feedback: bool, phase_metrics: bool, superstep: int, diverge,
+                       num_aggregate: int, stream_encode: bool, track_quality: bool,
+                       budget_tuner) -> None:
+    """The JAX loop's quorum refusals (``atomo_tpu/parallel/replicated.py:
+    3185-3290``) for the knobs the port's loop has (the multi-replica check
+    waits for the group's size)."""
+    from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT
+
+    if codec is None or aggregate not in ("gather", "ring"):
+        raise ValueError(
+            "--quorum needs a compressing codec with --aggregate "
+            "gather or ring: the staleness ring carries ENCODED "
+            "payloads — dense psum has no payload to carry, and the "
+            "hierarchical boundary re-encode is not staleness-aware")
+    if overlap == "delayed":
+        raise ValueError(
+            "--quorum does not compose with --overlap delayed: the "
+            "staleness ring GENERALIZES the stale-by-one carry "
+            "(quorum with K>=1 already consumes stale payloads); "
+            "stacking both would apply staleness twice")
+    if hybrid is not None:
+        raise ValueError(
+            "--quorum does not compose with --sparse-rows: the "
+            "staleness ring's slots are codec-payload-shaped and "
+            "the row exchange is not ring-carry-aware yet")
+    if partition != "replicated":
+        raise ValueError(
+            "--quorum does not compose with --partition "
+            "sharded-update / --zero1 yet: the staleness ring is "
+            "untested against the sharded state templates — run "
+            "the replicated update")
+    if error_feedback:
+        raise ValueError(
+            "--quorum does not compose with --error-feedback: a "
+            "dropped-or-stale payload would orphan its residual "
+            "and the telescoping bound no longer holds")
+    if phase_metrics:
+        raise ValueError(
+            "--quorum needs the fused step (the staleness ring "
+            "rides its carry); --phase-metrics has no fused step"
+            + PHASE_METRICS_HINT)
+    if superstep > 1:
+        raise ValueError(
+            "--quorum needs --superstep 1: the host rig feeds each "
+            "step's arrival vector at dispatch time, and a fused "
+            "K-step scan has no per-step host boundary")
+    if diverge is not None:
+        raise ValueError(
+            "--quorum does not compose with --on-diverge: the "
+            "rollback replay does not rewind the arrival schedule "
+            "or the staleness ring template yet — drop one")
+    if num_aggregate:
+        raise ValueError(
+            "--quorum does not compose with --num-aggregate: the "
+            "arrival schedule already decides which replicas "
+            "contribute each step — a second rotating subset "
+            "would double-select")
+    if stream_encode:
+        raise ValueError(
+            "--quorum does not compose with --stream-encode yet: "
+            "the layer-bucket encode pipeline is not "
+            "ring-carry-aware")
+    if track_quality:
+        raise ValueError(
+            "--quorum does not compose with --obs-quality: the "
+            "per-layer probe describes THIS step's encode while "
+            "the consumed payloads may be stale — mis-attribution, "
+            "rejected honestly")
+    if budget_tuner is not None:
+        raise ValueError(
+            "--quorum does not compose with the online budget "
+            "re-allocation: a mid-run codec swap would change the "
+            "ring's payload shapes under carried stale slots — "
+            "freeze the allocation or drop --quorum")
+
+
 def _start_replica(model, optimizer, seed: int, dev, codec, overlap: str, error_feedback: bool,
                    rank: int, world: int, *, resume: bool = False, load_step=None,
-                   train_dir=None, log_fn=print) -> TrainState:
+                   train_dir=None, log_fn=print, quorum=None) -> TrainState:
     """This rank's replica: the seeded init broadcast from rank 0, then (with
     ``resume``) the newest valid checkpoint of ``train_dir``, or (with
-    ``load_step``) that step's, with the error-feedback residual and the
-    delayed carry taken apart as the run needs them."""
+    ``load_step``) that step's, with the error-feedback residual, the
+    delayed carry and the quorum ring taken apart as the run needs them."""
     from atomo_tpu_torch.parallel.overlap import carry_from_saved
-    from atomo_tpu_torch.parallel.replicated import init_delayed_state, replicate_state
+    from atomo_tpu_torch.parallel.replicated import (
+        init_delayed_state,
+        init_quorum_state,
+        replicate_state,
+        ring_from_saved,
+    )
 
     state = replicate_state(create_state(model, optimizer, seed, dev))
     if load_step is not None:
@@ -1625,6 +1762,18 @@ def _start_replica(model, optimizer, seed: int, dev, codec, overlap: str, error_
     if error_feedback:
         state = own_residual(state, model, rank, world, dev)
     saved_carry, state = state.carry, dataclasses.replace(state, carry=None)
+    saved_ring, state = state.ring, dataclasses.replace(state, ring=None)
+    if quorum is not None:
+        state = init_quorum_state(state, codec, quorum.staleness)
+        if start_step > 0:  # resumed: the ring the steps above start_step select from
+            ring, why = ring_from_saved(state.ring, saved_ring, rank, world)
+            if why is not None:
+                warnings.warn(
+                    "--quorum resume: checkpoint has no matching "
+                    f"staleness ring ({why}); restoring the train state "
+                    "only — the resumed steps warm the ring up from "
+                    "empty (recorded K must match to resume the ring)")
+            state = dataclasses.replace(state, ring=ring)
     if overlap == "delayed":
         state = init_delayed_state(state, codec)
         if start_step > 0:  # resumed: the payload that step start_step + 1 consumes

@@ -303,9 +303,27 @@ every hand-written kernel against its plain PyTorch version:
    the drill drives the loop). Then, in this process, the replicated and
    the sharded eager steps timed in turns at NCCL world 1 (qsgd, svd3) and
    the materialize alone.
+20. quorum: bounded-staleness quorum aggregation (``quorum/``, the
+   ``quorum=`` step). In this process row 2's survivor mode (the kernel
+   divides by max(kept, 1), the count read from the flags on the card)
+   over a 4-replica gathered buffer of the ResNet-18 tree with 0, 1, 2 and
+   4 replicas flagged out, each against its plain twin bit for bit, all up
+   against the unflagged mean, a flagged-out replica's NaN bytes never
+   read; its device ms beside the flagged form's and its bound. At once,
+   two gloo ranks on the card (``--quorum-gloo-child``, deterministic, one
+   pair of processes for every run): ResNet-18 qsgd 4 bits gather 6 steps
+   ``train --quorum 1 --staleness 1 --quorum-period-ms 100`` under
+   ``slow@3:1:0.25``, its ``--replay-arrivals`` (the same final checkpoint
+   byte for byte), blocking under the same chaos (the median step ms of
+   steps 4-6 beside the quorum run's), and svd rank 3 3 steps: the replicas
+   bit-identical after every step, the recorded ``quorum_kept`` and
+   ``stale_dropped`` columns equal to the schedule, the schedule equal to
+   the one the chaos table gives. The ring stays out (gloo's send and
+   receive of CUDA tensors, probed by ``dist gloo-2``).
 
-Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form), the card's
-name and power limit, and last
+Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form, row 2's
+survivor mode as an entry of its own), the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. Without a
 CUDA device, or run outside the repository, it exits non-zero and prints no
 result. A copy of the results goes to ``output/chip_smoke.json``.
@@ -5632,6 +5650,286 @@ def phase_partition(work: Path, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ quorum
+
+QM_STEPS, QM_SVD_STEPS = 6, 3
+QM_COMMON = ["--n-devices", "2", "--aggregate", "gather", "--eval-freq", "0", "--obs-record"]
+QM_QUORUM = ["--quorum", "1", "--staleness", "1", "--quorum-period-ms", "100"]
+QM_SLOW = ["--chaos", "slow@3:1:0.25"]
+
+
+def quorum_gloo_child(rank: int, work: str, out_path: str) -> int:
+    """One of two gloo ranks on the card (this script with
+    ``--quorum-gloo-child``; deterministic through a sitecustomize), every
+    run through ``train`` in this one process: ResNet-18 qsgd 4 bits gather
+    6 steps, (a) ``--quorum 1 --staleness 1 --quorum-period-ms 100`` under
+    ``slow@3:1:0.25``, (b) ``--replay-arrivals`` of (a)'s schedule, (c)
+    blocking under the same chaos, and svd rank 3 live 3 steps. Per run the
+    state hash after every step (the step wrapped to take it), the lines,
+    the launches (row 2's survivor-mode launches beside them) and the
+    seconds."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="gloo", init_method=f"file://{work}/qm_gloo_store",
+                      world_size=2, rank=rank)
+    w = Path(work)
+    out = {}
+    hashes: list = []
+    make = R.make_distributed_train_step
+
+    def hashing(model, *args, **kw):
+        """The loop's step, with this rank's state hash taken after each call."""
+        step = make(model, *args, **kw)
+
+        def wrapped(*a, **k):
+            result = step(*a, **k)
+            hashes.append(state_hash(model))
+            return result
+
+        wrapped.__dict__.update(step.__dict__)
+        return wrapped
+
+    def run(name, argv):
+        lines: list[str] = []
+        hashes.clear()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(TRAIN_ARGS[:-1] + [str(w / name)] + QM_COMMON + argv,
+                      log_fn=lines.append)
+        out[name] = {"rc": rc, "lines": lines, "launches": ops.launch_counts(),
+                     "survivor_launches": K.unpack_dequantize.survivor_launches,
+                     "hashes": list(hashes), "seconds": time.perf_counter() - t0}
+        Path(out_path).write_text(json.dumps(out))
+
+    R.make_distributed_train_step = hashing
+    try:
+        steps = ["--max-steps", str(QM_STEPS), "--save-freq", str(QM_STEPS)]
+        run("qm_live", ["--code", "qsgd"] + steps + QM_QUORUM + QM_SLOW)
+        run("qm_replay", ["--code", "qsgd"] + steps + QM_QUORUM + [
+            "--replay-arrivals", str(w / "qm_live" / "arrival_schedule.jsonl")])
+        run("qm_block", ["--code", "qsgd"] + steps + QM_SLOW)
+        run("qm_svd3", ["--code", "svd", "--svd-rank", "3", "--max-steps", str(QM_SVD_STEPS)]
+            + QM_QUORUM + QM_SLOW)
+    finally:
+        R.make_distributed_train_step = make
+        launch.shutdown()
+    return 0
+
+
+def qm_spawn(work: Path) -> list:
+    """The two gloo ranks of the quorum phase, deterministic (a
+    sitecustomize on their path); returns (processes, result paths)."""
+    import os
+
+    det = work / "qm_det"
+    det.mkdir(exist_ok=True)
+    (det / "sitecustomize.py").write_text(
+        "import torch\ntorch.use_deterministic_algorithms(True, warn_only=True)\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(det), str(ROOT)]))
+    for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT", "WORLD_SIZE"):
+        env.pop(k, None)
+    paths = [work / f"qm_gloo{r}.json" for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--quorum-gloo-child", str(r),
+         str(work), str(paths[r])], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return [procs, paths]
+
+
+def qm_row2(grads, errs: dict, card: str) -> tuple:
+    """Row 2's survivor mode over a 4-replica gathered buffer of the
+    ResNet-18 tree (4 bits, encoded on the card) with 0, 1, 2 and 4
+    replicas flagged out: each against its plain twin bit for bit; all up
+    against today's unflagged mean bit for bit; replica 3's bytes overwritten
+    with NaN scales and all-ones words, flagged out, give the bits of its
+    clean bytes flagged out (they are never read). Returns the result and a
+    timing function (device ms of the survivor and the flagged form, one of
+    4 flagged out, and the survivor form's bytes bound)."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, encode_tree
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    codec = QsgdCodec(bits=4)
+    bufs = []
+    for r in range(4):
+        payloads, _ = encode_tree(codec, 200 + r, grads)
+        buf, spec = pack_tree_buckets(payloads)
+        bufs.append(buf)
+    rows = torch.stack(bufs)
+    bad = rows.clone()
+    bad_views = unpack_tree_buckets(bad, spec)
+    for v in bad_views:  # replica 3's fields: NaN scales, all-ones words
+        v.scales[3].fill_(float("nan"))
+        v.words[3].view(torch.int32).fill_(-1)
+    pays = [tuple(p) for p in unpack_tree_buckets(rows, spec)]
+    bad_pays = [tuple(p) for p in bad_views]
+    kw = dict(bits=4, n_replicas=4)
+    flagsets = {"0 out": [1.0, 1.0, 1.0, 1.0], "1 out": [1.0, 1.0, 1.0, 0.0],
+                "2 out": [1.0, 0.0, 1.0, 0.0], "4 out": [0.0, 0.0, 0.0, 0.0]}
+    res = {"bytes_a_replica": int(rows.shape[1]), "cases": {}}
+    err = 0.0
+    for label, f in flagsets.items():
+        flags = torch.tensor(f, device=rows.device)
+        K.reset_launch_counts()
+        got = K.unpack_dequantize_tree(pays, grads, replica_ok=flags, survivor=True, **kw)
+        launches = K.unpack_dequantize.survivor_launches
+        plain = K.unpack_dequantize_tree_plain(pays, grads, replica_ok=flags, survivor=True,
+                                               **kw)
+        case = {"twin_bit_equal": all(same_bits(a, b) for a, b in zip(got, plain)),
+                "launches": launches}
+        err = max(err, max(float((a - b).abs().max()) for a, b in zip(got, plain)))
+        if f[3] == 0.0:
+            poisoned = K.unpack_dequantize_tree(bad_pays, grads, replica_ok=flags, survivor=True,
+                                                **kw)
+            case["nan_bytes_unread"] = all(same_bits(a, b) for a, b in zip(poisoned, got))
+            case["finite"] = all(bool(torch.isfinite(a).all()) for a in poisoned)
+        if label == "0 out":
+            today = K.unpack_dequantize_tree(pays, grads, **kw)
+            case["equals_unflagged_mean"] = all(same_bits(a, b) for a, b in zip(got, today))
+        if label == "4 out":
+            case["zeros"] = all(not bool(a.any()) for a in got)
+        res["cases"][label] = case
+        if not all(v for k, v in case.items() if k != "launches") or launches != 1:
+            raise AssertionError(f"quorum row 2 survivor mode {label}: {case}")
+    errs["unpack_dequantize_survivor"] = err
+    n_values = sum(g.numel() for g in grads)
+    # one of four flagged out: three replicas' payloads read, the flags, the
+    # float32 mean written
+    res["bound_ms"], res["bound_by"] = bound(3 * res["bytes_a_replica"] + 16 + 4 * n_values,
+                                             3 * 3 * n_values)
+    flags = torch.tensor(flagsets["1 out"], device=rows.device)
+    cpu_pays = [tuple(t.cpu() for t in p) for p in pays]
+    cpu_like = [g.cpu() for g in grads]
+
+    def timing():
+        res["device_ms"] = device_ms(lambda: K.unpack_dequantize_tree(
+            pays, grads, replica_ok=flags, survivor=True, **kw), "unpack_dequantize")
+        res["device_ms_flagged"] = device_ms(lambda: K.unpack_dequantize_tree(
+            pays, grads, replica_ok=flags, **kw), "unpack_dequantize")
+        res["ms"] = cuda_ms(lambda: K.unpack_dequantize_tree(pays, grads, replica_ok=flags,
+                                                             survivor=True, **kw))
+        res["plain_ms"] = cuda_ms(lambda: K.unpack_dequantize_tree_plain(
+            pays, grads, replica_ok=flags, survivor=True, **kw), reps=5)
+        res["plain_cpu_check"] = all(same_bits(a.cpu(), b) for a, b in zip(
+            K.unpack_dequantize_tree(pays, grads, replica_ok=flags, survivor=True, **kw),
+            K.unpack_dequantize_tree_plain(cpu_pays, cpu_like, replica_ok=flags.cpu(),
+                                           survivor=True, **kw)))
+        if not res["plain_cpu_check"]:
+            raise AssertionError("quorum row 2 survivor mode: the card's mean differs from "
+                                 "the plain twin's on the CPU")
+        log(f"quorum row 2 survivor mode ({card}): 4-replica gathered ResNet-18 buffer "
+            f"({res['bytes_a_replica']} bytes a replica), 0/1/2/4 flagged out: each equals "
+            f"its plain twin bit for bit (on the card, and on the CPU for 1 out), one launch "
+            f"each; all up equals today's unflagged mean bit for bit; replica 3's NaN bytes "
+            f"flagged out never read (finite, the clean bytes' bits); 4 out all zeros; "
+            f"1 out: device ms {res['device_ms']:.4f} survivor, {res['device_ms_flagged']:.4f} "
+            f"flagged, bound {res['bound_ms']:.4f} ({res['bound_by']}), events "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms")
+        return res
+
+    return res, timing
+
+
+def qm_records(train_dir: Path) -> list:
+    from atomo_tpu_torch.obs.recorder import FlightRecorder, metrics_path
+
+    return FlightRecorder.read_steps(metrics_path(str(train_dir)))
+
+
+def phase_quorum(work: Path, card: str, grads, errs: dict, p2p: dict) -> dict:
+    """Bounded-staleness quorum on the card (the module docstring's item
+    20): row 2's survivor mode in this process while the two gloo ranks run
+    ``train --quorum``; their checks; then row 2's timing."""
+    from atomo_tpu_torch.quorum.artifact import read_schedule, schedule_path
+    from atomo_tpu_torch.quorum.schedule import staleness_vector
+
+    t0 = time.time()
+    procs, paths = qm_spawn(work)
+    row2, row2_timing = qm_row2(grads, errs, card)
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    t_children = time.time() - t0
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError("quorum gloo ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    ranks = [json.loads(p.read_text()) for p in paths]
+    out = {"row2": row2, "runs": {}}
+    for name in ("qm_live", "qm_replay", "qm_block", "qm_svd3"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        want = QM_SVD_STEPS if name == "qm_svd3" else QM_STEPS
+        if r0["rc"] != 0 or r1["rc"] != 0 or len(r0["hashes"]) != want:
+            raise AssertionError(f"quorum {name}: {r0['rc']}, {r1['rc']}, "
+                                 f"{len(r0['hashes'])} steps; {r0['lines'][-3:]}")
+        if r0["hashes"] != r1["hashes"]:
+            raise AssertionError(f"quorum {name}: the replicas differ after a step")
+        recs = qm_records(work / name)
+        out["runs"][name] = {"launches": r0["launches"],
+                             "survivor_launches": r0["survivor_launches"],
+                             "step_ms": [r.get("step_ms") for r in recs],
+                             "losses": [round(r["loss"], 4) for r in recs],
+                             "seconds": r0["seconds"]}
+        if name == "qm_block":
+            continue
+        meta, sched = read_schedule(schedule_path(str(work / name)))
+        for rec in recs:
+            s = rec["step"]
+            sigma, exposed, _ = staleness_vector(
+                s, n_dev=2, quorum=1, staleness=1, faults=((3, 1, 0.25),), period_s=0.1)
+            a = sched[s]
+            if (a["staleness"] != sigma or a["exposed_wait_ms"] != round(exposed * 1e3, 3)
+                    or rec["quorum_kept"] != a["kept"] or rec["stale_dropped"] != a["dropped"]):
+                raise AssertionError(f"quorum {name} step {s}: recorded {rec}, schedule {a}, "
+                                     f"derived {sigma} {exposed}")
+        if name != "qm_svd3":
+            # one row-1 launch a step and one at the start, where the ring's
+            # layout is read off one encode of the parameters
+            if (r0["survivor_launches"] != QM_STEPS
+                    or r0["launches"]["quantize_pack"] != QM_STEPS + 1):
+                raise AssertionError(f"quorum {name}: launches {r0['launches']}, survivor "
+                                     f"{r0['survivor_launches']}")
+    live, rep = work / "qm_live", work / "qm_replay"
+    same = ((live / f"model_step_{QM_STEPS}").read_bytes()
+            == (rep / f"model_step_{QM_STEPS}").read_bytes())
+    if not same or ranks[0]["qm_live"]["hashes"] != ranks[0]["qm_replay"]["hashes"]:
+        raise AssertionError("quorum: the replay does not end in the live run's state")
+    if read_schedule(schedule_path(str(rep)))[1] != read_schedule(schedule_path(str(live)))[1]:
+        raise AssertionError("quorum: the replay did not re-record the live schedule")
+    runs = out["runs"]
+    q_ms = statistics.median(runs["qm_live"]["step_ms"][3:6])
+    b_ms = statistics.median(runs["qm_block"]["step_ms"][3:6])
+    out.update(median_step_ms_live=q_ms, median_step_ms_blocking=b_ms,
+               children_seconds=t_children)
+    sched = read_schedule(schedule_path(str(live)))[1]
+    log(f"quorum gloo-2 resnet18 qsgd gather (deterministic): live --quorum 1 --staleness 1 "
+        f"--quorum-period-ms 100 under slow@3:1:0.25, schedule "
+        f"{[sched[s]['staleness'] for s in sorted(sched)]} (kept "
+        f"{[sched[s]['kept'] for s in sorted(sched)]}, exposed wait ms "
+        f"{[sched[s]['exposed_wait_ms'] for s in sorted(sched)]}), the recorded quorum_kept "
+        f"and stale_dropped columns equal it; replicas bit-identical after each of {QM_STEPS} "
+        f"steps; --replay-arrivals ends in the live run's model_step_{QM_STEPS} byte for "
+        f"byte; row 2 in its survivor mode {runs['qm_live']['survivor_launches']} launches "
+        f"in {QM_STEPS} steps, launches {runs['qm_live']['launches']}")
+    log(f"quorum svd3 gloo-2 live: {QM_SVD_STEPS} steps, replicas bit-identical, losses "
+        f"{runs['qm_svd3']['losses']}, launches {runs['qm_svd3']['launches']}")
+    log(f"quorum time ({card}): median step ms steps 4-6: live quorum {q_ms:.3f}, blocking "
+        f"{b_ms:.3f} (blocking sleeps 250 ms a step from step 3 on, the quorum step waits 0); "
+        f"losses live {runs['qm_live']['losses']}, blocking {runs['qm_block']['losses']}")
+    log(f"quorum ring: left out on the card (it needs gloo's send and receive of CUDA "
+        f"tensors between two ranks, which the dist gloo-2 probe saw exit {p2p['exit_codes']})")
+    out["row2"] = row2_timing()
+    log(f"quorum phase seconds: children {t_children:.1f}, all {time.time() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
         return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -5665,6 +5963,8 @@ def main() -> int:
         return partition_drill_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--timeline-gloo-child"]:
         return timeline_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--quorum-gloo-child"]:
+        return quorum_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import tempfile
 
     import torch
@@ -5743,6 +6043,8 @@ def main() -> int:
         lap("timeline")
         partition = phase_partition(Path(work), card)
         lap("partition")
+        quorum = phase_quorum(Path(work), card, grads, errs, gloo["p2p_probe"])
+        lap("quorum")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -5765,6 +6067,7 @@ def main() -> int:
                 + obs["launches"][name]
                 + timeline["launches"][name]
                 + partition["launches"][name]
+                + sum(r["launches"][name] for r in quorum["runs"].values())
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -5782,12 +6085,21 @@ def main() -> int:
         "launches": lm_runs["bf16"]["bf16_launches"], "max_abs_err": errs["flash_attention_bf16"],
         "ms": fb["ms"], "device_ms": fb["device_ms"], "plain_ms": fb["plain_ms"],
         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]}
+    # row 2's survivor mode (the quorum step's survivor-exact mean), its own entry
+    q2 = quorum["row2"]
+    kernels.insert(2, {
+        "name": "unpack_dequantize_survivor", "route": "cuda",
+        "source": SOURCES["unpack_dequantize"], "replaces": REPLACES["unpack_dequantize"],
+        "launches": sum(r["survivor_launches"] for r in quorum["runs"].values()),
+        "max_abs_err": errs["unpack_dequantize_survivor"], "ms": q2["ms"],
+        "device_ms": q2["device_ms"], "plain_ms": q2["plain_ms"], "bound_ms": q2["bound_ms"],
+        "bound_by": q2["bound_by"], "library_ms": None})
     result = {"card": card, "runs": runs, "times": times, "profile": prof, "kernels": kernels,
               "gathered": gathered, "dist_nccl1": dist_runs, "dist_gloo2": gloo, "lm": lm_runs,
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
               "resilience": resilience, "obs": obs, "timeline": timeline,
-              "partition": partition,
+              "partition": partition, "quorum": quorum,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

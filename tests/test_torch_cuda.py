@@ -762,6 +762,47 @@ def test_tree_decode_with_replica_flags_matches_plain(dev, bits, n, flags):
             assert _same_bits(a, b)
 
 
+@pytest.mark.parametrize("n,flags", [(4, [1, 1, 0, 1]), (4, [0, 1, 1, 0]), (2, [1, 0]),
+                                     (1, [0]), (4, [1] * 4), (3, [0, 0, 0])])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_tree_decode_survivor_mode_matches_plain(dev, bits, n, flags):
+    """Row 2's survivor mode (the quorum step's survivor-exact mean): over
+    the rows of a gathered buffer whose flagged-out replicas were encoded
+    from a NaN gradient, one launch without a host sync (the kernel counts
+    the flags itself) equals its plain twin bit for bit, finite; all-ones
+    flags equal the flagged form and the unflagged launch bit for bit."""
+    from atomo_tpu_torch.codecs import encode_tree
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    codec = QsgdCodec(bits=bits)
+    grads = _resnet18_grads(dev, seed=bits + 2 * n)
+    reps = [encode_tree(codec, 100 + r, grads if f else [g * float("nan") for g in grads])[0]
+            for r, f in enumerate(flags)]
+    packed = [pack_tree_buckets(p) for p in reps]
+    views = [(v.words, v.scales) for v in unpack_tree_buckets(
+        torch.stack([b for b, _ in packed]), packed[0][1])]
+    ok = torch.tensor(flags, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n, replica_ok=ok,
+                                       survivor=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert K.launch_counts()["unpack_dequantize"] == 1
+    assert K.unpack_dequantize.survivor_launches == 1
+    twin = K.unpack_dequantize_tree_plain(views, grads, bits=bits, n_replicas=n, replica_ok=ok,
+                                          survivor=True)
+    for a, b in zip(got, twin):
+        assert _same_bits(a, b) and bool(torch.isfinite(a).all())
+    if all(flags):
+        flagged = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n, replica_ok=ok)
+        plain = K.unpack_dequantize_tree(views, grads, bits=bits, n_replicas=n)
+        for a, b, c in zip(got, flagged, plain):
+            assert _same_bits(a, b) and _same_bits(a, c)
+
+
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("path", ["fused", "pack"])
 def test_mixed_width_tree_matches_plain(dev, path, n):

@@ -40,12 +40,16 @@ def test_no_jax_import_in_source(path):
 
 def test_the_sources_hold_the_slice_modules():
     """The trace-based timeline, the measured fabric, the online budget
-    re-allocation and the partitioned update with its reshard are among the
-    checked sources, each a module of its own."""
+    re-allocation, the partitioned update with its reshard, and the quorum
+    family with its survivor-exact mean are among the checked sources, each
+    a module of its own."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"atomo_tpu_torch/obs/timeline.py", "atomo_tpu_torch/obs/fabric.py",
             "atomo_tpu_torch/budget/retune.py", "atomo_tpu_torch/utils/tracing.py",
-            "atomo_tpu_torch/mesh/update.py", "atomo_tpu_torch/mesh/reshard.py"} <= names
+            "atomo_tpu_torch/mesh/update.py", "atomo_tpu_torch/mesh/reshard.py",
+            "atomo_tpu_torch/quorum/__init__.py", "atomo_tpu_torch/quorum/schedule.py",
+            "atomo_tpu_torch/quorum/artifact.py", "atomo_tpu_torch/quorum/rig.py",
+            "atomo_tpu_torch/elastic/__init__.py", "atomo_tpu_torch/elastic/shrink.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -112,11 +112,17 @@ PORT_RANGES = _sources(ROOT / "atomo_tpu_torch", r'record_function\("step\.([a-z
     _sources(ROOT, r'record_function\("step\.([a-z_]+)"')
 
 
+# JAX scopes whose work the JAX table leaves unscoped (compute) and the
+# port's ranges attribute to the phase the work is (PORT_PHASE_OF_RANGE)
+PORT_ATTRIBUTED = {"delayed_ring_exchange_decode": "exchange", "quorum_exchange": "exchange",
+                   "quorum_decode_mean": "decode", "quorum_ring_exchange_decode": "exchange"}
+
+
 @pytest.mark.parametrize("scope", JAX_SCOPES)
 def test_phase_of_every_jax_scope(scope):
     path = f"jit(step)/jit(main)/{scope}/dot_general"
     assert P.phase_of(path) == J.phase_of(path)
-    want = "exchange" if scope == "delayed_ring_exchange_decode" else J.phase_of(path)
+    want = PORT_ATTRIBUTED.get(scope, J.phase_of(path))
     assert P.phase_of(f"step.{scope}") == want
 
 

@@ -30,7 +30,11 @@ Jobs (``JOBS``):
   ``sharded-update``) runs the partitioned update (``mesh.update``), the
   hash taken on the materialized parameters, each step's persistent state
   bytes coming back; with ``optimizer`` ((name, kwargs) of
-  ``make_optimizer``) in place of sgd; every run returns the optimizer
+  ``make_optimizer``) in place of sgd; ``quorum`` ((Q, K)) runs the quorum
+  step fed ``arrivals[s]`` at step s, each step's ``quorum_kept``,
+  ``stale_dropped`` and gathered ring coming back; ``survivor_exact`` the
+  blocking step's survivor-exact mean; ``per_step`` returns rank 0's state
+  after every step; every run returns the optimizer
   state as full flat vectors (the partitions' slices gathered);
 * ``build``: the data-parallel step's factory on a registry model with
   given arguments; the message of the ``ValueError`` it raises, or None;
@@ -234,7 +238,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
               budget_ks=None, error_feedback=False, parts=None, overlap="off",
               stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False, guard=None,
               chaos=None, target_replica=0, track_quality=False, partition="replicated",
-              optimizer=None):
+              optimizer=None, quorum=None, arrivals=None, survivor_exact=False,
+              per_step=False):
     import dataclasses
 
     import torch.distributed as dist
@@ -319,8 +324,15 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             stream_encode=stream_encode, stream_bucket_bytes=stream_bucket_bytes,
             compute_dtype=torch.bfloat16 if bf16 else None, track_quality=track_quality,
             zero1=spec if partition == "zero1" else None,
-            sharded_update=spec if partition == "sharded-update" else None, **resilience())
+            sharded_update=spec if partition == "sharded-update" else None,
+            quorum=qcfg, survivor_exact=survivor_exact, **resilience())
 
+    qcfg = None
+    if quorum is not None:  # (Q, K): the quorum step, fed arrivals[s] at step s
+        from atomo_tpu_torch.quorum import QuorumConfig
+
+        qcfg = QuorumConfig(quorum[0], staleness=quorum[1])
+        state = R.init_quorum_state(state, make_codec(), qcfg.staleness)
     delayed = overlap == "delayed"
     if delayed:
         state = R.init_delayed_state(state, make_codec())
@@ -345,6 +357,15 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                 "hash": state_hash(model) if last else None,
                 "row_overflow": val("row_overflow"), "ef_res_norm": val("ef_res_norm"),
                 "skipped": val("skipped"), "dropped": val("dropped"),
+                "quorum_kept": val("quorum_kept"), "stale_dropped": val("stale_dropped"),
+                "ring": ({k: v.numpy().copy() for k, v in
+                          R.gather_ring(state.ring, world).items()}
+                         if last and qcfg is not None else None),
+                # with per_step, rank 0's state after the step
+                "state_dict": ({k: v.detach().numpy().copy()
+                                for k, v in model.state_dict().items()}
+                               if per_step and last and rank == 0 else None),
+                "opt": _flat_opt(state, spec) if per_step and last and rank == 0 else None,
                 "q_err2": vec("q_err2"), "q_rel": vec("q_rel"),
                 "state_bytes": state_nbytes(state) if last else None}
 
@@ -380,7 +401,8 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             if k == 1:
                 x, y = batches[s]
                 xs, ys = R.shard_batch(x, y, rank, world)
-                state, m = step(state, key, *to_device(xs, ys, "cpu"),
+                extra = () if qcfg is None else (arrivals[s],)
+                state, m = step(state, key, *to_device(xs, ys, "cpu"), *extra,
                                 draws=_draws(draws[s]) if draws is not None else None,
                                 dropout_masks=masks[s] if masks is not None else None)
                 steps.append(record(m))

@@ -243,8 +243,10 @@ class Reference:
         self._has_dropout = bool(masks)
         return masks
 
-    def _run(self, code, aggregate, n, num_aggregate, grad_accum, partition=None, **modes):
+    def _run(self, code, aggregate, n, num_aggregate, grad_accum, partition=None,
+             arrivals=None, **modes):
         from atomo_tpu.parallel import init_delayed_state
+        from atomo_tpu.parallel.replicated import init_quorum_state
 
         _, make = CODECS[code]
         mesh = make_mesh(n_devices=n)
@@ -267,6 +269,9 @@ class Reference:
         delayed = modes.get("overlap") == "delayed"
         if delayed:
             state = init_delayed_state(mesh, state, codec)
+        quorum = modes.get("quorum")
+        if quorum is not None:  # the step takes arrivals[s] at step s
+            state = init_quorum_state(mesh, state, codec, quorum.staleness)
         draw = {"qsgd": qsgd_draws, "terngrad": qsgd_draws, "svd": svd_draws}.get(code)
         out = []
         draws = [[] for _ in range(n)]
@@ -279,8 +284,9 @@ class Reference:
                 masks[r].append(self._masks(x[r * per:(r + 1) * per],
                                             drop_key(self.key, s, r), grad_accum))
             x = jnp.asarray(x, jnp.float64 if self.x64 else jnp.float32)
-            state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)))[:2]
-            guarded = modes.get("guard") is not None
+            extra = () if quorum is None else (jnp.asarray(np.asarray(arrivals[s], np.int32)),)
+            state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)), *extra)[:2]
+            guarded = modes.get("guard") is not None or quorum is not None
             train = state.train if hasattr(state, "train") else state
             out.append({"params": (su.materialize_host(train.master) if su is not None
                                    else jax.device_get(train.params)),
@@ -289,7 +295,12 @@ class Reference:
                         "loss": float(m["loss"]), "msg_bytes": int(m["msg_bytes"]),
                         "skipped": float(m["skipped"]) if delayed or guarded else None,
                         "dropped": float(m["dropped"]) if guarded else None,
-                        **{q: np.asarray(m[q]) for q in ("q_err2", "q_rel") if q in m}})
+                        **{q: np.asarray(m[q]) for q in ("q_err2", "q_rel") if q in m},
+                        **{q: float(m[q]) for q in ("quorum_kept", "stale_dropped") if q in m},
+                        **({"ring": [np.asarray(a) for a in
+                                     jax.tree_util.tree_leaves(jax.device_get(state.carry.ring))],
+                            "ring_ok": np.asarray(jax.device_get(state.carry.ring_ok))}
+                           if quorum is not None else {})})
         return out, [{"draws": draws[r] if draw is not None else None,
                       "dropout_masks": masks[r] if any(masks[r]) else None}
                      for r in range(n)]
