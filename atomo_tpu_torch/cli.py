@@ -42,9 +42,12 @@ checkpoints), with the JAX verbs' refusals. ``--aggregate auto`` (the
 default of both) is the comm-cost model's pick (``utils/comm_model.py``)
 for the byte budget, the device count and ``--fabric`` (``--codec-tax-ms``),
 printed as the JAX verb prints it: psum for a dense code or one device,
-gather or ring by wire bytes otherwise; where the JAX verb would pick its
-unported two-tier hierarchical mode (a group that spans hosts) the port
-refuses. ``train`` takes the JAX verb's resilience flags: ``--grad-guard``
+gather or ring by wire bytes otherwise, and on ``train`` over a two-tier
+mesh (``--dcn-ways K`` above 1, or a group that spans hosts) the
+hierarchical schedule with the topology planner's plan. ``train
+--aggregate hierarchical --dcn-ways K --plan P`` runs the two-tier
+exchange over the ``(dp=K, ici=N/K)`` mesh's process groups
+(:mod:`atomo_tpu_torch.topology`). ``train`` takes the JAX verb's resilience flags: ``--grad-guard``
 and ``--max-grad-norm`` (skip, or mask and rescale, an anomalous gradient),
 ``--chaos`` (or ATOMO_CHAOS; the fleet kinds refused), ``--health-timeout``
 (the heartbeat watchdog, exit 13), ``--on-diverge`` with ``--diverge-*``
@@ -368,13 +371,17 @@ def _quorum_preflight(args: argparse.Namespace) -> None:
         raise SystemExit(
             "--quorum needs a multi-device mesh: a single device "
             "has no stragglers to absorb")
-    if args.aggregate == "psum":  # (the port's --aggregate has no hierarchical yet)
+    if args.aggregate in ("psum", "hierarchical"):
         raise SystemExit(
             f"--quorum does not compose with --aggregate "
             f"{args.aggregate}: only the flat payload gather/ring "
             "exchanges carry the staleness ring; psum ships dense "
             "gradients and the hierarchical boundary re-encode is "
             "not arrival-aware")
+    if args.plan != "auto":
+        raise SystemExit(
+            "--quorum does not compose with --plan: the two-level "
+            "topology schedules are not arrival-aware; drop one")
     if args.overlap == "delayed":
         raise SystemExit(
             "--quorum does not compose with --overlap delayed: "
@@ -659,15 +666,34 @@ def _fit_flags(p: argparse.ArgumentParser) -> None:
                         "torchrun --nproc-per-node N); 0 = the whole process group, or "
                         "the single-device loop when there is none")
     p.add_argument("--aggregate", type=str, default="auto",
-                   choices=["auto", "gather", "ring", "psum"],
+                   choices=["auto", "gather", "ring", "psum", "hierarchical"],
                    help="gradient exchange: gather = payload all_gather (compressed "
                         "wire), ring = its streamed form (payloads rotate, each hop's "
-                        "decode overlaps the next transfer), psum = dense all-reduce; "
-                        "auto = the comm-cost model's pick for this byte budget, "
+                        "decode overlaps the next transfer), psum = dense all-reduce, "
+                        "hierarchical = the two-tier schedule: a dense mean over the "
+                        "fast fabric (NVLink inside a host) then the payload all_gather "
+                        "over the slow one (the NICs between hosts), see --dcn-ways and "
+                        "--plan; auto = the comm-cost model's pick for this byte budget, "
                         "device count and --fabric, printed with its reason (psum for "
-                        "a dense code; the two-tier hierarchical pick is refused: not "
-                        "ported)")
+                        "a dense code; hierarchical, with the planner's plan, on a "
+                        "--dcn-ways mesh or a group that spans hosts)")
     _fabric_flags(p)
+    p.add_argument("--dcn-ways", type=int, default=0, metavar="K",
+                   help="hierarchical aggregation: number of SLOW-fabric (outer) groups; "
+                        "the n-devices group becomes the mesh (dp=K) x (ici=n/K), rank r "
+                        "in outer group r // (n/K). 0 = one group per host (WORLD_SIZE "
+                        "over LOCAL_WORLD_SIZE), 2 on one host. With --dcn-ways > 1, "
+                        "--aggregate auto plans over the two-tier fabric")
+    p.add_argument("--plan", type=str, default="auto",
+                   help="two-level schedule for hierarchical aggregation "
+                        "(topology.schedule): auto = the cost-driven planner when "
+                        "--aggregate auto resolved hierarchical, the legacy plan when "
+                        "you pinned --aggregate hierarchical yourself; legacy = dense "
+                        "mean over the fast tier + one payload gather over the slow "
+                        "one; or an explicit inner+outer pair from {psum,cring}+{gather,"
+                        "ring,psum}, e.g. cring+ring: inner dense mean or compressed "
+                        "ring, the boundary re-encode, outer re-encoded gather/ring or "
+                        "the SparCML dense fallback")
     p.add_argument("--num-aggregate", type=int, default=None, metavar="N",
                    help="aggregate only K replicas per step (rotating subset; gather "
                         "and ring); unset = all")
@@ -997,6 +1023,25 @@ def _partition_preflight(args: argparse.Namespace) -> None:
             "against the flat master layout)")
 
 
+def _plan_preflight(args: argparse.Namespace) -> None:
+    """The JAX verb's argv checks of ``--plan`` (``atomo_tpu/cli.py:
+    993-1013``): the plan-name grammar, and a plan pinned beside a flat
+    ``--aggregate``."""
+    if args.plan not in ("auto", "legacy"):
+        from atomo_tpu_torch.topology.schedule import plan_from_name
+
+        try:
+            plan_from_name(args.plan)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+    if args.plan != "auto" and args.aggregate not in ("auto", "hierarchical"):
+        raise SystemExit(
+            f"--plan {args.plan} selects a two-level hierarchical "
+            f"schedule and cannot compose with --aggregate "
+            f"{args.aggregate}; use --aggregate hierarchical (or auto on "
+            "a --dcn-ways mesh)")
+
+
 def _overlap_preflight(args: argparse.Namespace) -> None:
     """The JAX verb's argv refusals of ``--overlap delayed`` and
     ``--stream-encode on`` (``atomo_tpu/cli.py:1013-1084``) for the flags
@@ -1011,12 +1056,17 @@ def _overlap_preflight(args: argparse.Namespace) -> None:
             raise SystemExit(
                 "--overlap delayed needs a multi-device mesh: single-device "
                 "training has no exchange to take off the critical path")
-        if args.aggregate == "psum":
+        if args.aggregate in ("psum", "hierarchical"):
             raise SystemExit(
                 f"--overlap delayed does not compose with --aggregate "
                 f"{args.aggregate} (only the compressed flat gather/ring "
                 "exchanges have a delayed form; no two-level topology "
                 "plan — legacy or re-encoded — does)")
+        if args.plan != "auto":
+            raise SystemExit(
+                f"--overlap delayed does not compose with --plan "
+                f"{args.plan}: no two-level topology plan — legacy or "
+                "re-encoded — has a delayed form; drop one")
         if args.phase_metrics:
             raise SystemExit(
                 "--phase-metrics times blocking phase programs and cannot "
@@ -1043,13 +1093,19 @@ def _overlap_preflight(args: argparse.Namespace) -> None:
                 "--stream-encode needs a multi-device mesh: single-device "
                 "training has no exchange whose encode is on the critical "
                 "path")
-        if args.aggregate == "psum":
+        if args.aggregate in ("psum", "hierarchical"):
             raise SystemExit(
                 f"--stream-encode does not compose with --aggregate "
                 f"{args.aggregate}: psum ships dense gradients (no encode "
                 "to stream), and the hierarchical boundary re-encode is "
                 "not bucket-aware yet — the honest reject until it is; "
                 "use --aggregate gather or ring")
+        if args.plan != "auto":
+            raise SystemExit(
+                f"--stream-encode does not compose with --plan "
+                f"{args.plan}: the two-level topology schedules re-encode "
+                "at the fabric boundary, which is not bucket-aware yet; "
+                "drop one")
         if args.phase_metrics:
             raise SystemExit(
                 "--phase-metrics times a monolithic encode phase program "
@@ -1092,6 +1148,12 @@ def _sparse_preflight(args: argparse.Namespace) -> None:
             "the row payloads would ride a full dense all-reduce "
             "wire, so the sparse exchange degenerates (the SparCML "
             "crossover can never pay); use --aggregate gather or ring")
+    if args.aggregate == "hierarchical" or args.plan != "auto":
+        raise SystemExit(
+            "--sparse-rows does not compose with hierarchical "
+            "aggregation (--aggregate hierarchical / --plan): the "
+            "boundary re-encode composes a second estimator per "
+            "layer and is not row-aware yet — rejected honestly")
     if args.overlap == "delayed":
         raise SystemExit(
             "--sparse-rows does not compose with --overlap delayed: "
@@ -1146,6 +1208,11 @@ def _budget_preflight(args: argparse.Namespace) -> None:
                 f"--sample fixed_k (the stated variance law is the "
                 f"with-replacement sampler's A/k; --sample "
                 f"{args.sample} has a different law)")
+        if args.aggregate == "hierarchical" or args.plan != "auto":
+            raise SystemExit(
+                "--budget-alloc variance needs flat gather/ring/psum "
+                "aggregation: the hierarchical boundary re-encode is not "
+                "allocation-aware yet")
         if args.sparse_rows != "off":
             raise SystemExit(
                 "--budget-alloc variance with --sparse-rows is a JOINT "
@@ -1185,6 +1252,12 @@ def _budget_preflight(args: argparse.Namespace) -> None:
             "--error-feedback does not compose with --overlap "
             "delayed: the stale carry's residual semantics are "
             "unproven — rejected honestly")
+    if args.aggregate == "hierarchical" or args.plan != "auto":
+        raise SystemExit(
+            "--error-feedback needs flat gather/ring/psum "
+            "aggregation: the hierarchical boundary re-encode's "
+            "unbiased-by-composition argument does not survive the "
+            "EF bias")
     if args.sparse_rows != "off":
         raise SystemExit(
             "--error-feedback does not compose with --sparse-rows "
@@ -1357,21 +1430,45 @@ def resolve_auto_aggregate(args: argparse.Namespace, codec, model, n_dev: int, *
     (``atomo_tpu/cli.py:726-810``): the comm-cost model's pick for this
     byte budget (``model``'s leaves under ``codec``), ``n_dev`` ways and
     ``--fabric``, logged as the JAX line ``--aggregate auto -> <mode>
-    (<reason>)``. A mesh that crosses hosts is hierarchical in the JAX
-    package, whose two-tier schedule is not ported: refused, never
-    replaced."""
+    (<reason>)``. On a two-tier mesh (``--dcn-ways`` above 1, or a group
+    that spans hosts) with a codec it is ``hierarchical``: the advisory
+    quotes each tier (:class:`~atomo_tpu_torch.topology.fabric.
+    TwoTierFabric`) and runs the topology planner, whose plan rides on
+    ``args._auto_plan``; a plan pinned by ``--plan`` is priced instead, and
+    no plan is stashed."""
     from atomo_tpu_torch.tuning.probe import byte_budget
     from atomo_tpu_torch.utils.comm_model import choose_aggregate, resolve_fabric
 
     n_hosts = hosts_in_group()
-    cross_host = n_hosts > 1 and allow_hierarchical
+    dcn_ways = getattr(args, "dcn_ways", 0)
+    cross_host = (n_hosts > 1 or dcn_ways > 1) and allow_hierarchical
     dense_b, payload_b = byte_budget(codec, model) if codec is not None else (0, 0)
     if cross_host and codec is not None:
-        raise SystemExit(
-            f"--aggregate auto: this group spans {n_hosts} hosts (WORLD_SIZE over "
-            "LOCAL_WORLD_SIZE), where the JAX verb picks --aggregate hierarchical "
-            "(the two-tier schedule), which this port does not have yet; pass "
-            "--aggregate gather, ring or psum")
+        from atomo_tpu_torch.topology.fabric import resolve_two_tier
+        from atomo_tpu_torch.topology.schedule import choose_plan, plan_from_name
+
+        k = _outer_ways(args, n_hosts)
+        try:
+            fabric2 = resolve_two_tier(args.fabric, dcn_ways=k, n_dev=n_dev, n_proc=n_hosts,
+                                       measured=getattr(args, "_fabric_probe", None))
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+        # a pinned --plan wins the precedence chain, so the advisory prices
+        # THAT plan (the plan space narrowed to it) and selects nothing
+        pinned = getattr(args, "plan", "auto")
+        pinned_names = None
+        suffix = ""
+        if pinned != "auto":
+            pinned_names = (plan_from_name(pinned).name,)
+            suffix = " — pinned by --plan, planner selection skipped"
+        plan, plan_reason = choose_plan(
+            dense_bytes=dense_b, payload_bytes=payload_b, fabric=fabric2,
+            tax_s=None if args.codec_tax_ms is None else args.codec_tax_ms / 1e3,
+            plan_names=pinned_names)
+        if pinned == "auto":
+            args._auto_plan = plan.name
+        log(f"--aggregate auto -> hierarchical ({fabric2.describe()}; {plan_reason}{suffix})")
+        return "hierarchical"
     try:
         bw = resolve_fabric(args.fabric, n_proc=n_hosts,
                             measured=getattr(args, "_fabric_probe", None))
@@ -1415,10 +1512,12 @@ def _train_aggregate(args: argparse.Namespace, codec, model, plan, n_dev: int, l
     verb's refusals after it (``:2932-2990``). One device runs the
     single-device program, where the JAX verb resolves nothing: the port's
     data-parallel step at world 1 takes gather, which is that program."""
+    if n_dev <= 1:
+        if args.plan != "auto":
+            warnings.warn(PLAN_ONE_DEVICE)
+        return "gather" if args.aggregate in ("auto", "hierarchical") else args.aggregate
     if args.aggregate != "auto":
         return args.aggregate
-    if n_dev <= 1:
-        return "gather"
     if plan is not None:
         return _hybrid_auto_aggregate(args, plan, n_dev, log)
     aggregate = resolve_auto_aggregate(args, codec, model, n_dev,
@@ -1442,7 +1541,87 @@ def _train_aggregate(args: argparse.Namespace, codec, model, plan, n_dev: int, l
             f"aggregation; --aggregate auto resolved to "
             f"{aggregate!r} — pass --aggregate gather "
             "explicitly to subset replicas")
+    if args.obs_quality and aggregate == "hierarchical":
+        raise SystemExit(
+            "--obs-quality: --aggregate auto resolved to "
+            "hierarchical for this deployment (the boundary "
+            "re-encode is not probe-aware); pass --aggregate "
+            "gather or ring explicitly to keep the quality "
+            "probes, or drop --obs-quality")
+    if args.plan != "auto" and aggregate != "hierarchical":
+        # a pinned plan is never dropped in silence: auto goes hierarchical
+        # only on a two-tier deployment with a codec
+        raise SystemExit(
+            f"--plan {args.plan}: --aggregate auto resolved to "
+            f"{aggregate!r} for this deployment (a planned "
+            "two-level schedule needs a compressing --code and a "
+            "--dcn-ways/multi-host mesh); pass --aggregate "
+            "hierarchical explicitly to force it, or drop --plan")
     return aggregate
+
+
+PLAN_ONE_DEVICE = (
+    "--plan selects a two-level schedule over a multi-device "
+    "mesh; single-device training has no tiers to schedule — "
+    "ignoring it")
+
+
+def _outer_ways(args: argparse.Namespace, n_hosts: int) -> int:
+    """K, the outer (slow-fabric) group count of a two-tier run: ``--dcn-ways``,
+    else one group a host, at least 2 (``atomo_tpu/cli.py:3004``)."""
+    return args.dcn_ways or max(n_hosts, 2)
+
+
+def _two_tier_spec(n_dev: int, k: int):
+    """``MeshSpec.from_world``'s ``(dp=K, ici=N/K)`` split of ``n_dev``
+    devices, or None where K is not one (K does not divide N, or K <= 1,
+    which it takes as flat)."""
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+
+    try:
+        spec = MeshSpec.from_world(n_dev, k)
+    except ValueError:
+        return None
+    return spec if spec.is_two_tier else None
+
+
+def _two_tier_mesh(args: argparse.Namespace, n_dev: int, k: int):
+    """The ``(dp=K, ici=N/K)`` mesh over the group, built once a run and kept
+    on ``args`` for the fabric probe and the step alike (making its groups
+    is collective: every rank builds every line, in ``MeshSpec.build``'s
+    order). A K that does not divide N exits with the JAX verb's text."""
+    mesh = getattr(args, "_two_tier_mesh", None)
+    if mesh is None or mesh.size("dp") != k:
+        spec = _two_tier_spec(n_dev, k)
+        if spec is None:
+            raise SystemExit(
+                f"--dcn-ways {k} must divide --n-devices {n_dev} "
+                "(outer slow-fabric groups x inner fast-fabric chips)")
+        mesh = args._two_tier_mesh = spec.build()
+    return mesh
+
+
+def _two_tier(args: argparse.Namespace, codec, n_dev: int, log):
+    """The train verb's hierarchical block (``atomo_tpu/cli.py:3000-3031``):
+    the two-tier mesh over the group (:func:`_two_tier_mesh`) and the plan
+    in effect: an explicit ``--plan``, then the auto-resolution's planner
+    pick, then the legacy plan (None); a non-legacy plan is announced as
+    ``Topology plan: <name>``."""
+    from atomo_tpu_torch.topology.schedule import plan_from_name
+
+    k = _outer_ways(args, hosts_in_group())
+    if codec is None:
+        raise SystemExit(
+            "--aggregate hierarchical needs a compressing --code "
+            "(the point is factors on the slow fabric; use "
+            "--aggregate psum for dense)")
+    mesh = _two_tier_mesh(args, n_dev, k)
+    pname = (args.plan if args.plan != "auto" else None) or getattr(args, "_auto_plan", None)
+    plan = None
+    if pname and pname != "legacy":
+        plan = plan_from_name(pname)
+        log(f"Topology plan: {plan.name}")
+    return mesh, plan
 
 
 def _superstep(args: argparse.Namespace) -> int:
@@ -1514,10 +1693,14 @@ def _fabric_probe(args: argparse.Namespace, n_dev: int, ctx, log_fn) -> None:
 
     if n_dev <= 1:
         raise SystemExit(FABRIC_ONE_DEVICE)
+    k = getattr(args, "dcn_ways", 0)
+    # a two-tier probe runs over the step's own groups (a K that is not a
+    # two-tier split probes flat, as the JAX probe does)
+    mesh = _two_tier_mesh(args, n_dev, k) if _two_tier_spec(n_dev, k) else None
     try:
         args._fabric_probe = ensure_fabric_probe(
-            args.train_dir, n_dev=n_dev, reuse=args.resume, log_fn=log_fn,
-            write=ctx.rank == 0, device=ctx.device)
+            args.train_dir, n_dev=n_dev, dcn_ways=k, reuse=args.resume, log_fn=log_fn,
+            write=ctx.rank == 0, device=ctx.device, mesh=mesh)
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
 
@@ -1545,6 +1728,11 @@ def _obs_preflight(args: argparse.Namespace) -> None:
                 "the carried payload describes the PREVIOUS step, so a "
                 "per-step per-layer error column would be off by one — "
                 "rejected honestly rather than silently mis-attributed")
+        if args.aggregate == "hierarchical" or args.plan != "auto":
+            raise SystemExit(
+                "--obs-quality needs flat gather/ring/psum aggregation: "
+                "the hierarchical boundary re-encode composes two "
+                "estimators per layer and is not probe-aware yet")
 
 
 def _recorder(args: argparse.Namespace, n_dev: int, log_fn, write: bool = True, budget=None):
@@ -1601,6 +1789,7 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
     _partition_preflight(args)
     superstep = _superstep(args)
     _fabric_preflight(args)
+    _plan_preflight(args)
     _overlap_preflight(args)
     _sparse_preflight(args)
     _obs_preflight(args)
@@ -1662,6 +1851,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         if args.num_aggregate is not None:
             warnings.warn("--num-aggregate needs a multi-device mesh; single-device "
                           "training has no replicas to subset — ignoring it")
+        if args.plan != "auto":
+            warnings.warn(PLAN_ONE_DEVICE)
         if args.grad_accum > 1:
             warnings.warn("--grad-accum is only wired into the multi-device step; "
                           "single-device training ignores it")
@@ -1715,6 +1906,9 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
         recorder, budget_tuner = _recorder(args, n_dev, rank_log, write=ctx.rank == 0,
                                            budget=budget)
         aggregate = _train_aggregate(args, codec, model, plan, n_dev, rank_log)
+        mesh = topo_plan = None
+        if aggregate == "hierarchical":
+            mesh, topo_plan = _two_tier(args, codec, n_dev, rank_log)
         partition = _partition(args).replace("_", "-")
         if partition == "zero1" and n_dev <= 1:
             # zero1 = partition == "zero1" and n_dev > 1 (atomo_tpu/cli.py:1750);
@@ -1738,7 +1932,8 @@ def cmd_train(args: argparse.Namespace, log_fn=print):
                 phase_metrics=args.phase_metrics, lr_fn=_reference_lr(args),
                 profile_dir=args.profile_dir or None, budget_tuner=budget_tuner,
                 partition=partition, quorum=quorum,
-                quorum_replay=args.replay_arrivals or None, **{**common, "device": ctx.device})
+                quorum_replay=args.replay_arrivals or None, mesh=mesh, plan=topo_plan,
+                **{**common, "device": ctx.device})
         except DivergenceError as exc:
             return _diverged_exit(exc)
     finally:

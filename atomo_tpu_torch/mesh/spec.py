@@ -2,8 +2,10 @@
 
 Counterpart of ``atomo_tpu/mesh/spec.py:36-250``: :class:`MeshSpec` names
 the axes of a mesh (``dp`` first, then the model axes of a ``--layout``)
-and renders them as the JAX package does (``describe``: ``dp2xtp2``;
-``layout_name``: ``dp-tp``). Its ``from_layout`` raises the same
+and renders them as the JAX package does (``describe``: ``dp2xtp2``,
+``dp2xici2``; ``layout_name``: ``dp-tp``). Its ``from_layout`` and
+``from_world`` (the data-parallel mesh of ``--n-devices`` and
+``--dcn-ways``: ``dpN`` flat, ``dpK x ici(N/K)`` two-tier) raise the same
 ``ValueError`` s.
 
 The JAX package builds a ``jax.sharding.Mesh`` over the chips of its
@@ -67,6 +69,8 @@ class ProcessMesh:
 
     @property
     def n_dp(self) -> int:
+        """The ``dp`` axis alone: on a two-tier mesh the OUTER groups, not
+        the data-parallel world (which is ``n_dp * size("ici")``)."""
         return self.size("dp")
 
     @property
@@ -93,6 +97,35 @@ class MeshSpec:
         for name, size in self.axes:
             if size < 1:
                 raise ValueError(f"mesh axis {name!r} has size {size}")
+
+    @classmethod
+    def from_world(cls, n_devices: int, dcn_ways: int = 0) -> "MeshSpec":
+        """(``--n-devices``, ``--dcn-ways``) -> the data-parallel mesh:
+        ``dpN`` flat (``dcn_ways`` <= 1), or the two-tier ``dpK x ici(N/K)``
+        of the hierarchical schedules, K dividing N."""
+        n = int(n_devices)
+        k = int(dcn_ways)
+        if n < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n}")
+        if k > 1:
+            if n % k or not 1 < k <= n:
+                raise ValueError(
+                    f"dcn_ways {k} must divide n_devices {n} "
+                    "(outer slow-fabric groups x inner fast-fabric chips)"
+                )
+            return cls((("dp", k), ("ici", n // k)))
+        return cls((("dp", n),))
+
+    @classmethod
+    def from_shape_dict(cls, d) -> Optional["MeshSpec"]:
+        """Inverse of :meth:`shape_dict` (its key order is the axis order);
+        None for a missing, empty or malformed document."""
+        if not isinstance(d, dict) or not d:
+            return None
+        try:
+            return cls(tuple((str(k), int(v)) for k, v in d.items()))
+        except (TypeError, ValueError):
+            return None
 
     @classmethod
     def from_layout(cls, layout: str, n_devices: int, ways=1) -> "MeshSpec":
@@ -143,6 +176,20 @@ class MeshSpec:
         for _, s in self.axes:
             n *= s
         return n
+
+    @property
+    def data_axes(self) -> tuple[str, ...]:
+        """The axes the batch spans: ``("dp",)`` flat, ``("dp", "ici")``
+        two-tier."""
+        return tuple(n for n in self.names if n in ("dp", "ici"))
+
+    @property
+    def inner_axis(self) -> Optional[str]:
+        return "ici" if "ici" in self.names else None
+
+    @property
+    def is_two_tier(self) -> bool:
+        return self.inner_axis is not None
 
     @property
     def model_axes(self) -> tuple[tuple[str, int], ...]:

@@ -33,9 +33,13 @@ deterministic ``ones``; the probe draws no random number and never touches
 the data iterator, so a run under ``--fabric measured`` trains bit for bit
 as the same run under ``--fabric <its measured GB/s>``.
 
-The probe runs on the flat group only: the two-tier probe (``dcn_ways >
-1``) and :func:`measured_two_tier` belong to the topology layer (ROADMAP
-queue 1 item 10) and are refused by name. The JAX module's drift-blame
+With ``dcn_ways`` K > 1 the probe measures the two tiers of the ``(dp=K,
+ici=N/K)`` mesh apart (``atomo_tpu/obs/fabric.py:249-320``): the ``ici``
+tier's ladder over this rank's inner group, the ``dcn`` tier's over its
+outer group (a 1-wide axis has no hop to time and is skipped), and
+:func:`measured_two_tier` builds the topology layer's
+:class:`~atomo_tpu_torch.topology.fabric.TwoTierFabric` from them, measured
+bandwidths and per-hop latencies both. The JAX module's drift-blame
 re-probe (:func:`quick_probe`) is here, but nothing calls it yet: its caller
 is the online tuner (item 12).
 """
@@ -55,12 +59,6 @@ FABRIC_PROBE_NAME = "fabric_probe.json"
 DEFAULT_SIZES = (1 << 12, 1 << 16, 1 << 20, 1 << 23)
 # the drift-blame re-probe: two points give the slope
 QUICK_SIZES = (1 << 12, 1 << 20)
-
-TOPOLOGY_REFUSAL = (
-    "the two-tier fabric probe (--dcn-ways > 1: the ici and dcn axes probed "
-    "separately) belongs to the topology layer, which this port does not have "
-    "yet (ROADMAP queue 1 item 10); the port probes its flat process group")
-
 
 def probe_path(train_dir: str) -> str:
     return os.path.join(train_dir, FABRIC_PROBE_NAME)
@@ -103,9 +101,48 @@ def measured_outer_bw(doc: dict) -> float:
 
 
 def measured_two_tier(doc: dict, *, dcn_ways: int, n_dev: int):
-    """The two-tier fabric of a probe document: refused (see the module
-    docstring)."""
-    raise ValueError(TOPOLOGY_REFUSAL)
+    """A :class:`~atomo_tpu_torch.topology.fabric.TwoTierFabric` built from
+    the probe document: measured bandwidths AND measured per-hop latencies a
+    tier (the stated anchors stand in for a tier without a fitted latency).
+    Needs a probe that measured both tiers (``--dcn-ways`` was set when it
+    ran)."""
+    from atomo_tpu_torch.topology.fabric import (
+        NIC_HOP_LATENCY_S,
+        NVLINK_HOP_LATENCY_S,
+        TwoTierFabric,
+    )
+
+    k = int(dcn_ways)
+    tiers = {str(t.get("label")): t for t in (doc or {}).get("tiers", [])}
+    if "ici" not in tiers and int(n_dev) // k == 1 and "dcn" in tiers:
+        # dcn_ways == n_dev: every inner group is one card, with no hop to
+        # probe, and its bandwidth prices zero bytes: the dcn tier stands in
+        tiers = dict(tiers, ici=tiers["dcn"])
+    if "ici" not in tiers or "dcn" not in tiers:
+        raise ValueError(
+            "--fabric measured on a two-tier mesh needs a probe artifact "
+            "with both ici and dcn tiers (found: "
+            f"{sorted(tiers) or 'none'}); delete fabric_probe.json and "
+            "re-run with --dcn-ways set so both axes are probed"
+        )
+
+    def _bw(t):
+        return float(t["bandwidth_gbps"]) * 1e9
+
+    def _lat(t, default):
+        v = t.get("latency_us")
+        return float(v) / 1e6 if isinstance(v, (int, float)) else default
+
+    return TwoTierFabric(
+        inner_bw=_bw(tiers["ici"]),
+        outer_bw=_bw(tiers["dcn"]),
+        inner_ways=int(n_dev) // k,
+        outer_ways=k,
+        inner_latency_s=_lat(tiers["ici"], NVLINK_HOP_LATENCY_S),
+        outer_latency_s=_lat(tiers["dcn"], NIC_HOP_LATENCY_S),
+        inner_label="measured_ici",
+        outer_label="measured_dcn",
+    )
 
 
 # ------------------------------------------------------------------ probe
@@ -211,13 +248,18 @@ def _platform(device) -> str:
 
 def probe_fabric(*, n_dev: int, dcn_ways: int = 0, sizes=DEFAULT_SIZES, reps: int = 3,
                  warmup: int = 1, best_of: int = 2, log_fn=print, device=None,
-                 group=None) -> dict:
-    """Measure the group's fabric (module docstring): one tier labelled
-    ``ici`` (the JAX package's label for the fabric joining one mesh's
-    chips) over the ``n_dev`` ranks of ``group`` (the default group when
-    None), which every rank calls. ``device`` is the run's device; over
-    gloo the buffers are host tensors. Returns the probe document; writing
-    it is :func:`ensure_fabric_probe`'s move."""
+                 group=None, mesh=None) -> dict:
+    """Measure the group's fabric (module docstring): flat, one tier
+    labelled ``ici`` (the JAX package's label for the fabric joining one
+    mesh's chips) over the ``n_dev`` ranks of ``group`` (the default group
+    when None); with ``dcn_ways`` K > 1 dividing ``n_dev`` (and the default
+    group), the ``ici`` and ``dcn`` tiers of the ``(dp=K, ici=N/K)`` mesh,
+    each over this rank's line of its axis: the groups of ``mesh``, the
+    run's built two-tier mesh, or when None of ``MeshSpec.from_world(N,
+    K).build()``, whose groups every rank makes. Every rank calls it.
+    ``device`` is the run's device; over gloo the buffers are host tensors.
+    Returns the probe document; writing it is :func:`ensure_fabric_probe`'s
+    move."""
     import torch
     import torch.distributed as dist
 
@@ -229,8 +271,7 @@ def probe_fabric(*, n_dev: int, dcn_ways: int = 0, sizes=DEFAULT_SIZES, reps: in
             "device has no inter-chip fabric to measure"
         )
     k = int(dcn_ways)
-    if k > 1 and n % k == 0 and k <= n:
-        raise ValueError(TOPOLOGY_REFUSAL)
+    two_tier = k > 1 and n % k == 0 and k <= n
     if not dist.is_initialized() or dist.get_world_size(group) != n:
         raise ValueError(
             f"--fabric measured probes the run's process group, which must hold the "
@@ -238,8 +279,24 @@ def probe_fabric(*, n_dev: int, dcn_ways: int = 0, sizes=DEFAULT_SIZES, reps: in
     backend = dist.get_backend(group)
     run_device = torch.device("cpu" if device is None else device)
     buffers = torch.device("cpu") if backend == "gloo" else run_device
-    rows = _ladder(sizes, reps=reps, warmup=warmup, best_of=best_of, device=buffers, group=group)
-    tiers = [{"label": "ici", "axis": "dp", "ways": n, **_fit_tier(rows, n), "rows": rows}]
+    if two_tier:
+        if mesh is None:
+            from atomo_tpu_torch.mesh.spec import MeshSpec
+
+            mesh = MeshSpec.from_world(n, k).build()
+        tiers = []
+        for label, axis in (("ici", "ici"), ("dcn", "dp")):
+            ways = mesh.size(axis)
+            if ways < 2:
+                continue  # a 1-wide axis has no hops to time
+            rows = _ladder(sizes, reps=reps, warmup=warmup, best_of=best_of, device=buffers,
+                           group=mesh.group(axis))
+            tiers.append({"label": label, "axis": axis, "ways": ways,
+                          **_fit_tier(rows, ways), "rows": rows})
+    else:
+        rows = _ladder(sizes, reps=reps, warmup=warmup, best_of=best_of, device=buffers,
+                       group=group)
+        tiers = [{"label": "ici", "axis": "dp", "ways": n, **_fit_tier(rows, n), "rows": rows}]
     doc = {
         "kind": "fabric_probe",
         "meta": {
@@ -247,7 +304,7 @@ def probe_fabric(*, n_dev: int, dcn_ways: int = 0, sizes=DEFAULT_SIZES, reps: in
             "group_backend": backend,
             "buffers": buffers.type,
             "n_devices": n,
-            "dcn_ways": 0,
+            "dcn_ways": k if two_tier else 0,
             "sizes_bytes": [int(s) for s in sizes],
             "reps": int(reps),
             "best_of": int(best_of),
@@ -282,14 +339,15 @@ def write_fabric_probe(train_dir: str, doc: dict) -> str:
 
 
 def ensure_fabric_probe(train_dir: str, *, n_dev: int, dcn_ways: int = 0, reuse: bool = False,
-                        log_fn=print, write: bool = True, device=None, group=None,
+                        log_fn=print, write: bool = True, device=None, group=None, mesh=None,
                         **probe_kw) -> dict:
     """The CLI's ``--fabric measured`` startup hook, which every rank
     calls: reuse a complete recorded probe when ``reuse`` (a ``--resume``
     must not re-measure — the resumed pricing should match the original
     run's), else probe the group and (``write``: rank 0) write
     ``train_dir/fabric_probe.json``. A recorded probe of another group shape
-    is never reused. ``probe_kw`` reach :func:`probe_fabric` (the sweep)."""
+    is never reused. ``mesh`` (the run's two-tier mesh, when built) and
+    ``probe_kw`` reach :func:`probe_fabric` (the sweep)."""
     # normalize the requested shape the way probe_fabric records it (a
     # non-dividing or degenerate dcn_ways probes flat with meta.dcn_ways=0),
     # or a --resume of such a run would re-probe forever on a mismatch
@@ -316,7 +374,7 @@ def ensure_fabric_probe(train_dir: str, *, n_dev: int, dcn_ways: int = 0, reuse:
                 f"{n_dev}/{dcn_ways}); re-probing"
             )
     doc = probe_fabric(n_dev=n_dev, dcn_ways=dcn_ways, log_fn=log_fn, device=device,
-                       group=group, **probe_kw)
+                       group=group, mesh=mesh, **probe_kw)
     if write:
         path = write_fabric_probe(train_dir, doc)
         log_fn(f"Fabric probe: artifact -> {path}")
@@ -348,11 +406,11 @@ def predicted_tier_ms(
     plan_name: Optional[str] = None,
 ) -> dict:
     """``{tier label: predicted comm ms}`` — the per-tier decomposition
-    of a flat aggregate's predicted comm time: one tier, the wire formula
-    per mode. Returns {} when the context cannot be priced (no bandwidth):
-    an absent column, never a made-up one. A hierarchical plan over a
-    two-tier fabric (``fabric2``) belongs to the topology layer and is
-    refused by name."""
+    of an aggregate's predicted comm time: a flat aggregate crosses one
+    tier (the wire formula per mode), a hierarchical plan over a two-tier
+    fabric (``fabric2``) both, through ``topology.schedule.
+    plan_wire_bytes``. Returns {} when the context cannot be priced (no
+    bandwidth): an absent column, never a made-up one."""
     from atomo_tpu_torch.utils.comm_model import (
         ring_allgather_wire_bytes,
         ring_allreduce_wire_bytes,
@@ -363,7 +421,17 @@ def predicted_tier_ms(
     if ways <= 1:
         return {}
     if aggregate == "hierarchical" and fabric2 is not None:
-        raise ValueError(TOPOLOGY_REFUSAL)
+        from atomo_tpu_torch.topology.schedule import plan_from_name, plan_wire_bytes
+
+        wires = plan_wire_bytes(plan_from_name(plan_name or "legacy"),
+                                dense_bytes=dense_bytes, payload_bytes=payload_bytes,
+                                fabric=fabric2)
+        return {
+            fabric2.inner_label: round(fabric2.tier_time_s(
+                wires["inner_bytes"], "inner", wires["inner_hops"]) * 1e3, 4),
+            fabric2.outer_label: round(fabric2.tier_time_s(
+                wires["outer_bytes"], "outer", wires["outer_hops"]) * 1e3, 4),
+        }
     if not fabric_bw or fabric_bw <= 0:
         return {}
     if aggregate == "psum" or not payload_bytes:

@@ -500,10 +500,14 @@ def build_timeline(
         for p in PHASES:
             union = _union_len_us(ivs[p])
             hidden = _intersect_len_us(ivs[p], ivs["compute"])
+            busy_ms, hidden_ms = round(busy[p] / 1e3, 4), round(hidden / 1e3, 4)
+            # busy >= union = exposed + hidden; rounded apart, the two parts
+            # could pass the rounded busy by 1e-4, so exposed takes the rest
             span["phases"][p] = {
-                "busy_ms": round(busy[p] / 1e3, 4),
-                "exposed_ms": round((union - hidden) / 1e3, 4),
-                "hidden_ms": round(hidden / 1e3, 4),
+                "busy_ms": busy_ms,
+                "exposed_ms": min(round((union - hidden) / 1e3, 4),
+                                  round(busy_ms - hidden_ms, 4)),
+                "hidden_ms": hidden_ms,
             }
         spans.append(span)
     doc["spans"] = spans

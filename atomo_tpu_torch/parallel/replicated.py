@@ -42,6 +42,12 @@ holding a replica, and the collectives of the program become calls of
     this is the dense all-reduce (``:1629-1632``), and gather or ring
     without a codec become psum (``:1211-1212``);
 
+* ``hierarchical`` (``:1155-1210,1630-1680``): the two-tier exchange over a
+  ``(dp=K, ici=N/K)`` mesh's process groups, a plan of
+  :mod:`atomo_tpu_torch.topology` (the legacy plan: a dense mean over this
+  rank's ``ici`` group, the boundary encode under the group's key, one
+  ``all_gather`` over its ``dp`` group and one tree decode over the K
+  rows); ``msg_bytes`` is the slow tier's;
 * ``num_aggregate`` k (``:1205``): the mean over the rotating subset
   ``(step + arange(k)) % N`` (gather and ring only, as the reference);
 * ``hybrid`` (a :class:`~atomo_tpu_torch.sparse.HybridPlan`; ``_hybrid_mean``
@@ -140,6 +146,12 @@ from atomo_tpu_torch.parallel.overlap import (
     side_stream,
 )
 from atomo_tpu_torch.quorum.schedule import DROPPED
+from atomo_tpu_torch.topology.execute import (
+    inner_codec_key,
+    outer_codec_key,
+    planned_two_level_mean,
+)
+from atomo_tpu_torch.topology.schedule import LEGACY_PLAN
 from atomo_tpu_torch.training.optim import Optimizer
 from atomo_tpu_torch.training import graph as G
 from atomo_tpu_torch.training.resilience import (
@@ -160,7 +172,7 @@ from atomo_tpu_torch.training.trainer import (
 from atomo_tpu_torch.utils.metrics import accuracy
 from atomo_tpu_torch.utils.rng import fold_in, split3
 
-AGGREGATES = ("gather", "ring", "psum")
+AGGREGATES = ("gather", "ring", "psum", "hierarchical")
 
 
 def _group() -> tuple[int, int]:
@@ -410,6 +422,13 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
                   guard=None) -> None:
     """The step factory's refusals of ``hybrid=`` (``:1328-1370``) for the
     arguments the port's step has, and of a plan over another tree."""
+    if aggregate == "hierarchical":
+        raise ValueError(
+            "hybrid= (sparse-row per-layer exchange) does not compose "
+            "with aggregate='hierarchical': the boundary re-encode "
+            "composes a second estimator per layer and is not "
+            "row-aware yet — rejected honestly rather than silently "
+            "degraded")
     if plan.n_leaves != n_leaves:
         raise ValueError(
             f"hybrid plan covers {plan.n_leaves} leaves but the gradient "
@@ -444,13 +463,19 @@ def _check_hybrid(plan, n_leaves: int, codec, aggregate: str, num_aggregate: int
 
 
 def _check_error_feedback(codec, hybrid, k_agg: int, overlap: str = "off",
-                          guard=None) -> None:
+                          guard=None, hierarchical: bool = False) -> None:
     """The step factory's refusals of ``error_feedback`` (``:1277-1330``)
     for the arguments the port's step has."""
     if codec is None:
         raise ValueError(
             "error_feedback accumulates the codec's compression "
             "residual; dense training has no residual to accumulate")
+    if hierarchical:
+        raise ValueError(
+            "error_feedback needs flat aggregation: the hierarchical "
+            "boundary re-encode composes two estimators per layer "
+            "and its unbiased-by-composition argument does not "
+            "survive the EF bias — rejected honestly")
     if overlap == "delayed":
         raise ValueError(
             "error_feedback does not compose with overlap='delayed': "
@@ -541,9 +566,58 @@ def _check_partition(zero1, sharded_update, hybrid, world: int, parts: bool,
     return part
 
 
+def _check_hierarchical(codec, aggregate: str, mesh, inner_axis, plan, world: int, *,
+                         track_ok_bits: bool, survivor_exact: bool,
+                         track_quality: bool) -> None:
+    """The step factory's refusals of ``aggregate='hierarchical'``,
+    ``inner_axis`` and ``plan=`` (``atomo_tpu/parallel/replicated.py:
+    1181-1275``) for the arguments the port's step has; the mesh must be the
+    group's."""
+    hierarchical = aggregate == "hierarchical"
+    if hierarchical:
+        if codec is None or inner_axis is None:
+            raise ValueError(
+                "aggregate='hierarchical' needs a codec and inner_axis "
+                "(dense psum over the fast fabric, factors over the slow "
+                "one); use aggregate='psum' for fully-dense exchange")
+        names = mesh.spec.names if mesh is not None else ()
+        if inner_axis not in names:
+            raise ValueError(f"inner_axis {inner_axis!r} not in mesh axes {names}")
+        if mesh.spec.n_devices != world:
+            raise ValueError(f"a {mesh.spec.describe()} mesh needs {mesh.spec.n_devices} "
+                             f"ranks; this step's group has {world}")
+    elif inner_axis is not None:
+        raise ValueError("inner_axis only applies to aggregate='hierarchical'")
+    if plan is not None and not hierarchical:
+        raise ValueError(
+            "plan= selects a two-level hierarchical schedule "
+            "(topology.schedule) and only applies to "
+            "aggregate='hierarchical'")
+    if not hierarchical:
+        return
+    if track_ok_bits:
+        raise ValueError(
+            "track_ok_bits needs flat blocking aggregation: "
+            "hierarchical mode drops whole inner groups (membership "
+            "tracks single replicas) and the delayed carry is shaped "
+            "by the world size")
+    if survivor_exact:
+        raise ValueError(
+            "survivor_exact only applies to flat aggregation (the "
+            "hierarchical guard's drop unit is an inner group)")
+    if track_quality:
+        raise ValueError(
+            "track_quality needs flat blocking aggregation: the "
+            "hierarchical boundary re-encode composes two estimators "
+            "per layer and the delayed carry's payload describes the "
+            "PREVIOUS step — neither is per-layer-probe-aware yet; "
+            "rejected honestly rather than silently mis-attributed")
+
+
 def _check_aggregate(codec, aggregate: str, num_aggregate: int, world: int):
     """(aggregate in effect, k of num_aggregate or 0), as the reference
-    resolves them (``:1205-1212``)."""
+    resolves them (``:1205-1212``); ``world`` the ways the exchange averages
+    over (the outer groups under ``hierarchical``)."""
     if aggregate not in AGGREGATES:
         raise ValueError(f"unknown aggregate mode {aggregate!r}; expected one of "
                          f"{'|'.join(AGGREGATES)}")
@@ -735,6 +809,9 @@ def make_distributed_train_step(
     zero1=None,
     sharded_update=None,
     quorum=None,
+    mesh=None,
+    inner_axis: Optional[str] = None,
+    plan=None,
     _oracle_parts: bool = False,
     _phase_parts: bool = False,
 ):
@@ -848,13 +925,42 @@ def make_distributed_train_step(
     ``superstep``, chaos, the quality probe, mixed precision,
     ``grad_accum``, the guard (a skipped step holds the slices) and
     ``overlap='delayed'``; ZeRO-1 with ``hybrid`` too. Their trajectories
-    equal the replicated one's bit for bit."""
+    equal the replicated one's bit for bit.
+
+    ``aggregate='hierarchical'`` (``atomo_tpu/parallel/replicated.py:
+    1155-1210,1486-1510,1630-1680``) runs the two-tier exchange over
+    ``mesh``, the group's two-tier :class:`~atomo_tpu_torch.mesh.spec.
+    ProcessMesh` (``MeshSpec.from_world(N, K).build()``), with
+    ``inner_axis`` its fast axis (``"ici"``) and a codec:
+    :func:`~atomo_tpu_torch.topology.execute.planned_two_level_mean` runs
+    ``plan`` (an :class:`~atomo_tpu_torch.topology.schedule.AggregationPlan`;
+    None is the legacy plan, ``psum+gather``: a dense mean over the ``ici``
+    group, the group-keyed boundary encode, one ``all_gather`` over the
+    ``dp`` group and one tree decode over its K rows). Every rank is its own
+    data shard and dropout stream (rank = chip id = outer * N/K + inner);
+    the codec keys are the per-group outer key and, under a ``cring``
+    inner, the per-card inner key, and ``draws=`` takes a dict of
+    ``inner`` and ``outer`` draws (a list is the outer encode's). The guard
+    screens the inner-reduced gradient, so an inner group is the unit
+    dropped (``metrics["dropped"]`` counts groups) and the survivors' mean
+    is rescaled by K/kept; the BatchNorm statistics and the metrics are
+    means over the whole world, ZeRO-1 and the sharded update slice over
+    it. ``msg_bytes`` is this rank's bytes on the slow tier. It refuses
+    delayed overlap, stream-encode, error feedback, ``hybrid``,
+    ``track_quality``, ``survivor_exact``, ``quorum`` and
+    ``num_aggregate`` with the JAX package's texts."""
     if superstep < 1:
         raise ValueError(f"superstep must be >= 1, got {superstep}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     rank, world = _group()
     params = leaf_params(model)
+    hier = aggregate == "hierarchical"
+    _check_hierarchical(codec, aggregate, mesh, inner_axis, plan, world,
+                        track_ok_bits=track_ok_bits and guard is not None,
+                        survivor_exact=survivor_exact, track_quality=track_quality)
+    # the ways the exchange averages over: the outer groups when two-tier
+    n_ways = mesh.size("dp") if hier else world
     if track_ok_bits and guard is None:
         raise ValueError(
             "track_ok_bits reports the guard's per-replica screen "
@@ -878,8 +984,8 @@ def make_distributed_train_step(
                 "PREVIOUS step — neither is per-layer-probe-aware yet; "
                 "rejected honestly rather than silently mis-attributed")
     if error_feedback:
-        k_pre = num_aggregate if 0 < num_aggregate < world else 0
-        _check_error_feedback(codec, hybrid, k_pre, overlap, guard)
+        k_pre = num_aggregate if 0 < num_aggregate < n_ways else 0
+        _check_error_feedback(codec, hybrid, k_pre, overlap, guard, hier)
         if zero1 is not None or sharded_update is not None:
             raise ValueError(
                 "error_feedback does not compose with zero1/"
@@ -898,11 +1004,14 @@ def make_distributed_train_step(
                       k_agg=num_aggregate if 0 < num_aggregate < world else 0,
                       superstep=superstep, stream_encode=stream_encode,
                       track_quality=track_quality, oracle=_oracle_parts)
-    aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, world)
+    aggregate, k_agg = _check_aggregate(codec, aggregate, num_aggregate, n_ways)
     _check_overlap(codec, aggregate, overlap, stream_encode)
+    if hier and (_oracle_parts or _phase_parts):
+        raise ValueError("the oracle and phase programs drive the flat exchange")
+    two_tier_plan = LEGACY_PLAN if plan is None else plan
     if _oracle_parts and (overlap != "delayed" or guard is not None):
         raise ValueError("_oracle_parts only applies to overlap='delayed', unguarded")
-    n_contrib = k_agg or world
+    n_contrib = k_agg or n_ways
     names = jax_leaf_order(model)
     layouts = jax_layouts(model)
     stats = list(model.buffers())  # the BatchNorm statistics, Flax's batch_stats
@@ -922,7 +1031,8 @@ def make_distributed_train_step(
     # svd's eigh refuses non-finite input where XLA's returns NaN: under the
     # guard its encode takes the gradient with non-finite entries zeroed (an
     # unhealthy replica's payload is masked out either way, and a healthy
-    # one's gradient is finite, so every output is the same)
+    # one's gradient is finite, so every output is the same; a two-tier
+    # ``cring`` inner screens each card's raw gradient for that reason)
     finite_encode = guard is not None and encode_syncs(codec) is not None
 
     def encodable(grads):
@@ -1207,10 +1317,17 @@ def make_distributed_train_step(
         gnorm = torch.sqrt(global_sq_norm(grads)) if track_grad_norm else None
         # the raw gradient is screened before the encode: a codec carries
         # NaN and Inf into its payloads, where they could not be told apart
-        ok = grad_ok(grads, guard.max_grad_norm) if guarded is not None else None
+        # (two-tier: the inner-reduced gradient is, inside the exchange)
+        ok = grad_ok(grads, guard.max_grad_norm) if guarded is not None and not hier else None
         dense_bytes = tree_nbytes(grads)
         overflow = residual = kept = qm = None
-        if hybrid is not None:
+        if hier:
+            k_inner, k_outer = k_codec
+            mean, ok, kept, msg_bytes = planned_two_level_mean(
+                codec, two_tier_plan, grads, k_inner, k_outer, mesh=mesh, inner_axis=inner_axis,
+                guard=guard if guarded is not None else None, ring_bucket_size=ring_bucket_size,
+                layouts=layouts, draws=draws, encodable=encodable)
+        elif hybrid is not None:
             with record_function("step.hybrid_exchange"):
                 mean, msg_bytes, overflow, qm = hybrid_mean(
                     codec, hybrid, grads, k_codec, rank=rank, world=world,
@@ -1485,9 +1602,16 @@ def make_distributed_train_step(
                                world, layouts,
                                split_keys=lambda key, s: split3(fold_in(fold_in(key, s), rank)))
 
-    def keys(key: int, step_index: int) -> tuple[int, int, int]:
-        """(k_aug, k_drop, k_codec) of this rank at step ``step_index``."""
-        return split3(fold_in(fold_in(key, step_index), rank))
+    def keys(key: int, step_index: int):
+        """(k_aug, k_drop, k_codec) of this rank at step ``step_index``;
+        two-tier, k_codec is the pair (per-card inner key, per-group outer
+        key) of ``topology.execute``."""
+        k_aug, k_drop, k_codec = split3(fold_in(fold_in(key, step_index), rank))
+        if hier:
+            step_key = fold_in(key, step_index)
+            k_codec = (inner_codec_key(step_key, rank),
+                       outer_codec_key(step_key, mesh.index("dp")))
+        return k_aug, k_drop, k_codec
 
     if quorum is not None:
         def quorum_step(state: TrainState, key: int, images, labels, arrivals,

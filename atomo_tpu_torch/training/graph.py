@@ -58,7 +58,9 @@ host); ``num_aggregate`` (the rotating subset's first replica is a host
 value of each step); the ring at N > 1 (its point-to-point hops wait on
 work objects the capture does not take); ``--stream-encode`` (its bucket
 encodes are issued from backward hooks; the rule keeps that schedule
-eager). The decision is made by this rule
+eager); ``aggregate='hierarchical'`` (its two tiers run over NCCL
+subgroups, and no captured graph over subgroups has been tried). The
+decision is made by this rule
 before the run; a step that qualified and then fails to warm up, capture or
 replay raises, it never runs eagerly instead.
 
@@ -151,6 +153,9 @@ def graph_rule(*, device, codec, backend: Optional[str] = None, world: int = 1,
         return False, ("stream-encode: its bucket encodes are issued from backward hooks, "
                        "each on an event of the backward stream; the rule keeps that "
                        "schedule eager")
+    if aggregate == "hierarchical":
+        return False, ("hierarchical: the two-tier exchange runs over NCCL subgroups, and "
+                       "no captured graph over subgroups has been tried")
     return True, "sync-free, every per-step value in device memory"
 
 

@@ -473,8 +473,15 @@ def own_residual(state: TrainState, model: nn.Module, rank: int, world: int,
 
 def _check_loop_modes(codec, aggregate: str, overlap: str, stream_encode: bool,
                       error_feedback: bool) -> None:
-    """The JAX loop's refusals of ``overlap``, ``stream_encode`` and their
-    compositions (``atomo_tpu/parallel/replicated.py:2975-3025, 3085-3100``)."""
+    """The JAX loop's refusals of ``overlap``, ``stream_encode``, error
+    feedback's exchange and their compositions (``atomo_tpu/parallel/
+    replicated.py:2975-3025, 3085-3100``)."""
+    if error_feedback and (codec is None or aggregate == "hierarchical"):
+        raise ValueError(
+            "--error-feedback needs a compressing codec with flat "
+            "gather/ring/psum aggregation (the hierarchical boundary "
+            "re-encode's composition argument does not survive the "
+            "EF bias)")
     if overlap not in ("off", "delayed"):
         raise ValueError(f"unknown overlap mode {overlap!r}; expected 'off' or 'delayed'")
     if overlap == "delayed" and (codec is None or aggregate not in ("gather", "ring")):
@@ -991,6 +998,8 @@ def distributed_train_loop(
     partition: str = "replicated",
     quorum=None,
     quorum_replay: Optional[str] = None,
+    mesh=None,
+    plan=None,
 ) -> TrainState:
     """The data-parallel train-and-validate loop of this rank, in the
     process group that :func:`atomo_tpu_torch.parallel.launch.initialize`
@@ -1084,7 +1093,16 @@ def distributed_train_loop(
     ring, so a resume replays the same stale selections bit for bit (a
     checkpoint without a matching ring warns and warms the ring up from
     empty); a resume cuts the schedule past its step. The refusals are the
-    JAX loop's (:func:`_check_loop_quorum`)."""
+    JAX loop's (:func:`_check_loop_quorum`).
+
+    ``aggregate='hierarchical'`` runs the two-tier exchange over ``mesh``,
+    the group's two-tier :class:`~atomo_tpu_torch.mesh.spec.ProcessMesh`
+    (``MeshSpec.from_world(N, K).build()``, built once by the caller, as
+    every rank must make the groups in the same order), with ``plan`` (an
+    :class:`~atomo_tpu_torch.topology.schedule.AggregationPlan`; None the
+    legacy plan): every rank is its own data shard by its full chip id, the
+    state stays replicated (checkpoints and resume as the flat run's), and
+    the ``Worker:`` line's Msg(MB) is the bytes on the slow tier."""
     from atomo_tpu_torch.utils.metrics import master_line
     from atomo_tpu_torch.utils.tracing import PHASE_METRICS_HINT, profile
     # imported here: the step's module builds on this one's TrainState
@@ -1183,6 +1201,9 @@ def distributed_train_loop(
         chaos.maybe_die_crashloop()
     dev = resolve_device(device)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    if aggregate == "hierarchical" and (mesh is None or not mesh.spec.is_two_tier):
+        raise ValueError("aggregate='hierarchical' runs over the group's two-tier mesh: pass "
+                         "mesh=MeshSpec.from_world(N, K).build() (K > 1)")
     if quorum is not None and world < 2:
         raise ValueError(
             "--quorum needs a multi-replica mesh: with one replica "
@@ -1232,7 +1253,9 @@ def distributed_train_loop(
             remedy=remedy_cfg, track_grad_norm=diverge is not None,
             track_quality=track_quality and not densify,
             zero1=part if partition == "zero1" else None,
-            sharded_update=part if sharded else None, quorum=quorum)
+            sharded_update=part if sharded else None, quorum=quorum, plan=plan,
+            **({"mesh": mesh, "inner_axis": mesh.spec.inner_axis}
+               if aggregate == "hierarchical" else {}))
 
     recorder = recorder if rank == 0 else None
     _arm_recorder(recorder, track_quality, codec, model, start_step, aggregate=aggregate,

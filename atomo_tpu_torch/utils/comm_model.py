@@ -4,8 +4,9 @@ Counterpart of ``atomo_tpu/utils/comm_model.py:70-592`` and ``:1180-1266``
 (the byte formulas, ``choose_aggregate`` behind ``--aggregate auto``,
 ``resolve_fabric``, the overlap and pipeline-bubble pricing and the
 crossover report), and of ``rolling_calibration`` (``:1153-1177``), the
-flight recorder's calibration column. The rest of the autopilot's predictor
-(``:595-1152``) is not ported.
+flight recorder's calibration column, and ``estimate_compute_s`` (``:602``),
+which the topology planner prices with. The rest of the autopilot's
+predictor (``:595-1152``) is not ported.
 
 Model (the JAX package's, unchanged):
 
@@ -72,6 +73,22 @@ def estimate_codec_tax_s(dense_bytes: float) -> float:
     return _TAX_ANCHOR_S * float(dense_bytes) / _TAX_ANCHOR_BYTES
 
 
+# Measured single-card compute anchor: the same line's ResNet-18 sgd median
+# step, 30.100 ms (forward, backward and update of the 44,695,848-byte
+# gradient, no exchange) on the same card and call. `estimate_compute_s`
+# scales it linearly with the dense gradient size, as the tax; the topology
+# planner adds it to every plan alike, so it moves a plan's predicted
+# ms/step, never which plan wins.
+_COMPUTE_ANCHOR_S = 30.1e-3
+_COMPUTE_ANCHOR_BYTES = _TAX_ANCHOR_BYTES
+
+
+def estimate_compute_s(dense_bytes: float) -> float:
+    """Crude forward + backward + update seconds from the gradient size
+    (``atomo_tpu/utils/comm_model.py:602``, over the card's anchor)."""
+    return _COMPUTE_ANCHOR_S * float(dense_bytes) / _COMPUTE_ANCHOR_BYTES
+
+
 def choose_aggregate(
     *,
     has_codec: bool,
@@ -87,8 +104,9 @@ def choose_aggregate(
 
     * no compressing codec -> psum;
     * one device -> psum (no exchange);
-    * the mesh crosses hosts -> hierarchical (the caller refuses it: the
-      two-tier schedule is not ported);
+    * the mesh crosses hosts -> hierarchical (the two-tier schedule of
+      :mod:`atomo_tpu_torch.topology`; the CLI resolves it there, with the
+      per-tier advisory and the planner's plan);
     * one fabric: both modes pay the codec round trip, so wire bytes
       decide: gather iff ``P*(N-1) < 2*D*(N-1)/N``; within gather's region,
       once the gathered buffer ``N*P`` reaches the dense gradient D, ring

@@ -321,6 +321,23 @@ every hand-written kernel against its plain PyTorch version:
    the one the chaos table gives. The ring stays out (gloo's send and
    receive of CUDA tensors, probed by ``dist gloo-2``).
 
+21. topology: two-tier hierarchical aggregation (``topology/``, the
+   ``aggregate='hierarchical'`` step). Four gloo ranks on the card
+   (``--topology-gloo-child``, deterministic, one process a rank for every
+   run) over the ``(dp=2, ici=2)`` mesh, ResNet-18 through ``train``: (1)
+   qsgd 4 bits 3 steps, ``--aggregate auto --dcn-ways 2 --plan psum+gather
+   --fabric measured`` (the two-tier probe writes both tiers, the advisory
+   prices the pinned plan from them, the planner's own pick on that fabric
+   is logged); (2) the same under ``--grad-guard --chaos nan@2`` (group 0
+   masked at step 2, kept 1 of 2); (3) svd rank 3, the legacy plan, 2
+   steps. The replicas bit-identical after every step, Msg(MB) one payload
+   on the slow tier, one row-1 and one row-2 launch a step, and each of
+   rank 0's outer decodes (over the K = 2 gathered rows; flagged under the
+   guard) equal to its plain twin bit for bit. In this process row 2's
+   flagged form over two outer rows of the ResNet-18 tree, group 0 out,
+   against its plain twin and timed beside its bound. The plans with a ring
+   stay out (gloo's send and receive of CUDA tensors).
+
 Prints a ``kernels`` JSON line (row 5 with its ``bf16`` form, row 2's
 survivor mode as an entry of its own), the card's name and power limit,
 and last
@@ -4746,6 +4763,8 @@ TL_K8_STEPS = 24  # K 8: the second block, steps 9-16, is traced
 TL_RUNS = (("qsgd_eager", "qsgd", 1, TL_STEPS), ("qsgd_k8", "qsgd", 8, TL_K8_STEPS),
            ("svd3_eager", "svd", 1, TL_STEPS))
 TL_PHASED_STEPS = 4
+# the timeline child's marker: its traced runs are done
+TL_TRACED_DONE = "tl_traced_done"
 # eagerly, the events the timeline gives a phase against Kineto's own span
 # of the range (its ``gpu_user_annotation``: the first to the last kernel the
 # range launched): each span's edges within 2 us of the extent of that
@@ -4883,6 +4902,7 @@ def timeline_child(work: str, out_path: str) -> int:
                           "trace": trace, "trace_mb": os.path.getsize(trace) / 1e6,
                           "rows": row_kernels_by_span(parsed),
                           "spans": span_agreement(parsed) if k == 1 else None}
+        (Path(work) / TL_TRACED_DONE).write_text("")  # the card is free for the gloo ranks
         fused, f_lines, f_counts = loop("qsgd", 1, TL_PHASED_STEPS, Path(work) / "tl_fused")
         phased, p_lines, p_counts = loop("qsgd", 1, TL_PHASED_STEPS, Path(work) / "tl_phased",
                                          phase_metrics=True,
@@ -5053,7 +5073,9 @@ def tl_check_run(label: str, r: dict, eager: dict, times: dict, card: str) -> di
 def phase_timeline(work: Path, card: str, times: dict, errs: dict) -> dict:
     """The trace-based timeline, the phased step, the measured fabric and the
     online budget re-allocation on the card (the module docstring's item
-    18): the deterministic NCCL child and the gloo ranks start at once."""
+    18): the deterministic NCCL child's traced runs alone on the card (the
+    kernels of another process time-slice with theirs and stretch their
+    traced durations), then the gloo ranks beside its phased runs."""
     import os
 
     import torch
@@ -5070,18 +5092,28 @@ def phase_timeline(work: Path, card: str, times: dict, errs: dict) -> dict:
     for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT", "WORLD_SIZE"):
         env.pop(k, None)
     out_path = work / "timeline_child.json"
-    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--timeline-child",
-                              str(work), str(out_path)], stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+    ends = {}
+    # the child writes to a file: nobody reads a pipe while its traces run
+    child_log = work / "timeline_child.log"
+    with open(child_log, "w") as f:
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                  "--timeline-child", str(work), str(out_path)], stdout=f,
+                                 stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+    while not (work / TL_TRACED_DONE).exists() and child.poll() is None:
+        if time.time() - t0 > 300:
+            child.kill()
+            raise AssertionError("timeline child: its traced runs took over 300 s")
+        time.sleep(0.2)
+    ends["traced"] = time.time() - t0
     kill_procs, _ = tl_gloo_spawn(work, "kill", env)
     main_procs, main_paths = tl_gloo_spawn(work, "main", env)
-    ends = {}
     kill_logs = [p.communicate(timeout=300)[0] for p in kill_procs]
     ends["kill"] = time.time() - t0
     (work / "tl_killed_done").write_text("")
     main_logs = [p.communicate(timeout=300)[0] for p in main_procs]
     ends["main"] = time.time() - t0
-    log_child, _ = child.communicate(timeout=300)
+    child.wait(timeout=300)
+    log_child = child_log.read_text()
     ends["nccl child"] = time.time() - t0
     if child.returncode != 0:
         raise AssertionError(f"timeline child failed:\n{log_child[-4000:]}")
@@ -5929,6 +5961,285 @@ def phase_quorum(work: Path, card: str, grads, errs: dict, p2p: dict) -> dict:
     log(f"quorum phase seconds: children {t_children:.1f}, all {time.time() - t0:.1f}")
     return out
 
+TP_STEPS, TP_SVD_STEPS = 3, 2
+TP_COMMON = ["--n-devices", "4", "--dcn-ways", "2", "--eval-freq", "0"]
+TP_RUN1 = ["--aggregate", "auto", "--plan", "psum+gather", "--fabric", "measured", "--code",
+           "qsgd", "--max-steps", str(TP_STEPS)]
+
+
+def topology_gloo_child(rank: int, work: str, out_path: str) -> int:
+    """One of four gloo ranks on cuda:0 (this script with
+    ``--topology-gloo-child``; deterministic through a sitecustomize): the
+    two-tier ``(dp=2, ici=2)`` mesh, every run through ``train`` in this one
+    process. (1) ResNet-18 qsgd 4 bits 3 steps, ``--aggregate auto
+    --dcn-ways 2 --plan psum+gather --fabric measured``; (2) the same with
+    ``--grad-guard --chaos nan@2``; (3) svd rank 3, ``--aggregate
+    hierarchical`` (the legacy plan), 2 steps. Per run the state hash after
+    every step, the lines, the launches and the seconds; on rank 0 every
+    row-2 launch's output held against its plain twin on the same inputs
+    (the outer decode over the K = 2 gathered rows, flagged under the
+    guard)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import atomo_tpu_torch.parallel.replicated as R
+    from atomo_tpu_torch import cli, ops
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    launch.initialize(dev, backend="gloo", init_method=f"file://{work}/tp_gloo_store",
+                      world_size=4, rank=rank)
+    w = Path(work)
+    out = {}
+    hashes: list = []
+    twins: list = []
+    make = R.make_distributed_train_step
+    decode = K.unpack_dequantize_tree
+
+    def hashing(model, *args, **kw):
+        """The loop's step, with this rank's state hash taken after each call."""
+        step = make(model, *args, **kw)
+
+        def wrapped(*a, **k):
+            result = step(*a, **k)
+            hashes.append(state_hash(model))
+            return result
+
+        wrapped.__dict__.update(step.__dict__)
+        return wrapped
+
+    def checked(payloads, outs_like, layouts=None, **kw):
+        """Row 2 as the codec calls it, then its plain twin on the same
+        inputs (no launch), bit for bit."""
+        got = decode(payloads, outs_like, layouts, **kw)
+        if rank == 0:
+            plain = K.unpack_dequantize_tree_plain(payloads, outs_like, layouts, **kw)
+            twins.append({"bit_equal": all(same_bits(a, b) for a, b in zip(got, plain)),
+                          "max_abs_err": max(float((a - b).abs().max())
+                                             for a, b in zip(got, plain)),
+                          "n_replicas": kw.get("n_replicas"),
+                          "flags": (None if kw.get("replica_ok") is None
+                                    else [float(f) for f in kw["replica_ok"]])})
+        return got
+
+    def run(name, argv):
+        lines: list[str] = []
+        hashes.clear()
+        twins.clear()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(TRAIN_ARGS[:-1] + [str(w / name)] + TP_COMMON + argv,
+                      log_fn=lines.append)
+        out[name] = {"rc": rc, "lines": lines, "launches": ops.launch_counts(),
+                     "hashes": list(hashes), "twins": list(twins),
+                     "seconds": time.perf_counter() - t0}
+        Path(out_path).write_text(json.dumps(out))
+
+    R.make_distributed_train_step = hashing
+    K.unpack_dequantize_tree = checked
+    try:
+        run("tp_qsgd", TP_RUN1)
+        run("tp_guard", TP_RUN1 + ["--grad-guard", "--chaos", "nan@2"])
+        run("tp_svd3", ["--aggregate", "hierarchical", "--code", "svd", "--svd-rank", "3",
+                        "--max-steps", str(TP_SVD_STEPS)])
+    finally:
+        R.make_distributed_train_step = make
+        K.unpack_dequantize_tree = decode
+        launch.shutdown()
+    return 0
+
+
+def tp_spawn(work: Path) -> list:
+    """The four gloo ranks of the topology phase, deterministic (a
+    sitecustomize on their path); returns (processes, result paths)."""
+    import os
+
+    det = work / "tp_det"
+    det.mkdir(exist_ok=True)
+    (det / "sitecustomize.py").write_text(
+        "import torch\ntorch.use_deterministic_algorithms(True, warn_only=True)\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(det), str(ROOT)]))
+    for k in ("ATOMO_CHAOS", "ATOMO_SUPERVISED", "ATOMO_RUN_ATTEMPT", "WORLD_SIZE",
+              "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    paths = [work / f"tp_gloo{r}.json" for r in range(4)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--topology-gloo-child", str(r),
+         str(work), str(paths[r])], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    return [procs, paths]
+
+
+def tp_row2(grads, errs: dict, card: str) -> tuple:
+    """Row 2's flagged form over two outer rows of the ResNet-18 tree (4
+    bits, encoded on the card), group 0 flagged out: against its plain twin
+    bit for bit, one launch. Returns the result and a timing function (the
+    device ms beside the bound: one row read, the float32 mean written)."""
+    import torch
+
+    from atomo_tpu_torch.codecs import QsgdCodec, encode_tree
+    from atomo_tpu_torch.ops import qsgd_kernels as K
+    from atomo_tpu_torch.parallel.common import pack_tree_buckets, unpack_tree_buckets
+
+    codec = QsgdCodec(bits=4)
+    bufs = []
+    for o in range(2):
+        payloads, _ = encode_tree(codec, 300 + o, grads)
+        buf, spec = pack_tree_buckets(payloads)
+        bufs.append(buf)
+    rows = torch.stack(bufs)
+    pays = [tuple(p) for p in unpack_tree_buckets(rows, spec)]
+    flags = torch.tensor([0.0, 1.0], device=rows.device)
+    kw = dict(bits=4, n_replicas=2, replica_ok=flags)
+    K.reset_launch_counts()
+    got = K.unpack_dequantize_tree(pays, grads, **kw)
+    launches = K.launch_counts()["unpack_dequantize"]
+    plain = K.unpack_dequantize_tree_plain(pays, grads, **kw)
+    twin = all(same_bits(a, b) for a, b in zip(got, plain))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    errs["unpack_dequantize"] = max(errs["unpack_dequantize"], err)
+    if not twin or launches != 1:
+        raise AssertionError(f"topology row 2 flagged over 2 outer rows: twin {twin}, "
+                             f"launches {launches}")
+    n_values = sum(g.numel() for g in grads)
+    res = {"twin_bit_equal": twin, "launches": launches,
+           "bytes_a_replica": int(rows.shape[1])}
+    # group 0 flagged out: one row's payload read, the flags, the mean written
+    res["bound_ms"], res["bound_by"] = bound(res["bytes_a_replica"] + 8 + 4 * n_values,
+                                             3 * n_values)
+
+    def timing():
+        res["device_ms"] = device_ms(lambda: K.unpack_dequantize_tree(pays, grads, **kw),
+                                     "unpack_dequantize")
+        res["ms"] = cuda_ms(lambda: K.unpack_dequantize_tree(pays, grads, **kw))
+        res["plain_ms"] = cuda_ms(lambda: K.unpack_dequantize_tree_plain(pays, grads, **kw),
+                                  reps=5)
+        log(f"topology row 2 flagged outer decode ({card}): 2 outer rows of the ResNet-18 "
+            f"tree ({res['bytes_a_replica']} bytes a row), group 0 flagged out: equals its "
+            f"plain twin bit for bit, one launch; device ms {res['device_ms']:.4f}, bound "
+            f"{res['bound_ms']:.4f} ({res['bound_by']}: one row read, "
+            f"{4 * n_values / 1e6:.1f} MB written), events {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms")
+        return res
+
+    return res, timing
+
+
+def tp_planner_pick(doc: dict) -> str:
+    """The planner's own pick on the measured two-tier fabric of the run's
+    probe, for ResNet-18 qsgd 4 bits (the pinned run's byte budget)."""
+    from atomo_tpu_torch.codecs import get_codec
+    from atomo_tpu_torch.models import get_model
+    from atomo_tpu_torch.obs.fabric import measured_two_tier
+    from atomo_tpu_torch.topology.schedule import choose_plan
+    from atomo_tpu_torch.tuning.probe import byte_budget
+
+    fabric2 = measured_two_tier(doc, dcn_ways=2, n_dev=4)
+    dense_b, payload_b = byte_budget(get_codec("qsgd", quantization_level=4),
+                                     get_model("resnet18", 10, image_shape=(32, 32, 3)))
+    plan, reason = choose_plan(dense_bytes=dense_b, payload_bytes=payload_b, fabric=fabric2)
+    return f"{fabric2.describe()}; {reason}"
+
+
+def phase_topology(work: Path, card: str, grads, errs: dict, p2p: dict) -> dict:
+    """Two-tier hierarchical aggregation on the card (the module docstring's
+    item 21): four gloo ranks run ``train`` over the ``(dp=2, ici=2)`` mesh
+    while this process checks row 2's flagged form over two outer rows;
+    the ranks' checks; then row 2's timing."""
+    t0 = time.time()
+    procs, paths = tp_spawn(work)
+    row2, row2_timing = tp_row2(grads, errs, card)
+    logs = [p.communicate(timeout=400)[0] for p in procs]
+    t_children = time.time() - t0
+    if [p.returncode for p in procs] != [0, 0, 0, 0]:
+        raise AssertionError("topology gloo ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    ranks = [json.loads(p.read_text()) for p in paths]
+    out = {"row2": row2, "runs": {}, "launches": {name: 0 for name in REPLACES}}
+    msg = "7.2506"  # ResNet-18 qsgd 4 bits: one payload on the slow tier (MiB)
+    for name, want in (("tp_qsgd", TP_STEPS), ("tp_guard", TP_STEPS),
+                       ("tp_svd3", TP_SVD_STEPS)):
+        r0 = ranks[0][name]
+        if any(r[name]["rc"] != 0 for r in ranks) or len(r0["hashes"]) != want:
+            raise AssertionError(f"topology {name}: {[r[name]['rc'] for r in ranks]}, "
+                                 f"{len(r0['hashes'])} steps; {r0['lines'][-3:]}")
+        if any(r[name]["hashes"] != r0["hashes"] for r in ranks):
+            raise AssertionError(f"topology {name}: the replicas differ after a step")
+        workers = [ln for ln in r0["lines"] if ln.startswith("Worker:")]
+        losses = [float(re.search(r"Loss: ([0-9.naninf]+)", ln).group(1)) for ln in workers]
+        step_ms = [1e3 * float(re.search(r"Time Cost: ([0-9.]+)", ln).group(1))
+                   for ln in workers]
+        out["runs"][name] = {"launches": r0["launches"], "seconds": r0["seconds"],
+                             "losses": losses, "twins": r0["twins"], "step_ms": step_ms,
+                             "msg_mb": [re.search(r"Msg\(MB\): +([0-9.]+)", ln).group(1)
+                                        for ln in workers]}
+        for k in REPLACES:
+            out["launches"][k] += r0["launches"].get(k, 0)
+        if name == "tp_svd3":
+            continue
+        run = out["runs"][name]
+        if run["msg_mb"] != [msg] * want:
+            raise AssertionError(f"topology {name}: Msg(MB) {run['msg_mb']}, want {msg}")
+        la = r0["launches"]
+        if la["quantize_pack"] != want or la["unpack_dequantize"] != want:
+            raise AssertionError(f"topology {name}: launches {la}, want one row-1 and one "
+                                 f"row-2 launch a step")
+        tw = r0["twins"]
+        if len(tw) != want or not all(t["bit_equal"] and t["n_replicas"] == 2 for t in tw):
+            raise AssertionError(f"topology {name}: rank 0's outer decodes against the plain "
+                                 f"twin: {tw}")
+        errs["unpack_dequantize"] = max(errs["unpack_dequantize"],
+                                        max(t["max_abs_err"] for t in tw))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"topology {name}: losses {losses}")
+    lines = ranks[0]["tp_qsgd"]["lines"]
+    probes = [ln for ln in lines if ln.startswith("Fabric probe: ")]
+    auto = [ln for ln in lines if ln.startswith("--aggregate auto -> ")]
+    doc = json.loads((work / "tp_qsgd" / "fabric_probe.json").read_text())
+    tiers = [(t["label"], t["ways"]) for t in doc["tiers"]]
+    if (tiers != [("ici", 2), ("dcn", 2)] or doc["meta"]["dcn_ways"] != 2
+            or len(auto) != 1 or "hierarchical (inner 2x measured_ici" not in auto[0]
+            or "plan psum+gather predicted" not in auto[0]
+            or "Topology plan: psum+gather" not in lines):
+        raise AssertionError(f"topology probe and advisory: {tiers}, {probes}, {auto}")
+    guard = ranks[0]["tp_guard"]
+    glines = [ln for ln in guard["lines"] if ln.startswith("Guard:")]
+    flags = [t["flags"] for t in guard["twins"]]
+    if glines != ["Guard: Step: 2, Dropped: 1, Action: rescale (anomalous contribution "
+                  "masked from the aggregate)"] or flags != [[1.0, 1.0], [0.0, 1.0],
+                                                             [1.0, 1.0]]:
+        raise AssertionError(f"topology guard: {glines}, flags {flags}")
+    pick = tp_planner_pick(doc)
+    out.update(children_seconds=t_children, probe=doc, advisory=auto[0], planner_pick=pick)
+    runs = out["runs"]
+    log(f"topology gloo-4 probe: " + "; ".join(probes))
+    log(f"topology gloo-4 advisory: {auto[0]}")
+    log(f"topology planner's own pick on the measured fabric: {pick}")
+    log(f"topology gloo-4 resnet18 qsgd psum+gather (deterministic, (dp=2, ici=2) on one "
+        f"card): replicas bit-identical after each of {TP_STEPS} steps, Msg(MB) "
+        f"{runs['tp_qsgd']['msg_mb']} (one payload on the slow tier), launches "
+        f"{runs['tp_qsgd']['launches']}, rank 0's outer decode over 2 rows equal to its "
+        f"plain twin bit for bit each step, losses {runs['tp_qsgd']['losses']}, "
+        f"step ms {[round(v, 3) for v in runs['tp_qsgd']['step_ms']]} ({card}), "
+        f"{runs['tp_qsgd']['seconds']:.1f} s")
+    log(f"topology gloo-4 guard nan@2: {glines[0]}; row 2's flags a step {flags} (group 0 "
+        f"masked at step 2, kept 1 of 2), flagged decode equal to its plain twin, launches "
+        f"{runs['tp_guard']['launches']}, losses {runs['tp_guard']['losses']}, step ms "
+        f"{[round(v, 3) for v in runs['tp_guard']['step_ms']]}")
+    log(f"topology gloo-4 svd3 legacy plan: {TP_SVD_STEPS} steps, replicas bit-identical, "
+        f"Msg(MB) {runs['tp_svd3']['msg_mb']}, losses {runs['tp_svd3']['losses']}, step ms "
+        f"{[round(v, 3) for v in runs['tp_svd3']['step_ms']]}")
+    log(f"topology ring plans (a cring inner or a ring outer): left out on the card; they "
+        f"need gloo's send and receive of CUDA tensors between ranks, which the dist gloo-2 "
+        f"probe saw exit {p2p['exit_codes']}, so they wait for two or more cards, like the "
+        f"flat ring (psum+gather, the legacy plan, is the plan of all_reduce and all_gather "
+        f"alone)")
+    out["row2"] = row2_timing()
+    log(f"topology phase seconds: children {t_children:.1f}, all {time.time() - t0:.1f}")
+    return out
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-child"]:
@@ -5965,6 +6276,8 @@ def main() -> int:
         return timeline_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--quorum-gloo-child"]:
         return quorum_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--topology-gloo-child"]:
+        return topology_gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import tempfile
 
     import torch
@@ -6045,6 +6358,8 @@ def main() -> int:
         lap("partition")
         quorum = phase_quorum(Path(work), card, grads, errs, gloo["p2p_probe"])
         lap("quorum")
+        topology = phase_topology(Path(work), card, grads, errs, gloo["p2p_probe"])
+        lap("topology")
     lm_runs = {"nccl1": ckpt["lm"].pop("nccl1"), "bf16": lm_bf16}
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     prof.update({f"dist_nccl1_{k}": v for k, v in dist_prof.items()})
@@ -6068,6 +6383,7 @@ def main() -> int:
                 + timeline["launches"][name]
                 + partition["launches"][name]
                 + sum(r["launches"][name] for r in quorum["runs"].values())
+                + topology["launches"][name]
                 for name in REPLACES}
     launches["flash_attention"] += (lm_runs["nccl1"]["launches"] + lm_runs["bf16"]["launches"]
                                     + ckpt["lm"]["launches"])
@@ -6099,7 +6415,7 @@ def main() -> int:
               "ckpt": ckpt, "zoo": zoo, "sparse": sparse, "budget": budget,
               "superstep": superstep, "overlap": overlap, "layouts": layouts,
               "resilience": resilience, "obs": obs, "timeline": timeline,
-              "partition": partition, "quorum": quorum,
+              "partition": partition, "quorum": quorum, "topology": topology,
               "phase_seconds": seconds,
               "seconds": time.time() - t_start}
     out_dir = ROOT / "output"

@@ -12,8 +12,9 @@ conftest's CPU devices, with the same flags:
 * the refusal of ``--overlap delayed`` when auto resolves to psum, after
   the same line;
 * a group whose ``WORLD_SIZE`` exceeds ``LOCAL_WORLD_SIZE`` spans hosts,
-  where the JAX verb picks the unported hierarchical mode: refused, naming
-  it; the same group on one host resolves as usual;
+  where the JAX verb picks the two-tier hierarchical mode: so does the
+  port (one outer group a host, the per-tier advisory), and it trains; the
+  same group on one host resolves as usual;
 
 Three cases are marked slow, each with its tier-1 witnesses named beside
 it. The layouts' ``LM:`` lines and the layout CLI's resume, on 4 ranks, are
@@ -125,10 +126,15 @@ def test_delayed_refusal_after_a_psum_pick_is_the_jax_refusal(groups, capsys):
 
 
 def test_hierarchical_is_refused_across_hosts(groups):
+    """(The name is the one slice that refused this; a group across two
+    hosts now resolves to the two-tier schedule, one outer group a host.)"""
     argv = TRAIN + ["--code", "svd", "--svd-rank", "3", "--n-devices", "2"]
     got = _port_group(groups[2], argv, env={"LOCAL_WORLD_SIZE": "1"})
-    assert got["rc"] == 1 and "hierarchical" in got["exit"] and "2 hosts" in got["exit"]
-    assert not _auto(got["lines"])
+    assert got["rc"] == 0, got["exit"]
+    (line,) = _auto(got["lines"])
+    assert line.startswith("--aggregate auto -> hierarchical (inner 1x nvlink @ 450.00 "
+                           "GB/s/chip, outer 2x dcn @ 50.00 GB/s/chip; plan ")
+    assert any(ln.startswith("Worker: 0, Step: 1,") for ln in got["lines"])
     same_host = _port_group(groups[2], argv, env={"LOCAL_WORLD_SIZE": "2"})
     assert same_host["rc"] == 0 and len(_auto(same_host["lines"])) == 1
     # delayed takes hierarchical out of the space, as in the JAX verb

@@ -8,7 +8,10 @@ JAX package, and its probe over a gloo group of two ranks.
 * ``ensure_fabric_probe`` writes the artifact, reuses it on a resume of the
   same group shape, re-probes a changed shape, and reuses a probe taken
   under a non-dividing ``dcn_ways`` (the JAX tests' cases, the probe itself
-  stubbed); the two-tier probe is refused by name.
+  stubbed); ``measured_two_tier`` and the hierarchical ``predicted_tier_ms``
+  equal the JAX functions on the same documents and fabrics (the two-tier
+  probe over four ranks is ``test_torch_topology_cli.py``'s), and a
+  one-device probe is refused.
 * The CLI's preflight texts are the JAX verb's, and so is ``lm``'s refusal
   of ``--fabric measured`` (it has no probe).
 * Over two gloo ranks: ``train --fabric measured`` writes a complete
@@ -131,13 +134,68 @@ def test_predicted_tier_ms_flat_equals_jax(aggregate, payload, ways, bw):
     assert P.predicted_tier_ms(**kw) == J.predicted_tier_ms(**kw)
 
 
-def test_two_tier_probe_is_refused_by_name():
-    with pytest.raises(ValueError, match="item 10"):
-        P.measured_two_tier(_fake_doc(DOCS["two"]), dcn_ways=2, n_dev=4)
+def _fabric_fields(f) -> tuple:
+    return (f.inner_bw, f.outer_bw, f.inner_ways, f.outer_ways, f.inner_latency_s,
+            f.outer_latency_s, f.inner_label, f.outer_label)
+
+
+# (probe document's tiers, dcn_ways, n_dev): both tiers; the dcn tier
+# standing in for a one-card inner group (dcn_ways == n_dev); a tier missing
+TWO_TIER = {
+    "two": (DOCS["two"], 2, 4),
+    "one_card_groups": ({"dcn": (5.0, 20.0)}, 4, 4),
+    "flat_only": (DOCS["flat"], 2, 4),
+    "none": ({}, 2, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWO_TIER))
+def test_measured_two_tier_equals_jax(name):
+    tiers, k, n = TWO_TIER[name]
+    doc = _fake_doc(tiers, n_dev=n)
+    try:
+        want = J.measured_two_tier(doc, dcn_ways=k, n_dev=n)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            P.measured_two_tier(doc, dcn_ways=k, n_dev=n)
+        assert str(got.value) == str(e)
+        return
+    assert _fabric_fields(P.measured_two_tier(doc, dcn_ways=k, n_dev=n)) == \
+        _fabric_fields(want)
+
+
+def test_measured_two_tier_without_latency_takes_the_cards_anchors():
+    """A tier without a fitted latency falls back to the port's stated
+    NVLink and NIC hop latencies (the JAX package's are TPU estimates)."""
+    from atomo_tpu_torch.topology.fabric import NIC_HOP_LATENCY_S, NVLINK_HOP_LATENCY_S
+
+    f = P.measured_two_tier(_fake_doc({"ici": (40.0, None), "dcn": (5.0, None)}),
+                            dcn_ways=2, n_dev=4)
+    assert (f.inner_latency_s, f.outer_latency_s) == (NVLINK_HOP_LATENCY_S, NIC_HOP_LATENCY_S)
+    assert (f.inner_bw, f.outer_bw) == (40e9, 5e9)
+
+
+def test_probe_of_one_device_keeps_the_multi_device_refusal():
     with pytest.raises(ValueError, match="multi-device"):
         P.probe_fabric(n_dev=1)
-    with pytest.raises(ValueError, match="item 10"):
-        P.probe_fabric(n_dev=4, dcn_ways=2)
+    with pytest.raises(ValueError, match="multi-device"):
+        P.probe_fabric(n_dev=1, dcn_ways=2)
+
+
+@pytest.mark.parametrize("plan", [None, "psum+gather", "psum+ring", "cring+gather",
+                                  "cring+ring", "cring+psum"])
+@pytest.mark.parametrize("payload", [0.0, 3.0e5])
+def test_predicted_tier_ms_hierarchical_equals_jax(plan, payload):
+    from atomo_tpu.topology import TwoTierFabric as JF
+    from atomo_tpu_torch.topology import TwoTierFabric as PF
+
+    fields = dict(inner_bw=4e10, outer_bw=1.25e9, inner_ways=2, outer_ways=2,
+                  inner_latency_s=2e-6, outer_latency_s=2e-5, inner_label="measured_ici",
+                  outer_label="measured_dcn")
+    kw = dict(aggregate="hierarchical", dense_bytes=4.4e7, payload_bytes=payload, ways=4,
+              plan_name=plan)
+    assert P.predicted_tier_ms(fabric2=PF(**fields), **kw) == \
+        J.predicted_tier_ms(fabric2=JF(**fields), **kw)
 
 
 def _stub(monkeypatch):

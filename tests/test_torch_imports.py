@@ -40,16 +40,23 @@ def test_no_jax_import_in_source(path):
 
 def test_the_sources_hold_the_slice_modules():
     """The trace-based timeline, the measured fabric, the online budget
-    re-allocation, the partitioned update with its reshard, and the quorum
-    family with its survivor-exact mean are among the checked sources, each
-    a module of its own."""
+    re-allocation, the partitioned update with its reshard, the quorum
+    family with its survivor-exact mean, and the topology layer (the
+    two-tier fabric, the planner, the plans' execution) are among the
+    checked sources, each a module of its own; ``chip_smoke.py``, whose
+    ``--topology-gloo-child`` mode runs the two-tier step on the card, is
+    one too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"atomo_tpu_torch/obs/timeline.py", "atomo_tpu_torch/obs/fabric.py",
             "atomo_tpu_torch/budget/retune.py", "atomo_tpu_torch/utils/tracing.py",
             "atomo_tpu_torch/mesh/update.py", "atomo_tpu_torch/mesh/reshard.py",
             "atomo_tpu_torch/quorum/__init__.py", "atomo_tpu_torch/quorum/schedule.py",
             "atomo_tpu_torch/quorum/artifact.py", "atomo_tpu_torch/quorum/rig.py",
-            "atomo_tpu_torch/elastic/__init__.py", "atomo_tpu_torch/elastic/shrink.py"} <= names
+            "atomo_tpu_torch/elastic/__init__.py", "atomo_tpu_torch/elastic/shrink.py",
+            "atomo_tpu_torch/topology/__init__.py", "atomo_tpu_torch/topology/fabric.py",
+            "atomo_tpu_torch/topology/schedule.py", "atomo_tpu_torch/topology/execute.py",
+            "chip_smoke.py"} <= names
+    assert "--topology-gloo-child" in (ROOT / "chip_smoke.py").read_text()
 
 
 def test_importing_the_port_loads_no_jax():

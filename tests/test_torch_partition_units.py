@@ -201,8 +201,8 @@ def test_sharded_delayed_supervised_passes_the_preflight():
     cli._overlap_preflight(args)
 
 
-# the JAX train flags the port has not yet (ROADMAP.md, queue 1 items 10-12)
-NOT_PORTED = {"--dcn-ways", "--plan", "--elastic", "--elastic-reshard", "--elastic-patience",
+# the JAX train flags the port has not yet (ROADMAP.md, queue 1 items 11-12)
+NOT_PORTED = {"--elastic", "--elastic-reshard", "--elastic-patience",
               "--readmit-at", "--auto", "--tune-steps", "--tune-reps", "--tune-top"}
 
 
@@ -217,10 +217,5 @@ def test_train_parser_has_every_jax_flag_but_the_listed_ones():
     port = _train_actions(cli.build_parser())
     assert set(jax_flags) - set(port) == NOT_PORTED
     for flag in set(jax_flags) & set(port):
-        if flag == "--aggregate":  # the port has no hierarchical mode yet (item 10)
-            assert port[flag].default == jax_flags[flag].default
-            assert port[flag].choices == [c for c in jax_flags[flag].choices
-                                          if c != "hierarchical"]
-            continue
         assert (port[flag].default, port[flag].choices) == (jax_flags[flag].default,
                                                             jax_flags[flag].choices), flag

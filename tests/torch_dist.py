@@ -33,11 +33,14 @@ Jobs (``JOBS``):
   ``make_optimizer``) in place of sgd; ``quorum`` ((Q, K)) runs the quorum
   step fed ``arrivals[s]`` at step s, each step's ``quorum_kept``,
   ``stale_dropped`` and gathered ring coming back; ``survivor_exact`` the
-  blocking step's survivor-exact mean; ``per_step`` returns rank 0's state
+  blocking step's survivor-exact mean; ``dcn_ways`` K (with ``plan``, a
+  plan name) the two-tier step over ``MeshSpec.from_world(N, K)``'s groups,
+  its draws a dict of ``inner`` and ``outer`` parts; ``per_step`` returns rank 0's state
   after every step; every run returns the optimizer
   state as full flat vectors (the partitions' slices gathered);
 * ``build``: the data-parallel step's factory on a registry model with
-  given arguments; the message of the ``ValueError`` it raises, or None;
+  given arguments (``dcn_ways``: over the two-tier mesh, given as
+  ``mesh=``); the message of the ``ValueError`` it raises, or None;
   ``partition_build`` likewise over a partitioned state;
   ``partition_layout``: a partitioned state's flat layout from given weights;
   ``partition_host`` and ``partition_reshard``: a sharded state gathered on
@@ -45,6 +48,8 @@ Jobs (``JOBS``):
   reshard between model-axis layouts;
 * ``aggregate``: the exchange alone (gather's decode-mean against the
   ring's) on payloads each rank encodes from given gradients;
+  ``two_tier``: each plan's two-level mean on the two-tier mesh, executed
+  (fused and unfused outer decode) and by the canonical oracle;
 * ``cli``: ``atomo_tpu_torch train`` (or ``lm``) with the given
   arguments, its log lines and the messages of the warnings it raised;
 * ``lm``: the port's LM steps on a (world / n_sp, n_sp) mesh
@@ -194,9 +199,12 @@ def _t(a):
 
 
 def _draws(d):
-    """Numpy draws (per leaf an array, or a dict of arrays) as tensors."""
+    """Numpy draws (per leaf an array, or a dict of arrays) as tensors; a
+    two-tier step's ``{"inner": ..., "outer": ...}`` by part."""
     if d is None:
         return None
+    if isinstance(d, dict):
+        return {k: _draws(v) for k, v in d.items()}
     return [{k: _t(v) for k, v in x.items()} if isinstance(x, dict) else _t(x) for x in d]
 
 
@@ -239,7 +247,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
               stream_encode=False, stream_bucket_bytes=4 << 20, bf16=False, guard=None,
               chaos=None, target_replica=0, track_quality=False, partition="replicated",
               optimizer=None, quorum=None, arrivals=None, survivor_exact=False,
-              per_step=False):
+              per_step=False, dcn_ways=0, plan=None):
     import dataclasses
 
     import torch.distributed as dist
@@ -296,7 +304,10 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
         scales.extend(float(p.scales.max()) for p in payloads if hasattr(p, "scales"))
         return payloads
 
+    import atomo_tpu_torch.topology.execute as TE
+
     R.encode_tree = recording_encode
+    TE.encode_tree = recording_encode  # the two-tier encodes
     R.encode_leaf_subset = recording_subset
     O.encode_leaf_subset = recording_subset  # the bucket encodes of stream-encode
 
@@ -316,6 +327,14 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
                                   target_replica=target_replica)
         return dict(guard=GuardConfig(guard), chaos=ChaosInjector(cfg, membership_epoch=0))
 
+    two_tier = {}
+    if dcn_ways:  # the (dp=K, ici=N/K) mesh, its groups made once a job
+        from atomo_tpu_torch.mesh.spec import MeshSpec
+        from atomo_tpu_torch.topology import plan_from_name
+
+        two_tier = dict(mesh=MeshSpec.from_world(world, dcn_ways).build(), inner_axis="ici",
+                        plan=plan_from_name(plan) if plan is not None else None)
+
     def make_step(model, superstep=1):
         return R.make_distributed_train_step(
             model, opt, make_codec(), aggregate=aggregate, num_aggregate=num_aggregate,
@@ -325,7 +344,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             compute_dtype=torch.bfloat16 if bf16 else None, track_quality=track_quality,
             zero1=spec if partition == "zero1" else None,
             sharded_update=spec if partition == "sharded-update" else None,
-            quorum=qcfg, survivor_exact=survivor_exact, **resilience())
+            quorum=qcfg, survivor_exact=survivor_exact, **two_tier, **resilience())
 
     qcfg = None
     if quorum is not None:  # (Q, K): the quorum step, fed arrivals[s] at step s
@@ -421,6 +440,7 @@ def job_train(rank, world, *, network, num_classes, image_shape, state_dict, cod
             s += k
     finally:
         R.encode_tree = encode
+        TE.encode_tree = encode
         R.encode_leaf_subset = encode_subset
         O.encode_leaf_subset = encode_subset
     final = ({k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
@@ -460,11 +480,15 @@ def _flat_opt(state, spec):
     return out
 
 
-def job_build(rank, world, *, network, image_shape, codec, kwargs):
+def job_build(rank, world, *, network, image_shape, codec, kwargs, dcn_ways=0):
     import atomo_tpu_torch.parallel.replicated as R
     from atomo_tpu_torch.training import make_optimizer
 
     model = build_model(network, 10, image_shape)
+    if dcn_ways:  # the two-tier mesh over this world, given as mesh=
+        from atomo_tpu_torch.mesh.spec import MeshSpec
+
+        kwargs = dict(kwargs, mesh=MeshSpec.from_world(world, dcn_ways).build())
     try:
         R.make_distributed_train_step(model, make_optimizer("sgd"), _codec(codec), **kwargs)
     except ValueError as e:
@@ -722,6 +746,35 @@ def job_aggregate(rank, world, *, codec, grads, draws, fused_gather, ring_bucket
             "ring": [m.numpy().copy() for m in mean_r],
             "equal": all(bool(np.array_equal(a.numpy(), b.numpy()))
                          for a, b in zip(mean_g, mean_r))}
+
+
+def job_two_tier(rank, world, *, codec, grads, dcn_ways, plans, step_key):
+    """Each plan's two-level mean on this rank of the two-tier mesh (this
+    rank's numpy gradients in the JAX layout, its own draws under the
+    step's keys): the executed operator with the unfused outer decode, the
+    canonical oracle over the same groups, and the executed operator as the
+    step runs it (fused decode). Numpy, by plan name."""
+    from atomo_tpu_torch.mesh.spec import MeshSpec
+    from atomo_tpu_torch.topology import execute as TE
+    from atomo_tpu_torch.topology.schedule import plan_from_name
+
+    mesh = MeshSpec.from_world(world, dcn_ways).build()
+    c = _codec(codec)
+    gs = [_t(g) for g in grads]
+    lay = [False] * len(gs)
+    k_in = TE.inner_codec_key(step_key, rank)
+    k_out = TE.outer_codec_key(step_key, mesh.index("dp"))
+    out = {}
+    for name in plans:
+        plan = plan_from_name(name)
+        kw = dict(mesh=mesh, layouts=lay)
+        unfused = TE.planned_two_level_mean(c, plan, gs, k_in, k_out, unfused_decode=True,
+                                            **kw)[0]
+        fused = TE.planned_two_level_mean(c, plan, gs, k_in, k_out, **kw)[0]
+        canon = TE.two_level_canonical_mean(c, plan, gs, k_in, k_out, device="cpu", **kw)
+        out[name] = {k: [m.numpy().copy() for m in v] for k, v in
+                     (("unfused", unfused), ("fused", fused), ("canonical", canon))}
+    return out
 
 
 def job_cli(rank, world, *, argv, env=None):
@@ -1036,7 +1089,7 @@ def job_modules(rank, world):
 JOBS = {"train": job_train, "build": job_build, "partition_build": job_partition_build,
         "partition_layout": job_partition_layout, "partition_host": job_partition_host,
         "partition_reshard": job_partition_reshard, "reshard_lm": job_reshard_lm,
-        "aggregate": job_aggregate, "cli": job_cli,
+        "aggregate": job_aggregate, "two_tier": job_two_tier, "cli": job_cli,
         "lm": job_lm, "layout": job_layout, "attention": job_attention, "mesh": job_mesh,
         "targets": job_targets, "collectives": job_collectives, "modules": job_modules,
         "mesh_spec": job_mesh_spec, "model_collectives": job_model_collectives}

@@ -7,7 +7,9 @@ replica r, the draws its codec makes: the codec key is
 and leaf i draws from ``fold_in(k_codec, i)``; its dropout layers draw
 under ``k_drop``, the split's second key (``fold_in(k_drop, i)`` for
 microbatch i under ``grad_accum``), the keep-masks that
-:func:`flax_dropout_masks` captures. The port's ranks get those draws
+:func:`flax_dropout_masks` captures. On the two-tier mesh (``dcn_ways``)
+card r draws under its group's outer key and, under a ``cring`` inner, its
+own inner key (:func:`two_tier_draws`). The port's ranks get those draws
 through the step's ``draws=`` and ``dropout_masks=`` hooks, as numpy arrays
 (:mod:`torch_dist`).
 """
@@ -144,6 +146,22 @@ def flax_dropout_masks(model, variables, x, key, return_output: bool = False):
     return [np.asarray(m) for m in _MASK_FNS[fkey][1](variables, jnp.asarray(x), key)]
 
 
+def two_tier_draws(draw, plan, key, step: int, chip: int, n_inner: int, tree):
+    """Card ``chip``'s draws of a two-tier step (``atomo_tpu/topology/
+    execute.py:52-76``): the boundary re-encode's under its group's outer key
+    and, under a ``cring`` inner, its own encode's under its inner key; a
+    dict of the parts the plan draws (the port's ``draws=`` for the step)."""
+    from atomo_tpu.topology.execute import inner_codec_key, outer_codec_key
+
+    step_key = jax.random.fold_in(key, step)
+    out = {}
+    if plan.inner == "cring":
+        out["inner"] = draw(inner_codec_key(step_key, chip), tree)
+    if plan.outer != "psum":
+        out["outer"] = draw(outer_codec_key(step_key, chip // n_inner), tree)
+    return out
+
+
 def codec_key(key, step: int, replica: int):
     return jax.random.split(jax.random.fold_in(jax.random.fold_in(key, step), replica), 3)[2]
 
@@ -244,12 +262,21 @@ class Reference:
         return masks
 
     def _run(self, code, aggregate, n, num_aggregate, grad_accum, partition=None,
-             arrivals=None, **modes):
+             arrivals=None, dcn_ways=0, plan=None, **modes):
         from atomo_tpu.parallel import init_delayed_state
         from atomo_tpu.parallel.replicated import init_quorum_state
 
         _, make = CODECS[code]
         mesh = make_mesh(n_devices=n)
+        topo = None  # the two-tier step's plan, and its key helpers
+        if dcn_ways:
+            from atomo_tpu.mesh.spec import MeshSpec as JMeshSpec
+            from atomo_tpu.topology import LEGACY_PLAN, plan_from_name
+
+            mesh = JMeshSpec.from_world(n, dcn_ways).build()
+            modes.update(inner_axis="ici",
+                         plan=plan_from_name(plan) if plan is not None else None)
+            topo = modes["plan"] or LEGACY_PLAN
         codec = make()
         # from host copies: the step donates its state's buffers
         state, su = replicate_state(mesh, jax.device_get(self.jstate)), None
@@ -279,13 +306,18 @@ class Reference:
         for s, (x, y) in enumerate(self.batches):
             per = x.shape[0] // n
             for r in range(n):
-                if draw is not None:
+                if draw is not None and topo is not None:
+                    draws[r].append(two_tier_draws(draw, topo, self.key, s, r,
+                                                   n // dcn_ways, tree))
+                elif draw is not None:
                     draws[r].append(draw(codec_key(self.key, s, r), tree))
                 masks[r].append(self._masks(x[r * per:(r + 1) * per],
                                             drop_key(self.key, s, r), grad_accum))
             x = jnp.asarray(x, jnp.float64 if self.x64 else jnp.float32)
             extra = () if quorum is None else (jnp.asarray(np.asarray(arrivals[s], np.int32)),)
-            state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y)), *extra)[:2]
+            axes = ("dp", "ici") if topo is not None else "dp"
+            state, m = step(state, self.key, *shard_batch(mesh, x, jnp.asarray(y), axis=axes),
+                            *extra)[:2]
             guarded = modes.get("guard") is not None or quorum is not None
             train = state.train if hasattr(state, "train") else state
             out.append({"params": (su.materialize_host(train.master) if su is not None
